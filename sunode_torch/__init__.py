@@ -1,0 +1,23 @@
+"""sunode_torch: batched differentiable ODE solving on PyTorch and CUDA.
+
+The PyTorch/CUDA port of ``sunode_tpu``.  This package imports torch and
+never jax, works in float64 per tensor and changes no global torch state
+(in particular not the default dtype).  The public surface of this slice:
+
+  * :class:`ParamSpec` -- named nested states/params as flat vectors;
+  * :class:`SympyProblem` -- an ODE declared in sympy;
+  * :func:`make_batched_solve_fn` -- the batched Adams solve with
+    transition-adjoint gradients through ``torch.autograd``.
+
+On CUDA tensors every Adams attempt runs the hand-written PECE kernel
+(``sunode_torch/csrc/pece_step.cu``); on CPU tensors the plain PyTorch
+version of the same math runs instead.
+"""
+
+from sunode_torch.paramspec import ParamSpec, Record
+from sunode_torch.symode.problem import SympyProblem
+from sunode_torch.wrappers.as_torch import make_batched_solve_fn
+
+__version__ = "0.1.0"
+
+__all__ = ["ParamSpec", "Record", "SympyProblem", "make_batched_solve_fn", "__version__"]

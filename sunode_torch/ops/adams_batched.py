@@ -1,0 +1,529 @@
+"""Batch-native Adams-Moulton integrator (non-stiff fast path), in PyTorch.
+
+Port of ``sunode_tpu/ops/adams_batched.py::adams_solve_batched``, main-path
+subset: shared observation times, scalar or per-state vector ``rtol``, the
+quadrature block (``quad_rhs``/``quad0``, ``quad_err_con``), batched or
+per-lane right-hand sides, step-size and order adaptation, the breakdown
+reset, NaN-poison statuses and the per-lane post-mortem stats.
+
+Layout: states are ``(rows, B)`` with the lane axis last, the history
+``DF`` is ``(KAB, nz, B)``.  The lockstep loop is a host loop that ends when
+no lane is active (one device sync per attempt, one more per emission
+sweep).  Each attempt's predictor, corrector, final evaluation and error
+estimate run in :func:`sunode_torch.ops.pece_step.adams_pece_attempt`: the
+CUDA kernel on a GPU, its plain version on CPU tensors.  The rest of the
+attempt (rescale, difference update, error rows, emission, adaptation) is
+torch tensor code written to round exactly like the JAX reference.
+
+Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
+sensitivities, state injections, ``stage_fn``, checkpoint recording
+(``save_steps``) and per-lane observation grids.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from sunode_torch.ops.adams import _C_INT, _GAMMA_STAR, FUNCTIONAL_MAXITER
+from sunode_torch.ops.bdf import (
+    MAX_CONSECUTIVE_FAILS,
+    MAX_FACTOR,
+    MIN_FACTOR,
+    STATUS,
+    THRESH,
+    BDFOptions,
+    BDFResult,
+)
+from sunode_torch.ops.pece_step import PeceSystem, adams_pece_attempt
+from sunode_torch.symode.cuda_codegen import DeviceSystem
+
+__all__ = ["adams_solve_batched", "newton_tol_for"]
+
+
+def newton_tol_for(options: BDFOptions, rtol_s: float, dtype: torch.dtype) -> float:
+    """Corrector convergence tolerance of the main path
+    (``sunode_tpu/ops/adams_batched.py:249-251``)."""
+    eps = torch.finfo(dtype).eps
+    return float(options.newton_tol_factor) * max(
+        10 * eps / rtol_s, min(0.03, float(np.sqrt(rtol_s)))
+    )
+
+
+def _unsupported(**kwargs):
+    for name, value in kwargs.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"adams_solve_batched: {name} is not ported to sunode_torch yet"
+            )
+
+
+def adams_solve_batched(
+    rhs: Callable,
+    t0,
+    y0: torch.Tensor,  # (B, n)
+    params: torch.Tensor,  # (B, n_p)
+    tvals: torch.Tensor,  # (n_t,) shared
+    options: BDFOptions = BDFOptions(),
+    *,
+    quad_rhs: Optional[Callable] = None,
+    quad0: Optional[torch.Tensor] = None,  # (B, m)
+    batched_fns: bool = False,
+    device_system: Optional[DeviceSystem] = None,
+    sens_rhs: Optional[Callable] = None,
+    root_fn: Optional[Callable] = None,
+    inject_times: Optional[Any] = None,
+    stage_fn: Optional[Callable] = None,
+) -> BDFResult:
+    """Batched Adams solve; outputs leading-batch: ``ys (B, n_t, n)``.
+
+    ``rhs(t, y, p)`` and ``quad_rhs`` take one lane (``t`` scalar, ``y (n,)``)
+    unless ``batched_fns``, where they take ``t (B,)``, ``y (n, B)`` and
+    ``p (n_p, B)``.  ``device_system`` is the combined ``[f | g]`` system
+    emitted for the CUDA kernel (``symode/cuda_codegen.py``); a solve on CUDA
+    tensors requires it."""
+    _unsupported(
+        sens_rhs=sens_rhs, root_fn=root_fn, inject_times=inject_times,
+        stage_fn=stage_fn,
+    )
+    if int(options.save_steps) > 0:
+        raise NotImplementedError(
+            "adams_solve_batched: checkpoint recording (save_steps) is not ported yet"
+        )
+    y0 = torch.as_tensor(y0)
+    device = y0.device
+    dtype = torch.promote_types(y0.dtype, torch.float32)
+    f_kw = dict(dtype=dtype, device=device)
+    y0 = y0.to(dtype).T.contiguous()  # (n, B)
+    n, B = y0.shape
+    t0 = torch.broadcast_to(torch.as_tensor(t0, **f_kw), (B,)).contiguous()
+    tvals = torch.as_tensor(tvals, **f_kw)
+    if tvals.ndim != 1:
+        raise NotImplementedError(
+            "adams_solve_batched: per-lane observation grids are not ported yet"
+        )
+    n_t = tvals.shape[0]
+    t_end = tvals[-1]
+    params = torch.as_tensor(params, **f_kw).T.contiguous()  # (n_p, B)
+
+    with_quad = quad_rhs is not None
+    m_quad = quad0.shape[1] if with_quad else 0
+    nz = n + m_quad
+
+    P_MAX = min(options.adams_max_order, 12)
+    KAB = P_MAX + 3  # DF rows 0..p+2
+    K = P_MAX + 1
+
+    if batched_fns:
+        rhs_b, quad_rhs_b = rhs, quad_rhs
+    else:
+        rhs_b = torch.func.vmap(rhs, in_dims=(0, 1, 1), out_dims=1)
+        if with_quad:
+            quad_rhs_b = torch.func.vmap(quad_rhs, in_dims=(0, 1, 1), out_dims=1)
+    if with_quad:
+        quad0_t = torch.as_tensor(quad0, **f_kw).T
+
+    def fz(t, y, p):
+        """Combined derivative [f(y) | g(y)] -> (nz, B)."""
+        f = rhs_b(t, y, p)
+        if with_quad:
+            return torch.cat([f, quad_rhs_b(t, y, p)])
+        return f
+
+    if device_system is not None and (device_system.n, device_system.nz) != (n, nz):
+        raise ValueError(
+            f"device system {device_system.name} has (n, nz) = "
+            f"({device_system.n}, {device_system.nz}), the solve ({n}, {nz})"
+        )
+    system = PeceSystem(fz=fz, n=n, nz=nz, device=device_system)
+
+    # scalar or per-state (n,) vector rtol; heuristics use the tightest
+    rtol = torch.broadcast_to(torch.as_tensor(options.rtol, **f_kw), (n,))
+    rtol_s = rtol.min()
+    atol = torch.broadcast_to(torch.as_tensor(options.atol, **f_kw), (n,))
+    gamma_star_abs = torch.as_tensor(np.abs(_GAMMA_STAR), **f_kw)
+
+    # combined error weights over z
+    n_blocks = 1 + (1 if (with_quad and options.quad_err_con) else 0)
+    v_parts = [torch.full((n,), 1.0 / (n * n_blocks), **f_kw)]
+    atol_parts = [atol]
+    rtol_parts = [rtol]
+    if with_quad:
+        quad_rtol = (
+            torch.as_tensor(options.quad_rtol, **f_kw)
+            if options.quad_rtol is not None
+            else rtol_s
+        )
+        quad_atol = torch.broadcast_to(
+            torch.as_tensor(
+                options.quad_atol if options.quad_atol is not None else options.atol,
+                **f_kw,
+            ),
+            (m_quad,),
+        )
+        atol_parts.append(quad_atol)
+        rtol_parts.append(torch.full((m_quad,), float(quad_rtol), **f_kw))
+        v_parts.append(
+            torch.full(
+                (m_quad,),
+                (1.0 / (m_quad * n_blocks)) if options.quad_err_con else 0.0,
+                **f_kw,
+            )
+        )
+    atol_z = torch.cat(atol_parts).contiguous()
+    rtol_z = torch.cat(rtol_parts).contiguous()
+    v_err = torch.cat(v_parts)
+
+    if options.constraints is not None:
+        constraints = torch.broadcast_to(
+            torch.as_tensor(options.constraints, **f_kw), (n,)
+        )
+    else:
+        constraints = None
+
+    newton_tol = newton_tol_for(options, float(rtol_s), dtype)
+
+    f0 = rhs_b(t0, y0, params)
+    fz0 = fz(t0, y0, params)
+    bad_init = ~(torch.isfinite(y0).all(dim=0) & torch.isfinite(f0).all(dim=0))
+
+    # initial step (Hairer-Wanner, order-1 estimate)
+    scale0 = atol[:, None] + rtol[:, None] * torch.abs(y0)
+    w0 = 1.0 / scale0
+    d0n = torch.sqrt(torch.mean((y0 * w0) ** 2, dim=0))
+    d1n = torch.sqrt(torch.mean((f0 * w0) ** 2, dim=0))
+    h0a = torch.where((d0n < 1e-5) | (d1n < 1e-5), 1e-6, 0.01 * d0n / d1n)
+    h0a = torch.minimum(h0a, 0.5 * (t_end - t0))
+    y1 = y0 + h0a[None, :] * f0
+    f1 = rhs_b(t0 + h0a, y1, params)
+    d2n = torch.sqrt(torch.mean(((f1 - f0) * w0) ** 2, dim=0)) / h0a
+    dmn = torch.maximum(d1n, d2n)
+    h1a = torch.where(
+        dmn <= 1e-15, torch.clamp(h0a * 1e-3, min=1e-6), torch.sqrt(0.01 / dmn)
+    )
+    h_auto = torch.minimum(torch.minimum(100 * h0a, h1a), t_end - t0)
+    h_auto = torch.minimum(h_auto, torch.as_tensor(options.max_step, **f_kw))
+    if options.first_step is not None:
+        h0 = torch.full((B,), options.first_step, **f_kw)
+    else:
+        h0 = h_auto
+    h0 = torch.clamp(h0, min=1e-12)
+    # extreme params overflow the WRMS norms (inf/inf -> NaN h0); a NaN h
+    # defeats every `h < h_min` guard — fall back to a small finite h so the
+    # lane dies through underflow instead
+    h0 = torch.where(torch.isfinite(h0), h0, 1e-6)
+
+    z0 = torch.cat([y0, quad0_t]) if with_quad else y0
+    DF0 = torch.zeros((KAB, nz, B), **f_kw)
+    DF0[0] = fz0
+
+    zs = torch.full((n_t, nz, B), float("nan"), **f_kw)
+    emit_mask0 = tvals[:, None] <= t0[None, :]  # (n_t, B)
+    zs = torch.where(emit_mask0[:, None, :], z0[None], zs)
+    i_out = emit_mask0.sum(dim=0).to(torch.int32)
+
+    i32 = dict(dtype=torch.int32, device=device)
+    zeros_i = torch.zeros((B,), **i32)
+    c = dict(
+        t=t0,
+        z=z0.contiguous(),
+        h=h0,
+        h_D=h0,
+        p=torch.ones((B,), **i32),
+        DF=DF0,
+        n_equal=zeros_i,
+        status=torch.where(bad_init, STATUS["BAD_INIT"], -1).to(torch.int32),
+        consec_fails=zeros_i,
+        nsteps=zeros_i,
+        nfev=torch.full((B,), 2, **i32),
+        nniters=zeros_i,
+        n_err_fails=zeros_i,
+        n_conv_fails=zeros_i,
+        pm_t=torch.full((B,), float("nan"), **f_kw),
+        pm_h=torch.full((B,), float("nan"), **f_kw),
+        pm_q=torch.full((B,), -1, **i32),
+        pm_worst=torch.full((B,), -1, **i32),
+    )
+    it = 0
+
+    ar_K = torch.arange(K, device=device)
+    j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
+    eye_K = torch.eye(K, **f_kw)[:, :, None]
+    ar_KAB = torch.arange(KAB, device=device)
+    row0 = (ar_KAB == 0).to(dtype)[:, None, None]
+    C_int = torch.as_tensor(np.asarray(_C_INT[:K]), **f_kw)  # (K, K_max + 2)
+    eps = torch.finfo(dtype).eps
+
+    def _rescale(DF, p, factor):
+        """R(factor)U rescale of the leading p block (per element the same
+        products and sums, in the same order, as the unrolled reference)."""
+
+        def build(fac):
+            rows = [torch.ones((K, B), **f_kw)]
+            for i in range(1, K):
+                rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
+            R = torch.stack(rows)  # (K_i, K_j, B)
+            inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
+            return torch.where(inblock, R, eye_K)
+
+        R = build(factor)
+        U = build(torch.ones_like(factor))
+        t1 = torch.zeros((K, nz, B), **f_kw)
+        for j in range(K):
+            t1 = t1 + R[j][:, None, :] * DF[j][None]
+        head = torch.zeros((K, nz, B), **f_kw)
+        for j in range(K):
+            head = head + U[j][:, None, :] * t1[j][None]
+        return torch.cat([head, DF[K:]])
+
+    def _onehot_rows(idx, rows):
+        """(rows, 1, B) float selector of row idx per lane."""
+        r = torch.arange(rows, device=device)[:, None]
+        return (r == idx[None, :]).to(dtype)[:, None, :]
+
+    def _take_row(DF, idx):
+        # masked sum, as the reference: exact DF[idx] on finite histories
+        idx = torch.clamp(idx, 0, KAB - 1)
+        return (_onehot_rows(idx, KAB) * DF).sum(dim=0)
+
+    def _update(DF, p, d_fz):
+        """Accepted-step f-difference update (J = p-1):
+        i<=p-1: sum_{j=i..p-1} DF[j] + d;  i==p: d;  i==p+1: d - DF[p]."""
+        S = [None] * (KAB + 1)
+        S[KAB] = torch.zeros_like(DF[0])
+        for i in range(KAB - 1, -1, -1):
+            S[i] = S[i + 1] + DF[i]
+        S = torch.stack(S)  # (KAB + 1, nz, B)
+        Sp = (_onehot_rows(p, KAB + 1) * S).sum(dim=0)
+        DFp = _take_row(DF, p)
+        i = ar_KAB[:, None, None]
+        low = i <= (p - 1)[None, None, :]
+        is_p = i == p[None, None, :]
+        is_p1 = i == (p + 1)[None, None, :]
+        return torch.where(
+            low,
+            S[:KAB] - Sp[None] + d_fz[None],
+            torch.where(is_p, d_fz[None], torch.where(is_p1, (d_fz - DFp)[None], DF)),
+        )
+
+    while True:
+        active = (c["status"] == -1) & (i_out < n_t)
+        if not bool(active.any()):
+            break
+        t, p, z_prev = c["t"], c["p"], c["z"]
+
+        h_min_loc = 10 * eps * torch.maximum(torch.abs(t), torch.abs(t_end))
+        # NaN-robust form: non-finite h terminates the lane
+        underflow = active & ~(c["h"] >= torch.clamp(h_min_loc, min=options.min_step))
+        h_use = torch.where(
+            active, torch.clamp(torch.minimum(c["h"], t_end - t), min=0.0), c["h"]
+        )
+        t_new = t + h_use
+
+        pre_factor = h_use / torch.clamp(c["h_D"], min=1e-300)
+        DF = _rescale(c["DF"], p, pre_factor)
+
+        out = adams_pece_attempt(
+            system, t_new, h_use, p, active, DF, z_prev, params, atol_z, rtol_z,
+            newton_tol, FUNCTIONAL_MAXITER,
+        )
+        conv, niter, d_fz, z_pred, z_new = (
+            out.conv, out.niter, out.d_fz, out.z_pred, out.z_new
+        )
+        w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(z_pred))
+        y_new = z_new[:n]
+
+        if constraints is not None:
+            cns = constraints[:, None]
+            viol = (
+                ((cns == 1) & (y_new < 0))
+                | ((cns == -1) & (y_new > 0))
+                | ((cns == 2) & (y_new <= 0))
+                | ((cns == -2) & (y_new >= 0))
+            )
+            constraint_fail = viol.any(dim=0)
+        else:
+            constraint_fail = torch.zeros((B,), dtype=torch.bool, device=device)
+
+        # error test: LTE = |gamma*_p| h d_fz
+        DF_upd = _update(DF, p, d_fz)
+        err_rows = torch.stack(
+            [
+                out.err,
+                (gamma_star_abs[torch.clamp(p - 1, min=0).long()] * h_use)[None, :]
+                * _take_row(DF_upd, p - 1),
+                (gamma_star_abs[torch.clamp(p + 1, max=P_MAX + 1).long()] * h_use)[None, :]
+                * _take_row(DF_upd, p + 1),
+            ]
+        )
+        err3 = torch.sqrt(
+            torch.sum((err_rows * w_z[None]) ** 2 * v_err[None, :, None], dim=1)
+        )
+        err_norm = err3[0]
+        err_ok = err_norm <= 1.0
+        accept = active & conv & err_ok & ~constraint_fail
+        err_reject = active & conv & (~err_ok | constraint_fail)
+
+        n_equal = torch.where(accept, c["n_equal"] + 1, 0)
+        t_next = torch.where(accept, t_new, t)
+        z_next = torch.where(accept[None, :], z_new, z_prev)
+
+        def _z_interp(tt):  # tt (B,) -> (nz, B): integral-basis dense output
+            s = (tt - t_new) / h_use
+            ci = torch.zeros((K, B), **f_kw)
+            for col in range(C_int.shape[1] - 1, -1, -1):
+                ci = ci * s[None, :] + C_int[:, col][:, None]
+            wgt = torch.where(ar_K[:, None] <= p[None, :], ci, 0.0)
+            acc = torch.zeros_like(z_new)
+            for i in range(K):
+                acc = acc + wgt[i][None, :] * DF_upd[i]
+            return z_new + h_use[None, :] * acc
+
+        # emission (exact integral-basis interpolation)
+        while True:
+            idx = torch.clamp(i_out, max=n_t - 1)
+            te = tvals[idx.long()]
+            pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
+            if not bool(pend.any()):
+                break
+            zi = _z_interp(te)
+            gidx = idx.long()[None, None, :].expand(1, nz, B)
+            row = zs.gather(0, gidx)
+            zs.scatter_(0, gidx, torch.where(pend[None, None, :], zi[None], row))
+            i_out = i_out + pend.to(torch.int32)
+
+        # order & step adaptation
+        pf = p.to(dtype)
+        can_adapt = n_equal >= p + 1
+        err_m = torch.where(p > 1, err3[1], float("inf"))
+        err_p_ = torch.where(p < P_MAX, err3[2], float("inf"))
+
+        def fac(e, qq):
+            unavailable = ~torch.isfinite(e)
+            e_safe = torch.clamp(e, 1e-30, 1e30)
+            f = 0.9 * e_safe ** (-1.0 / (qq + 1.0))
+            return torch.where(unavailable, 0.0, f)
+
+        facs = torch.stack([fac(err_m, pf - 1), fac(err_norm, pf), fac(err_p_, pf + 1)])
+        best = torch.argmax(facs, dim=0)
+        dq = best.to(torch.int32) - 1
+        factor_best = torch.clamp(
+            facs.gather(0, best[None, :])[0], MIN_FACTOR, MAX_FACTOR
+        )
+        do_change = can_adapt & (
+            (factor_best >= THRESH) | (factor_best < 1.0) | (dq != 0)
+        )
+        p_acc = torch.where(do_change, torch.clamp(p + dq, 1, P_MAX), p)
+        factor_acc = torch.where(do_change, factor_best, 1.0)
+        factor_acc = torch.minimum(
+            factor_acc, options.max_step / torch.clamp(h_use, min=1e-300)
+        )
+        n_equal = torch.where(do_change & accept, 0, n_equal)
+
+        factor_rej = torch.clamp(
+            0.9 * torch.clamp(err_norm, 1e-30, 1e30) ** (-1.0 / (pf + 1.0)),
+            MIN_FACTOR,
+            0.9,
+        )
+        factor_rej = torch.where(constraint_fail & err_ok, 0.25, factor_rej)
+        factor_fail = torch.where(active & ~conv, 0.25, factor_rej)
+
+        # breakdown detector: 4 accumulated failures reset the lane's history
+        # (keep nabla^0 f only) and restart at order 1
+        failed_lane = active & ~accept
+        cfails_fail = c["consec_fails"] + 1
+        reset = failed_lane & (cfails_fail >= 4)
+        cfails = torch.where(
+            accept,
+            torch.where(
+                err_norm <= 0.9,
+                torch.clamp(c["consec_fails"] - 1, min=0),
+                c["consec_fails"],
+            ),
+            torch.where(
+                reset, 0, torch.where(failed_lane, cfails_fail, c["consec_fails"])
+            ),
+        )
+        factor_next = torch.where(
+            accept, factor_acc, torch.where(reset, 0.25, factor_fail)
+        )
+        h_next = torch.where(active, h_use * factor_next, c["h"])
+        p_next = torch.where(accept, p_acc, torch.where(reset, 1, p))
+        DF_next = torch.where(
+            accept[None, None, :],
+            DF_upd,
+            torch.where(reset[None, None, :], DF * row0, DF),
+        )
+        DF_next = torch.where(active[None, None, :], DF_next, c["DF"])
+
+        too_many = cfails >= MAX_CONSECUTIVE_FAILS
+        status = c["status"]
+        status = torch.where(
+            (status == -1) & active & too_many & ~accept,
+            STATUS["REPEATED_FAILURES"],
+            status,
+        )
+        nsteps = c["nsteps"] + accept.to(torch.int32)
+        status = torch.where(
+            (status == -1) & active & (nsteps >= options.max_steps),
+            STATUS["MAX_STEPS"],
+            status,
+        )
+        status = torch.where(
+            (status == -1) & underflow, STATUS["STEP_UNDERFLOW"], status
+        )
+
+        # per-lane post-mortem of the attempt where a lane's status turns fatal
+        fatal_now = (c["status"] == -1) & (status != -1)
+        e_err = torch.abs(err_rows[0, :n]) * w_z[:n]
+        e_newt = torch.abs((z_new - z_pred)[:n]) * w_z[:n]
+        worst = torch.argmax(torch.where(conv[None, :], e_err, e_newt), dim=0)
+
+        c = dict(
+            t=t_next,
+            z=z_next,
+            h=h_next,
+            h_D=torch.where(active, h_use, c["h_D"]),
+            p=p_next.to(torch.int32),
+            DF=DF_next,
+            n_equal=n_equal.to(torch.int32),
+            status=status.to(torch.int32),
+            consec_fails=cfails.to(torch.int32),
+            nsteps=nsteps,
+            nfev=c["nfev"] + niter + 1,
+            nniters=c["nniters"] + niter,
+            n_err_fails=c["n_err_fails"] + err_reject.to(torch.int32),
+            n_conv_fails=c["n_conv_fails"] + (active & ~conv).to(torch.int32),
+            pm_t=torch.where(fatal_now, c["t"], c["pm_t"]),
+            pm_h=torch.where(fatal_now, h_use, c["pm_h"]),
+            pm_q=torch.where(fatal_now, p, c["pm_q"]).to(torch.int32),
+            pm_worst=torch.where(fatal_now, worst.to(torch.int32), c["pm_worst"]),
+        )
+        it += 1
+
+    status = torch.where(c["status"] == -1, STATUS["SUCCESS"], c["status"]).to(
+        torch.int32
+    )
+    stats = dict(
+        n_steps=c["nsteps"],
+        n_rhs_evals=c["nfev"],
+        n_jac_evals=torch.zeros((B,), **i32),
+        n_factorizations=torch.zeros((B,), **i32),
+        n_newton_iters=c["nniters"],
+        n_error_test_fails=c["n_err_fails"],
+        n_conv_fails=c["n_conv_fails"],
+        final_order=c["p"],
+        final_step_size=c["h"],
+        final_time=c["t"],
+        n_attempts=it,
+        error_time=c["pm_t"],
+        error_step_size=c["pm_h"],
+        error_order=c["pm_q"],
+        error_worst_state=c["pm_worst"],
+        final_state=c["z"].T,
+    )
+    ys = zs[:, :n, :].permute(2, 0, 1)
+    quad = zs[:, n:, :].permute(2, 0, 1) if with_quad else None
+    return BDFResult(ys=ys, status=status, stats=stats, saved=None, quad=quad)

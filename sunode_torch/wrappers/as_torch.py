@@ -1,0 +1,179 @@
+"""Differentiable batched solve as a ``torch.autograd.Function``.
+
+Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn`` for
+``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
+``adjoint_interpolation='transition'``: the forward pass is the batched
+Adams solve, the backward pass the transition-matrix adjoint.  On CUDA
+tensors both solves run every attempt through the PECE kernel, built from
+the problem's right-hand side (``symode/cuda_codegen.py``) at first use.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sunode_torch.adjoint import adjoint_backward_transition_batched
+from sunode_torch.ops.adams_batched import adams_solve_batched
+from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.problem import Problem
+from sunode_torch.symode import cuda_codegen
+
+__all__ = ["make_batched_solve_fn", "BatchedSolve"]
+
+
+def _poison_b(ys, status):
+    return torch.where((status == 0)[:, None, None], ys, float("nan"))
+
+
+class BatchedSolve:
+    """``solve(t0, y0, p_sub, p_fix, tvals) -> ys``: y0 (B, n), p_sub (B, k)
+    per lane; t0, tvals (n_t,) and p_fix (k2,) shared; ys (B, n_t, n), NaN on
+    failed lanes.  Gradients flow to y0, p_sub, tvals and a tensor t0
+    through ``torch.autograd``.  ``last_stats`` holds the stats of the latest
+    forward (``'forward'``) and backward (``'backward'``) solves."""
+
+    def __init__(self, problem: Problem, derivatives, options, adjoint_options):
+        self.problem = problem
+        self.derivatives = derivatives
+        self.options = options
+        self.adjoint_options = adjoint_options
+        self.rhs = problem.make_rhs()
+        self.n_deriv = problem.n_params
+        self.last_stats: dict = {}
+        self._device_systems: dict[str, cuda_codegen.DeviceSystem] = {}
+
+    def device_system(self, kind: str, device: torch.device):
+        """The emitted right-hand side for the kernel; None on CPU."""
+        if device.type != "cuda":
+            return None
+        if kind not in self._device_systems:
+            emit = {
+                "forward": cuda_codegen.forward_system,
+                "transition": cuda_codegen.transition_system,
+            }[kind]
+            self._device_systems[kind] = emit(self.problem)
+        return self._device_systems[kind]
+
+    def combine(self, p_sub, p_fix):
+        B = p_sub.shape[0]
+        p_fix_b = torch.broadcast_to(p_fix, (B,) + tuple(p_fix.shape))
+        return self.problem.params.combine(p_sub, p_fix_b)
+
+    def forward_solve(self, t0, y0, p, tvals):
+        res = adams_solve_batched(
+            self.rhs, t0, y0, p, tvals, self.options,
+            batched_fns=True,
+            device_system=self.device_system("forward", y0.device),
+        )
+        self.last_stats["forward"] = res.stats
+        return res
+
+    def __call__(self, t0, y0, p_sub, p_fix, tvals):
+        if self.derivatives is None:
+            with torch.no_grad():
+                p = self.combine(p_sub, p_fix)
+                res = self.forward_solve(t0, y0, p, tvals)
+                return _poison_b(res.ys, res.status)
+        return _TransitionAdjoint.apply(self, t0, y0, p_sub, p_fix, tvals)
+
+
+class _TransitionAdjoint(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, solver: BatchedSolve, t0, y0, p_sub, p_fix, tvals):
+        p = solver.combine(p_sub, p_fix)
+        res = solver.forward_solve(t0, y0, p, tvals)
+        ys = _poison_b(res.ys, res.status)
+        ctx.solver = solver
+        ctx.t0 = t0
+        ctx.tvals_is_tensor = torch.is_tensor(tvals)
+        tvals_t = torch.as_tensor(tvals, dtype=ys.dtype, device=ys.device)
+        ctx.save_for_backward(y0, p, p_fix, tvals_t, res.status, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        solver = ctx.solver
+        y0, p, p_fix, tvals, status, ys_fwd = ctx.saved_tensors
+        B = y0.shape[0]
+        dtype = ys_fwd.dtype
+        problem = solver.problem
+        adj = adjoint_backward_transition_batched(
+            solver.rhs,
+            problem.make_adjoint_jac_dense(),
+            problem.make_dfdp(),
+            ctx.t0,
+            tvals,
+            g.to(dtype).contiguous(),
+            p,
+            solver.n_deriv,
+            ys_fwd[:, -1, :],
+            solver.adjoint_options,
+            device_system=solver.device_system("transition", y0.device),
+        )
+        solver.last_stats["backward"] = adj.stats
+        bad = (status != 0) | (adj.status != 0)
+        lam = torch.where(bad[:, None], float("nan"), adj.lamda)  # (B, n)
+        quad = torch.where(bad[:, None], float("nan"), adj.quad)  # (B, k)
+
+        d_tvals = None
+        if ctx.tvals_is_tensor:
+            # d/dtvals_i = sum_b g_bi . f(t_i, y_b(t_i)) on the emitted y
+            n_t = tvals.shape[0]
+            f_at = solver.rhs(
+                tvals[:, None].expand(n_t, B),
+                ys_fwd.permute(2, 1, 0),
+                p.T[:, None, :],
+            )  # (n, n_t, B)
+            d_tvals = torch.einsum("bij,jib->i", g.to(dtype), f_at)
+            d_tvals = torch.where(bad.any(), float("nan"), d_tvals)
+        d_t0 = None
+        if torch.is_tensor(ctx.t0):
+            t0_b = torch.broadcast_to(ctx.t0.to(dtype), (B,))
+            f0 = solver.rhs(t0_b, y0.T.to(dtype), p.T)  # (n, B)
+            d_t0 = (-torch.sum(lam * f0.T)).reshape(ctx.t0.shape).to(ctx.t0.dtype)
+        return None, d_t0, lam.to(y0.dtype), quad, torch.zeros_like(p_fix), d_tvals
+
+
+def make_batched_solve_fn(
+    problem: Problem,
+    *,
+    derivatives: Optional[str] = "adjoint",
+    options: BDFOptions = BDFOptions(),
+    adjoint_options: Optional[BDFOptions] = None,
+    checkpoint_n: int = 1024,
+    method: str = "BDF",
+    adjoint_interpolation: str = "hermite",
+    linear_solver: str = "dense",
+    linear_solver_kwargs: Optional[dict] = None,
+) -> BatchedSolve:
+    """Batch-native differentiable solver; same signature as the JAX
+    package's.  Ported so far: ``method='ADAMS'``, ``derivatives=None`` or
+    ``'adjoint'`` with ``adjoint_interpolation='transition'``, dense linear
+    algebra.  Anything else raises ``NotImplementedError``;
+    ``checkpoint_n`` is accepted and unused, as in the reference's
+    transition mode (which records no checkpoints)."""
+    if method not in ("BDF", "ADAMS"):
+        raise ValueError("method must be 'BDF' or 'ADAMS'")
+    if method != "ADAMS":
+        raise NotImplementedError("sunode_torch: only method='ADAMS' is ported yet")
+    if linear_solver != "dense" or linear_solver_kwargs:
+        raise NotImplementedError("sunode_torch: only dense linear algebra is ported yet")
+    if derivatives not in (None, "adjoint"):
+        raise NotImplementedError(
+            "batched solver supports derivatives='adjoint' or None"
+        )
+    if derivatives == "adjoint":
+        if adjoint_interpolation not in ("hermite", "polynomial", "resolve", "transition"):
+            raise ValueError(
+                f"adjoint_interpolation must be 'hermite', 'polynomial', "
+                f"'resolve' or 'transition', got {adjoint_interpolation!r}"
+            )
+        if adjoint_interpolation != "transition":
+            raise NotImplementedError(
+                "sunode_torch: only adjoint_interpolation='transition' is ported yet"
+            )
+    if adjoint_options is None:
+        adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)
+    return BatchedSolve(problem, derivatives, options, adjoint_options)

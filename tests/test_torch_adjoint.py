@@ -1,0 +1,175 @@
+"""The whole slice: sunode_torch's differentiable batched solve against
+sunode_tpu's on the golden Lotka-Volterra lanes, with the main-path
+workload's options (``__graft_entry__._build``, method ADAMS)."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sunode_tpu.ops.bdf import BDFOptions as JaxOptions
+from sunode_tpu.symode import SympyProblem as JaxSympyProblem
+from sunode_tpu.wrappers.as_jax import make_batched_solve_fn as jax_make
+from sunode_torch.convert import inputs_from_numpy, options_from_fields
+from sunode_torch.entry import _lv, build_lv_adjoint, lv_options, lv_problem
+from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.wrappers.as_torch import make_batched_solve_fn
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+RTOL = 1e-8
+
+
+def _jax_options():
+    bwd = RTOL * 10.0
+    adj_rtol = np.concatenate([np.full(2, bwd), np.full(4, 1e-3)])
+    return (
+        JaxOptions(rtol=RTOL, atol=RTOL, adams_max_order=6),
+        JaxOptions(rtol=adj_rtol, atol=bwd, adams_max_order=6,
+                   quad_rtol=1e-3, quad_atol=1e-3),
+    )
+
+
+def _as_numpy_fields(opts):
+    return {k: (np.asarray(v) if hasattr(v, "shape") else v) for k, v in opts._asdict().items()}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    g = np.load(os.path.join(GOLDEN, "lv_adjoint.npz"))
+    jp = JaxSympyProblem(
+        params={"alpha": (), "beta": (), "gamma": (), "delta": ()},
+        states={"hares": (), "lynx": ()},
+        rhs_sympy=_lv,
+        derivative_params=[("alpha",), ("beta",)],
+    )
+    jfwd, jadj = _jax_options()
+    jsolve = jax_make(jp, derivatives="adjoint", options=jfwd, adjoint_options=jadj,
+                      checkpoint_n=384, method="ADAMS", adjoint_interpolation="transition")
+    tsolve = make_batched_solve_fn(
+        lv_problem(), derivatives="adjoint",
+        options=options_from_fields(_as_numpy_fields(jfwd)),
+        adjoint_options=options_from_fields(_as_numpy_fields(jadj)),
+        method="ADAMS", adjoint_interpolation="transition",
+    )
+    return g, jsolve, tsolve
+
+
+def _jax_grads(jsolve, g, y0s, p_subs, t0=0.0):
+    def loss(t0, y0s, p_subs, tvals):
+        return jnp.sum(jsolve(t0, y0s, p_subs, jnp.asarray(g["p_fix"]), tvals) ** 2)
+
+    out = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+        t0, jnp.asarray(y0s), jnp.asarray(p_subs), jnp.asarray(g["tvals"])
+    )
+    return [np.asarray(a) for a in out]
+
+
+def _torch_grads(tsolve, g, y0s, p_subs, t0=None):
+    y, p, pf, tv = inputs_from_numpy(y0s, p_subs, g["p_fix"], g["tvals"])
+    leaves = [y.requires_grad_(), p.requires_grad_(), tv.requires_grad_()]
+    if t0 is not None:
+        t0 = torch.tensor(t0, dtype=torch.float64, requires_grad=True)
+        leaves.append(t0)
+    ys = tsolve(0.0 if t0 is None else t0, y, p, pf, tv)
+    return [a.numpy() for a in torch.autograd.grad(torch.sum(ys**2), leaves)]
+
+
+@pytest.fixture(scope="module")
+def golden_grads(setup):
+    g, jsolve, tsolve = setup
+    return _jax_grads(jsolve, g, g["y0s"], g["p_subs"]), _torch_grads(
+        tsolve, g, g["y0s"], g["p_subs"], t0=0.0
+    )
+
+
+@pytest.mark.parametrize("which", ["y0s", "p_subs", "tvals", "t0"])
+def test_gradients_match_jax(golden_grads, which):
+    (jt0, jy, jp, jtv), (ty, tp, ttv, tt0) = golden_grads
+    got, want = {"y0s": (ty, jy), "p_subs": (tp, jp), "tvals": (ttv, jtv), "t0": (tt0, jt0)}[which]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+def test_gradients_match_golden(setup, golden_grads):
+    g = setup[0]
+    _, (ty, tp, _, _) = golden_grads
+    np.testing.assert_allclose(ty, g["gy"], rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(tp, g["gp"], rtol=2e-3, atol=1e-3)
+
+
+def test_nan_lane_poisons_only_itself(setup):
+    g, jsolve, tsolve = setup
+    y0s, p_subs = g["y0s"][:6].copy(), g["p_subs"][:6]
+    y0s[3, 0] = np.nan
+    _, jy, jp, jtv = _jax_grads(jsolve, g, y0s, p_subs)
+    ty, tp, ttv = _torch_grads(tsolve, g, y0s, p_subs)
+    for got, want in ((ty, jy), (tp, jp)):
+        assert np.isnan(got[3]).all() and np.isnan(want[3]).all()
+        assert np.isfinite(np.delete(got, 3, axis=0)).all()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    # shared tvals collect every lane: one bad lane poisons them, as in JAX
+    assert np.isnan(ttv).all() and np.isnan(jtv).all()
+
+
+def test_forward_only_matches_jax(setup):
+    g, _, _ = setup
+    jfwd, _ = _jax_options()
+    jp = JaxSympyProblem(
+        params={"alpha": (), "beta": (), "gamma": (), "delta": ()},
+        states={"hares": (), "lynx": ()},
+        rhs_sympy=_lv,
+        derivative_params=[("alpha",), ("beta",)],
+    )
+    jsolve = jax_make(jp, derivatives=None, options=jfwd, method="ADAMS")
+    want = jax.jit(lambda y, p: jsolve(0.0, y, p, jnp.asarray(g["p_fix"]), jnp.asarray(g["tvals"])))(
+        jnp.asarray(g["y0s"]), jnp.asarray(g["p_subs"])
+    )
+    tsolve = make_batched_solve_fn(
+        lv_problem(), derivatives=None, options=BDFOptions(rtol=RTOL, atol=RTOL, adams_max_order=6),
+        method="ADAMS",
+    )
+    got = tsolve(0.0, *inputs_from_numpy(g["y0s"], g["p_subs"], g["p_fix"], g["tvals"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8)
+    np.testing.assert_allclose(got.numpy(), g["ys"], rtol=3e-6, atol=1e-7)
+
+
+def test_entry_matches_graft_entry():
+    """build_lv_adjoint is __graft_entry__._build ported: same inputs, same
+    options, same gradients."""
+    import __graft_entry__ as ge
+
+    jstep, (jy0, jp0) = ge._build(batch=4, tvals_n=5, rtol=1e-6, checkpoint_n=64)
+    tstep, (ty0, tp0) = build_lv_adjoint(batch=4, tvals_n=5, rtol=1e-6)
+    np.testing.assert_array_equal(ty0.numpy(), np.asarray(jy0))
+    np.testing.assert_array_equal(tp0.numpy(), np.asarray(jp0))
+    jgy, jgp = jax.jit(jstep)(jy0, jp0)
+    tgy, tgp = tstep(ty0, tp0)
+    np.testing.assert_allclose(tgy.numpy(), np.asarray(jgy), rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(tgp.numpy(), np.asarray(jgp), rtol=1e-6, atol=1e-9)
+    stats = tstep.solve.last_stats
+    assert stats["forward"]["n_attempts"] > 0 and stats["backward"]["n_attempts"] > 0
+
+
+def test_options_carry_over_field_for_field():
+    jfwd, jadj = _jax_options()
+    fwd, adj = lv_options(RTOL)
+    for jo, to in ((jfwd, fwd), (jadj, adj)):
+        carried = options_from_fields(_as_numpy_fields(jo))
+        assert carried._fields == jo._fields
+        for name in jo._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(carried, name)), np.asarray(getattr(to, name)))
+    with pytest.raises(ValueError):
+        options_from_fields({"not_an_option": 1})
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(method="BDF"), dict(method="ADAMS", adjoint_interpolation="hermite"),
+     dict(method="ADAMS", derivatives="forward")],
+    ids=["bdf", "hermite", "forward-sens"],
+)
+def test_unported_modes_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        make_batched_solve_fn(lv_problem(), **kwargs)

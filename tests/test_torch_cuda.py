@@ -1,0 +1,107 @@
+"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernel against its plain
+version, and the CUDA main path against the CPU one.
+
+Every test here needs a card and skips without one.  The file imports no
+jax, so on a GPU machine without jax it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sunode_torch.adjoint import transition_fz
+from sunode_torch.entry import build_lv_adjoint, lv_problem
+from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+from sunode_torch.ops.pece_step import (
+    PeceSystem,
+    adams_pece_attempt,
+    adams_pece_attempt_reference,
+)
+from sunode_torch.symode import cuda_codegen
+
+pytestmark = pytest.mark.cuda
+B = 1000
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _system(kind):
+    problem = lv_problem()
+    rhs = problem.make_rhs()
+    if kind == "forward":
+        return PeceSystem(fz=rhs, n=2, nz=2, device=cuda_codegen.forward_system(problem))
+    rhs_c, quad_c = transition_fz(
+        rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), 2
+    )
+    return PeceSystem(
+        fz=lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
+        n=6, nz=10, device=cuda_codegen.transition_system(problem),
+    )
+
+
+def _case(system, device, seed):
+    rng = np.random.default_rng(seed)
+    KAB, n, nz = 9, system.n, system.nz
+    f64 = dict(dtype=torch.float64, device=device)
+    DF = rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
+    params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (1 + 0.1 * rng.standard_normal((4, B)))
+    return (
+        torch.as_tensor(rng.uniform(0.0, 10.0, B), **f64),
+        torch.as_tensor(10.0 ** rng.uniform(-6, -2, B), **f64),
+        torch.as_tensor(rng.integers(1, 7, B), dtype=torch.int32, device=device),
+        torch.as_tensor(rng.uniform(size=B) < 0.9, device=device),
+        torch.as_tensor(DF, **f64),
+        torch.as_tensor(1.0 + rng.uniform(0.2, 1.0, (nz, B)), **f64),
+        torch.as_tensor(params, **f64),
+        torch.full((nz,), 1e-8, **f64),
+        torch.full((nz,), 1e-7, **f64),
+        3e-4,
+        FUNCTIONAL_MAXITER,
+    )
+
+
+@pytest.mark.parametrize("kind", ["forward", "transition"])
+def test_kernel_matches_plain(cuda, kind):
+    system = _system(kind)
+    args = _case(system, cuda, 0)
+    before = adams_pece_attempt.launches
+    got = adams_pece_attempt(system, *args)
+    ref = adams_pece_attempt_reference(system.fz, *args, system.n)
+    torch.cuda.synchronize()
+    assert adams_pece_attempt.launches == before + 1
+    # FMA contraction and the symbolic RHS's own rounding only
+    for name in ("y_it", "z_new", "d_fz", "err", "z_pred"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
+    assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+
+
+def test_kernel_refuses_bad_inputs(cuda):
+    system = _system("forward")
+    args = list(_case(system, cuda, 1))
+    args[4] = args[4].transpose(1, 2).contiguous().transpose(1, 2)  # non-contiguous DF
+    with pytest.raises(ValueError, match="DF"):
+        adams_pece_attempt(system, *args)
+    no_device = PeceSystem(fz=system.fz, n=2, nz=2)
+    with pytest.raises(ValueError, match="device system"):
+        adams_pece_attempt(no_device, *_case(system, cuda, 1))
+
+
+def test_cuda_main_path_matches_cpu(cuda):
+    step_c, (y0s, p_subs) = build_lv_adjoint(batch=8, tvals_n=5, rtol=1e-8, device=cuda)
+    step_h, _ = build_lv_adjoint(batch=8, tvals_n=5, rtol=1e-8, device="cpu")
+    launches = adams_pece_attempt.launches
+    gy, gp = step_c(y0s, p_subs)
+    hy, hp = step_h(y0s.cpu(), p_subs.cpu())
+    stats = step_c.solve.last_stats
+    attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+    assert adams_pece_attempt.launches - launches == attempts > 0
+    np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)

@@ -1,0 +1,43 @@
+"""sunode_torch must import torch and never jax, and leave torch's global
+state alone; checked in a fresh interpreter."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROGRAM = r"""
+import json, sys
+import numpy as np
+import torch
+
+default_before = torch.get_default_dtype()
+import sunode_torch
+from sunode_torch.entry import build_lv_adjoint
+
+step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6)
+gy, gp = step(y0s, p_subs)
+print(json.dumps({
+    "jax_loaded": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "tpu_loaded": sorted(m for m in sys.modules if m.startswith("sunode_tpu")),
+    "default_dtype_kept": torch.get_default_dtype() == default_before,
+    "finite": bool(torch.isfinite(gy).all() and torch.isfinite(gp).all()),
+    "dtype": str(gy.dtype),
+}))
+"""
+
+
+def test_import_and_cpu_solve_never_load_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROGRAM],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax_loaded"] == []
+    assert out["tpu_loaded"] == []
+    assert out["default_dtype_kept"]
+    assert out["finite"] and out["dtype"] == "torch.float64"
