@@ -6,19 +6,30 @@
 Phases, one line each; any failure exits non-zero:
 
   1. device: the card's name and power limit (no CUDA device -> exit 1);
-  2. build: nvcc builds the PECE kernel for both emitted systems (forward
-     LV, and the transition-adjoint backward system);
-  3. kernel vs plain: each build against the plain PyTorch version on the
-     card at B=10,000, seeded random history, per-lane order 1..6, the main
-     path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
+  2. build: nvcc builds, all at once, the PECE kernel for both emitted
+     systems (forward LV, and the transition-adjoint backward system) and
+     the flat-history PECE kernel at order 6;
+  3. kernel vs plain: each PECE build against the plain PyTorch version on
+     the card at B=10,000, seeded random history, per-lane order 1..6, the
+     main path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
      d_fz and err, conv and niter equal in every lane, and per-call times;
+  3b. flat-history kernel: against its plain version and against the PECE
+     kernel in fixed-sweep mode at B=10,240 (the inputs of
+     scripts/exp_pallas2d.py), normwise relative error <= 1e-12 on y, d_f
+     and err; then the A/B of sunode_torch.experiments.exp_pece2d at
+     B=10,240 and 102,400 (graph-replayed, on the stream, device-busy),
+     one line per arm and width, with the kernel's launches counted;
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: every lane finite, lanes 0-15 inside the golden
      gate (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), the same
      lanes against the plain path on the CPU, and the PECE launch count
      equal to the attempts the solves report;
-  5. the kernel table and the result line.
+  5. the kernel table and the result line.  Each kernel's bound is the
+     larger of its bytes (each input read once, each output written once,
+     for the rows these inputs read) over 3.35 TB/s and its f64 operations
+     over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
+     call computes a PECE attempt, so library_ms is null.
 """
 
 from __future__ import annotations
@@ -27,14 +38,19 @@ import json
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 B_MAIN = 10_000
+B_2D = (10_240, 102_400)  # the script's width, and ten times it
 REL_BOUND = 1e-12  # kernel vs plain: FMA contraction and RHS rounding only
 HERE = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNEL = "sunode_tpu/ops/pallas_step.py:110"
 KERNEL_SOURCE = "sunode_torch/csrc/pece_step.cu"
+TPU_KERNEL_2D = "scripts/exp_pallas2d.py:59"
+KERNEL_SOURCE_2D = "sunode_torch/csrc/pece_2d.cu"
+F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
 
 
 def log(msg: str) -> None:
@@ -97,41 +113,32 @@ def pece_inputs(system, B, seed, device):
     )
 
 
-def _cuda_ms(fn, reps=50):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def rhs_flops(system) -> int:
+    """Arithmetic operators in the emitted right-hand side's assignments: the
+    float64 operations of one evaluation, counted from the source."""
+    body = system.source.split("pece_fz(", 1)[1]
+    lines = [ln.split("=", 1)[1] for ln in body.splitlines()
+             if ln.strip().startswith(("out[", "const double x_"))]
+    return sum(ln.count(c) for ln in lines for c in "+-*/")
 
 
-def _device_us(fn, reps=20):
-    """Device-busy microseconds per call, from the profiler's kernel times;
-    None when the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def bound(nbytes: float, flops: float) -> dict:
+    """Kernel-table fields: the least time on the card and what sets it."""
+    from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
-    return total / reps if total > 0 else None
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS
+    return dict(
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None,  # no single PyTorch call computes a PECE attempt
+    )
 
 
 def compare_kernel(kind, device_system, fz, seed):
     """Phase 3 for one build: returns the kernel-table entry fields."""
     import torch
 
+    from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
     from sunode_torch.ops.pece_step import (
         PeceSystem,
@@ -155,8 +162,8 @@ def compare_kernel(kind, device_system, fz, seed):
         abs_err = max(abs_err, diff)
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
-    ms, plain_ms = _cuda_ms(run_k), _cuda_ms(run_p)
-    dev_k, dev_p = _device_us(run_k), _device_us(run_p)
+    ms, plain_ms = cuda_ms(run_k), cuda_ms(run_p)
+    dev_k, dev_p = device_us(run_k), device_us(run_p)
     fmt = lambda us: "not measured" if us is None else f"{us:.2f}"  # noqa: E731
     log(
         f"[kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
@@ -169,7 +176,58 @@ def compare_kernel(kind, device_system, fz, seed):
     )
     if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
         raise SystemExit(f"chip_smoke: {kind} kernel disagrees with the plain version")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    # bytes: the history rows each lane reads (i < p), the other inputs once,
+    # the outputs once; operations: predictor, sweeps taken, final evaluation
+    n, nz, n_p = system.n, system.nz, device_system.n_p
+    p_sum, sweeps = int(x["p"].sum()), int(got.niter.sum())
+    nbytes = 8 * (p_sum * nz + B_MAIN * (nz + n_p + 2) + 2 * nz) + 5 * B_MAIN
+    nbytes += 8 * B_MAIN * (n + 4 * nz) + 5 * B_MAIN
+    f = rhs_flops(device_system)
+    flops = 3 * p_sum * nz + B_MAIN * (2 * nz + 3 * n + 1) + sweeps * (f + 6 * n)
+    flops += B_MAIN * (f + 5 * nz)
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bound(nbytes, flops))
+
+
+def pece_2d_phase(smi):
+    """Phase 3b: the flat-history kernel against its plain version and the
+    PECE kernel, then the A/B; returns the kernel-table entry."""
+    import torch
+
+    from sunode_torch.experiments import exp_pece2d
+    from sunode_torch.ops.pece_2d import P_ORDER, lv_system, build_pece_2d, pece_2d_attempt
+    from sunode_torch.ops.pece_step import FUNCTIONAL_ITERS
+
+    B = B_2D[0]
+    x = exp_pece2d.make_inputs(B, "cuda")
+    fns = exp_pece2d.arms(x)
+    outs = {arm: fn(x["y_prev"]) for arm, fn in fns.items()}
+    torch.cuda.synchronize()
+    rel_p, abs_p = exp_pece2d.parity(outs["kernel2"], outs["plain"])
+    rel_1, abs_1 = exp_pece2d.parity(outs["kernel2"], outs["kernel1"])
+    log(f"[pece2d-vs-plain] B={B} p={P_ORDER} rel_vs_plain={rel_p:.3e} abs={abs_p:.3e} "
+        f"rel_vs_kernel1={rel_1:.3e} abs={abs_1:.3e}")
+    if not (rel_p <= REL_BOUND and rel_1 <= REL_BOUND):
+        raise SystemExit("chip_smoke: the flat-history kernel disagrees")
+
+    pece_2d_attempt.launches = 0
+    build_pece_2d(P_ORDER).launches = 0
+    rows = exp_pece2d.run(B_2D, "cuda", log=lambda m: log(f"{m} | {smi}"))
+    launches = pece_2d_attempt.launches
+    log(f"[pece2d A/B launches] {launches}")
+    if not (launches > 0 and launches == build_pece_2d(P_ORDER).launches):
+        raise SystemExit("chip_smoke: the A/B did not launch the flat-history kernel")
+
+    at = {r["arm"]: r for r in rows if r["B"] == B}
+    _, system, n, n_p = lv_system()
+    nbytes = exp_pece2d.bytes_moved("kernel2", B, n, n_p)
+    flops = B * (3 * P_ORDER * n + 2 * n + 1
+                 + (FUNCTIONAL_ITERS + 1) * rhs_flops(system) + FUNCTIONAL_ITERS * 3 * n
+                 + 2 * n + 1)
+    return dict(
+        launches=launches, max_abs_err=abs_p,
+        ms=at["kernel2"]["stream_us"] / 1e3, plain_ms=at["plain"]["stream_us"] / 1e3,
+        **bound(nbytes, flops),
+    )
 
 
 def main() -> None:
@@ -179,21 +237,27 @@ def main() -> None:
 
     from sunode_torch.adjoint import transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
+    from sunode_torch.ops.pece_2d import P_ORDER, lv_system, build_pece_2d
     from sunode_torch.ops.pece_step import adams_pece_attempt, build_kernel
     from sunode_torch.symode import cuda_codegen
 
-    # phase 2: build
+    # phase 2: build, one nvcc per kernel, all started together
     problem = lv_problem()
     systems = {
         "forward": cuda_codegen.forward_system(problem),
         "transition": cuda_codegen.transition_system(problem),
     }
-    kernels = {}
-    for kind, ds in systems.items():
-        k = build_kernel(ds)
+    lv_system()  # emit the flat-history kernel's system before the threads need it
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(systems) + 1) as pool:
+        futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
+        futures["pece_2d"] = pool.submit(build_pece_2d, P_ORDER)
+        built = {kind: f.result() for kind, f in futures.items()}
+    for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
         log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; ptxas: {'; '.join(regs)}")
-        kernels[kind] = k
+    log(f"[build] all in {time.perf_counter() - t0:.2f} s")
+    kernels = {kind: built[kind] for kind in systems}
 
     # phase 3: kernel vs plain on the card
     rhs = problem.make_rhs()
@@ -208,6 +272,9 @@ def main() -> None:
         kind: compare_kernel(kind, systems[kind], fz[kind], seed)
         for seed, kind in enumerate(systems)
     }
+
+    # phase 3b: the flat-history kernel and its A/B
+    entry_2d = pece_2d_phase(smi)
 
     # phase 4: the main path
     grad_step, _ = build_lv_adjoint(B_MAIN, 21, 1e-8, device="cuda")
@@ -283,6 +350,10 @@ def main() -> None:
         )
         for kind in systems
     ]
+    entries.append(dict(
+        name="pece_2d_attempt", route="cuda", source=KERNEL_SOURCE_2D,
+        replaces=TPU_KERNEL_2D, **entry_2d,
+    ))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({
         "ok": True,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sunode_torch.convert import device_or_raise
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
@@ -55,11 +56,13 @@ def lv_options(rtol: float) -> tuple[BDFOptions, BDFOptions]:
     return fwd_opts, adj_opts
 
 
-def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cpu"):
+def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cuda"):
     """``(grad_step, (y0s, p_subs))``: ``grad_step(y0s, p_subs) -> (gy, gp)``
     is one batched gradient of ``sum(ys**2)`` (what NUTS runs per leapfrog,
     across all chains at once); ``grad_step.solve`` is the solver, whose
-    ``last_stats`` report the attempts of the latest step."""
+    ``last_stats`` report the attempts of the latest step.  It runs on the
+    card unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
     fwd_opts, adj_opts = lv_options(rtol)
     solve = make_batched_solve_fn(
         lv_problem(),

@@ -23,11 +23,6 @@ turns the rate tests off and runs the TPU kernel's fixed sweeps.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
@@ -35,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from sunode_torch.ops._nvcc_build import build_library
 from sunode_torch.ops.adams import _GAMMA, _GAMMA_STAR
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
@@ -50,11 +46,6 @@ __all__ = [
 FUNCTIONAL_ITERS = 3  # the TPU kernel's fixed sweep count
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "pece_step.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sunode_torch_kernels"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 
 @dataclass(frozen=True)
@@ -163,17 +154,6 @@ def adams_pece_attempt_reference(
 # ---------------------------------------------------------------------------
 # CUDA build and launch
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: no CUDA toolkit on PATH or CUDA_HOME")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
 def _tables_header() -> str:
     vals = lambda xs: ", ".join(repr(float(x)) for x in xs)  # noqa: E731
     L = len(_GAMMA)
@@ -196,31 +176,12 @@ class _PeceKernel:
     def __init__(self, system: DeviceSystem):
         self.system = system
         self.launches = 0
-        tables = _tables_header()
-        cu = _CSRC.read_text()
-        key = hashlib.sha256(
-            "\0".join([system.source, tables, cu, " ".join(_NVCC_FLAGS)]).encode()
-        ).hexdigest()[:16]
-        build_dir = _BUILD_ROOT / f"pece_{system.name}_{key}"
-        lib_path = build_dir / "libpece_step.so"
-        t0 = time.perf_counter()
-        self.build_log = ""
-        if not lib_path.exists():
-            build_dir.mkdir(parents=True, exist_ok=True)
-            (build_dir / "pece_rhs.h").write_text(system.source)
-            (build_dir / "pece_tables.h").write_text(tables)
-            tmp = build_dir / f"libpece_step.{os.getpid()}.so"
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(build_dir), "-o", str(tmp), str(_CSRC)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building the {system.name} PECE kernel:\n{self.build_log}"
-                )
-            os.replace(tmp, lib_path)
-        self.build_seconds = time.perf_counter() - t0
-        self.lib_path = lib_path
-        lib = ctypes.CDLL(str(lib_path))
+        built = build_library(
+            f"pece_{system.name}", _CSRC,
+            headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
+        )
+        self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
+        lib = built.lib
         vp, c_int, c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.pece_attempt_launch.argtypes = (
             [vp] * 9 + [c_double] + [c_int] * 6 + [vp] * 7 + [vp]

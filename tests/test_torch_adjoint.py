@@ -13,7 +13,8 @@ import torch
 from sunode_tpu.ops.bdf import BDFOptions as JaxOptions
 from sunode_tpu.symode import SympyProblem as JaxSympyProblem
 from sunode_tpu.wrappers.as_jax import make_batched_solve_fn as jax_make
-from sunode_torch.convert import inputs_from_numpy, options_from_fields
+from sunode_torch.convert import df_pairs_to_f64, inputs_from_numpy, options_from_fields
+from sunode_torch.experiments import exp_pece2d
 from sunode_torch.entry import _lv, build_lv_adjoint, lv_options, lv_problem
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
@@ -68,7 +69,7 @@ def _jax_grads(jsolve, g, y0s, p_subs, t0=0.0):
 
 
 def _torch_grads(tsolve, g, y0s, p_subs, t0=None):
-    y, p, pf, tv = inputs_from_numpy(y0s, p_subs, g["p_fix"], g["tvals"])
+    y, p, pf, tv = inputs_from_numpy(y0s, p_subs, g["p_fix"], g["tvals"], device="cpu")
     leaves = [y.requires_grad_(), p.requires_grad_(), tv.requires_grad_()]
     if t0 is not None:
         t0 = torch.tensor(t0, dtype=torch.float64, requires_grad=True)
@@ -130,7 +131,7 @@ def test_forward_only_matches_jax(setup):
         lv_problem(), derivatives=None, options=BDFOptions(rtol=RTOL, atol=RTOL, adams_max_order=6),
         method="ADAMS",
     )
-    got = tsolve(0.0, *inputs_from_numpy(g["y0s"], g["p_subs"], g["p_fix"], g["tvals"]))
+    got = tsolve(0.0, *inputs_from_numpy(g["y0s"], g["p_subs"], g["p_fix"], g["tvals"], device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8)
     np.testing.assert_allclose(got.numpy(), g["ys"], rtol=3e-6, atol=1e-7)
 
@@ -141,7 +142,7 @@ def test_entry_matches_graft_entry():
     import __graft_entry__ as ge
 
     jstep, (jy0, jp0) = ge._build(batch=4, tvals_n=5, rtol=1e-6, checkpoint_n=64)
-    tstep, (ty0, tp0) = build_lv_adjoint(batch=4, tvals_n=5, rtol=1e-6)
+    tstep, (ty0, tp0) = build_lv_adjoint(batch=4, tvals_n=5, rtol=1e-6, device="cpu")
     np.testing.assert_array_equal(ty0.numpy(), np.asarray(jy0))
     np.testing.assert_array_equal(tp0.numpy(), np.asarray(jp0))
     jgy, jgp = jax.jit(jstep)(jy0, jp0)
@@ -162,6 +163,24 @@ def test_options_carry_over_field_for_field():
             np.testing.assert_array_equal(np.asarray(getattr(carried, name)), np.asarray(getattr(to, name)))
     with pytest.raises(ValueError):
         options_from_fields({"not_an_option": 1})
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6),
+        lambda: inputs_from_numpy(np.ones((2, 2)), np.ones((2, 2)), np.ones(2), np.ones(3)),
+        lambda: df_pairs_to_f64(np.ones(3, np.float32), np.zeros(3, np.float32)),
+        lambda: exp_pece2d.run([8]),
+    ],
+    ids=["build_lv_adjoint", "inputs_from_numpy", "df_pairs_to_f64", "exp_pece2d"],
+)
+def test_entry_points_default_to_the_card(entry):
+    """Without a card the default device raises: nothing quietly runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,5 @@
-"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernel against its plain
-version, and the CUDA main path against the CPU one.
+"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernels against their plain
+versions and each other, and the CUDA main path against the CPU one.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -13,7 +13,9 @@ import torch
 
 from sunode_torch.adjoint import transition_fz
 from sunode_torch.entry import build_lv_adjoint, lv_problem
+from sunode_torch.experiments import exp_pece2d
 from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+from sunode_torch.ops.pece_2d import pece_2d_attempt, pece_2d_reference
 from sunode_torch.ops.pece_step import (
     PeceSystem,
     adams_pece_attempt,
@@ -105,3 +107,29 @@ def test_cuda_main_path_matches_cpu(cuda):
     assert adams_pece_attempt.launches - launches == attempts > 0
     np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
     np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
+
+
+def test_pece_2d_kernel_matches_plain_and_kernel1(cuda):
+    x = exp_pece2d.make_inputs(B, cuda)
+    fns = exp_pece2d.arms(x)
+    before = pece_2d_attempt.launches
+    got = fns["kernel2"](x["y_prev"])
+    assert pece_2d_attempt.launches == before + 1
+    ref = pece_2d_reference(x["DF2"], x["y_prev"], x["h"], x["t"], x["params"])
+    k1 = fns["kernel1"](x["y_prev"])  # fixed-sweep mode, p = 6, padded history
+    torch.cuda.synchronize()
+    # FMA contraction and the symbolic RHS's own rounding only
+    for other in (ref, k1):
+        for name, a, b in zip(("y", "d_f", "err"), got, other):
+            assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
+
+
+def test_pece_2d_kernel_refuses_bad_history(cuda):
+    x = exp_pece2d.make_inputs(B, cuda)
+    rest = (x["y_prev"], x["h"], x["t"], x["params"])
+    with pytest.raises(ValueError, match="DF2"):
+        pece_2d_attempt(x["DF2"].t().contiguous().t(), *rest)  # non-contiguous
+    with pytest.raises(ValueError, match="DF2"):
+        pece_2d_attempt(x["DF2"][:-1], *rest)  # not whole blocks
+    with pytest.raises(ValueError, match="DF2"):
+        pece_2d_attempt(x["DF2"][None], *rest)  # not 2-D

@@ -15,9 +15,11 @@ import torch
 
 default_before = torch.get_default_dtype()
 import sunode_torch
+import sunode_torch.experiments.exp_pece2d
+import sunode_torch.ops.pece_2d
 from sunode_torch.entry import build_lv_adjoint
 
-step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6)
+step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6, device="cpu")
 gy, gp = step(y0s, p_subs)
 print(json.dumps({
     "jax_loaded": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
