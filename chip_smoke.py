@@ -6,36 +6,47 @@
 Phases, one line each; any failure exits non-zero:
 
   1. device: the card's name and power limit (no CUDA device -> exit 1);
-  2. build: nvcc builds, all at once, the PECE kernel for both emitted
-     systems (forward LV, and the transition-adjoint backward system) and
-     the flat-history PECE kernel at order 6;
+  2. build: nvcc builds, all at once, the PECE kernel and the history-attempt
+     kernel for both emitted systems (forward LV, and the transition-adjoint
+     backward system) and the flat-history PECE kernel at order 6;
   3. kernel vs plain: each PECE build against the plain PyTorch version on
      the card at B=10,000, seeded random history, per-lane order 1..6, the
      main path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
-     d_fz and err, conv and niter equal in every lane, and per-call times;
+     d_fz and err, conv and niter equal in every lane, and per-call times
+     (graph-replayed, on the stream, device-busy);
   3b. flat-history kernel: against its plain version and against the PECE
      kernel in fixed-sweep mode at B=10,240 (the inputs of
      scripts/exp_pallas2d.py), normwise relative error <= 1e-12 on y, d_f
      and err; then the A/B of sunode_torch.experiments.exp_pece2d at
      B=10,240 and 102,400 (graph-replayed, on the stream, device-busy),
      one line per arm and width, with the kernel's launches counted;
+  3c. history-attempt kernel: each build against its plain version on the
+     card at B=10,000, on phase 3's inputs plus a seeded step ratio
+     log-uniform in [0.2, 2] and the main path's error weights; normwise
+     relative error <= 1e-12 on DF_resc, DF_upd, z_new and err3, conv and
+     niter equal in every lane, and per-call times as in phase 3;
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
-     ``torch.autograd``: every lane finite, lanes 0-15 inside the golden
-     gate (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), the same
-     lanes against the plain path on the CPU, and the PECE launch count
-     equal to the attempts the solves report;
+     ``torch.autograd``: the history-attempt launches equal to the attempts
+     the solves report and no PECE-kernel launch; then one more step under
+     the profiler for the device kernels per attempt and the device-busy
+     share; every lane finite, lanes 0-15 inside the golden gate
+     (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), and the same lanes
+     against the plain path on the CPU within 1e-6;
   5. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
-     call computes a PECE attempt, so library_ms is null.
+     call computes a PECE attempt or a history attempt, so library_ms is
+     null.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -50,6 +61,8 @@ TPU_KERNEL = "sunode_tpu/ops/pallas_step.py:110"
 KERNEL_SOURCE = "sunode_torch/csrc/pece_step.cu"
 TPU_KERNEL_2D = "scripts/exp_pallas2d.py:59"
 KERNEL_SOURCE_2D = "sunode_torch/csrc/pece_2d.cu"
+KERNEL_SOURCE_ATTEMPT = "sunode_torch/csrc/adams_attempt.cu"
+P_MAX = 6  # adams_max_order of the main path: history depth KAB = P_MAX + 3 = 9
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
 
 
@@ -72,6 +85,17 @@ def check_device():
     return name, smi
 
 
+def sass_instructions(lib_path):
+    """SASS instructions in a built library (``cuobjdump -sass``), or None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(1 for ln in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
+
+
 def pece_inputs(system, B, seed, device):
     """Seeded inputs of one PECE attempt for ``system`` at the main path's
     tolerances: history depth KAB = 9 (adams_max_order 6), order 1..6 per
@@ -82,7 +106,7 @@ def pece_inputs(system, B, seed, device):
     from sunode_torch.ops.adams_batched import newton_tol_for
 
     rng = np.random.default_rng(seed)
-    KAB, n, nz = 9, system.n, system.nz
+    KAB, n, nz = P_MAX + 3, system.n, system.nz
     DF = rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
     z_prev = 1.0 + rng.uniform(0.2, 1.0, (nz, B))
     params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (
@@ -130,15 +154,49 @@ def bound(nbytes: float, flops: float) -> dict:
     return dict(
         bound_ms=1e3 * max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,  # no single PyTorch call computes a PECE attempt
+        library_ms=None,  # no single PyTorch call computes either attempt
     )
+
+
+def per_call_times(call, z, graph=True) -> dict:
+    """Per-call times of ``call(z_prev) -> (z_new, ...)`` at ``z``:
+    graph-replayed (20 chained calls in one CUDA graph; None with
+    ``graph=False``), on the stream (CUDA events, host cost included) and
+    device-busy (profiler), microseconds.  The plain versions copy their
+    coefficient tables from the host on every call, which a graph cannot
+    capture."""
+    from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us, graph_us
+
+    return dict(
+        graph=graph_us(call, z) if graph else None,
+        stream=1e3 * cuda_ms(lambda: call(z)), device=device_us(lambda: call(z)),
+    )
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f}"
+
+
+def fmt_times(name, t) -> str:
+    times = "/".join(fmt_us(t[k]) for k in ("graph", "stream", "device"))
+    return f" {name}_us_per_call graph/stream/device={times}"
+
+
+def normwise(got, ref, names):
+    """({name: max|a - b| / max|b|}, worst max|a - b|) over the fields ``names``."""
+    rel, abs_err = {}, 0.0
+    for name in names:
+        a, b = getattr(got, name), getattr(ref, name)
+        diff = float((a - b).abs().max())
+        rel[name] = diff / float(b.abs().max())
+        abs_err = max(abs_err, diff)
+    return rel, abs_err
 
 
 def compare_kernel(kind, device_system, fz, seed):
     """Phase 3 for one build: returns the kernel-table entry fields."""
     import torch
 
-    from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
     from sunode_torch.ops.pece_step import (
         PeceSystem,
@@ -148,31 +206,28 @@ def compare_kernel(kind, device_system, fz, seed):
 
     system = PeceSystem(fz=fz, n=device_system.n, nz=device_system.nz, device=device_system)
     x = pece_inputs(device_system, B_MAIN, seed, "cuda")
-    args = (x["t_new"], x["h"], x["p"], x["active"], x["DF"], x["z_prev"],
-            x["params"], x["atol_z"], x["rtol_z"], x["newton_tol"], FUNCTIONAL_MAXITER)
-    run_k = lambda: adams_pece_attempt(system, *args)  # noqa: E731
-    run_p = lambda: adams_pece_attempt_reference(fz, *args, system.n)  # noqa: E731
-    got, ref = run_k(), run_p()
+
+    def args(z):
+        return (x["t_new"], x["h"], x["p"], x["active"], x["DF"], z, x["params"],
+                x["atol_z"], x["rtol_z"], x["newton_tol"], FUNCTIONAL_MAXITER)
+
+    run_k = lambda z: adams_pece_attempt(system, *args(z))  # noqa: E731
+    run_p = lambda z: adams_pece_attempt_reference(fz, *args(z), system.n)  # noqa: E731
+    got, ref = run_k(x["z_prev"]), run_p(x["z_prev"])
     torch.cuda.synchronize()
-    rel, abs_err = {}, 0.0
-    for name in ("y_it", "z_new", "d_fz", "err", "z_pred"):
-        a, b = getattr(got, name), getattr(ref, name)
-        diff = float((a - b).abs().max())
-        rel[name] = diff / float(b.abs().max())
-        abs_err = max(abs_err, diff)
+    rel, abs_err = normwise(got, ref, ("y_it", "z_new", "d_fz", "err", "z_pred"))
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
-    ms, plain_ms = cuda_ms(run_k), cuda_ms(run_p)
-    dev_k, dev_p = device_us(run_k), device_us(run_p)
-    fmt = lambda us: "not measured" if us is None else f"{us:.2f}"  # noqa: E731
+    call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
+    call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
+    t_k, t_p = per_call_times(call_k, x["z_prev"]), per_call_times(call_p, x["z_prev"], False)
     log(
         f"[kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
         f" converged={int(got.conv.sum())}/{B_MAIN}"
         f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
-        f" per_call_ms kernel={ms:.4f} plain={plain_ms:.4f}"
-        f" device_us_per_call kernel={fmt(dev_k)} plain={fmt(dev_p)}"
+        + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
     )
     if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
         raise SystemExit(f"chip_smoke: {kind} kernel disagrees with the plain version")
@@ -185,7 +240,111 @@ def compare_kernel(kind, device_system, fz, seed):
     f = rhs_flops(device_system)
     flops = 3 * p_sum * nz + B_MAIN * (2 * nz + 3 * n + 1) + sweeps * (f + 6 * n)
     flops += B_MAIN * (f + 5 * nz)
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **bound(nbytes, flops))
+    return dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
+                **bound(nbytes, flops))
+
+
+def history_inputs(system, B, seed, device):
+    """Phase 3's inputs plus what the history attempt also reads, as the main
+    path builds it: the step ratio h / h_D (seeded, log-uniform in [0.2, 2]),
+    |gamma*| and the error norm's weights (1/n on the state rows; with the
+    quadrature under error control, as the transition solve has it, half of
+    each block's share)."""
+    import torch
+
+    from sunode_torch.ops.adams import _GAMMA_STAR
+
+    x = pece_inputs(system, B, seed, device)
+    rng = np.random.default_rng(1000 + seed)
+    n, nz = system.n, system.nz
+    if nz == n:
+        v_err = np.full(n, 1.0 / n)
+    else:
+        v_err = np.concatenate([np.full(n, 0.5 / n), np.full(nz - n, 0.5 / (nz - n))])
+    f64 = dict(dtype=torch.float64, device=device)
+    x.update(
+        pre_factor=torch.as_tensor(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B)), **f64),
+        gamma_star_abs=torch.as_tensor(np.abs(_GAMMA_STAR), **f64),
+        v_err=torch.as_tensor(v_err, **f64),
+    )
+    return x
+
+
+def history_cost(device_system, x, niter) -> tuple[int, int]:
+    """(bytes, f64 operations) of one history attempt on the inputs ``x``:
+    the history read once and written twice, the other inputs read once and
+    the outputs written once; rescale, predictor, the sweeps taken, final
+    evaluation, difference update and error rows, counted per lane from its
+    order."""
+    n, nz, n_p = device_system.n, device_system.nz, device_system.n_p
+    KAB, _, B = x["DF"].shape
+    p = x["p"].long()
+    nbytes = 8 * 3 * KAB * nz * B  # DF in; DF_resc, DF_upd out
+    nbytes += 8 * B * (nz + n_p + 3) + 4 * B + B  # z_prev, params, t, h, ratio; p; active
+    nbytes += 8 * (3 * nz + x["gamma_star_abs"].numel())  # atol_z, rtol_z, v_err, |gamma*|
+    nbytes += 8 * B * (3 * nz + 3) + B + 4 * B  # z_pred, z_new, err0, err3; conv; niter
+    f = rhs_flops(device_system)
+    # per row: R and U, p outputs of p terms each (difference, product,
+    # quotient, product, sum); predictor and f_ex; suffix sums, update, new
+    # state, error rows and their weighted squares
+    per_row = 2 * p * (5 * p - 2) + 3 * p + 2 + KAB + 2 * p + 21
+    flops = int((nz * per_row).sum()) + int(niter.sum()) * (f + 6 * n) + B * (f + 3 * n + 10)
+    return nbytes, flops
+
+
+def compare_history_kernel(kind, device_system, fz, seed):
+    """Phase 3c for one build: returns the kernel-table entry fields."""
+    import torch
+
+    from sunode_torch.experiments.exp_pece2d import device_us
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.adams_attempt import (
+        adams_history_attempt,
+        adams_history_attempt_reference,
+    )
+    from sunode_torch.ops.pece_step import PeceSystem
+
+    system = PeceSystem(fz=fz, n=device_system.n, nz=device_system.nz, device=device_system)
+    x = history_inputs(device_system, B_MAIN, seed, "cuda")
+
+    def args(z, p=x["p"]):
+        return (x["t_new"], x["h"], x["pre_factor"], p, x["active"], x["DF"], z,
+                x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
+                x["newton_tol"], FUNCTIONAL_MAXITER, P_MAX)
+
+    run_k = lambda z: adams_history_attempt(system, *args(z))  # noqa: E731
+    run_p = lambda z: adams_history_attempt_reference(system, *args(z))  # noqa: E731
+    got, ref = run_k(x["z_prev"]), run_p(x["z_prev"])
+    torch.cuda.synchronize()
+    rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0"))
+    conv_same = bool(torch.equal(got.conv, ref.conv))
+    niter_same = bool(torch.equal(got.niter, ref.niter))
+    call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
+    call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
+    t_k, t_p = per_call_times(call_k, x["z_prev"]), per_call_times(call_p, x["z_prev"], False)
+    # the rescale's work grows with p^2: device time at one order in every lane
+    at_p = {
+        q: device_us(lambda: adams_history_attempt(
+            system, *args(x["z_prev"], torch.full_like(x["p"], q))))
+        for q in (1, P_MAX)
+    }
+    nbytes, flops = history_cost(device_system, x, got.niter)
+    entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
+                 **bound(nbytes, flops))
+    log(
+        f"[history-kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
+        + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
+        + f" conv_equal={conv_same} niter_equal={niter_same}"
+        f" converged={int(got.conv.sum())}/{B_MAIN}"
+        f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
+        + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
+        + "".join(f" kernel_device_us_all_p{q}={fmt_us(v)}" for q, v in at_p.items())
+        + f" bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
+        f" ({entry['bound_by']})"
+    )
+    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
+        raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
+    return entry
 
 
 def pece_2d_phase(smi):
@@ -230,6 +389,36 @@ def pece_2d_phase(smi):
     )
 
 
+def device_kernels_per_attempt(grad_step, y0s_t, p_subs_t) -> dict:
+    """One gradient step under the profiler: the device kernels it ran (and
+    its copies and fills, counted apart) per attempt, and its device-busy
+    time against its wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grad_step(y0s_t, p_subs_t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = grad_step.solve.last_stats
+    attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+    kernels = copies = 0
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+        busy_us += e.time_range.elapsed_us()
+    return dict(attempts=attempts, kernels=kernels, copies=copies,
+                per_attempt=kernels / attempts, busy_s=busy_us / 1e6, wall_s=wall)
+
+
 def main() -> None:
     card, smi = check_device()
 
@@ -237,6 +426,7 @@ def main() -> None:
 
     from sunode_torch.adjoint import transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
+    from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
     from sunode_torch.ops.pece_2d import P_ORDER, lv_system, build_pece_2d
     from sunode_torch.ops.pece_step import adams_pece_attempt, build_kernel
     from sunode_torch.symode import cuda_codegen
@@ -249,15 +439,21 @@ def main() -> None:
     }
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(systems) + 1) as pool:
+    with ThreadPoolExecutor(2 * len(systems) + 1) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
+        futures.update({
+            f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
+            for kind, ds in systems.items()
+        })
         futures["pece_2d"] = pool.submit(build_pece_2d, P_ORDER)
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
-        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
-        log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; ptxas: {'; '.join(regs)}")
+        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; "
+            f"sass_instructions={sass_instructions(k.lib_path)}; ptxas: {'; '.join(regs)}")
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
     kernels = {kind: built[kind] for kind in systems}
+    history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
 
     # phase 3: kernel vs plain on the card
     rhs = problem.make_rhs()
@@ -276,6 +472,12 @@ def main() -> None:
     # phase 3b: the flat-history kernel and its A/B
     entry_2d = pece_2d_phase(smi)
 
+    # phase 3c: the history-attempt kernel vs its plain version
+    history_table = {
+        kind: compare_history_kernel(kind, systems[kind], fz[kind], seed)
+        for seed, kind in enumerate(systems)
+    }
+
     # phase 4: the main path
     grad_step, _ = build_lv_adjoint(B_MAIN, 21, 1e-8, device="cuda")
     rng = np.random.default_rng(42)
@@ -285,8 +487,8 @@ def main() -> None:
     p_subs_t = torch.as_tensor(p_subs, dtype=torch.float64, device="cuda")
     golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
 
-    adams_pece_attempt.launches = 0
-    for k in kernels.values():
+    adams_pece_attempt.launches = adams_history_attempt.launches = 0
+    for k in (*kernels.values(), *history_kernels.values()):
         k.launches = 0
     expected = {"forward": 0, "transition": 0}
     for step in range(3):
@@ -303,11 +505,23 @@ def main() -> None:
             f"grads_per_s={B_MAIN / wall:.1f} attempts fwd={stats['forward']['n_attempts']} "
             f"bwd={stats['backward']['n_attempts']} | {smi}"
         )
-    launches = {kind: k.launches for kind, k in kernels.items()}
-    total = adams_pece_attempt.launches
-    log(f"[main-path launches] {launches} total={total} expected={expected}")
+    launches = {kind: k.launches for kind, k in history_kernels.items()}
+    total = adams_history_attempt.launches
+    pece_launches = {kind: k.launches for kind, k in kernels.items()}
+    log(f"[main-path launches] history-attempt {launches} total={total} expected={expected}; "
+        f"PECE kernel {pece_launches} total={adams_pece_attempt.launches}")
     if not (total > 0 and launches == expected and total == sum(expected.values())):
-        raise SystemExit("chip_smoke: PECE launches do not match the attempts run")
+        raise SystemExit("chip_smoke: history-attempt launches do not match the attempts run")
+    if adams_pece_attempt.launches != 0 or any(pece_launches.values()):
+        raise SystemExit("chip_smoke: the main path launched the PECE kernel")
+
+    prof = device_kernels_per_attempt(grad_step, y0s_t, p_subs_t)
+    log(
+        f"[main-path device kernels per attempt] {prof['per_attempt']:.1f} "
+        f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+        f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+        f"wall_s_under_profiler={prof['wall_s']:.4f} | {smi}"
+    )
 
     gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
     finite = int(np.isfinite(gy_np).all(axis=1).sum() + 0)
@@ -345,7 +559,7 @@ def main() -> None:
             route="cuda",
             source=KERNEL_SOURCE,
             replaces=TPU_KERNEL,
-            launches=launches[kind],
+            launches=pece_launches[kind],
             **table[kind],
         )
         for kind in systems
@@ -354,6 +568,17 @@ def main() -> None:
         name="pece_2d_attempt", route="cuda", source=KERNEL_SOURCE_2D,
         replaces=TPU_KERNEL_2D, **entry_2d,
     ))
+    entries += [
+        dict(
+            name=f"adams_history_attempt[{kind}]",
+            route="cuda",
+            source=KERNEL_SOURCE_ATTEMPT,
+            replaces=TPU_KERNEL,
+            launches=launches[kind],
+            **history_table[kind],
+        )
+        for kind in systems
+    ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({
         "ok": True,

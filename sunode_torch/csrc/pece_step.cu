@@ -28,9 +28,11 @@
 // host's per-attempt synchronisation bound it.  The design answers with
 // small blocks (64 threads: 157 blocks for 10k lanes, more than the 132
 // SMs, where 128-thread blocks would leave half of them idle) and by doing
-// the whole predictor-corrector-error core in one launch.  Fusing the rest
-// of the attempt (rescale, difference update, emission) and the loop itself
-// is later work.
+// the whole predictor-corrector-error core in one launch.  The corrector
+// and final evaluation live in pece_core.cuh, shared with
+// csrc/adams_attempt.cu, which runs them inside the history half of the
+// attempt (rescale, difference update, error rows) on the main path; this
+// kernel serves the fixed-sweep A/B and its own checks.
 //
 // Rows i >= p of DF are never read.  The plain version multiplies them by
 // 0.0, which differs only where such a row holds inf or NaN.
@@ -40,6 +42,7 @@
 
 #include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[]
 #include "pece_rhs.h"     // PECE_N, PECE_NZ, PECE_NP, pece_fz()
+#include "pece_core.cuh"  // pece_correct(): corrector and final evaluation
 
 #define PECE_THREADS 64
 #define PECE_NP_ALLOC (PECE_NP > 0 ? PECE_NP : 1)
@@ -112,52 +115,14 @@ pece_attempt_kernel(const double* __restrict__ t_new,
   }
   const double c_A = h * PECE_GAMMA[p - 1];
 
-  double y[PECE_N], w[PECE_N];
+  double w[PECE_N];
 #pragma unroll
-  for (int r = 0; r < PECE_N; ++r) {
-    y[r] = zp[r];
-    w[r] = 1.0 / (atol_z[r] + rtol_z[r] * fabs(zp[r]));
-  }
+  for (int r = 0; r < PECE_N; ++r) w[r] = 1.0 / (atol_z[r] + rtol_z[r] * fabs(zp[r]));
 
-  // functional corrector over the first PECE_N rows (the quadrature rows
-  // do not feed back and are not iterated)
-  const bool fixed = !(newton_tol > 0.0);
-  bool conv = !active[b], div = false, bad = false;
-  double dy_old = INFINITY;
-  int niter = 0;
-  double f[PECE_NZ];
-  for (int k = 0; k < maxiter; ++k) {
-    if (conv || div || bad) break;  // a lane that is not live never changes again
-    pece_fz(t, y, par, f);
-    bool bad_f = false;
-#pragma unroll
-    for (int r = 0; r < PECE_NZ; ++r) bad_f = bad_f || !isfinite(f[r]);
-    double ss = 0.0;
-#pragma unroll
-    for (int r = 0; r < PECE_N; ++r) {
-      const double zn = zp[r] + c_A * (f[r] - fex[r]);
-      const double e = (zn - y[r]) * w[r];
-      ss = ss + e * e;
-      y[r] = zn;
-    }
-    const double dy = sqrt(ss / PECE_N);
-    const double rate = dy / dy_old;
-    const bool conv_new =
-        !fixed && ((dy == 0.0) ||
-                   (k > 0 && rate < 1.0 && rate / (1.0 - rate) * dy < newton_tol) ||
-                   (dy < 0.1 * newton_tol));
-    const bool div_new = !fixed && k > 0 && rate >= 2.0;
-    bad = bad_f;
-    conv = conv_new && !bad;
-    div = div_new && !conv_new;
-    niter += 1;
-    dy_old = dy;
-  }
-  if (fixed) conv = conv || !bad;
-  conv = conv && !bad && pred_ok;
-
-  // final evaluation at the corrected y
-  pece_fz(t, y, par, f);
+  double y[PECE_N], f[PECE_NZ];
+  int niter;
+  const bool conv = pece_correct(t, par, zp, fex, c_A, w, active[b], pred_ok,
+                                 newton_tol, maxiter, y, f, &niter);
   const double gsp_h = PECE_GAMMA_STAR_ABS[p] * h;
 #pragma unroll
   for (int r = 0; r < PECE_NZ; ++r) {

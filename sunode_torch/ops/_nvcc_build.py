@@ -5,9 +5,9 @@ a plain C interface.  :func:`build_library` compiles it for Hopper
 (``sm_90a``) together with the headers generated for it (written next to
 the library and found with ``-I``) and the compile-time defines, into
 ``build/sunode_torch_kernels/<name>_<hash>/``.  The hash covers the source,
-the generated headers, the defines and the flags, so a change to any of
-them builds anew and an unchanged build is loaded from disk.  The library
-is compiled to a temporary name and renamed into place, so processes that
+the shared headers beside it (``csrc/*.cuh``), the generated headers, the
+defines and the flags, so a change to any of them builds anew and an
+unchanged build is loaded from disk.  The library is compiled to a temporary name and renamed into place, so processes that
 build the same kernel at once never load a half-written file.  A failed
 build raises with the compiler's output; there is no fallback.
 """
@@ -60,6 +60,7 @@ def build_library(
     ``defines``, or load the cached build of the same inputs."""
     flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     parts = [source.read_text(), " ".join(flags)]
+    parts += [f"{h.name}\n{h.read_text()}" for h in sorted(source.parent.glob("*.cuh"))]
     parts += [f"{k}\n{v}" for k, v in sorted(headers.items())]
     key = hashlib.sha256("\0".join(parts).encode()).hexdigest()[:16]
     build_dir = BUILD_ROOT / f"{name}_{key}"

@@ -1,0 +1,284 @@
+"""The history half of one Adams attempt for all lanes: the CUDA kernel and
+its plain version.
+
+One attempt of the batched Adams integrator, up to the scalar tail
+(acceptance, order and step adaptation, emission), touches the whole
+``(KAB, nz, B)`` f-difference history four times: it rescales it to the new
+step (``R(h/h_D) U``), predicts and corrects from it (the PECE core), updates
+it with the new difference, and reads two of its updated rows for the
+order-selection error estimates.  Here those steps are one function:
+
+  * :func:`adams_history_attempt` -- the wrapper the integrator calls.  On
+    CUDA tensors it launches ``csrc/adams_attempt.cu`` (built with ``nvcc``
+    for ``sm_90a`` at first use, one build per generated right-hand side and
+    history depth) and raises if the build, a check or the launch fails.  On
+    CPU tensors it runs the plain version.  It counts its kernel launches in
+    ``adams_history_attempt.launches``.
+  * :func:`adams_history_attempt_reference` -- the plain PyTorch version,
+    operation for operation the code of the integrator's loop
+    (``sunode_tpu/ops/adams_batched.py``: ``_rescale`` :376-399, the error
+    rows :617-632, ``_update`` :989-1007) around the plain PECE attempt of
+    :mod:`sunode_torch.ops.pece_step`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from sunode_torch.ops._nvcc_build import build_library
+from sunode_torch.ops.pece_step import (
+    PeceSystem,
+    _check,
+    _tables_header,
+    adams_pece_attempt_reference,
+)
+from sunode_torch.symode.cuda_codegen import DeviceSystem
+
+__all__ = [
+    "HistoryOut",
+    "adams_history_attempt",
+    "adams_history_attempt_reference",
+    "build_attempt_kernel",
+]
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_attempt.cu"
+
+
+class HistoryOut(NamedTuple):
+    DF_resc: torch.Tensor  # (KAB, nz, B) history rescaled to h_use
+    DF_upd: torch.Tensor  # (KAB, nz, B) history after an accepted step
+    z_pred: torch.Tensor  # (nz, B)
+    z_new: torch.Tensor  # (nz, B)
+    err0: torch.Tensor  # (nz, B) |gamma*_p| h d_fz, the local error
+    err3: torch.Tensor  # (3, B) weighted error norms at orders p, p-1, p+1
+    conv: torch.Tensor  # (B,) bool
+    niter: torch.Tensor  # (B,) int32 corrector sweeps taken
+
+
+def _rescale(DF, p, factor, K):
+    """R(factor)U rescale of the leading p block (per element the same
+    products and sums, in the same order, as the unrolled reference)."""
+    B = DF.shape[2]
+    f_kw = dict(dtype=DF.dtype, device=DF.device)
+    ar_K = torch.arange(K, device=DF.device)
+    j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
+    eye_K = torch.eye(K, **f_kw)[:, :, None]
+    nz = DF.shape[1]
+
+    def build(fac):
+        rows = [torch.ones((K, B), **f_kw)]
+        for i in range(1, K):
+            rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
+        R = torch.stack(rows)  # (K_i, K_j, B)
+        inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
+        return torch.where(inblock, R, eye_K)
+
+    R = build(factor)
+    U = build(torch.ones_like(factor))
+    t1 = torch.zeros((K, nz, B), **f_kw)
+    for j in range(K):
+        t1 = t1 + R[j][:, None, :] * DF[j][None]
+    head = torch.zeros((K, nz, B), **f_kw)
+    for j in range(K):
+        head = head + U[j][:, None, :] * t1[j][None]
+    return torch.cat([head, DF[K:]])
+
+
+def _onehot_rows(idx, rows, dtype):
+    """(rows, 1, B) float selector of row idx per lane."""
+    r = torch.arange(rows, device=idx.device)[:, None]
+    return (r == idx[None, :]).to(dtype)[:, None, :]
+
+
+def _take_row(DF, idx):
+    # masked sum, as the reference: exact DF[idx] on finite histories
+    idx = torch.clamp(idx, 0, DF.shape[0] - 1)
+    return (_onehot_rows(idx, DF.shape[0], DF.dtype) * DF).sum(dim=0)
+
+
+def _update(DF, p, d_fz):
+    """Accepted-step f-difference update (J = p-1):
+    i<=p-1: sum_{j=i..p-1} DF[j] + d;  i==p: d;  i==p+1: d - DF[p]."""
+    KAB = DF.shape[0]
+    S = [None] * (KAB + 1)
+    S[KAB] = torch.zeros_like(DF[0])
+    for i in range(KAB - 1, -1, -1):
+        S[i] = S[i + 1] + DF[i]
+    S = torch.stack(S)  # (KAB + 1, nz, B)
+    Sp = (_onehot_rows(p, KAB + 1, DF.dtype) * S).sum(dim=0)
+    DFp = _take_row(DF, p)
+    i = torch.arange(KAB, device=DF.device)[:, None, None]
+    low = i <= (p - 1)[None, None, :]
+    is_p = i == p[None, None, :]
+    is_p1 = i == (p + 1)[None, None, :]
+    return torch.where(
+        low,
+        S[:KAB] - Sp[None] + d_fz[None],
+        torch.where(is_p, d_fz[None], torch.where(is_p1, (d_fz - DFp)[None], DF)),
+    )
+
+
+def adams_history_attempt_reference(
+    system: PeceSystem,
+    t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
+    gamma_star_abs, v_err, newton_tol: float, maxiter: int, P_MAX: int,
+) -> HistoryOut:
+    """Plain PyTorch history attempt; the arguments are those of
+    :func:`adams_history_attempt`."""
+    DF = _rescale(DF, p, pre_factor, P_MAX + 1)
+    out = adams_pece_attempt_reference(
+        system.fz, t_new, h_use, p, active, DF, z_prev, params, atol_z, rtol_z,
+        newton_tol, maxiter, system.n,
+    )
+    w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(out.z_pred))
+
+    # error test: LTE = |gamma*_p| h d_fz, and the estimates at p -+ 1
+    DF_upd = _update(DF, p, out.d_fz)
+    err_rows = torch.stack(
+        [
+            out.err,
+            (gamma_star_abs[torch.clamp(p - 1, min=0).long()] * h_use)[None, :]
+            * _take_row(DF_upd, p - 1),
+            (gamma_star_abs[torch.clamp(p + 1, max=P_MAX + 1).long()] * h_use)[None, :]
+            * _take_row(DF_upd, p + 1),
+        ]
+    )
+    err3 = torch.sqrt(
+        torch.sum((err_rows * w_z[None]) ** 2 * v_err[None, :, None], dim=1)
+    )
+    return HistoryOut(DF, DF_upd, out.z_pred, out.z_new, out.err, err3, out.conv, out.niter)
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and launch
+# ---------------------------------------------------------------------------
+class _AttemptKernel:
+    """One compiled build of ``csrc/adams_attempt.cu`` for one right-hand
+    side and history depth."""
+
+    def __init__(self, system: DeviceSystem, kab: int):
+        self.system, self.kab = system, kab
+        self.launches = 0
+        built = build_library(
+            f"adams_attempt_{system.name}_kab{kab}", _CSRC,
+            headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
+            defines=(f"ADAMS_KAB={kab}",),
+        )
+        self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
+        lib = built.lib
+        vp, c_int, c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.adams_attempt_launch.argtypes = (
+            [vp] * 12 + [c_double] + [c_int] * 7 + [vp] * 8 + [vp]
+        )
+        lib.adams_attempt_launch.restype = c_int
+        lib.adams_attempt_error_string.argtypes = [c_int]
+        lib.adams_attempt_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+
+    def launch(self, t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z,
+               rtol_z, gamma_star_abs, v_err, newton_tol, maxiter) -> HistoryOut:
+        s = self.system
+        KAB, nz, B = DF.shape
+        dev = DF.device
+        _check(DF, torch.float64, (self.kab, s.nz, B), dev, "DF")
+        _check(z_prev, torch.float64, (s.nz, B), dev, "z_prev")
+        _check(params, torch.float64, (s.n_p, B), dev, "params")
+        _check(t_new, torch.float64, (B,), dev, "t_new")
+        _check(h_use, torch.float64, (B,), dev, "h_use")
+        _check(pre_factor, torch.float64, (B,), dev, "pre_factor")
+        _check(p, torch.int32, (B,), dev, "p")
+        _check(active, torch.bool, (B,), dev, "active")
+        _check(atol_z, torch.float64, (s.nz,), dev, "atol_z")
+        _check(rtol_z, torch.float64, (s.nz,), dev, "rtol_z")
+        _check(v_err, torch.float64, (s.nz,), dev, "v_err")
+        # |gamma*| up to order P_MAX + 1 = KAB - 2: at least KAB - 1 entries
+        g = gamma_star_abs
+        n_gamma = max(KAB - 1, g.shape[0] if torch.is_tensor(g) and g.ndim == 1 else 0)
+        _check(gamma_star_abs, torch.float64, (n_gamma,), dev, "gamma_star_abs")
+        f64 = dict(dtype=torch.float64, device=dev)
+        out = HistoryOut(
+            torch.empty((KAB, s.nz, B), **f64),
+            torch.empty((KAB, s.nz, B), **f64),
+            torch.empty((s.nz, B), **f64),
+            torch.empty((s.nz, B), **f64),
+            torch.empty((s.nz, B), **f64),
+            torch.empty((3, B), **f64),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+        )
+        # the launch goes to the runtime's current device: make it the tensors'
+        with torch.cuda.device(dev):
+            code = self._lib.adams_attempt_launch(
+                t_new.data_ptr(), h_use.data_ptr(), pre_factor.data_ptr(), p.data_ptr(),
+                active.data_ptr(), DF.data_ptr(), z_prev.data_ptr(), params.data_ptr(),
+                atol_z.data_ptr(), rtol_z.data_ptr(), gamma_star_abs.data_ptr(),
+                v_err.data_ptr(), float(newton_tol), int(maxiter),
+                s.n, s.nz, KAB, s.n_p, n_gamma, B,
+                *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if code == -1:
+            raise ValueError(f"attempt kernel built for {s.name} does not match the shapes")
+        if code == -2:
+            raise ValueError(f"history of {KAB} rows exceeds the Adams tables")
+        if code != 0:
+            msg = self._lib.adams_attempt_error_string(code).decode()
+            raise RuntimeError(f"attempt kernel launch failed: {msg} ({code})")
+        self.launches += 1
+        return out
+
+
+_KERNELS: dict[tuple[DeviceSystem, int], _AttemptKernel] = {}
+
+
+def build_attempt_kernel(system: DeviceSystem, kab: int) -> _AttemptKernel:
+    """Build (or reuse) the kernel for one emitted system and history depth."""
+    kernel = _KERNELS.get((system, kab))
+    if kernel is None:
+        kernel = _AttemptKernel(system, kab)
+        _KERNELS[(system, kab)] = kernel
+    return kernel
+
+
+def adams_history_attempt(
+    system: PeceSystem,
+    t_new: torch.Tensor,  # (B,)
+    h_use: torch.Tensor,  # (B,) step of this attempt
+    pre_factor: torch.Tensor,  # (B,) h_use / h_D, the rescale ratio
+    p: torch.Tensor,  # (B,) int32 order, 1 <= p <= P_MAX
+    active: torch.Tensor,  # (B,) bool
+    DF: torch.Tensor,  # (KAB, nz, B) f-difference history at the last step h_D
+    z_prev: torch.Tensor,  # (nz, B)
+    params: torch.Tensor,  # (n_p, B)
+    atol_z: torch.Tensor,  # (nz,)
+    rtol_z: torch.Tensor,  # (nz,)
+    gamma_star_abs: torch.Tensor,  # (>= P_MAX + 2,) |gamma*|
+    v_err: torch.Tensor,  # (nz,) weights of the error norm's squares
+    newton_tol: float,
+    maxiter: int,
+    P_MAX: int,
+) -> HistoryOut:
+    """Rescale, PECE, difference update and error rows for all lanes: the
+    kernel on CUDA, the plain version on CPU tensors."""
+    args = (t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
+            gamma_star_abs, v_err, newton_tol, maxiter)
+    if DF.device.type == "cpu":
+        return adams_history_attempt_reference(system, *args, P_MAX)
+    if DF.device.type != "cuda":
+        raise ValueError(f"adams_history_attempt: unsupported device {DF.device}")
+    if system.device is None:
+        raise ValueError("adams_history_attempt: a CUDA solve needs the emitted device system")
+    if DF.ndim != 3 or DF.shape[0] != P_MAX + 3:
+        raise ValueError(
+            f"adams_history_attempt: DF must be (P_MAX + 3, nz, B) = ({P_MAX + 3}, nz, B), "
+            f"got {tuple(DF.shape)}"
+        )
+    out = build_attempt_kernel(system.device, P_MAX + 3).launch(*args)
+    adams_history_attempt.launches += 1
+    return out
+
+
+adams_history_attempt.launches = 0

@@ -9,10 +9,12 @@ reset, NaN-poison statuses and the per-lane post-mortem stats.
 Layout: states are ``(rows, B)`` with the lane axis last, the history
 ``DF`` is ``(KAB, nz, B)``.  The lockstep loop is a host loop that ends when
 no lane is active (one device sync per attempt, one more per emission
-sweep).  Each attempt's predictor, corrector, final evaluation and error
-estimate run in :func:`sunode_torch.ops.pece_step.adams_pece_attempt`: the
-CUDA kernel on a GPU, its plain version on CPU tensors.  The rest of the
-attempt (rescale, difference update, error rows, emission, adaptation) is
+sweep).  Each attempt's history half -- the ``R(h/h_D)U`` rescale, the
+predictor, corrector, final evaluation, difference update and the three
+error-test rows -- runs in
+:func:`sunode_torch.ops.adams_attempt.adams_history_attempt`: one CUDA
+kernel launch on a GPU, its plain version on CPU tensors.  The scalar tail
+of the attempt (acceptance, emission, order and step adaptation, status) is
 torch tensor code written to round exactly like the JAX reference.
 
 Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
@@ -37,7 +39,8 @@ from sunode_torch.ops.bdf import (
     BDFOptions,
     BDFResult,
 )
-from sunode_torch.ops.pece_step import PeceSystem, adams_pece_attempt
+from sunode_torch.ops.adams_attempt import adams_history_attempt
+from sunode_torch.ops.pece_step import PeceSystem
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
 __all__ = ["adams_solve_batched", "newton_tol_for"]
@@ -249,64 +252,10 @@ def adams_solve_batched(
     it = 0
 
     ar_K = torch.arange(K, device=device)
-    j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
-    eye_K = torch.eye(K, **f_kw)[:, :, None]
     ar_KAB = torch.arange(KAB, device=device)
     row0 = (ar_KAB == 0).to(dtype)[:, None, None]
     C_int = torch.as_tensor(np.asarray(_C_INT[:K]), **f_kw)  # (K, K_max + 2)
     eps = torch.finfo(dtype).eps
-
-    def _rescale(DF, p, factor):
-        """R(factor)U rescale of the leading p block (per element the same
-        products and sums, in the same order, as the unrolled reference)."""
-
-        def build(fac):
-            rows = [torch.ones((K, B), **f_kw)]
-            for i in range(1, K):
-                rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
-            R = torch.stack(rows)  # (K_i, K_j, B)
-            inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
-            return torch.where(inblock, R, eye_K)
-
-        R = build(factor)
-        U = build(torch.ones_like(factor))
-        t1 = torch.zeros((K, nz, B), **f_kw)
-        for j in range(K):
-            t1 = t1 + R[j][:, None, :] * DF[j][None]
-        head = torch.zeros((K, nz, B), **f_kw)
-        for j in range(K):
-            head = head + U[j][:, None, :] * t1[j][None]
-        return torch.cat([head, DF[K:]])
-
-    def _onehot_rows(idx, rows):
-        """(rows, 1, B) float selector of row idx per lane."""
-        r = torch.arange(rows, device=device)[:, None]
-        return (r == idx[None, :]).to(dtype)[:, None, :]
-
-    def _take_row(DF, idx):
-        # masked sum, as the reference: exact DF[idx] on finite histories
-        idx = torch.clamp(idx, 0, KAB - 1)
-        return (_onehot_rows(idx, KAB) * DF).sum(dim=0)
-
-    def _update(DF, p, d_fz):
-        """Accepted-step f-difference update (J = p-1):
-        i<=p-1: sum_{j=i..p-1} DF[j] + d;  i==p: d;  i==p+1: d - DF[p]."""
-        S = [None] * (KAB + 1)
-        S[KAB] = torch.zeros_like(DF[0])
-        for i in range(KAB - 1, -1, -1):
-            S[i] = S[i + 1] + DF[i]
-        S = torch.stack(S)  # (KAB + 1, nz, B)
-        Sp = (_onehot_rows(p, KAB + 1) * S).sum(dim=0)
-        DFp = _take_row(DF, p)
-        i = ar_KAB[:, None, None]
-        low = i <= (p - 1)[None, None, :]
-        is_p = i == p[None, None, :]
-        is_p1 = i == (p + 1)[None, None, :]
-        return torch.where(
-            low,
-            S[:KAB] - Sp[None] + d_fz[None],
-            torch.where(is_p, d_fz[None], torch.where(is_p1, (d_fz - DFp)[None], DF)),
-        )
 
     while True:
         active = (c["status"] == -1) & (i_out < n_t)
@@ -323,16 +272,14 @@ def adams_solve_batched(
         t_new = t + h_use
 
         pre_factor = h_use / torch.clamp(c["h_D"], min=1e-300)
-        DF = _rescale(c["DF"], p, pre_factor)
-
-        out = adams_pece_attempt(
-            system, t_new, h_use, p, active, DF, z_prev, params, atol_z, rtol_z,
-            newton_tol, FUNCTIONAL_MAXITER,
+        hist = adams_history_attempt(
+            system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev, params,
+            atol_z, rtol_z, gamma_star_abs, v_err, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
         )
-        conv, niter, d_fz, z_pred, z_new = (
-            out.conv, out.niter, out.d_fz, out.z_pred, out.z_new
+        DF, DF_upd, conv, niter, z_pred, z_new, err3 = (
+            hist.DF_resc, hist.DF_upd, hist.conv, hist.niter, hist.z_pred, hist.z_new,
+            hist.err3,
         )
-        w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(z_pred))
         y_new = z_new[:n]
 
         if constraints is not None:
@@ -347,20 +294,6 @@ def adams_solve_batched(
         else:
             constraint_fail = torch.zeros((B,), dtype=torch.bool, device=device)
 
-        # error test: LTE = |gamma*_p| h d_fz
-        DF_upd = _update(DF, p, d_fz)
-        err_rows = torch.stack(
-            [
-                out.err,
-                (gamma_star_abs[torch.clamp(p - 1, min=0).long()] * h_use)[None, :]
-                * _take_row(DF_upd, p - 1),
-                (gamma_star_abs[torch.clamp(p + 1, max=P_MAX + 1).long()] * h_use)[None, :]
-                * _take_row(DF_upd, p + 1),
-            ]
-        )
-        err3 = torch.sqrt(
-            torch.sum((err_rows * w_z[None]) ** 2 * v_err[None, :, None], dim=1)
-        )
         err_norm = err3[0]
         err_ok = err_norm <= 1.0
         accept = active & conv & err_ok & ~constraint_fail
@@ -477,7 +410,8 @@ def adams_solve_batched(
 
         # per-lane post-mortem of the attempt where a lane's status turns fatal
         fatal_now = (c["status"] == -1) & (status != -1)
-        e_err = torch.abs(err_rows[0, :n]) * w_z[:n]
+        w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(z_pred))
+        e_err = torch.abs(hist.err0[:n]) * w_z[:n]
         e_newt = torch.abs((z_new - z_pred)[:n]) * w_z[:n]
         worst = torch.argmax(torch.where(conv[None, :], e_err, e_newt), dim=0)
 

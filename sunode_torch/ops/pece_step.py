@@ -6,18 +6,21 @@ evaluation and error estimate in double-float f32 pairs with a static order.
 Here the same attempt runs in native float64 with a per-lane order and the
 main path's corrector (``sunode_tpu/ops/adams_batched.py:427-502``):
 
-  * :func:`adams_pece_attempt` -- the wrapper the integrator calls.  On CUDA
-    tensors it launches ``csrc/pece_step.cu`` (built with ``nvcc`` for
-    ``sm_90a`` at first use, one build per generated right-hand side) and
-    raises if the build, a check or the launch fails.  On CPU tensors it runs
-    the plain version.  It counts its kernel launches in
-    ``adams_pece_attempt.launches``.
+  * :func:`adams_pece_attempt` -- the wrapper.  On CUDA tensors it launches
+    ``csrc/pece_step.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
+    one build per generated right-hand side) and raises if the build, a
+    check or the launch fails.  On CPU tensors it runs the plain version.
+    It counts its kernel launches in ``adams_pece_attempt.launches``.
   * :func:`adams_pece_attempt_reference` -- the plain PyTorch version of the
     same math, kept operation for operation with the JAX main path.
 
-``maxiter=FUNCTIONAL_MAXITER`` with the main path's ``newton_tol`` is the
-main-path corrector.  ``maxiter=FUNCTIONAL_ITERS`` with ``newton_tol=0``
-turns the rate tests off and runs the TPU kernel's fixed sweeps.
+The integrator runs this PECE core inside the history attempt of
+:mod:`sunode_torch.ops.adams_attempt` (its plain version calls
+:func:`adams_pece_attempt_reference`; its kernel shares the corrector with
+this one through ``csrc/pece_core.cuh``).  ``maxiter=FUNCTIONAL_MAXITER``
+with the main path's ``newton_tol`` is the main-path corrector;
+``maxiter=FUNCTIONAL_ITERS`` with ``newton_tol=0`` turns the rate tests off
+and runs the TPU kernel's fixed sweeps.
 """
 
 from __future__ import annotations

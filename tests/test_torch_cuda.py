@@ -1,5 +1,6 @@
-"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernels against their plain
-versions and each other, and the CUDA main path against the CPU one.
+"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
+kernel against their plain versions and each other, and the CUDA main path
+against the CPU one.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -14,7 +15,11 @@ import torch
 from sunode_torch.adjoint import transition_fz
 from sunode_torch.entry import build_lv_adjoint, lv_problem
 from sunode_torch.experiments import exp_pece2d
-from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+from sunode_torch.ops.adams import _GAMMA_STAR, FUNCTIONAL_MAXITER
+from sunode_torch.ops.adams_attempt import (
+    adams_history_attempt,
+    adams_history_attempt_reference,
+)
 from sunode_torch.ops.pece_2d import pece_2d_attempt, pece_2d_reference
 from sunode_torch.ops.pece_step import (
     PeceSystem,
@@ -96,15 +101,78 @@ def test_kernel_refuses_bad_inputs(cuda):
         adams_pece_attempt(no_device, *_case(system, cuda, 1))
 
 
+def _history_case(system, device, seed):
+    """_case plus the step ratio (log-uniform in [0.2, 2]), |gamma*|, the
+    error weights and P_MAX = 6 (KAB = 9), in the history attempt's order."""
+    t_new, h, p, active, DF, z_prev, params, atol_z, rtol_z, tol, maxiter = _case(
+        system, device, seed
+    )
+    rng = np.random.default_rng(100 + seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    n, nz = system.n, system.nz
+    v_err = (np.full(n, 1.0 / n) if nz == n else
+             np.concatenate([np.full(n, 0.5 / n), np.full(nz - n, 0.5 / (nz - n))]))
+    return [
+        t_new, h, torch.as_tensor(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B)), **f64),
+        p, active, DF, z_prev, params, atol_z, rtol_z,
+        torch.as_tensor(np.abs(_GAMMA_STAR), **f64), torch.as_tensor(v_err, **f64),
+        tol, maxiter, 6,
+    ]
+
+
+@pytest.mark.parametrize("kind", ["forward", "transition"])
+def test_history_kernel_matches_plain(cuda, kind):
+    system = _system(kind)
+    args = _history_case(system, cuda, 2)
+    before = adams_history_attempt.launches
+    got = adams_history_attempt(system, *args)
+    ref = adams_history_attempt_reference(system, *args)
+    torch.cuda.synchronize()
+    assert adams_history_attempt.launches == before + 1
+    # the card's plain version divides by a scalar as a multiply by its
+    # reciprocal; FMA contraction in the corrector; the RHS's own rounding
+    for name in ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
+    assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+
+
+def test_history_kernel_refuses_bad_inputs(cuda):
+    system = _system("transition")
+    good = _history_case(system, cuda, 3)
+    bad_cases = {
+        "DF": good[5][:, :4],  # rows of another system
+        "p": good[3].long(),  # int64 orders
+        "v_err": good[11][:-1],  # one weight short
+        "pre_factor": good[2].float(),  # float32
+        "z_prev": good[6].t().contiguous().t(),  # non-contiguous
+    }
+    where = {"pre_factor": 2, "p": 3, "DF": 5, "z_prev": 6, "v_err": 11}
+    for name, value in bad_cases.items():
+        args = list(good)
+        args[where[name]] = value
+        with pytest.raises(ValueError, match=f"^{name}:"):
+            adams_history_attempt(system, *args)
+    deeper = list(good)
+    deeper[-1] = 7  # P_MAX 7 needs a history of 10 rows
+    with pytest.raises(ValueError, match="P_MAX"):
+        adams_history_attempt(system, *deeper)
+    no_device = PeceSystem(fz=system.fz, n=system.n, nz=system.nz)
+    with pytest.raises(ValueError, match="device system"):
+        adams_history_attempt(no_device, *good)
+
+
 def test_cuda_main_path_matches_cpu(cuda):
     step_c, (y0s, p_subs) = build_lv_adjoint(batch=8, tvals_n=5, rtol=1e-8, device=cuda)
     step_h, _ = build_lv_adjoint(batch=8, tvals_n=5, rtol=1e-8, device="cpu")
-    launches = adams_pece_attempt.launches
+    launches = adams_history_attempt.launches
+    pece_launches = adams_pece_attempt.launches
     gy, gp = step_c(y0s, p_subs)
     hy, hp = step_h(y0s.cpu(), p_subs.cpu())
     stats = step_c.solve.last_stats
     attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
-    assert adams_pece_attempt.launches - launches == attempts > 0
+    assert adams_history_attempt.launches - launches == attempts > 0
+    assert adams_pece_attempt.launches == pece_launches
     np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
     np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
 
