@@ -33,7 +33,22 @@ Phases, one line each; any failure exits non-zero:
      share; every lane finite, lanes 0-15 inside the golden gate
      (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), and the same lanes
      against the plain path on the CPU within 1e-6;
-  5. the kernel table and the result line.  Each kernel's bound is the
+  5. stiff BDF: bench.py's Robertson workload at B=10,000 (8 observation
+     times to 4e6, rtol 1e-8, atol [1e-10, 1e-12, 1e-10]) through
+     ``make_batched_solve_fn(method='BDF', derivatives=None)``: one warm-up
+     and two timed solves, then one under the profiler for the device
+     kernels per attempt and the device-busy share; status 0 in every lane
+     (finite ys after the wrapper's NaN poisoning), lanes 0-15 inside the
+     golden gate (tests/golden/robertson.npz, rtol 2e-5, atol 1e-10) and
+     against the plain path on the CPU within 1e-6 relative (floored at the
+     solver's atol); no kernel of the package launches on this path;
+  5b. BDF forward sensitivities: the Lotka-Volterra problem of
+     tests/golden/lv_sens.npz (sensitivities to alpha and beta, S0 = 0, rtol
+     and atol 1e-9) at B=10,000, lanes 0-15 the fixture's and the rest a
+     seeded 5% spread around them, through ``bdf_solve_batched``; status 0
+     in every lane, lanes 0-15 inside the fixture's gate (ys rtol 1e-6 /
+     atol 1e-8, sens rtol 2e-4 / atol 5e-4);
+  6. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
@@ -103,7 +118,7 @@ def pece_inputs(system, B, seed, device):
     import torch
 
     from sunode_torch.entry import lv_options
-    from sunode_torch.ops.adams_batched import newton_tol_for
+    from sunode_torch.ops.bdf import newton_tol_for
 
     rng = np.random.default_rng(seed)
     KAB, n, nz = P_MAX + 3, system.n, system.nz
@@ -389,10 +404,23 @@ def pece_2d_phase(smi):
     )
 
 
-def device_kernels_per_attempt(grad_step, y0s_t, p_subs_t) -> dict:
-    """One gradient step under the profiler: the device kernels it ran (and
-    its copies and fills, counted apart) per attempt, and its device-busy
-    time against its wall time under the profiler."""
+def kernel_class(name: str) -> str:
+    """A device kernel's kind, from its name: copy, matmul, LU (the batched
+    factorisation and triangular solves), reduction, element-wise, other."""
+    low = name.lower()
+    for cls, keys in (("copy", ("memcpy", "memset")), ("matmul", ("gemm",)),
+                      ("LU", ("getrf", "getrs", "trsm", "lu_", "pivot", "laswp")),
+                      ("reduction", ("reduce",)), ("element-wise", ("elementwise",))):
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def device_kernels_per_attempt(run, attempts) -> dict:
+    """``run()`` once under the profiler: the device kernels it ran (and its
+    copies and fills, counted apart) per attempt, ``attempts()`` read after
+    the run, and its device-busy time against its wall time under the
+    profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -400,13 +428,13 @@ def device_kernels_per_attempt(grad_step, y0s_t, p_subs_t) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        grad_step(y0s_t, p_subs_t)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    stats = grad_step.solve.last_stats
-    attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+    attempts = attempts()
     kernels = copies = 0
     busy_us = 0.0
+    by_class: dict[str, list] = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -414,9 +442,128 @@ def device_kernels_per_attempt(grad_step, y0s_t, p_subs_t) -> dict:
             copies += 1
         else:
             kernels += 1
-        busy_us += e.time_range.elapsed_us()
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        entry = by_class.setdefault(kernel_class(e.name), [0, 0.0])
+        entry[0] += 1
+        entry[1] += us
     return dict(attempts=attempts, kernels=kernels, copies=copies,
-                per_attempt=kernels / attempts, busy_s=busy_us / 1e6, wall_s=wall)
+                per_attempt=kernels / attempts, busy_s=busy_us / 1e6, wall_s=wall,
+                by_class={c: (n / attempts, us / 1e3) for c, (n, us) in
+                          sorted(by_class.items(), key=lambda kv: -kv[1][1])})
+
+
+def robertson_rel(got, ref, atol) -> float:
+    """max |got - ref| / (|ref| + atol), the solver's atol per state floor."""
+    return float(np.max(np.abs(got - ref) / (np.abs(ref) + atol)))
+
+
+def bdf_robertson_phase(smi) -> None:
+    """Phase 5: bench.py's Robertson workload through the BDF wrapper."""
+    import torch
+
+    from sunode_torch.entry import build_robertson
+
+    solve, inputs = build_robertson(B_MAIN, device="cuda")
+    golden = np.load(os.path.join(HERE, "tests", "golden", "robertson.npz"))
+    atol = np.asarray(solve.options.atol)
+
+    def run():
+        return solve(0.0, *inputs)
+
+    ys = run()  # warm-up
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    stats = solve.last_stats["forward"]
+    attempts = stats["n_attempts"]
+    steps = stats["n_steps"].cpu().numpy()
+    for i, wall in enumerate(walls):
+        log(
+            f"[bdf robertson solve {i}] B={B_MAIN} wall_s={wall:.4f} "
+            f"us_per_solve={1e6 * wall / B_MAIN:.2f} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
+            f"| {smi}"
+        )
+    prof = device_kernels_per_attempt(run, lambda: solve.last_stats["forward"]["n_attempts"])
+    log(
+        f"[bdf robertson stats] n_attempts={attempts} n_steps min/median/max="
+        f"{steps.min()}/{int(np.median(steps))}/{steps.max()} "
+        f"n_jac_evals max={int(stats['n_jac_evals'].max())} "
+        f"n_factorizations max={int(stats['n_factorizations'].max())}"
+    )
+    log(
+        f"[bdf robertson device kernels per attempt] {prof['per_attempt']:.1f} "
+        f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+        f"{prof['attempts']} attempts in one solve) device_busy_s={prof['busy_s']:.4f} "
+        f"wall_s_under_profiler={prof['wall_s']:.4f} "
+        f"device_busy_share={prof['busy_s'] / min(walls):.4f} (of the faster timed solve) | {smi}"
+    )
+    log("[bdf robertson device kernels by kind] (kind: per attempt, device ms in the solve) "
+        + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+
+    ys_np = ys.cpu().numpy()
+    finite = int(np.isfinite(ys_np).all(axis=(1, 2)).sum())
+    never_fatal = int((stats["error_order"] == -1).sum())
+    if not (ys_np.shape == (B_MAIN, 8, 3) and finite == B_MAIN and never_fatal == B_MAIN):
+        raise SystemExit(
+            f"chip_smoke: Robertson lanes failed ({finite} finite, {never_fatal} never fatal, "
+            f"of {B_MAIN})"
+        )
+    np.testing.assert_allclose(ys_np[:16], golden["ys"], rtol=2e-5, atol=1e-10)
+    gold_rel = robertson_rel(ys_np[:16], golden["ys"], atol)
+    cpu_solve, cpu_inputs = build_robertson(16, device="cpu")
+    plain_rel = robertson_rel(ys_np[:16], cpu_solve(0.0, *cpu_inputs).numpy(), atol)
+    log(
+        f"[bdf robertson check] status 0 in {finite}/{B_MAIN} lanes; golden_max_rel={gold_rel:.3e} "
+        f"(gate 2e-5, atol 1e-10) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (bound 1e-6)"
+    )
+    if not plain_rel <= 1e-6:
+        raise SystemExit("chip_smoke: the CUDA BDF solve disagrees with the plain path")
+
+
+def bdf_sens_phase(smi) -> None:
+    """Phase 5b: BDF forward sensitivities of Lotka-Volterra at full width."""
+    import torch
+
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.ops.bdf import BDFOptions
+    from sunode_torch.ops.bdf_batched import bdf_solve_batched
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "lv_sens.npz"))
+    rng = np.random.default_rng(5)
+    around = rng.integers(0, 16, B_MAIN - 16)
+    spread = lambda a: a[around] * (1 + 0.05 * rng.standard_normal((B_MAIN - 16, a.shape[1])))  # noqa: E731
+    f64 = dict(dtype=torch.float64, device="cuda")
+    y0s = torch.as_tensor(np.concatenate([g["y0s"], spread(g["y0s"])]), **f64)
+    ps = torch.as_tensor(np.concatenate([g["ps"], spread(g["ps"])]), **f64)
+    problem = lv_problem()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bdf_solve_batched(
+        problem.make_rhs(), problem.make_jac_dense(), 0.0, y0s, ps,
+        torch.as_tensor(g["tvals"], **f64), BDFOptions(rtol=1e-9, atol=1e-9),
+        sens_rhs=problem.make_sensitivity_rhs(), S0=torch.zeros((B_MAIN, 2, 2), **f64),
+        batched_fns=True,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok = int((res.status == 0).sum())
+    ys, sens = res.ys.cpu().numpy(), res.sens.cpu().numpy()
+    log(
+        f"[bdf sens] B={B_MAIN} k=2 wall_s={wall:.4f} us_per_solve={1e6 * wall / B_MAIN:.2f} "
+        f"n_attempts={res.stats['n_attempts']} status 0 in {ok}/{B_MAIN} lanes "
+        f"finite={int(np.isfinite(sens).all(axis=(1, 2, 3)).sum())} "
+        f"golden_max_abs ys={np.abs(ys[:16] - g['ys']).max():.3e} "
+        f"sens={np.abs(sens[:16] - g['sens']).max():.3e} | {smi}"
+    )
+    if ok != B_MAIN:
+        raise SystemExit(f"chip_smoke: BDF sensitivities failed in {B_MAIN - ok} lanes")
+    np.testing.assert_allclose(ys[:16], g["ys"], rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(sens[:16], g["sens"], rtol=2e-4, atol=5e-4)
 
 
 def main() -> None:
@@ -427,7 +574,7 @@ def main() -> None:
     from sunode_torch.adjoint import transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
     from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
-    from sunode_torch.ops.pece_2d import P_ORDER, lv_system, build_pece_2d
+    from sunode_torch.ops.pece_2d import P_ORDER, build_pece_2d, lv_system, pece_2d_attempt
     from sunode_torch.ops.pece_step import adams_pece_attempt, build_kernel
     from sunode_torch.symode import cuda_codegen
 
@@ -515,7 +662,11 @@ def main() -> None:
     if adams_pece_attempt.launches != 0 or any(pece_launches.values()):
         raise SystemExit("chip_smoke: the main path launched the PECE kernel")
 
-    prof = device_kernels_per_attempt(grad_step, y0s_t, p_subs_t)
+    def step_attempts():
+        stats = grad_step.solve.last_stats
+        return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+
+    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), step_attempts)
     log(
         f"[main-path device kernels per attempt] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
@@ -552,6 +703,18 @@ def main() -> None:
     )
     if not plain_rel <= 1e-6:
         raise SystemExit("chip_smoke: the CUDA main path disagrees with the plain path")
+
+    # phases 5 and 5b: the BDF paths, which launch none of the kernels
+    counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
+               *history_kernels.values(), pece_2d_attempt, build_pece_2d(P_ORDER))
+    for k in counted:
+        k.launches = 0
+    bdf_robertson_phase(smi)
+    bdf_sens_phase(smi)
+    bdf_launches = [k.launches for k in counted]
+    log(f"[bdf launches of the package's kernels] {bdf_launches}")
+    if any(bdf_launches):
+        raise SystemExit("chip_smoke: a BDF phase launched an Adams kernel")
 
     entries = [
         dict(

@@ -7,11 +7,14 @@ never jax, works in float64 per tensor and changes no global torch state
   * :class:`ParamSpec` -- named nested states/params as flat vectors;
   * :class:`SympyProblem` -- an ODE declared in sympy;
   * :func:`make_batched_solve_fn` -- the batched Adams solve with
-    transition-adjoint gradients through ``torch.autograd``.
+    transition-adjoint gradients through ``torch.autograd``, and the
+    batched BDF forward solve (``method='BDF'``, ``derivatives=None``).
 
-On CUDA tensors every Adams attempt runs the hand-written PECE kernel
-(``sunode_torch/csrc/pece_step.cu``); on CPU tensors the plain PyTorch
-version of the same math runs instead.
+On CUDA tensors the history half of every Adams attempt runs the
+hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``; on CPU tensors
+the plain PyTorch version of the same math runs instead.  The BDF core
+(:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities included) is
+torch code with a ``torch.linalg`` Newton solve on either device.
 """
 
 from sunode_torch.paramspec import ParamSpec, Record

@@ -1,13 +1,17 @@
-"""The main-path workload: batched Lotka-Volterra adjoint gradients.
+"""The workloads: batched Lotka-Volterra adjoint gradients, stiff Robertson.
 
-Port of ``__graft_entry__._build`` (method ADAMS): a Lotka-Volterra
-``SympyProblem`` (2 states, 4 params, derivatives w.r.t. alpha and beta),
-the batched Adams forward solve and transition-adjoint gradients of
-``sum(ys**2)``, with the same options as the reference workload:
+:func:`build_lv_adjoint` is the port of ``__graft_entry__._build`` (method
+ADAMS): a Lotka-Volterra ``SympyProblem`` (2 states, 4 params, derivatives
+w.r.t. alpha and beta), the batched Adams forward solve and
+transition-adjoint gradients of ``sum(ys**2)``, with the same options as
+the reference workload:
 
   * forward: rtol = atol = ``rtol``, ``adams_max_order=6``;
   * backward: the seminorm layout, rtol ``10*rtol`` on the y rows and 1e-3
     on the M rows, quadrature rtol/atol 1e-3, ``adams_max_order=6``.
+
+:func:`build_robertson` is ``bench.py``'s Robertson workload: stiff
+three-species kinetics solved with batched BDF from t=0 to 4e6.
 """
 
 from __future__ import annotations
@@ -20,7 +24,16 @@ from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
-__all__ = ["lv_problem", "lv_options", "build_lv_adjoint", "LV_P_FIX"]
+__all__ = [
+    "lv_problem",
+    "lv_options",
+    "build_lv_adjoint",
+    "LV_P_FIX",
+    "robertson_problem",
+    "robertson_options",
+    "build_robertson",
+    "ROBERTSON_K",
+]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
 
@@ -90,3 +103,55 @@ def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cuda"):
     y0s = np.array([10.0, 2.0]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
     p_subs = np.array([1.0, 0.3]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
     return grad_step, (torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64))
+
+
+ROBERTSON_K = (0.04, 3e7, 1e4)  # k1, k2, k3
+
+
+def _robertson(t, y, p):
+    r1 = p.k1 * y.a
+    r2 = p.k2 * y.b * y.b
+    r3 = p.k3 * y.b * y.c
+    return {"a": -r1 + r3, "b": r1 - r2 - r3, "c": r2}
+
+
+def robertson_problem() -> SympyProblem:
+    """Robertson's stiff kinetics (``bench.py:446-458``).  All three rates are
+    derivative params, so that the batched solve takes them per lane
+    (``p_sub (B, 3)``, an empty ``p_fix``); the right-hand side is the same."""
+    return SympyProblem(
+        params={"k1": (), "k2": (), "k3": ()},
+        states={"a": (), "b": (), "c": ()},
+        rhs_sympy=_robertson,
+        derivative_params=[("k1",), ("k2",), ("k3",)],
+    )
+
+
+def robertson_options() -> BDFOptions:
+    """rtol 1e-8, atol ``[1e-10, 1e-12, 1e-10]`` (``bench.py:466``)."""
+    return BDFOptions(rtol=1e-8, atol=np.array([1e-10, 1e-12, 1e-10]))
+
+
+def build_robertson(batch: int, device="cuda"):
+    """``(solve, (y0s, p_subs, p_fix, tvals))``: ``solve(0.0, *inputs)`` is
+    one batched BDF solve of ``bench.py``'s Robertson workload, ``ys (B, 8,
+    3)`` with NaN on failed lanes; ``solve.last_stats['forward']`` holds its
+    stats.  Inputs: ``y0 = [1, 0, 0]``, ``tvals = 4 * 10**k`` for k = -1..6,
+    and rates ``ROBERTSON_K`` with a 2% spread from ``default_rng(42)``, so
+    lanes 0-15 are those of ``tests/golden/robertson.npz``.  It runs on the
+    card unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    solve = make_batched_solve_fn(
+        robertson_problem(), derivatives=None, options=robertson_options(), method="BDF"
+    )
+    f64 = dict(dtype=torch.float64, device=device)
+    rng = np.random.default_rng(42)
+    ps = np.array(ROBERTSON_K) * (1 + 0.02 * rng.standard_normal((batch, 3)))
+    y0s = np.tile([1.0, 0.0, 0.0], (batch, 1))
+    tvals = np.array([4.0 * 10.0**k for k in range(-1, 7)])
+    return solve, (
+        torch.as_tensor(y0s, **f64),
+        torch.as_tensor(ps, **f64),
+        torch.zeros((0,), **f64),
+        torch.as_tensor(tvals, **f64),
+    )

@@ -38,29 +38,14 @@ from sunode_torch.ops.bdf import (
     THRESH,
     BDFOptions,
     BDFResult,
+    _unsupported,
+    newton_tol_for,
 )
 from sunode_torch.ops.adams_attempt import adams_history_attempt
 from sunode_torch.ops.pece_step import PeceSystem
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
-__all__ = ["adams_solve_batched", "newton_tol_for"]
-
-
-def newton_tol_for(options: BDFOptions, rtol_s: float, dtype: torch.dtype) -> float:
-    """Corrector convergence tolerance of the main path
-    (``sunode_tpu/ops/adams_batched.py:249-251``)."""
-    eps = torch.finfo(dtype).eps
-    return float(options.newton_tol_factor) * max(
-        10 * eps / rtol_s, min(0.03, float(np.sqrt(rtol_s)))
-    )
-
-
-def _unsupported(**kwargs):
-    for name, value in kwargs.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"adams_solve_batched: {name} is not ported to sunode_torch yet"
-            )
+__all__ = ["adams_solve_batched"]
 
 
 def adams_solve_batched(
@@ -88,7 +73,7 @@ def adams_solve_batched(
     emitted for the CUDA kernel (``symode/cuda_codegen.py``); a solve on CUDA
     tensors requires it."""
     _unsupported(
-        sens_rhs=sens_rhs, root_fn=root_fn, inject_times=inject_times,
+        "adams_solve_batched", sens_rhs=sens_rhs, root_fn=root_fn, inject_times=inject_times,
         stage_fn=stage_fn,
     )
     if int(options.save_steps) > 0:

@@ -1,9 +1,11 @@
-"""Solver options, result container and step-control constants.
+"""Solver options, result container, step-control and BDF constants.
 
-The shared pieces of ``sunode_tpu/ops/bdf.py`` that the batched Adams core
-reads: ``BDFOptions`` (same fields and defaults, so options carry over
-field by field), ``BDFResult``, the status codes and the step-size
-controller constants.  The BDF integrator itself is not ported yet.
+The shared pieces of ``sunode_tpu/ops/bdf.py`` that the batched cores read:
+``BDFOptions`` (same fields and defaults, so options carry over field by
+field), ``BDFResult``, the status codes, the step-size controller constants
+and the BDF/NDF order constants (:func:`_order_constants`).  The batched BDF
+integrator is :mod:`sunode_torch.ops.bdf_batched`; the single-instance
+``bdf_solve`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,9 +23,17 @@ __all__ = [
     "MAX_FACTOR",
     "THRESH",
     "MAX_CONSECUTIVE_FAILS",
+    "MAX_ORDER",
+    "KD",
+    "NEWTON_MAXITER",
+    "SENS_MAXITER",
+    "newton_tol_for",
 ]
 
 MAX_ORDER = 5
+KD = MAX_ORDER + 3  # rows of the difference array: D[0..q+2] needed
+NEWTON_MAXITER = 4
+SENS_MAXITER = 3
 MIN_FACTOR = 0.2
 MAX_FACTOR = 10.0
 # CVODES-style hysteresis: don't change h unless the proposed factor is
@@ -41,11 +51,21 @@ STATUS = {
 }
 
 
+def _unsupported(core: str, **kwargs):
+    """Raise for the first argument given (not None) that ``core`` has not
+    ported yet, naming it."""
+    for name, value in kwargs.items():
+        if value is not None:
+            raise NotImplementedError(f"{core}: {name} is not ported to sunode_torch yet")
+
+
 class BDFOptions(NamedTuple):
     """Field-for-field copy of ``sunode_tpu.ops.bdf.BDFOptions``; see there
     for what each field does.  The batched Adams core of this package reads
     the tolerances, step bounds, ``max_steps``, ``newton_tol_factor``,
-    ``adams_max_order``, ``constraints`` and the quadrature fields."""
+    ``adams_max_order``, ``constraints`` and the quadrature fields; the
+    batched BDF core also ``max_order``, ``use_ndf``, ``first_step`` and the
+    sensitivity fields ``sens_err_con`` and ``sens_pbar``."""
 
     rtol: Any = 1e-8
     atol: Any = 1e-8
@@ -76,6 +96,15 @@ class BDFOptions(NamedTuple):
     hermite_order: int = 5
 
 
+def newton_tol_for(options: BDFOptions, rtol_s: float, dtype: torch.dtype) -> float:
+    """Corrector convergence tolerance of both batched cores
+    (``sunode_tpu/ops/adams_batched.py:249-251``, ``bdf_batched.py:459-461``)."""
+    eps = torch.finfo(dtype).eps
+    return float(options.newton_tol_factor) * max(
+        10 * eps / rtol_s, min(0.03, float(np.sqrt(rtol_s)))
+    )
+
+
 class BDFResult(NamedTuple):
     ys: torch.Tensor  # (B, n_t, n) solution at tvals (NaN where failed)
     status: torch.Tensor  # (B,) int32 status code
@@ -83,3 +112,21 @@ class BDFResult(NamedTuple):
     saved: Optional[dict]  # recorded steps (not ported: always None)
     sens: Optional[torch.Tensor] = None
     quad: Optional[torch.Tensor] = None  # (B, n_t, m)
+
+
+def _order_constants(use_ndf: bool, dtype: torch.dtype, device=None):
+    """``(gamma, alpha, error_const)``, each ``(MAX_ORDER + 1,)``, of the BDF
+    (or, with ``use_ndf``, the NDF(kappa)) formulas of orders 0..5; the
+    numbers of ``sunode_tpu/ops/bdf.py::_order_constants``."""
+    k = np.arange(1, MAX_ORDER + 1)
+    gamma = np.concatenate([[0.0], np.cumsum(1.0 / k)])  # gamma[q], q=0..5
+    if use_ndf:
+        kappa = np.array([0.0, -0.1850, -1 / 9, -0.0823, -0.0415, 0.0])
+    else:
+        kappa = np.zeros(MAX_ORDER + 1)
+    alpha = (1 - kappa) * gamma
+    alpha[0] = 1.0  # unused; avoid div-by-zero
+    error_const = kappa * gamma + 1.0 / np.arange(1, MAX_ORDER + 2)
+    return tuple(
+        torch.as_tensor(a, dtype=dtype, device=device) for a in (gamma, alpha, error_const)
+    )

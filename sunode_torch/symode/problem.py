@@ -23,6 +23,7 @@ from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import sympy as sy
+import torch
 
 from sunode_torch import problem as problem_mod
 from sunode_torch.symode.lambdify import lambdify_torch
@@ -209,6 +210,23 @@ class SympyProblem(problem_mod.Problem):
     def make_dfdp(self) -> Callable:
         """Generated df/dp_subset: ``-> (n, n_deriv, ...)``."""
         return self._lower("dfdp", ["_t", "_y", "_p"], self._sym_dydp)
+
+    def make_sensitivity_rhs(self) -> Callable:
+        """Forward sensitivities ``dS/dt = S J^T + (df/dp)^T`` composed from the
+        generated J and df/dp, as ``sunode_tpu``'s ``make_sensitivity_rhs``
+        composes them, on trailing-batch tensors: ``(t (B,), y (n, B),
+        S (k, n, B), p (n_p, B)) -> (k, n, B)``, k the derivative subset."""
+        jac = self.make_jac_dense()
+        dfdp = self.make_dfdp()
+
+        def sensitivity_rhs(t, y, S, p):
+            k, n = S.shape[:2]
+            batch = tuple(S.shape[2:])
+            J = torch.broadcast_to(jac(t, y, p), (n, n) + batch)  # constant entries too
+            dfdp_T = torch.broadcast_to(dfdp(t, y, p), (n, k) + batch).transpose(0, 1)
+            return torch.einsum("kj...,ij...->ki...", S, J) + dfdp_T
+
+        return sensitivity_rhs
 
     def make_adjoint_rhs(self) -> Callable:
         """Generated -lam^T J: ``(t, y, lam, p) -> (n, ...)``."""

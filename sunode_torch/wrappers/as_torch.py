@@ -2,10 +2,13 @@
 
 Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn`` for
 ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
-``adjoint_interpolation='transition'``: the forward pass is the batched
-Adams solve, the backward pass the transition-matrix adjoint.  On CUDA
-tensors both solves run every attempt through the PECE kernel, built from
-the problem's right-hand side (``symode/cuda_codegen.py``) at first use.
+``adjoint_interpolation='transition'``, and for ``method='BDF'`` with
+``derivatives=None``.  The ADAMS forward pass is the batched Adams solve,
+its backward pass the transition-matrix adjoint; on CUDA tensors both
+solves run every attempt through the history-attempt kernel, built from the
+problem's right-hand side (``symode/cuda_codegen.py``) at first use.  The
+BDF forward pass is the batched BDF solve (``ops/bdf_batched.py``), torch
+code with a ``torch.linalg`` Newton solve on either device.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from sunode_torch.adjoint import adjoint_backward_transition_batched
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import Problem
 from sunode_torch.symode import cuda_codegen
 
@@ -34,12 +38,15 @@ class BatchedSolve:
     through ``torch.autograd``.  ``last_stats`` holds the stats of the latest
     forward (``'forward'``) and backward (``'backward'``) solves."""
 
-    def __init__(self, problem: Problem, derivatives, options, adjoint_options):
+    def __init__(self, problem: Problem, derivatives, options, adjoint_options,
+                 method: str = "ADAMS"):
         self.problem = problem
         self.derivatives = derivatives
         self.options = options
         self.adjoint_options = adjoint_options
+        self.method = method
         self.rhs = problem.make_rhs()
+        self.jac = problem.make_jac_dense() if method == "BDF" else None
         self.n_deriv = problem.n_params
         self.last_stats: dict = {}
         self._device_systems: dict[str, cuda_codegen.DeviceSystem] = {}
@@ -62,11 +69,16 @@ class BatchedSolve:
         return self.problem.params.combine(p_sub, p_fix_b)
 
     def forward_solve(self, t0, y0, p, tvals):
-        res = adams_solve_batched(
-            self.rhs, t0, y0, p, tvals, self.options,
-            batched_fns=True,
-            device_system=self.device_system("forward", y0.device),
-        )
+        if self.method == "BDF":
+            res = bdf_solve_batched(
+                self.rhs, self.jac, t0, y0, p, tvals, self.options, batched_fns=True
+            )
+        else:
+            res = adams_solve_batched(
+                self.rhs, t0, y0, p, tvals, self.options,
+                batched_fns=True,
+                device_system=self.device_system("forward", y0.device),
+            )
         self.last_stats["forward"] = res.stats
         return res
 
@@ -149,15 +161,16 @@ def make_batched_solve_fn(
     linear_solver_kwargs: Optional[dict] = None,
 ) -> BatchedSolve:
     """Batch-native differentiable solver; same signature as the JAX
-    package's.  Ported so far: ``method='ADAMS'``, ``derivatives=None`` or
-    ``'adjoint'`` with ``adjoint_interpolation='transition'``, dense linear
-    algebra.  Anything else raises ``NotImplementedError``;
-    ``checkpoint_n`` is accepted and unused, as in the reference's
-    transition mode (which records no checkpoints)."""
+    package's.  Ported so far: ``method='ADAMS'`` with ``derivatives=None``
+    or ``'adjoint'`` and ``adjoint_interpolation='transition'``, and
+    ``method='BDF'`` with ``derivatives=None`` (the forward solve; failed
+    lanes come back NaN), both with dense linear algebra.  Anything else
+    raises ``NotImplementedError``: the BDF adjoint needs the checkpointed
+    adjoint, which is not ported yet.  ``checkpoint_n`` is accepted and
+    unused, as in the reference's transition mode (which records no
+    checkpoints)."""
     if method not in ("BDF", "ADAMS"):
         raise ValueError("method must be 'BDF' or 'ADAMS'")
-    if method != "ADAMS":
-        raise NotImplementedError("sunode_torch: only method='ADAMS' is ported yet")
     if linear_solver != "dense" or linear_solver_kwargs:
         raise NotImplementedError("sunode_torch: only dense linear algebra is ported yet")
     if derivatives not in (None, "adjoint"):
@@ -170,10 +183,19 @@ def make_batched_solve_fn(
                 f"adjoint_interpolation must be 'hermite', 'polynomial', "
                 f"'resolve' or 'transition', got {adjoint_interpolation!r}"
             )
+        if adjoint_interpolation in ("resolve", "transition") and method != "ADAMS":
+            raise ValueError(
+                f"adjoint_interpolation={adjoint_interpolation!r} requires method='ADAMS'"
+            )
+        if method != "ADAMS":
+            raise NotImplementedError(
+                "sunode_torch: method='BDF' with derivatives='adjoint' needs the "
+                "checkpointed adjoint, which is not ported yet"
+            )
         if adjoint_interpolation != "transition":
             raise NotImplementedError(
                 "sunode_torch: only adjoint_interpolation='transition' is ported yet"
             )
     if adjoint_options is None:
         adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)
-    return BatchedSolve(problem, derivatives, options, adjoint_options)
+    return BatchedSolve(problem, derivatives, options, adjoint_options, method)

@@ -1,6 +1,6 @@
 """sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
 kernel against their plain versions and each other, and the CUDA main path
-against the CPU one.
+and the batched BDF solve against the CPU ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from sunode_torch.adjoint import transition_fz
-from sunode_torch.entry import build_lv_adjoint, lv_problem
+from sunode_torch.entry import build_lv_adjoint, build_robertson, lv_problem
 from sunode_torch.experiments import exp_pece2d
 from sunode_torch.ops.adams import _GAMMA_STAR, FUNCTIONAL_MAXITER
 from sunode_torch.ops.adams_attempt import (
@@ -175,6 +175,20 @@ def test_cuda_main_path_matches_cpu(cuda):
     assert adams_pece_attempt.launches == pece_launches
     np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
     np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
+
+
+def test_cuda_bdf_robertson_matches_cpu(cuda):
+    """Stiff Robertson, the 16 golden lanes, through the BDF wrapper: no
+    kernel of the package runs, only torch code and torch.linalg's LU."""
+    solve_c, inputs = build_robertson(16, device=cuda)
+    solve_h, inputs_h = build_robertson(16, device="cpu")
+    launches = adams_history_attempt.launches
+    ys_c = solve_c(0.0, *inputs).cpu().numpy()
+    ys_h = solve_h(0.0, *inputs_h).numpy()
+    assert adams_history_attempt.launches == launches
+    assert np.isfinite(ys_c).all()
+    assert solve_c.last_stats["forward"]["n_attempts"] > 0
+    np.testing.assert_allclose(ys_c, ys_h, rtol=1e-6, atol=1e-12)
 
 
 def test_pece_2d_kernel_matches_plain_and_kernel1(cuda):
