@@ -47,7 +47,8 @@ Phases, one line each; any failure exits non-zero:
      and atol 1e-9) at B=10,000, lanes 0-15 the fixture's and the rest a
      seeded 5% spread around them, through ``bdf_solve_batched``; status 0
      in every lane, lanes 0-15 inside the fixture's gate (ys rtol 1e-6 /
-     atol 1e-8, sens rtol 2e-4 / atol 5e-4);
+     atol 1e-8, sens rtol 2e-4 / atol 5e-4) and, ys and sens, against the
+     plain path on the CPU within 1e-6 relative (floored at atol 1e-9);
   6. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
@@ -453,8 +454,8 @@ def device_kernels_per_attempt(run, attempts) -> dict:
                           sorted(by_class.items(), key=lambda kv: -kv[1][1])})
 
 
-def robertson_rel(got, ref, atol) -> float:
-    """max |got - ref| / (|ref| + atol), the solver's atol per state floor."""
+def floored_rel(got, ref, atol) -> float:
+    """max |got - ref| / (|ref| + atol), floored at the solver's atol."""
     return float(np.max(np.abs(got - ref) / (np.abs(ref) + atol)))
 
 
@@ -500,7 +501,7 @@ def bdf_robertson_phase(smi) -> None:
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
         f"{prof['attempts']} attempts in one solve) device_busy_s={prof['busy_s']:.4f} "
         f"wall_s_under_profiler={prof['wall_s']:.4f} "
-        f"device_busy_share={prof['busy_s'] / min(walls):.4f} (of the faster timed solve) | {smi}"
+        f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled solve) | {smi}"
     )
     log("[bdf robertson device kernels by kind] (kind: per attempt, device ms in the solve) "
         + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
@@ -514,9 +515,9 @@ def bdf_robertson_phase(smi) -> None:
             f"of {B_MAIN})"
         )
     np.testing.assert_allclose(ys_np[:16], golden["ys"], rtol=2e-5, atol=1e-10)
-    gold_rel = robertson_rel(ys_np[:16], golden["ys"], atol)
+    gold_rel = floored_rel(ys_np[:16], golden["ys"], atol)
     cpu_solve, cpu_inputs = build_robertson(16, device="cpu")
-    plain_rel = robertson_rel(ys_np[:16], cpu_solve(0.0, *cpu_inputs).numpy(), atol)
+    plain_rel = floored_rel(ys_np[:16], cpu_solve(0.0, *cpu_inputs).numpy(), atol)
     log(
         f"[bdf robertson check] status 0 in {finite}/{B_MAIN} lanes; golden_max_rel={gold_rel:.3e} "
         f"(gate 2e-5, atol 1e-10) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (bound 1e-6)"
@@ -525,45 +526,60 @@ def bdf_robertson_phase(smi) -> None:
         raise SystemExit("chip_smoke: the CUDA BDF solve disagrees with the plain path")
 
 
+def lv_sens_solve(problem, y0s, ps, tvals, device):
+    """Phase 5b's solve: BDF with forward sensitivities to alpha and beta,
+    S0 = 0, rtol and atol 1e-9, as tests/golden/lv_sens.npz was made."""
+    import torch
+
+    from sunode_torch.ops.bdf import BDFOptions
+    from sunode_torch.ops.bdf_batched import bdf_solve_batched
+
+    f64 = dict(dtype=torch.float64, device=device)
+    return bdf_solve_batched(
+        problem.make_rhs(), problem.make_jac_dense(), 0.0, torch.as_tensor(y0s, **f64),
+        torch.as_tensor(ps, **f64), torch.as_tensor(tvals, **f64),
+        BDFOptions(rtol=1e-9, atol=1e-9), sens_rhs=problem.make_sensitivity_rhs(),
+        S0=torch.zeros((len(y0s), 2, 2), **f64), batched_fns=True,
+    )
+
+
 def bdf_sens_phase(smi) -> None:
     """Phase 5b: BDF forward sensitivities of Lotka-Volterra at full width."""
     import torch
 
     from sunode_torch.entry import lv_problem
-    from sunode_torch.ops.bdf import BDFOptions
-    from sunode_torch.ops.bdf_batched import bdf_solve_batched
 
     g = np.load(os.path.join(HERE, "tests", "golden", "lv_sens.npz"))
     rng = np.random.default_rng(5)
     around = rng.integers(0, 16, B_MAIN - 16)
     spread = lambda a: a[around] * (1 + 0.05 * rng.standard_normal((B_MAIN - 16, a.shape[1])))  # noqa: E731
-    f64 = dict(dtype=torch.float64, device="cuda")
-    y0s = torch.as_tensor(np.concatenate([g["y0s"], spread(g["y0s"])]), **f64)
-    ps = torch.as_tensor(np.concatenate([g["ps"], spread(g["ps"])]), **f64)
+    y0s = np.concatenate([g["y0s"], spread(g["y0s"])])
+    ps = np.concatenate([g["ps"], spread(g["ps"])])
     problem = lv_problem()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = bdf_solve_batched(
-        problem.make_rhs(), problem.make_jac_dense(), 0.0, y0s, ps,
-        torch.as_tensor(g["tvals"], **f64), BDFOptions(rtol=1e-9, atol=1e-9),
-        sens_rhs=problem.make_sensitivity_rhs(), S0=torch.zeros((B_MAIN, 2, 2), **f64),
-        batched_fns=True,
-    )
+    res = lv_sens_solve(problem, y0s, ps, g["tvals"], "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ok = int((res.status == 0).sum())
     ys, sens = res.ys.cpu().numpy(), res.sens.cpu().numpy()
+    cpu = lv_sens_solve(problem, y0s[:16], ps[:16], g["tvals"], "cpu")
+    plain_rel = max(floored_rel(ys[:16], cpu.ys.numpy(), 1e-9),
+                    floored_rel(sens[:16], cpu.sens.numpy(), 1e-9))
     log(
         f"[bdf sens] B={B_MAIN} k=2 wall_s={wall:.4f} us_per_solve={1e6 * wall / B_MAIN:.2f} "
         f"n_attempts={res.stats['n_attempts']} status 0 in {ok}/{B_MAIN} lanes "
         f"finite={int(np.isfinite(sens).all(axis=(1, 2, 3)).sum())} "
         f"golden_max_abs ys={np.abs(ys[:16] - g['ys']).max():.3e} "
-        f"sens={np.abs(sens[:16] - g['sens']).max():.3e} | {smi}"
+        f"sens={np.abs(sens[:16] - g['sens']).max():.3e} "
+        f"cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (ys and sens, atol 1e-9, bound 1e-6) | {smi}"
     )
     if ok != B_MAIN:
         raise SystemExit(f"chip_smoke: BDF sensitivities failed in {B_MAIN - ok} lanes")
     np.testing.assert_allclose(ys[:16], g["ys"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(sens[:16], g["sens"], rtol=2e-4, atol=5e-4)
+    if not (cpu.status == 0).all() or not plain_rel <= 1e-6:
+        raise SystemExit("chip_smoke: the CUDA BDF sensitivities disagree with the plain path")
 
 
 def main() -> None:

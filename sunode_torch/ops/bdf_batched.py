@@ -12,19 +12,19 @@ Layout: states are ``(rows, B)`` with the lane axis last, the difference
 array ``D`` is ``(KD, nt, B)`` over the combined state ``z = [y | vec S | q]``
 and Newton matrices are ``(n, n, B)``.  The lockstep loop is a host loop, as
 in :mod:`sunode_torch.ops.adams_batched`: one device sync per attempt to see
-whether any lane is active, one per emission sweep, and one to see whether
-any lane needs the breakdown reset.  Every per-lane scalar stays a tensor on
-the device.  The Newton matrices are factored by ``torch.linalg`` (see
-:mod:`sunode_torch.ops.linalg`); the small fixed-size contractions that the
-reference unrolls element by element (the TPU has no f64 matrix unit) are
-``cumprod``, ``einsum`` and ``gather`` here, so sums round in another order
-and results agree with the reference to rounding, not bit for bit.
+whether any lane is active and one per emission sweep.  Every per-lane
+scalar stays a tensor on the device.  The Newton matrices are factored by
+``torch.linalg`` (see :mod:`sunode_torch.ops.linalg`); the small fixed-size
+contractions that the reference unrolls element by element (the TPU has no
+f64 matrix unit) are ``cumprod``, ``einsum`` and ``gather`` here, so sums
+round in another order and results agree with the reference to rounding,
+not bit for bit.
 
 The reference's size rule decides what runs only when a lane needs it: for
-``n <= 4`` the refactorization and the Jacobian refresh run unconditionally
-(cheaper than a sync), above that behind a host check; the Newton and
-sensitivity iterations are unrolled for ``n <= 16`` and stop early once
-every lane is done above that.
+``n <= 4`` the refactorization, the Jacobian refresh and the breakdown
+reset run unconditionally (cheaper than a sync), above that behind a host
+check; the Newton and sensitivity iterations are unrolled for ``n <= 16``
+and stop early once every lane is done above that.
 
 Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
 sensitivities, checkpoint recording (``save_steps``), the band, sparse and
@@ -553,7 +553,7 @@ def bdf_solve_batched(
         h_next = torch.where(active, h_use * factor_next, c["h"])
         q_next = torch.where(accept, q_acc, torch.where(reset, 1, q))
         D_next = torch.where(accept[None, None, :], D_upd, D)
-        if bool(reset.any()):
+        if n <= 4 or bool(reset.any()):  # cheap for tiny systems; no sync
             # D[1] = h * dz/dt at the last accepted point (keeping a possibly
             # corrupted D[1] leaves an h-independent error estimate)
             z_last = D[0]

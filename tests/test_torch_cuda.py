@@ -1,12 +1,15 @@
 """sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
 kernel against their plain versions and each other, and the CUDA main path
-and the batched BDF solve against the CPU ones.
+and the batched BDF solve, with and without sensitivities, against the CPU
+ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +23,8 @@ from sunode_torch.ops.adams_attempt import (
     adams_history_attempt,
     adams_history_attempt_reference,
 )
+from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.ops.pece_2d import pece_2d_attempt, pece_2d_reference
 from sunode_torch.ops.pece_step import (
     PeceSystem,
@@ -189,6 +194,30 @@ def test_cuda_bdf_robertson_matches_cpu(cuda):
     assert np.isfinite(ys_c).all()
     assert solve_c.last_stats["forward"]["n_attempts"] > 0
     np.testing.assert_allclose(ys_c, ys_h, rtol=1e-6, atol=1e-12)
+
+
+def test_cuda_bdf_sensitivities_match_cpu(cuda):
+    """The 16 lanes of lv_sens.npz with forward sensitivities: the Newton
+    solve's multi-right-hand-side LU, make_sensitivity_rhs and the (k, n, B)
+    masking on the card against the CPU, 1e-6 relative floored at the
+    solver's atol of 1e-9."""
+    g = np.load(Path(__file__).parent / "golden" / "lv_sens.npz")
+    problem = lv_problem()
+    out = {}
+    for device in (cuda, "cpu"):
+        f64 = dict(dtype=torch.float64, device=device)
+        res = bdf_solve_batched(
+            problem.make_rhs(), problem.make_jac_dense(), 0.0,
+            torch.as_tensor(g["y0s"], **f64), torch.as_tensor(g["ps"], **f64),
+            torch.as_tensor(g["tvals"], **f64), BDFOptions(rtol=1e-9, atol=1e-9),
+            sens_rhs=problem.make_sensitivity_rhs(), S0=torch.zeros((16, 2, 2), **f64),
+            batched_fns=True,
+        )
+        assert (res.status == 0).all()
+        out[device] = (res.ys.cpu().numpy(), res.sens.cpu().numpy())
+    for got, ref in zip(out[cuda], out["cpu"]):
+        assert np.isfinite(got).all()
+        assert np.max(np.abs(got - ref) / (np.abs(ref) + 1e-9)) <= 1e-6
 
 
 def test_pece_2d_kernel_matches_plain_and_kernel1(cuda):
