@@ -35,8 +35,8 @@ Phases, one line each; any failure exits non-zero:
      against the plain path on the CPU within 1e-6;
   5. stiff BDF: bench.py's Robertson workload at B=10,000 (8 observation
      times to 4e6, rtol 1e-8, atol [1e-10, 1e-12, 1e-10]) through
-     ``make_batched_solve_fn(method='BDF', derivatives=None)``: one warm-up
-     and two timed solves, then one under the profiler for the device
+     ``make_batched_solve_fn(method='BDF', derivatives=None)``: one timed
+     solve, then one under the profiler for the device
      kernels per attempt and the device-busy share; status 0 in every lane
      (finite ys after the wrapper's NaN poisoning), lanes 0-15 inside the
      golden gate (tests/golden/robertson.npz, rtol 2e-5, atol 1e-10) and
@@ -49,7 +49,18 @@ Phases, one line each; any failure exits non-zero:
      in every lane, lanes 0-15 inside the fixture's gate (ys rtol 1e-6 /
      atol 1e-8, sens rtol 2e-4 / atol 5e-4) and, ys and sens, against the
      plain path on the CPU within 1e-6 relative (floored at atol 1e-9);
-  6. the kernel table and the result line.  Each kernel's bound is the
+  6. the reference's default call: make_batched_solve_fn(problem) (BDF,
+     the checkpointed adjoint over 1024 recorded steps with quintic Hermite
+     rows, backward tolerances 1e-10) on phase 4's Lotka-Volterra inputs at
+     B=10,000, 21 observation times, rtol = atol = 1e-8, through
+     ``entry.build_lv_checkpointed``: one timed gradient step and one under
+     the profiler, with the attempts of each solve, the device kernels and
+     host ms per attempt and the device-busy share; status 0 and finite
+     gradients in every lane, lanes 0-15 inside the golden gate and against
+     the plain path on the CPU within 1e-6; then 'polynomial' on lanes 0-15,
+     the card against the CPU within 1e-6 and the golden gate; no kernel of
+     the package launches on this path;
+  7. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
@@ -84,6 +95,14 @@ F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data she
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def log_elapsed(phase: str) -> None:
+    """The script's wall time so far, after each phase."""
+    log(f"[elapsed] after phase {phase}: {time.perf_counter() - T_START:.1f} s")
 
 
 def check_device():
@@ -421,7 +440,9 @@ def device_kernels_per_attempt(run, attempts) -> dict:
     """``run()`` once under the profiler: the device kernels it ran (and its
     copies and fills, counted apart) per attempt, ``attempts()`` read after
     the run, and its device-busy time against its wall time under the
-    profiler."""
+    profiler.  The profiler's raw records are read directly: building its
+    Python event tree takes minutes for the millions of kernels of a
+    checkpointed gradient step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -436,16 +457,17 @@ def device_kernels_per_attempt(run, attempts) -> dict:
     kernels = copies = 0
     busy_us = 0.0
     by_class: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        if e.name.startswith(("Memcpy", "Memset")):
+        name = e.name()
+        if name.startswith(("Memcpy", "Memset")):
             copies += 1
         else:
             kernels += 1
-        us = e.time_range.elapsed_us()
+        us = e.duration_ns() / 1e3
         busy_us += us
-        entry = by_class.setdefault(kernel_class(e.name), [0, 0.0])
+        entry = by_class.setdefault(kernel_class(name), [0, 0.0])
         entry[0] += 1
         entry[1] += us
     return dict(attempts=attempts, kernels=kernels, copies=copies,
@@ -457,6 +479,102 @@ def device_kernels_per_attempt(run, attempts) -> dict:
 def floored_rel(got, ref, atol) -> float:
     """max |got - ref| / (|ref| + atol), floored at the solver's atol."""
     return float(np.max(np.abs(got - ref) / (np.abs(ref) + atol)))
+
+
+def lv_main_inputs():
+    """Phases 4 and 6's inputs: bench.py's lv_adjoint spread (5%,
+    ``default_rng(42)``); lanes 0-15 are tests/golden/lv_adjoint.npz's."""
+    rng = np.random.default_rng(42)
+    y0s = np.array([10.0, 2.0]) * (1 + 0.05 * rng.standard_normal((B_MAIN, 2)))
+    p_subs = np.array([1.0, 0.3]) * (1 + 0.05 * rng.standard_normal((B_MAIN, 2)))
+    return y0s, p_subs
+
+
+def max_rel(got, ref) -> float:
+    return max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(got, ref))
+
+
+def checkpointed_phase(smi) -> None:
+    """Phase 6: the reference's default call (BDF, checkpointed adjoint)."""
+    import torch
+
+    from sunode_torch.entry import build_lv_checkpointed
+
+    y0s, p_subs = lv_main_inputs()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    y0s_t, p_subs_t = torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64)
+    golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
+    grad_step, _ = build_lv_checkpointed(B_MAIN, 21, 1e-8, device="cuda")
+    stats = grad_step.solve.last_stats
+
+    def attempts():
+        return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gy, gp = grad_step(y0s_t, p_subs_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+    status = stats["backward"]["status"].cpu().numpy()
+    bwd_steps = stats["backward"]["n_backward_steps"].cpu().numpy()
+    n_state, W = 2, 2 + 3 * 2  # quintic rows: t, y, f, fdot, L
+    log(
+        f"[checkpointed step] B={B_MAIN} wall_s={wall:.4f} grads_per_s={B_MAIN / wall:.1f} "
+        f"attempts fwd={fwd} bwd={bwd} host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} "
+        f"thinning_levels={stats['forward']['checkpoint_thinning_levels']} "
+        f"n_backward_steps min/median/max={bwd_steps.min()}/{int(np.median(bwd_steps))}/"
+        f"{bwd_steps.max()} table_MB={1025 * W * B_MAIN * 8 / 1e6:.1f} "
+        f"peak_MB={torch.cuda.max_memory_allocated() / 1e6:.1f} | {smi}"
+    )
+    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), attempts)
+    log(
+        f"[checkpointed device kernels per attempt] {prof['per_attempt']:.1f} "
+        f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+        f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+        f"wall_s_under_profiler={prof['wall_s']:.4f} "
+        f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
+    )
+    log("[checkpointed device kernels by kind] (kind: per attempt, device ms in the step) "
+        + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+    log_elapsed("6, the profiled step")
+
+    gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
+    finite = int((np.isfinite(gy_np).all(axis=1) & np.isfinite(gp_np).all(axis=1)).sum())
+    if not (gy_np.shape == gp_np.shape == (B_MAIN, n_state) and finite == B_MAIN
+            and (status == 0).all()):
+        raise SystemExit(f"chip_smoke: checkpointed gradients failed ({finite} finite, "
+                         f"{int((status == 0).sum())} with status 0, of {B_MAIN})")
+    np.testing.assert_allclose(gy_np[:16], golden["gy"], rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(gp_np[:16], golden["gp"], rtol=2e-3, atol=1e-3)
+    gold_rel = max_rel((gy_np[:16], gp_np[:16]), (golden["gy"], golden["gp"]))
+    rels = {}
+    for interpolation in ("hermite", "polynomial"):
+        # hermite: the full-width step's lanes 0-15 against the CPU
+        out = {"cuda": [gy_np[:16], gp_np[:16]]} if interpolation == "hermite" else {}
+        for device in ("cuda", "cpu"):
+            if device in out:
+                continue
+            t0 = time.perf_counter()
+            step, _ = build_lv_checkpointed(16, 21, 1e-8, interpolation, device=device)
+            f64 = dict(dtype=torch.float64, device=device)
+            grads = step(torch.as_tensor(y0s[:16], **f64), torch.as_tensor(p_subs[:16], **f64))
+            out[device] = [a.cpu().numpy() for a in grads]
+            log(f"[checkpointed {interpolation} 16 lanes on {device}] "
+                f"wall_s={time.perf_counter() - t0:.2f} attempts fwd="
+                f"{step.solve.last_stats['forward']['n_attempts']} "
+                f"bwd={step.solve.last_stats['backward']['n_attempts']}")
+        np.testing.assert_allclose(out["cuda"][0], golden["gy"], rtol=2e-3, atol=1e-3)
+        np.testing.assert_allclose(out["cuda"][1], golden["gp"], rtol=2e-3, atol=1e-3)
+        rels[interpolation] = max_rel(out["cuda"], out["cpu"])
+    log(
+        f"[checkpointed check] status 0 and finite in {finite}/{B_MAIN} lanes; "
+        f"golden_max_rel={gold_rel:.3e} (gate 2e-3) cuda_vs_cpu_plain_max_rel "
+        f"hermite={rels['hermite']:.3e} polynomial={rels['polynomial']:.3e} (bound 1e-6)"
+    )
+    if not max(rels.values()) <= 1e-6:
+        raise SystemExit("chip_smoke: the CUDA checkpointed adjoint disagrees with the plain path")
 
 
 def bdf_robertson_phase(smi) -> None:
@@ -472,14 +590,11 @@ def bdf_robertson_phase(smi) -> None:
     def run():
         return solve(0.0, *inputs)
 
-    ys = run()  # warm-up
-    walls = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ys = run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys = run()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
     stats = solve.last_stats["forward"]
     attempts = stats["n_attempts"]
     steps = stats["n_steps"].cpu().numpy()
@@ -587,6 +702,10 @@ def main() -> None:
 
     import torch
 
+    # the plain-path references run 16 lanes on the CPU, where torch's
+    # batched LU of tiny matrices is far slower on many threads than on one
+    torch.set_num_threads(1)
+
     from sunode_torch.adjoint import transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
     from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
@@ -615,6 +734,7 @@ def main() -> None:
         log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; "
             f"sass_instructions={sass_instructions(k.lib_path)}; ptxas: {'; '.join(regs)}")
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
+    log_elapsed("2")
     kernels = {kind: built[kind] for kind in systems}
     history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
 
@@ -632,8 +752,11 @@ def main() -> None:
         for seed, kind in enumerate(systems)
     }
 
+    log_elapsed("3")
+
     # phase 3b: the flat-history kernel and its A/B
     entry_2d = pece_2d_phase(smi)
+    log_elapsed("3b")
 
     # phase 3c: the history-attempt kernel vs its plain version
     history_table = {
@@ -641,11 +764,11 @@ def main() -> None:
         for seed, kind in enumerate(systems)
     }
 
+    log_elapsed("3c")
+
     # phase 4: the main path
     grad_step, _ = build_lv_adjoint(B_MAIN, 21, 1e-8, device="cuda")
-    rng = np.random.default_rng(42)
-    y0s = np.array([10.0, 2.0]) * (1 + 0.05 * rng.standard_normal((B_MAIN, 2)))
-    p_subs = np.array([1.0, 0.3]) * (1 + 0.05 * rng.standard_normal((B_MAIN, 2)))
+    y0s, p_subs = lv_main_inputs()
     y0s_t = torch.as_tensor(y0s, dtype=torch.float64, device="cuda")
     p_subs_t = torch.as_tensor(p_subs, dtype=torch.float64, device="cuda")
     golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
@@ -719,18 +842,23 @@ def main() -> None:
     )
     if not plain_rel <= 1e-6:
         raise SystemExit("chip_smoke: the CUDA main path disagrees with the plain path")
+    log_elapsed("4")
 
-    # phases 5 and 5b: the BDF paths, which launch none of the kernels
+    # phases 5, 5b and 6: the BDF paths, which launch none of the kernels;
+    # each path's counts are set to 0 just before it and read just after
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
                *history_kernels.values(), pece_2d_attempt, build_pece_2d(P_ORDER))
-    for k in counted:
-        k.launches = 0
-    bdf_robertson_phase(smi)
-    bdf_sens_phase(smi)
-    bdf_launches = [k.launches for k in counted]
-    log(f"[bdf launches of the package's kernels] {bdf_launches}")
-    if any(bdf_launches):
-        raise SystemExit("chip_smoke: a BDF phase launched an Adams kernel")
+    for label, name, phase in (("5", "robertson", bdf_robertson_phase),
+                               ("5b", "sens", bdf_sens_phase),
+                               ("6", "checkpointed", checkpointed_phase)):
+        for k in counted:
+            k.launches = 0
+        phase(smi)
+        bdf_launches = [k.launches for k in counted]
+        log(f"[bdf {name} launches of the package's kernels] {bdf_launches}")
+        if any(bdf_launches):
+            raise SystemExit(f"chip_smoke: the BDF {name} phase launched an Adams kernel")
+        log_elapsed(label)
 
     entries = [
         dict(

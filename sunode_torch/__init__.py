@@ -6,21 +6,33 @@ never jax, works in float64 per tensor and changes no global torch state
 
   * :class:`ParamSpec` -- named nested states/params as flat vectors;
   * :class:`SympyProblem` -- an ODE declared in sympy;
-  * :func:`make_batched_solve_fn` -- the batched Adams solve with
-    transition-adjoint gradients through ``torch.autograd``, and the
-    batched BDF forward solve (``method='BDF'``, ``derivatives=None``).
+  * :func:`make_batched_solve_fn` -- batched solves with gradients through
+    ``torch.autograd``: BDF with the checkpointed adjoint (the default
+    call; 'hermite' or 'polynomial' interpolation), and Adams with the
+    transition adjoint;
+  * :func:`build_lv_checkpointed` -- the default call's Lotka-Volterra
+    gradient step.
 
 On CUDA tensors the history half of every Adams attempt runs the
 hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``; on CPU tensors
 the plain PyTorch version of the same math runs instead.  The BDF core
-(:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities included) is
-torch code with a ``torch.linalg`` Newton solve on either device.
+(:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities and checkpoint
+recording included) and the checkpointed adjoint are torch code with a
+``torch.linalg`` Newton solve on either device.
 """
 
+from sunode_torch.entry import build_lv_checkpointed
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
 __version__ = "0.1.0"
 
-__all__ = ["ParamSpec", "Record", "SympyProblem", "make_batched_solve_fn", "__version__"]
+__all__ = [
+    "ParamSpec",
+    "Record",
+    "SympyProblem",
+    "build_lv_checkpointed",
+    "make_batched_solve_fn",
+    "__version__",
+]

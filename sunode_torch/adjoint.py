@@ -1,7 +1,12 @@
-"""Transition-matrix adjoint gradients for the batched Adams solve.
+"""Adjoint gradients of the batched solves.
 
-Port of ``sunode_tpu/adjoint.py::adjoint_backward_transition_batched``.
-Conventions (for L = sum_i g_i^T y(t_i)):
+Port of ``sunode_tpu/adjoint.py``'s batched half: the transition-matrix
+adjoint of the Adams solve (``adjoint_backward_transition_batched``), and
+the checkpointed adjoint (``adjoint_backward_batched``, BDF): one backward
+BDF solve per observation interval over a Hermite or polynomial
+reconstruction of the forward trajectory recorded by ``bdf_solve_batched``
+(``save_steps > 0``), with the cotangent of each observation injected at
+its time.  Conventions (for L = sum_i g_i^T y(t_i)):
 
   dL/dy0       = lambda(t0)
   dL/dp_subset = quad(t0)
@@ -17,6 +22,7 @@ import torch
 
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.ops.linalg import solve_dense
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
@@ -24,7 +30,13 @@ __all__ = [
     "AdjointResult",
     "adjoint_backward_transition_batched",
     "transition_fz",
+    "POLY_K",
+    "make_hermite_eval_batched",
+    "make_polynomial_eval_batched",
+    "adjoint_backward_batched",
 ]
+
+POLY_K = 6  # polynomial interpolation window (degree POLY_K - 1)
 
 
 class AdjointResult(NamedTuple):
@@ -184,4 +196,248 @@ def adjoint_backward_transition_batched(
             transition_rel_residual=rel_resid,
             transition_growth=growth,
         ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The checkpointed adjoint: evaluators over the recorded trajectory
+# ---------------------------------------------------------------------------
+def _quintic_basis(tau):
+    """Two-point quintic Hermite basis at tau in [0, 1]: weights for
+    (y0, h f0, h^2 fd0, y1, h f1, h^2 fd1)."""
+    t2 = tau * tau
+    t3 = t2 * tau
+    t4 = t3 * tau
+    t5 = t4 * tau
+    H0 = 1 - 10 * t3 + 15 * t4 - 6 * t5
+    H1 = tau - 6 * t3 + 8 * t4 - 3 * t5
+    H2 = 0.5 * t2 - 1.5 * t3 + 1.5 * t4 - 0.5 * t5
+    H3 = 10 * t3 - 15 * t4 + 6 * t5
+    H4 = -4 * t3 + 7 * t4 - 3 * t5
+    H5 = 0.5 * t3 - t4 + 0.5 * t5
+    return H0, H1, H2, H3, H4, H5
+
+
+def _searchsorted_b(ts_rows: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rightmost ``i`` with ``ts[i] <= t`` per lane (-1 where none, and at a
+    NaN ``t``), ``ts`` ascending with ``+inf`` pads.  ``ts_rows`` is the
+    table as a contiguous ``(B, S)`` copy, made once per backward: one binary
+    search per lane instead of the reference's compare-and-sum over the
+    whole ``(S, B)`` table (``sunode_tpu/adjoint.py::_searchsorted_b``)."""
+    idx = torch.searchsorted(ts_rows, t[:, None], right=True)[:, 0] - 1
+    return torch.where(torch.isnan(t), -1, idx)
+
+
+def _rows(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i[b]`` of lane b: ``table (S, ..., B)`` -> ``(..., B)``."""
+    return table.gather(0, i.view((1,) + (1,) * (table.ndim - 2) + (-1,)).expand(
+        (1,) + tuple(table.shape[1:]))
+    )[0]
+
+
+def _left_row(ts_rows, n_saved, t):
+    """The bracketing interval's left row per lane, clipped to
+    ``[0, n_saved - 2]`` as the reference clips it (-1 for a lane with one
+    recorded row)."""
+    return torch.minimum(torch.clamp(_searchsorted_b(ts_rows, t), min=0), n_saved - 2)
+
+
+def _bracket(ts, ts_rows, n_saved, t):
+    """The bracketing interval's two rows per lane, as the reference reads
+    them: a lane with one row reads its last slot and its first, as a
+    negative index does there, and a row past the table (an overflowed
+    legacy recording) reads the last slot, as an out-of-range gather does
+    there."""
+    S = ts.shape[0]
+    i = _left_row(ts_rows, n_saved, t)
+    return torch.remainder(i, S), torch.clamp(i + 1, max=S - 1)
+
+
+def make_hermite_eval_batched(saved: dict) -> Callable:
+    """Trailing-batch Hermite evaluator over the packed ``yf (S, 2n|3n, B)``
+    table: ``y_at(t (B,)) -> (n, B)``.  Cubic over ``(y, f)`` rows; quintic
+    where the rows carry ``fd``, gated per lane to ``h L <= 1`` where they
+    carry ``L`` (cubic beyond: the h^2 (J f) term magnifies node error by
+    (h L)^2 in stiff regions).  Port of
+    ``sunode_tpu/adjoint.py::make_hermite_eval_batched``, packed branch."""
+    ts, n_saved, yf = saved["t"], saved["n_saved"], saved["yf"]
+    quintic = "fd" in saved
+    Ls = saved.get("L")
+    n = yf.shape[1] // (3 if quintic else 2)
+    ts_rows = ts.T.contiguous()
+
+    def y_at(t):
+        i0, i1 = _bracket(ts, ts_rows, n_saved, t)
+        t0, t1 = _rows(ts, i0), _rows(ts, i1)
+        r0, r1 = _rows(yf, i0), _rows(yf, i1)
+        y0, f0, y1, f1 = r0[:n], r0[n : 2 * n], r1[:n], r1[n : 2 * n]
+        h = t1 - t0
+        tau = torch.clamp((t - t0) / h, 0.0, 1.0)
+        om = 1 - tau
+        h00 = (1 + 2 * tau) * (om * om)
+        h10 = tau * (om * om)
+        h01 = (tau * tau) * (3 - 2 * tau)
+        h11 = (tau * tau) * (tau - 1)
+        cubic = h00[None] * y0 + (h10 * h)[None] * f0 + h01[None] * y1 + (h11 * h)[None] * f1
+        if not quintic:
+            return cubic
+        fd0, fd1 = r0[2 * n :], r1[2 * n :]
+        H0, H1, H2, H3, H4, H5 = _quintic_basis(tau)
+        h2 = h * h
+        quin = (
+            H0[None] * y0
+            + (H1 * h)[None] * f0
+            + (H2 * h2)[None] * fd0
+            + H3[None] * y1
+            + (H4 * h)[None] * f1
+            + (H5 * h2)[None] * fd1
+        )
+        if Ls is None:
+            return quin
+        ok = h * torch.maximum(_rows(Ls, i0), _rows(Ls, i1)) <= 1.0
+        return torch.where(ok[None], quin, cubic)
+
+    return y_at
+
+
+def make_polynomial_eval_batched(saved: dict) -> Callable:
+    """Trailing-batch polynomial evaluator (the CV_POLYNOMIAL analog):
+    barycentric Lagrange through the ``POLY_K`` recorded y rows around the
+    bracketing interval (window clamped at the ends, degree lower where a
+    lane has fewer rows), the nearest node itself within 1e-14 relative:
+    ``y_at(t (B,)) -> (n, B)``.  Port of
+    ``sunode_tpu/adjoint.py::make_polynomial_eval_batched``."""
+    ts, n_saved, yf = saved["t"], saved["n_saved"], saved["yf"]
+    S, B = ts.shape
+    n = yf.shape[1] // (3 if "fd" in saved else 2)
+    K = min(POLY_K, S)
+    ts_rows = ts.T.contiguous()
+    off = torch.arange(K, device=ts.device)[:, None]  # (K, 1)
+    offd = (off != off.T)[:, :, None]  # (K, K, 1)
+
+    def y_at(t):
+        i = _left_row(ts_rows, n_saved, t)
+        s = torch.minimum(torch.clamp(i - (K // 2 - 1), min=0),
+                          torch.clamp(n_saved - K, min=0))
+        j = s[None, :] + off  # (K, B)
+        jdx = torch.clamp(j, 0, S - 1)
+        valid = j < n_saved[None, :]
+        tj = ts.gather(0, jdx)  # (K, B)
+        yj = yf[:, :n].gather(0, jdx[:, None, :].expand(K, n, B))  # (K, n, B)
+        diff = tj[:, None, :] - tj[None, :, :]  # (K, K, B)
+        prods = torch.prod(torch.where(offd & valid[None], diff, 1.0), dim=1)
+        w = torch.where(valid, 1.0 / prods, 0.0)
+        d = t[None, :] - tj
+        absd = torch.abs(d)
+        exact = (absd <= 1e-14 * (1.0 + torch.abs(t))[None, :]) & valid
+        c = torch.where(exact, 0.0, w / torch.where(exact, 1.0, d))
+        y_interp = torch.sum(c[:, None, :] * yj, dim=0) / torch.sum(c, dim=0)[None, :]
+        # the nearest exact node only: two rows may lie within the tolerance
+        nearest = torch.argmin(torch.where(valid, absd, float("inf")), dim=0)
+        y_exact = _rows(yj, nearest)
+        return torch.where(exact.any(dim=0)[None, :], y_exact, y_interp)
+
+    return y_at
+
+
+def adjoint_backward_batched(
+    adjoint_rhs: Callable,  # batched (t, y, lam, p) -> -J^T lam, (n, B)
+    adjoint_jac: Callable,  # batched (t, y, lam, p) -> -J^T, (n, n, B)
+    quad_rhs: Callable,  # batched (t, y, lam, p) -> lam^T df/dp_subset, (n_deriv, B)
+    saved: dict,  # trailing-batch, from bdf_solve_batched
+    t0,
+    tvals: torch.Tensor,  # (n_t,) shared
+    grads: torch.Tensor,  # (B, n_t, n)
+    params: torch.Tensor,  # (B, n_p)
+    n_deriv: int,
+    options: BDFOptions = BDFOptions(rtol=1e-10, atol=1e-10),
+    method: str = "BDF",
+    interpolation: str = "hermite",
+) -> AdjointResult:
+    """Interval-wise backward solve of the checkpointed adjoint (CVODES's
+    ``CVodeB`` analog): from the last observation time down to ``t0``, add
+    each observation's cotangent to lambda at its time and solve
+    ``dlam/dtau = J^T lam`` with the quadrature ``dq/dtau = lam^T df/dp``
+    in ``tau = -t`` to the next one, one ``bdf_solve_batched`` per interval
+    (warm-started from the previous interval's step, the first from the
+    automatic one), y(t) from the recorded trajectory ('hermite' or
+    'polynomial').  A lane whose solve fails turns NaN from there on; a
+    lane whose recording overflowed gets status 99 and NaN.
+
+    ``method='ADAMS'`` and ``interpolation='resolve'`` are not ported yet
+    (the reference's ``rhs`` and ``y_end`` arguments serve only 'resolve')."""
+    if method != "BDF" or interpolation == "resolve":
+        raise NotImplementedError(
+            "adjoint_backward_batched: method='ADAMS' and interpolation='resolve' "
+            "are not ported to sunode_torch yet (ROADMAP A8b)"
+        )
+    if interpolation == "polynomial":
+        y_at = make_polynomial_eval_batched(saved)
+    elif interpolation == "hermite":
+        y_at = make_hermite_eval_batched(saved)
+    else:
+        raise ValueError(
+            f"interpolation must be 'hermite', 'polynomial' or 'resolve', got {interpolation!r}"
+        )
+    y = saved["y"]
+    dtype, device = y.dtype, y.device
+    S, n, B = y.shape
+    tvals_h = torch.as_tensor(tvals, dtype=dtype).tolist()  # one read per backward
+    t0_h = float(t0)
+    n_t = len(tvals_h)
+    grads = torch.as_tensor(grads, dtype=dtype, device=device)
+    params = torch.as_tensor(params, dtype=dtype, device=device)
+
+    # Every right-hand side of one attempt evaluates at the same tau tensor
+    # (the Newton iterations, the quadrature and the Jacobian at t_new), so
+    # y(t) is computed once per tau and reused: the same values, fewer calls.
+    last = [None, None]
+
+    def y_of(tau):
+        if last[0] is not tau:
+            last[0], last[1] = tau, y_at(-tau)
+        return last[1]
+
+    def rhs_b(tau, lam, p):
+        return -adjoint_rhs(-tau, y_of(tau), lam, p)  # dlam/dtau = +J^T lam
+
+    def jac_b(tau, lam, p):
+        return -adjoint_jac(-tau, y_of(tau), lam, p)
+
+    def quad_b(tau, lam, p):
+        return quad_rhs(-tau, y_of(tau), lam, p)  # dq/dtau = +lam^T df/dp
+
+    quad_opts = options._replace(quad_err_con=True, save_steps=0)
+    f_kw = dict(dtype=dtype, device=device)
+    lam = torch.zeros((B, n), **f_kw)
+    q = torch.zeros((B, n_deriv), **f_kw)
+    status = torch.zeros((B,), dtype=torch.int32, device=device)
+    nsteps = torch.zeros((B,), dtype=torch.int32, device=device)
+    h_prev = torch.full((B,), -1.0, **f_kw)  # the first interval starts automatically
+    attempts = 0
+    lower = tvals_h[::-1][1:] + [t0_h]
+    for k, (t_hi, t_lo) in enumerate(zip(tvals_h[::-1], lower)):
+        lam = lam + grads[:, n_t - 1 - k, :]
+        if not (t_hi - t_lo) > 1e-14 * (1.0 + abs(t_hi)):
+            continue
+        res = bdf_solve_batched(
+            rhs_b, jac_b, -t_hi, lam, params, torch.tensor([-t_lo], **f_kw), quad_opts,
+            quad_rhs=quad_b, quad0=q, first_step=h_prev, batched_fns=True,
+        )
+        ok = (res.status == 0)[:, None]
+        lam = torch.where(ok, res.ys[:, 0, :], float("nan"))
+        q = torch.where(ok, res.quad[:, 0, :], float("nan"))
+        status = torch.maximum(status, res.status)
+        nsteps = nsteps + res.stats["n_steps"]
+        h_prev = res.stats["final_step_size"]
+        attempts += res.stats["n_attempts"]
+
+    # an overflowed recording is incomplete: poison instead of interpolating
+    overflow = saved["overflow"]
+    lam = torch.where(overflow[:, None], float("nan"), lam)
+    q = torch.where(overflow[:, None], float("nan"), q)
+    status = torch.where(overflow, 99, status).to(torch.int32)
+    return AdjointResult(
+        lamda=lam, quad=q, status=status,
+        stats=dict(n_backward_steps=nsteps, n_attempts=attempts),
     )

@@ -1,5 +1,8 @@
 """The workloads: batched Lotka-Volterra adjoint gradients, stiff Robertson.
 
+:func:`build_lv_checkpointed` takes the same Lotka-Volterra gradients
+through the reference's default call, BDF with the checkpointed adjoint.
+
 :func:`build_lv_adjoint` is the port of ``__graft_entry__._build`` (method
 ADAMS): a Lotka-Volterra ``SympyProblem`` (2 states, 4 params, derivatives
 w.r.t. alpha and beta), the batched Adams forward solve and
@@ -28,6 +31,7 @@ __all__ = [
     "lv_problem",
     "lv_options",
     "build_lv_adjoint",
+    "build_lv_checkpointed",
     "LV_P_FIX",
     "robertson_problem",
     "robertson_options",
@@ -85,6 +89,25 @@ def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cuda"):
         method="ADAMS",
         adjoint_interpolation="transition",
     )
+    return _lv_grad_step(solve, batch, tvals_n, device)
+
+
+def build_lv_checkpointed(batch: int, tvals_n: int, rtol: float, interpolation="hermite",
+                          device="cuda"):
+    """:func:`build_lv_adjoint` through the reference's default call instead:
+    ``make_batched_solve_fn(lv_problem(), options=BDFOptions(rtol=rtol,
+    atol=rtol))`` with every other argument at its default (BDF, the
+    checkpointed adjoint over ``checkpoint_n=1024`` recorded steps, backward
+    tolerances 1e-10), ``interpolation`` 'hermite' (the default) or
+    'polynomial'.  Same ``(grad_step, (y0s, p_subs))``; it runs on the card
+    unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    kw = {} if interpolation == "hermite" else dict(adjoint_interpolation=interpolation)
+    solve = make_batched_solve_fn(lv_problem(), options=BDFOptions(rtol=rtol, atol=rtol), **kw)
+    return _lv_grad_step(solve, batch, tvals_n, device)
+
+
+def _lv_grad_step(solve, batch: int, tvals_n: int, device):
     f64 = dict(dtype=torch.float64, device=device)
     tvals = torch.as_tensor(np.linspace(1.0, 10.0, tvals_n), **f64)
     p_fix = torch.as_tensor(LV_P_FIX, **f64)

@@ -64,8 +64,9 @@ class BDFOptions(NamedTuple):
     for what each field does.  The batched Adams core of this package reads
     the tolerances, step bounds, ``max_steps``, ``newton_tol_factor``,
     ``adams_max_order``, ``constraints`` and the quadrature fields; the
-    batched BDF core also ``max_order``, ``use_ndf``, ``first_step`` and the
-    sensitivity fields ``sens_err_con`` and ``sens_pbar``."""
+    batched BDF core also ``max_order``, ``use_ndf``, ``first_step``, the
+    sensitivity fields ``sens_err_con`` and ``sens_pbar`` and the recording
+    fields ``save_steps``, ``checkpoint_thinning`` and ``hermite_order``."""
 
     rtol: Any = 1e-8
     atol: Any = 1e-8
@@ -109,7 +110,7 @@ class BDFResult(NamedTuple):
     ys: torch.Tensor  # (B, n_t, n) solution at tvals (NaN where failed)
     status: torch.Tensor  # (B,) int32 status code
     stats: dict  # counters and final state
-    saved: Optional[dict]  # recorded steps (not ported: always None)
+    saved: Optional[dict]  # recorded steps (BDF with save_steps > 0), else None
     sens: Optional[torch.Tensor] = None
     quad: Optional[torch.Tensor] = None  # (B, n_t, m)
 

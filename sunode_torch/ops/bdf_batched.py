@@ -6,7 +6,9 @@ BDF or NDF formulas of orders 1..5, lazy Jacobian refresh and refactoring
 only when the step coefficient changes, simultaneous forward sensitivities
 (``sens_rhs``/``S0``, ``sens_err_con``, ``sens_pbar``), the quadrature block
 (``quad_rhs``/``quad0``, ``quad_err_con``), constraints, the breakdown
-reset, NaN-poison statuses and the per-lane post-mortem stats.
+reset, NaN-poison statuses, the per-lane post-mortem stats and checkpoint
+recording for the adjoint (``save_steps``, ``checkpoint_thinning``,
+``hermite_order``; :mod:`sunode_torch.ops._recording`).
 
 Layout: states are ``(rows, B)`` with the lane axis last, the difference
 array ``D`` is ``(KD, nt, B)`` over the combined state ``z = [y | vec S | q]``
@@ -14,11 +16,13 @@ and Newton matrices are ``(n, n, B)``.  The lockstep loop is a host loop, as
 in :mod:`sunode_torch.ops.adams_batched`: one device sync per attempt to see
 whether any lane is active and one per emission sweep.  Every per-lane
 scalar stays a tensor on the device.  The Newton matrices are factored by
-``torch.linalg`` (see :mod:`sunode_torch.ops.linalg`); the small fixed-size
-contractions that the reference unrolls element by element (the TPU has no
-f64 matrix unit) are ``cumprod``, ``einsum`` and ``gather`` here, so sums
-round in another order and results agree with the reference to rounding,
-not bit for bit.
+``torch.linalg`` (see :mod:`sunode_torch.ops.linalg`).  The small
+fixed-size contractions that the reference unrolls element by element (the
+rescale, the predictor, the difference update, the dense output) are
+products and sequential ``cumsum``s over the leading axis of ``(K, nt, B)``
+tensors, which round in the reference's order; the LU and the libraries'
+``pow`` and ``sqrt`` do not, so results agree with the reference to
+rounding, not bit for bit.
 
 The reference's size rule decides what runs only when a lane needs it: for
 ``n <= 4`` the refactorization, the Jacobian refresh and the breakdown
@@ -27,8 +31,8 @@ check; the Newton and sensitivity iterations are unrolled for ``n <= 16``
 and stop early once every lane is done above that.
 
 Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
-sensitivities, checkpoint recording (``save_steps``), the band, sparse and
-spgmr linear solvers, ``jac_prod`` and per-lane observation grids.
+sensitivities, the band, sparse and spgmr linear solvers, ``jac_prod`` and
+per-lane observation grids.
 """
 
 from __future__ import annotations
@@ -53,6 +57,13 @@ from sunode_torch.ops.bdf import (
     _unsupported,
     newton_tol_for,
 )
+from sunode_torch.ops._recording import (
+    fdot,
+    finalize_saved_batched,
+    init_saved_batched,
+    pad_column,
+    record_step_batched,
+)
 from sunode_torch.ops.linalg import factor_newton_b, solve_factored_b
 
 __all__ = ["bdf_solve_batched"]
@@ -66,29 +77,41 @@ class _Grid:
     def __init__(self, dtype, device):
         f_kw = dict(dtype=dtype, device=device)
         self.ar_KD = torch.arange(KD, device=device)[:, None]  # (KD, 1)
-        m = torch.arange(1, K, **f_kw)[:, None, None]
-        self.R_m, self.R_m1 = m, m - 1
-        self.R_j = torch.arange(K, **f_kw)[None, :, None]
+        self.j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
         self.eye_K = torch.eye(K, **f_kw)[:, :, None]
         self.U = self.rescale(torch.ones((1,), **f_kw))  # (K, K, 1)
-        self.interp_i = torch.arange(1, MAX_ORDER + 1, **f_kw)[:, None]
-        self.interp_i1 = self.interp_i - 1
 
     def rescale(self, factor: torch.Tensor) -> torch.Tensor:
-        """``R[i, j] = prod_{m=1..i} (m - 1 - factor j) / m`` as ``(K, K, B)``
-        (``sunode_tpu/ops/bdf_batched.py::_build_R_elems`` before its mask)."""
-        terms = (self.R_m1 - factor * self.R_j) / self.R_m  # (K-1, K, B)
-        return torch.cat([torch.ones_like(terms[:1]), torch.cumprod(terms, dim=0)])
+        """``R[i, j] = prod_{m=1..i} (m - 1 - factor j) / m`` as ``(K, K, B)``,
+        the running product ``R[i] = R[i-1] (i - 1 - factor j) / i`` rounded
+        as ``sunode_tpu/ops/bdf_batched.py::_build_R_elems`` rounds it."""
+        fj = factor[None, :] * self.j_K  # (K, B)
+        rows = [torch.ones_like(fj)]
+        for i in range(1, K):
+            rows.append(rows[-1] * ((i - 1) - fj) / i)
+        return torch.stack(rows)
+
+
+def _seq_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis accumulated in order, as the reference's
+    unrolled sums: ``cumsum`` over an outer axis is a sequential loop per
+    element on either device."""
+    return terms.cumsum(0)[-1]
+
+
+def _contract(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum_j M[j, i] X[j]`` for ``M (K, K, B)``, ``X (K, nt, B)``,
+    accumulated ``j = 0..K-1`` in sequence."""
+    return _seq_sum(M[:, :, None, :] * X[:, None])
 
 
 def _apply_RU(grid: _Grid, in_q, factor, D):
-    """The lazy rescale: the leading K rows become ``(R U)^T D[:K]``, with R
+    """The lazy rescale: the leading K rows become ``U^T (R^T D[:K])``, with R
     and U the identity outside each lane's leading (q+1) block."""
     in_block = in_q[:K, None, :] & in_q[None, :K, :]
     R = torch.where(in_block, grid.rescale(factor), grid.eye_K)
     U = torch.where(in_block, grid.U, grid.eye_K)
-    head = torch.einsum("jib,jnb->inb", U, torch.einsum("jib,jnb->inb", R, D[:K]))
-    return torch.cat([head, D[K:]])
+    return torch.cat([_contract(U, _contract(R, D[:K])), D[K:]])
 
 
 def _gather_rows(D: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -96,37 +119,50 @@ def _gather_rows(D: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return D.gather(0, idx[:, None, :].expand(-1, D.shape[1], -1))
 
 
-def _predict(D, in_q, gamma_kd, inv_alpha):
-    """``(pred, psi)``, each ``(nt, B)``: ``pred = sum_{i<=q} D[i]`` and
-    ``psi = sum_{1<=i<=q} gamma[i] D[i] / alpha[q]``."""
-    pred = torch.einsum("ib,inb->nb", in_q.to(D.dtype), D)
-    w = torch.where(in_q[1:], gamma_kd[1:], 0.0)
-    psi = torch.einsum("ib,inb->nb", w, D[1:]) * inv_alpha[None, :]
-    return pred, psi
+def _suffix_sums(D):
+    """``S[i] = sum_{j >= i} D[j]`` as ``(KD + 1, nt, B)`` with ``S[KD] = 0``,
+    summed from the last row down (a sequential ``cumsum``)."""
+    return torch.cat([D.flip(0).cumsum(0).flip(0), torch.zeros_like(D[:1])])
 
 
-def _update_D(D, in_q, ar_KD, q, d):
+def _predict(D, S, Sq1, in_q, gamma_kd, inv_alpha):
+    """``(pred, psi)``, each ``(nt, B)``: ``pred = S[0] - S[q+1]`` and
+    ``psi = sum_{1<=i<=q} gamma[i] D[i] / alpha[q]``, summed in row order."""
+    w = torch.where(in_q[1:K], gamma_kd[1:K], 0.0)  # (K-1, B)
+    return S[0] - Sq1[0], _seq_sum(w[:, None, :] * D[1:K]) * inv_alpha
+
+
+def _update_D(D, S, Sq1, in_q, ar_KD, q, d):
     """Accepted-step difference update:
-      i <= q   : D_new[i] = sum_{j=i..q} D[j] + d
+      i <= q   : D_new[i] = sum_{j=i..q} D[j] + d = S[i] - S[q+1] + d
       i == q+1 : d
       i == q+2 : d - D[q+1]
       i >  q+2 : unchanged
     """
-    low = in_q[:, None, :]
-    suffix = torch.where(low, D, 0.0).flip(0).cumsum(0).flip(0)
     Dq1 = _gather_rows(D, (q + 1)[None])
     ar, qb = ar_KD[:, :, None], q[None, None, :]
     return torch.where(
-        low, suffix + d, torch.where(ar == qb + 1, d, torch.where(ar == qb + 2, d - Dq1, D))
+        in_q[:, None, :],
+        S[:KD] - Sq1 + d,
+        torch.where(ar == qb + 1, d, torch.where(ar == qb + 2, d - Dq1, D)),
     )
 
 
-def _interpolate(grid: _Grid, D, in_q, t_n, h, t_eval):
-    """Dense output at per-lane ``t_eval (B,)``: ``(nt, B)``."""
+def _interpolate(D, in_q, t_n, h, t_eval):
+    """Dense output at per-lane ``t_eval (B,)``: ``(nt, B)``, the weights'
+    running product and the sum in the reference's order."""
     s = (t_eval - t_n) / h
-    w = torch.cumprod((s[None, :] + grid.interp_i1) / grid.interp_i, dim=0)  # (5, B)
-    w = torch.where(in_q[1 : MAX_ORDER + 1], w, 0.0)
-    return D[0] + torch.einsum("ib,inb->nb", w, D[1 : MAX_ORDER + 1])
+    ws = [torch.ones_like(s)]
+    for i in range(1, MAX_ORDER + 1):
+        ws.append(ws[-1] * (s + i - 1) / i)
+    w = torch.where(in_q[1 : MAX_ORDER + 1], torch.stack(ws[1:]), 0.0)  # (5, B)
+    return _seq_sum(torch.cat([D[:1], w[:, None, :] * D[1 : MAX_ORDER + 1]]))
+
+
+def _breakdown_reset(active, accept, err_reject, consec_err_fails):
+    """Lanes whose history resets this attempt: an error-test failure that
+    makes four in a row (the breakdown detector)."""
+    return active & ~accept & err_reject & (consec_err_fails + 1 >= 4)
 
 
 def bdf_solve_batched(
@@ -151,7 +187,10 @@ def bdf_solve_batched(
     root_directions: Optional[Any] = None,
 ) -> BDFResult:
     """Batched BDF solve; outputs leading-batch: ``ys (B, n_t, n)``,
-    ``sens (B, n_t, k, n)``, ``quad (B, n_t, m)``; ``saved`` is None.
+    ``sens (B, n_t, k, n)``, ``quad (B, n_t, m)``.  With
+    ``options.save_steps > 0``, ``saved`` is the recorded trajectory,
+    trailing-batch (see :func:`~sunode_torch.ops._recording.finalize_saved_batched`)
+    and ``stats['checkpoint_thinning_levels']`` its thinning; else None.
 
     ``rhs(t, y, p)``, ``jac`` (``-> (n, n)``), ``sens_rhs(t, y, S, p)``
     (``S (k, n)``) and ``quad_rhs`` take one lane unless ``batched_fns``,
@@ -163,10 +202,6 @@ def bdf_solve_batched(
         raise NotImplementedError(
             f"bdf_solve_batched: linear_solver={options.linear_solver!r} is not "
             "ported to sunode_torch yet (only 'dense')"
-        )
-    if int(options.save_steps) > 0:
-        raise NotImplementedError(
-            "bdf_solve_batched: checkpoint recording (save_steps) is not ported yet"
         )
     with_sens = sens_rhs is not None
     with_quad = quad_rhs is not None
@@ -287,8 +322,10 @@ def bdf_solve_batched(
     f1 = rhs_b(t0 + h0a, y0 + h0a[None, :] * f0, params)
     d2n = torch.sqrt(torch.mean(((f1 - f0) * w0) ** 2, dim=0)) / h0a
     dmn = torch.maximum(d1n, d2n)
+    # a true division: torch computes ``0.01 / dmn`` as ``reciprocal(dmn) * 0.01``
     h1a = torch.where(
-        dmn <= 1e-15, torch.clamp(h0a * 1e-3, min=1e-6), torch.sqrt(0.01 / dmn)
+        dmn <= 1e-15, torch.clamp(h0a * 1e-3, min=1e-6),
+        torch.sqrt(torch.full_like(dmn, 0.01) / dmn),
     )
     h_auto = torch.minimum(torch.minimum(100 * h0a, h1a), t_end - t0)
     h_auto = torch.clamp(h_auto, max=options.max_step)
@@ -323,6 +360,25 @@ def bdf_solve_batched(
 
     eye = torch.eye(n, **f_kw)[:, :, None]
     grid = _Grid(dtype, device)
+    J0 = jac_full(t0, y0, params)
+
+    save_steps = int(options.save_steps)
+    thinning = bool(options.checkpoint_thinning)
+    rec_fd = save_steps > 0 and options.hermite_order == 5
+
+    def record_row(t, y, f, J):
+        """``(t, y, f[, fdot, L])`` as ``(W, B)``: quintic rows add the total
+        derivative of f and ``L = ||J||_inf`` (the Newton's current J) for
+        the evaluator's stiffness gate."""
+        parts = [t[None, :], y, f]
+        if rec_fd:
+            parts += [fdot(rhs_b, t, y, f, params), torch.abs(J).sum(dim=1).amax(dim=0)[None]]
+        return torch.cat(parts)
+
+    if save_steps > 0:
+        row0 = record_row(t0, y0, f0, J0)
+        saved = init_saved_batched(row0, save_steps, thinning)
+        pad_row = pad_column(row0.shape[0], row0)
     gamma_kd = torch.cat([gamma, gamma.new_zeros(KD - K)])[:, None]
     zeros_i = torch.zeros((B,), **i32)
     false_b = torch.zeros((B,), dtype=torch.bool, device=device)
@@ -335,7 +391,7 @@ def bdf_solve_batched(
         q=torch.ones((B,), dtype=torch.long, device=device),
         D=D0,
         n_equal=zeros_i,
-        J=jac_full(t0, y0, params),
+        J=J0,
         J_current=torch.ones((B,), dtype=torch.bool, device=device),
         factors=factor_newton_b(eye.expand(n, n, B)),
         c_factored=torch.zeros((B,), **f_kw),
@@ -391,7 +447,9 @@ def bdf_solve_batched(
             c_factored = torch.where(need, c_coef, c_factored)
             nfactor = nfactor + need.to(torch.int32)
 
-        z_pred, psi_z = _predict(D, in_q, gamma_kd, 1.0 / alpha_q)
+        S_D = _suffix_sums(D)
+        Sq1 = _gather_rows(S_D, (q + 1)[None])  # (1, nt, B)
+        z_pred, psi_z = _predict(D, S_D, Sq1, in_q, gamma_kd, 1.0 / alpha_q)
         w_z = 1.0 / (atol_z + rtol_z * torch.abs(z_pred))
         y_pred, w_y, psi_y = z_pred[:n], w_z[:n], psi_z[:n]
         pred_ok = torch.isfinite(z_pred).all(dim=0)
@@ -485,7 +543,7 @@ def bdf_solve_batched(
             J_new = torch.where(refresh_J[None, None, :], jac_full(t_new, y_pred, params), J_new)
         njev = c["njev"] + refresh_J.to(torch.int32)
 
-        D_upd = _update_D(D, in_q, grid.ar_KD, q, d_z)
+        D_upd = _update_D(D, S_D, Sq1, in_q, grid.ar_KD, q, d_z)
 
         # the error test and the order-selection errors in one reduction
         rows = _gather_rows(D_upd, torch.stack([q, q + 2]))  # (2, nt, B)
@@ -509,11 +567,17 @@ def bdf_solve_batched(
             pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
             if not bool(pend.any()):
                 break
-            zi = _interpolate(grid, D_upd, in_q, t_new, h_use, te)  # (nt, B)
+            zi = _interpolate(D_upd, in_q, t_new, h_use, te)  # (nt, B)
             gidx = idx[None, None, :].expand(1, nt_tot, B)
             row = zs.gather(0, gidx)
             zs.scatter_(0, gidx, torch.where(pend[None, None, :], zi[None], row))
             i_out = i_out + pend.to(i_out.dtype)
+
+        # ---- checkpoint recording (see ops/_recording.py) -----------------
+        if save_steps > 0:
+            f_acc = rhs_b(t_new, y_new, params)
+            row = torch.where(accept[None, :], record_row(t_new, y_new, f_acc, c["J"]), pad_row)
+            saved = record_step_batched(saved, it, accept, row, save_steps, thinning)
 
         # ---- order & step adaptation --------------------------------------
         can_adapt = n_equal >= q + 1
@@ -548,7 +612,7 @@ def bdf_solve_batched(
         # breakdown detector: marginal accepts keep the failure counter; 4
         # accumulated failures reset the lane's history (y and the first
         # difference only) and restart it at order 1
-        reset = active & ~accept & err_reject & (c["consec_err_fails"] + 1 >= 4)
+        reset = _breakdown_reset(active, accept, err_reject, c["consec_err_fails"])
         factor_next = torch.where(accept, factor_acc, torch.where(reset, 0.25, factor_fail))
         h_next = torch.where(active, h_use * factor_next, c["h"])
         q_next = torch.where(accept, q_acc, torch.where(reset, 1, q))
@@ -613,7 +677,7 @@ def bdf_solve_batched(
             consec_err_fails=cef.to(torch.int32),
             consec_conv_fails=ccf.to(torch.int32),
             nsteps=nsteps,
-            nfev=c["nfev"] + n_iters,
+            nfev=c["nfev"] + n_iters + (accept.to(torch.int32) if save_steps > 0 else 0),
             njev=njev,
             nfactor=nfactor,
             nniters=c["nniters"] + n_iters,
@@ -650,8 +714,13 @@ def bdf_solve_batched(
     )
     if with_sens:
         stats["n_sens_rhs_evals"] = c["nfevS"]
+    saved_out = None
+    if save_steps > 0:
+        # shared across lanes: the stride follows the shared attempt counter
+        stats["checkpoint_thinning_levels"] = saved["shift"] if thinning else 0
+        saved_out = finalize_saved_batched(saved, n, thinning)
 
     ys = zs[:, :n, :].permute(2, 0, 1)  # (B, n_t, n)
     sens = zs[:, sl_S, :].permute(2, 0, 1).reshape(B, n_t, k_sens, n) if with_sens else None
     quad = zs[:, sl_Q, :].permute(2, 0, 1) if with_quad else None
-    return BDFResult(ys=ys, status=status, stats=stats, saved=None, sens=sens, quad=quad)
+    return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, sens=sens, quad=quad)

@@ -1,14 +1,18 @@
 """Differentiable batched solve as a ``torch.autograd.Function``.
 
-Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn`` for
-``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
-``adjoint_interpolation='transition'``, and for ``method='BDF'`` with
-``derivatives=None``.  The ADAMS forward pass is the batched Adams solve,
-its backward pass the transition-matrix adjoint; on CUDA tensors both
-solves run every attempt through the history-attempt kernel, built from the
-problem's right-hand side (``symode/cuda_codegen.py``) at first use.  The
-BDF forward pass is the batched BDF solve (``ops/bdf_batched.py``), torch
-code with a ``torch.linalg`` Newton solve on either device.
+Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
+
+* ``method='BDF'`` (the default) with ``derivatives=None`` or ``'adjoint'``
+  and ``adjoint_interpolation`` 'hermite' (the default) or 'polynomial':
+  the forward pass is the batched BDF solve (``ops/bdf_batched.py``), which
+  records checkpoints when gradients are wanted, and the backward pass the
+  checkpointed adjoint (``adjoint.py::adjoint_backward_batched``); torch
+  code with a ``torch.linalg`` Newton solve on either device.
+* ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
+  ``adjoint_interpolation='transition'``: the batched Adams solve and the
+  transition-matrix adjoint; on CUDA tensors both solves run every attempt
+  through the history-attempt kernel, built from the problem's right-hand
+  side (``symode/cuda_codegen.py``) at first use.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from sunode_torch.adjoint import adjoint_backward_transition_batched
+from sunode_torch.adjoint import adjoint_backward_batched, adjoint_backward_transition_batched
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
@@ -39,12 +43,21 @@ class BatchedSolve:
     forward (``'forward'``) and backward (``'backward'``) solves."""
 
     def __init__(self, problem: Problem, derivatives, options, adjoint_options,
-                 method: str = "ADAMS"):
+                 method: str = "ADAMS", interpolation: str = "transition",
+                 checkpoint_n: int = 1024):
         self.problem = problem
         self.derivatives = derivatives
         self.options = options
         self.adjoint_options = adjoint_options
         self.method = method
+        self.interpolation = interpolation
+        # the checkpointed adjoint reads the forward solve's recording;
+        # polynomial interpolation reads only (t, y) rows, so no fdot rows
+        self.fwd_options = options
+        if interpolation in ("hermite", "polynomial"):
+            self.fwd_options = options._replace(save_steps=checkpoint_n)
+            if interpolation == "polynomial":
+                self.fwd_options = self.fwd_options._replace(hermite_order=3)
         self.rhs = problem.make_rhs()
         self.jac = problem.make_jac_dense() if method == "BDF" else None
         self.n_deriv = problem.n_params
@@ -68,14 +81,14 @@ class BatchedSolve:
         p_fix_b = torch.broadcast_to(p_fix, (B,) + tuple(p_fix.shape))
         return self.problem.params.combine(p_sub, p_fix_b)
 
-    def forward_solve(self, t0, y0, p, tvals):
+    def forward_solve(self, t0, y0, p, tvals, options):
         if self.method == "BDF":
             res = bdf_solve_batched(
-                self.rhs, self.jac, t0, y0, p, tvals, self.options, batched_fns=True
+                self.rhs, self.jac, t0, y0, p, tvals, options, batched_fns=True
             )
         else:
             res = adams_solve_batched(
-                self.rhs, t0, y0, p, tvals, self.options,
+                self.rhs, t0, y0, p, tvals, options,
                 batched_fns=True,
                 device_system=self.device_system("forward", y0.device),
             )
@@ -83,22 +96,30 @@ class BatchedSolve:
         return res
 
     def __call__(self, t0, y0, p_sub, p_fix, tvals):
-        if self.derivatives is None:
+        inputs = (t0, y0, p_sub, p_fix, tvals)
+        wants_grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in inputs
+        )
+        if self.derivatives is None or not wants_grad:
+            # the primal: no recording, as the reference's undifferentiated call
             with torch.no_grad():
                 p = self.combine(p_sub, p_fix)
-                res = self.forward_solve(t0, y0, p, tvals)
+                res = self.forward_solve(t0, y0, p, tvals, self.options)
                 return _poison_b(res.ys, res.status)
-        return _TransitionAdjoint.apply(self, t0, y0, p_sub, p_fix, tvals)
+        return _Adjoint.apply(self, *inputs)
 
 
-class _TransitionAdjoint(torch.autograd.Function):
+class _Adjoint(torch.autograd.Function):
+    """Forward solve, then the adjoint of the solver's interpolation."""
+
     @staticmethod
     def forward(ctx, solver: BatchedSolve, t0, y0, p_sub, p_fix, tvals):
         p = solver.combine(p_sub, p_fix)
-        res = solver.forward_solve(t0, y0, p, tvals)
+        res = solver.forward_solve(t0, y0, p, tvals, solver.fwd_options)
         ys = _poison_b(res.ys, res.status)
         ctx.solver = solver
         ctx.t0 = t0
+        ctx.saved = res.saved  # the recorded trajectory (checkpointed adjoint)
         ctx.tvals_is_tensor = torch.is_tensor(tvals)
         tvals_t = torch.as_tensor(tvals, dtype=ys.dtype, device=ys.device)
         ctx.save_for_backward(y0, p, p_fix, tvals_t, res.status, ys)
@@ -111,20 +132,37 @@ class _TransitionAdjoint(torch.autograd.Function):
         B = y0.shape[0]
         dtype = ys_fwd.dtype
         problem = solver.problem
-        adj = adjoint_backward_transition_batched(
-            solver.rhs,
-            problem.make_adjoint_jac_dense(),
-            problem.make_dfdp(),
-            ctx.t0,
-            tvals,
-            g.to(dtype).contiguous(),
-            p,
-            solver.n_deriv,
-            ys_fwd[:, -1, :],
-            solver.adjoint_options,
-            device_system=solver.device_system("transition", y0.device),
-        )
-        solver.last_stats["backward"] = adj.stats
+        g = g.to(dtype).contiguous()
+        if solver.interpolation == "transition":
+            adj = adjoint_backward_transition_batched(
+                solver.rhs,
+                problem.make_adjoint_jac_dense(),
+                problem.make_dfdp(),
+                ctx.t0,
+                tvals,
+                g,
+                p,
+                solver.n_deriv,
+                ys_fwd[:, -1, :],
+                solver.adjoint_options,
+                device_system=solver.device_system("transition", y0.device),
+            )
+        else:
+            adj = adjoint_backward_batched(
+                problem.make_adjoint_rhs(),
+                problem.make_adjoint_jac_dense(),
+                problem.make_adjoint_quad_rhs(),
+                ctx.saved,
+                ctx.t0,
+                tvals,
+                g,
+                p,
+                solver.n_deriv,
+                solver.adjoint_options,
+                method=solver.method,
+                interpolation=solver.interpolation,
+            )
+        solver.last_stats["backward"] = dict(adj.stats, status=adj.status)
         bad = (status != 0) | (adj.status != 0)
         lam = torch.where(bad[:, None], float("nan"), adj.lamda)  # (B, n)
         quad = torch.where(bad[:, None], float("nan"), adj.quad)  # (B, k)
@@ -138,7 +176,7 @@ class _TransitionAdjoint(torch.autograd.Function):
                 ys_fwd.permute(2, 1, 0),
                 p.T[:, None, :],
             )  # (n, n_t, B)
-            d_tvals = torch.einsum("bij,jib->i", g.to(dtype), f_at)
+            d_tvals = torch.einsum("bij,jib->i", g, f_at)
             d_tvals = torch.where(bad.any(), float("nan"), d_tvals)
         d_t0 = None
         if torch.is_tensor(ctx.t0):
@@ -160,15 +198,15 @@ def make_batched_solve_fn(
     linear_solver: str = "dense",
     linear_solver_kwargs: Optional[dict] = None,
 ) -> BatchedSolve:
-    """Batch-native differentiable solver; same signature as the JAX
-    package's.  Ported so far: ``method='ADAMS'`` with ``derivatives=None``
-    or ``'adjoint'`` and ``adjoint_interpolation='transition'``, and
-    ``method='BDF'`` with ``derivatives=None`` (the forward solve; failed
-    lanes come back NaN), both with dense linear algebra.  Anything else
-    raises ``NotImplementedError``: the BDF adjoint needs the checkpointed
-    adjoint, which is not ported yet.  ``checkpoint_n`` is accepted and
-    unused, as in the reference's transition mode (which records no
-    checkpoints)."""
+    """Batch-native differentiable solver; same signature and defaults as
+    the JAX package's.  Ported so far, with dense linear algebra:
+    ``method='BDF'`` with ``derivatives=None`` or ``'adjoint'`` and
+    ``adjoint_interpolation`` 'hermite' or 'polynomial' (the forward solve
+    records ``checkpoint_n`` checkpoints when gradients are wanted), and
+    ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
+    ``adjoint_interpolation='transition'`` (no checkpoints).  Failed lanes
+    come back NaN, and so do their gradients.  ADAMS with 'hermite',
+    'polynomial' or 'resolve' raises ``NotImplementedError``."""
     if method not in ("BDF", "ADAMS"):
         raise ValueError("method must be 'BDF' or 'ADAMS'")
     if linear_solver != "dense" or linear_solver_kwargs:
@@ -187,15 +225,13 @@ def make_batched_solve_fn(
             raise ValueError(
                 f"adjoint_interpolation={adjoint_interpolation!r} requires method='ADAMS'"
             )
-        if method != "ADAMS":
+        if method == "ADAMS" and adjoint_interpolation != "transition":
             raise NotImplementedError(
-                "sunode_torch: method='BDF' with derivatives='adjoint' needs the "
-                "checkpointed adjoint, which is not ported yet"
-            )
-        if adjoint_interpolation != "transition":
-            raise NotImplementedError(
-                "sunode_torch: only adjoint_interpolation='transition' is ported yet"
+                f"sunode_torch: method='ADAMS' with adjoint_interpolation="
+                f"{adjoint_interpolation!r} is not ported yet (ROADMAP A8b)"
             )
     if adjoint_options is None:
         adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)
-    return BatchedSolve(problem, derivatives, options, adjoint_options, method)
+    interpolation = adjoint_interpolation if derivatives == "adjoint" else None
+    return BatchedSolve(problem, derivatives, options, adjoint_options, method,
+                        interpolation, checkpoint_n)

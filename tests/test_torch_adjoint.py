@@ -15,7 +15,7 @@ from sunode_tpu.symode import SympyProblem as JaxSympyProblem
 from sunode_tpu.wrappers.as_jax import make_batched_solve_fn as jax_make
 from sunode_torch.convert import df_pairs_to_f64, inputs_from_numpy, options_from_fields
 from sunode_torch.experiments import exp_pece2d
-from sunode_torch.entry import _lv, build_lv_adjoint, lv_options, lv_problem
+from sunode_torch.entry import _lv, build_lv_adjoint, build_lv_checkpointed, lv_options, lv_problem
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
@@ -169,11 +169,13 @@ def test_options_carry_over_field_for_field():
     "entry",
     [
         lambda: build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6),
+        lambda: build_lv_checkpointed(batch=2, tvals_n=3, rtol=1e-6),
         lambda: inputs_from_numpy(np.ones((2, 2)), np.ones((2, 2)), np.ones(2), np.ones(3)),
         lambda: df_pairs_to_f64(np.ones(3, np.float32), np.zeros(3, np.float32)),
         lambda: exp_pece2d.run([8]),
     ],
-    ids=["build_lv_adjoint", "inputs_from_numpy", "df_pairs_to_f64", "exp_pece2d"],
+    ids=["build_lv_adjoint", "build_lv_checkpointed", "inputs_from_numpy", "df_pairs_to_f64",
+         "exp_pece2d"],
 )
 def test_entry_points_default_to_the_card(entry):
     """Without a card the default device raises: nothing quietly runs on the CPU."""
@@ -185,10 +187,15 @@ def test_entry_points_default_to_the_card(entry):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(method="BDF"), dict(method="ADAMS", adjoint_interpolation="hermite"),
+    [dict(method="BDF", derivatives="forward"),
+     dict(method="ADAMS", adjoint_interpolation="hermite"),
+     dict(method="ADAMS", adjoint_interpolation="polynomial"),
+     dict(method="ADAMS", adjoint_interpolation="resolve"),
      dict(method="ADAMS", derivatives="forward")],
-    ids=["bdf", "hermite", "forward-sens"],
+    ids=["bdf", "hermite", "polynomial", "resolve", "forward-sens"],
 )
 def test_unported_modes_raise(kwargs):
+    """Batched forward sensitivities are not in the reference either; the
+    ADAMS checkpointed and resolve adjoints are not ported yet."""
     with pytest.raises(NotImplementedError):
         make_batched_solve_fn(lv_problem(), **kwargs)

@@ -1,7 +1,7 @@
 """sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
-kernel against their plain versions and each other, and the CUDA main path
-and the batched BDF solve, with and without sensitivities, against the CPU
-ones.
+kernel against their plain versions and each other, and the CUDA main path,
+the batched BDF solve, with and without sensitivities, and the default call
+(BDF with the checkpointed adjoint) against the CPU ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -218,6 +218,34 @@ def test_cuda_bdf_sensitivities_match_cpu(cuda):
     for got, ref in zip(out[cuda], out["cpu"]):
         assert np.isfinite(got).all()
         assert np.max(np.abs(got - ref) / (np.abs(ref) + 1e-9)) <= 1e-6
+
+
+@pytest.mark.parametrize("interpolation", ["hermite", "polynomial"])
+def test_cuda_default_call_matches_cpu(cuda, interpolation):
+    """``make_batched_solve_fn(problem)`` (BDF, the checkpointed adjoint) on
+    the 16 lanes of lv_adjoint.npz, rtol = atol = 1e-8: the card's gradients
+    within 1e-6 of the CPU's and inside the golden gate; no kernel of the
+    package runs."""
+    from sunode_torch.ops.bdf import BDFOptions as Options
+    from sunode_torch.wrappers.as_torch import make_batched_solve_fn
+
+    g = np.load(Path(__file__).parent / "golden" / "lv_adjoint.npz")
+    kw = {} if interpolation == "hermite" else dict(adjoint_interpolation=interpolation)
+    solve = make_batched_solve_fn(lv_problem(), options=Options(rtol=1e-8, atol=1e-8), **kw)
+    launches = adams_history_attempt.launches
+    out = {}
+    for device in (cuda, "cpu"):
+        f64 = dict(dtype=torch.float64, device=device)
+        y0 = torch.as_tensor(g["y0s"], **f64).requires_grad_()
+        p = torch.as_tensor(g["p_subs"], **f64).requires_grad_()
+        ys = solve(0.0, y0, p, torch.as_tensor(g["p_fix"], **f64), torch.as_tensor(g["tvals"], **f64))
+        out[device] = [a.cpu().numpy() for a in torch.autograd.grad(torch.sum(ys**2), (y0, p))]
+        assert (solve.last_stats["backward"]["status"] == 0).all()
+    assert adams_history_attempt.launches == launches
+    for got, ref, gold in zip(out[cuda], out["cpu"], (g["gy"], g["gp"])):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+        np.testing.assert_allclose(got, gold, rtol=2e-3, atol=1e-3)
 
 
 def test_pece_2d_kernel_matches_plain_and_kernel1(cuda):
