@@ -35,9 +35,10 @@ Phases, one line each; any failure exits non-zero:
      against the plain path on the CPU within 1e-6;
   5. stiff BDF: bench.py's Robertson workload at B=10,000 (8 observation
      times to 4e6, rtol 1e-8, atol [1e-10, 1e-12, 1e-10]) through
-     ``make_batched_solve_fn(method='BDF', derivatives=None)``: one timed
-     solve, then one under the profiler for the device
-     kernels per attempt and the device-busy share; status 0 in every lane
+     ``make_batched_solve_fn(method='BDF', derivatives=None)``: one solve
+     under the profiler for the device kernels per attempt (counted from the
+     profiler's raw records and from its public event list, which must
+     agree) and the device-busy share, then one timed solve, warm; status 0 in every lane
      (finite ys after the wrapper's NaN poisoning), lanes 0-15 inside the
      golden gate (tests/golden/robertson.npz, rtol 2e-5, atol 1e-10) and
      against the plain path on the CPU within 1e-6 relative (floored at the
@@ -436,13 +437,32 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def device_kernels_per_attempt(run, attempts) -> dict:
+def _raw_device_events(prof):
+    """(name, µs) of every device record of a finished profile, read from
+    the profiler's raw records (``kineto_results``, not a public API):
+    building its Python event tree takes minutes for the millions of kernels
+    of a checkpointed gradient step.  Raises if this torch lacks them."""
+    from torch.autograd import DeviceType
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None or not hasattr(results, "events"):
+        raise SystemExit("chip_smoke: this torch's profiler has no kineto_results.events()")
+    return [(e.name(), e.duration_ns() / 1e3) for e in results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def _count(names) -> tuple[int, int]:
+    """(kernels, copies and fills) among device record names."""
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    return len(names) - copies, copies
+
+
+def device_kernels_per_attempt(run, attempts, cross_check=False) -> dict:
     """``run()`` once under the profiler: the device kernels it ran (and its
     copies and fills, counted apart) per attempt, ``attempts()`` read after
     the run, and its device-busy time against its wall time under the
-    profiler.  The profiler's raw records are read directly: building its
-    Python event tree takes minutes for the millions of kernels of a
-    checkpointed gradient step."""
+    profiler.  With ``cross_check`` the public ``prof.events()`` counts the
+    same run too, and the two counts must agree."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -454,23 +474,22 @@ def device_kernels_per_attempt(run, attempts) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     attempts = attempts()
-    kernels = copies = 0
+    events = _raw_device_events(prof)
+    kernels, copies = _count([name for name, _ in events])
+    public = None
+    if cross_check:
+        public = _count([e.name for e in prof.events() if e.device_type == DeviceType.CUDA])
+        if public != (kernels, copies):
+            raise SystemExit(f"chip_smoke: the profiler's raw records count {(kernels, copies)} "
+                             f"device kernels and copies, prof.events() {public}")
     busy_us = 0.0
     by_class: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        name = e.name()
-        if name.startswith(("Memcpy", "Memset")):
-            copies += 1
-        else:
-            kernels += 1
-        us = e.duration_ns() / 1e3
+    for name, us in events:
         busy_us += us
         entry = by_class.setdefault(kernel_class(name), [0, 0.0])
         entry[0] += 1
         entry[1] += us
-    return dict(attempts=attempts, kernels=kernels, copies=copies,
+    return dict(attempts=attempts, kernels=kernels, copies=copies, public=public,
                 per_attempt=kernels / attempts, busy_s=busy_us / 1e6, wall_s=wall,
                 by_class={c: (n / attempts, us / 1e3) for c, (n, us) in
                           sorted(by_class.items(), key=lambda kv: -kv[1][1])})
@@ -590,21 +609,24 @@ def bdf_robertson_phase(smi) -> None:
     def run():
         return solve(0.0, *inputs)
 
+    # the profiled solve comes first and is the timed solve's warm-up; the
+    # profiler's public event list counts its kernels too (a few seconds at
+    # this size), as a check of the raw-record count every phase uses
+    prof = device_kernels_per_attempt(run, lambda: solve.last_stats["forward"]["n_attempts"],
+                                      cross_check=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ys = run()
     torch.cuda.synchronize()
-    walls = [time.perf_counter() - t0]
+    wall = time.perf_counter() - t0
     stats = solve.last_stats["forward"]
     attempts = stats["n_attempts"]
     steps = stats["n_steps"].cpu().numpy()
-    for i, wall in enumerate(walls):
-        log(
-            f"[bdf robertson solve {i}] B={B_MAIN} wall_s={wall:.4f} "
-            f"us_per_solve={1e6 * wall / B_MAIN:.2f} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
-            f"| {smi}"
-        )
-    prof = device_kernels_per_attempt(run, lambda: solve.last_stats["forward"]["n_attempts"])
+    log(
+        f"[bdf robertson solve, warm] B={B_MAIN} wall_s={wall:.4f} "
+        f"us_per_solve={1e6 * wall / B_MAIN:.2f} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
+        f"| {smi}"
+    )
     log(
         f"[bdf robertson stats] n_attempts={attempts} n_steps min/median/max="
         f"{steps.min()}/{int(np.median(steps))}/{steps.max()} "
@@ -614,7 +636,8 @@ def bdf_robertson_phase(smi) -> None:
     log(
         f"[bdf robertson device kernels per attempt] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts in one solve) device_busy_s={prof['busy_s']:.4f} "
+        f"{prof['attempts']} attempts in one solve; prof.events() counts "
+        f"{prof['public'][0]} and {prof['public'][1]}) device_busy_s={prof['busy_s']:.4f} "
         f"wall_s_under_profiler={prof['wall_s']:.4f} "
         f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled solve) | {smi}"
     )

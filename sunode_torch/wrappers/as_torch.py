@@ -43,8 +43,7 @@ class BatchedSolve:
     forward (``'forward'``) and backward (``'backward'``) solves."""
 
     def __init__(self, problem: Problem, derivatives, options, adjoint_options,
-                 method: str = "ADAMS", interpolation: str = "transition",
-                 checkpoint_n: int = 1024):
+                 method: str, interpolation: Optional[str], checkpoint_n: int):
         self.problem = problem
         self.derivatives = derivatives
         self.options = options
