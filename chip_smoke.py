@@ -8,7 +8,10 @@ Phases, one line each; any failure exits non-zero:
   1. device: the card's name and power limit (no CUDA device -> exit 1);
   2. build: nvcc builds, all at once, the PECE kernel and the history-attempt
      kernel for both emitted systems (forward LV, and the transition-adjoint
-     backward system) and the flat-history PECE kernel at order 6;
+     backward system) and the flat-history PECE kernel at order 6, and the
+     history-attempt kernel at phase 7's depth (adams_max_order 8) for the
+     forward, the backsolve ('resolve') and the staged checkpointed
+     ('staged_adjoint') systems;
   3. kernel vs plain: each PECE build against the plain PyTorch version on
      the card at B=10,000, seeded random history, per-lane order 1..6, the
      main path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
@@ -24,7 +27,10 @@ Phases, one line each; any failure exits non-zero:
      card at B=10,000, on phase 3's inputs plus a seeded step ratio
      log-uniform in [0.2, 2] and the main path's error weights; normwise
      relative error <= 1e-12 on DF_resc, DF_upd, z_new and err3, conv and
-     niter equal in every lane, and per-call times as in phase 3;
+     niter equal in every lane, and per-call times as in phase 3; phase 7's
+     three builds at its history depth (order 1..8) and tolerances (1e-8 on
+     every row), the staged build with seeded y(t) rows after the
+     parameters;
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: the history-attempt launches equal to the attempts
@@ -61,7 +67,19 @@ Phases, one line each; any failure exits non-zero:
      the plain path on the CPU within 1e-6; then 'polynomial' on lanes 0-15,
      the card against the CPU within 1e-6 and the golden gate; no kernel of
      the package launches on this path;
-  7. the kernel table and the result line.  Each kernel's bound is the
+  7. the ADAMS adjoints that read no transition matrix, 'resolve',
+     'hermite' and 'polynomial', through ``entry.build_lv_adams`` on phase
+     4's inputs at B=10,000, 21 observation times, rtol = atol = 1e-8 forward
+     and backward, 384 checkpoints (the JAX package's golden test of these
+     modes): per mode one timed gradient step with every kernel count set to
+     0 before it, the history-attempt launches equal to the forward plus the
+     backward attempts, split by system, and no launch of the PECE or the
+     flat-history kernel; then one step under the profiler (device kernels
+     and host ms per attempt, device-busy share), the table's bytes and the
+     peak memory; status 0 and finite gradients in every lane, lanes 0-15
+     inside the golden gate and against the same call on the CPU within
+     1e-6;
+  8. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
@@ -91,6 +109,9 @@ TPU_KERNEL_2D = "scripts/exp_pallas2d.py:59"
 KERNEL_SOURCE_2D = "sunode_torch/csrc/pece_2d.cu"
 KERNEL_SOURCE_ATTEMPT = "sunode_torch/csrc/adams_attempt.cu"
 P_MAX = 6  # adams_max_order of the main path: history depth KAB = P_MAX + 3 = 9
+P_MAX_ADAMS = 8  # phase 7's adams_max_order (the default): KAB = 11
+ADAMS_MODES = ("resolve", "hermite", "polynomial")
+ADAMS_RTOL = 1e-8  # phase 7's tolerances, forward and backward, every row
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
 
 
@@ -132,28 +153,35 @@ def sass_instructions(lib_path):
     return sum(1 for ln in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
 
 
-def pece_inputs(system, B, seed, device):
-    """Seeded inputs of one PECE attempt for ``system`` at the main path's
-    tolerances: history depth KAB = 9 (adams_max_order 6), order 1..6 per
-    lane, 90% of lanes active, steps log-uniform in [1e-6, 1e-2]."""
+def pece_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
+    """Seeded inputs of one PECE attempt for ``system``: history depth KAB =
+    p_max + 3, order 1..p_max per lane, 90% of lanes active, steps
+    log-uniform in [1e-6, 1e-2]; the main path's tolerances, or, with
+    ``tol``, rtol = atol = tol on every row (phase 7).  A system with more
+    parameter rows than the problem's reads a staged y(t) there: seeded rows
+    uniform in [0.5, 12] (the range of the LV states)."""
     import torch
 
     from sunode_torch.entry import lv_options
-    from sunode_torch.ops.bdf import newton_tol_for
+    from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
 
     rng = np.random.default_rng(seed)
-    KAB, n, nz = P_MAX + 3, system.n, system.nz
+    KAB, n, nz = p_max + 3, system.n, system.nz
     DF = rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
     z_prev = 1.0 + rng.uniform(0.2, 1.0, (nz, B))
     params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (
         1 + 0.1 * rng.standard_normal((4, B))
     )
+    params = np.concatenate([params, rng.uniform(0.5, 12.0, (system.n_p - 4, B))])
     h = 10.0 ** rng.uniform(-6, -2, B)
     t_new = rng.uniform(0.0, 10.0, B)
-    p = rng.integers(1, 7, B).astype(np.int32)
+    p = rng.integers(1, p_max + 1, B).astype(np.int32)
     active = rng.uniform(size=B) < 0.9
     fwd, adj = lv_options(1e-8)
-    if nz == n:  # forward
+    if tol is not None:
+        rtol = atol = np.full(nz, tol)
+        opts = BDFOptions(rtol=tol, atol=tol)
+    elif nz == n:  # forward
         rtol = np.full(n, fwd.rtol)
         atol = np.full(n, fwd.atol)
         opts = fwd
@@ -280,17 +308,17 @@ def compare_kernel(kind, device_system, fz, seed):
                 **bound(nbytes, flops))
 
 
-def history_inputs(system, B, seed, device):
+def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
     """Phase 3's inputs plus what the history attempt also reads, as the main
     path builds it: the step ratio h / h_D (seeded, log-uniform in [0.2, 2]),
     |gamma*| and the error norm's weights (1/n on the state rows; with the
-    quadrature under error control, as the transition solve has it, half of
+    quadrature under error control, as every backward solve has it, half of
     each block's share)."""
     import torch
 
     from sunode_torch.ops.adams import _GAMMA_STAR
 
-    x = pece_inputs(system, B, seed, device)
+    x = pece_inputs(system, B, seed, device, p_max, tol)
     rng = np.random.default_rng(1000 + seed)
     n, nz = system.n, system.nz
     if nz == n:
@@ -328,7 +356,7 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
     return nbytes, flops
 
 
-def compare_history_kernel(kind, device_system, fz, seed):
+def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None):
     """Phase 3c for one build: returns the kernel-table entry fields."""
     import torch
 
@@ -341,12 +369,12 @@ def compare_history_kernel(kind, device_system, fz, seed):
     from sunode_torch.ops.pece_step import PeceSystem
 
     system = PeceSystem(fz=fz, n=device_system.n, nz=device_system.nz, device=device_system)
-    x = history_inputs(device_system, B_MAIN, seed, "cuda")
+    x = history_inputs(device_system, B_MAIN, seed, "cuda", p_max, tol)
 
     def args(z, p=x["p"]):
         return (x["t_new"], x["h"], x["pre_factor"], p, x["active"], x["DF"], z,
                 x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
-                x["newton_tol"], FUNCTIONAL_MAXITER, P_MAX)
+                x["newton_tol"], FUNCTIONAL_MAXITER, p_max)
 
     run_k = lambda z: adams_history_attempt(system, *args(z))  # noqa: E731
     run_p = lambda z: adams_history_attempt_reference(system, *args(z))  # noqa: E731
@@ -362,13 +390,14 @@ def compare_history_kernel(kind, device_system, fz, seed):
     at_p = {
         q: device_us(lambda: adams_history_attempt(
             system, *args(x["z_prev"], torch.full_like(x["p"], q))))
-        for q in (1, P_MAX)
+        for q in (1, p_max)
     }
     nbytes, flops = history_cost(device_system, x, got.niter)
     entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
                  **bound(nbytes, flops))
     log(
         f"[history-kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
+        f"n_p={device_system.n_p} KAB={p_max + 3} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
         f" converged={int(got.conv.sum())}/{B_MAIN}"
@@ -596,6 +625,117 @@ def checkpointed_phase(smi) -> None:
         raise SystemExit("chip_smoke: the CUDA checkpointed adjoint disagrees with the plain path")
 
 
+def adams_table_bytes(mode, B) -> int:
+    """Bytes of the forward recording a mode keeps for its backward: 384
+    slots and the rolling tail, rows (t, y, f, fdot) for 'hermite', (t, y,
+    f) for 'polynomial' (hermite_order 3), none for 'resolve'."""
+    from sunode_torch.entry import LV_ADAMS_CHECKPOINTS
+
+    n = 2
+    W = {"resolve": 0, "hermite": 1 + 3 * n, "polynomial": 1 + 2 * n}[mode]
+    return 8 * (LV_ADAMS_CHECKPOINTS + 1) * W * B
+
+
+def adams_expected_launches(mode, fwd, bwd) -> dict:
+    """History-attempt launches per system that one gradient step of
+    ``mode`` must make: each forward attempt on the forward build, each
+    backward attempt on the mode's backward build."""
+    back = "resolve" if mode == "resolve" else "staged_adjoint"
+    return {"forward": fwd, back: bwd}
+
+
+def adams_modes_phase(smi, counted, history_kernels) -> dict:
+    """Phase 7: LV gradients through 'resolve', 'hermite' and 'polynomial'.
+    ``history_kernels`` are the history-attempt builds at this phase's depth
+    by system; returns their launches over the three timed steps."""
+    import torch
+
+    from sunode_torch.ops.adams_attempt import adams_history_attempt
+
+    y0s, p_subs = lv_main_inputs()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    y0s_t, p_subs_t = torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64)
+    golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
+    total = {kind: 0 for kind in history_kernels}
+    for mode in ADAMS_MODES:
+        from sunode_torch.entry import build_lv_adams
+
+        grad_step, _ = build_lv_adams(B_MAIN, 21, ADAMS_RTOL, mode, device="cuda")
+        stats = grad_step.solve.last_stats
+        for k in counted:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gy, gp = grad_step(y0s_t, p_subs_t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+        launches = {kind: k.launches for kind, k in history_kernels.items() if k.launches}
+        others = [k.launches for k in counted if k not in history_kernels.values()
+                  and k is not adams_history_attempt]
+        expected = adams_expected_launches(mode, fwd, bwd)
+        log(f"[adams {mode} launches] history-attempt {launches} "
+            f"total={adams_history_attempt.launches} expected={expected}; "
+            f"other kernels {others}")
+        if not (launches == expected and adams_history_attempt.launches == fwd + bwd):
+            raise SystemExit(f"chip_smoke: {mode}: history-attempt launches do not match "
+                             "the attempts run")
+        if any(others):
+            raise SystemExit(f"chip_smoke: {mode}: the path launched the PECE or flat kernel")
+        for kind, count in launches.items():
+            total[kind] += count
+        status = stats["backward"]["status"].cpu().numpy()
+        bwd_steps = stats["backward"]["n_backward_steps"].cpu().numpy()
+        levels = stats["forward"].get("checkpoint_thinning_levels", "none")
+        log(
+            f"[adams {mode} step] B={B_MAIN} wall_s={wall:.4f} grads_per_s={B_MAIN / wall:.1f} "
+            f"attempts fwd={fwd} bwd={bwd} host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} "
+            f"thinning_levels={levels} n_backward_steps min/median/max={bwd_steps.min()}/"
+            f"{int(np.median(bwd_steps))}/{bwd_steps.max()} "
+            f"table_MB={adams_table_bytes(mode, B_MAIN) / 1e6:.1f} "
+            f"peak_MB={torch.cuda.max_memory_allocated() / 1e6:.1f} | {smi}"
+        )
+
+        def attempts():
+            return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+
+        prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), attempts)
+        log(
+            f"[adams {mode} device kernels per attempt] {prof['per_attempt']:.1f} "
+            f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+            f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+            f"wall_s_under_profiler={prof['wall_s']:.4f} host_ms_per_attempt_under_profiler="
+            f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} "
+            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
+        )
+        log(f"[adams {mode} device kernels by kind] (kind: per attempt, device ms in the step) "
+            + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+
+        gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
+        finite = int((np.isfinite(gy_np).all(axis=1) & np.isfinite(gp_np).all(axis=1)).sum())
+        if not (gy_np.shape == gp_np.shape == (B_MAIN, 2) and finite == B_MAIN
+                and (status == 0).all()):
+            raise SystemExit(f"chip_smoke: {mode} gradients failed ({finite} finite, "
+                             f"{int((status == 0).sum())} with status 0, of {B_MAIN})")
+        np.testing.assert_allclose(gy_np[:16], golden["gy"], rtol=2e-3, atol=1e-3)
+        np.testing.assert_allclose(gp_np[:16], golden["gp"], rtol=2e-3, atol=1e-3)
+        gold_rel = max_rel((gy_np[:16], gp_np[:16]), (golden["gy"], golden["gp"]))
+        t0 = time.perf_counter()
+        cpu_step, _ = build_lv_adams(16, 21, ADAMS_RTOL, mode, device="cpu")
+        cpu = [a.numpy() for a in cpu_step(torch.as_tensor(y0s[:16]), torch.as_tensor(p_subs[:16]))]
+        plain_rel = max_rel((gy_np[:16], gp_np[:16]), cpu)
+        log(
+            f"[adams {mode} check] status 0 and finite in {finite}/{B_MAIN} lanes; "
+            f"golden_max_rel={gold_rel:.3e} (gate 2e-3) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} "
+            f"(bound 1e-6; the CPU's 16 lanes took {time.perf_counter() - t0:.2f} s)"
+        )
+        if not plain_rel <= 1e-6:
+            raise SystemExit(f"chip_smoke: the CUDA {mode} adjoint disagrees with the plain path")
+        log_elapsed(f"7, {mode}")
+    return total
+
+
 def bdf_robertson_phase(smi) -> None:
     """Phase 5: bench.py's Robertson workload through the BDF wrapper."""
     import torch
@@ -729,7 +869,7 @@ def main() -> None:
     # batched LU of tiny matrices is far slower on many threads than on one
     torch.set_num_threads(1)
 
-    from sunode_torch.adjoint import transition_fz
+    from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
     from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
     from sunode_torch.ops.pece_2d import P_ORDER, build_pece_2d, lv_system, pece_2d_attempt
@@ -742,15 +882,26 @@ def main() -> None:
         "forward": cuda_codegen.forward_system(problem),
         "transition": cuda_codegen.transition_system(problem),
     }
+    # phase 7's systems, at its history depth
+    adams_systems = {
+        "forward": systems["forward"],
+        "resolve": cuda_codegen.resolve_system(problem),
+        "staged_adjoint": cuda_codegen.staged_adjoint_system(problem),
+    }
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(systems) + 1) as pool:
+    with ThreadPoolExecutor(2 * len(systems) + 1 + len(adams_systems)) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
         futures.update({
             f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
             for kind, ds in systems.items()
         })
         futures["pece_2d"] = pool.submit(build_pece_2d, P_ORDER)
+        futures.update({
+            f"history_{kind}_kab{P_MAX_ADAMS + 3}": pool.submit(
+                build_attempt_kernel, ds, P_MAX_ADAMS + 3)
+            for kind, ds in adams_systems.items()
+        })
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
@@ -760,15 +911,24 @@ def main() -> None:
     log_elapsed("2")
     kernels = {kind: built[kind] for kind in systems}
     history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
+    adams_kernels = {kind: built[f"history_{kind}_kab{P_MAX_ADAMS + 3}"] for kind in adams_systems}
 
     # phase 3: kernel vs plain on the card
     rhs = problem.make_rhs()
     rhs_c, quad_c = transition_fz(
         rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), problem.n_states
     )
+    aj, qr = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
+    res_c, res_q = resolve_fz(rhs, aj, qr, problem.n_states)
+    stg_c, stg_q = staged_adjoint_fz(aj, qr)
+    n_p = problem.n_all_params
     fz = {
         "forward": rhs,
         "transition": lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
+        "resolve": lambda t, y, p: torch.cat([res_c(t, y, p), res_q(t, y, p)]),
+        # the parameter rows are [params | y(t)], as the Adams core passes them
+        "staged_adjoint": lambda t, y, p: torch.cat(
+            [stg_c(t, y, p[:n_p], p[n_p:]), stg_q(t, y, p[:n_p], p[n_p:])]),
     }
     table = {
         kind: compare_kernel(kind, systems[kind], fz[kind], seed)
@@ -785,6 +945,11 @@ def main() -> None:
     history_table = {
         kind: compare_history_kernel(kind, systems[kind], fz[kind], seed)
         for seed, kind in enumerate(systems)
+    }
+    adams_table = {
+        kind: compare_history_kernel(f"{kind} KAB={P_MAX_ADAMS + 3}", adams_systems[kind],
+                                     fz[kind], seed, P_MAX_ADAMS, ADAMS_RTOL)
+        for seed, kind in enumerate(adams_systems, start=len(systems))
     }
 
     log_elapsed("3c")
@@ -870,7 +1035,8 @@ def main() -> None:
     # phases 5, 5b and 6: the BDF paths, which launch none of the kernels;
     # each path's counts are set to 0 just before it and read just after
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
-               *history_kernels.values(), pece_2d_attempt, build_pece_2d(P_ORDER))
+               *history_kernels.values(), *adams_kernels.values(), pece_2d_attempt,
+               build_pece_2d(P_ORDER))
     for label, name, phase in (("5", "robertson", bdf_robertson_phase),
                                ("5b", "sens", bdf_sens_phase),
                                ("6", "checkpointed", checkpointed_phase)):
@@ -882,6 +1048,10 @@ def main() -> None:
         if any(bdf_launches):
             raise SystemExit(f"chip_smoke: the BDF {name} phase launched an Adams kernel")
         log_elapsed(label)
+
+    # phase 7: the ADAMS adjoints through the history-attempt kernel; each
+    # mode's counts are set to 0 just before its step and read just after
+    adams_launches = adams_modes_phase(smi, counted, adams_kernels)
 
     entries = [
         dict(
@@ -908,6 +1078,17 @@ def main() -> None:
             **history_table[kind],
         )
         for kind in systems
+    ]
+    entries += [
+        dict(
+            name=f"adams_history_attempt[{kind}, KAB={P_MAX_ADAMS + 3}]",
+            route="cuda",
+            source=KERNEL_SOURCE_ATTEMPT,
+            replaces=TPU_KERNEL,
+            launches=adams_launches[kind],
+            **adams_table[kind],
+        )
+        for kind in adams_systems
     ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({

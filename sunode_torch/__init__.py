@@ -9,19 +9,21 @@ never jax, works in float64 per tensor and changes no global torch state
   * :func:`make_batched_solve_fn` -- batched solves with gradients through
     ``torch.autograd``: BDF with the checkpointed adjoint (the default
     call; 'hermite' or 'polynomial' interpolation), and Adams with the
-    transition adjoint;
-  * :func:`build_lv_checkpointed` -- the default call's Lotka-Volterra
-    gradient step.
+    transition, the backsolve ('resolve') or the checkpointed ('hermite',
+    'polynomial') adjoint;
+  * :func:`build_lv_checkpointed` and :func:`build_lv_adams` -- the
+    Lotka-Volterra gradient step through the default call and through
+    the ADAMS adjoints.
 
-On CUDA tensors the history half of every Adams attempt runs the
-hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``; on CPU tensors
-the plain PyTorch version of the same math runs instead.  The BDF core
-(:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities and checkpoint
-recording included) and the checkpointed adjoint are torch code with a
-``torch.linalg`` Newton solve on either device.
+On CUDA tensors the history half of every Adams attempt, forward and
+backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``;
+on CPU tensors the plain PyTorch version of the same math runs instead.  The
+BDF core (:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities and
+checkpoint recording included) and its checkpointed adjoint are torch code
+with a ``torch.linalg`` Newton solve on either device.
 """
 
-from sunode_torch.entry import build_lv_checkpointed
+from sunode_torch.entry import build_lv_adams, build_lv_checkpointed
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
@@ -32,6 +34,7 @@ __all__ = [
     "ParamSpec",
     "Record",
     "SympyProblem",
+    "build_lv_adams",
     "build_lv_checkpointed",
     "make_batched_solve_fn",
     "__version__",

@@ -2,11 +2,13 @@
 
 Port of ``sunode_tpu/adjoint.py``'s batched half: the transition-matrix
 adjoint of the Adams solve (``adjoint_backward_transition_batched``), and
-the checkpointed adjoint (``adjoint_backward_batched``, BDF): one backward
-BDF solve per observation interval over a Hermite or polynomial
-reconstruction of the forward trajectory recorded by ``bdf_solve_batched``
-(``save_steps > 0``), with the cotangent of each observation injected at
-its time.  Conventions (for L = sum_i g_i^T y(t_i)):
+``adjoint_backward_batched``: with ``method='BDF'`` one backward BDF solve
+per observation interval, with ``method='ADAMS'`` one fused backward Adams
+solve over the whole span with the cotangents injected at their times, over
+a Hermite or polynomial reconstruction of the forward trajectory recorded
+by the forward solve (``save_steps > 0``), or, with
+``interpolation='resolve'``, over y(t) integrated backward beside lambda.
+Conventions (for L = sum_i g_i^T y(t_i)):
 
   dL/dy0       = lambda(t0)
   dL/dp_subset = quad(t0)
@@ -30,6 +32,8 @@ __all__ = [
     "AdjointResult",
     "adjoint_backward_transition_batched",
     "transition_fz",
+    "resolve_fz",
+    "staged_adjoint_fz",
     "POLY_K",
     "make_hermite_eval_batched",
     "make_polynomial_eval_batched",
@@ -353,24 +357,36 @@ def adjoint_backward_batched(
     options: BDFOptions = BDFOptions(rtol=1e-10, atol=1e-10),
     method: str = "BDF",
     interpolation: str = "hermite",
+    rhs: Optional[Callable] = None,  # batched forward f(t, y, p); for 'resolve'
+    y_end: Optional[torch.Tensor] = None,  # (B, n) y(tvals[-1]); for 'resolve'
+    device_system: Optional[DeviceSystem] = None,  # ADAMS on CUDA tensors
 ) -> AdjointResult:
-    """Interval-wise backward solve of the checkpointed adjoint (CVODES's
-    ``CVodeB`` analog): from the last observation time down to ``t0``, add
-    each observation's cotangent to lambda at its time and solve
+    """Backward solve of the checkpointed adjoint (CVODES's ``CVodeB``
+    analog): from the last observation time down to ``t0``, add each
+    observation's cotangent to lambda at its time and solve
     ``dlam/dtau = J^T lam`` with the quadrature ``dq/dtau = lam^T df/dp``
-    in ``tau = -t`` to the next one, one ``bdf_solve_batched`` per interval
-    (warm-started from the previous interval's step, the first from the
-    automatic one), y(t) from the recorded trajectory ('hermite' or
-    'polynomial').  A lane whose solve fails turns NaN from there on; a
-    lane whose recording overflowed gets status 99 and NaN.
+    in ``tau = -t``, y(t) from the recorded trajectory ('hermite' or
+    'polynomial').  A lane whose solve fails turns NaN; a lane whose
+    recording overflowed gets status 99 and NaN.
 
-    ``method='ADAMS'`` and ``interpolation='resolve'`` are not ported yet
-    (the reference's ``rhs`` and ``y_end`` arguments serve only 'resolve')."""
-    if method != "BDF" or interpolation == "resolve":
-        raise NotImplementedError(
-            "adjoint_backward_batched: method='ADAMS' and interpolation='resolve' "
-            "are not ported to sunode_torch yet (ROADMAP A8b)"
-        )
+    ``method='BDF'`` solves one interval at a time with
+    ``bdf_solve_batched`` (warm-started from the previous interval's step,
+    the first from the automatic one).  ``method='ADAMS'`` makes one
+    ``adams_solve_batched`` over the whole span, the cotangents injected at
+    their times, y(t) staged once per attempt; with ``interpolation=
+    'resolve'`` it integrates ``z = [y | lam]`` from ``y_end`` instead (the
+    backsolve adjoint: no table, for non-stiff problems; needs ``rhs`` and
+    ``y_end``, ignores ``saved``, and reports ``stats['y0_resolved']``).
+    ``device_system`` is the emitted backward system of that solve
+    (``staged_adjoint`` or ``resolve``, ``symode/cuda_codegen.py``), which
+    a solve on CUDA tensors requires."""
+    if interpolation == "resolve":
+        if method != "ADAMS":
+            raise NotImplementedError("interpolation='resolve' requires method='ADAMS'")
+        if rhs is None or y_end is None:
+            raise ValueError("interpolation='resolve' requires rhs and y_end")
+        return _resolve_backward(adjoint_rhs, quad_rhs, rhs, y_end, t0, tvals, grads, params,
+                                 n_deriv, options, device_system)
     if interpolation == "polynomial":
         y_at = make_polynomial_eval_batched(saved)
     elif interpolation == "hermite":
@@ -382,6 +398,9 @@ def adjoint_backward_batched(
     y = saved["y"]
     dtype, device = y.dtype, y.device
     S, n, B = y.shape
+    if method == "ADAMS":
+        return _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads,
+                                     params, n_deriv, options, device_system)
     tvals_h = torch.as_tensor(tvals, dtype=dtype).tolist()  # one read per backward
     t0_h = float(t0)
     n_t = len(tvals_h)
@@ -440,4 +459,116 @@ def adjoint_backward_batched(
     return AdjointResult(
         lamda=lam, quad=q, status=status,
         stats=dict(n_backward_steps=nsteps, n_attempts=attempts),
+    )
+
+
+def resolve_fz(rhs: Callable, adjoint_rhs: Callable, quad_rhs: Callable, n: int):
+    """The backsolve adjoint's system in tau = -t, batched over lanes:
+    ``(rhs_c, quad_c)``, ``rhs_c(tau, z, p)`` for ``z = [y | lam]`` gives
+    ``[-f | J^T lam]`` and ``quad_c`` gives ``lam^T df/dp``; the torch form
+    of ``sunode_tpu/adjoint.py:756-764``."""
+
+    def rhs_c(tau, z, p):
+        t = -tau
+        y, lam = z[:n], z[n:]
+        # dy/dtau = -f(t, y);  dlam/dtau = +J^T lam = -adjoint_rhs
+        return torch.cat([-rhs(t, y, p), -adjoint_rhs(t, y, lam, p)])
+
+    def quad_c(tau, z, p):
+        return quad_rhs(-tau, z[:n], z[n:], p)
+
+    return rhs_c, quad_c
+
+
+def staged_adjoint_fz(adjoint_rhs: Callable, quad_rhs: Callable):
+    """The checkpointed adjoint's system in tau = -t with y(t) staged:
+    ``(rhs_s, quad_s)``, ``rhs_s(tau, lam, p, y)`` gives ``J^T lam`` and
+    ``quad_s`` gives ``lam^T df/dp``; the torch form of
+    ``sunode_tpu/adjoint.py:861-865``."""
+
+    def rhs_s(tau, lam, p, y):
+        return -adjoint_rhs(-tau, y, lam, p)  # dlam/dtau = +J^T lam
+
+    def quad_s(tau, lam, p, y):
+        return quad_rhs(-tau, y, lam, p)  # dq/dtau = +lam^T df/dp
+
+    return rhs_s, quad_s
+
+
+def _fused_solve(rhs_c, quad_c, z0, cotangent_rows, t0, tvals, grads, params, n_deriv,
+                 options, device_system, stage_fn=None):
+    """The one backward Adams solve of the fused backwards, in tau = -t from
+    ``-tvals[-1]`` to ``-t0``: the observation times before the last are
+    injection times, ascending in tau, where the rows ``cotangent_rows`` of
+    ``z`` jump by their cotangents; quadrature under error control."""
+    f_kw = dict(dtype=grads.dtype, device=grads.device)
+    deltas = torch.flip(grads[:, :-1, :], (1,)).permute(1, 2, 0)  # (n_e, n, B)
+    ev_deltas = torch.zeros((deltas.shape[0], z0.shape[1], z0.shape[0]), **f_kw)
+    ev_deltas[:, cotangent_rows] = deltas
+    return adams_solve_batched(
+        rhs_c, -tvals[-1], z0, torch.as_tensor(params, **f_kw),
+        torch.stack([-torch.as_tensor(t0, **f_kw)]),
+        options._replace(quad_err_con=True, save_steps=0),
+        quad_rhs=quad_c, quad0=torch.zeros((z0.shape[0], n_deriv), **f_kw), batched_fns=True,
+        device_system=device_system, inject_times=torch.flip(-tvals[:-1], (0,)),
+        inject_deltas=ev_deltas, stage_fn=stage_fn,
+    )
+
+
+def _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads, params,
+                          n_deriv, options, device_system) -> AdjointResult:
+    """The ADAMS branch of :func:`adjoint_backward_batched` (the reference's
+    fused backward, ``sunode_tpu/adjoint.py:844-894``): the last cotangent
+    is the initial lambda, the others are injected (history restart, warm
+    step), y(t) from the recording is staged once per attempt, and lambda
+    and q are read from the final carried state."""
+    f_kw = dict(dtype=saved["y"].dtype, device=saved["y"].device)
+    tvals = torch.as_tensor(tvals, **f_kw)
+    grads = torch.as_tensor(grads, **f_kw)
+    n = grads.shape[2]
+    res = _fused_solve(
+        *staged_adjoint_fz(adjoint_rhs, quad_rhs), grads[:, -1, :], slice(0, n), t0, tvals,
+        grads, params, n_deriv, options, device_system, stage_fn=lambda tau: y_at(-tau),
+    )
+    zfin = res.stats["final_state"]  # (B, n + n_deriv)
+    # a failed solve, or an overflowed (incomplete) recording, poisons the lane
+    bad = ((res.status != 0) | saved["overflow"])[:, None]
+    return AdjointResult(
+        lamda=torch.where(bad, float("nan"), zfin[:, :n]),
+        quad=torch.where(bad, float("nan"), zfin[:, n:]),
+        status=torch.where(saved["overflow"], 99, res.status).to(torch.int32),
+        stats=dict(n_backward_steps=res.stats["n_steps"], n_attempts=res.stats["n_attempts"]),
+    )
+
+
+def _resolve_backward(adjoint_rhs, quad_rhs, rhs, y_end, t0, tvals, grads, params, n_deriv,
+                      options, device_system) -> AdjointResult:
+    """``interpolation='resolve'`` (``sunode_tpu/adjoint.py:738-808``): the
+    fused backward solve of ``z = [y | lam]`` from ``[y_end | g_last]``, the
+    y rows continuous, the lambda rows jumping by the cotangents."""
+    grads = torch.as_tensor(grads)
+    f_kw = dict(dtype=grads.dtype, device=grads.device)
+    tvals = torch.as_tensor(tvals, **f_kw)
+    B, n_t, n = grads.shape
+    if n_t != tvals.shape[0]:
+        raise ValueError(
+            f"grads has {n_t} observation rows but tvals has {tvals.shape[0]} times"
+        )
+    z0 = torch.cat([torch.as_tensor(y_end, **f_kw), grads[:, -1, :]], dim=1)
+    res = _fused_solve(
+        *resolve_fz(rhs, adjoint_rhs, quad_rhs, n), z0, slice(n, 2 * n), t0, tvals, grads,
+        params, n_deriv, options, device_system,
+    )
+    zfin = res.stats["final_state"]  # (B, 2n + n_deriv)
+    bad = (res.status != 0)[:, None]
+    return AdjointResult(
+        lamda=torch.where(bad, float("nan"), zfin[:, n : 2 * n]),
+        quad=torch.where(bad, float("nan"), zfin[:, 2 * n :]),
+        status=res.status.to(torch.int32),
+        stats=dict(
+            n_backward_steps=res.stats["n_steps"],
+            n_attempts=res.stats["n_attempts"],
+            # an independent re-computation of y(t0): the reconstruction's quality
+            y0_resolved=zfin[:, :n],
+        ),
     )

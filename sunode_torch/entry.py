@@ -1,7 +1,9 @@
 """The workloads: batched Lotka-Volterra adjoint gradients, stiff Robertson.
 
 :func:`build_lv_checkpointed` takes the same Lotka-Volterra gradients
-through the reference's default call, BDF with the checkpointed adjoint.
+through the reference's default call, BDF with the checkpointed adjoint, and
+:func:`build_lv_adams` through the ADAMS adjoints that read no transition
+matrix: 'resolve', 'hermite' and 'polynomial'.
 
 :func:`build_lv_adjoint` is the port of ``__graft_entry__._build`` (method
 ADAMS): a Lotka-Volterra ``SympyProblem`` (2 states, 4 params, derivatives
@@ -32,6 +34,8 @@ __all__ = [
     "lv_options",
     "build_lv_adjoint",
     "build_lv_checkpointed",
+    "build_lv_adams",
+    "LV_ADAMS_CHECKPOINTS",
     "LV_P_FIX",
     "robertson_problem",
     "robertson_options",
@@ -104,6 +108,31 @@ def build_lv_checkpointed(batch: int, tvals_n: int, rtol: float, interpolation="
     device = device_or_raise(device)
     kw = {} if interpolation == "hermite" else dict(adjoint_interpolation=interpolation)
     solve = make_batched_solve_fn(lv_problem(), options=BDFOptions(rtol=rtol, atol=rtol), **kw)
+    return _lv_grad_step(solve, batch, tvals_n, device)
+
+
+LV_ADAMS_CHECKPOINTS = 384  # checkpoint_n of tests/test_golden.py's ADAMS modes
+
+
+def build_lv_adams(batch: int, tvals_n: int, rtol: float, interpolation: str,
+                   device="cuda"):
+    """:func:`build_lv_adjoint` through ``make_batched_solve_fn(lv_problem(),
+    method='ADAMS', adjoint_interpolation=interpolation)``, ``interpolation``
+    'resolve', 'hermite' or 'polynomial', with the options of the JAX
+    package's golden test of these modes: rtol = atol = ``rtol`` forward and
+    backward, ``checkpoint_n=384`` recorded steps, every other option at its
+    default.  Same ``(grad_step, (y0s, p_subs))``; it runs on the card
+    unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    if interpolation not in ("resolve", "hermite", "polynomial"):
+        raise ValueError(
+            f"interpolation must be 'resolve', 'hermite' or 'polynomial', got {interpolation!r}"
+        )
+    opts = BDFOptions(rtol=rtol, atol=rtol)
+    solve = make_batched_solve_fn(
+        lv_problem(), options=opts, adjoint_options=opts, checkpoint_n=LV_ADAMS_CHECKPOINTS,
+        method="ADAMS", adjoint_interpolation=interpolation,
+    )
     return _lv_grad_step(solve, batch, tvals_n, device)
 
 

@@ -1,10 +1,13 @@
 """Batch-native Adams-Moulton integrator (non-stiff fast path), in PyTorch.
 
-Port of ``sunode_tpu/ops/adams_batched.py::adams_solve_batched``, main-path
-subset: shared observation times, scalar or per-state vector ``rtol``, the
-quadrature block (``quad_rhs``/``quad0``, ``quad_err_con``), batched or
-per-lane right-hand sides, step-size and order adaptation, the breakdown
-reset, NaN-poison statuses and the per-lane post-mortem stats.
+Port of ``sunode_tpu/ops/adams_batched.py::adams_solve_batched``: shared
+observation times, scalar or per-state vector ``rtol``, the quadrature block
+(``quad_rhs``/``quad0``, ``quad_err_con``), batched or per-lane right-hand
+sides, step-size and order adaptation, the breakdown reset, NaN-poison
+statuses, the per-lane post-mortem stats, and what the adjoint backward
+passes need: state injections (``inject_times``/``inject_deltas``,
+``options.inject_keep_order``), a per-attempt stage (``stage_fn``) and the
+checkpoint recording (``save_steps``, see :mod:`sunode_torch.ops._recording`).
 
 Layout: states are ``(rows, B)`` with the lane axis last, the history
 ``DF`` is ``(KAB, nz, B)``.  The lockstep loop is a host loop that ends when
@@ -17,9 +20,12 @@ kernel launch on a GPU, its plain version on CPU tensors.  The scalar tail
 of the attempt (acceptance, emission, order and step adaptation, status) is
 torch tensor code written to round exactly like the JAX reference.
 
+The stage enters the attempt as extra parameter rows, ``[params | stage]``,
+so that the kernel, which loads each lane's parameter rows once, reads the
+staged values there (``symode/cuda_codegen.py::staged_adjoint_system``).
+
 Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
-sensitivities, state injections, ``stage_fn``, checkpoint recording
-(``save_steps``) and per-lane observation grids.
+sensitivities and per-lane observation grids.
 """
 
 from __future__ import annotations
@@ -29,6 +35,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from sunode_torch.ops._recording import (
+    fdot,
+    finalize_saved_batched,
+    init_saved_batched,
+    pad_column,
+    record_step_batched,
+)
 from sunode_torch.ops.adams import _C_INT, _GAMMA_STAR, FUNCTIONAL_MAXITER
 from sunode_torch.ops.bdf import (
     MAX_CONSECUTIVE_FAILS,
@@ -62,24 +75,27 @@ def adams_solve_batched(
     device_system: Optional[DeviceSystem] = None,
     sens_rhs: Optional[Callable] = None,
     root_fn: Optional[Callable] = None,
-    inject_times: Optional[Any] = None,
-    stage_fn: Optional[Callable] = None,
+    inject_times: Optional[Any] = None,  # (n_e,) ascending, shared
+    inject_deltas: Optional[torch.Tensor] = None,  # (n_e, n, B) added to y
+    stage_fn: Optional[Callable] = None,  # t (B,) -> (n_s, B), once per attempt
 ) -> BDFResult:
     """Batched Adams solve; outputs leading-batch: ``ys (B, n_t, n)``.
 
     ``rhs(t, y, p)`` and ``quad_rhs`` take one lane (``t`` scalar, ``y (n,)``)
     unless ``batched_fns``, where they take ``t (B,)``, ``y (n, B)`` and
-    ``p (n_p, B)``.  ``device_system`` is the combined ``[f | g]`` system
-    emitted for the CUDA kernel (``symode/cuda_codegen.py``); a solve on CUDA
-    tensors requires it."""
-    _unsupported(
-        "adams_solve_batched", sens_rhs=sens_rhs, root_fn=root_fn, inject_times=inject_times,
-        stage_fn=stage_fn,
-    )
-    if int(options.save_steps) > 0:
-        raise NotImplementedError(
-            "adams_solve_batched: checkpoint recording (save_steps) is not ported yet"
-        )
+    ``p (n_p, B)``; with ``stage_fn`` they take the stage as a fourth
+    argument.  ``device_system`` is the combined ``[f | g]`` system emitted
+    for the CUDA kernel (``symode/cuda_codegen.py``), whose parameter rows
+    are ``[params | stage]`` with ``stage_fn``; a solve on CUDA tensors
+    requires it.
+
+    At ``inject_times[k]`` each lane's step ends, ``inject_deltas[k]`` is
+    added to its state and its history restarts (order 1 with
+    ``f(z_injected)``, or, with ``options.inject_keep_order > 1``, the
+    differences below it kept) at its working step size.  With
+    ``options.save_steps > 0`` the accepted steps are recorded into
+    ``result.saved`` and ``stats['checkpoint_thinning_levels']``."""
+    _unsupported("adams_solve_batched", sens_rhs=sens_rhs, root_fn=root_fn)
     y0 = torch.as_tensor(y0)
     device = y0.device
     dtype = torch.promote_types(y0.dtype, torch.float32)
@@ -95,6 +111,22 @@ def adams_solve_batched(
     n_t = tvals.shape[0]
     t_end = tvals[-1]
     params = torch.as_tensor(params, **f_kw).T.contiguous()  # (n_p, B)
+    n_p = params.shape[0]
+
+    with_inject = inject_times is not None
+    if with_inject:
+        if inject_deltas is None:
+            raise ValueError("adams_solve_batched: inject_times needs inject_deltas")
+        inject_times = torch.as_tensor(inject_times, **f_kw)
+        inject_deltas = torch.as_tensor(inject_deltas, **f_kw)
+        n_ev = inject_times.shape[0]
+        with_inject = n_ev > 0  # no event: the plain solve
+        if tuple(inject_deltas.shape) != (n_ev, n, B):
+            raise ValueError(
+                f"adams_solve_batched: inject_deltas must be (n_e, n, B) = ({n_ev}, {n}, {B}), "
+                f"got {tuple(inject_deltas.shape)}"
+            )
+    with_stage = stage_fn is not None
 
     with_quad = quad_rhs is not None
     m_quad = quad0.shape[1] if with_quad else 0
@@ -107,23 +139,38 @@ def adams_solve_batched(
     if batched_fns:
         rhs_b, quad_rhs_b = rhs, quad_rhs
     else:
-        rhs_b = torch.func.vmap(rhs, in_dims=(0, 1, 1), out_dims=1)
+        dims = (0, 1, 1, 1) if with_stage else (0, 1, 1)
+        rhs_b = torch.func.vmap(rhs, in_dims=dims, out_dims=1)
         if with_quad:
-            quad_rhs_b = torch.func.vmap(quad_rhs, in_dims=(0, 1, 1), out_dims=1)
+            quad_rhs_b = torch.func.vmap(quad_rhs, in_dims=dims, out_dims=1)
     if with_quad:
         quad0_t = torch.as_tensor(quad0, **f_kw).T
 
-    def fz(t, y, p):
+    # the attempt's parameter rows: [params | stage(t)] with a stage, which
+    # the right-hand sides read back apart
+    def par_at(t):
+        return torch.cat([params, stage_fn(t)]) if with_stage else params
+
+    def split(par):
+        return (par[:n_p], par[n_p:]) if with_stage else (par,)
+
+    def f_of(t, y, par):
+        return rhs_b(t, y, *split(par))
+
+    def fz(t, y, par):
         """Combined derivative [f(y) | g(y)] -> (nz, B)."""
-        f = rhs_b(t, y, p)
+        f = f_of(t, y, par)
         if with_quad:
-            return torch.cat([f, quad_rhs_b(t, y, p)])
+            return torch.cat([f, quad_rhs_b(t, y, *split(par))])
         return f
 
-    if device_system is not None and (device_system.n, device_system.nz) != (n, nz):
+    par0 = par_at(t0)
+    if device_system is not None and (
+        (device_system.n, device_system.nz, device_system.n_p) != (n, nz, par0.shape[0])
+    ):
         raise ValueError(
-            f"device system {device_system.name} has (n, nz) = "
-            f"({device_system.n}, {device_system.nz}), the solve ({n}, {nz})"
+            f"device system {device_system.name} has (n, nz, n_p) = ({device_system.n}, "
+            f"{device_system.nz}, {device_system.n_p}), the solve ({n}, {nz}, {par0.shape[0]})"
         )
     system = PeceSystem(fz=fz, n=n, nz=nz, device=device_system)
 
@@ -173,8 +220,8 @@ def adams_solve_batched(
 
     newton_tol = newton_tol_for(options, float(rtol_s), dtype)
 
-    f0 = rhs_b(t0, y0, params)
-    fz0 = fz(t0, y0, params)
+    f0 = f_of(t0, y0, par0)
+    fz0 = fz(t0, y0, par0)
     bad_init = ~(torch.isfinite(y0).all(dim=0) & torch.isfinite(f0).all(dim=0))
 
     # initial step (Hairer-Wanner, order-1 estimate)
@@ -185,11 +232,15 @@ def adams_solve_batched(
     h0a = torch.where((d0n < 1e-5) | (d1n < 1e-5), 1e-6, 0.01 * d0n / d1n)
     h0a = torch.minimum(h0a, 0.5 * (t_end - t0))
     y1 = y0 + h0a[None, :] * f0
-    f1 = rhs_b(t0 + h0a, y1, params)
+    f1 = f_of(t0 + h0a, y1, par_at(t0 + h0a))
     d2n = torch.sqrt(torch.mean(((f1 - f0) * w0) ** 2, dim=0)) / h0a
     dmn = torch.maximum(d1n, d2n)
     h1a = torch.where(
-        dmn <= 1e-15, torch.clamp(h0a * 1e-3, min=1e-6), torch.sqrt(0.01 / dmn)
+        dmn <= 1e-15,
+        torch.clamp(h0a * 1e-3, min=1e-6),
+        # one rounded division, as the reference: torch turns `0.01 / dmn`
+        # into `reciprocal(dmn) * 0.01`, two roundings
+        torch.sqrt(torch.full_like(dmn, 0.01) / dmn),
     )
     h_auto = torch.minimum(torch.minimum(100 * h0a, h1a), t_end - t0)
     h_auto = torch.minimum(h_auto, torch.as_tensor(options.max_step, **f_kw))
@@ -206,6 +257,23 @@ def adams_solve_batched(
     z0 = torch.cat([y0, quad0_t]) if with_quad else y0
     DF0 = torch.zeros((KAB, nz, B), **f_kw)
     DF0[0] = fz0
+
+    # checkpoint recording: rows (t, y, f[, fdot]); the fdot rows need a
+    # stage-free right-hand side, and only forward solves record
+    save_steps = int(options.save_steps)
+    thinning = bool(options.checkpoint_thinning)
+    rec_fd = save_steps > 0 and options.hermite_order == 5 and not with_stage
+
+    def record_row(t, y, f):
+        parts = [t[None, :], y, f]
+        if rec_fd:
+            parts.append(fdot(rhs_b, t, y, f, params))
+        return torch.cat(parts)
+
+    if save_steps > 0:
+        row0 = record_row(t0, y0, f0)
+        saved = init_saved_batched(row0, save_steps, thinning)
+        pad_row = pad_column(row0.shape[0], row0)
 
     zs = torch.full((n_t, nz, B), float("nan"), **f_kw)
     emit_mask0 = tvals[:, None] <= t0[None, :]  # (n_t, B)
@@ -233,8 +301,13 @@ def adams_solve_batched(
         pm_h=torch.full((B,), float("nan"), **f_kw),
         pm_q=torch.full((B,), -1, **i32),
         pm_worst=torch.full((B,), -1, **i32),
+        i_ev=zeros_i,
     )
     it = 0
+    # lanes whose last accepted step ended at an injection: their history's
+    # row 0 becomes f(z_injected) at the top of the next attempt, where the
+    # active-lanes sync reads this flag too (no sync of its own)
+    ev_pending = torch.zeros((B,), dtype=torch.bool, device=device)
 
     ar_K = torch.arange(K, device=device)
     ar_KAB = torch.arange(KAB, device=device)
@@ -244,21 +317,37 @@ def adams_solve_batched(
 
     while True:
         active = (c["status"] == -1) & (i_out < n_t)
-        if not bool(active.any()):
+        if with_inject:
+            any_active, any_pending = torch.stack([active.any(), ev_pending.any()]).tolist()
+        else:
+            any_active, any_pending = bool(active.any()), False
+        if not any_active:
             break
+        if any_pending:
+            fz_inj = fz(c["t"], c["z"][:n], par_at(c["t"]))
+            row_0 = torch.where(ev_pending[None, :], fz_inj, c["DF"][0])
+            c["DF"] = torch.cat([row_0[None], c["DF"][1:]])
         t, p, z_prev = c["t"], c["p"], c["z"]
 
         h_min_loc = 10 * eps * torch.maximum(torch.abs(t), torch.abs(t_end))
         # NaN-robust form: non-finite h terminates the lane
         underflow = active & ~(c["h"] >= torch.clamp(h_min_loc, min=options.min_step))
+        if with_inject:
+            i_ev = c["i_ev"]
+            t_lim = torch.where(
+                i_ev < n_ev, inject_times[torch.clamp(i_ev, max=n_ev - 1).long()], t_end
+            )
+            t_lim = torch.minimum(t_lim, t_end)
+        else:
+            t_lim = t_end
         h_use = torch.where(
-            active, torch.clamp(torch.minimum(c["h"], t_end - t), min=0.0), c["h"]
+            active, torch.clamp(torch.minimum(c["h"], t_lim - t), min=0.0), c["h"]
         )
         t_new = t + h_use
 
         pre_factor = h_use / torch.clamp(c["h_D"], min=1e-300)
         hist = adams_history_attempt(
-            system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev, params,
+            system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev, par_at(t_new),
             atol_z, rtol_z, gamma_star_abs, v_err, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
         )
         DF, DF_upd, conv, niter, z_pred, z_new, err3 = (
@@ -288,6 +377,15 @@ def adams_solve_batched(
         t_next = torch.where(accept, t_new, t)
         z_next = torch.where(accept[None, :], z_new, z_prev)
 
+        if with_inject:
+            tiny_ev = 1e-12 * (1.0 + torch.abs(t_lim))
+            at_event = accept & (i_ev < n_ev) & (t_new >= t_lim - tiny_ev)
+            i_evc = torch.clamp(i_ev, max=n_ev - 1).long()
+            delta_ev = inject_deltas.gather(0, i_evc[None, None, :].expand(1, n, B))[0]
+            y_inj = z_new[:n] + torch.where(at_event[None, :], delta_ev, 0.0)
+            z_inj = torch.cat([y_inj, z_new[n:]]) if with_quad else y_inj
+            z_next = torch.where(at_event[None, :], z_inj, z_next)
+
         def _z_interp(tt):  # tt (B,) -> (nz, B): integral-basis dense output
             s = (tt - t_new) / h_use
             ci = torch.zeros((K, B), **f_kw)
@@ -311,6 +409,12 @@ def adams_solve_batched(
             row = zs.gather(0, gidx)
             zs.scatter_(0, gidx, torch.where(pend[None, None, :], zi[None], row))
             i_out = i_out + pend.to(torch.int32)
+
+        # checkpoint recording (see ops/_recording.py); DF_upd[0] is the
+        # derivative at the converged iterate, the reference's fz_new
+        if save_steps > 0:
+            row = torch.where(accept[None, :], record_row(t_new, y_new, DF_upd[0, :n]), pad_row)
+            saved = record_step_batched(saved, it, accept, row, save_steps, thinning)
 
         # order & step adaptation
         pf = p.to(dtype)
@@ -374,6 +478,19 @@ def adams_solve_batched(
             DF_upd,
             torch.where(reset[None, None, :], DF * row0, DF),
         )
+        if with_inject:
+            # the state jumped: restart the history at order 1, or keep the
+            # differences below inject_keep_order; row 0 is f(z_injected),
+            # set at the top of the next attempt (ev_pending).  The warm h
+            # is kept, never 0 (repeated observation times make legal
+            # zero-length event steps)
+            keep = max(1, int(options.inject_keep_order))
+            DF_event = torch.where(ar_KAB[:, None, None] < keep, DF_upd, 0.0)
+            DF_next = torch.where(at_event[None, None, :], DF_event, DF_next)
+            p_next = torch.where(at_event, torch.clamp(p_next, max=keep), p_next)
+            n_equal = torch.where(at_event, 0, n_equal)
+            h_next = torch.where(at_event, torch.maximum(c["h"], h_min_loc * 4), h_next)
+            ev_pending = at_event
         DF_next = torch.where(active[None, None, :], DF_next, c["DF"])
 
         too_many = cfails >= MAX_CONSECUTIVE_FAILS
@@ -419,6 +536,7 @@ def adams_solve_batched(
             pm_h=torch.where(fatal_now, h_use, c["pm_h"]),
             pm_q=torch.where(fatal_now, p, c["pm_q"]).to(torch.int32),
             pm_worst=torch.where(fatal_now, worst.to(torch.int32), c["pm_worst"]),
+            i_ev=c["i_ev"] + at_event.to(torch.int32) if with_inject else c["i_ev"],
         )
         it += 1
 
@@ -441,8 +559,13 @@ def adams_solve_batched(
         error_step_size=c["pm_h"],
         error_order=c["pm_q"],
         error_worst_state=c["pm_worst"],
-        final_state=c["z"].T,
+        final_state=c["z"].T,  # after the last injection: the adjoint reads it
     )
+    saved_out = None
+    if save_steps > 0:
+        # shared across lanes: the stride follows the shared attempt counter
+        stats["checkpoint_thinning_levels"] = saved["shift"] if thinning else 0
+        saved_out = finalize_saved_batched(saved, n, thinning)
     ys = zs[:, :n, :].permute(2, 0, 1)
     quad = zs[:, n:, :].permute(2, 0, 1) if with_quad else None
-    return BDFResult(ys=ys, status=status, stats=stats, saved=None, quad=quad)
+    return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, quad=quad)

@@ -6,14 +6,23 @@ functions that ``csrc/pece_step.cu`` includes, so the problem's right-hand
 side is compiled into the kernel and evaluated in registers, one thread per
 lane.
 
-Two systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
+Four systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
 
   * :func:`forward_system` -- ``out = f(t, y, p)`` (n inputs, n outputs);
   * :func:`transition_system` -- the transition-adjoint backward system in
     tau = -t over ``z = [y | vec M]`` with the ``vec W`` quadrature rows:
     ``dy = -f``, ``dM = J^T M``, ``dW = M^T df/dp`` (n + n^2 inputs,
     n + n^2 + n * n_deriv outputs), the symbolic form of
-    ``sunode_tpu/adjoint.py:434-450``.
+    ``sunode_tpu/adjoint.py:434-450``;
+  * :func:`resolve_system` -- the backsolve adjoint in tau = -t over
+    ``z = [y | lam]``: ``dy = -f``, ``dlam = J^T lam`` and the quadrature
+    ``lam^T df/dp`` (2n inputs, 2n + n_deriv outputs), the symbolic form of
+    ``sunode_tpu/adjoint.py:756-764``;
+  * :func:`staged_adjoint_system` -- the checkpointed adjoint in tau = -t
+    over ``lam``, with y(t) staged once per attempt in the parameter rows
+    after the problem's (``p[n_p + i]``): ``dlam = J^T lam`` and ``lam^T
+    df/dp`` (n inputs, n + n_deriv outputs, n_p + n parameters), the form of
+    ``sunode_tpu/adjoint.py:861-865``.
 
 A function the printer cannot emit raises ``ValueError`` here, at codegen
 time; there is no fallback to the plain path.
@@ -33,6 +42,8 @@ __all__ = [
     "emit_device_function",
     "forward_system",
     "transition_system",
+    "resolve_system",
+    "staged_adjoint_system",
 ]
 
 # helpers for the custom sympy functions of symode.lambdify
@@ -203,4 +214,56 @@ def transition_system(problem) -> DeviceSystem:
     return DeviceSystem(
         "transition", n_state, nz, problem.n_all_params,
         _header("transition", n_state, nz, problem.n_all_params, body),
+    )
+
+
+def _adjoint_rows(problem, to_t: dict):
+    """``(J^T lam, lam^T df/dp)`` with the time substituted, over the
+    problem's own ``__lam_i`` symbols: the negated adjoint right-hand side
+    and the adjoint quadrature, as ``make_adjoint_rhs`` and
+    ``make_adjoint_quad_rhs`` compute them."""
+    n, nd = problem.n_states, problem.n_params
+    sub = lambda e: sy.sympify(e).xreplace(to_t)  # noqa: E731
+    J = np.asarray(problem.sym_jac, dtype=object).reshape(n, n)
+    Bm = np.asarray(problem.sym_dfdp, dtype=object).reshape(n, nd)
+    lam = [sy.Symbol(f"__lam_{i}", real=True) for i in range(n)]
+    dlam = [sub(sum(lam[j] * J[j, i] for j in range(n))) for i in range(n)]
+    quad = [sub(sum(lam[j] * Bm[j, k] for j in range(n))) for k in range(nd)]
+    return dlam, quad
+
+
+def resolve_system(problem) -> DeviceSystem:
+    """The backsolve adjoint, in tau = -t: state ``z = [y | lam]``, outputs
+    ``[-f | J^T lam | lam^T df/dp]``."""
+    n, nd = problem.n_states, problem.n_params
+    tau = sy.Symbol("__tau", real=True)
+    to_t = {problem.sym_time: -tau}
+    dy = [-sy.sympify(e).xreplace(to_t) for e in problem.sym_rhs]
+    dlam, quad = _adjoint_rows(problem, to_t)
+    varmap = _base_varmap(problem)
+    varmap.update({f"__lam_{i}": f"y[{n + i}]" for i in range(n)})
+    varmap["__tau"] = "t"
+    nz = 2 * n + nd
+    body = emit_device_function("pece_fz", np.array(dy + dlam + quad, dtype=object), varmap, _SIG)
+    return DeviceSystem(
+        "resolve", 2 * n, nz, problem.n_all_params,
+        _header("resolve", 2 * n, nz, problem.n_all_params, body),
+    )
+
+
+def staged_adjoint_system(problem) -> DeviceSystem:
+    """The checkpointed adjoint, in tau = -t: state ``lam``, y(t) read from
+    the parameter rows ``n_p..n_p + n - 1``; outputs ``[J^T lam | lam^T
+    df/dp]``."""
+    n, nd, n_p = problem.n_states, problem.n_params, problem.n_all_params
+    tau = sy.Symbol("__tau", real=True)
+    dlam, quad = _adjoint_rows(problem, {problem.sym_time: -tau})
+    varmap = _base_varmap(problem)
+    varmap.update({f"__y_{i}": f"p[{n_p + i}]" for i in range(n)})
+    varmap.update({f"__lam_{i}": f"y[{i}]" for i in range(n)})
+    varmap["__tau"] = "t"
+    nz = n + nd
+    body = emit_device_function("pece_fz", np.array(dlam + quad, dtype=object), varmap, _SIG)
+    return DeviceSystem(
+        "staged_adjoint", n, nz, n_p + n, _header("staged_adjoint", n, nz, n_p + n, body),
     )

@@ -8,11 +8,18 @@ Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
   records checkpoints when gradients are wanted, and the backward pass the
   checkpointed adjoint (``adjoint.py::adjoint_backward_batched``); torch
   code with a ``torch.linalg`` Newton solve on either device.
-* ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
-  ``adjoint_interpolation='transition'``: the batched Adams solve and the
-  transition-matrix adjoint; on CUDA tensors both solves run every attempt
-  through the history-attempt kernel, built from the problem's right-hand
-  side (``symode/cuda_codegen.py``) at first use.
+* ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and every
+  ``adjoint_interpolation``: 'transition' (the transition-matrix adjoint),
+  'resolve' (the backsolve adjoint, y integrated backward beside lambda),
+  'hermite' or 'polynomial' (the forward solve records checkpoints and the
+  fused backward Adams solve reads y(t) from them, staged once per
+  attempt).  On CUDA tensors every forward and backward attempt runs
+  through the history-attempt kernel, built at first use from the
+  problem's right-hand side and the backward system of the mode
+  (``symode/cuda_codegen.py``).
+
+Not ported yet (``NotImplementedError``): non-dense linear solvers and
+``derivatives='forward'``, which the reference's batched solver refuses too.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ class BatchedSolve:
         self.adjoint_options = adjoint_options
         self.method = method
         self.interpolation = interpolation
-        # the checkpointed adjoint reads the forward solve's recording;
+        # the checkpointed adjoints read the forward solve's recording
+        # ('resolve' and 'transition' integrate y backward instead);
         # polynomial interpolation reads only (t, y) rows, so no fdot rows
         self.fwd_options = options
         if interpolation in ("hermite", "polynomial"):
@@ -71,6 +79,8 @@ class BatchedSolve:
             emit = {
                 "forward": cuda_codegen.forward_system,
                 "transition": cuda_codegen.transition_system,
+                "resolve": cuda_codegen.resolve_system,
+                "staged_adjoint": cuda_codegen.staged_adjoint_system,
             }[kind]
             self._device_systems[kind] = emit(self.problem)
         return self._device_systems[kind]
@@ -147,6 +157,11 @@ class _Adjoint(torch.autograd.Function):
                 device_system=solver.device_system("transition", y0.device),
             )
         else:
+            resolve = solver.interpolation == "resolve"
+            device_system = None
+            if solver.method == "ADAMS":
+                kind = "resolve" if resolve else "staged_adjoint"
+                device_system = solver.device_system(kind, y0.device)
             adj = adjoint_backward_batched(
                 problem.make_adjoint_rhs(),
                 problem.make_adjoint_jac_dense(),
@@ -160,6 +175,9 @@ class _Adjoint(torch.autograd.Function):
                 solver.adjoint_options,
                 method=solver.method,
                 interpolation=solver.interpolation,
+                rhs=solver.rhs if resolve else None,
+                y_end=ys_fwd[:, -1, :] if resolve else None,
+                device_system=device_system,
             )
         solver.last_stats["backward"] = dict(adj.stats, status=adj.status)
         bad = (status != 0) | (adj.status != 0)
@@ -198,14 +216,14 @@ def make_batched_solve_fn(
     linear_solver_kwargs: Optional[dict] = None,
 ) -> BatchedSolve:
     """Batch-native differentiable solver; same signature and defaults as
-    the JAX package's.  Ported so far, with dense linear algebra:
-    ``method='BDF'`` with ``derivatives=None`` or ``'adjoint'`` and
-    ``adjoint_interpolation`` 'hermite' or 'polynomial' (the forward solve
-    records ``checkpoint_n`` checkpoints when gradients are wanted), and
-    ``method='ADAMS'`` with ``derivatives=None`` or ``'adjoint'`` and
-    ``adjoint_interpolation='transition'`` (no checkpoints).  Failed lanes
-    come back NaN, and so do their gradients.  ADAMS with 'hermite',
-    'polynomial' or 'resolve' raises ``NotImplementedError``."""
+    the JAX package's.  Ported, with dense linear algebra: ``derivatives=
+    None`` or ``'adjoint'`` with ``method='BDF'`` and ``adjoint_interpolation``
+    'hermite' or 'polynomial', and with ``method='ADAMS'`` and
+    'hermite', 'polynomial', 'resolve' or 'transition'.  With 'hermite' and
+    'polynomial' the forward solve records ``checkpoint_n`` checkpoints when
+    gradients are wanted.  Failed lanes come back NaN, and so do their
+    gradients.  Another ``linear_solver`` or ``linear_solver_kwargs`` raises
+    ``NotImplementedError``."""
     if method not in ("BDF", "ADAMS"):
         raise ValueError("method must be 'BDF' or 'ADAMS'")
     if linear_solver != "dense" or linear_solver_kwargs:
@@ -223,11 +241,6 @@ def make_batched_solve_fn(
         if adjoint_interpolation in ("resolve", "transition") and method != "ADAMS":
             raise ValueError(
                 f"adjoint_interpolation={adjoint_interpolation!r} requires method='ADAMS'"
-            )
-        if method == "ADAMS" and adjoint_interpolation != "transition":
-            raise NotImplementedError(
-                f"sunode_torch: method='ADAMS' with adjoint_interpolation="
-                f"{adjoint_interpolation!r} is not ported yet (ROADMAP A8b)"
             )
     if adjoint_options is None:
         adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)

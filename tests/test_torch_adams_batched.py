@@ -195,8 +195,11 @@ def test_failure_statuses_and_post_mortem_match_jax(problems):
     [
         dict(root_fn=lambda t, y, p: y[0]),
         dict(sens_rhs=lambda t, y, S, p: S),
-        dict(inject_times=np.array([1.0])),
-        dict(stage_fn=lambda t: t),
+        # the adjoint machinery is ported, but not what the reference refuses
+        # to combine it with: rootfinding and staggered sensitivities
+        dict(inject_times=np.array([1.0]), inject_deltas=np.zeros((1, 2, 2)),
+             root_fn=lambda t, y, p: y[0]),
+        dict(stage_fn=lambda t: t[None], sens_rhs=lambda t, y, S, p: S),
     ],
     ids=["roots", "sens", "inject", "stage_fn"],
 )
@@ -211,11 +214,13 @@ def test_unported_features_raise(problems, kwargs):
 
 
 def test_unported_save_steps_and_per_lane_tvals_raise(problems):
+    """Recording is ported (tests/test_torch_adams_checkpoint.py); per-lane
+    observation grids are not, with it or without."""
     _, tp = problems
     y0 = torch.ones((2, 2), dtype=torch.float64)
     p = torch.ones((2, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        adams_solve_batched(tp.make_rhs(), 0.0, y0, p, torch.tensor([1.0], dtype=torch.float64),
+    with pytest.raises(NotImplementedError, match="per-lane"):
+        adams_solve_batched(tp.make_rhs(), 0.0, y0, p, torch.ones((2, 3), dtype=torch.float64),
                             BDFOptions(save_steps=16))
     with pytest.raises(NotImplementedError):
         adams_solve_batched(tp.make_rhs(), 0.0, y0, p, torch.ones((2, 3), dtype=torch.float64),

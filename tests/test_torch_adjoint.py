@@ -188,14 +188,16 @@ def test_entry_points_default_to_the_card(entry):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(method="BDF", derivatives="forward"),
-     dict(method="ADAMS", adjoint_interpolation="hermite"),
-     dict(method="ADAMS", adjoint_interpolation="polynomial"),
-     dict(method="ADAMS", adjoint_interpolation="resolve"),
+     dict(method="ADAMS", adjoint_interpolation="hermite", linear_solver="banded"),
+     dict(method="ADAMS", adjoint_interpolation="polynomial", linear_solver="krylov"),
+     dict(method="ADAMS", adjoint_interpolation="resolve", linear_solver_kwargs=dict(krylov_dim=3)),
      dict(method="ADAMS", derivatives="forward")],
     ids=["bdf", "hermite", "polynomial", "resolve", "forward-sens"],
 )
 def test_unported_modes_raise(kwargs):
     """Batched forward sensitivities are not in the reference either; the
-    ADAMS checkpointed and resolve adjoints are not ported yet."""
+    ADAMS checkpointed and resolve adjoints are ported
+    (tests/test_torch_adams_checkpoint.py), structured linear solvers are
+    not, with them or without (ROADMAP A9)."""
     with pytest.raises(NotImplementedError):
         make_batched_solve_fn(lv_problem(), **kwargs)

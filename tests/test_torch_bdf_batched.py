@@ -364,7 +364,8 @@ def test_make_sensitivity_rhs_matches_jax():
         (dict(jac_prod=lambda t, y, v, p: v), {}, "jac_prod"),
         (dict(sens_rhs=lv_sens_rhs, S0=torch.zeros((2, 2, 2), dtype=torch.float64)),
          dict(sens_staggered=True), "sens_staggered"),
-        (dict(core="adams"), dict(save_steps=16), "save_steps"),
+        (dict(core="adams", tvals=torch.ones((2, 3), dtype=torch.float64)),
+         dict(save_steps=16), "per-lane"),
         ({}, dict(linear_solver="band", band_lower=1, band_upper=1), "linear_solver"),
         ({}, dict(linear_solver="spgmr"), "linear_solver"),
         (dict(tvals=torch.ones((2, 3), dtype=torch.float64)), {}, "per-lane"),
@@ -373,7 +374,8 @@ def test_make_sensitivity_rhs_matches_jax():
 )
 def test_unported_options_raise(kwargs, opts, match):
     """Every option the batched BDF core has not ported raises; checkpoint
-    recording is ported there and still raises on the Adams core."""
+    recording is ported on both cores, and on the Adams core with per-lane
+    grids it still raises, for the grids."""
     kwargs = dict(kwargs)
     tvals = kwargs.pop("tvals", torch.tensor([1.0], dtype=torch.float64))
     y0, p = torch.ones((2, 2), dtype=torch.float64), torch.ones((2, 4), dtype=torch.float64)
@@ -418,17 +420,17 @@ def test_make_batched_solve_fn_bdf_matches_jax():
 
 def test_bdf_adjoint_is_not_ported():
     """The transition adjoint needs ADAMS, as in the reference; the
-    checkpointed adjoint is ported for BDF only, so ADAMS with a checkpointed
-    interpolation still raises."""
+    checkpointed adjoints are ported for both methods, and ADAMS records
+    its forward for 'hermite' and 'polynomial' only, as the reference."""
     with pytest.raises(ValueError, match="requires method='ADAMS'"):
         make_batched_solve_fn(
             lv_problem(), derivatives="adjoint", method="BDF", adjoint_interpolation="transition"
         )
     for mode in ("hermite", "polynomial", "resolve"):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            make_batched_solve_fn(
-                lv_problem(), derivatives="adjoint", method="ADAMS", adjoint_interpolation=mode
-            )
+        solve = make_batched_solve_fn(
+            lv_problem(), derivatives="adjoint", method="ADAMS", adjoint_interpolation=mode
+        )
+        assert solve.fwd_options.save_steps == (0 if mode == "resolve" else 1024)
 
 
 # ---- options, and systems above the reference's size thresholds --------------

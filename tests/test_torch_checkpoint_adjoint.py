@@ -252,9 +252,12 @@ def test_backward_raises_on_what_is_not_ported():
     args = (tp.make_adjoint_rhs(), tp.make_adjoint_jac_dense(), tp.make_adjoint_quad_rhs(),
             saved, 0.0, torch.as_tensor(TVALS), torch.zeros((6, 6, 2), dtype=torch.float64),
             torch.ones((6, 4), dtype=torch.float64), 2)
-    for kw in (dict(method="ADAMS"), dict(interpolation="resolve")):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            adjoint_backward_batched(*args, **kw)
+    # ADAMS is ported (tests/test_torch_adams_checkpoint.py); 'resolve'
+    # needs it, and the forward's rhs and y_end, as in the reference
+    with pytest.raises(NotImplementedError, match="requires method='ADAMS'"):
+        adjoint_backward_batched(*args, interpolation="resolve")
+    with pytest.raises(ValueError, match="requires rhs and y_end"):
+        adjoint_backward_batched(*args, method="ADAMS", interpolation="resolve")
     with pytest.raises(ValueError, match="interpolation"):
         adjoint_backward_batched(*args, interpolation="linear")
 

@@ -1,7 +1,8 @@
 """sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
 kernel against their plain versions and each other, and the CUDA main path,
-the batched BDF solve, with and without sensitivities, and the default call
-(BDF with the checkpointed adjoint) against the CPU ones.
+the batched BDF solve, with and without sensitivities, the default call
+(BDF with the checkpointed adjoint) and the ADAMS adjoints 'resolve',
+'hermite' and 'polynomial' against the CPU ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -15,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from sunode_torch.adjoint import transition_fz
-from sunode_torch.entry import build_lv_adjoint, build_robertson, lv_problem
+from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
+from sunode_torch.entry import build_lv_adams, build_lv_adjoint, build_robertson, lv_problem
 from sunode_torch.experiments import exp_pece2d
 from sunode_torch.ops.adams import _GAMMA_STAR, FUNCTIONAL_MAXITER
 from sunode_torch.ops.adams_attempt import (
@@ -49,6 +50,20 @@ def _system(kind):
     rhs = problem.make_rhs()
     if kind == "forward":
         return PeceSystem(fz=rhs, n=2, nz=2, device=cuda_codegen.forward_system(problem))
+    aj, qr = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
+    if kind == "resolve":
+        rhs_c, quad_c = resolve_fz(rhs, aj, qr, 2)
+        return PeceSystem(
+            fz=lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
+            n=4, nz=6, device=cuda_codegen.resolve_system(problem),
+        )
+    if kind == "staged_adjoint":
+        # the parameter rows are [params | y(t)], as the Adams core passes them
+        rhs_s, quad_s = staged_adjoint_fz(aj, qr)
+        return PeceSystem(
+            fz=lambda t, y, p: torch.cat([rhs_s(t, y, p[:4], p[4:]), quad_s(t, y, p[:4], p[4:])]),
+            n=2, nz=4, device=cuda_codegen.staged_adjoint_system(problem),
+        )
     rhs_c, quad_c = transition_fz(
         rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), 2
     )
@@ -64,6 +79,8 @@ def _case(system, device, seed):
     f64 = dict(dtype=torch.float64, device=device)
     DF = rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
     params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (1 + 0.1 * rng.standard_normal((4, B)))
+    n_stage = system.device.n_p - 4  # a staged y(t) after the problem's parameters
+    params = np.concatenate([params, rng.uniform(0.5, 12.0, (n_stage, B))])
     return (
         torch.as_tensor(rng.uniform(0.0, 10.0, B), **f64),
         torch.as_tensor(10.0 ** rng.uniform(-6, -2, B), **f64),
@@ -125,7 +142,7 @@ def _history_case(system, device, seed):
     ]
 
 
-@pytest.mark.parametrize("kind", ["forward", "transition"])
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
 def test_history_kernel_matches_plain(cuda, kind):
     system = _system(kind)
     args = _history_case(system, cuda, 2)
@@ -272,3 +289,27 @@ def test_pece_2d_kernel_refuses_bad_history(cuda):
         pece_2d_attempt(x["DF2"][:-1], *rest)  # not whole blocks
     with pytest.raises(ValueError, match="DF2"):
         pece_2d_attempt(x["DF2"][None], *rest)  # not 2-D
+
+
+@pytest.mark.parametrize("mode", ["resolve", "hermite", "polynomial"])
+def test_cuda_adams_modes_match_cpu(cuda, mode):
+    """``build_lv_adams`` on the 16 lanes of lv_adjoint.npz: every forward
+    and backward attempt on the card through the history-attempt kernel,
+    the gradients within 1e-6 of the CPU's and inside the golden gate."""
+    g = np.load(Path(__file__).parent / "golden" / "lv_adjoint.npz")
+    out = {}
+    for device in (cuda, "cpu"):
+        step, _ = build_lv_adams(16, 21, 1e-8, mode, device=device)
+        f64 = dict(dtype=torch.float64, device=device)
+        launches = adams_history_attempt.launches
+        grads = step(torch.as_tensor(g["y0s"], **f64), torch.as_tensor(g["p_subs"], **f64))
+        stats = step.solve.last_stats
+        attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+        expected = attempts if device == cuda else 0
+        assert adams_history_attempt.launches - launches == expected
+        assert (stats["backward"]["status"] == 0).all()
+        out[device] = [a.cpu().numpy() for a in grads]
+    for got, ref, gold in zip(out[cuda], out["cpu"], (g["gy"], g["gp"])):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+        np.testing.assert_allclose(got, gold, rtol=2e-3, atol=1e-3)

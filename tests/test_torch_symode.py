@@ -14,7 +14,7 @@ import torch
 
 from sunode_tpu.symode import SympyProblem as JaxSympyProblem
 from sunode_tpu.symode.lambdify import lambdify_jax
-from sunode_torch.adjoint import transition_fz
+from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
 from sunode_torch.symode import SympyProblem, cuda_codegen
 from sunode_torch.symode.lambdify import expit, lambdify_torch, logaddexp
 
@@ -158,7 +158,7 @@ def _host_compile(system, tmp_path):
     return run
 
 
-@pytest.mark.parametrize("kind", ["forward", "transition"])
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
 def test_cuda_emitter_host_compiled_matches_torch(problems, kind, tmp_path):
     name, _, tp = problems
     t, y, p = _inputs(tp, 3)
@@ -167,6 +167,26 @@ def test_cuda_emitter_host_compiled_matches_torch(problems, kind, tmp_path):
         system = cuda_codegen.forward_system(tp)
         z = y
         want = tp.make_rhs()(torch.as_tensor(t), torch.as_tensor(z), torch.as_tensor(p))
+    elif kind in ("resolve", "staged_adjoint"):
+        lam = np.random.default_rng(5).standard_normal((n, B))
+        tau, pt = torch.as_tensor(-t), torch.as_tensor(p)
+        aj, qr = tp.make_adjoint_rhs(), tp.make_adjoint_quad_rhs()
+        if kind == "resolve":
+            system = cuda_codegen.resolve_system(tp)
+            z = np.concatenate([y, lam])
+            rhs_c, quad_c = resolve_fz(tp.make_rhs(), aj, qr, n)
+            zt = torch.as_tensor(z)
+            want = torch.cat([rhs_c(tau, zt, pt), quad_c(tau, zt, pt)])
+        else:
+            # y(t) staged in the parameter rows after the problem's
+            system = cuda_codegen.staged_adjoint_system(tp)
+            z = lam
+            rhs_s, quad_s = staged_adjoint_fz(aj, qr)
+            args = (tau, torch.as_tensor(lam), pt, torch.as_tensor(y))
+            want = torch.cat([rhs_s(*args), quad_s(*args)])
+            p = np.concatenate([p, y])
+            assert system.n_p == tp.n_all_params + n
+        t = -t  # the emitted backward systems take tau
     else:
         system = cuda_codegen.transition_system(tp)
         rng = np.random.default_rng(4)
