@@ -11,7 +11,8 @@ Phases, one line each; any failure exits non-zero:
      backward system) and the flat-history PECE kernel at order 6, and the
      history-attempt kernel at phase 7's depth (adams_max_order 8) for the
      forward, the backsolve ('resolve') and the staged checkpointed
-     ('staged_adjoint') systems;
+     ('staged_adjoint') systems, and the split attempt's three kernels
+     (csrc/adams_split.cu) at that depth, which do not depend on the problem;
   3. kernel vs plain: each PECE build against the plain PyTorch version on
      the card at B=10,000, seeded random history, per-lane order 1..6, the
      main path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
@@ -31,6 +32,14 @@ Phases, one line each; any failure exits non-zero:
      three builds at its history depth (order 1..8) and tolerances (1e-8 on
      every row), the staged build with seeded y(t) rows after the
      parameters;
+  3d. split kernels: the attempt with its right-hand side in torch between
+     three kernels (predict, sweep, finish) for SIR over 1,000 regions (nz =
+     3,000) at B=1,024, orders 1..8, seeded history and step ratio as in
+     phase 3c: the composed attempt against the plain stages composed on the
+     card, then each kernel against its plain stage on the same inputs;
+     normwise relative error <= 1e-12 on DF_resc, DF_upd, z_new, err3 and
+     the rest, conv and niter equal in every lane, and per-call times as in
+     phase 3;
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: the history-attempt launches equal to the attempts
@@ -73,18 +82,29 @@ Phases, one line each; any failure exits non-zero:
      and backward, 384 checkpoints (the JAX package's golden test of these
      modes): per mode one timed gradient step with every kernel count set to
      0 before it, the history-attempt launches equal to the forward plus the
-     backward attempts, split by system, and no launch of the PECE or the
-     flat-history kernel; then one step under the profiler (device kernels
+     backward attempts, split by system, and no launch of the PECE, the
+     flat-history or a split kernel; then one step under the profiler (device kernels
      and host ms per attempt, device-busy share), the table's bytes and the
      peak memory; status 0 and finite gradients in every lane, lanes 0-15
      inside the golden gate and against the same call on the CPU within
      1e-6;
-  8. the kernel table and the result line.  Each kernel's bound is the
+  8. SIR over 1,000 regions, a TorchProblem (scripts/bench_sir_scale.py's
+     configuration: 12 observation times, rtol 1e-8 / atol 1e-10 both ways,
+     1,024 checkpoints) through ``entry.build_sir``: 'resolve' at B=1,024 and
+     'hermite' at B=256 (an 18.9 GB table), per mode a warm-up, one timed
+     gradient step with every kernel count set to 0 before it, and one step
+     under the profiler; split launches equal to 1 / 4 / 1 x the forward
+     plus backward attempts (predict / sweep / finish), no launch of any
+     other kernel and no plain-stage call; status 0 and finite in every
+     lane, lane 0 inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
+     atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
+     1e-8 relative;
+  9. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
-     call computes a PECE attempt or a history attempt, so library_ms is
-     null.
+     call computes a PECE attempt, a history attempt or a split stage, so
+     library_ms is null.
 """
 
 from __future__ import annotations
@@ -246,15 +266,19 @@ def fmt_times(name, t) -> str:
     return f" {name}_us_per_call graph/stream/device={times}"
 
 
-def normwise(got, ref, names):
-    """({name: max|a - b| / max|b|}, worst max|a - b|) over the fields ``names``."""
+def rel_errors(pairs):
+    """({name: max|a - b| / max|b|}, worst max|a - b|) over ``{name: (a, b)}``."""
     rel, abs_err = {}, 0.0
-    for name in names:
-        a, b = getattr(got, name), getattr(ref, name)
+    for name, (a, b) in pairs.items():
         diff = float((a - b).abs().max())
         rel[name] = diff / float(b.abs().max())
         abs_err = max(abs_err, diff)
     return rel, abs_err
+
+
+def normwise(got, ref, names):
+    """:func:`rel_errors` over the fields ``names`` of two results."""
+    return rel_errors({name: (getattr(got, name), getattr(ref, name)) for name in names})
 
 
 def compare_kernel(kind, device_system, fz, seed):
@@ -410,6 +434,290 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
     if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
         raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
     return entry
+
+
+SIR_R = 1000  # scripts/bench_sir_scale.py's regions: 3,000 states
+B_SPLIT = 1024  # phase 3d's lanes: the script's largest width
+SIR_MODES = (("resolve", 1024), ("hermite", 256))  # phase 8: mode, lanes
+KERNEL_SOURCE_SPLIT = "sunode_torch/csrc/adams_split.cu"
+SPLIT_STAGES = ("predict", "sweep", "finish")
+
+
+def split_inputs(B, seed, device, R=SIR_R):
+    """Phase 3d's inputs: one attempt of the SIR model over ``R`` regions
+    (nz = 3R) at history depth KAB = 11 (orders 1..8), seeded history, a
+    step ratio log-uniform in [0.2, 2] as in phase 3c, 90% of lanes active,
+    steps log-uniform in [1e-3, 1] around t in [0, 60], states around
+    ``scripts/bench_sir_scale.py``'s (S ~ 0.99, I ~ 0.01, R ~ 0.01),
+    (beta, gamma, mix) with a 5% spread, and the workload's tolerances
+    (rtol 1e-8, atol 1e-10) and corrector tolerance."""
+    import torch
+
+    from sunode_torch.ops.adams import _GAMMA_STAR
+    from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
+
+    rng = np.random.default_rng(seed)
+    KAB, nz = P_MAX_ADAMS + 3, 3 * R
+    DF = 1e-2 * rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
+    level = np.repeat([0.99, 0.01, 0.01], R)[:, None]
+    z_prev = level * (1 + 0.05 * rng.uniform(size=(nz, B)))
+    params = np.array([0.4, 0.15, 0.05])[:, None] * (1 + 0.05 * rng.standard_normal((3, B)))
+    f64 = dict(dtype=torch.float64, device=device)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), **f64)  # noqa: E731
+    return dict(
+        t_new=T(rng.uniform(0.0, 60.0, B)), h=T(10.0 ** rng.uniform(-3, 0, B)),
+        pre_factor=T(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B))),
+        p=torch.as_tensor(rng.integers(1, P_MAX_ADAMS + 1, B).astype(np.int32), device=device),
+        active=torch.as_tensor(rng.uniform(size=B) < 0.9, device=device),
+        DF=T(DF), z_prev=T(z_prev), params=T(params),
+        atol_z=T(np.full(nz, 1e-10)), rtol_z=T(np.full(nz, 1e-8)),
+        gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(np.full(nz, 1.0 / nz)),
+        newton_tol=newton_tol_for(BDFOptions(rtol=1e-8, atol=1e-10), 1e-8, torch.float64),
+    )
+
+
+def split_costs(x, n) -> dict:
+    """{stage: (bytes, f64 operations)} of the three kernels on the inputs
+    ``x``: each input read once and each output written once (the history
+    whole, as DF_resc and DF_upd are), and the operations each row's lane
+    needs at its own order p: the rescale's two p x p products, predictor,
+    extrapolation and weight; a sweep's update and square; the finish's
+    suffix sums, update, new state and three weighted error squares."""
+    KAB, nz, B = x["DF"].shape
+    p = x["p"].long()
+    hist = 8 * KAB * nz * B
+    lanes_in = 8 + 1 + 1 + 1 + 8 + 4  # c_A, conv, div, bad, dy_old, niter
+    costs = {
+        "predict": (2 * hist + 8 * nz * B * 4 + B * (8 + 8 + 4 + 8 + 1) + 8 * 2 * nz,
+                    int((nz * (4 * p * p + 3 * p + 6)).sum())),
+        "sweep": (8 * nz * B + 8 * 4 * n * B + 8 * n * B + 2 * B * lanes_in, 9 * n * B + 8 * B),
+        "finish": (2 * hist + 8 * nz * B * 4 + 8 * nz * B * 2 + B * (8 + 1 + 4 + 8 + 2)
+                   + 8 * nz + 8 * x["gamma_star_abs"].numel() + B * (3 * 8 + 1),
+                   nz * B * (3 * KAB + 22) + 8 * B),
+    }
+    return costs
+
+
+def split_phase(smi, kernels) -> dict:
+    """Phase 3d: the three split kernels against their plain stages on the
+    card at SIR-1000's width; returns the kernel-table fields by stage."""
+    import torch
+
+    from sunode_torch.entry import sir_problem
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.pece_step import PeceSystem
+
+    x = split_inputs(B_SPLIT, 11, "cuda", SIR_R)
+    n = 3 * SIR_R
+    fz = sir_problem(SIR_R).make_rhs()
+    system = PeceSystem(fz=fz, n=n, nz=n)
+    args = (x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
+            x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
+            x["newton_tol"], FUNCTIONAL_MAXITER, P_MAX_ADAMS)
+    got = sp.adams_split_attempt(system, *args)
+    ref = sp.adams_split_attempt_reference(system, *args)
+    torch.cuda.synchronize()
+    rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0"))
+    conv_same = bool(torch.equal(got.conv, ref.conv))
+    niter_same = bool(torch.equal(got.niter, ref.niter))
+    log(
+        f"[split-kernels-vs-plain attempt] SIR R={SIR_R} nz={n} B={B_SPLIT} KAB={P_MAX_ADAMS + 3} "
+        + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
+        + f" conv_equal={conv_same} niter_equal={niter_same}"
+        f" converged={int(got.conv.sum())}/{B_SPLIT}"
+        f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
+    )
+    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
+        raise SystemExit("chip_smoke: the split attempt's kernels disagree with the plain stages")
+
+    # each kernel against its plain stage on the same inputs: the plain
+    # stages' outputs feed the next stage of both
+    stage_in = (x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"], x["atol_z"], x["rtol_z"])
+    pred_k, pred = kernels.predict(*stage_in), sp.split_predict(*stage_in, P_MAX_ADAMS)
+    errs = {"predict": normwise(pred_k, pred, ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"))}
+    same = {"predict": bool(torch.equal(pred_k.pred_ok, pred.pred_ok))}
+    y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
+    sweep_rel, sweep_abs, same["sweep"] = {}, 0.0, True
+    for k in range(FUNCTIONAL_MAXITER):
+        fz_k = fz(x["t_new"], y, x["params"])
+        y_k, st_k = kernels.sweep(k, fz_k, y, pred, state, x["newton_tol"], n)
+        y, state = sp.split_sweep(k, fz_k, y, pred, state, x["newton_tol"], n)
+        # dy_old stays inf in lanes that never swept (inactive ones)
+        swept = torch.isfinite(state.dy_old)
+        r, a = rel_errors({f"y_next@{k}": (y_k, y),
+                           f"dy_old@{k}": (st_k.dy_old[swept], state.dy_old[swept])})
+        sweep_rel.update(r)
+        sweep_abs = max(sweep_abs, a)
+        same["sweep"] &= all(bool(torch.equal(getattr(st_k, f), getattr(state, f)))
+                             for f in ("conv", "div", "bad", "niter"))
+    errs["sweep"] = (sweep_rel, sweep_abs)
+    fz_f = fz(x["t_new"], y, x["params"])
+    fin_in = (fz_f, pred, state, x["p"], x["h"], x["gamma_star_abs"], x["v_err"], x["newton_tol"])
+    fin_k, fin = kernels.finish(*fin_in), sp.split_finish(*fin_in, P_MAX_ADAMS)
+    errs["finish"] = normwise(fin_k, fin, ("DF_upd", "z_new", "err0", "err3"))
+    same["finish"] = bool(torch.equal(fin_k.conv, fin.conv))
+    torch.cuda.synchronize()
+
+    # per-call times on these inputs: kernel (graph, stream, device) and plain
+    fz_1 = fz(x["t_new"], pred.z_pred[:n], x["params"])
+    calls = {
+        "predict": (lambda z: (kernels.predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
+                                               x["atol_z"], x["rtol_z"]).z_pred,),
+                    lambda z: (sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
+                                                x["atol_z"], x["rtol_z"], P_MAX_ADAMS).z_pred,),
+                    x["z_prev"]),
+        "sweep": (lambda yy: (kernels.sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
+                  lambda yy: (sp.split_sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
+                  pred.z_pred[:n].clone()),
+        "finish": (lambda f: (kernels.finish(f, *fin_in[1:]).z_new,),
+                   lambda f: (sp.split_finish(f, *fin_in[1:], P_MAX_ADAMS).z_new,), fz_f),
+    }
+    costs = split_costs(x, n)
+    table = {}
+    for stage, (call_k, call_p, z) in calls.items():
+        t_k, t_p = per_call_times(call_k, z), per_call_times(call_p, z, False)
+        rel_s, abs_s = errs[stage]
+        nbytes, flops = costs[stage]
+        table[stage] = dict(max_abs_err=abs_s, ms=t_k["stream"] / 1e3,
+                            plain_ms=t_p["stream"] / 1e3, **bound(nbytes, flops))
+        log(
+            f"[split-kernel-vs-plain {stage}] B={B_SPLIT} nz={n} "
+            + " ".join(f"rel_{k}={v:.3e}" for k, v in rel_s.items())
+            + f" flags_equal={same[stage]}" + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
+            + f" bytes={nbytes} flops={flops} bound_us={1e3 * table[stage]['bound_ms']:.3f}"
+            f" ({table[stage]['bound_by']}) graph_over_bound="
+            f"{t_k['graph'] / (1e3 * table[stage]['bound_ms']):.2f} | {smi}"
+        )
+        if not (max(rel_s.values()) <= REL_BOUND and same[stage]):
+            raise SystemExit(f"chip_smoke: the split {stage} kernel disagrees with its plain stage")
+    return table
+
+
+class SplitLaunches:
+    """The split kernels' launches, counted by stage in
+    ``adams_split_attempt.launches``, as one count: read as their sum, set
+    to a value in every stage (the phases' ``k.launches = 0``)."""
+
+    @property
+    def launches(self) -> int:
+        from sunode_torch.ops.adams_split import adams_split_attempt
+
+        return sum(adams_split_attempt.launches.values())
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        from sunode_torch.ops.adams_split import adams_split_attempt
+
+        adams_split_attempt.launches.update(dict.fromkeys(SPLIT_STAGES, value))
+
+
+def split_expected_launches(attempts: int) -> dict:
+    """Split-kernel launches of ``attempts`` attempts: one predict, one
+    sweep per corrector iteration (FUNCTIONAL_MAXITER = 4, all of them
+    always) and one finish each."""
+    return {"predict": attempts, "sweep": 4 * attempts, "finish": attempts}
+
+
+def sir_table_bytes(mode, B) -> int:
+    """Bytes of the forward recording 'hermite' keeps (1,024 slots and the
+    rolling tail, quintic rows (t, y, f, fdot) of 3,000 states); 'resolve'
+    keeps none."""
+    return 0 if mode == "resolve" else 8 * 1025 * (1 + 3 * 3 * SIR_R) * B
+
+
+def sir_phase(smi, counted) -> dict:
+    """Phase 8: SIR-1000 ADAMS gradients through ``entry.build_sir``, the
+    attempts on the split kernels; returns their launches by stage."""
+    import torch
+
+    from sunode_torch.entry import build_sir
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.ops.adams_attempt import adams_history_attempt
+
+    golden = np.load(os.path.join(HERE, "tests", "golden", "sir_1000.npz"))
+    R = SIR_R
+    total = dict.fromkeys(SPLIT_STAGES, 0)
+    for mode, B in SIR_MODES:
+        grad_step, (y0s, p_subs) = build_sir(R, B, mode, device="cuda")
+        stats = grad_step.solve.last_stats
+        t0 = time.perf_counter()
+        grad_step(y0s, p_subs)  # warm-up
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        for k in (*counted, SplitLaunches()):
+            k.launches = 0
+        sp.split_predict.calls = sp.split_sweep.calls = sp.split_finish.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys, gp = grad_step(y0s, p_subs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+        launches = dict(sp.adams_split_attempt.launches)
+        plain = [sp.split_predict.calls, sp.split_sweep.calls, sp.split_finish.calls]
+        fused = [k.launches for k in counted]
+        expected = split_expected_launches(fwd + bwd)
+        log(f"[sir {mode} launches] split {launches} expected={expected}; plain-stage calls "
+            f"{plain}; fused and other kernels {fused} (history-attempt total "
+            f"{adams_history_attempt.launches})")
+        if launches != expected:
+            raise SystemExit(f"chip_smoke: sir {mode}: split launches do not match the attempts")
+        if any(plain) or any(fused):
+            raise SystemExit(f"chip_smoke: sir {mode}: the path ran a plain stage or another kernel")
+        for stage in SPLIT_STAGES:
+            total[stage] += launches[stage]
+        peak = torch.cuda.max_memory_allocated()
+        log(
+            f"[sir {mode} step] R={R} B={B} wall_s={wall:.4f} grads_per_s={B / wall:.1f} "
+            f"warm_up_s={warm:.2f} attempts fwd={fwd} bwd={bwd} "
+            f"host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} "
+            f"table_MB={sir_table_bytes(mode, B) / 1e6:.1f} peak_MB={peak / 1e6:.1f} | {smi}"
+        )
+
+        def attempts():
+            return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+
+        prof = device_kernels_per_attempt(lambda: grad_step(y0s, p_subs), attempts)
+        log(
+            f"[sir {mode} device kernels per attempt] {prof['per_attempt']:.1f} "
+            f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+            f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+            f"wall_s_under_profiler={prof['wall_s']:.4f} host_ms_per_attempt_under_profiler="
+            f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} "
+            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
+        )
+        log(f"[sir {mode} device kernels by kind] (kind: per attempt, device ms in the step) "
+            + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+
+        ys_np, gp_np = ys.cpu().numpy(), gp.cpu().numpy()
+        status = stats["backward"]["status"].cpu().numpy()
+        finite = int((np.isfinite(ys_np).all(axis=(1, 2)) & np.isfinite(gp_np).all(axis=1)).sum())
+        if not (ys_np.shape == (B, 12, 3 * R) and gp_np.shape == (B, 2) and finite == B
+                and (status == 0).all()):
+            raise SystemExit(f"chip_smoke: sir {mode} failed ({finite} finite, "
+                             f"{int((status == 0).sum())} with status 0, of {B})")
+        np.testing.assert_allclose(ys_np[0], golden["ys"], rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(gp_np[0], golden["gp"], rtol=1e-3)
+        gold_rel = float(np.max(np.abs(gp_np[0] - golden["gp"]) / np.abs(golden["gp"])))
+        t0 = time.perf_counter()
+        cpu_step, _ = build_sir(R, 1, mode, device="cpu")
+        cy, cg = cpu_step(y0s[:4].cpu(), p_subs[:4].cpu())
+        plain_rel = max(floored_rel(ys_np[:4], cy.numpy(), 1e-10),
+                        float(np.max(np.abs(gp_np[:4] - cg.numpy()) / np.abs(cg.numpy()))))
+        log(
+            f"[sir {mode} check] status 0 and finite in {finite}/{B} lanes; lane 0 golden "
+            f"gp_rel={gold_rel:.3e} (gate 1e-3; ys rtol 1e-5 / atol 1e-7 passed) "
+            f"cuda_vs_cpu_lanes_0_3_max_rel={plain_rel:.3e} (bound 1e-8, ys floored at atol "
+            f"1e-10; the CPU took {time.perf_counter() - t0:.2f} s for "
+            f"{cpu_step.solve.last_stats['forward']['n_attempts']} + "
+            f"{cpu_step.solve.last_stats['backward']['n_attempts']} attempts)"
+        )
+        if not plain_rel <= 1e-8:
+            raise SystemExit(f"chip_smoke: the CUDA sir {mode} gradients disagree with the CPU")
+        log_elapsed(f"8, {mode}")
+    return total
 
 
 def pece_2d_phase(smi):
@@ -682,7 +990,8 @@ def adams_modes_phase(smi, counted, history_kernels) -> dict:
             raise SystemExit(f"chip_smoke: {mode}: history-attempt launches do not match "
                              "the attempts run")
         if any(others):
-            raise SystemExit(f"chip_smoke: {mode}: the path launched the PECE or flat kernel")
+            raise SystemExit(f"chip_smoke: {mode}: the path launched the PECE, flat or a split "
+                             "kernel")
         for kind, count in launches.items():
             total[kind] += count
         status = stats["backward"]["status"].cpu().numpy()
@@ -872,6 +1181,7 @@ def main() -> None:
     from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
     from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
+    from sunode_torch.ops.adams_split import build_split_kernels
     from sunode_torch.ops.pece_2d import P_ORDER, build_pece_2d, lv_system, pece_2d_attempt
     from sunode_torch.ops.pece_step import adams_pece_attempt, build_kernel
     from sunode_torch.symode import cuda_codegen
@@ -890,7 +1200,7 @@ def main() -> None:
     }
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(systems) + 1 + len(adams_systems)) as pool:
+    with ThreadPoolExecutor(2 * len(systems) + 2 + len(adams_systems)) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
         futures.update({
             f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
@@ -902,6 +1212,8 @@ def main() -> None:
                 build_attempt_kernel, ds, P_MAX_ADAMS + 3)
             for kind, ds in adams_systems.items()
         })
+        # the split kernels: one build per history depth, for any problem
+        futures[f"split_kab{P_MAX_ADAMS + 3}"] = pool.submit(build_split_kernels, P_MAX_ADAMS + 3)
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
@@ -954,6 +1266,10 @@ def main() -> None:
 
     log_elapsed("3c")
 
+    # phase 3d: the split attempt's three kernels vs their plain stages
+    split_table = split_phase(smi, built[f"split_kab{P_MAX_ADAMS + 3}"])
+    log_elapsed("3d")
+
     # phase 4: the main path
     grad_step, _ = build_lv_adjoint(B_MAIN, 21, 1e-8, device="cuda")
     y0s, p_subs = lv_main_inputs()
@@ -962,7 +1278,8 @@ def main() -> None:
     golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
 
     adams_pece_attempt.launches = adams_history_attempt.launches = 0
-    for k in (*kernels.values(), *history_kernels.values()):
+    split_count = SplitLaunches()
+    for k in (*kernels.values(), *history_kernels.values(), split_count):
         k.launches = 0
     expected = {"forward": 0, "transition": 0}
     for step in range(3):
@@ -988,6 +1305,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: history-attempt launches do not match the attempts run")
     if adams_pece_attempt.launches != 0 or any(pece_launches.values()):
         raise SystemExit("chip_smoke: the main path launched the PECE kernel")
+    if split_count.launches:
+        raise SystemExit("chip_smoke: the main path launched a split kernel")
 
     def step_attempts():
         stats = grad_step.solve.last_stats
@@ -1036,7 +1355,7 @@ def main() -> None:
     # each path's counts are set to 0 just before it and read just after
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
                *history_kernels.values(), *adams_kernels.values(), pece_2d_attempt,
-               build_pece_2d(P_ORDER))
+               build_pece_2d(P_ORDER), split_count)
     for label, name, phase in (("5", "robertson", bdf_robertson_phase),
                                ("5b", "sens", bdf_sens_phase),
                                ("6", "checkpointed", checkpointed_phase)):
@@ -1052,6 +1371,10 @@ def main() -> None:
     # phase 7: the ADAMS adjoints through the history-attempt kernel; each
     # mode's counts are set to 0 just before its step and read just after
     adams_launches = adams_modes_phase(smi, counted, adams_kernels)
+
+    # phase 8: SIR-1000, a TorchProblem, through the split kernels; every
+    # other kernel's count must stay 0
+    split_launches = sir_phase(smi, counted[:-1])
 
     entries = [
         dict(
@@ -1089,6 +1412,17 @@ def main() -> None:
             **adams_table[kind],
         )
         for kind in adams_systems
+    ]
+    entries += [
+        dict(
+            name=f"adams_split_{stage}[KAB={P_MAX_ADAMS + 3}]",
+            route="cuda",
+            source=KERNEL_SOURCE_SPLIT,
+            replaces=TPU_KERNEL,
+            launches=split_launches[stage],
+            **split_table[stage],
+        )
+        for stage in SPLIT_STAGES
     ]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({

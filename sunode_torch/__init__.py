@@ -6,6 +6,8 @@ never jax, works in float64 per tensor and changes no global torch state
 
   * :class:`ParamSpec` -- named nested states/params as flat vectors;
   * :class:`SympyProblem` -- an ODE declared in sympy;
+  * :class:`TorchProblem` -- an ODE whose right-hand side is torch code on
+    one lane's named records, every derivative from ``torch.func``;
   * :func:`make_batched_solve_fn` -- batched solves with gradients through
     ``torch.autograd``: BDF with the checkpointed adjoint (the default
     call; 'hermite' or 'polynomial' interpolation), and Adams with the
@@ -13,18 +15,23 @@ never jax, works in float64 per tensor and changes no global torch state
     'polynomial') adjoint;
   * :func:`build_lv_checkpointed` and :func:`build_lv_adams` -- the
     Lotka-Volterra gradient step through the default call and through
-    the ADAMS adjoints.
+    the ADAMS adjoints; :func:`build_sir` -- SIR over many regions (a
+    ``TorchProblem``) through the ADAMS adjoints.
 
 On CUDA tensors the history half of every Adams attempt, forward and
-backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``;
-on CPU tensors the plain PyTorch version of the same math runs instead.  The
+backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``
+for a ``SympyProblem`` (its right-hand side emitted into the kernel), and
+the three kernels of ``sunode_torch/csrc/adams_split.cu`` for any other
+problem, its right-hand side in torch between them; on CPU tensors the
+plain PyTorch version of the same math runs instead.  The
 BDF core (:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities and
 checkpoint recording included) and its checkpointed adjoint are torch code
 with a ``torch.linalg`` Newton solve on either device.
 """
 
-from sunode_torch.entry import build_lv_adams, build_lv_checkpointed
+from sunode_torch.entry import build_lv_adams, build_lv_checkpointed, build_sir
 from sunode_torch.paramspec import ParamSpec, Record
+from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
@@ -34,8 +41,10 @@ __all__ = [
     "ParamSpec",
     "Record",
     "SympyProblem",
+    "TorchProblem",
     "build_lv_adams",
     "build_lv_checkpointed",
+    "build_sir",
     "make_batched_solve_fn",
     "__version__",
 ]

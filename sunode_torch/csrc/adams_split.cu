@@ -1,0 +1,455 @@
+// The Adams attempt with its right-hand side outside the kernel: three
+// kernels, with the caller's torch right-hand side between them.
+//
+// Replaces, for problems whose right-hand side is torch code (no system
+// emitted from sympy, so the fused csrc/adams_attempt.cu cannot hold it),
+// the TPU kernel sunode_tpu/ops/pallas_step.py::adams_pece_attempt_pallas
+// (predictor, corrector sweeps, final evaluation, error estimate) and the
+// history arithmetic the JAX main path left to XLA around it
+// (sunode_tpu/ops/adams_batched.py: _rescale :376-399, the corrector
+// :456-520, _update :989-1007, the error rows :617-632).  The plain PyTorch
+// versions are split_predict, split_sweep and split_finish in
+// sunode_torch/ops/adams_split.py; per element every product, difference
+// and quotient is rounded on its own (__dmul_rn, __ddiv_rn, ...), in their
+// order, so only the sums over the rows (dy_norm, err3) add in another
+// order.
+//
+//   split_predict  R(fac) then U = R(1) on each history column's leading p
+//                  rows (identity elsewhere), DF_resc, z_pred = z_prev +
+//                  h sum_{i<p} gamma_i DF_resc[i], f_ex = sum_{i<p}
+//                  DF_resc[i], w_z = 1 / (atol + rtol |z_pred|); per lane
+//                  c_A = h gamma_{p-1} and pred_ok (z_pred finite);
+//   split_sweep    one corrector sweep on fz_k = f(t, y_it): z_next = z_pred
+//                  + c_A (fz_k - f_ex), y_next, and per lane dy_norm = the
+//                  weighted RMS of z_next - y_it over the n state rows, then
+//                  the conv/div/bad/niter/dy_old update (the rate tests);
+//   split_finish   d = fz - f_ex, z_new, err0 = |gamma*_p| h d, the
+//                  accepted-step difference update DF_upd, and per lane the
+//                  three weighted error norms err3 (orders p, p-1, p+1) and
+//                  the attempt's conv.
+//
+// What bounds them on an H100: bytes.  At SIR over 1,000 regions (nz =
+// 3,000) and B = 1,024 the history is 11 x 3,000 x 1,024 x 8 B = 270 MB;
+// predict and finish each read it once and write it once (~0.17 ms each at
+// 3.35 TB/s), a sweep moves six (n, B) rows (~0.04 ms).  The rescale's
+// arithmetic is ~2 p^2 products a row, well under the f64 rate.
+//
+// Layout: the history is (KAB, nz, B), lane-contiguous.  A block is a tile
+// of 32 lanes (threadIdx.x, so each warp reads 32 neighbouring lanes: one
+// coalesced 256-byte transaction per row) by 8 row threads (threadIdx.y),
+// and covers a chunk of 64 rows (blockIdx.y); blockIdx.x walks the lane
+// tiles.  At nz = 3,000, B = 1,024 that is 47 x 32 = 1,504 blocks of 256
+// threads, enough for the 132 SMs at any B the workloads use.  The
+// rescale's coefficients R(fac)[j][i] (running index j, column i) are built
+// once per lane and block into shared memory (K x K x 32 doubles), U once
+// per block, instead of once per row as the fused kernel does.
+//
+// Per-lane sums over the rows: each block sums its rows per lane through
+// shared memory (in row-thread order) into a partial per (chunk, lane);
+// the last block of a lane tile to finish (a counter per tile, zeroed by a
+// memset at each launch, and a fence) adds the partials in chunk order, so
+// the result does not depend on the blocks' schedule, and writes the
+// lane's outputs.  Lanes with p outside the history (p < 1 or p > KAB - 2)
+// are poisoned with NaN, as the fused kernel poisons them.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[]
+
+#ifndef ADAMS_KAB
+#error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
+#endif
+#define ADAMS_K (ADAMS_KAB - 2)  // rows 0..P_MAX + 1 of the R(fac)U block
+#define SPLIT_TILE 32            // lanes of a block
+#define SPLIT_ROWS 8             // row threads of a block
+#define SPLIT_CHUNK 64           // rows of a block
+
+#if ADAMS_K > PECE_TABLE_LEN - 1
+#error "history deeper than the Adams tables"
+#endif
+
+// element (i, r) of a (KAB, nz, B) history, lane b
+#define HIST(i, r) (((size_t)(i) * nz + (r)) * sB + b)
+
+// True in every thread of the block that finished its lane tile last; its
+// partials, and those of every other block of the tile, are then visible.
+__device__ bool last_block_of_tile(unsigned int* done, int n_chunks) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    last = atomicAdd(done + blockIdx.x, 1u) == (unsigned int)(n_chunks - 1);
+  __syncthreads();
+  return last;
+}
+
+// Sum of v over the row threads of lane threadIdx.x, in row-thread order;
+// valid in the threads with threadIdx.y == 0.
+__device__ __forceinline__ double sum_rows(double v, double (*s)[SPLIT_TILE]) {
+  s[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  double acc = 0.0;
+  if (threadIdx.y == 0) {
+#pragma unroll
+    for (int k = 0; k < SPLIT_ROWS; ++k) acc = __dadd_rn(acc, s[k][threadIdx.x]);
+  }
+  __syncthreads();
+  return acc;
+}
+
+__device__ __forceinline__ bool order_ok(int p) { return p >= 1 && p <= ADAMS_K; }
+
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ order,
+                     const double* __restrict__ pre_factor, const double* __restrict__ h_use,
+                     const double* __restrict__ z_prev, const double* __restrict__ atol_z,
+                     const double* __restrict__ rtol_z, int nz, int B,
+                     double* __restrict__ DF_resc, double* __restrict__ z_pred,
+                     double* __restrict__ f_ex, double* __restrict__ w_z,
+                     double* __restrict__ c_A, unsigned char* __restrict__ pred_ok,
+                     unsigned char* part_ok, unsigned int* done) {
+  __shared__ double Rs[ADAMS_K][ADAMS_K][SPLIT_TILE];  // R(fac)[j][i], per lane
+  __shared__ double Us[ADAMS_K][ADAMS_K];              // U = R(1)[j][i]
+  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int b = blockIdx.x * SPLIT_TILE + tx;
+  const bool lane = b < B;
+  const size_t sB = (size_t)B;
+  const int p = lane ? order[b] : 1;
+  const bool valid = lane && order_ok(p);
+  const double fac = lane ? pre_factor[b] : 0.0;
+  const double h = lane ? h_use[b] : 0.0;
+
+  // R[0][i] = 1, R[j][i] = (R[j-1][i] ((j-1) - fac i)) / j: column i's
+  // running product, as the plain version builds it row by row
+  for (int i = ty; i < ADAMS_K; i += SPLIT_ROWS) {
+    const double fi = __dmul_rn(fac, (double)i);
+    double c = 1.0;
+    Rs[0][i][tx] = 1.0;
+    for (int j = 1; j < ADAMS_K; ++j) {
+      c = __ddiv_rn(__dmul_rn(c, __dsub_rn((double)(j - 1), fi)), (double)j);
+      Rs[j][i][tx] = c;
+    }
+  }
+  if (ty == SPLIT_ROWS - 1 && tx < ADAMS_K) {
+    const int i = tx;
+    double c = 1.0;
+    Us[0][i] = 1.0;
+    for (int j = 1; j < ADAMS_K; ++j) {
+      c = __ddiv_rn(__dmul_rn(c, __dsub_rn((double)(j - 1), (double)i)), (double)j);
+      Us[j][i] = c;
+    }
+  }
+  __syncthreads();
+
+  const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
+  double not_ok = 0.0;  // a count of non-finite predictions, summed as doubles
+  if (lane) {
+    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
+      if (!valid) {
+#pragma unroll
+        for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = NAN;
+        z_pred[r * sB + b] = f_ex[r * sB + b] = w_z[r * sB + b] = NAN;
+        continue;
+      }
+      double col[ADAMS_K], t1[ADAMS_K];
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i) col[i] = DF[HIST(i, r)];
+      // t1[i] = sum_{j<p} R[j][i] col[j], then col[i] = sum_{j<p} U[j][i] t1[j]
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i) {
+        double acc = col[i];
+        if (i < p) {
+          acc = 0.0;
+#pragma unroll
+          for (int j = 0; j < ADAMS_K; ++j)
+            if (j < p) acc = __dadd_rn(acc, __dmul_rn(Rs[j][i][tx], col[j]));
+        }
+        t1[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i) {
+        double acc = t1[i];
+        if (i < p) {
+          acc = 0.0;
+#pragma unroll
+          for (int j = 0; j < ADAMS_K; ++j)
+            if (j < p) acc = __dadd_rn(acc, __dmul_rn(Us[j][i], t1[j]));
+        }
+        col[i] = acc;
+      }
+      double acc_z = 0.0, acc_f = 0.0;
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i) {
+        DF_resc[HIST(i, r)] = col[i];
+        if (i < p) {
+          acc_z = __dadd_rn(acc_z, __dmul_rn(PECE_GAMMA[i], col[i]));
+          acc_f = __dadd_rn(acc_f, col[i]);
+        }
+      }
+#pragma unroll
+      for (int i = ADAMS_K; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = DF[HIST(i, r)];
+      const double zp = __dadd_rn(z_prev[r * sB + b], __dmul_rn(h, acc_z));
+      z_pred[r * sB + b] = zp;
+      f_ex[r * sB + b] = acc_f;
+      w_z[r * sB + b] = __ddiv_rn(1.0, __dadd_rn(atol_z[r], __dmul_rn(rtol_z[r], fabs(zp))));
+      if (!isfinite(zp)) not_ok = 1.0;
+    }
+  }
+  const double bad_rows = sum_rows(not_ok, red);
+  if (ty == 0 && lane) part_ok[blockIdx.y * sB + b] = bad_rows == 0.0;
+  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
+  bool ok = valid;
+  for (int c = 0; c < (int)gridDim.y; ++c)
+    ok = ok && *((volatile const unsigned char*)part_ok + c * sB + b);
+  pred_ok[b] = ok;
+  c_A[b] = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : NAN;
+}
+
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restrict__ y_it,
+                   const double* __restrict__ z_pred, const double* __restrict__ f_ex,
+                   const double* __restrict__ w_z, const double* __restrict__ c_A,
+                   const unsigned char* __restrict__ conv, const unsigned char* __restrict__ div,
+                   const unsigned char* __restrict__ bad, const double* __restrict__ dy_old,
+                   const int* __restrict__ niter, double newton_tol, double tol_lo, int fixed,
+                   int n, int nz, int B, double* __restrict__ y_next,
+                   unsigned char* __restrict__ conv_o, unsigned char* __restrict__ div_o,
+                   unsigned char* __restrict__ bad_o, double* __restrict__ dy_old_o,
+                   int* __restrict__ niter_o, double* part_ss, unsigned char* part_bad,
+                   unsigned int* done) {
+  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int b = blockIdx.x * SPLIT_TILE + tx;
+  const bool lane = b < B;
+  const size_t sB = (size_t)B;
+  const bool live = lane && !(conv[b] || div[b] || bad[b]);
+  const double cA = lane ? c_A[b] : 0.0;
+  const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
+  double ss = 0.0, nonfinite = 0.0;
+  if (lane) {
+    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
+      const double f = fz[r * sB + b];
+      if (!isfinite(f)) nonfinite = 1.0;
+      if (r < n) {
+        const double zn = __dadd_rn(z_pred[r * sB + b], __dmul_rn(cA, __dsub_rn(f, f_ex[r * sB + b])));
+        const double yi = y_it[r * sB + b];
+        const double q = __dmul_rn(__dsub_rn(zn, yi), w_z[r * sB + b]);
+        ss = __dadd_rn(ss, __dmul_rn(q, q));
+        y_next[r * sB + b] = live ? zn : yi;
+      }
+    }
+  }
+  const double ss_rows = sum_rows(ss, red);
+  const double bad_rows = sum_rows(nonfinite, red);
+  if (ty == 0 && lane) {
+    part_ss[blockIdx.y * sB + b] = ss_rows;
+    part_bad[blockIdx.y * sB + b] = bad_rows != 0.0;
+  }
+  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
+  double sum = 0.0;
+  bool bad_f = false;
+  for (int c = 0; c < (int)gridDim.y; ++c) {
+    sum = __dadd_rn(sum, *((volatile const double*)part_ss + c * sB + b));
+    bad_f = bad_f || *((volatile const unsigned char*)part_bad + c * sB + b);
+  }
+  const double dy_norm = __dsqrt_rn(__ddiv_rn(sum, (double)n));
+  const double rate = __ddiv_rn(dy_norm, dy_old[b]);
+  bool conv_new = false, div_new = false;
+  if (!fixed) {
+    conv_new = dy_norm == 0.0 ||
+               (k > 0 && rate < 1.0 &&
+                __dmul_rn(__ddiv_rn(rate, __dsub_rn(1.0, rate)), dy_norm) < newton_tol) ||
+               dy_norm < tol_lo;
+    div_new = rate >= 2.0 && k > 0;
+  }
+  const bool bad_n = bad[b] || (live && bad_f);
+  conv_o[b] = conv[b] || (live && conv_new && !bad_n);
+  div_o[b] = div[b] || (live && div_new && !conv_new);
+  bad_o[b] = bad_n;
+  niter_o[b] = niter[b] + (live ? 1 : 0);
+  dy_old_o[b] = live ? dy_norm : dy_old[b];
+}
+
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+split_finish_kernel(const double* __restrict__ fz, const double* __restrict__ DF_resc,
+                    const double* __restrict__ z_pred, const double* __restrict__ f_ex,
+                    const double* __restrict__ w_z, const double* __restrict__ c_A,
+                    const unsigned char* __restrict__ pred_ok, const int* __restrict__ order,
+                    const double* __restrict__ h_use, const double* __restrict__ gamma_star_abs,
+                    const double* __restrict__ v_err, const unsigned char* __restrict__ conv,
+                    const unsigned char* __restrict__ bad, int fixed, int nz, int B,
+                    double* __restrict__ DF_upd, double* __restrict__ z_new,
+                    double* __restrict__ err0, double* __restrict__ err3,
+                    unsigned char* __restrict__ conv_o, double* part, unsigned int* done) {
+  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int b = blockIdx.x * SPLIT_TILE + tx;
+  const bool lane = b < B;
+  const size_t sB = (size_t)B;
+  const int p = lane ? order[b] : 1;
+  const bool valid = lane && order_ok(p);
+  const double h = lane ? h_use[b] : 0.0;
+  const double cA = lane ? c_A[b] : 0.0;
+  // the error rows' coefficients at orders p, p - 1 and p + 1 (at most P_MAX + 1)
+  const double g0 = valid ? __dmul_rn(PECE_GAMMA_STAR_ABS[p], h) : NAN;
+  const double g1 = valid ? __dmul_rn(gamma_star_abs[p - 1], h) : NAN;
+  const double g2 = valid ? __dmul_rn(gamma_star_abs[min(p + 1, ADAMS_K)], h) : NAN;
+  const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
+  double ss0 = 0.0, ss1 = 0.0, ss2 = 0.0;
+  if (lane) {
+    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
+      if (!valid) {
+#pragma unroll
+        for (int i = 0; i < ADAMS_KAB; ++i) DF_upd[HIST(i, r)] = NAN;
+        z_new[r * sB + b] = err0[r * sB + b] = NAN;
+        ss0 = ss1 = ss2 = NAN;
+        continue;
+      }
+      const double d = __dsub_rn(fz[r * sB + b], f_ex[r * sB + b]);
+      z_new[r * sB + b] = __dadd_rn(z_pred[r * sB + b], __dmul_rn(cA, d));
+      const double e0 = __dmul_rn(g0, d);
+      err0[r * sB + b] = e0;
+      double col[ADAMS_KAB];
+#pragma unroll
+      for (int i = 0; i < ADAMS_KAB; ++i) col[i] = DF_resc[HIST(i, r)];
+      // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
+      double S[ADAMS_KAB + 1];
+      S[ADAMS_KAB] = 0.0;
+#pragma unroll
+      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = __dadd_rn(S[i + 1], col[i]);
+      double Sp = 0.0, col_p = 0.0, upd_m = 0.0, upd_p = 0.0;
+#pragma unroll
+      for (int i = 0; i < ADAMS_KAB; ++i) {
+        if (i == p) {
+          Sp = S[i];
+          col_p = col[i];
+        }
+      }
+      // i <= p-1: sum_{j=i..p-1} DF[j] + d;  i == p: d;  i == p+1: d - DF[p]
+#pragma unroll
+      for (int i = 0; i < ADAMS_KAB; ++i) {
+        const double u = i <= p - 1 ? __dadd_rn(__dsub_rn(S[i], Sp), d)
+                         : i == p   ? d
+                         : i == p + 1 ? __dsub_rn(d, col_p)
+                                      : col[i];
+        DF_upd[HIST(i, r)] = u;
+        if (i == p - 1) upd_m = u;
+        if (i == p + 1) upd_p = u;
+      }
+      const double wz = w_z[r * sB + b], v = v_err[r];
+      const double a0 = __dmul_rn(e0, wz);
+      const double a1 = __dmul_rn(__dmul_rn(g1, upd_m), wz);
+      const double a2 = __dmul_rn(__dmul_rn(g2, upd_p), wz);
+      ss0 = __dadd_rn(ss0, __dmul_rn(__dmul_rn(a0, a0), v));
+      ss1 = __dadd_rn(ss1, __dmul_rn(__dmul_rn(a1, a1), v));
+      ss2 = __dadd_rn(ss2, __dmul_rn(__dmul_rn(a2, a2), v));
+    }
+  }
+  const double s0 = sum_rows(ss0, red);
+  const double s1 = sum_rows(ss1, red);
+  const double s2 = sum_rows(ss2, red);
+  const size_t sP = (size_t)gridDim.y * sB;  // one (chunks, B) block per error row
+  if (ty == 0 && lane) {
+    part[blockIdx.y * sB + b] = s0;
+    part[sP + blockIdx.y * sB + b] = s1;
+    part[2 * sP + blockIdx.y * sB + b] = s2;
+  }
+  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
+  double t0 = 0.0, t1 = 0.0, t2 = 0.0;
+  for (int c = 0; c < (int)gridDim.y; ++c) {
+    t0 = __dadd_rn(t0, *((volatile const double*)part + c * sB + b));
+    t1 = __dadd_rn(t1, *((volatile const double*)part + sP + c * sB + b));
+    t2 = __dadd_rn(t2, *((volatile const double*)part + 2 * sP + c * sB + b));
+  }
+  err3[b] = __dsqrt_rn(t0);
+  err3[sB + b] = __dsqrt_rn(t1);
+  err3[2 * sB + b] = __dsqrt_rn(t2);
+  const bool c0 = fixed ? (conv[b] || !bad[b]) : conv[b];
+  conv_o[b] = c0 && !bad[b] && pred_ok[b];
+}
+
+#undef HIST
+
+// ---------------------------------------------------------------------------
+static int grid_for(int nz, int B, dim3* grid) {
+  const int chunks = (nz + SPLIT_CHUNK - 1) / SPLIT_CHUNK;
+  if (chunks > 65535) return -3;
+  *grid = dim3((B + SPLIT_TILE - 1) / SPLIT_TILE, chunks);
+  return 0;
+}
+
+extern "C" {
+
+// Each launch goes on `stream` without synchronising and returns 0, -1
+// when the history depth is not the build's, -3 when nz needs more row
+// chunks than a grid has, or the cudaError_t of the counter reset or the
+// launch.  `part` and `done` are scratch of (chunks, B) and (lane tiles,).
+int split_predict_launch(const double* DF, const int* order, const double* pre_factor,
+                         const double* h_use, const double* z_prev, const double* atol_z,
+                         const double* rtol_z, int kab, int nz, int B, double* DF_resc,
+                         double* z_pred, double* f_ex, double* w_z, double* c_A,
+                         unsigned char* pred_ok, unsigned char* part, unsigned int* done,
+                         void* stream) {
+  if (kab != ADAMS_KAB) return -1;
+  if (B <= 0 || nz <= 0) return 0;
+  dim3 grid;
+  if (grid_for(nz, B, &grid)) return -3;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return (int)err;
+  split_predict_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+      DF, order, pre_factor, h_use, z_prev, atol_z, rtol_z, nz, B, DF_resc, z_pred, f_ex,
+      w_z, c_A, pred_ok, part, done);
+  return (int)cudaGetLastError();
+}
+
+int split_sweep_launch(int k, const double* fz, const double* y_it, const double* z_pred,
+                       const double* f_ex, const double* w_z, const double* c_A,
+                       const unsigned char* conv, const unsigned char* div,
+                       const unsigned char* bad, const double* dy_old, const int* niter,
+                       double newton_tol, double tol_lo, int fixed, int n, int nz, int B,
+                       double* y_next, unsigned char* conv_o, unsigned char* div_o,
+                       unsigned char* bad_o, double* dy_old_o, int* niter_o, double* part,
+                       unsigned char* part_bad, unsigned int* done, void* stream) {
+  if (n > nz) return -1;
+  if (B <= 0 || nz <= 0) return 0;
+  dim3 grid;
+  if (grid_for(nz, B, &grid)) return -3;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return (int)err;
+  split_sweep_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+      k, fz, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad, dy_old, niter, newton_tol, tol_lo,
+      fixed, n, nz, B, y_next, conv_o, div_o, bad_o, dy_old_o, niter_o, part, part_bad, done);
+  return (int)cudaGetLastError();
+}
+
+int split_finish_launch(const double* fz, const double* DF_resc, const double* z_pred,
+                        const double* f_ex, const double* w_z, const double* c_A,
+                        const unsigned char* pred_ok, const int* order, const double* h_use,
+                        const double* gamma_star_abs, const double* v_err,
+                        const unsigned char* conv, const unsigned char* bad, int fixed, int kab,
+                        int nz, int B, int n_gamma, double* DF_upd, double* z_new, double* err0,
+                        double* err3, unsigned char* conv_o, double* part, unsigned int* done,
+                        void* stream) {
+  if (kab != ADAMS_KAB || n_gamma < ADAMS_K + 1) return -1;
+  if (B <= 0 || nz <= 0) return 0;
+  dim3 grid;
+  if (grid_for(nz, B, &grid)) return -3;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return (int)err;
+  split_finish_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+      fz, DF_resc, z_pred, f_ex, w_z, c_A, pred_ok, order, h_use, gamma_star_abs, v_err, conv,
+      bad, fixed, nz, B, DF_upd, z_new, err0, err3, conv_o, part, done);
+  return (int)cudaGetLastError();
+}
+
+const char* split_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-"""The workloads: batched Lotka-Volterra adjoint gradients, stiff Robertson.
+"""The workloads: batched Lotka-Volterra adjoint gradients, stiff Robertson,
+SIR over many regions.
 
 :func:`build_lv_checkpointed` takes the same Lotka-Volterra gradients
 through the reference's default call, BDF with the checkpointed adjoint, and
@@ -17,15 +18,25 @@ the reference workload:
 
 :func:`build_robertson` is ``bench.py``'s Robertson workload: stiff
 three-species kinetics solved with batched BDF from t=0 to 4e6.
+
+:func:`build_sir` is ``scripts/bench_sir_scale.py``'s workload: an SIR
+model over ``R`` regions coupled to their ring neighbours, written in torch
+(:func:`sir_problem`, a ``TorchProblem``: 3R states), with ADAMS adjoint
+gradients of ``sum(ys[:, :, R:2R]**2)`` with respect to (beta, gamma) in
+'resolve' or 'hermite'.  On the card its attempts run the split Adams
+kernels (``ops/adams_split.py``), the right-hand side in torch between them.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from sunode_torch.convert import device_or_raise
 from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
@@ -41,6 +52,9 @@ __all__ = [
     "robertson_options",
     "build_robertson",
     "ROBERTSON_K",
+    "sir_problem",
+    "sir_inputs",
+    "build_sir",
 ]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
@@ -207,3 +221,81 @@ def build_robertson(batch: int, device="cuda"):
         torch.zeros((0,), **f64),
         torch.as_tensor(tvals, **f64),
     )
+
+
+SIR_GOLDEN = Path(__file__).resolve().parents[1] / "tests" / "golden" / "sir_1000.npz"
+SIR_CHECKPOINTS = 1024  # checkpoint_n of scripts/bench_sir_scale.py
+
+
+def _sir(t, y, p):
+    i_eff = y.I + p.mix * (torch.roll(y.I, 1, 0) + torch.roll(y.I, -1, 0))
+    inf = p.beta * y.S * i_eff
+    rec = p.gamma * y.I
+    return {"S": -inf, "I": inf - rec, "R": rec}
+
+
+def sir_problem(R: int) -> TorchProblem:
+    """SIR over ``R`` regions on a ring (``scripts/bench_sir_scale.py:48-59``):
+    states S, I, R of shape (R,), params beta, gamma and the neighbour
+    mixing ``mix``, derivatives with respect to beta and gamma."""
+    return TorchProblem(
+        params={"beta": (), "gamma": (), "mix": ()},
+        states={"S": (R,), "I": (R,), "R": (R,)},
+        rhs=_sir,
+        derivative_params=[("beta",), ("gamma",)],
+    )
+
+
+def sir_inputs(R: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(y0s (B, 3R), p_subs (B, 2))`` of ``scripts/bench_sir_scale.py:98-122``
+    (``default_rng(0)``); at R = 1000 lane 0 is ``tests/golden/sir_1000.npz``'s
+    where the checkout has it."""
+    rng = np.random.default_rng(0)
+    S0 = 0.99 + 0.005 * rng.standard_normal((batch, R))
+    I0 = 0.01 * np.abs(1 + 0.1 * rng.standard_normal((batch, R)))
+    y0s = np.concatenate([S0, I0, np.zeros((batch, R))], axis=1)
+    p_subs = np.stack(
+        [0.4 * (1 + 0.05 * rng.standard_normal(batch)),
+         0.15 * (1 + 0.05 * rng.standard_normal(batch))],
+        axis=1,
+    )
+    if R == 1000 and SIR_GOLDEN.exists():
+        golden = np.load(SIR_GOLDEN)
+        y0s[0] = golden["y0"]
+        p_subs[0] = golden["p0"][:2]
+    return y0s, p_subs
+
+
+def build_sir(R: int, batch: int, mode: str, device="cuda"):
+    """``(grad_step, (y0s, p_subs))`` for ``scripts/bench_sir_scale.py``'s
+    configuration: ``grad_step(y0s, p_subs) -> (ys, gp)`` is one batched
+    solve and the gradient of ``sum(ys[:, :, R:2R]**2)`` with respect to
+    ``p_subs`` (beta, gamma), ``ys (B, 12, 3R)`` detached.  Twelve
+    observation times ``linspace(5, 60, 12)``, ``mix = 0.05``, ADAMS with
+    rtol 1e-8 / atol 1e-10 forward and backward, ``checkpoint_n=1024``,
+    ``mode`` 'resolve' or 'hermite'; inputs from :func:`sir_inputs`.  It
+    runs on the card unless ``device="cpu"``; without a card the default
+    raises."""
+    device = device_or_raise(device)
+    if mode not in ("resolve", "hermite"):
+        raise ValueError(f"mode must be 'resolve' or 'hermite', got {mode!r}")
+    opts = BDFOptions(rtol=1e-8, atol=1e-10)
+    solve = make_batched_solve_fn(
+        sir_problem(R), options=opts, adjoint_options=opts, checkpoint_n=SIR_CHECKPOINTS,
+        method="ADAMS", adjoint_interpolation=mode,
+    )
+    f64 = dict(dtype=torch.float64, device=device)
+    tvals = torch.as_tensor(np.linspace(5.0, 60.0, 12), **f64)
+    p_fix = torch.as_tensor([0.05], **f64)
+
+    def grad_step(y0s, p_subs):
+        p_subs = p_subs.detach().requires_grad_(True)
+        ys = solve(0.0, y0s, p_subs, p_fix, tvals)
+        (gp,) = torch.autograd.grad(torch.sum(ys[:, :, R : 2 * R] ** 2), (p_subs,))
+        return ys.detach(), gp
+
+    grad_step.solve = solve
+    grad_step.tvals = tvals
+    grad_step.p_fix = p_fix
+    y0s, p_subs = sir_inputs(R, batch)
+    return grad_step, (torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64))

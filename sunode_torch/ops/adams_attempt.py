@@ -13,7 +13,9 @@ order-selection error estimates.  Here those steps are one function:
     for ``sm_90a`` at first use, one build per generated right-hand side and
     history depth) and raises if the build, a check or the launch fails.  On
     CPU tensors it runs the plain version.  It counts its kernel launches in
-    ``adams_history_attempt.launches``.
+    ``adams_history_attempt.launches``.  A CUDA solve without an emitted
+    system takes the split attempt of :mod:`sunode_torch.ops.adams_split`
+    instead, whose right-hand side stays outside the kernels.
   * :func:`adams_history_attempt_reference` -- the plain PyTorch version,
     operation for operation the code of the integrator's loop
     (``sunode_tpu/ops/adams_batched.py``: ``_rescale`` :376-399, the error
@@ -262,7 +264,11 @@ def adams_history_attempt(
     P_MAX: int,
 ) -> HistoryOut:
     """Rescale, PECE, difference update and error rows for all lanes: the
-    kernel on CUDA, the plain version on CPU tensors."""
+    kernel on CUDA, the plain version on CPU tensors.  A CUDA solve whose
+    ``system.device`` is None (a problem with no emitted right-hand side)
+    goes to :func:`sunode_torch.ops.adams_split.adams_split_attempt`: the
+    same attempt in three kernels with ``system.fz`` in torch between
+    them."""
     args = (t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
             gamma_star_abs, v_err, newton_tol, maxiter)
     if DF.device.type == "cpu":
@@ -270,7 +276,11 @@ def adams_history_attempt(
     if DF.device.type != "cuda":
         raise ValueError(f"adams_history_attempt: unsupported device {DF.device}")
     if system.device is None:
-        raise ValueError("adams_history_attempt: a CUDA solve needs the emitted device system")
+        # no emitted system (a problem written in torch): the right-hand side
+        # runs as torch code between the split attempt's three kernels
+        from sunode_torch.ops.adams_split import adams_split_attempt
+
+        return adams_split_attempt(system, *args, P_MAX)
     if DF.ndim != 3 or DF.shape[0] != P_MAX + 3:
         raise ValueError(
             f"adams_history_attempt: DF must be (P_MAX + 3, nz, B) = ({P_MAX + 3}, nz, B), "

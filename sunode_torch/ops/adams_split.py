@@ -1,0 +1,415 @@
+"""The Adams attempt with its right-hand side in torch: three kernels around it.
+
+:func:`sunode_torch.ops.adams_attempt.adams_history_attempt` runs the
+history half of an attempt in one kernel with the right-hand side generated
+into it from sympy.  A problem written in torch (``TorchProblem``) has no
+such emitted system, and a large state (SIR over 1,000 regions: 3,000 rows)
+does not fit one thread per lane anyway.  Here the same attempt is cut at
+its right-hand-side calls into three stages, and ``system.fz`` runs as
+torch code between them:
+
+  * :func:`split_predict` -- the rescale ``R(h/h_D) U`` of the history, the
+    predictor ``z_pred``, the extrapolation ``f_ex``, the error weights
+    ``w_z``, the corrector coefficient ``c_A = h gamma_{p-1}`` and
+    ``pred_ok``;
+  * :func:`split_sweep` -- one functional corrector sweep given
+    ``fz_k = fz(t, y_it)``: the next iterate, the lane's weighted
+    ``dy_norm`` and the masked conv/div/bad/niter/dy_old update;
+  * :func:`split_finish` -- given the final ``fz``: ``d_fz``, ``z_new``,
+    the error row ``err0``, the accepted-step difference update ``DF_upd``,
+    the three error-test norms ``err3`` and the attempt's ``conv``.
+
+:func:`adams_split_attempt` composes them: one predict,
+``FUNCTIONAL_MAXITER`` sweeps and one finish, with ``maxiter + 1``
+evaluations of ``system.fz`` (the stage, where the solve has one, rides in
+the parameter rows as the Adams core passes it).  It takes the arguments of
+``adams_history_attempt`` and returns its ``HistoryOut``.
+
+The three functions above are the plain PyTorch versions: the code of
+``adams_history_attempt_reference`` (and of the PECE reference inside it)
+regrouped, so that their composition, :func:`adams_split_attempt_reference`,
+gives the same bits.  On CPU tensors :func:`adams_split_attempt` runs it.  On
+CUDA tensors :func:`adams_split_attempt` launches ``csrc/adams_split.cu``
+instead (built with ``nvcc`` for ``sm_90a`` at first use, one build per
+history depth: the kernels do not depend on the problem) and raises if the
+build, a check or a launch fails; it never runs the plain stages there.  It
+counts its launches in ``adams_split_attempt.launches`` by kernel, and each
+plain stage counts its calls in ``.calls``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sunode_torch.ops._nvcc_build import build_library
+from sunode_torch.ops.adams import _GAMMA, _GAMMA_STAR
+from sunode_torch.ops.adams_attempt import HistoryOut, _rescale, _take_row, _update
+from sunode_torch.ops.pece_step import PeceSystem, _check, _tables_header
+
+__all__ = [
+    "Predicted",
+    "SweepState",
+    "Finished",
+    "sweep_start",
+    "split_predict",
+    "split_sweep",
+    "split_finish",
+    "adams_split_attempt",
+    "adams_split_attempt_reference",
+    "build_split_kernels",
+    "CHUNK_ROWS",
+    "TILE_LANES",
+]
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
+TILE_LANES = 32  # lanes of one block (csrc/adams_split.cu: SPLIT_TILE)
+CHUNK_ROWS = 64  # history rows of one block (SPLIT_CHUNK)
+
+
+class Predicted(NamedTuple):
+    DF_resc: torch.Tensor  # (KAB, nz, B) history rescaled to h_use
+    z_pred: torch.Tensor  # (nz, B)
+    f_ex: torch.Tensor  # (nz, B) sum_{i<p} DF_resc[i]
+    w_z: torch.Tensor  # (nz, B) 1 / (atol + rtol |z_pred|)
+    c_A: torch.Tensor  # (B,) h gamma_{p-1}
+    pred_ok: torch.Tensor  # (B,) bool: z_pred finite
+
+
+class SweepState(NamedTuple):
+    conv: torch.Tensor  # (B,) bool
+    div: torch.Tensor  # (B,) bool
+    bad: torch.Tensor  # (B,) bool: a non-finite fz seen
+    dy_old: torch.Tensor  # (B,) the last sweep's dy_norm
+    niter: torch.Tensor  # (B,) int32 sweeps taken
+
+
+class Finished(NamedTuple):
+    DF_upd: torch.Tensor  # (KAB, nz, B)
+    z_new: torch.Tensor  # (nz, B)
+    err0: torch.Tensor  # (nz, B) |gamma*_p| h d_fz
+    err3: torch.Tensor  # (3, B)
+    conv: torch.Tensor  # (B,) bool
+
+
+def sweep_start(active: torch.Tensor, dtype=torch.float64) -> SweepState:
+    """The corrector's state before the first sweep: inactive lanes count as
+    converged."""
+    B, device = active.shape[0], active.device
+    no = torch.zeros(B, dtype=torch.bool, device=device)
+    return SweepState(~active, no, no, torch.full((B,), float("inf"), dtype=dtype, device=device),
+                      torch.zeros(B, dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# The plain stages
+# ---------------------------------------------------------------------------
+def split_predict(DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z, P_MAX: int) -> Predicted:
+    """Rescale and predict; rows ``i >= p`` enter multiplied by 0.0, as in
+    the JAX main path."""
+    split_predict.calls += 1
+    dtype, device = z_prev.dtype, z_prev.device
+    DF = _rescale(DF, p, pre_factor, P_MAX + 1)
+    K = DF.shape[0] - 2
+    acc_z = torch.zeros_like(z_prev)
+    f_ex = torch.zeros_like(z_prev)
+    for i in range(K):
+        m = (i <= p - 1).to(dtype)[None, :]
+        acc_z = acc_z + m * float(_GAMMA[i]) * DF[i]
+        f_ex = f_ex + m * DF[i]
+    z_pred = z_prev + h_use[None, :] * acc_z
+    c_A = h_use * torch.as_tensor(_GAMMA, dtype=dtype, device=device)[(p - 1).long()]
+    w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(z_pred))
+    return Predicted(DF, z_pred, f_ex, w_z, c_A, torch.isfinite(z_pred).all(dim=0))
+
+
+def split_sweep(k: int, fz_k, y_it, pred: Predicted, state: SweepState, newton_tol: float,
+                n: int) -> tuple[torch.Tensor, SweepState]:
+    """Corrector sweep ``k`` on ``fz_k (nz, B)``, the right-hand side at the
+    iterate ``y_it (n, B)``: ``(y_next, state)``.  ``newton_tol <= 0`` turns
+    the rate tests off (fixed sweeps)."""
+    split_sweep.calls += 1
+    conv, div, bad, dy_old, niter = state
+    bad_f = ~torch.isfinite(fz_k).all(dim=0)
+    z_next = pred.z_pred[:n] + pred.c_A[None, :] * (fz_k[:n] - pred.f_ex[:n])
+    delta = z_next - y_it
+    dy_norm = torch.sqrt(torch.mean((delta * pred.w_z[:n]) ** 2, dim=0))
+    rate = dy_norm / dy_old
+    live = ~(conv | div | bad)
+    y_next = torch.where(live[None, :], z_next, y_it)
+    if not newton_tol > 0:
+        conv_new = torch.zeros_like(live)
+        div_new = torch.zeros_like(live)
+    else:
+        conv_new = (
+            (dy_norm == 0.0)
+            | ((k > 0) & (rate < 1.0) & (rate / (1 - rate) * dy_norm < newton_tol))
+            | (dy_norm < 0.1 * newton_tol)
+        )
+        div_new = (rate >= 2.0) & (k > 0)
+    bad = bad | (live & bad_f)
+    conv = conv | (live & conv_new & ~bad)
+    div = div | (live & div_new & ~conv_new)
+    niter = niter + live.to(torch.int32)
+    dy_old = torch.where(live, dy_norm, dy_old)
+    return y_next, SweepState(conv, div, bad, dy_old, niter)
+
+
+def split_finish(fz, pred: Predicted, state: SweepState, p, h_use, gamma_star_abs, v_err,
+                 newton_tol: float, P_MAX: int) -> Finished:
+    """Final evaluation ``fz (nz, B)`` at the last iterate: new state, the
+    difference update and the error rows at orders p, p - 1 and p + 1."""
+    split_finish.calls += 1
+    dtype, device = fz.dtype, fz.device
+    d_fz = fz - pred.f_ex
+    z_new = pred.z_pred + pred.c_A[None, :] * d_fz
+    g_star = torch.as_tensor(np.abs(_GAMMA_STAR), dtype=dtype, device=device)
+    err0 = (g_star[p.long()] * h_use)[None, :] * d_fz
+    DF_upd = _update(pred.DF_resc, p, d_fz)
+    err_rows = torch.stack(
+        [
+            err0,
+            (gamma_star_abs[torch.clamp(p - 1, min=0).long()] * h_use)[None, :]
+            * _take_row(DF_upd, p - 1),
+            (gamma_star_abs[torch.clamp(p + 1, max=P_MAX + 1).long()] * h_use)[None, :]
+            * _take_row(DF_upd, p + 1),
+        ]
+    )
+    err3 = torch.sqrt(
+        torch.sum((err_rows * pred.w_z[None]) ** 2 * v_err[None, :, None], dim=1)
+    )
+    conv = state.conv
+    if not newton_tol > 0:
+        conv = conv | ~state.bad
+    conv = conv & ~state.bad & pred.pred_ok
+    return Finished(DF_upd, z_new, err0, err3, conv)
+
+
+split_predict.calls = split_sweep.calls = split_finish.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and launches
+# ---------------------------------------------------------------------------
+class _SplitKernels:
+    """One compiled build of ``csrc/adams_split.cu`` for one history depth."""
+
+    def __init__(self, kab: int):
+        self.kab = kab
+        built = build_library(
+            f"adams_split_kab{kab}", _CSRC, headers={"pece_tables.h": _tables_header()},
+            defines=(f"ADAMS_KAB={kab}",),
+        )
+        self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
+        lib = built.lib
+        vp, c_int, c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.split_predict_launch.argtypes = [vp] * 7 + [c_int] * 3 + [vp] * 8 + [vp]
+        lib.split_sweep_launch.argtypes = (
+            [c_int] + [vp] * 11 + [c_double] * 2 + [c_int] * 4 + [vp] * 9 + [vp]
+        )
+        lib.split_finish_launch.argtypes = [vp] * 13 + [c_int] * 5 + [vp] * 7 + [vp]
+        for fn in (lib.split_predict_launch, lib.split_sweep_launch, lib.split_finish_launch):
+            fn.restype = c_int
+        lib.split_error_string.argtypes = [c_int]
+        lib.split_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+
+    def _run(self, stage: str, fn, dev, *args) -> None:
+        # the launch goes to the runtime's current device: make it the tensors'
+        with torch.cuda.device(dev):
+            code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if code == -1:
+            raise ValueError(f"adams_split {stage}: the shapes do not match the kernel "
+                             f"built for KAB={self.kab}")
+        if code == -3:
+            raise ValueError(f"adams_split {stage}: too many history rows for one grid")
+        if code != 0:
+            msg = self._lib.split_error_string(code).decode()
+            raise RuntimeError(f"adams_split {stage} launch failed: {msg} ({code})")
+        adams_split_attempt.launches[stage] += 1
+
+    @staticmethod
+    def _grid(nz: int, B: int) -> tuple[int, int]:
+        return -(-nz // CHUNK_ROWS), -(-B // TILE_LANES)
+
+    def predict(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z) -> Predicted:
+        KAB, nz, B = DF.shape
+        dev = DF.device
+        _check(DF, torch.float64, (self.kab, nz, B), dev, "DF")
+        _check(p, torch.int32, (B,), dev, "p")
+        _check(pre_factor, torch.float64, (B,), dev, "pre_factor")
+        _check(h_use, torch.float64, (B,), dev, "h_use")
+        _check(z_prev, torch.float64, (nz, B), dev, "z_prev")
+        _check(atol_z, torch.float64, (nz,), dev, "atol_z")
+        _check(rtol_z, torch.float64, (nz,), dev, "rtol_z")
+        chunks, tiles = self._grid(nz, B)
+        f64 = dict(dtype=torch.float64, device=dev)
+        out = Predicted(
+            torch.empty((KAB, nz, B), **f64), torch.empty((nz, B), **f64),
+            torch.empty((nz, B), **f64), torch.empty((nz, B), **f64), torch.empty((B,), **f64),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+        )
+        part = torch.empty((chunks, B), dtype=torch.uint8, device=dev)
+        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        self._run(
+            "predict", self._lib.split_predict_launch, dev,
+            DF.data_ptr(), p.data_ptr(), pre_factor.data_ptr(), h_use.data_ptr(),
+            z_prev.data_ptr(), atol_z.data_ptr(), rtol_z.data_ptr(), KAB, nz, B,
+            *(o.data_ptr() for o in out), part.data_ptr(), done.data_ptr(),
+        )
+        return out
+
+    def sweep(self, k, fz_k, y_it, pred: Predicted, state: SweepState, newton_tol, n):
+        fz_k, y_it = fz_k.contiguous(), y_it.contiguous()
+        nz, B = pred.z_pred.shape
+        dev = fz_k.device
+        _check(fz_k, torch.float64, (nz, B), dev, "fz_k")
+        _check(y_it, torch.float64, (n, B), dev, "y_it")
+        for name, x, dtype in (("conv", state.conv, torch.bool), ("div", state.div, torch.bool),
+                               ("bad", state.bad, torch.bool),
+                               ("dy_old", state.dy_old, torch.float64),
+                               ("niter", state.niter, torch.int32)):
+            _check(x, dtype, (B,), dev, name)
+        chunks, tiles = self._grid(nz, B)
+        y_next = torch.empty((n, B), dtype=torch.float64, device=dev)
+        new = SweepState(*(torch.empty_like(x) for x in state))
+        part = torch.empty((chunks, B), dtype=torch.float64, device=dev)
+        part_bad = torch.empty((chunks, B), dtype=torch.uint8, device=dev)
+        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        fixed = not newton_tol > 0
+        self._run(
+            "sweep", self._lib.split_sweep_launch, dev,
+            int(k), fz_k.data_ptr(), y_it.data_ptr(), pred.z_pred.data_ptr(),
+            pred.f_ex.data_ptr(), pred.w_z.data_ptr(), pred.c_A.data_ptr(),
+            *(x.data_ptr() for x in state), float(newton_tol), 0.1 * float(newton_tol),
+            int(fixed), n, nz, B, y_next.data_ptr(), *(x.data_ptr() for x in new),
+            part.data_ptr(), part_bad.data_ptr(), done.data_ptr(),
+        )
+        return y_next, new
+
+    def finish(self, fz, pred: Predicted, state: SweepState, p, h_use, gamma_star_abs, v_err,
+               newton_tol) -> Finished:
+        fz = fz.contiguous()
+        KAB, nz, B = pred.DF_resc.shape
+        dev = fz.device
+        _check(fz, torch.float64, (nz, B), dev, "fz")
+        _check(p, torch.int32, (B,), dev, "p")
+        _check(h_use, torch.float64, (B,), dev, "h_use")
+        _check(state.conv, torch.bool, (B,), dev, "conv")
+        _check(state.bad, torch.bool, (B,), dev, "bad")
+        _check(v_err, torch.float64, (nz,), dev, "v_err")
+        # |gamma*| up to order P_MAX + 1 = KAB - 2: at least KAB - 1 entries
+        n_gamma = gamma_star_abs.shape[0] if torch.is_tensor(gamma_star_abs) else 0
+        _check(gamma_star_abs, torch.float64, (max(KAB - 1, n_gamma),), dev, "gamma_star_abs")
+        chunks, tiles = self._grid(nz, B)
+        f64 = dict(dtype=torch.float64, device=dev)
+        out = Finished(
+            torch.empty((KAB, nz, B), **f64), torch.empty((nz, B), **f64),
+            torch.empty((nz, B), **f64), torch.empty((3, B), **f64),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+        )
+        part = torch.empty((3, chunks, B), **f64)
+        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        self._run(
+            "finish", self._lib.split_finish_launch, dev,
+            fz.data_ptr(), pred.DF_resc.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(),
+            pred.w_z.data_ptr(), pred.c_A.data_ptr(), pred.pred_ok.data_ptr(), p.data_ptr(),
+            h_use.data_ptr(), gamma_star_abs.data_ptr(), v_err.data_ptr(),
+            state.conv.data_ptr(), state.bad.data_ptr(), int(not newton_tol > 0), KAB, nz, B,
+            gamma_star_abs.shape[0], *(o.data_ptr() for o in out), part.data_ptr(),
+            done.data_ptr(),
+        )
+        return out
+
+
+_KERNELS: dict[int, _SplitKernels] = {}
+
+
+def build_split_kernels(kab: int) -> _SplitKernels:
+    """Build (or reuse) the three kernels for one history depth."""
+    kernels = _KERNELS.get(kab)
+    if kernels is None:
+        kernels = _KERNELS[kab] = _SplitKernels(kab)
+    return kernels
+
+
+class _PlainStages:
+    """The plain stages behind the kernels' interface."""
+
+    def __init__(self, P_MAX: int):
+        self.P_MAX = P_MAX
+
+    def predict(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z) -> Predicted:
+        return split_predict(DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z, self.P_MAX)
+
+    def sweep(self, k, fz_k, y_it, pred, state, newton_tol, n):
+        return split_sweep(k, fz_k, y_it, pred, state, newton_tol, n)
+
+    def finish(self, fz, pred, state, p, h_use, gamma_star_abs, v_err, newton_tol) -> Finished:
+        return split_finish(fz, pred, state, p, h_use, gamma_star_abs, v_err, newton_tol,
+                            self.P_MAX)
+
+
+def _compose(stages, system, t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z,
+             rtol_z, gamma_star_abs, v_err, newton_tol, maxiter) -> HistoryOut:
+    """One predict, ``maxiter`` sweeps and one finish, ``system.fz`` between."""
+    n = system.n
+    pred = stages.predict(DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z)
+    y_it = pred.z_pred[:n]
+    state = sweep_start(active, z_prev.dtype)
+    for k in range(maxiter):
+        y_it, state = stages.sweep(k, system.fz(t_new, y_it, params), y_it, pred, state,
+                                   newton_tol, n)
+    fin = stages.finish(system.fz(t_new, y_it, params), pred, state, p, h_use, gamma_star_abs,
+                        v_err, newton_tol)
+    return HistoryOut(pred.DF_resc, fin.DF_upd, pred.z_pred, fin.z_new, fin.err0, fin.err3,
+                      fin.conv, state.niter)
+
+
+def adams_split_attempt_reference(system: PeceSystem, *args) -> HistoryOut:
+    """The plain stages composed as the kernels are, on either device; the
+    arguments are those of :func:`adams_split_attempt`."""
+    *args, P_MAX = args
+    return _compose(_PlainStages(P_MAX), system, *args)
+
+
+def adams_split_attempt(
+    system: PeceSystem,
+    t_new: torch.Tensor,  # (B,)
+    h_use: torch.Tensor,  # (B,) step of this attempt
+    pre_factor: torch.Tensor,  # (B,) h_use / h_D, the rescale ratio
+    p: torch.Tensor,  # (B,) int32 order, 1 <= p <= P_MAX
+    active: torch.Tensor,  # (B,) bool
+    DF: torch.Tensor,  # (KAB, nz, B) f-difference history at the last step h_D
+    z_prev: torch.Tensor,  # (nz, B)
+    params: torch.Tensor,  # (n_p, B), with the stage rows where the solve has one
+    atol_z: torch.Tensor,  # (nz,)
+    rtol_z: torch.Tensor,  # (nz,)
+    gamma_star_abs: torch.Tensor,  # (>= P_MAX + 2,) |gamma*|
+    v_err: torch.Tensor,  # (nz,) weights of the error norm's squares
+    newton_tol: float,
+    maxiter: int,
+    P_MAX: int,
+) -> HistoryOut:
+    """One attempt for all lanes with ``system.fz`` in torch between the
+    stages: the three kernels on CUDA, the plain stages on CPU tensors.
+    ``system.device`` is not read."""
+    args = (t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
+            gamma_star_abs, v_err, newton_tol, maxiter)
+    if DF.device.type == "cpu":
+        return adams_split_attempt_reference(system, *args, P_MAX)
+    if DF.device.type != "cuda":
+        raise ValueError(f"adams_split_attempt: unsupported device {DF.device}")
+    if DF.ndim != 3 or DF.shape[0] != P_MAX + 3:
+        raise ValueError(
+            f"adams_split_attempt: DF must be (P_MAX + 3, nz, B) = ({P_MAX + 3}, nz, B), "
+            f"got {tuple(DF.shape)}"
+        )
+    return _compose(build_split_kernels(P_MAX + 3), system, *args)
+
+
+adams_split_attempt.launches = {"predict": 0, "sweep": 0, "finish": 0}

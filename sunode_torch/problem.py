@@ -1,29 +1,85 @@
 """Problem abstraction: named ODE problems as functions on torch tensors.
 
-PyTorch counterpart of the ``Problem`` base in ``sunode_tpu/problem.py``:
-the spec plumbing (named states and params, derivative subset, coords).
-Function signature conventions (flat float tensors, optional trailing batch
-dimensions after the leading item axis):
+PyTorch counterpart of ``sunode_tpu/problem.py``: the spec plumbing (named
+states and params, derivative subset, coords), the autodiff defaults of the
+base class and :class:`TorchProblem`.  Function signature conventions (flat
+float tensors, optional trailing batch dimensions after the leading item
+axes):
 
     rhs(t, y, p)              -> (n_states, ...)      dy/dt
     jac_dense(t, y, p)        -> (n, n, ...)          df/dy
+    rhs_jac_prod(t, y, v, p)  -> (n, ...)             J @ v
+    adjoint_rhs(t, y, lam, p) -> (n, ...)             -J^T @ lam
+    adjoint_quad_rhs(t, y, lam, p) -> (n_deriv, ...)  lam^T @ df/dp_subset
     adjoint_jac_dense(t, y, lam, p) -> (n, n, ...)    -J^T
     dfdp(t, y, p)             -> (n, n_deriv, ...)    df/dp_subset
+    sensitivity_rhs(t, y, S, p) -> (n_deriv, n, ...)  S @ J^T + (df/dp_subset)^T
 
 where ``p`` is the full flat parameter vector and the derivative subset is
-selected by ``self.params.subset_indices``.  Subclasses supply the
-generated functions; ``SympyProblem`` derives them symbolically.
+selected by ``self.params.subset_indices``.  The trailing batch dims of the
+arguments broadcast against each other (``t`` has only batch dims).
+
+A subclass only has to supply ``make_rhs``; every other factory defaults to
+``torch.func`` autodiff of one lane of it (``jacfwd``, ``jvp``, ``vjp``)
+mapped over the batch with ``torch.func.vmap``, as the JAX package's base
+class defaults to ``jax.jacfwd``/``jvp``/``vjp``.  The adjoint pieces use
+``vjp`` and never build J.  ``SympyProblem`` overrides them with
+symbolically derived closed forms; :class:`TorchProblem` takes a right-hand
+side written in torch on one lane's records and keeps the defaults.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional
+import math
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
-from sunode_torch.paramspec import ParamSpec
+from sunode_torch.paramspec import ParamSpec, Record
 
-__all__ = ["Problem"]
+__all__ = ["Problem", "TorchProblem"]
+
+
+def over_lanes(fn: Callable, item_ndims: Sequence[int]) -> Callable:
+    """``fn`` of one lane mapped over the trailing batch dims of its arguments.
+
+    Argument ``k`` has ``item_ndims[k]`` leading item dims and any trailing
+    batch dims; the batch dims of all arguments broadcast against each other
+    (aligned from the right), are flattened into one axis for
+    ``torch.func.vmap`` and restored on the result, after its item dims.
+    A non-tensor argument (a float ``t``) takes the dtype and device of the
+    first floating tensor."""
+
+    def mapped(*args):
+        ref = next(a for a in args if torch.is_tensor(a) and a.is_floating_point())
+        args = [a if torch.is_tensor(a) else torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+                for a in args]
+        batch = torch.broadcast_shapes(*(tuple(a.shape[k:]) for a, k in zip(args, item_ndims)))
+        size = math.prod(batch)
+        flat = []
+        for a, k in zip(args, item_ndims):
+            item = tuple(a.shape[:k])
+            a = a.reshape(item + (1,) * (len(batch) + k - a.ndim) + tuple(a.shape[k:]))
+            flat.append(a.expand(item + batch).reshape(item + (size,)))
+        out = torch.func.vmap(fn, in_dims=-1, out_dims=-1)(*flat)
+        return out.reshape(tuple(out.shape[:-1]) + batch)
+
+    return mapped
+
+
+def _subset_taker(indices) -> Callable:
+    """``take(v)``: the derivative-subset entries of the last axis of ``v``;
+    the index tensor is made once per device (no host copy per call)."""
+    cache: dict[torch.device, torch.Tensor] = {}
+
+    def take(v):
+        idx = cache.get(v.device)
+        if idx is None:
+            idx = cache[v.device] = torch.as_tensor(np.asarray(indices, np.int64), device=v.device)
+        return torch.index_select(v, -1, idx)
+
+    return take
 
 
 class Problem:
@@ -80,14 +136,54 @@ class Problem:
     def flatten_params(self, nested: Mapping[str, Any], device=None):
         return self.params.flatten_dict(nested, device=device)
 
+    # ------------------------------------------------------------------
+    # Factories.  Only make_rhs is abstract.
+    # ------------------------------------------------------------------
     def make_rhs(self) -> Callable:
         raise NotImplementedError
 
-    def make_jac_dense(self) -> Callable:
-        raise NotImplementedError
+    def _lane_rhs(self) -> Callable:
+        """The right-hand side of one lane, ``(t (), y (n,), p (n_p,)) ->
+        (n,)``, which the autodiff defaults differentiate: ``make_rhs``
+        called without batch dims."""
+        return self.make_rhs()
 
-    def make_dfdp(self) -> Callable:
-        raise NotImplementedError
+    def make_jac_dense(self) -> Callable:
+        rhs = self._lane_rhs()
+
+        def jac_dense(t, y, p):
+            return torch.func.jacfwd(rhs, argnums=1)(t, y, p)
+
+        return over_lanes(jac_dense, (0, 1, 1))
+
+    def make_rhs_jac_prod(self) -> Callable:
+        rhs = self._lane_rhs()
+
+        def jac_prod(t, y, v, p):
+            return torch.func.jvp(lambda y_: rhs(t, y_, p), (y,), (v,))[1]
+
+        return over_lanes(jac_prod, (0, 1, 1, 1))
+
+    def make_adjoint_rhs(self) -> Callable:
+        """lamda_dot = -J^T lam, one pullback a lane."""
+        rhs = self._lane_rhs()
+
+        def adjoint_rhs(t, y, lam, p):
+            _, pullback = torch.func.vjp(lambda y_: rhs(t, y_, p), y)
+            return -pullback(lam)[0]
+
+        return over_lanes(adjoint_rhs, (0, 1, 1, 1))
+
+    def make_adjoint_quad_rhs(self) -> Callable:
+        """quad_dot = lam^T df/dp_subset, one pullback a lane."""
+        rhs = self._lane_rhs()
+        take = _subset_taker(self.params.subset_indices)
+
+        def adjoint_quad_rhs(t, y, lam, p):
+            _, pullback = torch.func.vjp(lambda p_: rhs(t, y, p_), p)
+            return take(pullback(lam)[0])
+
+        return over_lanes(adjoint_quad_rhs, (0, 1, 1, 1))
 
     def make_adjoint_jac_dense(self) -> Callable:
         """Jacobian of the adjoint system: -J^T over the two leading axes."""
@@ -97,3 +193,80 @@ class Problem:
             return -jac(t, y, p).transpose(0, 1)
 
         return adjoint_jac_dense
+
+    def make_dfdp(self) -> Callable:
+        """df/dp_subset with shape (n_states, n_deriv_params, ...)."""
+        rhs = self._lane_rhs()
+        take = _subset_taker(self.params.subset_indices)
+
+        def dfdp(t, y, p):
+            return take(torch.func.jacfwd(lambda p_: rhs(t, y, p_))(p))
+
+        return over_lanes(dfdp, (0, 1, 1))
+
+    def make_sensitivity_rhs(self) -> Callable:
+        """S_dot[k] = J @ S[k] + df/dp_k for each derivative param k, as
+        ``S @ J^T + dfdp^T`` on each lane (the reference's form): ``(t, y,
+        S (k, n, ...), p) -> (k, n, ...)``."""
+        rhs = self._lane_rhs()
+        take = _subset_taker(self.params.subset_indices)
+
+        def sensitivity_rhs(t, y, S, p):
+            J = torch.func.jacfwd(rhs, argnums=1)(t, y, p)
+            dfdp = take(torch.func.jacfwd(lambda p_: rhs(t, y, p_))(p))
+            return S @ J.T + dfdp.T
+
+        return over_lanes(sensitivity_rhs, (0, 1, 2, 1))
+
+
+class TorchProblem(Problem):
+    """An ODE problem whose right-hand side is written directly in torch.
+
+    The counterpart of the JAX package's ``JaxProblem``: the user writes
+
+        def rhs(t, y, p):
+            return {'hares': p.alpha * y.hares - p.beta * y.lynx * y.hares,
+                    'lynx': ...}
+
+    for one lane, where ``y``/``p`` are attribute-access Records of tensors
+    shaped as the specs say.  ``make_rhs`` maps it over the trailing batch
+    dims with ``torch.func.vmap``, and every derivative comes from
+    ``torch.func`` autodiff.  For large vector states this is the mode to
+    use: the expressions stay vectorised instead of thousands of scalar
+    assignments.
+
+    On the card the batched Adams core runs such a problem through the
+    split attempt (``ops/adams_split.py``): its right-hand side stays torch
+    code between three kernels, as no device system is emitted for it.
+    """
+
+    def __init__(
+        self,
+        params: Mapping[str, Any],
+        states: Mapping[str, Any],
+        rhs: Callable[[Any, Record, Record], Mapping[str, Any]],
+        derivative_params: Any = (),
+        coords: Optional[Mapping[str, Any]] = None,
+        dtype: Any = np.float64,
+    ):
+        self._init_specs(params, states, derivative_params, coords, dtype)
+        self._user_rhs = rhs
+
+    def _lane_rhs(self) -> Callable:
+        states = self.states
+        params = self.params
+        user_rhs = self._user_rhs
+
+        def rhs(t, y, p):
+            out = user_rhs(t, states.record(y), params.record(p))
+            if not isinstance(out, Mapping):
+                raise TypeError("TorchProblem rhs must return a dict of state derivatives")
+            # follow the input dtype: an f32 pipeline is not upcast here
+            return states.flatten_dict(out, follow_dtype=True, device=y.device)
+
+        return rhs
+
+    def make_rhs(self) -> Callable:
+        """``(t, y (n, ...), p (n_p, ...)) -> (n, ...)``: the user's
+        right-hand side on every lane."""
+        return over_lanes(self._lane_rhs(), (0, 1, 1))

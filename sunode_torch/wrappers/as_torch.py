@@ -13,10 +13,12 @@ Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
   'resolve' (the backsolve adjoint, y integrated backward beside lambda),
   'hermite' or 'polynomial' (the forward solve records checkpoints and the
   fused backward Adams solve reads y(t) from them, staged once per
-  attempt).  On CUDA tensors every forward and backward attempt runs
-  through the history-attempt kernel, built at first use from the
-  problem's right-hand side and the backward system of the mode
-  (``symode/cuda_codegen.py``).
+  attempt).  On CUDA tensors every forward and backward attempt of a
+  ``SympyProblem`` runs through the history-attempt kernel, built at first
+  use from the problem's right-hand side and the backward system of the
+  mode (``symode/cuda_codegen.py``); those of any other problem (a
+  ``TorchProblem``) run through the split attempt's three kernels with the
+  right-hand side in torch between them (``ops/adams_split.py``).
 
 Not ported yet (``NotImplementedError``): non-dense linear solvers and
 ``derivatives='forward'``, which the reference's batched solver refuses too.
@@ -34,6 +36,7 @@ from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import Problem
 from sunode_torch.symode import cuda_codegen
+from sunode_torch.symode.problem import SympyProblem
 
 __all__ = ["make_batched_solve_fn", "BatchedSolve"]
 
@@ -72,8 +75,13 @@ class BatchedSolve:
         self._device_systems: dict[str, cuda_codegen.DeviceSystem] = {}
 
     def device_system(self, kind: str, device: torch.device):
-        """The emitted right-hand side for the kernel; None on CPU."""
-        if device.type != "cuda":
+        """The emitted right-hand side for the fused kernel; None on CPU, and
+        None for a problem that is not a ``SympyProblem`` (a ``TorchProblem``
+        has no symbolic form to emit), whose CUDA attempts then run the split
+        kernels with the right-hand side in torch between them
+        (``ops/adams_split.py``).  Decided by the problem's type, never by a
+        failed emit."""
+        if device.type != "cuda" or not isinstance(self.problem, SympyProblem):
             return None
         if kind not in self._device_systems:
             emit = {

@@ -78,3 +78,54 @@ def test_phase_7_counts():
     # 384 slots and the tail; (t, y, f, fdot) and (t, y, f) rows of 2 states
     assert cs.adams_table_bytes("hermite", 10) == 8 * 385 * 7 * 10
     assert cs.adams_table_bytes("polynomial", 10) == 8 * 385 * 5 * 10
+
+
+def test_phase_3d_inputs():
+    """Phase 3d's inputs at a small width on the CPU: SIR's rows (3R), the
+    history depth of adams_max_order 8, orders 1..8, the workload's
+    tolerances; the split attempt's plain stages run on them, and the
+    bounds count every stage's bytes."""
+    from sunode_torch.entry import sir_problem
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.adams_split import adams_split_attempt_reference
+    from sunode_torch.ops.pece_step import PeceSystem
+
+    cs = _chip_smoke()
+    R, B = 10, 64
+    x = cs.split_inputs(B, 11, "cpu", R)
+    assert x["DF"].shape == (cs.P_MAX_ADAMS + 3, 3 * R, B) and x["params"].shape == (3, B)
+    assert int(x["p"].min()) >= 1 and int(x["p"].max()) == cs.P_MAX_ADAMS
+    assert (x["rtol_z"] == 1e-8).all() and (x["atol_z"] == 1e-10).all()
+    system = PeceSystem(fz=sir_problem(R).make_rhs(), n=3 * R, nz=3 * R)
+    out = adams_split_attempt_reference(
+        system, x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
+        x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
+        x["newton_tol"], FUNCTIONAL_MAXITER, cs.P_MAX_ADAMS,
+    )
+    assert torch.isfinite(out.DF_upd).all() and out.conv.any() and not out.conv.all()
+    costs = cs.split_costs(x, 3 * R)
+    history = 8 * x["DF"].numel()
+    assert costs["predict"][0] > 2 * history and costs["finish"][0] > 2 * history
+    assert 0 < costs["sweep"][0] < history and all(ops > 0 for _, ops in costs.values())
+
+
+def test_phase_8_bookkeeping():
+    """Phase 8's expected launches (one predict and finish an attempt, four
+    sweeps), the split counts read and reset as one, and the SIR table."""
+    from sunode_torch.ops.adams_split import adams_split_attempt
+
+    cs = _chip_smoke()
+    assert cs.SIR_MODES == (("resolve", 1024), ("hermite", 256))
+    assert cs.split_expected_launches(7) == {"predict": 7, "sweep": 28, "finish": 7}
+    saved = dict(adams_split_attempt.launches)
+    try:
+        count = cs.SplitLaunches()
+        adams_split_attempt.launches.update(predict=2, sweep=8, finish=2)
+        assert count.launches == 12
+        count.launches = 0
+        assert adams_split_attempt.launches == {"predict": 0, "sweep": 0, "finish": 0}
+    finally:
+        adams_split_attempt.launches.update(saved)
+    # 1,024 slots and the tail, quintic rows of 3,000 states: 18.9 GB at 256 lanes
+    assert cs.sir_table_bytes("hermite", 256) == 8 * 1025 * 9001 * 256
+    assert cs.sir_table_bytes("resolve", 1024) == 0

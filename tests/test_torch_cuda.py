@@ -1,8 +1,10 @@
-"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernels and the history-attempt
-kernel against their plain versions and each other, and the CUDA main path,
+"""sunode_torch on an NVIDIA GPU: the CUDA PECE kernels, the history-attempt
+kernel and the split attempt's three kernels against their plain versions
+and each other, and the CUDA main path,
 the batched BDF solve, with and without sensitivities, the default call
 (BDF with the checkpointed adjoint) and the ADAMS adjoints 'resolve',
-'hermite' and 'polynomial' against the CPU ones.
+'hermite' and 'polynomial' and the SIR workload (a ``TorchProblem``,
+through the split kernels) against the CPU ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -17,13 +19,22 @@ import pytest
 import torch
 
 from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
-from sunode_torch.entry import build_lv_adams, build_lv_adjoint, build_robertson, lv_problem
+from sunode_torch.entry import (
+    build_lv_adams,
+    build_lv_adjoint,
+    build_robertson,
+    build_sir,
+    lv_problem,
+    sir_problem,
+)
 from sunode_torch.experiments import exp_pece2d
 from sunode_torch.ops.adams import _GAMMA_STAR, FUNCTIONAL_MAXITER
 from sunode_torch.ops.adams_attempt import (
     adams_history_attempt,
     adams_history_attempt_reference,
 )
+from sunode_torch.ops import adams_split
+from sunode_torch.ops.adams_split import adams_split_attempt, adams_split_attempt_reference
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.ops.pece_2d import pece_2d_attempt, pece_2d_reference
@@ -33,6 +44,7 @@ from sunode_torch.ops.pece_step import (
     adams_pece_attempt_reference,
 )
 from sunode_torch.symode import cuda_codegen
+from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
 pytestmark = pytest.mark.cuda
 B = 1000
@@ -179,9 +191,14 @@ def test_history_kernel_refuses_bad_inputs(cuda):
     deeper[-1] = 7  # P_MAX 7 needs a history of 10 rows
     with pytest.raises(ValueError, match="P_MAX"):
         adams_history_attempt(system, *deeper)
+    # without an emitted system the attempt takes the split kernels, which
+    # refuse a history of another depth too
     no_device = PeceSystem(fz=system.fz, n=system.n, nz=system.nz)
-    with pytest.raises(ValueError, match="device system"):
-        adams_history_attempt(no_device, *good)
+    before = adams_split_attempt.launches["predict"]
+    adams_history_attempt(no_device, *good)
+    assert adams_split_attempt.launches["predict"] == before + 1
+    with pytest.raises(ValueError, match="P_MAX"):
+        adams_history_attempt(no_device, *deeper)
 
 
 def test_cuda_main_path_matches_cpu(cuda):
@@ -313,3 +330,145 @@ def test_cuda_adams_modes_match_cpu(cuda, mode):
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, ref, rtol=1e-6)
         np.testing.assert_allclose(got, gold, rtol=2e-3, atol=1e-3)
+
+
+def _relerr(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
+def test_split_kernels_match_plain(cuda, kind):
+    """A CUDA attempt without an emitted system goes to the split kernels:
+    one predict, four sweeps and one finish, against the plain stages
+    composed on the card (and the fused plain version) within 1e-12
+    normwise, ``conv``/``niter`` equal; the systems' own ``fz`` in torch."""
+    system = _system(kind)
+    no_device = PeceSystem(fz=system.fz, n=system.n, nz=system.nz)
+    args = _history_case(system, cuda, 4)
+    before = dict(adams_split_attempt.launches)
+    history = adams_history_attempt.launches
+    got = adams_history_attempt(no_device, *args)
+    ref = adams_split_attempt_reference(no_device, *args)
+    fused = adams_history_attempt_reference(no_device, *args)
+    torch.cuda.synchronize()
+    assert adams_history_attempt.launches == history
+    assert {k: v - before[k] for k, v in adams_split_attempt.launches.items()} == {
+        "predict": 1, "sweep": FUNCTIONAL_MAXITER, "finish": 1}
+    for name in ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3"):
+        assert _relerr(getattr(got, name), getattr(ref, name)) <= 1e-12, name
+        assert _relerr(getattr(got, name), getattr(fused, name)) <= 1e-12, name
+    assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+
+
+def test_split_kernels_at_many_chunks(cuda):
+    """SIR over 200 regions (600 rows: ten row chunks) at a ragged 100 lanes
+    (four lane tiles), stage by stage against the plain stages."""
+    R, B = 200, 100
+    rng = np.random.default_rng(9)
+    KAB, nz = 11, 3 * R
+    f64 = dict(dtype=torch.float64, device=cuda)
+    T = lambda a: torch.as_tensor(a, **f64)  # noqa: E731
+    DF = T(1e-2 * rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None])
+    p = torch.as_tensor(rng.integers(1, 9, B).astype(np.int32), device=cuda)
+    pre, h = T(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B))), T(10.0 ** rng.uniform(-3, 0, B))
+    z_prev = T(np.repeat([0.99, 0.01, 0.01], R)[:, None] * (1 + 0.05 * rng.uniform(size=(nz, B))))
+    params = T(np.array([0.4, 0.15, 0.05])[:, None] * (1 + 0.05 * rng.standard_normal((3, B))))
+    atol, rtol = T(np.full(nz, 1e-10)), T(np.full(nz, 1e-8))
+    active = torch.as_tensor(rng.uniform(size=B) < 0.9, device=cuda)
+    t = T(rng.uniform(0.0, 60.0, B))
+    fz = sir_problem(R).make_rhs()
+    kernels = adams_split.build_split_kernels(KAB)
+    pk = kernels.predict(DF, p, pre, h, z_prev, atol, rtol)
+    pp = adams_split.split_predict(DF, p, pre, h, z_prev, atol, rtol, 8)
+    for name in ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"):
+        assert _relerr(getattr(pk, name), getattr(pp, name)) <= 1e-12, name
+    assert torch.equal(pk.pred_ok, pp.pred_ok)
+    y, state = pp.z_pred[:nz], adams_split.sweep_start(active)
+    for k in range(FUNCTIONAL_MAXITER):
+        fz_k = fz(t, y, params)
+        yk, sk = kernels.sweep(k, fz_k, y, pp, state, 1e-3, nz)
+        y, state = adams_split.split_sweep(k, fz_k, y, pp, state, 1e-3, nz)
+        assert _relerr(yk, y) <= 1e-12
+        for f in ("conv", "div", "bad", "niter"):
+            assert torch.equal(getattr(sk, f), getattr(state, f)), f
+    gsa, v = T(np.abs(_GAMMA_STAR)), T(np.full(nz, 1.0 / nz))
+    fin_in = (fz(t, y, params), pp, state, p, h, gsa, v, 1e-3)
+    fk, fp = kernels.finish(*fin_in), adams_split.split_finish(*fin_in, 8)
+    for name in ("DF_upd", "z_new", "err0", "err3"):
+        assert _relerr(getattr(fk, name), getattr(fp, name)) <= 1e-12, name
+    assert torch.equal(fk.conv, fp.conv)
+
+
+def test_split_kernels_refuse_bad_inputs(cuda):
+    kernels = adams_split.build_split_kernels(11)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    B, nz = 40, 6
+    DF = torch.zeros((11, nz, B), **f64)
+    p = torch.ones(B, dtype=torch.int32, device=cuda)
+    lanes = torch.ones(B, **f64)
+    rows = torch.ones(nz, **f64)
+    with pytest.raises(ValueError, match="^DF:"):
+        kernels.predict(torch.zeros((9, nz, B), **f64), p, lanes, lanes, lanes.expand(nz, B),
+                        rows, rows)
+    with pytest.raises(ValueError, match="^p:"):
+        kernels.predict(DF, p.long(), lanes, lanes, torch.ones((nz, B), **f64), rows, rows)
+    with pytest.raises(ValueError, match="^z_prev:"):
+        kernels.predict(DF, p, lanes, lanes, torch.ones((B, nz), **f64).T, rows, rows)
+    pred = kernels.predict(DF, p, lanes, lanes, torch.ones((nz, B), **f64), rows, rows)
+    state = adams_split.sweep_start(torch.ones(B, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="^fz_k:"):
+        kernels.sweep(0, torch.ones((nz, B + 1), **f64), pred.z_pred, pred, state, 1e-3, nz)
+    with pytest.raises(ValueError, match="^gamma_star_abs:"):
+        kernels.finish(torch.ones((nz, B), **f64), pred, state, p, lanes,
+                       torch.ones(5, **f64), rows, 1e-3)
+
+
+@pytest.mark.parametrize("mode", ["resolve", "hermite"])
+def test_cuda_sir_matches_cpu(cuda, mode):
+    """``build_sir`` at 30 regions on 8 lanes: every attempt through the
+    split kernels (no fused launch, no plain stage), the gradients within
+    1e-8 of the CPU's."""
+    step_c, (y0s, p_subs) = build_sir(30, 8, mode, device=cuda)
+    step_h, _ = build_sir(30, 8, mode, device="cpu")
+    before = dict(adams_split_attempt.launches)
+    history = adams_history_attempt.launches
+    calls = adams_split.split_predict.calls
+    ys_c, gp_c = step_c(y0s, p_subs)
+    stats = step_c.solve.last_stats
+    attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+    assert {k: v - before[k] for k, v in adams_split_attempt.launches.items()} == {
+        "predict": attempts, "sweep": FUNCTIONAL_MAXITER * attempts, "finish": attempts}
+    assert adams_history_attempt.launches == history
+    assert adams_split.split_predict.calls == calls
+    ys_h, gp_h = step_h(y0s.cpu(), p_subs.cpu())
+    np.testing.assert_allclose(ys_c.cpu().numpy(), ys_h.numpy(), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(gp_c.cpu().numpy(), gp_h.numpy(), rtol=1e-8)
+
+
+def test_cuda_torch_problem_transition_matches_cpu(cuda):
+    """The transition adjoint of a TorchProblem (SIR over 2 regions: 6
+    states, 42 backward rows) reaches the split kernels through its ``fz``
+    closure, forward and backward, and matches the CPU within 1e-8."""
+    out = {}
+    for device in (cuda, "cpu"):
+        solve = make_batched_solve_fn(
+            sir_problem(2), options=BDFOptions(rtol=1e-8, atol=1e-10),
+            adjoint_options=BDFOptions(rtol=1e-8, atol=1e-10), method="ADAMS",
+            adjoint_interpolation="transition",
+        )
+        f64 = dict(dtype=torch.float64, device=device)
+        y0 = torch.tensor([[0.99, 0.98, 0.01, 0.02, 0.0, 0.0]] * 4, **f64)
+        p_sub = torch.tensor([[0.4, 0.15], [0.42, 0.14], [0.38, 0.16], [0.41, 0.15]],
+                             **f64).requires_grad_(True)
+        before = adams_split_attempt.launches["predict"]
+        ys = solve(0.0, y0, p_sub, torch.tensor([0.05], **f64),
+                   torch.linspace(5.0, 30.0, 4, **f64))
+        (gp,) = torch.autograd.grad(torch.sum(ys[:, :, 2:4] ** 2), (p_sub,))
+        stats = solve.last_stats
+        attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+        expected = attempts if device == cuda else 0
+        assert adams_split_attempt.launches["predict"] - before == expected
+        assert (stats["backward"]["status"] == 0).all()
+        out[device] = (ys.detach().cpu().numpy(), gp.cpu().numpy())
+    for got, ref in zip(out[cuda], out["cpu"]):
+        np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)

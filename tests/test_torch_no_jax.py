@@ -1,6 +1,7 @@
 """sunode_torch must import torch and never jax, and leave torch's global
-state alone, through an Adams gradient step, a BDF solve and a BDF gradient
-step with the checkpointed (hermite) adjoint; checked in a fresh
+state alone, through an Adams gradient step, a BDF solve, a BDF gradient
+step with the checkpointed (hermite) adjoint and a TorchProblem's
+derivatives, with the split attempt's module imported; checked in a fresh
 interpreter."""
 
 import json
@@ -19,7 +20,8 @@ default_before = torch.get_default_dtype()
 import sunode_torch
 import sunode_torch.experiments.exp_pece2d
 import sunode_torch.ops.pece_2d
-from sunode_torch.entry import build_lv_adjoint, build_lv_checkpointed, build_robertson
+import sunode_torch.ops.adams_split
+from sunode_torch.entry import build_lv_adjoint, build_lv_checkpointed, build_robertson, sir_problem
 
 step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6, device="cpu")
 gy, gp = step(y0s, p_subs)
@@ -27,6 +29,10 @@ solve, inputs = build_robertson(2, device="cpu")
 ys = solve(0.0, *inputs)
 cstep, (cy0s, cp_subs) = build_lv_checkpointed(batch=2, tvals_n=2, rtol=1e-6, device="cpu")
 cgy, cgp = cstep(cy0s, cp_subs)
+sir = sir_problem(3)
+f64 = dict(dtype=torch.float64)
+lam = sir.make_adjoint_rhs()(torch.zeros(2, **f64), torch.ones(9, 2, **f64),
+                             torch.ones(9, 2, **f64), torch.ones(3, 2, **f64))
 print(json.dumps({
     "jax_loaded": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "tpu_loaded": sorted(m for m in sys.modules if m.startswith("sunode_tpu")),
@@ -35,6 +41,7 @@ print(json.dumps({
     "bdf_finite": bool(torch.isfinite(ys).all()) and tuple(ys.shape) == (2, 8, 3),
     "checkpointed_finite": bool(torch.isfinite(cgy).all() and torch.isfinite(cgp).all()),
     "recorded": cstep.solve.last_stats["forward"]["checkpoint_thinning_levels"] == 0,
+    "torch_problem_finite": bool(torch.isfinite(lam).all()) and tuple(lam.shape) == (9, 2),
     "dtype": str(gy.dtype),
 }))
 """
@@ -54,3 +61,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["finite"] and out["dtype"] == "torch.float64"
     assert out["bdf_finite"]
     assert out["checkpointed_finite"] and out["recorded"]
+    assert out["torch_problem_finite"]
