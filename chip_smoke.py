@@ -33,13 +33,19 @@ Phases, one line each; any failure exits non-zero:
      every row), the staged build with seeded y(t) rows after the
      parameters;
   3d. split kernels: the attempt with its right-hand side in torch between
-     three kernels (predict, sweep, finish) for SIR over 1,000 regions (nz =
-     3,000) at B=1,024, orders 1..8, seeded history and step ratio as in
-     phase 3c: the composed attempt against the plain stages composed on the
-     card, then each kernel against its plain stage on the same inputs;
-     normwise relative error <= 1e-12 on DF_resc, DF_upd, z_new, err3 and
-     the rest, conv and niter equal in every lane, and per-call times as in
-     phase 3;
+     three kernels (predict, sweep, finish) for SIR over 1,000 regions at
+     each shape phase 8 gives them: its forward attempts (nz = n = 3,000,
+     B=1,024), the backward ones of 'resolve' ([y | lam] and two
+     quadratures: nz = 6,002, n = 6,000, B=1,024) and of 'hermite' (lam and
+     the quadratures, y(t) staged in the parameter rows: nz = 3,002, n =
+     3,000, B=256);
+     orders 1..8, seeded history and step ratio as in phase 3c: the
+     composed attempt against the plain stages composed on the card, then
+     each kernel against its plain stage on the same inputs; relative error
+     <= 1e-12, normwise on the (rows, B) fields (DF_resc, DF_upd, z_new and
+     the rest) and lane by lane on err3, c_A and dy_old; conv, div, bad and
+     niter equal in every lane; per-call times as in phase 3 at the forward
+     shape, the kernels' device times at the backward ones;
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: the history-attempt launches equal to the attempts
@@ -96,7 +102,8 @@ Phases, one line each; any failure exits non-zero:
      under the profiler; split launches equal to 1 / 4 / 1 x the forward
      plus backward attempts (predict / sweep / finish), no launch of any
      other kernel and no plain-stage call; status 0 and finite in every
-     lane, lane 0 inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
+     lane, lane 0 (set to the golden case's inputs, as the script sets it)
+     inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
      atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
      1e-8 relative;
   9. the kernel table and the result line.  Each kernel's bound is the
@@ -437,41 +444,90 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
 
 
 SIR_R = 1000  # scripts/bench_sir_scale.py's regions: 3,000 states
+SIR_DERIVS = 2  # the gradient's parameters, beta and gamma
 B_SPLIT = 1024  # phase 3d's lanes: the script's largest width
 SIR_MODES = (("resolve", 1024), ("hermite", 256))  # phase 8: mode, lanes
+# phase 3d's shapes: phase 8's forward attempts, and the backward attempts
+# of each of its modes at that mode's lanes ('hermite' stages y(t))
+SPLIT_CASES = (("forward", B_SPLIT), ("resolve", 1024), ("staged_adjoint", 256))
 KERNEL_SOURCE_SPLIT = "sunode_torch/csrc/adams_split.cu"
 SPLIT_STAGES = ("predict", "sweep", "finish")
 
 
-def split_inputs(B, seed, device, R=SIR_R):
+def split_system(kind, R=SIR_R):
+    """``(fz, n, nz)`` of one of phase 8's Adams solves of SIR over ``R``
+    regions, composed as the Adams core composes it: 'forward' (the 3R
+    states), 'resolve' (``[y | lam]``, 6R corrected rows, then the two
+    gradient quadratures) or 'staged_adjoint' (lam, 3R rows, then the
+    quadratures; y(t) rides in the parameter rows after the problem's
+    three)."""
+    import torch
+
+    from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz
+    from sunode_torch.entry import sir_problem
+
+    problem, n = sir_problem(R), 3 * R
+    if kind == "forward":
+        return problem.make_rhs(), n, n
+    adjoint, quad = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
+    if kind == "resolve":
+        rhs_c, quad_c = resolve_fz(problem.make_rhs(), adjoint, quad, n)
+        return (lambda t, z, par: torch.cat([rhs_c(t, z, par), quad_c(t, z, par)]),
+                2 * n, 2 * n + SIR_DERIVS)
+    if kind == "staged_adjoint":
+        rhs_s, quad_s = staged_adjoint_fz(adjoint, quad)
+
+        def fz(t, lam, par):
+            p, y = par[:3], par[3:]
+            return torch.cat([rhs_s(t, lam, p, y), quad_s(t, lam, p, y)])
+
+        return fz, n, n + SIR_DERIVS
+    raise ValueError(f"unknown split case {kind!r}")
+
+
+def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
     """Phase 3d's inputs: one attempt of the SIR model over ``R`` regions
-    (nz = 3R) at history depth KAB = 11 (orders 1..8), seeded history, a
-    step ratio log-uniform in [0.2, 2] as in phase 3c, 90% of lanes active,
-    steps log-uniform in [1e-3, 1] around t in [0, 60], states around
+    in the solve ``kind`` (:func:`split_system`) at history depth KAB = 11
+    (orders 1..8), seeded history, a step ratio log-uniform in [0.2, 2] as
+    in phase 3c, 90% of lanes active, steps log-uniform in [1e-3, 1] around
+    t in [0, 60] (tau in [-60, 0] backward), states around
     ``scripts/bench_sir_scale.py``'s (S ~ 0.99, I ~ 0.01, R ~ 0.01),
-    (beta, gamma, mix) with a 5% spread, and the workload's tolerances
-    (rtol 1e-8, atol 1e-10) and corrector tolerance."""
+    adjoints and quadratures ~ 0.1, (beta, gamma, mix) with a 5% spread,
+    the workload's tolerances (rtol 1e-8, atol 1e-10 on every row, the
+    quadratures under error control) and corrector tolerance."""
     import torch
 
     from sunode_torch.ops.adams import _GAMMA_STAR
     from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
 
+    _, n, nz = split_system(kind, R)
     rng = np.random.default_rng(seed)
-    KAB, nz = P_MAX_ADAMS + 3, 3 * R
+    KAB = P_MAX_ADAMS + 3
     DF = 1e-2 * rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
     level = np.repeat([0.99, 0.01, 0.01], R)[:, None]
-    z_prev = level * (1 + 0.05 * rng.uniform(size=(nz, B)))
+    y = level * (1 + 0.05 * rng.uniform(size=(3 * R, B)))
     params = np.array([0.4, 0.15, 0.05])[:, None] * (1 + 0.05 * rng.standard_normal((3, B)))
+    v_err = np.full(nz, 1.0 / nz)
+    if kind == "forward":
+        z_prev, sign = y, 1.0
+    else:
+        lam_q = 0.1 * rng.standard_normal((3 * R + SIR_DERIVS, B))
+        z_prev = np.concatenate([y, lam_q]) if kind == "resolve" else lam_q
+        if kind == "staged_adjoint":
+            params = np.concatenate([params, y])
+        # the error norm's two blocks: the corrected rows and the quadratures
+        v_err = np.concatenate([np.full(n, 0.5 / n), np.full(SIR_DERIVS, 0.5 / SIR_DERIVS)])
+        sign = -1.0
     f64 = dict(dtype=torch.float64, device=device)
     T = lambda a: torch.as_tensor(np.ascontiguousarray(a), **f64)  # noqa: E731
     return dict(
-        t_new=T(rng.uniform(0.0, 60.0, B)), h=T(10.0 ** rng.uniform(-3, 0, B)),
+        t_new=T(sign * rng.uniform(0.0, 60.0, B)), h=T(10.0 ** rng.uniform(-3, 0, B)),
         pre_factor=T(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B))),
         p=torch.as_tensor(rng.integers(1, P_MAX_ADAMS + 1, B).astype(np.int32), device=device),
         active=torch.as_tensor(rng.uniform(size=B) < 0.9, device=device),
         DF=T(DF), z_prev=T(z_prev), params=T(params),
         atol_z=T(np.full(nz, 1e-10)), rtol_z=T(np.full(nz, 1e-8)),
-        gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(np.full(nz, 1.0 / nz)),
+        gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(v_err),
         newton_tol=newton_tol_for(BDFOptions(rtol=1e-8, atol=1e-10), 1e-8, torch.float64),
     )
 
@@ -498,44 +554,75 @@ def split_costs(x, n) -> dict:
     return costs
 
 
-def split_phase(smi, kernels) -> dict:
-    """Phase 3d: the three split kernels against their plain stages on the
-    card at SIR-1000's width; returns the kernel-table fields by stage."""
+def lane_rel(a, b) -> float:
+    """max |a - b| / |b| element by element, each lane against its own
+    value (a zero ``b`` needs an equal ``a``): for the per-lane outputs
+    (err3, c_A, dy_old), whose lanes span orders of magnitude."""
     import torch
 
-    from sunode_torch.entry import sir_problem
+    diff = (a - b).abs()
+    rel = torch.where(b != 0, diff / b.abs(), torch.where(diff == 0, 0.0, float("inf")))
+    return float(rel.max())
+
+
+def split_errors(normwise_pairs, lane_pairs):
+    """({name: error}, worst max|a - b|): normwise (:func:`rel_errors`) on
+    the (rows, B) fields, per lane (:func:`lane_rel`, named ``*/lane``) on
+    the per-lane ones."""
+    rel, abs_err = rel_errors(normwise_pairs)
+    for name, (a, b) in lane_pairs.items():
+        rel[f"{name}/lane"] = lane_rel(a, b)
+        abs_err = max(abs_err, float((a - b).abs().max()))
+    return rel, abs_err
+
+
+def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
+    """Phase 3d at one shape: the composed attempt on the kernels against
+    the plain stages composed on the card, then each kernel against its
+    plain stage on the same inputs (the plain stages' outputs feed the next
+    stage of both).  Exits on any disagreement; returns the inputs, the
+    plain stages' results and the errors by stage."""
+    import torch
+
     from sunode_torch.ops import adams_split as sp
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
     from sunode_torch.ops.pece_step import PeceSystem
 
-    x = split_inputs(B_SPLIT, 11, "cuda", SIR_R)
-    n = 3 * SIR_R
-    fz = sir_problem(SIR_R).make_rhs()
-    system = PeceSystem(fz=fz, n=n, nz=n)
+    x = split_inputs(B, seed, "cuda", R, kind)
+    fz, n, nz = split_system(kind, R)
+    system = PeceSystem(fz=fz, n=n, nz=nz)
     args = (x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
             x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
             x["newton_tol"], FUNCTIONAL_MAXITER, P_MAX_ADAMS)
     got = sp.adams_split_attempt(system, *args)
     ref = sp.adams_split_attempt_reference(system, *args)
     torch.cuda.synchronize()
-    rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0"))
+    rel, _ = split_errors(
+        {k: (getattr(got, k), getattr(ref, k))
+         for k in ("DF_resc", "DF_upd", "z_new", "z_pred", "err0")},
+        {"err3": (got.err3, ref.err3)},
+    )
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
+    shape = f"{kind} nz={nz} n={n} B={B}"
     log(
-        f"[split-kernels-vs-plain attempt] SIR R={SIR_R} nz={n} B={B_SPLIT} KAB={P_MAX_ADAMS + 3} "
+        f"[split-kernels-vs-plain attempt {shape}] SIR R={R} KAB={P_MAX_ADAMS + 3} "
+        f"row_chunks={-(-nz // sp.CHUNK_ROWS)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
-        f" converged={int(got.conv.sum())}/{B_SPLIT}"
+        f" converged={int(got.conv.sum())}/{B}"
         f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
     )
     if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
-        raise SystemExit("chip_smoke: the split attempt's kernels disagree with the plain stages")
+        raise SystemExit(f"chip_smoke: the split attempt's kernels disagree with the plain "
+                         f"stages ({shape})")
 
-    # each kernel against its plain stage on the same inputs: the plain
-    # stages' outputs feed the next stage of both
     stage_in = (x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"], x["atol_z"], x["rtol_z"])
     pred_k, pred = kernels.predict(*stage_in), sp.split_predict(*stage_in, P_MAX_ADAMS)
-    errs = {"predict": normwise(pred_k, pred, ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"))}
+    errs = {"predict": split_errors(
+        {k: (getattr(pred_k, k), getattr(pred, k)) for k in ("DF_resc", "z_pred", "f_ex", "w_z")},
+        {"c_A": (pred_k.c_A, pred.c_A)},
+    )}
     same = {"predict": bool(torch.equal(pred_k.pred_ok, pred.pred_ok))}
     y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
     sweep_rel, sweep_abs, same["sweep"] = {}, 0.0, True
@@ -545,8 +632,8 @@ def split_phase(smi, kernels) -> dict:
         y, state = sp.split_sweep(k, fz_k, y, pred, state, x["newton_tol"], n)
         # dy_old stays inf in lanes that never swept (inactive ones)
         swept = torch.isfinite(state.dy_old)
-        r, a = rel_errors({f"y_next@{k}": (y_k, y),
-                           f"dy_old@{k}": (st_k.dy_old[swept], state.dy_old[swept])})
+        r, a = split_errors({f"y_next@{k}": (y_k, y)},
+                            {f"dy_old@{k}": (st_k.dy_old[swept], state.dy_old[swept])})
         sweep_rel.update(r)
         sweep_abs = max(sweep_abs, a)
         same["sweep"] &= all(bool(torch.equal(getattr(st_k, f), getattr(state, f)))
@@ -555,42 +642,81 @@ def split_phase(smi, kernels) -> dict:
     fz_f = fz(x["t_new"], y, x["params"])
     fin_in = (fz_f, pred, state, x["p"], x["h"], x["gamma_star_abs"], x["v_err"], x["newton_tol"])
     fin_k, fin = kernels.finish(*fin_in), sp.split_finish(*fin_in, P_MAX_ADAMS)
-    errs["finish"] = normwise(fin_k, fin, ("DF_upd", "z_new", "err0", "err3"))
+    errs["finish"] = split_errors(
+        {k: (getattr(fin_k, k), getattr(fin, k)) for k in ("DF_upd", "z_new", "err0")},
+        {"err3": (fin_k.err3, fin.err3)},
+    )
     same["finish"] = bool(torch.equal(fin_k.conv, fin.conv))
     torch.cuda.synchronize()
-
-    # per-call times on these inputs: kernel (graph, stream, device) and plain
-    fz_1 = fz(x["t_new"], pred.z_pred[:n], x["params"])
-    calls = {
-        "predict": (lambda z: (kernels.predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
-                                               x["atol_z"], x["rtol_z"]).z_pred,),
-                    lambda z: (sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
-                                                x["atol_z"], x["rtol_z"], P_MAX_ADAMS).z_pred,),
-                    x["z_prev"]),
-        "sweep": (lambda yy: (kernels.sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
-                  lambda yy: (sp.split_sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
-                  pred.z_pred[:n].clone()),
-        "finish": (lambda f: (kernels.finish(f, *fin_in[1:]).z_new,),
-                   lambda f: (sp.split_finish(f, *fin_in[1:], P_MAX_ADAMS).z_new,), fz_f),
-    }
-    costs = split_costs(x, n)
-    table = {}
-    for stage, (call_k, call_p, z) in calls.items():
-        t_k, t_p = per_call_times(call_k, z), per_call_times(call_p, z, False)
-        rel_s, abs_s = errs[stage]
-        nbytes, flops = costs[stage]
-        table[stage] = dict(max_abs_err=abs_s, ms=t_k["stream"] / 1e3,
-                            plain_ms=t_p["stream"] / 1e3, **bound(nbytes, flops))
-        log(
-            f"[split-kernel-vs-plain {stage}] B={B_SPLIT} nz={n} "
+    for stage in SPLIT_STAGES:
+        rel_s = errs[stage][0]
+        log(f"[split-kernel-vs-plain {stage} {shape}] "
             + " ".join(f"rel_{k}={v:.3e}" for k, v in rel_s.items())
-            + f" flags_equal={same[stage]}" + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
-            + f" bytes={nbytes} flops={flops} bound_us={1e3 * table[stage]['bound_ms']:.3f}"
-            f" ({table[stage]['bound_by']}) graph_over_bound="
-            f"{t_k['graph'] / (1e3 * table[stage]['bound_ms']):.2f} | {smi}"
-        )
+            + f" flags_equal={same[stage]}")
         if not (max(rel_s.values()) <= REL_BOUND and same[stage]):
-            raise SystemExit(f"chip_smoke: the split {stage} kernel disagrees with its plain stage")
+            raise SystemExit(f"chip_smoke: the split {stage} kernel disagrees with its plain "
+                             f"stage ({shape})")
+    return dict(x=x, fz=fz, n=n, pred=pred, state=state, fin_in=fin_in, errs=errs, shape=shape)
+
+
+def split_phase(smi, kernels) -> dict:
+    """Phase 3d: the three split kernels against their plain stages on the
+    card at each of phase 8's shapes (:data:`SPLIT_CASES`); returns the
+    kernel-table fields by stage, timed at the forward shape, with the
+    worst error over the shapes."""
+    import torch
+
+    from sunode_torch.experiments.exp_pece2d import device_us
+    from sunode_torch.ops import adams_split as sp
+
+    table, worst = {}, dict.fromkeys(SPLIT_STAGES, 0.0)
+    for seed, (kind, B) in enumerate(SPLIT_CASES, start=11):
+        c = compare_split(kind, B, seed, kernels)
+        for stage in SPLIT_STAGES:
+            worst[stage] = max(worst[stage], c["errs"][stage][1])
+        x, fz, n, pred, state, fin_in = (c[k] for k in ("x", "fz", "n", "pred", "state",
+                                                         "fin_in"))
+        # per-call times on these inputs: kernel (graph, stream, device) and
+        # plain at the forward shape, the kernel's device time at the others
+        fz_1 = fz(x["t_new"], pred.z_pred[:n], x["params"])
+        calls = {
+            "predict": (lambda z: (kernels.predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
+                                                   x["atol_z"], x["rtol_z"]).z_pred,),
+                        lambda z: (sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
+                                                    x["atol_z"], x["rtol_z"],
+                                                    P_MAX_ADAMS).z_pred,),
+                        x["z_prev"]),
+            "sweep": (lambda yy: (kernels.sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
+                      lambda yy: (sp.split_sweep(1, fz_1, yy, pred, state, x["newton_tol"],
+                                                 n)[0],),
+                      pred.z_pred[:n].clone()),
+            "finish": (lambda f: (kernels.finish(f, *fin_in[1:]).z_new,),
+                       lambda f: (sp.split_finish(f, *fin_in[1:], P_MAX_ADAMS).z_new,),
+                       fin_in[0]),
+        }
+        costs = split_costs(x, n)
+        for stage, (call_k, call_p, z) in calls.items():
+            nbytes, flops = costs[stage]
+            b = bound(nbytes, flops)
+            if kind == "forward":
+                t_k, t_p = per_call_times(call_k, z), per_call_times(call_p, z, False)
+                table[stage] = dict(ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3, **b)
+                times = fmt_times("kernel", t_k) + fmt_times("plain", t_p)
+                over = t_k["graph"] / (1e3 * b["bound_ms"])
+            else:
+                dev = device_us(lambda: call_k(z))
+                times = f" kernel_device_us_per_call={fmt_us(dev)}"
+                over = None if dev is None else dev / (1e3 * b["bound_ms"])
+            log(
+                f"[split-kernel-times {stage} {c['shape']}]" + times
+                + f" bytes={nbytes} flops={flops} bound_us={1e3 * b['bound_ms']:.3f}"
+                f" ({b['bound_by']}) {'graph' if kind == 'forward' else 'device'}_over_bound="
+                + ("not measured" if over is None else f"{over:.2f}") + f" | {smi}"
+            )
+        del c, x, pred, state, fin_in, calls, fz_1
+        torch.cuda.empty_cache()
+    for stage in SPLIT_STAGES:
+        table[stage]["max_abs_err"] = worst[stage]
     return table
 
 
@@ -640,6 +766,10 @@ def sir_phase(smi, counted) -> dict:
     total = dict.fromkeys(SPLIT_STAGES, 0)
     for mode, B in SIR_MODES:
         grad_step, (y0s, p_subs) = build_sir(R, B, mode, device="cuda")
+        # lane 0 is the golden case's, as scripts/bench_sir_scale.py pins it
+        y0s[0] = torch.as_tensor(golden["y0"], dtype=y0s.dtype)
+        p_subs[0] = torch.as_tensor(golden["p0"][:2], dtype=p_subs.dtype)
+        np.testing.assert_allclose(float(grad_step.p_fix[0]), golden["p0"][2], rtol=1e-6)
         stats = grad_step.solve.last_stats
         t0 = time.perf_counter()
         grad_step(y0s, p_subs)  # warm-up

@@ -29,8 +29,6 @@ kernels (``ops/adams_split.py``), the right-hand side in torch between them.
 
 from __future__ import annotations
 
-from pathlib import Path
-
 import numpy as np
 import torch
 
@@ -223,7 +221,6 @@ def build_robertson(batch: int, device="cuda"):
     )
 
 
-SIR_GOLDEN = Path(__file__).resolve().parents[1] / "tests" / "golden" / "sir_1000.npz"
 SIR_CHECKPOINTS = 1024  # checkpoint_n of scripts/bench_sir_scale.py
 
 
@@ -247,9 +244,10 @@ def sir_problem(R: int) -> TorchProblem:
 
 
 def sir_inputs(R: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
-    """``(y0s (B, 3R), p_subs (B, 2))`` of ``scripts/bench_sir_scale.py:98-122``
-    (``default_rng(0)``); at R = 1000 lane 0 is ``tests/golden/sir_1000.npz``'s
-    where the checkout has it."""
+    """``(y0s (B, 3R), p_subs (B, 2))`` drawn as ``scripts/bench_sir_scale.py:98-122``
+    draws them (``default_rng(0)``).  That script then sets lane 0 to its
+    golden case's inputs; a caller that checks lane 0 against a golden file
+    sets it itself."""
     rng = np.random.default_rng(0)
     S0 = 0.99 + 0.005 * rng.standard_normal((batch, R))
     I0 = 0.01 * np.abs(1 + 0.1 * rng.standard_normal((batch, R)))
@@ -259,10 +257,6 @@ def sir_inputs(R: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
          0.15 * (1 + 0.05 * rng.standard_normal(batch))],
         axis=1,
     )
-    if R == 1000 and SIR_GOLDEN.exists():
-        golden = np.load(SIR_GOLDEN)
-        y0s[0] = golden["y0"]
-        p_subs[0] = golden["p0"][:2]
     return y0s, p_subs
 
 

@@ -109,6 +109,51 @@ def test_phase_3d_inputs():
     assert 0 < costs["sweep"][0] < history and all(ops > 0 for _, ops in costs.values())
 
 
+@pytest.mark.parametrize("kind", ["resolve", "staged_adjoint"])
+def test_phase_3d_backward_inputs(kind):
+    """Phase 3d's backward shapes at a small width on the CPU: 'resolve'
+    corrects [y | lam] (6R rows) under two quadratures, the 'hermite' staged
+    system lam (3R rows) with y(t) after the three parameters; the error
+    norm weighs the two blocks equally; the plain stages run on them."""
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.adams_split import adams_split_attempt_reference
+    from sunode_torch.ops.pece_step import PeceSystem
+
+    cs = _chip_smoke()
+    R, B = 10, 64
+    fz, n, nz = cs.split_system(kind, R)
+    assert (n, nz) == ((6 * R, 6 * R + 2) if kind == "resolve" else (3 * R, 3 * R + 2))
+    x = cs.split_inputs(B, 12, "cpu", R, kind)
+    assert x["DF"].shape == (cs.P_MAX_ADAMS + 3, nz, B) and x["z_prev"].shape == (nz, B)
+    assert x["params"].shape == ((3, B) if kind == "resolve" else (3 + 3 * R, B))
+    assert (x["t_new"] <= 0).all()
+    assert torch.isclose(x["v_err"][:n].sum(), x["v_err"][n:].sum())
+    out = adams_split_attempt_reference(
+        PeceSystem(fz=fz, n=n, nz=nz), x["t_new"], x["h"], x["pre_factor"], x["p"],
+        x["active"], x["DF"], x["z_prev"], x["params"], x["atol_z"], x["rtol_z"],
+        x["gamma_star_abs"], x["v_err"], x["newton_tol"], FUNCTIONAL_MAXITER, cs.P_MAX_ADAMS,
+    )
+    assert torch.isfinite(out.DF_upd).all() and torch.isfinite(out.err3).all()
+    assert cs.SPLIT_CASES == (("forward", 1024), ("resolve", 1024), ("staged_adjoint", 256))
+
+
+def test_phase_3d_lane_errors():
+    """Per-lane errors see a lane that is wrong only where its values are
+    small, which a normwise error hides; a zero needs an exact zero."""
+    cs = _chip_smoke()
+    ref = torch.tensor([[1.0, 1e-6, 0.0], [2.0, 3e-9, 5.0]], dtype=torch.float64)
+    got = ref.clone()
+    got[1, 1] *= 1 + 1e-9
+    (rel, _), lane = cs.rel_errors({"e": (got, ref)}), cs.lane_rel(got, ref)
+    assert rel["e"] < 1e-12 < lane and lane == pytest.approx(1e-9, rel=1e-6)
+    assert cs.lane_rel(ref, ref.clone()) == 0.0
+    bumped = ref.clone()
+    bumped[0, 2] = 1e-300
+    assert cs.lane_rel(bumped, ref) == float("inf")
+    rel, worst = cs.split_errors({"z": (ref, ref)}, {"err3": (got, ref)})
+    assert set(rel) == {"z", "err3/lane"} and rel["err3/lane"] == lane and worst > 0
+
+
 def test_phase_8_bookkeeping():
     """Phase 8's expected launches (one predict and finish an attempt, four
     sweeps), the split counts read and reset as one, and the SIR table."""

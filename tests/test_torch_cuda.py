@@ -399,6 +399,23 @@ def test_split_kernels_at_many_chunks(cuda):
     assert torch.equal(fk.conv, fp.conv)
 
 
+@pytest.mark.parametrize("kind,B", [("resolve", 100), ("staged_adjoint", 40)])
+def test_split_kernels_at_backward_shapes(cuda, kind, B):
+    """chip_smoke.py's phase 3d at SIR over 200 regions: the backward
+    systems, whose corrected rows are fewer than the history's (n < nz: the
+    quadratures stay out of dy_norm and y_next), over 19 and 10 row chunks,
+    stage by stage against the plain stages, per-lane errors on err3, c_A
+    and dy_old; it exits on a disagreement."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.compare_split(kind, B, 5, adams_split.build_split_kernels(11), R=200)
+    assert out["n"] == (1200 if kind == "resolve" else 600)
+
+
 def test_split_kernels_refuse_bad_inputs(cuda):
     kernels = adams_split.build_split_kernels(11)
     f64 = dict(dtype=torch.float64, device=cuda)
