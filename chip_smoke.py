@@ -27,11 +27,12 @@ Phases, one line each; any failure exits non-zero:
   3c. history-attempt kernel: each build against its plain version on the
      card at B=10,000, on phase 3's inputs plus a seeded step ratio
      log-uniform in [0.2, 2] and the main path's error weights; normwise
-     relative error <= 1e-12 on DF_resc, DF_upd, z_new and err3, conv and
-     niter equal in every lane, and per-call times as in phase 3; phase 7's
-     three builds at its history depth (order 1..8) and tolerances (1e-8 on
-     every row), the staged build with seeded y(t) rows after the
-     parameters;
+     relative error <= 1e-12 on DF_resc, DF_upd, z_pred, z_new, err0 and
+     err3, conv and niter equal in every lane, at the seeded orders and with
+     every lane at p = 1 and at p = P_MAX, per-call times as in phase 3 and
+     the device time at each of the two orders; phase 7's three builds at
+     its history depth (order 1..8) and tolerances (1e-8 on every row), the
+     staged build with seeded y(t) rows after the parameters;
   3d. split kernels: the attempt with its right-hand side in torch between
      three kernels (predict, sweep, finish) for SIR over 1,000 regions at
      each shape phase 8 gives them: its forward attempts (nz = n = 3,000,
@@ -75,9 +76,11 @@ Phases, one line each; any failure exits non-zero:
      the checkpointed adjoint over 1024 recorded steps with quintic Hermite
      rows, backward tolerances 1e-10) on phase 4's Lotka-Volterra inputs at
      B=10,000, 21 observation times, rtol = atol = 1e-8, through
-     ``entry.build_lv_checkpointed``: one timed gradient step and one under
-     the profiler, with the attempts of each solve, the device kernels and
-     host ms per attempt and the device-busy share; status 0 and finite
+     ``entry.build_lv_checkpointed``: one timed gradient step, then one
+     under the profiler over the first quarter of the horizon (the leading
+     4 of the 21 observation times, the same width and options), with the
+     attempts of each solve, the device kernels and host ms per attempt and
+     the device-busy share; status 0 and finite
      gradients in every lane, lanes 0-15 inside the golden gate and against
      the plain path on the CPU within 1e-6; then 'polynomial' on lanes 0-15,
      the card against the CPU within 1e-6 and the golden gate; no kernel of
@@ -365,12 +368,18 @@ def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
     return x
 
 
+HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0")
+
+
 def history_cost(device_system, x, niter) -> tuple[int, int]:
     """(bytes, f64 operations) of one history attempt on the inputs ``x``:
     the history read once and written twice, the other inputs read once and
     the outputs written once; rescale, predictor, the sweeps taken, final
     evaluation, difference update and error rows, counted per lane from its
-    order."""
+    order.  The rescale's factor R(fac) is built once a lane (p(p - 1)
+    running-product steps of a difference, a product and a quotient, and p
+    products fac i) and U = R(1) not at all (a constant table); each row
+    applies both, p^2 products and p^2 sums each."""
     n, nz, n_p = device_system.n, device_system.nz, device_system.n_p
     KAB, _, B = x["DF"].shape
     p = x["p"].long()
@@ -379,11 +388,13 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
     nbytes += 8 * (3 * nz + x["gamma_star_abs"].numel())  # atol_z, rtol_z, v_err, |gamma*|
     nbytes += 8 * B * (3 * nz + 3) + B + 4 * B  # z_pred, z_new, err0, err3; conv; niter
     f = rhs_flops(device_system)
-    # per row: R and U, p outputs of p terms each (difference, product,
-    # quotient, product, sum); predictor and f_ex; suffix sums, update, new
-    # state, error rows and their weighted squares
-    per_row = 2 * p * (5 * p - 2) + 3 * p + 2 + KAB + 2 * p + 21
-    flops = int((nz * per_row).sum()) + int(niter.sum()) * (f + 6 * n) + B * (f + 3 * n + 10)
+    # per lane: R(fac); per row: R and U applied (p outputs of p products
+    # and sums each), predictor and f_ex; suffix sums, update, new state,
+    # error rows and their weighted squares
+    per_lane = 3 * p * (p - 1) + p
+    per_row = 4 * p * p + 3 * p + 2 + KAB + 2 * p + 21
+    flops = (int((nz * per_row + per_lane).sum()) + int(niter.sum()) * (f + 6 * n)
+             + B * (f + 3 * n + 10))
     return nbytes, flops
 
 
@@ -411,18 +422,25 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
     run_p = lambda z: adams_history_attempt_reference(system, *args(z))  # noqa: E731
     got, ref = run_k(x["z_prev"]), run_p(x["z_prev"])
     torch.cuda.synchronize()
-    rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0"))
+    rel, abs_err = normwise(got, ref, HISTORY_FIELDS)
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
+    # one order in every lane: p = 1 (no rescale) and p = P_MAX (the whole
+    # tables), against the plain version and timed
+    at_p, ok_p = {}, {}
+    for q in (1, p_max):
+        p_q = torch.full_like(x["p"], q)
+        got_q = adams_history_attempt(system, *args(x["z_prev"], p_q))
+        ref_q = adams_history_attempt_reference(system, *args(x["z_prev"], p_q))
+        torch.cuda.synchronize()
+        rel_q, err_q = normwise(got_q, ref_q, HISTORY_FIELDS)
+        abs_err = max(abs_err, err_q)
+        ok_p[q] = (max(rel_q.values()), bool(torch.equal(got_q.conv, ref_q.conv)
+                                              and torch.equal(got_q.niter, ref_q.niter)))
+        at_p[q] = device_us(lambda: adams_history_attempt(system, *args(x["z_prev"], p_q)))
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
     call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
     t_k, t_p = per_call_times(call_k, x["z_prev"]), per_call_times(call_p, x["z_prev"], False)
-    # the rescale's work grows with p^2: device time at one order in every lane
-    at_p = {
-        q: device_us(lambda: adams_history_attempt(
-            system, *args(x["z_prev"], torch.full_like(x["p"], q))))
-        for q in (1, p_max)
-    }
     nbytes, flops = history_cost(device_system, x, got.niter)
     entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
                  **bound(nbytes, flops))
@@ -435,10 +453,13 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
         f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
         + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
         + "".join(f" kernel_device_us_all_p{q}={fmt_us(v)}" for q, v in at_p.items())
+        + "".join(f" all_p{q}: max_rel={r:.3e} flags_equal={same}"
+                  for q, (r, same) in ok_p.items())
         + f" bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
         f" ({entry['bound_by']})"
     )
-    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
+    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same
+            and all(r <= REL_BOUND and same for r, same in ok_p.values())):
         raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
     return entry
 
@@ -980,6 +1001,15 @@ def max_rel(got, ref) -> float:
     return max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(got, ref))
 
 
+PROFILED_HORIZON = 0.25  # phase 6's profiled step: this share of the observation horizon
+
+
+def leading_times(tvals, share):
+    """The observation times up to ``share`` of the last one: the same
+    spacing over a shorter horizon."""
+    return tvals[tvals <= share * float(tvals[-1])]
+
+
 def checkpointed_phase(smi) -> None:
     """Phase 6: the reference's default call (BDF, checkpointed adjoint)."""
     import torch
@@ -1014,12 +1044,24 @@ def checkpointed_phase(smi) -> None:
         f"{bwd_steps.max()} table_MB={1025 * W * B_MAIN * 8 / 1e6:.1f} "
         f"peak_MB={torch.cuda.max_memory_allocated() / 1e6:.1f} | {smi}"
     )
-    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), attempts)
+    # the profiled step feeds only the kernels per attempt and the busy
+    # share: the same width and options over a shorter horizon, which spares
+    # the profiler most of a full step's records
+    short = leading_times(grad_step.tvals, PROFILED_HORIZON)
+
+    def profiled_step():
+        y = y0s_t.detach().requires_grad_(True)
+        p = p_subs_t.detach().requires_grad_(True)
+        ys = grad_step.solve(0.0, y, p, grad_step.p_fix, short)
+        torch.autograd.grad(torch.sum(ys**2), (y, p))
+
+    prof = device_kernels_per_attempt(profiled_step, attempts)
     log(
-        f"[checkpointed device kernels per attempt] {prof['per_attempt']:.1f} "
+        f"[checkpointed device kernels per attempt, profiled step over t <= {float(short[-1])} "
+        f"({len(short)} of {len(grad_step.tvals)} observation times)] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
-        f"wall_s_under_profiler={prof['wall_s']:.4f} "
+        f"{prof['attempts']} attempts, {prof['attempts'] / (fwd + bwd):.3f} of the timed step's) "
+        f"device_busy_s={prof['busy_s']:.4f} wall_s_under_profiler={prof['wall_s']:.4f} "
         f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
     )
     log("[checkpointed device kernels by kind] (kind: per attempt, device ms in the step) "

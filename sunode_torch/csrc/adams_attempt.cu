@@ -8,52 +8,67 @@
 // (sunode_tpu/ops/adams_batched.py: _rescale :376-399, the error rows
 // :617-632, _update :989-1007).  Per lane, in float64, with the lane's own
 // order p and step ratio fac = h / h_D:
-//   pass 1  for each state row r: load the history column DF[0..KAB-1][r]
-//           into registers, apply R(fac) and then U = R(1) to its leading
-//           p rows (identity elsewhere), write DF_resc[:, r], and sum the
-//           predictor z_pred[r] = z_prev[r] + h sum_{i<p} gamma_i DF_resc[i][r]
-//           and the extrapolation f_ex[r] = sum_{i<p} DF_resc[i][r];
-//   PECE    the main path's functional corrector and final evaluation,
-//           pece_correct() of pece_core.cuh, the code kernel 1 runs;
-//   pass 2  for each r: reload DF_resc[:, r] (this thread's own write, from
-//           L1 or L2), d = f - f_ex, the accepted-step difference update
-//           into DF_upd[:, r], z_new = z_pred + h gamma_{p-1} d, the error
-//           row err0 = |gamma*_p| h d;
-//   pass 3  for each r: the weighted squares of the three error-test rows
-//           (orders p, p-1, p+1) summed into err3.
-// Pass 1 writes z_pred and parks f_ex in err0's rows, and reads both back
-// into registers for the corrector, so its row loop need not unroll; pass 3
-// reads err0, z_pred and two DF_upd rows back, so pass 2 holds no sums.
-// R and U are never stored: R[j][i] = R[j-1][i] ((j-1) - fac i) / j is a
-// running product over j for each output index i.  Each product,
-// difference and quotient of the rescale is rounded on its own (no FMA
-// contraction), in the order of the plain version, so a finite history
-// rescales as the plain version on the CPU does, bit for bit.
+//   tables   R(fac)[j][i] = R[j-1][i] ((j-1) - fac i) / j for j < p and every
+//            column i < K, once per lane into shared memory, the lane's
+//            threads sharing its columns; U = R(1) is the same for every
+//            lane, exact signed binomials, emitted as the constant table
+//            PECE_U;
+//   rows     each (lane, row) thread applies R and then U to the leading p
+//            rows of its history column DF[0..KAB-1][r] (identity
+//            elsewhere), held in registers, writes DF_resc[:, r], and puts
+//            the predictor z_pred[r] = z_prev[r] + h sum_{i<p} gamma_i
+//            DF_resc[i][r], the extrapolation f_ex[r] = sum_{i<p}
+//            DF_resc[i][r] and the error weight 1 / (atol + rtol |z_pred|)
+//            into shared memory;
+//   PECE     one warp per lane tile runs the main path's functional
+//            corrector and final evaluation, pece_correct() of
+//            pece_core.cuh, the code kernel 1 runs, on those rows in shared
+//            memory, and writes f there;
+//   update   each (lane, row) thread, from the column it still holds:
+//            d = f - f_ex, the accepted-step difference update DF_upd[:, r],
+//            z_new = z_pred + h gamma_{p-1} d, the error row
+//            err0 = |gamma*_p| h d, and its row's three weighted error terms
+//            (orders p, p-1, p+1);
+//   norms    the lane's first thread sums the weighted squares over the
+//            rows, in row order, into err3.
+// Each product, difference and quotient of the rescale is rounded on its own
+// (no FMA contraction; the quotients by small integers of div_small() are
+// those of __ddiv_rn), in the order of the plain version, so a finite
+// history rescales as the plain version on the CPU does, bit for bit.
 //
-// What bounds it on an H100: bytes.  The history is read from device memory
-// once and written twice (DF_resc, DF_upd); the plain version streams the
-// whole (KAB, nz, B) history through device memory in about 30 separate
-// torch operations an attempt.  At B = 10,000 the transition system's
-// history is 9 x 10 x 10k x 8 B = 7.2 MB, about 2 us at 3.35 TB/s for each
-// pass.  The arithmetic is a few thousand float64 operations a lane.
+// What bounds it on an H100: bytes, in principle.  The history is read from
+// device memory once and written twice (DF_resc, DF_upd), at B = 10,000 for
+// the transition system 9 x 10 x 10k x 8 B = 7.2 MB each time, 25.7 MB in
+// all with the other rows: 7.7 us at 3.35 TB/s.  The arithmetic is ~4p^2
+// operations a row and p^2 quotients a lane, far under the float64 rate.
+// In practice one wave of blocks holds every lane at that width, and each
+// block's chain of phases (device memory, R, rows, the corrector's sweeps,
+// update) bounds the time: the design shortens that chain.  A block is a
+// tile of 32 lanes (threadIdx.x: one coalesced 256-byte transaction per
+// history element and warp) by ADAMS_ROWS threads (threadIdx.y), four, so
+// a lane's rows and R's columns are spread over four threads while three
+// blocks still fit an SM; threads past PECE_NZ only build R.  Every load of
+// the launch is issued at once, before the R table is built; the quotients
+// by 3, 5, 6 and 7 take five FMA-latency steps instead of a division each;
+// nothing written is read back from device memory.
 //
-// Why no tensor cores, TMA or shared-memory tiles: every lane has its own
-// K x K factors R(fac) and U restricted to its own order, so there is no
-// shared operand for a matrix unit to reuse, and with one thread per lane
-// and the lane axis contiguous each warp's load or store of one history
-// element is already one coalesced 256-byte transaction.  Those tools
-// belong to a later change, if a profile asks for them.
+// Why no tensor cores (wgmma) or TMA: every lane has its own K x K factor
+// R(fac) restricted to its own order, so a matrix unit has no operand shared
+// across lanes to reuse, and a lane's product is at most 8 x 8; the
+// history's lane axis is contiguous, so plain coalesced loads already read
+// whole 256-byte lines at full width, and a TMA tile would only stage in
+// shared memory what each thread reads once into its registers.
 //
-// Layout: one thread per lane, 64-thread blocks (157 blocks for 10k lanes,
-// more than the 132 SMs).  The history depth KAB is a compile-time define,
-// so one history column and the running sums stay in registers.  Lanes
-// with p outside the history (p < 1 or p > KAB - 2) are poisoned with NaN,
-// as kernel 1 (csrc/pece_step.cu) poisons them.
+// Lanes with p outside the history (p < 1 or p > KAB - 2) are poisoned with
+// NaN, as kernel 1 (csrc/pece_step.cu) poisons them; lanes past B in the last
+// tile do nothing.  The shared memory and the columns a thread holds are
+// sized at compile time from ADAMS_KAB, PECE_NZ and the tile; a build that
+// cannot hold them stops with #error.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[]
+#include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[], PECE_U[][]
 #include "pece_rhs.h"     // PECE_N, PECE_NZ, PECE_NP, pece_fz()
 #include "pece_core.cuh"  // pece_correct(): corrector and final evaluation
 
@@ -61,33 +76,63 @@
 #error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
 #endif
 #define ADAMS_K (ADAMS_KAB - 2)  // rows 0..P_MAX of the R(fac)U block
-#define ADAMS_THREADS 64
+#define ADAMS_TILE 32            // lanes of a block: one warp per row thread index
+#ifndef ADAMS_ROWS               // threads of a lane; those past PECE_NZ only build R
+#define ADAMS_ROWS 4
+#endif
+#define ADAMS_THREADS (ADAMS_TILE * ADAMS_ROWS)
+#define ADAMS_RPT ((PECE_NZ + ADAMS_ROWS - 1) / ADAMS_ROWS)   // history rows a thread holds
+#define ADAMS_CPT ((ADAMS_K + ADAMS_ROWS - 1) / ADAMS_ROWS)   // R columns a thread builds
+#define ADAMS_NZ_PAD (PECE_NZ | 1)  // odd stride: a warp's 8-byte accesses miss no bank twice
 #define ADAMS_NP_ALLOC (PECE_NP > 0 ? PECE_NP : 1)
 
-// col[i] <- sum_{j<p} M[j][i] col[j] for i < p, col[i] unchanged for i >= p,
-// with M[0][i] = 1 and M[j][i] = (M[j-1][i] ((j-1) - fac i)) / j: R(fac), or
-// U at fac = 1.  The sum runs over j in order from 0, as the plain version's.
-__device__ __forceinline__ void rescale_column(double* col, double fac, int p) {
-  double out[ADAMS_K];
-#pragma unroll
-  for (int i = 0; i < ADAMS_K; ++i) {
-    out[i] = col[i];
-    if (i < p) {
-      const double fi = __dmul_rn(fac, (double)i);
-      double c = 1.0, acc = 0.0;
-#pragma unroll
-      for (int j = 0; j < ADAMS_K; ++j) {
-        if (j < p) {
-          if (j > 0) c = __ddiv_rn(__dmul_rn(c, __dsub_rn((double)(j - 1), fi)), (double)j);
-          acc = __dadd_rn(acc, __dmul_rn(c, col[j]));
-        }
-      }
-      out[i] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < ADAMS_K; ++i) col[i] = out[i];
+#if ADAMS_K > PECE_TABLE_LEN - 1
+#error "history deeper than the Adams tables"
+#endif
+#if ADAMS_ROWS < 1 || ADAMS_ROWS > 16
+#error "ADAMS_ROWS must lie in [1, 16]"
+#endif
+#if ADAMS_RPT * ADAMS_KAB > 64
+#error "the history columns a thread holds do not fit in its registers"
+#endif
+static_assert(sizeof(double) * (ADAMS_K * ADAMS_K * ADAMS_TILE + 4 * ADAMS_TILE * ADAMS_NZ_PAD +
+                                 PECE_NZ) <= 48 * 1024,
+              "the R tables and row vectors exceed a block's static shared memory");
+
+// t / j for a small integer j, rounded as __ddiv_rn(t, j) is.  A power of
+// two divides exactly as the product by its reciprocal.  Otherwise, with
+// y = RN(1/j): q = RN(t y) lies within 1.5 ulp of t / j, so the remainder
+// t - q j is a small multiple of ulp(q) and the FMA gives it exactly, and
+// RN(q + r y) differs from t / j by under 2^-52 ulp(q), while t / j lies at
+// least ulp(q) / 2j from every rounding midpoint (j's odd factor cannot
+// divide a 53-bit significand into a half-integer): it rounds as t / j does.
+// A second step repeats it from the rounded quotient.  Zero and non-finite
+// t, whose remainder is not a number or loses zero's sign, take q itself,
+// which is then RN(t / j) too.
+__device__ __forceinline__ double div_small(double t, int j) {
+  if ((j & (j - 1)) == 0) return __dmul_rn(t, 1.0 / j);
+  const double y = 1.0 / j, d = (double)j;
+  const double q0 = __dmul_rn(t, y);
+  double q = __fma_rn(__fma_rn(-q0, d, t), y, q0);
+  q = __fma_rn(__fma_rn(-q, d, t), y, q);
+  return (q0 == 0.0 || !isfinite(q0)) ? q0 : q;
 }
+
+#ifdef ADAMS_PHASE_CLOCKS
+// A trace of the kernel by phase: the cycles from each barrier to the next
+// on thread (0, 0) of a block (loads and R, rows, PECE, update, norms),
+// summed over the blocks of every launch since the last read, and the
+// blocks counted (experiments/history_ab.py).
+__device__ unsigned long long adams_phase_cycles[6];
+#define ADAMS_MARK(k)                                                        \
+  if (tx == 0 && ty == 0) {                                                  \
+    const long long now = clock64();                                         \
+    atomicAdd(&adams_phase_cycles[k], (unsigned long long)(now - mark));     \
+    mark = now;                                                              \
+  }
+#else
+#define ADAMS_MARK(k)
+#endif
 
 __global__ void __launch_bounds__(ADAMS_THREADS)
 adams_attempt_kernel(const double* __restrict__ t_new,
@@ -111,139 +156,239 @@ adams_attempt_kernel(const double* __restrict__ t_new,
                      double* __restrict__ err3_out,
                      unsigned char* __restrict__ conv_out,
                      int* __restrict__ niter_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  __shared__ double Rs[ADAMS_K][ADAMS_K][ADAMS_TILE];  // R(fac)[j][i], per lane
+  // Per lane, lane-major so the corrector reads its lane's rows as arrays:
+  // z_pred, f_ex, f and the error weights w; in the update each row thread
+  // then overwrites its own row's first three with its weighted error terms
+  // for the norms.
+  __shared__ double rows_s[4][ADAMS_TILE][ADAMS_NZ_PAD];
+  __shared__ double v_s[PECE_NZ];  // the error norm's weights
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#ifdef ADAMS_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.x * ADAMS_TILE + tx;
+  const bool lane = b < B;
   const size_t sB = (size_t)B;
-  const int p = order[b];
-  const double h = h_use[b];
-  const double t = t_new[b];
+  double* zp_s = rows_s[0][tx];
+  double* fex_s = rows_s[1][tx];
+  double* f_s = rows_s[2][tx];
+  double* w_s = rows_s[3][tx];
   // element (i, r) of a (KAB, PECE_NZ, B) history, this lane
 #define HIST(i, r) ((size_t)((i) * PECE_NZ + (r)) * sB + b)
 
-  if (p < 1 || p > ADAMS_KAB - 2) {  // outside the history: poison the lane
+  // Every load of the launch is issued here, before any of them is used:
+  // a lane's chain of phases then waits on device memory once.  This
+  // thread's history columns and rows first, then the lane's scalars, the
+  // corrector's inputs in its warp, and the norm's weights.
+  double col[ADAMS_RPT][ADAMS_KAB], zprev[ADAMS_RPT], atol_r[ADAMS_RPT], rtol_r[ADAMS_RPT];
 #pragma unroll
-    for (int r = 0; r < PECE_NZ; ++r) {
+  for (int k = 0; k < ADAMS_RPT; ++k) {
+    const int r = ty + k * ADAMS_ROWS;
+    const bool row = lane && r < PECE_NZ;
 #pragma unroll
-      for (int i = 0; i < ADAMS_KAB; ++i) {
-        DF_resc[HIST(i, r)] = NAN;
-        DF_upd[HIST(i, r)] = NAN;
-      }
-      z_pred_out[r * sB + b] = NAN;
-      z_new_out[r * sB + b] = NAN;
-      err0_out[r * sB + b] = NAN;
+    for (int i = 0; i < ADAMS_KAB; ++i) col[k][i] = row ? DF[HIST(i, r)] : 0.0;
+    zprev[k] = row ? z_prev[r * sB + b] : 0.0;
+    atol_r[k] = row ? atol_z[r] : 0.0;
+    rtol_r[k] = row ? rtol_z[r] : 0.0;
+  }
+  const int p = lane ? order[b] : 0;
+  const double fac = lane ? pre_factor[b] : 0.0;
+  const double h = lane ? h_use[b] : 0.0;
+  double par[ADAMS_NP_ALLOC], t = 0.0;
+  bool act = false;
+  if (ty == 0 && lane) {
+#pragma unroll
+    for (int j = 0; j < PECE_NP; ++j) par[j] = params[j * sB + b];
+    t = t_new[b];
+    act = active[b];
+  }
+  for (int r = ty * ADAMS_TILE + tx; r < PECE_NZ; r += ADAMS_THREADS) v_s[r] = v_err[r];
+  const bool valid = lane && p >= 1 && p <= ADAMS_K;
+  const double g1 = valid ? gamma_star_abs[p - 1] : 0.0;               // order p - 1
+  const double g2 = valid ? gamma_star_abs[min(p + 1, ADAMS_K)] : 0.0;  // order p + 1, at most P_MAX + 1
+  const double g0 = valid ? PECE_GAMMA_STAR_ABS[p] : 0.0;              // order p
+  const double c_A = valid ? h * PECE_GAMMA[p - 1] : 0.0;              // h gamma_{p-1}
+
+  // R(fac): column i's running product over j < p, for every column i < K,
+  // the chains of a thread's columns interleaved
+  if (valid) {
+    double c[ADAMS_CPT], fi[ADAMS_CPT];
+#pragma unroll
+    for (int m = 0; m < ADAMS_CPT; ++m) {
+      const int i = ty + m * ADAMS_ROWS;
+      fi[m] = __dmul_rn(fac, (double)i);
+      c[m] = 1.0;
+      if (i < ADAMS_K) Rs[0][i][tx] = 1.0;
     }
 #pragma unroll
-    for (int k = 0; k < 3; ++k) err3_out[k * sB + b] = NAN;
-    conv_out[b] = 0;
-    niter_out[b] = 0;
-    return;
+    for (int j = 1; j < ADAMS_K; ++j) {
+      if (j >= p) break;
+#pragma unroll
+      for (int m = 0; m < ADAMS_CPT; ++m) {
+        const int i = ty + m * ADAMS_ROWS;
+        const double prod = __dmul_rn(c[m], __dsub_rn((double)(j - 1), fi[m]));
+        c[m] = div_small(prod, j);
+        if (i < ADAMS_K) Rs[j][i][tx] = c[m];
+      }
+    }
   }
+  __syncthreads();
+  ADAMS_MARK(0);
 
-  double par[ADAMS_NP_ALLOC];
+  // rows: rescale, write DF_resc, predictor, f_ex and the row's error weight
+  double wz[ADAMS_RPT];
 #pragma unroll
-  for (int j = 0; j < PECE_NP; ++j) par[j] = params[j * sB + b];
-
-  // pass 1: rescale each history column, write it, sum predictor and f_ex.
-  // The row loop stays rolled: unrolled over every row, with the rescale's
-  // division chains copied into each row, the kernel was slower on the card
-  // (PERF.md).
-  const double fac = pre_factor[b];
-#pragma unroll 1
-  for (int r = 0; r < PECE_NZ; ++r) {
-    double col[ADAMS_KAB];
+  for (int k = 0; k < ADAMS_RPT; ++k) {
+    const int r = ty + k * ADAMS_ROWS;
+    if (!lane || r >= PECE_NZ) continue;
+    if (!valid) {  // outside the history: poison the lane
 #pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) col[i] = DF[HIST(i, r)];
-    rescale_column(col, fac, p);  // R(fac)
-    rescale_column(col, 1.0, p);  // U
+      for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = NAN;
+      z_pred_out[r * sB + b] = NAN;
+      continue;
+    }
+    // t1[i] = sum_{j<p} R[j][i] col[j], then col[i] = sum_{j<p} U[j][i] t1[j]
+    // for i < p; each sum runs over j in order from 0, as the plain
+    // version's, and the K columns step together (those from p on are
+    // dropped), so a step's products are independent
+    double t1[ADAMS_K], t2[ADAMS_K];
 #pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = col[i];
+    for (int i = 0; i < ADAMS_K; ++i) t1[i] = t2[i] = 0.0;
+#pragma unroll
+    for (int j = 0; j < ADAMS_K; ++j) {
+      if (j >= p) break;
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i)
+        t1[i] = __dadd_rn(t1[i], __dmul_rn(Rs[j][i][tx], col[k][j]));
+    }
+#pragma unroll
+    for (int j = 0; j < ADAMS_K; ++j) {
+      if (j >= p) break;
+#pragma unroll
+      for (int i = 0; i < ADAMS_K; ++i) t2[i] = __dadd_rn(t2[i], __dmul_rn(PECE_U[j][i], t1[j]));
+    }
+#pragma unroll
+    for (int i = 0; i < ADAMS_K; ++i)
+      if (i < p) col[k][i] = t2[i];
+#pragma unroll
+    for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = col[k][i];
     double acc_z = 0.0, acc_f = 0.0;
 #pragma unroll
     for (int i = 0; i < ADAMS_K; ++i) {
       if (i < p) {
-        acc_z = acc_z + PECE_GAMMA[i] * col[i];
-        acc_f = acc_f + col[i];
+        acc_z = acc_z + PECE_GAMMA[i] * col[k][i];
+        acc_f = acc_f + col[k][i];
       }
     }
-    z_pred_out[r * sB + b] = z_prev[r * sB + b] + h * acc_z;
-    err0_out[r * sB + b] = acc_f;  // f_ex, until pass 2 writes the error row
+    const double zp = zprev[k] + h * acc_z;
+    z_pred_out[r * sB + b] = zp;
+    zp_s[r] = zp;
+    fex_s[r] = acc_f;
+    wz[k] = 1.0 / (atol_r[k] + rtol_r[k] * fabs(zp));
+    w_s[r] = wz[k];
   }
-  // the predictor and f_ex back into registers: this thread's own writes
-  double zp[PECE_NZ], fex[PECE_NZ];
-  bool pred_ok = true;
+  __syncthreads();
+  ADAMS_MARK(1);
+
+  // PECE: one warp per tile, the other row threads wait at the next barrier
+  if (ty == 0 && lane) {
+    if (valid) {
+      bool pred_ok = true;
 #pragma unroll
-  for (int r = 0; r < PECE_NZ; ++r) {
-    zp[r] = z_pred_out[r * sB + b];
-    fex[r] = err0_out[r * sB + b];
-    pred_ok = pred_ok && isfinite(zp[r]);
+      for (int r = 0; r < PECE_NZ; ++r) pred_ok = pred_ok && isfinite(zp_s[r]);
+      double y[PECE_N];
+      int niter;
+      const bool conv = pece_correct(t, par, zp_s, fex_s, c_A, w_s, act,
+                                     pred_ok, newton_tol, maxiter, y, f_s, &niter);
+      conv_out[b] = conv ? 1 : 0;
+      niter_out[b] = niter;
+    } else {
+      conv_out[b] = 0;
+      niter_out[b] = 0;
+    }
   }
-  const double c_A = h * PECE_GAMMA[p - 1];
+  __syncthreads();
+  ADAMS_MARK(2);
 
-  double w[PECE_N];
+  // update: difference update, new state, error row and weighted error terms
+  if (valid) {
+    const double g0_h = g0 * h, g1_h = g1 * h, g2_h = g2 * h;
 #pragma unroll
-  for (int r = 0; r < PECE_N; ++r) w[r] = 1.0 / (atol_z[r] + rtol_z[r] * fabs(zp[r]));
-
-  double y[PECE_N], f[PECE_NZ];
-  int niter;
-  const bool conv = pece_correct(t, par, zp, fex, c_A, w, active[b], pred_ok,
-                                 newton_tol, maxiter, y, f, &niter);
-
-  // pass 2: difference update and new state
-  const double g0_h = PECE_GAMMA_STAR_ABS[p] * h;  // the error row at order p
+    for (int k = 0; k < ADAMS_RPT; ++k) {
+      const int r = ty + k * ADAMS_ROWS;
+      if (r >= PECE_NZ) continue;
+      const double zp = zp_s[r];
+      const double d = f_s[r] - fex_s[r];
+      // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
+      double S[ADAMS_KAB + 1];
+      S[ADAMS_KAB] = 0.0;
 #pragma unroll
-  for (int r = 0; r < PECE_NZ; ++r) {
-    double col[ADAMS_KAB];
+      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = S[i + 1] + col[k][i];
+      double Sp = 0.0, col_p = 0.0;
 #pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) col[i] = DF_resc[HIST(i, r)];
-    const double d = f[r] - fex[r];
-    // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
-    double S[ADAMS_KAB + 1];
-    S[ADAMS_KAB] = 0.0;
-#pragma unroll
-    for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = S[i + 1] + col[i];
-    double Sp = 0.0, col_p = 0.0;
-#pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) {
-      if (i == p) {
-        Sp = S[i];
-        col_p = col[i];
+      for (int i = 0; i < ADAMS_KAB; ++i) {
+        if (i == p) {
+          Sp = S[i];
+          col_p = col[k][i];
+        }
       }
-    }
-    // i <= p-1: sum_{j=i..p-1} DF[j] + d;  i == p: d;  i == p+1: d - DF[p]
+      // i <= p-1: sum_{j=i..p-1} DF[j] + d;  i == p: d;  i == p+1: d - DF[p]
+      double u_lo = 0.0, u_hi = 0.0;  // the updated rows p - 1 and p + 1
 #pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) {
-      DF_upd[HIST(i, r)] = i <= p - 1 ? (S[i] - Sp) + d
-                           : i == p   ? d
-                           : i == p + 1 ? d - col_p
-                                        : col[i];
+      for (int i = 0; i < ADAMS_KAB; ++i) {
+        const double u = i <= p - 1 ? (S[i] - Sp) + d
+                         : i == p   ? d
+                         : i == p + 1 ? d - col_p
+                                      : col[k][i];
+        DF_upd[HIST(i, r)] = u;
+        if (i == p - 1) u_lo = u;
+        if (i == p + 1) u_hi = u;
+      }
+      const double e0 = g0_h * d;
+      z_new_out[r * sB + b] = zp + c_A * d;
+      err0_out[r * sB + b] = e0;
+      zp_s[r] = e0 * wz[k];
+      fex_s[r] = (g1_h * u_lo) * wz[k];
+      f_s[r] = (g2_h * u_hi) * wz[k];
     }
-    z_new_out[r * sB + b] = zp[r] + c_A * d;
-    err0_out[r * sB + b] = g0_h * d;
-  }
-
-  // pass 3: the error-test rows at orders p, p-1 and p+1, weighted, squared
-  // and summed over the rows; it reads back this thread's own writes, which
-  // keeps pass 2's registers for the update
-  const double g1_h = gamma_star_abs[p - 1] * h;
-  const double g2_h = gamma_star_abs[min(p + 1, ADAMS_K)] * h;  // at most P_MAX + 1
-  double ss0 = 0.0, ss1 = 0.0, ss2 = 0.0;
-#pragma unroll 1
-  for (int r = 0; r < PECE_NZ; ++r) {
-    const double wz = 1.0 / (atol_z[r] + rtol_z[r] * fabs(z_pred_out[r * sB + b]));
-    const double v = v_err[r];
-    const double a0 = err0_out[r * sB + b] * wz;
-    const double a1 = (g1_h * DF_upd[HIST(p - 1, r)]) * wz;
-    const double a2 = (g2_h * DF_upd[HIST(p + 1, r)]) * wz;
-    ss0 = ss0 + a0 * a0 * v;
-    ss1 = ss1 + a1 * a1 * v;
-    ss2 = ss2 + a2 * a2 * v;
+  } else if (lane) {
+#pragma unroll
+    for (int k = 0; k < ADAMS_RPT; ++k) {
+      const int r = ty + k * ADAMS_ROWS;
+      if (r >= PECE_NZ) continue;
+#pragma unroll
+      for (int i = 0; i < ADAMS_KAB; ++i) DF_upd[HIST(i, r)] = NAN;
+      z_new_out[r * sB + b] = NAN;
+      err0_out[r * sB + b] = NAN;
+    }
   }
 #undef HIST
-  err3_out[b] = sqrt(ss0);
-  err3_out[sB + b] = sqrt(ss1);
-  err3_out[2 * sB + b] = sqrt(ss2);
-  conv_out[b] = conv ? 1 : 0;
-  niter_out[b] = niter;
+  __syncthreads();
+  ADAMS_MARK(3);
+
+  // norms: the weighted squares summed over the rows in row order
+  if (ty == 0 && lane) {
+    double ss0 = NAN, ss1 = NAN, ss2 = NAN;
+    if (valid) {
+      ss0 = ss1 = ss2 = 0.0;
+#pragma unroll
+      for (int r = 0; r < PECE_NZ; ++r) {
+        const double v = v_s[r];
+        const double a0 = zp_s[r], a1 = fex_s[r], a2 = f_s[r];
+        ss0 = ss0 + a0 * a0 * v;
+        ss1 = ss1 + a1 * a1 * v;
+        ss2 = ss2 + a2 * a2 * v;
+      }
+    }
+    err3_out[b] = sqrt(ss0);
+    err3_out[sB + b] = sqrt(ss1);
+    err3_out[2 * sB + b] = sqrt(ss2);
+  }
+  ADAMS_MARK(4);
+#ifdef ADAMS_PHASE_CLOCKS
+  if (tx == 0 && ty == 0) atomicAdd(&adams_phase_cycles[5], 1ull);
+#endif
 }
 
 extern "C" {
@@ -262,8 +407,9 @@ int adams_attempt_launch(const double* t_new, const double* h_use, const double*
   if (n_iter != PECE_N || nz != PECE_NZ || n_p != PECE_NP || kab != ADAMS_KAB) return -1;
   if (kab - 2 > PECE_TABLE_LEN - 1 || n_gamma < kab - 1) return -2;
   if (B <= 0) return 0;
-  const int blocks = (B + ADAMS_THREADS - 1) / ADAMS_THREADS;
-  adams_attempt_kernel<<<blocks, ADAMS_THREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 threads(ADAMS_TILE, ADAMS_ROWS);
+  const int blocks = (B + ADAMS_TILE - 1) / ADAMS_TILE;
+  adams_attempt_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       t_new, h_use, pre_factor, order, active, DF, z_prev, params, atol_z, rtol_z,
       gamma_star_abs, v_err, newton_tol, maxiter, B, DF_resc, DF_upd, z_pred, z_new,
       err0, err3, conv, niter);
@@ -273,5 +419,15 @@ int adams_attempt_launch(const double* t_new, const double* h_use, const double*
 const char* adams_attempt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef ADAMS_PHASE_CLOCKS
+// Copies the phase cycles and block count into out[6] and zeroes them.
+int adams_attempt_phase_cycles(unsigned long long* out) {
+  static const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(out, adams_phase_cycles, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(adams_phase_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 }  // extern "C"

@@ -61,26 +61,30 @@ class HistoryOut(NamedTuple):
     niter: torch.Tensor  # (B,) int32 corrector sweeps taken
 
 
+def _rescale_matrix(fac, p, K):
+    """(K, K, B) factor R(fac) of the rescale, restricted to each lane's
+    leading p block (identity elsewhere): entry [j][i] is the running product
+    over j for column i, R[j][i] = R[j-1][i] ((j-1) - fac i) / j; at fac = 1
+    it is U."""
+    B = fac.shape[0]
+    f_kw = dict(dtype=fac.dtype, device=fac.device)
+    ar_K = torch.arange(K, device=fac.device)
+    j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
+    rows = [torch.ones((K, B), **f_kw)]
+    for i in range(1, K):
+        rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
+    R = torch.stack(rows)  # (K_i, K_j, B)
+    inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
+    return torch.where(inblock, R, torch.eye(K, **f_kw)[:, :, None])
+
+
 def _rescale(DF, p, factor, K):
     """R(factor)U rescale of the leading p block (per element the same
     products and sums, in the same order, as the unrolled reference)."""
-    B = DF.shape[2]
+    B, nz = DF.shape[2], DF.shape[1]
     f_kw = dict(dtype=DF.dtype, device=DF.device)
-    ar_K = torch.arange(K, device=DF.device)
-    j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
-    eye_K = torch.eye(K, **f_kw)[:, :, None]
-    nz = DF.shape[1]
-
-    def build(fac):
-        rows = [torch.ones((K, B), **f_kw)]
-        for i in range(1, K):
-            rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
-        R = torch.stack(rows)  # (K_i, K_j, B)
-        inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
-        return torch.where(inblock, R, eye_K)
-
-    R = build(factor)
-    U = build(torch.ones_like(factor))
+    R = _rescale_matrix(factor, p, K)
+    U = _rescale_matrix(torch.ones_like(factor), p, K)
     t1 = torch.zeros((K, nz, B), **f_kw)
     for j in range(K):
         t1 = t1 + R[j][:, None, :] * DF[j][None]
@@ -160,15 +164,17 @@ def adams_history_attempt_reference(
 # ---------------------------------------------------------------------------
 class _AttemptKernel:
     """One compiled build of ``csrc/adams_attempt.cu`` for one right-hand
-    side and history depth."""
+    side and history depth; ``source`` and ``defines`` build another version
+    of it beside this one (``experiments/history_ab.py``)."""
 
-    def __init__(self, system: DeviceSystem, kab: int):
+    def __init__(self, system: DeviceSystem, kab: int, source: Path = _CSRC,
+                 defines: tuple[str, ...] = ()):
         self.system, self.kab = system, kab
         self.launches = 0
         built = build_library(
-            f"adams_attempt_{system.name}_kab{kab}", _CSRC,
+            f"adams_attempt_{system.name}_kab{kab}", source,
             headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}",),
+            defines=(f"ADAMS_KAB={kab}", *defines),
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib

@@ -157,9 +157,22 @@ def adams_pece_attempt_reference(
 # ---------------------------------------------------------------------------
 # CUDA build and launch
 # ---------------------------------------------------------------------------
+def _u_table(K: int) -> np.ndarray:
+    """U = R(1) of the Adams rescale, (K, K) with U[j][i] the running index j
+    and column i: U[0][i] = 1, U[j][i] = (U[j-1][i] ((j-1) - i)) / j, the
+    signed binomials (-1)^j C(i, j).  Every product and quotient is an exact
+    integer in float64."""
+    U = np.ones((K, K))
+    i = np.arange(K, dtype=np.float64)
+    for j in range(1, K):
+        U[j] = U[j - 1] * ((j - 1) - i) / j
+    return U
+
+
 def _tables_header() -> str:
     vals = lambda xs: ", ".join(repr(float(x)) for x in xs)  # noqa: E731
     L = len(_GAMMA)
+    U = _u_table(L - 1)  # the deepest rescale block the tables allow
     return "\n".join(
         [
             "// Adams coefficient tables (sunode_torch.ops.adams), exact repr",
@@ -168,6 +181,8 @@ def _tables_header() -> str:
             f"__constant__ double PECE_GAMMA[{L}] = {{{vals(_GAMMA)}}};",
             f"__constant__ double PECE_GAMMA_STAR_ABS[{L}] = "
             f"{{{vals(np.abs(_GAMMA_STAR))}}};",
+            f"__constant__ double PECE_U[{L - 1}][{L - 1}] = "
+            f"{{{', '.join('{' + vals(row) + '}' for row in U)}}};",
             "",
         ]
     )

@@ -6,6 +6,7 @@ it on the card by tests/test_torch_cuda.py and chip_smoke.py.  Inputs are
 seeded numpy draws at the main path's history depth (adams_max_order 6)."""
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,12 +22,13 @@ from sunode_torch.adjoint import transition_fz
 from sunode_torch.entry import lv_problem
 from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
 from sunode_torch.ops.adams_attempt import (
+    _rescale_matrix,
     adams_history_attempt,
     adams_history_attempt_reference,
 )
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
-from sunode_torch.ops.pece_step import PeceSystem, adams_pece_attempt_reference
+from sunode_torch.ops.pece_step import PeceSystem, _tables_header, adams_pece_attempt_reference
 from test_torch_adams_batched import problems  # noqa: F401  (the shared fixture)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -210,3 +212,16 @@ def test_whole_solve_goes_through_the_wrapper_and_matches_jax(problems, monkeypa
     assert (tres.status == 0).all()
     np.testing.assert_array_equal(tres.stats["n_steps"].numpy(), np.asarray(jres.stats["n_steps"]))
     np.testing.assert_allclose(tres.ys.numpy(), np.asarray(jres.ys), rtol=1e-8)
+
+
+@pytest.mark.parametrize("kab", [9, 11])
+def test_emitted_u_table_is_the_plain_rescale_u(kab):
+    """The kernel's constant U = R(1) (the generated tables header's
+    PECE_U) is the plain rescale's U, bit for bit, signed zeros included."""
+    line = next(ln for ln in _tables_header().splitlines() if "PECE_U[" in ln)
+    n = int(re.search(r"PECE_U\[(\d+)\]", line).group(1))
+    body = line.split("=", 1)[1]
+    emitted = np.array([float(v) for v in re.findall(r"-?[0-9.e+-]+", body)]).reshape(n, n)
+    k = kab - 2
+    U = _rescale_matrix(torch.ones(1, dtype=torch.float64), torch.tensor([k]), k)[..., 0]
+    assert np.array_equal(emitted[:k, :k].view(np.int64), U.numpy().view(np.int64))

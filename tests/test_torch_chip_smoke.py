@@ -174,3 +174,37 @@ def test_phase_8_bookkeeping():
     # 1,024 slots and the tail, quintic rows of 3,000 states: 18.9 GB at 256 lanes
     assert cs.sir_table_bytes("hermite", 256) == 8 * 1025 * 9001 * 256
     assert cs.sir_table_bytes("resolve", 1024) == 0
+
+
+def test_history_cost_builds_the_tables_once_a_lane():
+    """The history attempt's operations: R(fac) once a lane (3 p (p - 1) + p),
+    U not at all, each row 4 p^2 for applying both; still bytes-bound at
+    phase 3c's width and deepest order."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.symode import cuda_codegen
+
+    cs = _chip_smoke()
+    forward = cuda_codegen.forward_system(lv_problem())
+    assert cs.rhs_flops(forward) == 9
+    x = {"DF": torch.zeros((9, 2, 2), dtype=torch.float64),
+         "p": torch.tensor([1, 3], dtype=torch.int32),
+         "gamma_star_abs": torch.zeros(14, dtype=torch.float64)}
+    # per lane 1 and 21 (R), per row 41 and 83; two sweeps of (9 + 12) and
+    # one; the final evaluation and the lane's scalars 2 x 25
+    assert cs.history_cost(forward, x, torch.tensor([1, 2])) == (1332, 383)
+    transition = cuda_codegen.transition_system(lv_problem())
+    x = cs.history_inputs(transition, cs.B_MAIN, 1, "cpu")
+    x["p"] = torch.full_like(x["p"], cs.P_MAX)
+    nbytes, flops = cs.history_cost(transition, x, torch.full_like(x["p"], 4))
+    assert cs.bound(nbytes, flops)["bound_by"] == "bytes"
+
+
+def test_phase_6_profiled_horizon():
+    """Phase 6 profiles a quarter of the horizon: the leading observation
+    times at the same spacing."""
+    cs = _chip_smoke()
+    tvals = torch.linspace(1.0, 10.0, 21, dtype=torch.float64)
+    short = cs.leading_times(tvals, cs.PROFILED_HORIZON)
+    assert cs.PROFILED_HORIZON == 0.25
+    assert torch.equal(short, tvals[:4]) and float(short[-1]) == pytest.approx(2.35)
+    assert torch.equal(cs.leading_times(tvals, 1.0), tvals)

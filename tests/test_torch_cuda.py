@@ -85,21 +85,23 @@ def _system(kind):
     )
 
 
-def _case(system, device, seed):
+def _case(system, device, seed, kab=9, width=B):
+    """Seeded inputs of one PECE attempt at history depth ``kab`` over
+    ``width`` lanes, orders 1..kab-3."""
     rng = np.random.default_rng(seed)
-    KAB, n, nz = 9, system.n, system.nz
+    KAB, n, nz = kab, system.n, system.nz
     f64 = dict(dtype=torch.float64, device=device)
-    DF = rng.standard_normal((KAB, nz, B)) * (0.5 ** np.arange(KAB))[:, None, None]
-    params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (1 + 0.1 * rng.standard_normal((4, B)))
+    DF = rng.standard_normal((KAB, nz, width)) * (0.5 ** np.arange(KAB))[:, None, None]
+    params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (1 + 0.1 * rng.standard_normal((4, width)))
     n_stage = system.device.n_p - 4  # a staged y(t) after the problem's parameters
-    params = np.concatenate([params, rng.uniform(0.5, 12.0, (n_stage, B))])
+    params = np.concatenate([params, rng.uniform(0.5, 12.0, (n_stage, width))])
     return (
-        torch.as_tensor(rng.uniform(0.0, 10.0, B), **f64),
-        torch.as_tensor(10.0 ** rng.uniform(-6, -2, B), **f64),
-        torch.as_tensor(rng.integers(1, 7, B), dtype=torch.int32, device=device),
-        torch.as_tensor(rng.uniform(size=B) < 0.9, device=device),
+        torch.as_tensor(rng.uniform(0.0, 10.0, width), **f64),
+        torch.as_tensor(10.0 ** rng.uniform(-6, -2, width), **f64),
+        torch.as_tensor(rng.integers(1, kab - 2, width), dtype=torch.int32, device=device),
+        torch.as_tensor(rng.uniform(size=width) < 0.9, device=device),
         torch.as_tensor(DF, **f64),
-        torch.as_tensor(1.0 + rng.uniform(0.2, 1.0, (nz, B)), **f64),
+        torch.as_tensor(1.0 + rng.uniform(0.2, 1.0, (nz, width)), **f64),
         torch.as_tensor(params, **f64),
         torch.full((nz,), 1e-8, **f64),
         torch.full((nz,), 1e-7, **f64),
@@ -135,11 +137,11 @@ def test_kernel_refuses_bad_inputs(cuda):
         adams_pece_attempt(no_device, *_case(system, cuda, 1))
 
 
-def _history_case(system, device, seed):
+def _history_case(system, device, seed, kab=9, width=B):
     """_case plus the step ratio (log-uniform in [0.2, 2]), |gamma*|, the
-    error weights and P_MAX = 6 (KAB = 9), in the history attempt's order."""
+    error weights and P_MAX = kab - 3, in the history attempt's order."""
     t_new, h, p, active, DF, z_prev, params, atol_z, rtol_z, tol, maxiter = _case(
-        system, device, seed
+        system, device, seed, kab, width
     )
     rng = np.random.default_rng(100 + seed)
     f64 = dict(dtype=torch.float64, device=device)
@@ -147,28 +149,76 @@ def _history_case(system, device, seed):
     v_err = (np.full(n, 1.0 / n) if nz == n else
              np.concatenate([np.full(n, 0.5 / n), np.full(nz - n, 0.5 / (nz - n))]))
     return [
-        t_new, h, torch.as_tensor(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B)), **f64),
+        t_new, h, torch.as_tensor(np.exp(rng.uniform(np.log(0.2), np.log(2.0), width)), **f64),
         p, active, DF, z_prev, params, atol_z, rtol_z,
         torch.as_tensor(np.abs(_GAMMA_STAR), **f64), torch.as_tensor(v_err, **f64),
-        tol, maxiter, 6,
+        tol, maxiter, kab - 3,
     ]
 
 
-@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
-def test_history_kernel_matches_plain(cuda, kind):
-    system = _system(kind)
-    args = _history_case(system, cuda, 2)
+HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3")
+
+
+def _history_against_plain(system, args, lanes=None):
+    """One launch of the history kernel against the plain version on
+    ``args``, on every lane or on the ``lanes`` mask's; returns the kernel's
+    result."""
     before = adams_history_attempt.launches
     got = adams_history_attempt(system, *args)
     ref = adams_history_attempt_reference(system, *args)
     torch.cuda.synchronize()
     assert adams_history_attempt.launches == before + 1
+    lanes = slice(None) if lanes is None else lanes
     # the card's plain version divides by a scalar as a multiply by its
     # reciprocal; FMA contraction in the corrector; the RHS's own rounding
-    for name in ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3"):
-        a, b = getattr(got, name), getattr(ref, name)
+    for name in HISTORY_FIELDS:
+        a, b = getattr(got, name)[..., lanes], getattr(ref, name)[..., lanes]
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
-    assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+    assert torch.equal(got.conv[lanes], ref.conv[lanes])
+    assert torch.equal(got.niter[lanes], ref.niter[lanes])
+    return got
+
+
+@pytest.mark.parametrize("kab", [9, 11])
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
+def test_history_kernel_matches_plain(cuda, kind, kab):
+    system = _system(kind)
+    _history_against_plain(system, _history_case(system, cuda, 2, kab))
+
+
+@pytest.mark.parametrize("order", ["one", "P_MAX"])
+@pytest.mark.parametrize("kab", [9, 11])
+def test_history_kernel_at_one_order_in_every_lane(cuda, kab, order):
+    """Every lane at p = 1 (no rescale), or every lane at the deepest order
+    (the whole R and U tables)."""
+    system = _system("transition")
+    args = _history_case(system, cuda, 5, kab)
+    args[3] = torch.full_like(args[3], 1 if order == "one" else kab - 3)
+    _history_against_plain(system, args)
+
+
+@pytest.mark.parametrize("width", [5, 1000])
+def test_history_kernel_partial_lane_tiles(cuda, width):
+    """Fewer lanes than one tile of 32, and a ragged last tile."""
+    system = _system("resolve")
+    _history_against_plain(system, _history_case(system, cuda, 6, 11, width))
+
+
+@pytest.mark.parametrize("kab", [9, 11])
+def test_history_kernel_poisons_lanes_outside_the_history(cuda, kab):
+    """Lanes at p = 0 and p = KAB - 1 come back NaN in every output row,
+    not converged, with no sweep; the other lanes as the plain version."""
+    system = _system("transition")
+    args = _history_case(system, cuda, 7, kab)
+    bad = torch.zeros(B, dtype=torch.bool, device=cuda)
+    bad[3::17] = True
+    args[3] = args[3].clone()
+    args[3][3::34] = 0
+    args[3][20::34] = kab - 1
+    got = _history_against_plain(system, args, ~bad)
+    for name in HISTORY_FIELDS:
+        assert torch.isnan(getattr(got, name)[..., bad]).all(), name
+    assert not got.conv[bad].any() and (got.niter[bad] == 0).all()
 
 
 def test_history_kernel_refuses_bad_inputs(cuda):
