@@ -1048,14 +1048,7 @@ def checkpointed_phase(smi) -> None:
     # share: the same width and options over a shorter horizon, which spares
     # the profiler most of a full step's records
     short = leading_times(grad_step.tvals, PROFILED_HORIZON)
-
-    def profiled_step():
-        y = y0s_t.detach().requires_grad_(True)
-        p = p_subs_t.detach().requires_grad_(True)
-        ys = grad_step.solve(0.0, y, p, grad_step.p_fix, short)
-        torch.autograd.grad(torch.sum(ys**2), (y, p))
-
-    prof = device_kernels_per_attempt(profiled_step, attempts)
+    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t, tvals=short), attempts)
     log(
         f"[checkpointed device kernels per attempt, profiled step over t <= {float(short[-1])} "
         f"({len(short)} of {len(grad_step.tvals)} observation times)] {prof['per_attempt']:.1f} "

@@ -1,19 +1,19 @@
 """The history-attempt kernel against another version of itself, on the card.
 
-    python3 sunode_torch/experiments/history_ab.py [--old-root DIR] [--variant DEFS ...]
+    python3 history_ab.py [--old-root DIR] [--phase-clocks]
 
-Builds ``csrc/adams_attempt.cu`` for the five systems ``chip_smoke.py``
-phase 3c holds against the plain version (the LV forward and transition
-systems at history depth 9; the forward, 'resolve' and staged-adjoint
-systems at depth 11), and beside each build:
+Builds ``sunode_torch/csrc/adams_attempt.cu`` for the five systems
+``chip_smoke.py`` phase 3c holds against the plain version (the LV forward
+and transition systems at history depth 9; the forward, 'resolve' and
+staged-adjoint systems at depth 11), and beside each build:
 
   * ``--old-root DIR``: the same file of another checkout (unpack the parent
-    with ``git archive`` into a directory ``.gitignore`` lists);
-  * ``--variant DEFS``: this tree's source with extra compile-time defines,
-    comma-separated (``ADAMS_ROWS=2,ADAMS_PHASE_CLOCKS``), once per flag;
-    a variant with ``ADAMS_PHASE_CLOCKS`` also traces the kernel by phase
-    (loads and R, rows, PECE, update, norms): the mean cycles a block spends
-    in each over 20 launches, at each of the three order settings.
+    with ``git archive`` into a directory ``.gitignore`` lists), whose
+    ``adams_attempt_launch`` takes the same arguments;
+  * ``--phase-clocks``: this tree's source built with ``ADAMS_PHASE_CLOCKS``,
+    which also traces the kernel by phase (loads and R, rows, PECE, update,
+    norms): the mean cycles a block spends in each over 20 launches, at each
+    of the three order settings.
 
 On phase 3c's inputs (``chip_smoke.history_inputs``, the same seeds, and
 the same inputs with every lane at p = 1 and at p = P_MAX) every other
@@ -29,12 +29,12 @@ build and version, and writes every number to
 from __future__ import annotations
 
 import argparse
+import copy
 import json
-import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+ROOT = Path(__file__).resolve().parent
 SAME_BOUND = 1e-14  # FMA contraction only: the rescale is rounded op by op in both
 
 
@@ -96,45 +96,60 @@ def _phase_cycles(kernel, launch, reps=20) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-root", default=None)
-    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--phase-clocks", action="store_true")
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT))
 
     import torch
 
     import chip_smoke as cs
     from sunode_torch.experiments.exp_pece2d import device_us
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
-    from sunode_torch.ops.adams_attempt import _CSRC, _AttemptKernel
+    from sunode_torch.ops._nvcc_build import build_library
+    from sunode_torch.ops.adams_attempt import _AttemptKernel
+    from sunode_torch.ops.pece_step import _tables_header
 
     if not torch.cuda.is_available():
         raise SystemExit("history_ab: no CUDA device")
     _, smi = cs.check_device()
-    versions = {"default": (_CSRC, ())}
+
+    def old_build(ds, kab):
+        return build_library(
+            f"adams_attempt_{ds.name}_kab{kab}_old",
+            Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu",
+            headers={"pece_rhs.h": ds.source, "pece_tables.h": _tables_header()},
+            defines=(f"ADAMS_KAB={kab}",))
+
+    def bound_as(kernel, built):
+        """``kernel``'s wrapper on another build of the same C entry point."""
+        k = copy.copy(kernel)
+        for fn in ("adams_attempt_launch", "adams_attempt_error_string"):
+            ours, theirs = getattr(kernel._lib, fn), getattr(built.lib, fn)
+            theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
+        k._lib, k.build_log, k.build_seconds, k.lib_path = (
+            built.lib, built.log, built.seconds, built.path)
+        return k
+
+    versions = {"default": _AttemptKernel}
     if args.old_root:
-        versions["old"] = (Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu", ())
-    for v in args.variant:
-        versions[v] = (_CSRC, tuple(v.split(",")))
+        versions["old"] = old_build
+    if args.phase_clocks:
+        versions["ADAMS_PHASE_CLOCKS"] = lambda ds, kab: _AttemptKernel(
+            ds, kab, defines=("ADAMS_PHASE_CLOCKS",))
 
     builds = _builds(cs)
     with ThreadPoolExecutor(len(builds) * len(versions)) as pool:
         futures = {
-            (label, name): pool.submit(_AttemptKernel, ds, p_max + 3, src, defs)
-            for label, ds, p_max, _, _ in builds for name, (src, defs) in versions.items()
+            (label, name): pool.submit(make, ds, p_max + 3)
+            for label, ds, p_max, _, _ in builds for name, make in versions.items()
         }
-        kernels = {}
-        for (label, name), f in futures.items():
-            try:
-                kernels[(label, name)] = k = f.result()
-            except RuntimeError as e:  # a variant this system refuses (#error)
-                if name == "default":
-                    raise
-                cs.log(f"[build {label} | {name}] refused: {str(e).splitlines()[-1]}")
-                continue
-            ptxas = [ln.strip() for ln in k.build_log.splitlines()
-                     if "registers" in ln or "spill" in ln]
-            cs.log(f"[build {label} | {name}] {k.build_seconds:.2f} s; "
-                   f"sass_instructions={cs.sass_instructions(k.lib_path)}; ptxas: {'; '.join(ptxas)}")
+        kernels = {key: f.result() for key, f in futures.items()}
+    for (label, name), k in kernels.items():
+        if name == "old":
+            kernels[(label, name)] = k = bound_as(kernels[(label, "default")], k)
+        ptxas = [ln.strip() for ln in k.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        cs.log(f"[build {label} | {name}] {k.build_seconds:.2f} s; "
+               f"sass_instructions={cs.sass_instructions(k.lib_path)}; ptxas: {'; '.join(ptxas)}")
 
     results, ok = [], True
     for label, ds, p_max, tol, seed in builds:
@@ -149,7 +164,7 @@ def main(argv=None) -> None:
                 x["newton_tol"], FUNCTIONAL_MAXITER)
 
         row = {"build": label, "smi": smi, "versions": {}}
-        names = [name for name in versions if (label, name) in kernels]
+        names = list(versions)
         for name in names:
             row["versions"][name] = {"checks": {}, "device_us": {}}
             for o, p in orders.items():

@@ -77,9 +77,9 @@
 #endif
 #define ADAMS_K (ADAMS_KAB - 2)  // rows 0..P_MAX of the R(fac)U block
 #define ADAMS_TILE 32            // lanes of a block: one warp per row thread index
-#ifndef ADAMS_ROWS               // threads of a lane; those past PECE_NZ only build R
+// Threads of a lane; those past PECE_NZ only build R.  Four measured fastest
+// in all five builds on an H100: one, two and eight lose in each (PERF.md).
 #define ADAMS_ROWS 4
-#endif
 #define ADAMS_THREADS (ADAMS_TILE * ADAMS_ROWS)
 #define ADAMS_RPT ((PECE_NZ + ADAMS_ROWS - 1) / ADAMS_ROWS)   // history rows a thread holds
 #define ADAMS_CPT ((ADAMS_K + ADAMS_ROWS - 1) / ADAMS_ROWS)   // R columns a thread builds
@@ -88,9 +88,6 @@
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
-#endif
-#if ADAMS_ROWS < 1 || ADAMS_ROWS > 16
-#error "ADAMS_ROWS must lie in [1, 16]"
 #endif
 #if ADAMS_RPT * ADAMS_KAB > 64
 #error "the history columns a thread holds do not fit in its registers"
@@ -122,7 +119,7 @@ __device__ __forceinline__ double div_small(double t, int j) {
 // A trace of the kernel by phase: the cycles from each barrier to the next
 // on thread (0, 0) of a block (loads and R, rows, PECE, update, norms),
 // summed over the blocks of every launch since the last read, and the
-// blocks counted (experiments/history_ab.py).
+// blocks counted (history_ab.py --phase-clocks).
 __device__ unsigned long long adams_phase_cycles[6];
 #define ADAMS_MARK(k)                                                        \
   if (tx == 0 && ty == 0) {                                                  \

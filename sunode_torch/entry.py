@@ -153,7 +153,9 @@ def _lv_grad_step(solve, batch: int, tvals_n: int, device):
     tvals = torch.as_tensor(np.linspace(1.0, 10.0, tvals_n), **f64)
     p_fix = torch.as_tensor(LV_P_FIX, **f64)
 
-    def grad_step(y0s, p_subs):
+    def grad_step(y0s, p_subs, tvals=tvals):
+        """Gradients of sum(ys**2) over the observation times ``tvals``
+        (by default the step's own, ``grad_step.tvals``)."""
         y0s = y0s.detach().requires_grad_(True)
         p_subs = p_subs.detach().requires_grad_(True)
         ys = solve(0.0, y0s, p_subs, p_fix, tvals)

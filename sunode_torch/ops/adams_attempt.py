@@ -164,15 +164,14 @@ def adams_history_attempt_reference(
 # ---------------------------------------------------------------------------
 class _AttemptKernel:
     """One compiled build of ``csrc/adams_attempt.cu`` for one right-hand
-    side and history depth; ``source`` and ``defines`` build another version
-    of it beside this one (``experiments/history_ab.py``)."""
+    side and history depth; ``defines`` adds compile-time defines
+    (``ADAMS_PHASE_CLOCKS``, the trace by phase of ``history_ab.py``)."""
 
-    def __init__(self, system: DeviceSystem, kab: int, source: Path = _CSRC,
-                 defines: tuple[str, ...] = ()):
+    def __init__(self, system: DeviceSystem, kab: int, defines: tuple[str, ...] = ()):
         self.system, self.kab = system, kab
         self.launches = 0
         built = build_library(
-            f"adams_attempt_{system.name}_kab{kab}", source,
+            f"adams_attempt_{system.name}_kab{kab}", _CSRC,
             headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
             defines=(f"ADAMS_KAB={kab}", *defines),
         )

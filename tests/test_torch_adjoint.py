@@ -153,6 +153,23 @@ def test_entry_matches_graft_entry():
     assert stats["forward"]["n_attempts"] > 0 and stats["backward"]["n_attempts"] > 0
 
 
+
+def test_grad_step_over_other_observation_times():
+    """grad_step(y0s, p_subs, tvals=...) is the same step over other times
+    (chip_smoke.py's phase 6 profiles the checkpointed step, which shares
+    this body, over the leading quarter)."""
+    step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=9, rtol=1e-6, device="cpu")
+    short = step.tvals[:3]
+    y = y0s.detach().requires_grad_(True)
+    p = p_subs.detach().requires_grad_(True)
+    want = torch.autograd.grad(torch.sum(step.solve(0.0, y, p, step.p_fix, short) ** 2), (y, p))
+    got = step(y0s, p_subs, tvals=short)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert step.solve.last_stats["forward"]["n_attempts"] > 0
+    full = step(y0s, p_subs)
+    assert not torch.equal(full[0], got[0])
+
 def test_options_carry_over_field_for_field():
     jfwd, jadj = _jax_options()
     fwd, adj = lv_options(RTOL)

@@ -22,6 +22,19 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in proc.stdout
 
 
+
+def test_history_ab_fails_without_cuda():
+    """history_ab.py (the history kernel against another version, beside
+    chip_smoke.py) imports what it needs and stops without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: history_ab.py would run for real")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "history_ab.py"), "--phase-clocks"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "history_ab: no CUDA device" in proc.stderr
+
 def _chip_smoke():
     import importlib.util
 
