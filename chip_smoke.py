@@ -12,7 +12,10 @@ Phases, one line each; any failure exits non-zero:
      history-attempt kernel at phase 7's depth (adams_max_order 8) for the
      forward, the backsolve ('resolve') and the staged checkpointed
      ('staged_adjoint') systems, and the split attempt's three kernels
-     (csrc/adams_split.cu) at that depth, which do not depend on the problem;
+     (csrc/adams_split.cu) at that depth, which do not depend on the problem,
+     and at the main path's depth (adams_max_order 6) the split kernels and
+     the history-attempt kernel for phase 9's forward-sensitivity systems
+     ('sensitivity' and 'staged_sensitivity');
   3. kernel vs plain: each PECE build against the plain PyTorch version on
      the card at B=10,000, seeded random history, per-lane order 1..6, the
      main path's corrector; normwise relative error <= 1e-12 on y_it, z_new,
@@ -109,7 +112,30 @@ Phases, one line each; any failure exits non-zero:
      inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
      atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
      1e-8 relative;
-  9. the kernel table and the result line.  Each kernel's bound is the
+  9. forward sensitivities and rootfinding on Lotka-Volterra at B=10,000:
+     (a) the 'sensitivity' (the augmented state [y | vec S]) and
+     'staged_sensitivity' (vec S, y staged after the parameters) builds
+     against their plain versions as in phase 3c, and the split kernels as
+     in phase 3d, timed as at its first shape, on the sensitivity block (4
+     rows, B=10,000, history depth 9) of one attempt of (b)'s Adams
+     staggered solve, its inputs taken where the solve calls the history
+     attempt; the 'staged_sensitivity' build on that attempt too, its
+     error rows held against the terms they are the difference of; (b)
+     ``entry.build_lv_sens``: BDF and
+     Adams staggered at rtol = atol = 1e-9 and Adams simultaneous at rtol
+     1e-8 (bench.py's lv_sens), one timed solve each with every kernel count
+     set to 0 before it (the Adams state block's and the sensitivity block's
+     launches each equal to the attempts; none for BDF) and one profiled
+     over the first tenth of the horizon; status 0 in every lane, lanes
+     0-15 inside tests/golden/lv_sens.npz's gate (ys rtol 5e-6 at rtol
+     1e-8) and lanes 0-3 against the CPU within 1e-8; (c)
+     ``entry.build_lv_roots`` (the event hares = 9) on both cores: terminal,
+     non-terminal both ways and falling only, each timed with the counts
+     set to 0 before it; lanes 0-15 with the CPU's n_roots, directions and
+     root times (1e-8), |g| at every recorded root <= 9e-6, every terminal
+     lane with a root stopped at its first root with status 5 (a lane whose
+     hares stay above 9 on [0, 10] succeeds);
+  10. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read) over 3.35 TB/s and its f64 operations
      over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
@@ -140,6 +166,7 @@ KERNEL_SOURCE_2D = "sunode_torch/csrc/pece_2d.cu"
 KERNEL_SOURCE_ATTEMPT = "sunode_torch/csrc/adams_attempt.cu"
 P_MAX = 6  # adams_max_order of the main path: history depth KAB = P_MAX + 3 = 9
 P_MAX_ADAMS = 8  # phase 7's adams_max_order (the default): KAB = 11
+SENS_KINDS = ("sensitivity", "staged_sensitivity")  # phase 9's builds, at KAB = P_MAX + 3
 ADAMS_MODES = ("resolve", "hermite", "polynomial")
 ADAMS_RTOL = 1e-8  # phase 7's tolerances, forward and backward, every row
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
@@ -252,18 +279,20 @@ def bound(nbytes: float, flops: float) -> dict:
     )
 
 
-def per_call_times(call, z, graph=True) -> dict:
+def per_call_times(call, z, kernel=None) -> dict:
     """Per-call times of ``call(z_prev) -> (z_new, ...)`` at ``z``:
-    graph-replayed (20 chained calls in one CUDA graph; None with
-    ``graph=False``), on the stream (CUDA events, host cost included) and
-    device-busy (profiler), microseconds.  The plain versions copy their
-    coefficient tables from the host on every call, which a graph cannot
-    capture."""
+    graph-replayed (20 chained calls in one CUDA graph), on the stream (CUDA
+    events, host cost included) and device-busy (profiler, its sessions held
+    to ``kernel``'s records: :func:`exp_pece2d.device_us`), microseconds.
+    ``kernel`` names the hand-written kernel ``call`` launches; without it
+    ``call`` is a plain version, which copies its coefficient tables from
+    the host on every call, which a graph cannot capture (graph None)."""
     from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us, graph_us
 
     return dict(
-        graph=graph_us(call, z) if graph else None,
-        stream=1e3 * cuda_ms(lambda: call(z)), device=device_us(lambda: call(z)),
+        graph=graph_us(call, z) if kernel else None,
+        stream=1e3 * cuda_ms(lambda: call(z)),
+        device=device_us(lambda: call(z), kernel=kernel),
     )
 
 
@@ -318,7 +347,8 @@ def compare_kernel(kind, device_system, fz, seed):
     niter_same = bool(torch.equal(got.niter, ref.niter))
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
     call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
-    t_k, t_p = per_call_times(call_k, x["z_prev"]), per_call_times(call_p, x["z_prev"], False)
+    t_k = per_call_times(call_k, x["z_prev"], "pece_attempt_kernel")
+    t_p = per_call_times(call_p, x["z_prev"])
     log(
         f"[kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
@@ -369,6 +399,7 @@ def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
 
 
 HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0")
+HISTORY_KERNEL = "adams_attempt_kernel"  # the history attempt's kernel, as the profiler names it
 
 
 def history_cost(device_system, x, niter) -> tuple[int, int]:
@@ -437,10 +468,12 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
         abs_err = max(abs_err, err_q)
         ok_p[q] = (max(rel_q.values()), bool(torch.equal(got_q.conv, ref_q.conv)
                                               and torch.equal(got_q.niter, ref_q.niter)))
-        at_p[q] = device_us(lambda: adams_history_attempt(system, *args(x["z_prev"], p_q)))
+        at_p[q] = device_us(lambda: adams_history_attempt(system, *args(x["z_prev"], p_q)),
+                            kernel=HISTORY_KERNEL)
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
     call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
-    t_k, t_p = per_call_times(call_k, x["z_prev"]), per_call_times(call_p, x["z_prev"], False)
+    t_k = per_call_times(call_k, x["z_prev"], HISTORY_KERNEL)
+    t_p = per_call_times(call_p, x["z_prev"])
     nbytes, flops = history_cost(device_system, x, got.niter)
     entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
                  **bound(nbytes, flops))
@@ -487,6 +520,8 @@ def split_system(kind, R=SIR_R):
     from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz
     from sunode_torch.entry import sir_problem
 
+    if kind == "staged_sensitivity":  # phase 9: Lotka-Volterra's sensitivity block
+        return lv_sens_fz(kind), 4, 4
     problem, n = sir_problem(R), 3 * R
     if kind == "forward":
         return problem.make_rhs(), n, n
@@ -521,6 +556,8 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
     from sunode_torch.ops.adams import _GAMMA_STAR
     from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
 
+    if kind == "staged_sensitivity":
+        return lv_sens_split_inputs(B, device)
     _, n, nz = split_system(kind, R)
     rng = np.random.default_rng(seed)
     KAB = P_MAX_ADAMS + 3
@@ -551,6 +588,116 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
         gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(v_err),
         newton_tol=newton_tol_for(BDFOptions(rtol=1e-8, atol=1e-10), 1e-8, torch.float64),
     )
+
+
+def lv_sens_fz(kind):
+    """The plain right-hand side of one of phase 9's emitted systems, as the
+    Adams core composes it from Lotka-Volterra's ``make_sensitivity_rhs``:
+    'sensitivity' over ``[y | vec S]``, 'staged_sensitivity' over ``vec S``
+    with y in the parameter rows after the four parameters."""
+    import torch
+
+    from sunode_torch.entry import lv_problem
+
+    problem = lv_problem()
+    rhs, sens = problem.make_rhs(), problem.make_sensitivity_rhs()
+    n, k, n_p = 2, 2, 4
+    if kind == "sensitivity":
+        return lambda t, z, p: torch.cat(
+            [rhs(t, z[:n], p), sens(t, z[:n], z[n:].reshape(k, n, -1), p).reshape(k * n, -1)])
+    return lambda t, S, par: sens(t, par[n_p:], S.reshape(k, n, -1), par[:n_p]).reshape(k * n, -1)
+
+
+SENS_SPLIT_ATTEMPT = 300  # phase 9(a)'s split inputs: this attempt of the Adams staggered solve
+
+
+class _Captured(Exception):
+    """Carries one attempt's inputs out of the solve that made them."""
+
+
+def lv_sens_split_inputs(B, device):
+    """Phase 9(a)'s split-stage inputs: those of the sensitivity block in
+    attempt :data:`SENS_SPLIT_ATTEMPT` of ``entry.build_lv_sens(B, 'ADAMS',
+    'staggered')`` (4 rows ``vec S``, y_new staged after the 4 parameters,
+    history depth KAB = P_MAX + 3 = 9), taken where the Adams core calls the
+    history attempt on its 'staged_sensitivity' system, and the solve
+    stopped there: the history, orders, steps, step ratios, gate,
+    tolerances and error weights of a real solve of the chains."""
+    from sunode_torch.entry import build_lv_sens
+    from sunode_torch.ops import adams_batched
+
+    names = ("t_new", "h", "pre_factor", "p", "active", "DF", "z_prev", "params", "atol_z",
+             "rtol_z", "gamma_star_abs", "v_err", "newton_tol")
+    attempt = adams_batched.adams_history_attempt
+    seen = [0]
+
+    def spy(system, *args):
+        if system.nz == 4:  # the sensitivity block's call; the state's has 2 rows
+            seen[0] += 1
+            if seen[0] == SENS_SPLIT_ATTEMPT:
+                raise _Captured(dict(zip(names, args)))
+        return attempt(system, *args)
+
+    solve, inputs = build_lv_sens(B, "ADAMS", "staggered", device=device)
+    adams_batched.adams_history_attempt = spy
+    try:
+        solve(*inputs)
+    except _Captured as captured:
+        return captured.args[0]
+    finally:
+        adams_batched.adams_history_attempt = attempt
+    raise RuntimeError(f"the solve ended before its attempt {SENS_SPLIT_ATTEMPT}")
+
+
+def history_on_attempt(device_system, x) -> float:
+    """Phase 9(a): the 'staged_sensitivity' history build against its plain
+    version on the attempt of :func:`lv_sens_split_inputs`, inputs it meets
+    in phase 9(b); returns the worst max|a - b|.  DF_resc, DF_upd, z_pred and
+    z_new are held normwise to REL_BOUND, conv and niter equal.  The error
+    row err0 = |gamma*_p| h (f - f_ex) is, where the corrector converged, a
+    difference far under f: the kernel's z_pred and iterates may round an
+    ulp from the plain version's (nvcc contracts its sums of products into
+    FMAs), which moves err0 by far more than 1e-12 of itself.  So err0 is
+    held to REL_BOUND normwise against |gamma*_p| h f_ex, the terms it is
+    the difference of, and err3 lane by lane against those terms' weighted
+    norm; both errors against themselves are logged."""
+    import torch
+
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.adams_attempt import (
+        adams_history_attempt,
+        adams_history_attempt_reference,
+    )
+    from sunode_torch.ops.pece_step import PeceSystem
+
+    system = PeceSystem(fz=lv_sens_fz("staged_sensitivity"), n=device_system.n,
+                        nz=device_system.nz, device=device_system)
+    args = (x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
+            x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
+            x["newton_tol"], FUNCTIONAL_MAXITER, x["DF"].shape[0] - 3)
+    got = adams_history_attempt(system, *args)
+    ref = adams_history_attempt_reference(system, *args)
+    torch.cuda.synchronize()
+    rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_pred", "z_new"))
+    own, _ = split_errors({"err0": (got.err0, ref.err0)}, {"err3": (got.err3, ref.err3)})
+    p = x["p"].long()
+    below_p = torch.arange(ref.DF_resc.shape[0], device=p.device)[:, None, None] < p
+    f_ex = (ref.DF_resc * below_p).sum(dim=0)
+    terms = x["gamma_star_abs"][p] * x["h"] * f_ex.abs()
+    w = 1.0 / (x["atol_z"][:, None] + x["rtol_z"][:, None] * ref.z_pred.abs())
+    terms_norm = torch.sqrt(((terms * w) ** 2 * x["v_err"][:, None]).sum(dim=0))
+    rel["err0/terms"] = float((got.err0 - ref.err0).abs().max() / terms.max())
+    rel["err3/terms"] = float(((got.err3 - ref.err3).abs() / terms_norm).max())
+    flags = bool(torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter))
+    log(f"[history-kernel-vs-plain staged_sensitivity on the attempt] B={x['p'].shape[0]} "
+        + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
+        + " (against themselves: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own.items())
+        + f") flags_equal={flags} converged={int(got.conv.sum())}/{x['p'].shape[0]}")
+    if not (max(rel.values()) <= REL_BOUND and flags):
+        raise SystemExit("chip_smoke: the staged_sensitivity history kernel disagrees with the "
+                         "plain version on the solve's attempt")
+    return max(abs_err, float((got.err0 - ref.err0).abs().max()),
+               float((got.err3 - ref.err3).abs().max()))
 
 
 def split_costs(x, n) -> dict:
@@ -610,11 +757,12 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     from sunode_torch.ops.pece_step import PeceSystem
 
     x = split_inputs(B, seed, "cuda", R, kind)
+    p_max = x["DF"].shape[0] - 3
     fz, n, nz = split_system(kind, R)
     system = PeceSystem(fz=fz, n=n, nz=nz)
     args = (x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
             x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
-            x["newton_tol"], FUNCTIONAL_MAXITER, P_MAX_ADAMS)
+            x["newton_tol"], FUNCTIONAL_MAXITER, p_max)
     got = sp.adams_split_attempt(system, *args)
     ref = sp.adams_split_attempt_reference(system, *args)
     torch.cuda.synchronize()
@@ -627,7 +775,9 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     niter_same = bool(torch.equal(got.niter, ref.niter))
     shape = f"{kind} nz={nz} n={n} B={B}"
     log(
-        f"[split-kernels-vs-plain attempt {shape}] SIR R={R} KAB={P_MAX_ADAMS + 3} "
+        f"[split-kernels-vs-plain attempt {shape}] "
+        f"{'LV sensitivity block' if kind == 'staged_sensitivity' else f'SIR R={R}'} "
+        f"KAB={p_max + 3} "
         f"row_chunks={-(-nz // sp.CHUNK_ROWS)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
@@ -639,7 +789,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
                          f"stages ({shape})")
 
     stage_in = (x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"], x["atol_z"], x["rtol_z"])
-    pred_k, pred = kernels.predict(*stage_in), sp.split_predict(*stage_in, P_MAX_ADAMS)
+    pred_k, pred = kernels.predict(*stage_in), sp.split_predict(*stage_in, p_max)
     errs = {"predict": split_errors(
         {k: (getattr(pred_k, k), getattr(pred, k)) for k in ("DF_resc", "z_pred", "f_ex", "w_z")},
         {"c_A": (pred_k.c_A, pred.c_A)},
@@ -662,7 +812,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     errs["sweep"] = (sweep_rel, sweep_abs)
     fz_f = fz(x["t_new"], y, x["params"])
     fin_in = (fz_f, pred, state, x["p"], x["h"], x["gamma_star_abs"], x["v_err"], x["newton_tol"])
-    fin_k, fin = kernels.finish(*fin_in), sp.split_finish(*fin_in, P_MAX_ADAMS)
+    fin_k, fin = kernels.finish(*fin_in), sp.split_finish(*fin_in, p_max)
     errs["finish"] = split_errors(
         {k: (getattr(fin_k, k), getattr(fin, k)) for k in ("DF_upd", "z_new", "err0")},
         {"err3": (fin_k.err3, fin.err3)},
@@ -677,67 +827,70 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
         if not (max(rel_s.values()) <= REL_BOUND and same[stage]):
             raise SystemExit(f"chip_smoke: the split {stage} kernel disagrees with its plain "
                              f"stage ({shape})")
-    return dict(x=x, fz=fz, n=n, pred=pred, state=state, fin_in=fin_in, errs=errs, shape=shape)
+    return dict(x=x, fz=fz, n=n, p_max=p_max, pred=pred, state=state, fin_in=fin_in, errs=errs,
+                shape=shape)
 
 
-def split_phase(smi, kernels) -> dict:
+def split_phase(smi, kernels, cases=SPLIT_CASES) -> dict:
     """Phase 3d: the three split kernels against their plain stages on the
-    card at each of phase 8's shapes (:data:`SPLIT_CASES`); returns the
-    kernel-table fields by stage, timed at the forward shape, with the
-    worst error over the shapes."""
+    card at each of phase 8's shapes (:data:`SPLIT_CASES`, or ``cases``);
+    returns the kernel-table fields by stage, timed at the first shape,
+    with the worst error over the shapes."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import device_us
     from sunode_torch.ops import adams_split as sp
 
     table, worst = {}, dict.fromkeys(SPLIT_STAGES, 0.0)
-    for seed, (kind, B) in enumerate(SPLIT_CASES, start=11):
+    for seed, (kind, B) in enumerate(cases, start=11):
         c = compare_split(kind, B, seed, kernels)
         for stage in SPLIT_STAGES:
             worst[stage] = max(worst[stage], c["errs"][stage][1])
-        x, fz, n, pred, state, fin_in = (c[k] for k in ("x", "fz", "n", "pred", "state",
-                                                         "fin_in"))
+        x, fz, n, p_max, pred, state, fin_in = (
+            c[k] for k in ("x", "fz", "n", "p_max", "pred", "state", "fin_in"))
         # per-call times on these inputs: kernel (graph, stream, device) and
-        # plain at the forward shape, the kernel's device time at the others
+        # plain at the first shape, the kernel's device time at the others
+        timed = kind == cases[0][0]
         fz_1 = fz(x["t_new"], pred.z_pred[:n], x["params"])
         calls = {
             "predict": (lambda z: (kernels.predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
                                                    x["atol_z"], x["rtol_z"]).z_pred,),
                         lambda z: (sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], z,
                                                     x["atol_z"], x["rtol_z"],
-                                                    P_MAX_ADAMS).z_pred,),
+                                                    p_max).z_pred,),
                         x["z_prev"]),
             "sweep": (lambda yy: (kernels.sweep(1, fz_1, yy, pred, state, x["newton_tol"], n)[0],),
                       lambda yy: (sp.split_sweep(1, fz_1, yy, pred, state, x["newton_tol"],
                                                  n)[0],),
                       pred.z_pred[:n].clone()),
             "finish": (lambda f: (kernels.finish(f, *fin_in[1:]).z_new,),
-                       lambda f: (sp.split_finish(f, *fin_in[1:], P_MAX_ADAMS).z_new,),
+                       lambda f: (sp.split_finish(f, *fin_in[1:], p_max).z_new,),
                        fin_in[0]),
         }
         costs = split_costs(x, n)
         for stage, (call_k, call_p, z) in calls.items():
             nbytes, flops = costs[stage]
             b = bound(nbytes, flops)
-            if kind == "forward":
-                t_k, t_p = per_call_times(call_k, z), per_call_times(call_p, z, False)
+            if timed:
+                t_k = per_call_times(call_k, z, f"split_{stage}_kernel")
+                t_p = per_call_times(call_p, z)
                 table[stage] = dict(ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3, **b)
                 times = fmt_times("kernel", t_k) + fmt_times("plain", t_p)
                 over = t_k["graph"] / (1e3 * b["bound_ms"])
             else:
-                dev = device_us(lambda: call_k(z))
+                dev = device_us(lambda: call_k(z), kernel=f"split_{stage}_kernel")
                 times = f" kernel_device_us_per_call={fmt_us(dev)}"
                 over = None if dev is None else dev / (1e3 * b["bound_ms"])
             log(
                 f"[split-kernel-times {stage} {c['shape']}]" + times
                 + f" bytes={nbytes} flops={flops} bound_us={1e3 * b['bound_ms']:.3f}"
-                f" ({b['bound_by']}) {'graph' if kind == 'forward' else 'device'}_over_bound="
+                f" ({b['bound_by']}) {'graph' if timed else 'device'}_over_bound="
                 + ("not measured" if over is None else f"{over:.2f}") + f" | {smi}"
             )
         del c, x, pred, state, fin_in, calls, fz_1
         torch.cuda.empty_cache()
     for stage in SPLIT_STAGES:
-        table[stage]["max_abs_err"] = worst[stage]
+        table.setdefault(stage, {})["max_abs_err"] = worst[stage]
     return table
 
 
@@ -1144,19 +1297,8 @@ def adams_modes_phase(smi, counted, history_kernels) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
-        launches = {kind: k.launches for kind, k in history_kernels.items() if k.launches}
-        others = [k.launches for k in counted if k not in history_kernels.values()
-                  and k is not adams_history_attempt]
-        expected = adams_expected_launches(mode, fwd, bwd)
-        log(f"[adams {mode} launches] history-attempt {launches} "
-            f"total={adams_history_attempt.launches} expected={expected}; "
-            f"other kernels {others}")
-        if not (launches == expected and adams_history_attempt.launches == fwd + bwd):
-            raise SystemExit(f"chip_smoke: {mode}: history-attempt launches do not match "
-                             "the attempts run")
-        if any(others):
-            raise SystemExit(f"chip_smoke: {mode}: the path launched the PECE, flat or a split "
-                             "kernel")
+        launches = check_launches(f"adams {mode}", counted, history_kernels,
+                                  adams_expected_launches(mode, fwd, bwd))
         for kind, count in launches.items():
             total[kind] += count
         status = stats["backward"]["status"].cpu().numpy()
@@ -1334,6 +1476,177 @@ def bdf_sens_phase(smi) -> None:
         raise SystemExit("chip_smoke: the CUDA BDF sensitivities disagree with the plain path")
 
 
+def sens_expected_launches(method, mode, attempts) -> dict:
+    """History-attempt launches by system of one phase 9 sensitivity solve:
+    none on the BDF core; on the Adams core one on the forward and one on the
+    'staged_sensitivity' build an attempt staggered, one on the
+    'sensitivity' build simultaneous."""
+    if method == "BDF":
+        return {}
+    if mode == "staggered":
+        return {"forward": attempts, "staged_sensitivity": attempts}
+    return {"sensitivity": attempts}
+
+
+def check_launches(label, counted, by_system, expected) -> dict:
+    """The launches by system since the counts were set to 0, required to
+    equal ``expected``, with the history attempt's total equal to their sum
+    and no other kernel launched; returns them."""
+    from sunode_torch.ops.adams_attempt import adams_history_attempt
+
+    launches = {kind: k.launches for kind, k in by_system.items() if k.launches}
+    others = [k.launches for k in counted if k not in by_system.values()
+              and k is not adams_history_attempt]
+    log(f"[{label} launches] history-attempt {launches} total={adams_history_attempt.launches} "
+        f"expected={expected}; other kernels {others}")
+    if not (launches == expected and adams_history_attempt.launches == sum(expected.values())):
+        raise SystemExit(f"chip_smoke: {label}: history-attempt launches do not match the attempts")
+    if any(others):
+        raise SystemExit(f"chip_smoke: {label}: the path launched another kernel")
+    return launches
+
+
+def lv_sens_phase(smi, counted, by_system) -> dict:
+    """Phase 9(b): forward sensitivities of Lotka-Volterra at B=10,000 in
+    every mode of ``entry.build_lv_sens``; returns the history-attempt
+    launches by system."""
+    import torch
+
+    from sunode_torch.entry import LV_SENS_MODES, build_lv_sens
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "lv_sens.npz"))
+    total = {}
+    for method, mode in LV_SENS_MODES:
+        label = f"sens {method} {mode}"
+        solve, (y0s, ps, tvals) = build_lv_sens(B_MAIN, method, mode, device="cuda")
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(y0s, ps, tvals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        attempts = res.stats["n_attempts"]
+        launches = check_launches(label, counted, by_system,
+                                  sens_expected_launches(method, mode, attempts))
+        for kind, count in launches.items():
+            total[kind] = total.get(kind, 0) + count
+        # kernels per attempt and the busy share over the first tenth of
+        # the horizon (its attempts are a third of the solve's)
+        short = leading_times(tvals, SENS_PROFILED_HORIZON)
+        held = []
+        prof = device_kernels_per_attempt(lambda: held.append(solve(y0s, ps, short)),
+                                          lambda: held[0].stats["n_attempts"])
+        log(
+            f"[{label} solve] B={B_MAIN} rtol={solve.options.rtol} wall_s={wall:.4f} "
+            f"attempts={attempts} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
+            f"n_rhs_evals max={int(res.stats['n_rhs_evals'].max())}"
+            f" | profiled over t <= {float(short[-1])}: {prof['per_attempt']:.1f} device kernels "
+            f"per attempt ({prof['kernels']} kernels, {prof['copies']} copies and fills, "
+            f"{prof['attempts']} attempts) host_ms_per_attempt_under_profiler="
+            f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} device_busy_s={prof['busy_s']:.4f} "
+            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} | {smi}"
+        )
+        ys, sens = res.ys.cpu().numpy(), res.sens.cpu().numpy()
+        ok = int((res.status == 0).sum())
+        finite = int((np.isfinite(ys).all(axis=(1, 2))
+                      & np.isfinite(sens).all(axis=(1, 2, 3))).sum())
+        if not (ok == finite == B_MAIN):
+            raise SystemExit(f"chip_smoke: {label} failed ({ok} with status 0, {finite} finite, "
+                             f"of {B_MAIN})")
+        np.testing.assert_allclose(ys[:16], g["ys"], rtol=5e-6 if mode == "simultaneous" else 1e-6,
+                                   atol=1e-8)
+        np.testing.assert_allclose(sens[:16], g["sens"], rtol=2e-4, atol=5e-4)
+        t0 = time.perf_counter()
+        cpu_solve, _ = build_lv_sens(4, method, mode, device="cpu")
+        cpu = cpu_solve(y0s[:4].cpu(), ps[:4].cpu(), tvals.cpu())
+        plain_rel = max(floored_rel(ys[:4], cpu.ys.numpy(), 1e-9),
+                        floored_rel(sens[:4], cpu.sens.numpy(), 1e-9))
+        log(
+            f"[{label} check] status 0 and finite in {ok}/{B_MAIN} lanes; golden_max_abs "
+            f"ys={np.abs(ys[:16] - g['ys']).max():.3e} "
+            f"sens={np.abs(sens[:16] - g['sens']).max():.3e}"
+            f" (gates passed) cuda_vs_cpu_lanes_0_3_max_rel={plain_rel:.3e} (bound 1e-8, floored "
+            f"at 1e-9; the CPU took {time.perf_counter() - t0:.2f} s)"
+        )
+        if not ((cpu.status == 0).all() and plain_rel <= 1e-8):
+            raise SystemExit(f"chip_smoke: {label} on the card disagrees with the CPU")
+        log_elapsed(f"9b, {method} {mode}")
+    return total
+
+
+SENS_PROFILED_HORIZON = 0.1  # phase 9(b)'s profiled solves: t <= 1 of [0, 10]
+ROOT_RUNS = ((True, None), (False, None), (False, [-1]))  # phase 9(c): terminal, directions
+
+
+def lv_roots_phase(smi, counted, by_system) -> dict:
+    """Phase 9(c): the event hares = 9 at B=10,000 on both cores, terminal
+    and not; returns the history-attempt launches by system."""
+    import torch
+
+    from sunode_torch.entry import build_lv_roots
+
+    total = {}
+    for method in ("BDF", "ADAMS"):
+        for terminal, directions in ROOT_RUNS:
+            label = (f"roots {method} " + ("terminal" if terminal else
+                                           f"non-terminal directions={directions or [0]}"))
+            solve, (y0s, ps, tvals) = build_lv_roots(B_MAIN, method, terminal, device="cuda")
+            for k in counted:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve(y0s, ps, tvals, root_directions=directions)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            attempts = res.stats["n_attempts"]
+            expected = {"forward": attempts} if method == "ADAMS" else {}
+            for kind, count in check_launches(label, counted, by_system, expected).items():
+                total[kind] = total.get(kind, 0) + count
+            st = {k: res.stats[k].cpu().numpy() for k in ("n_roots", "roots_t", "roots_y",
+                                                          "roots_found")}
+            status, ys = res.status.cpu().numpy(), res.ys.cpu().numpy()
+            hit = np.isfinite(st["roots_t"])
+            g_max = float(np.abs(st["roots_y"][..., 0][hit] - 9.0).max())
+            log(f"[{label} solve] B={B_MAIN} wall_s={wall:.4f} attempts={attempts} "
+                f"host_ms_per_attempt={1e3 * wall / attempts:.3f} n_roots min/max="
+                f"{st['n_roots'].min()}/{st['n_roots'].max()} "
+                f"lanes_with_a_root={int(hit[:, 0].sum())}"
+                f" max_abs_g_at_roots={g_max:.3e} (bound 9e-6) | {smi}")
+            if not g_max <= 1e-6 * 9.0:
+                raise SystemExit(f"chip_smoke: {label}: a recorded root is off the threshold")
+            if terminal:
+                # each lane with a root stopped there: status 5, one root,
+                # nothing emitted past it and everything before it; a lane
+                # whose hares stay above 9 on the horizon succeeds (status 0)
+                t_obs = tvals.cpu().numpy()
+                after = t_obs[None, :] > st["roots_t"][:, :1]  # none where no root
+                emitted = np.isfinite(ys).all(axis=2)
+                if not ((status == np.where(hit[:, 0], 5, 0)).all()
+                        and (st["n_roots"] == hit[:, 0]).all() and (emitted == ~after).all()):
+                    raise SystemExit(f"chip_smoke: {label}: a lane did not stop at its first root")
+            elif not (status == 0).all():
+                raise SystemExit(f"chip_smoke: {label}: {int((status != 0).sum())} lanes failed")
+            t0 = time.perf_counter()
+            cpu_solve, _ = build_lv_roots(16, method, terminal, device="cpu")
+            cpu = cpu_solve(y0s[:16].cpu(), ps[:16].cpu(), tvals.cpu(), root_directions=directions)
+            c_st = {k: cpu.stats[k].numpy() for k in ("n_roots", "roots_t", "roots_found")}
+            c_hit = np.isfinite(c_st["roots_t"])
+            same = (np.array_equal(st["n_roots"][:16], c_st["n_roots"])
+                    and np.array_equal(st["roots_found"][:16], c_st["roots_found"])
+                    and np.array_equal(hit[:16], c_hit)
+                    and np.array_equal(status[:16], cpu.status.numpy()))
+            t_rel = float(np.max(np.abs(st["roots_t"][:16][c_hit] - c_st["roots_t"][c_hit])
+                                 / np.abs(c_st["roots_t"][c_hit])))
+            log(f"[{label} check] lanes 0-15 against the CPU: n_roots, directions and statuses "
+                f"equal={same} root_t_max_rel={t_rel:.3e} (bound 1e-8; the CPU took "
+                f"{time.perf_counter() - t0:.2f} s for {cpu.stats['n_attempts']} attempts)")
+            if not (same and t_rel <= 1e-8):
+                raise SystemExit(f"chip_smoke: {label} on the card disagrees with the CPU")
+        log_elapsed(f"9c, {method}")
+    return total
+
+
 def main() -> None:
     card, smi = check_device()
 
@@ -1357,6 +1670,8 @@ def main() -> None:
         "forward": cuda_codegen.forward_system(problem),
         "transition": cuda_codegen.transition_system(problem),
     }
+    # phase 9's systems, at the main path's history depth
+    sens_systems = {kind: getattr(cuda_codegen, f"{kind}_system")(problem) for kind in SENS_KINDS}
     # phase 7's systems, at its history depth
     adams_systems = {
         "forward": systems["forward"],
@@ -1365,11 +1680,11 @@ def main() -> None:
     }
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(systems) + 2 + len(adams_systems)) as pool:
+    with ThreadPoolExecutor(2 * len(systems) + 3 + len(adams_systems) + len(sens_systems)) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
         futures.update({
             f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
-            for kind, ds in systems.items()
+            for kind, ds in {**systems, **sens_systems}.items()
         })
         futures["pece_2d"] = pool.submit(build_pece_2d, P_ORDER)
         futures.update({
@@ -1378,7 +1693,8 @@ def main() -> None:
             for kind, ds in adams_systems.items()
         })
         # the split kernels: one build per history depth, for any problem
-        futures[f"split_kab{P_MAX_ADAMS + 3}"] = pool.submit(build_split_kernels, P_MAX_ADAMS + 3)
+        for kab in (P_MAX_ADAMS + 3, P_MAX + 3):
+            futures[f"split_kab{kab}"] = pool.submit(build_split_kernels, kab)
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1388,6 +1704,7 @@ def main() -> None:
     log_elapsed("2")
     kernels = {kind: built[kind] for kind in systems}
     history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
+    sens_kernels = {kind: built[f"history_{kind}"] for kind in SENS_KINDS}
     adams_kernels = {kind: built[f"history_{kind}_kab{P_MAX_ADAMS + 3}"] for kind in adams_systems}
 
     # phase 3: kernel vs plain on the card
@@ -1519,8 +1836,8 @@ def main() -> None:
     # phases 5, 5b and 6: the BDF paths, which launch none of the kernels;
     # each path's counts are set to 0 just before it and read just after
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
-               *history_kernels.values(), *adams_kernels.values(), pece_2d_attempt,
-               build_pece_2d(P_ORDER), split_count)
+               *history_kernels.values(), *adams_kernels.values(), *sens_kernels.values(),
+               pece_2d_attempt, build_pece_2d(P_ORDER), split_count)
     for label, name, phase in (("5", "robertson", bdf_robertson_phase),
                                ("5b", "sens", bdf_sens_phase),
                                ("6", "checkpointed", checkpointed_phase)):
@@ -1540,6 +1857,27 @@ def main() -> None:
     # phase 8: SIR-1000, a TorchProblem, through the split kernels; every
     # other kernel's count must stay 0
     split_launches = sir_phase(smi, counted[:-1])
+
+    # phase 9(a): the forward-sensitivity builds, and the split kernels on
+    # one attempt's sensitivity block of phase 9(b)'s Adams staggered solve,
+    # against their plain versions
+    sens_table = {
+        kind: compare_history_kernel(kind, sens_systems[kind], lv_sens_fz(kind), seed)
+        for seed, kind in enumerate(SENS_KINDS, start=20)
+    }
+    split_sens = split_phase(smi, built[f"split_kab{P_MAX + 3}"],
+                             (("staged_sensitivity", B_MAIN),))
+    sens_table["staged_sensitivity"]["max_abs_err"] = max(
+        sens_table["staged_sensitivity"]["max_abs_err"],
+        history_on_attempt(sens_systems["staged_sensitivity"],
+                           lv_sens_split_inputs(B_MAIN, "cuda")))
+    log_elapsed("9a")
+    # phases 9(b) and 9(c): every solve's counts are set to 0 just before it
+    # and read just after; the main path's forward build and the new ones
+    by_system = {"forward": history_kernels["forward"], **sens_kernels}
+    phase9 = lv_sens_phase(smi, counted, by_system)
+    for kind, count in lv_roots_phase(smi, counted, by_system).items():
+        phase9[kind] = phase9.get(kind, 0) + count
 
     entries = [
         dict(
@@ -1562,10 +1900,21 @@ def main() -> None:
             route="cuda",
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
-            launches=launches[kind],
+            launches=launches[kind] + phase9.get(kind, 0),
             **history_table[kind],
         )
         for kind in systems
+    ]
+    entries += [
+        dict(
+            name=f"adams_history_attempt[{kind}]",
+            route="cuda",
+            source=KERNEL_SOURCE_ATTEMPT,
+            replaces=TPU_KERNEL,
+            launches=phase9.get(kind, 0),
+            **sens_table[kind],
+        )
+        for kind in SENS_KINDS
     ]
     entries += [
         dict(
@@ -1586,6 +1935,19 @@ def main() -> None:
             replaces=TPU_KERNEL,
             launches=split_launches[stage],
             **split_table[stage],
+        )
+        for stage in SPLIT_STAGES
+    ]
+    # a TorchProblem's sensitivity block: phase 9's solves, a SympyProblem's,
+    # launch none (check_launches held every other kernel at 0)
+    entries += [
+        dict(
+            name=f"adams_split_{stage}[KAB={P_MAX + 3}]",
+            route="cuda",
+            source=KERNEL_SOURCE_SPLIT,
+            replaces=TPU_KERNEL,
+            launches=0,
+            **split_sens[stage],
         )
         for stage in SPLIT_STAGES
     ]

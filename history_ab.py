@@ -179,7 +179,7 @@ def main(argv=None) -> None:
         # device times in turns: default, the others, the others reversed, default
         for name in names + names[::-1]:
             for o, p in orders.items():
-                us = device_us(lambda: run(name, p))
+                us = device_us(lambda: run(name, p), kernel=cs.HISTORY_KERNEL)
                 row["versions"][name]["device_us"].setdefault(o, []).append(us)
         for name in names:
             if "ADAMS_PHASE_CLOCKS" in name:

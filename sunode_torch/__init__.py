@@ -16,7 +16,10 @@ never jax, works in float64 per tensor and changes no global torch state
   * :func:`build_lv_checkpointed` and :func:`build_lv_adams` -- the
     Lotka-Volterra gradient step through the default call and through
     the ADAMS adjoints; :func:`build_sir` -- SIR over many regions (a
-    ``TorchProblem``) through the ADAMS adjoints.
+    ``TorchProblem``) through the ADAMS adjoints;
+  * :func:`build_lv_sens` and :func:`build_lv_roots` -- Lotka-Volterra with
+    forward sensitivities (staggered on either core, simultaneous on the
+    Adams core) and with an event function (rootfinding on either core).
 
 On CUDA tensors the history half of every Adams attempt, forward and
 backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``
@@ -29,7 +32,13 @@ checkpoint recording included) and its checkpointed adjoint are torch code
 with a ``torch.linalg`` Newton solve on either device.
 """
 
-from sunode_torch.entry import build_lv_adams, build_lv_checkpointed, build_sir
+from sunode_torch.entry import (
+    build_lv_adams,
+    build_lv_checkpointed,
+    build_lv_roots,
+    build_lv_sens,
+    build_sir,
+)
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.problem import SympyProblem
@@ -44,6 +53,8 @@ __all__ = [
     "TorchProblem",
     "build_lv_adams",
     "build_lv_checkpointed",
+    "build_lv_roots",
+    "build_lv_sens",
     "build_sir",
     "make_batched_solve_fn",
     "__version__",

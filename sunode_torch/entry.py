@@ -19,6 +19,13 @@ the reference workload:
 :func:`build_robertson` is ``bench.py``'s Robertson workload: stiff
 three-species kinetics solved with batched BDF from t=0 to 4e6.
 
+:func:`build_lv_sens` solves the same Lotka-Volterra chains with forward
+sensitivities to alpha and beta (``bench.py``'s ``lv_sens`` workload):
+staggered on the BDF or the Adams core, or simultaneous on the Adams core
+as the augmented state ``[y | vec S]``.  :func:`build_lv_roots` solves them
+with the event ``hares = 9``, stopping at the first root or recording up to
+eight.
+
 :func:`build_sir` is ``scripts/bench_sir_scale.py``'s workload: an SIR
 model over ``R`` regions coupled to their ring neighbours, written in torch
 (:func:`sir_problem`, a ``TorchProblem``: 3R states), with ADAMS adjoint
@@ -33,7 +40,9 @@ import numpy as np
 import torch
 
 from sunode_torch.convert import device_or_raise
+from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
@@ -46,6 +55,12 @@ __all__ = [
     "build_lv_adams",
     "LV_ADAMS_CHECKPOINTS",
     "LV_P_FIX",
+    "lv_sens_inputs",
+    "build_lv_sens",
+    "LV_SENS_MODES",
+    "lv_root_inputs",
+    "build_lv_roots",
+    "LV_ROOT_CAP",
     "robertson_problem",
     "robertson_options",
     "build_robertson",
@@ -169,6 +184,156 @@ def _lv_grad_step(solve, batch: int, tvals_n: int, device):
     y0s = np.array([10.0, 2.0]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
     p_subs = np.array([1.0, 0.3]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
     return grad_step, (torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64))
+
+
+def lv_sens_inputs(batch: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(y0s (B, 2), ps (B, 4), tvals (21,))`` of ``bench.py``'s ``lv_sens``:
+    a 5% spread around (10, 2) and (1, 0.3, 1, 0.4) from ``default_rng(42)``,
+    lanes 0-15 those of a 16-lane draw, which are
+    ``tests/golden/lv_sens.npz``'s, as the bench sets them; 21 observation
+    times on [0, 10]."""
+
+    def draw(B):
+        rng = np.random.default_rng(42)
+        y0s = np.array([10.0, 2.0]) * (1 + 0.05 * rng.standard_normal((B, 2)))
+        ps = np.array([1.0, 0.3, 1.0, 0.4]) * (1 + 0.05 * rng.standard_normal((B, 4)))
+        return y0s, ps
+
+    y0s, ps = draw(batch)
+    m = min(batch, 16)
+    head = draw(16)
+    y0s[:m], ps[:m] = head[0][:m], head[1][:m]
+    return y0s, ps, np.linspace(0.0, 10.0, 21)
+
+
+# (method, mode) of build_lv_sens
+LV_SENS_MODES = (("BDF", "staggered"), ("ADAMS", "staggered"), ("ADAMS", "simultaneous"))
+
+
+def build_lv_sens(batch: int, method: str, mode: str, device="cuda"):
+    """``(solve, (y0s, ps, tvals))``: ``solve(y0s, ps, tvals)`` is one batched
+    solve of the Lotka-Volterra chains of :func:`lv_sens_inputs` with
+    forward sensitivities to alpha and beta from S0 = 0, a ``BDFResult``
+    with ``ys (B, n_t, 2)`` and ``sens (B, n_t, 2, 2)``.  ``(method, mode)``
+    is one of :data:`LV_SENS_MODES`: 'staggered' (CVODES's ``CV_STAGGERED``)
+    on the BDF or the Adams core at rtol = atol = 1e-9, the options of
+    ``tests/golden/lv_sens.npz``; or 'simultaneous' on the Adams core as the
+    augmented state ``[y | vec S]`` with its own right-hand side, at
+    ``bench.py``'s rtol = atol = 1e-8.  The Adams
+    core runs at ``adams_max_order=6``, the bench's.  On the card every
+    Adams attempt runs the history-attempt kernel: the forward and
+    'staged_sensitivity' systems staggered, the 'sensitivity' system
+    simultaneous.  It runs on the card unless ``device="cpu"``; without a
+    card the default raises."""
+    device = device_or_raise(device)
+    if (method, mode) not in LV_SENS_MODES:
+        raise ValueError(f"(method, mode) must be one of {LV_SENS_MODES}, got {(method, mode)}")
+    rtol = 1e-8 if mode == "simultaneous" else 1e-9
+    problem = lv_problem()
+    systems = make_batched_solve_fn(problem, derivatives=None, method=method)
+    rhs, sens_rhs = problem.make_rhs(), problem.make_sensitivity_rhs()
+    n, k = problem.n_states, problem.n_params
+    f64 = dict(dtype=torch.float64, device=device)
+
+    if mode == "simultaneous":
+        opts = BDFOptions(rtol=rtol, atol=rtol, adams_max_order=6)
+        aug = systems.device_system("sensitivity", device)
+
+        def rhs_aug(t, z, p):
+            y, S = z[:n], z[n:].reshape((k, n) + tuple(z.shape[1:]))
+            return torch.cat([rhs(t, y, p), sens_rhs(t, y, S, p).reshape((k * n,) + S.shape[2:])])
+
+        def solve(y0s, ps, tvals):
+            B = y0s.shape[0]
+            z0 = torch.cat([y0s, torch.zeros((B, k * n), **f64)], dim=1)
+            res = adams_solve_batched(rhs_aug, 0.0, z0, ps, tvals, opts, batched_fns=True,
+                                      device_system=aug)
+            zs = res.ys
+            return res._replace(ys=zs[:, :, :n], sens=zs[:, :, n:].reshape(B, -1, k, n))
+    else:
+        opts = BDFOptions(rtol=rtol, atol=rtol, sens_staggered=True, adams_max_order=6)
+
+        def solve(y0s, ps, tvals):
+            S0 = torch.zeros((y0s.shape[0], k, n), **f64)
+            if method == "BDF":
+                return bdf_solve_batched(rhs, problem.make_jac_dense(), 0.0, y0s, ps, tvals, opts,
+                                         sens_rhs=sens_rhs, S0=S0, batched_fns=True)
+            return adams_solve_batched(
+                rhs, 0.0, y0s, ps, tvals, opts, sens_rhs=sens_rhs, sens0=S0, batched_fns=True,
+                device_system=systems.device_system("forward", device),
+                sens_device_system=systems.device_system("staged_sensitivity", device),
+            )
+
+    solve.options = opts
+    y0s, ps, tvals = lv_sens_inputs(batch)
+    return solve, tuple(torch.as_tensor(a, **f64) for a in (y0s, ps, tvals))
+
+
+LV_ROOT_CAP = 8  # roots a lane records when the solve goes on past them
+LV_ADJOINT_BATCH = 10_000  # the lanes of bench.py's lv_adjoint draw
+
+
+def lv_root_inputs(batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(y0s (B, 2), ps (B, 4))``: ``bench.py``'s ``lv_adjoint`` chains (a
+    5% spread around (10, 2) and (alpha, beta) = (1, 0.3) from
+    ``default_rng(42)``), with (gamma, delta) = :data:`LV_P_FIX`.  Lanes 0-15
+    are those of the bench's draw of :data:`LV_ADJOINT_BATCH` lanes at every
+    batch, which are ``tests/golden/lv_adjoint.npz``'s (the parameters are
+    drawn after every lane's initial state, so a draw of another width
+    gives these lanes other parameters)."""
+
+    def draw(B):
+        rng = np.random.default_rng(42)
+        y0s = np.array([10.0, 2.0]) * (1 + 0.05 * rng.standard_normal((B, 2)))
+        p_subs = np.array([1.0, 0.3]) * (1 + 0.05 * rng.standard_normal((B, 2)))
+        return y0s, p_subs
+
+    y0s, p_subs = draw(batch)
+    m = min(batch, 16)
+    head = draw(LV_ADJOINT_BATCH)
+    y0s[:m], p_subs[:m] = head[0][:m], head[1][:m]
+    return y0s, np.concatenate([p_subs, np.tile(LV_P_FIX, (batch, 1))], axis=1)
+
+
+def _hares_at_9(t, y, p):
+    return [y.hares - 9.0]
+
+
+def build_lv_roots(batch: int, method: str, terminal: bool, device="cuda"):
+    """``(solve, (y0s, ps, tvals))``: ``solve(y0s, ps, tvals,
+    root_directions=None)`` is one batched solve of the chains of
+    :func:`lv_root_inputs` with the event ``hares - 9`` (the JAX package's
+    ``tests/test_rootfinding.py``), ``method`` 'BDF' or 'ADAMS', rtol =
+    atol = 1e-8, 21 observation times on [0, 10]: with ``terminal`` each lane
+    stops at its first root (status 5); else up to :data:`LV_ROOT_CAP` roots
+    a lane are recorded (``root_directions`` [-1] keeps the falling ones).
+    The roots are in the result's ``stats`` (``roots_t``, ``roots_y``,
+    ``roots_found``, ``n_roots``).  The Adams core runs at
+    ``adams_max_order=6`` through the history-attempt kernel on the card.
+    It runs on the card unless ``device="cpu"``; without a card the default
+    raises."""
+    device = device_or_raise(device)
+    if method not in ("BDF", "ADAMS"):
+        raise ValueError(f"method must be 'BDF' or 'ADAMS', got {method!r}")
+    problem = lv_problem()
+    systems = make_batched_solve_fn(problem, derivatives=None, method=method)
+    rhs, root_fn = problem.make_rhs(), problem.make_root_fn(_hares_at_9)
+    opts = BDFOptions(rtol=1e-8, atol=1e-8, adams_max_order=6)
+    kw = dict(root_fn=root_fn, root_cap=LV_ROOT_CAP, root_terminal=terminal, batched_fns=True)
+
+    def solve(y0s, ps, tvals, root_directions=None):
+        if method == "BDF":
+            return bdf_solve_batched(rhs, problem.make_jac_dense(), 0.0, y0s, ps, tvals, opts,
+                                     root_directions=root_directions, **kw)
+        return adams_solve_batched(rhs, 0.0, y0s, ps, tvals, opts,
+                                   device_system=systems.device_system("forward", device),
+                                   root_directions=root_directions, **kw)
+
+    solve.options = opts
+    f64 = dict(dtype=torch.float64, device=device)
+    y0s, ps = lv_root_inputs(batch)
+    tvals = np.linspace(0.0, 10.0, 21)
+    return solve, tuple(torch.as_tensor(a, **f64) for a in (y0s, ps, tvals))
 
 
 ROBERTSON_K = (0.04, 3e7, 1e4)  # k1, k2, k3

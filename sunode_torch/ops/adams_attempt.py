@@ -42,6 +42,7 @@ from sunode_torch.symode.cuda_codegen import DeviceSystem
 
 __all__ = [
     "HistoryOut",
+    "on_card",
     "adams_history_attempt",
     "adams_history_attempt_reference",
     "build_attempt_kernel",
@@ -72,7 +73,10 @@ def _rescale_matrix(fac, p, K):
     j_K = torch.arange(K, **f_kw)[:, None]  # (K, 1)
     rows = [torch.ones((K, B), **f_kw)]
     for i in range(1, K):
-        rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / i)
+        # the divisor a tensor: torch on CUDA divides by a host number as a
+        # product with its reciprocal, an ulp from the true quotient that the
+        # CPU and the kernels take
+        rows.append(rows[-1] * (i - 1 - fac[None, :] * j_K) / j_K[i])
     R = torch.stack(rows)  # (K_i, K_j, B)
     inblock = (ar_K[:, None, None] <= p - 1) & (ar_K[None, :, None] <= p - 1)
     return torch.where(inblock, R, torch.eye(K, **f_kw)[:, :, None])
@@ -250,6 +254,15 @@ def build_attempt_kernel(system: DeviceSystem, kab: int) -> _AttemptKernel:
     return kernel
 
 
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on the card, where the attempt launches a kernel
+    (True) or on the CPU, where it runs the plain version (False); any
+    other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"adams_history_attempt: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
 def adams_history_attempt(
     system: PeceSystem,
     t_new: torch.Tensor,  # (B,)
@@ -276,10 +289,8 @@ def adams_history_attempt(
     them."""
     args = (t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
             gamma_star_abs, v_err, newton_tol, maxiter)
-    if DF.device.type == "cpu":
+    if not on_card(DF):
         return adams_history_attempt_reference(system, *args, P_MAX)
-    if DF.device.type != "cuda":
-        raise ValueError(f"adams_history_attempt: unsupported device {DF.device}")
     if system.device is None:
         # no emitted system (a problem written in torch): the right-hand side
         # runs as torch code between the split attempt's three kernels

@@ -7,7 +7,10 @@ sides, step-size and order adaptation, the breakdown reset, NaN-poison
 statuses, the per-lane post-mortem stats, and what the adjoint backward
 passes need: state injections (``inject_times``/``inject_deltas``,
 ``options.inject_keep_order``), a per-attempt stage (``stage_fn``) and the
-checkpoint recording (``save_steps``, see :mod:`sunode_torch.ops._recording`).
+checkpoint recording (``save_steps``, see :mod:`sunode_torch.ops._recording`),
+staggered forward sensitivities (``sens_rhs``/``sens0``, CVODES's
+``CV_STAGGERED``) and rootfinding (``root_fn``, ``root_cap``,
+``root_terminal``, ``root_directions``).
 
 Layout: states are ``(rows, B)`` with the lane axis last, the history
 ``DF`` is ``(KAB, nz, B)``.  The lockstep loop is a host loop that ends when
@@ -24,8 +27,19 @@ The stage enters the attempt as extra parameter rows, ``[params | stage]``,
 so that the kernel, which loads each lane's parameter rows once, reads the
 staged values there (``symode/cuda_codegen.py::staged_adjoint_system``).
 
-Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
-sensitivities and per-lane observation grids.
+With staggered sensitivities an attempt is two history attempts: the state
+rows ``[y | q]`` first, then the sensitivity rows ``vec S`` on a history of
+their own, ``DF_S (KAB, k n, B)``, with the state's converged ``y_new``
+staged in the parameter rows after the problem's
+(``cuda_codegen.staged_sensitivity_system``) and only the lanes whose state
+converged and passed its own error test active.  The two error norms are
+joined per lane as ``sqrt(a^2 + b^2)`` where the reference sums once over
+``[y | q | S]``: the same value up to the last ulps of the norm.
+(Simultaneous sensitivities are the augmented state ``[y | vec S]`` with
+its own right-hand side, ``cuda_codegen.sensitivity_system``.)
+
+Not ported yet (it raises ``NotImplementedError``): per-lane observation
+grids.
 """
 
 from __future__ import annotations
@@ -51,9 +65,13 @@ from sunode_torch.ops.bdf import (
     THRESH,
     BDFOptions,
     BDFResult,
-    _unsupported,
+    RootRecord,
+    _batched_roots,
+    _root_scan,
+    _root_setup,
     newton_tol_for,
 )
+from sunode_torch.ops import adams_attempt
 from sunode_torch.ops.adams_attempt import adams_history_attempt
 from sunode_torch.ops.pece_step import PeceSystem
 from sunode_torch.symode.cuda_codegen import DeviceSystem
@@ -73,8 +91,13 @@ def adams_solve_batched(
     quad0: Optional[torch.Tensor] = None,  # (B, m)
     batched_fns: bool = False,
     device_system: Optional[DeviceSystem] = None,
-    sens_rhs: Optional[Callable] = None,
-    root_fn: Optional[Callable] = None,
+    sens_rhs: Optional[Callable] = None,  # (t, y, S (k, n), p) -> (k, n), staggered
+    sens0: Optional[torch.Tensor] = None,  # (B, k, n)
+    sens_device_system: Optional[DeviceSystem] = None,
+    root_fn: Optional[Callable] = None,  # (t, y, p) -> (nrt,) event functions
+    root_cap: int = 8,
+    root_terminal: bool = True,
+    root_directions: Optional[Any] = None,
     inject_times: Optional[Any] = None,  # (n_e,) ascending, shared
     inject_deltas: Optional[torch.Tensor] = None,  # (n_e, n, B) added to y
     stage_fn: Optional[Callable] = None,  # t (B,) -> (n_s, B), once per attempt
@@ -94,8 +117,23 @@ def adams_solve_batched(
     ``f(z_injected)``, or, with ``options.inject_keep_order > 1``, the
     differences below it kept) at its working step size.  With
     ``options.save_steps > 0`` the accepted steps are recorded into
-    ``result.saved`` and ``stats['checkpoint_thinning_levels']``."""
-    _unsupported("adams_solve_batched", sens_rhs=sens_rhs, root_fn=root_fn)
+    ``result.saved`` and ``stats['checkpoint_thinning_levels']``.
+
+    ``sens_rhs(t, y, S, p)`` (``S (k, n)``, or batched ``(k, n, B)``) with
+    ``sens0 (B, k, n)`` runs staggered forward sensitivities to
+    ``result.sens (B, n_t, k, n)``; ``sens_device_system`` is their emitted
+    system (``cuda_codegen.staged_sensitivity_system``), required on CUDA
+    tensors exactly when ``device_system`` is given.  ``root_fn`` turns on
+    rootfinding as in :func:`sunode_torch.ops.bdf_batched.bdf_solve_batched`.
+    Neither combines with injections or a stage, as in the reference."""
+    with_sens, with_roots = sens_rhs is not None, root_fn is not None
+    if (with_sens or with_roots) and (inject_times is not None or stage_fn is not None):
+        raise NotImplementedError(
+            "adams_solve_batched: sensitivities and rootfinding do not combine with "
+            "injections or a stage (the adjoint's machinery), in the reference either"
+        )
+    if with_sens and sens0 is None:
+        raise ValueError("adams_solve_batched: sens_rhs needs sens0 (B, k, n)")
     y0 = torch.as_tensor(y0)
     device = y0.device
     dtype = torch.promote_types(y0.dtype, torch.float32)
@@ -130,7 +168,11 @@ def adams_solve_batched(
 
     with_quad = quad_rhs is not None
     m_quad = quad0.shape[1] if with_quad else 0
-    nz = n + m_quad
+    # the sensitivity rows follow the quadrature's: z = [y | q | vec S]
+    k_sens = sens0.shape[1] if with_sens else 0
+    n_S = k_sens * n
+    n_yq = n + m_quad
+    nz = n_yq + n_S
 
     P_MAX = min(options.adams_max_order, 12)
     KAB = P_MAX + 3  # DF rows 0..p+2
@@ -143,8 +185,14 @@ def adams_solve_batched(
         rhs_b = torch.func.vmap(rhs, in_dims=dims, out_dims=1)
         if with_quad:
             quad_rhs_b = torch.func.vmap(quad_rhs, in_dims=dims, out_dims=1)
+        if with_sens:
+            sens_rhs_b = torch.func.vmap(sens_rhs, in_dims=(0, 1, 2, 1), out_dims=2)
+    if with_sens and batched_fns:
+        sens_rhs_b = sens_rhs
     if with_quad:
         quad0_t = torch.as_tensor(quad0, **f_kw).T
+    if with_roots:
+        root_b = _batched_roots(root_fn, batched_fns, dtype)
 
     # the attempt's parameter rows: [params | stage(t)] with a stage, which
     # the right-hand sides read back apart
@@ -165,14 +213,31 @@ def adams_solve_batched(
         return f
 
     par0 = par_at(t0)
-    if device_system is not None and (
-        (device_system.n, device_system.nz, device_system.n_p) != (n, nz, par0.shape[0])
-    ):
-        raise ValueError(
-            f"device system {device_system.name} has (n, nz, n_p) = ({device_system.n}, "
-            f"{device_system.nz}, {device_system.n_p}), the solve ({n}, {nz}, {par0.shape[0]})"
-        )
-    system = PeceSystem(fz=fz, n=n, nz=nz, device=device_system)
+
+    def check_system(ds, shape):
+        if ds is not None and (ds.n, ds.nz, ds.n_p) != shape:
+            raise ValueError(
+                f"device system {ds.name} has (n, nz, n_p) = ({ds.n}, {ds.nz}, {ds.n_p}), "
+                f"the solve {shape}"
+            )
+
+    check_system(device_system, (n, n_yq, par0.shape[0]))
+    system = PeceSystem(fz=fz, n=n, nz=n_yq, device=device_system)
+    if with_sens:
+        # the sensitivity block's attempt: S rows, y_new staged in the
+        # parameter rows after the problem's
+        check_system(sens_device_system, (n_S, n_S, n_p + n))
+        if adams_attempt.on_card(y0) and (sens_device_system is None) != (device_system is None):
+            raise ValueError(
+                "adams_solve_batched: on CUDA tensors the state and the sensitivity block "
+                "both need an emitted system (the history-attempt kernel) or neither (the "
+                "split kernels)"
+            )
+
+        def fz_S(t, S, par):
+            return sens_rhs_b(t, par[n_p:], S.reshape(k_sens, n, -1), par[:n_p]).reshape(n_S, -1)
+
+        system_S = PeceSystem(fz=fz_S, n=n_S, nz=n_S, device=sens_device_system)
 
     # scalar or per-state (n,) vector rtol; heuristics use the tightest
     rtol = torch.broadcast_to(torch.as_tensor(options.rtol, **f_kw), (n,))
@@ -181,7 +246,8 @@ def adams_solve_batched(
     gamma_star_abs = torch.as_tensor(np.abs(_GAMMA_STAR), **f_kw)
 
     # combined error weights over z
-    n_blocks = 1 + (1 if (with_quad and options.quad_err_con) else 0)
+    n_blocks = (1 + (1 if (with_quad and options.quad_err_con) else 0)
+                + (k_sens if (with_sens and options.sens_err_con) else 0))
     v_parts = [torch.full((n,), 1.0 / (n * n_blocks), **f_kw)]
     atol_parts = [atol]
     rtol_parts = [rtol]
@@ -210,6 +276,16 @@ def adams_solve_batched(
     atol_z = torch.cat(atol_parts).contiguous()
     rtol_z = torch.cat(rtol_parts).contiguous()
     v_err = torch.cat(v_parts)
+    if with_sens:
+        # CVodeSensEEtolerances: atol_S[k] = atol / pbar_k
+        pbar = (
+            torch.broadcast_to(torch.as_tensor(options.sens_pbar, **f_kw), (k_sens,))
+            if options.sens_pbar is not None
+            else torch.ones((k_sens,), **f_kw)
+        )
+        atol_S = (atol[None, :] / pbar[:, None]).reshape(-1).contiguous()
+        rtol_S = rtol.repeat(k_sens).contiguous()
+        v_S = torch.full((n_S,), (1.0 / (n * n_blocks)) if options.sens_err_con else 0.0, **f_kw)
 
     if options.constraints is not None:
         constraints = torch.broadcast_to(
@@ -255,8 +331,16 @@ def adams_solve_batched(
     h0 = torch.where(torch.isfinite(h0), h0, 1e-6)
 
     z0 = torch.cat([y0, quad0_t]) if with_quad else y0
-    DF0 = torch.zeros((KAB, nz, B), **f_kw)
+    DF0 = torch.zeros((KAB, n_yq, B), **f_kw)
     DF0[0] = fz0
+    if with_sens:
+        S0_t = torch.as_tensor(sens0, **f_kw).permute(1, 2, 0).reshape(n_S, B)
+        z0 = torch.cat([z0, S0_t])
+        DF0_S = torch.zeros((KAB, n_S, B), **f_kw)
+        DF0_S[0] = fz_S(t0, S0_t, torch.cat([params, y0]))
+    if with_roots:
+        g_init, rdir, root_cap = _root_setup(root_b, t0, y0, params, root_cap, root_directions)
+        roots = RootRecord(g_init, n, root_cap)
 
     # checkpoint recording: rows (t, y, f[, fdot]); the fdot rows need a
     # stage-free right-hand side, and only forward solves record
@@ -294,6 +378,7 @@ def adams_solve_batched(
         consec_fails=zeros_i,
         nsteps=zeros_i,
         nfev=torch.full((B,), 2, **i32),
+        nfevS=torch.full((B,), 1 if with_sens else 0, **i32),
         nniters=zeros_i,
         n_err_fails=zeros_i,
         n_conv_fails=zeros_i,
@@ -303,6 +388,8 @@ def adams_solve_batched(
         pm_worst=torch.full((B,), -1, **i32),
         i_ev=zeros_i,
     )
+    if with_sens:
+        c["DF_S"] = DF0_S
     it = 0
     # lanes whose last accepted step ended at an injection: their history's
     # row 0 becomes f(z_injected) at the top of the next attempt, where the
@@ -313,6 +400,9 @@ def adams_solve_batched(
     ar_KAB = torch.arange(KAB, device=device)
     row0 = (ar_KAB == 0).to(dtype)[:, None, None]
     C_int = torch.as_tensor(np.asarray(_C_INT[:K]), **f_kw)  # (K, K_max + 2)
+    # the dense output's Horner steps start at the last column with a
+    # nonzero coefficient: the zero columns above it leave ci at +0 exactly
+    n_cols = int(np.flatnonzero(np.any(np.asarray(_C_INT[:K]) != 0, axis=0)).max()) + 1
     eps = torch.finfo(dtype).eps
 
     while True:
@@ -347,7 +437,7 @@ def adams_solve_batched(
 
         pre_factor = h_use / torch.clamp(c["h_D"], min=1e-300)
         hist = adams_history_attempt(
-            system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev, par_at(t_new),
+            system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev[:n_yq], par_at(t_new),
             atol_z, rtol_z, gamma_star_abs, v_err, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
         )
         DF, DF_upd, conv, niter, z_pred, z_new, err3 = (
@@ -355,6 +445,29 @@ def adams_solve_batched(
             hist.err3,
         )
         y_new = z_new[:n]
+        w_y = 1.0 / (atol_z[:n, None] + rtol_z[:n, None] * torch.abs(z_pred[:n]))
+
+        if with_sens:
+            # CV_STAGGERED: the state's own error test, then the sensitivity
+            # block's attempt on the lanes that passed it, y_new staged
+            err_y_only = torch.sqrt(torch.mean((hist.err0[:n] * w_y) ** 2, dim=0))
+            ok_y = conv & (err_y_only <= 1.0)
+            hist_S = adams_history_attempt(
+                system_S, t_new, h_use, pre_factor, p, active & ok_y, c["DF_S"],
+                z_prev[n_yq:], torch.cat([params, y_new]), atol_S, rtol_S, gamma_star_abs,
+                v_S, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
+            )
+            # the reference's predictor check covers the sensitivity rows
+            conv = conv & torch.isfinite(hist_S.z_pred).all(dim=0)
+            state_err_ok = conv & (err_y_only <= 1.0)
+            sens_gate = active & state_err_ok
+            # a gated-off corrector must not mask the state's rejection; a
+            # lane that failed its state test counts its sensitivity rows' error
+            # as zero, as the reference zeroes their difference
+            conv = conv & (hist_S.conv | ~sens_gate)
+            err3 = torch.where(state_err_ok[None, :],
+                               torch.sqrt(err3 * err3 + hist_S.err3 * hist_S.err3), err3)
+            nfevS_n = torch.where(sens_gate, hist_S.niter + 1, 0)
 
         if constraints is not None:
             cns = constraints[:, None]
@@ -369,13 +482,21 @@ def adams_solve_batched(
             constraint_fail = torch.zeros((B,), dtype=torch.bool, device=device)
 
         err_norm = err3[0]
-        err_ok = err_norm <= 1.0
+        if with_sens:
+            # the state's own error test gates acceptance and the step
+            # reduction sees it too
+            err_norm = torch.maximum(err_norm, err_y_only)
+            err_ok = (err_norm <= 1.0) & state_err_ok
+            z_new_all = torch.cat([z_new, hist_S.z_new])
+        else:
+            err_ok = err_norm <= 1.0
+            z_new_all = z_new
         accept = active & conv & err_ok & ~constraint_fail
         err_reject = active & conv & (~err_ok | constraint_fail)
 
         n_equal = torch.where(accept, c["n_equal"] + 1, 0)
         t_next = torch.where(accept, t_new, t)
-        z_next = torch.where(accept[None, :], z_new, z_prev)
+        z_next = torch.where(accept[None, :], z_new_all, z_prev)
 
         if with_inject:
             tiny_ev = 1e-12 * (1.0 + torch.abs(t_lim))
@@ -386,25 +507,45 @@ def adams_solve_batched(
             z_inj = torch.cat([y_inj, z_new[n:]]) if with_quad else y_inj
             z_next = torch.where(at_event[None, :], z_inj, z_next)
 
-        def _z_interp(tt):  # tt (B,) -> (nz, B): integral-basis dense output
+        def _z_interp(tt, DF_u, z_n):
+            """tt (B,) -> (rows, B): the integral-basis dense output of the
+            rows of the updated history ``DF_u`` and new state ``z_n``."""
             s = (tt - t_new) / h_use
             ci = torch.zeros((K, B), **f_kw)
-            for col in range(C_int.shape[1] - 1, -1, -1):
+            for col in range(n_cols - 1, -1, -1):
                 ci = ci * s[None, :] + C_int[:, col][:, None]
             wgt = torch.where(ar_K[:, None] <= p[None, :], ci, 0.0)
-            acc = torch.zeros_like(z_new)
+            acc = torch.zeros_like(z_n)
             for i in range(K):
-                acc = acc + wgt[i][None, :] * DF_upd[i]
-            return z_new + h_use[None, :] * acc
+                acc = acc + wgt[i][None, :] * DF_u[i]
+            return z_n + h_use[None, :] * acc
+
+        def z_at(tt):  # every row of z
+            zi = _z_interp(tt, DF_upd, z_new)
+            return torch.cat([zi, _z_interp(tt, hist_S.DF_upd, hist_S.z_new)]) if with_sens else zi
+
+        # rootfinding on the dense output of the accepted step (y rows only)
+        t_stop = None
+        if with_roots:
+            DF_y, z_y = DF_upd[:, :n], z_new[:n]
+            root_hit, t_root, dirs, y_root, g_new = _root_scan(
+                root_b, params, rdir, roots.g_prev, t, t_new, h_use, y_new,
+                lambda tt: _z_interp(tt, DF_y, z_y), accept,
+            )
+            roots.update(accept, root_hit, t_root, dirs, y_root, g_new)
+            if root_terminal:
+                t_stop = t_root  # inf where no root was hit
 
         # emission (exact integral-basis interpolation)
         while True:
             idx = torch.clamp(i_out, max=n_t - 1)
             te = tvals[idx.long()]
             pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
+            if t_stop is not None:
+                pend = pend & (te <= t_stop)
             if not bool(pend.any()):
                 break
-            zi = _z_interp(te)
+            zi = z_at(te)
             gidx = idx.long()[None, None, :].expand(1, nz, B)
             row = zs.gather(0, gidx)
             zs.scatter_(0, gidx, torch.where(pend[None, None, :], zi[None], row))
@@ -492,6 +633,14 @@ def adams_solve_batched(
             h_next = torch.where(at_event, torch.maximum(c["h"], h_min_loc * 4), h_next)
             ev_pending = at_event
         DF_next = torch.where(active[None, None, :], DF_next, c["DF"])
+        if with_sens:
+            DF_S, DF_S_upd = hist_S.DF_resc, hist_S.DF_upd
+            DF_S_next = torch.where(
+                accept[None, None, :],
+                DF_S_upd,
+                torch.where(reset[None, None, :], DF_S * row0, DF_S),
+            )
+            DF_S_next = torch.where(active[None, None, :], DF_S_next, c["DF_S"])
 
         too_many = cfails >= MAX_CONSECUTIVE_FAILS
         status = c["status"]
@@ -509,12 +658,15 @@ def adams_solve_batched(
         status = torch.where(
             (status == -1) & underflow, STATUS["STEP_UNDERFLOW"], status
         )
+        root_ret_now = torch.zeros((B,), dtype=torch.bool, device=device)
+        if with_roots and root_terminal:
+            root_ret_now = (status == -1) & root_hit
+            status = torch.where(root_ret_now, STATUS["ROOT_RETURN"], status)
 
         # per-lane post-mortem of the attempt where a lane's status turns fatal
-        fatal_now = (c["status"] == -1) & (status != -1)
-        w_z = 1.0 / (atol_z[:, None] + rtol_z[:, None] * torch.abs(z_pred))
-        e_err = torch.abs(hist.err0[:n]) * w_z[:n]
-        e_newt = torch.abs((z_new - z_pred)[:n]) * w_z[:n]
+        fatal_now = (c["status"] == -1) & (status != -1) & ~root_ret_now
+        e_err = torch.abs(hist.err0[:n]) * w_y
+        e_newt = torch.abs((z_new - z_pred)[:n]) * w_y
         worst = torch.argmax(torch.where(conv[None, :], e_err, e_newt), dim=0)
 
         c = dict(
@@ -529,6 +681,7 @@ def adams_solve_batched(
             consec_fails=cfails.to(torch.int32),
             nsteps=nsteps,
             nfev=c["nfev"] + niter + 1,
+            nfevS=c["nfevS"] + nfevS_n if with_sens else c["nfevS"],
             nniters=c["nniters"] + niter,
             n_err_fails=c["n_err_fails"] + err_reject.to(torch.int32),
             n_conv_fails=c["n_conv_fails"] + (active & ~conv).to(torch.int32),
@@ -538,6 +691,8 @@ def adams_solve_batched(
             pm_worst=torch.where(fatal_now, worst.to(torch.int32), c["pm_worst"]),
             i_ev=c["i_ev"] + at_event.to(torch.int32) if with_inject else c["i_ev"],
         )
+        if with_sens:
+            c["DF_S"] = DF_S_next
         it += 1
 
     status = torch.where(c["status"] == -1, STATUS["SUCCESS"], c["status"]).to(
@@ -561,11 +716,16 @@ def adams_solve_batched(
         error_worst_state=c["pm_worst"],
         final_state=c["z"].T,  # after the last injection: the adjoint reads it
     )
+    if with_sens:
+        stats["n_sens_rhs_evals"] = c["nfevS"]
+    if with_roots:
+        stats.update(roots.stats())
     saved_out = None
     if save_steps > 0:
         # shared across lanes: the stride follows the shared attempt counter
         stats["checkpoint_thinning_levels"] = saved["shift"] if thinning else 0
         saved_out = finalize_saved_batched(saved, n, thinning)
     ys = zs[:, :n, :].permute(2, 0, 1)
-    quad = zs[:, n:, :].permute(2, 0, 1) if with_quad else None
-    return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, quad=quad)
+    quad = zs[:, n:n_yq, :].permute(2, 0, 1) if with_quad else None
+    sens = zs[:, n_yq:, :].permute(2, 0, 1).reshape(B, n_t, k_sens, n) if with_sens else None
+    return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, sens=sens, quad=quad)

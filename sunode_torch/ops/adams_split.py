@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sunode_torch.ops import adams_attempt
 from sunode_torch.ops._nvcc_build import build_library
 from sunode_torch.ops.adams import _GAMMA, _GAMMA_STAR
 from sunode_torch.ops.adams_attempt import HistoryOut, _rescale, _take_row, _update
@@ -400,10 +401,8 @@ def adams_split_attempt(
     ``system.device`` is not read."""
     args = (t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z, rtol_z,
             gamma_star_abs, v_err, newton_tol, maxiter)
-    if DF.device.type == "cpu":
+    if not adams_attempt.on_card(DF):
         return adams_split_attempt_reference(system, *args, P_MAX)
-    if DF.device.type != "cuda":
-        raise ValueError(f"adams_split_attempt: unsupported device {DF.device}")
     if DF.ndim != 3 or DF.shape[0] != P_MAX + 3:
         raise ValueError(
             f"adams_split_attempt: DF must be (P_MAX + 3, nz, B) = ({P_MAX + 3}, nz, B), "

@@ -3,8 +3,10 @@
 Port of ``sunode_tpu/ops/bdf_batched.py::bdf_solve_batched`` with the dense
 Newton solve: shared observation times, scalar or per-state vector ``rtol``,
 BDF or NDF formulas of orders 1..5, lazy Jacobian refresh and refactoring
-only when the step coefficient changes, simultaneous forward sensitivities
-(``sens_rhs``/``S0``, ``sens_err_con``, ``sens_pbar``), the quadrature block
+only when the step coefficient changes, forward sensitivities,
+simultaneous or staggered (``sens_rhs``/``S0``, ``sens_err_con``,
+``sens_pbar``, ``sens_staggered``), rootfinding (``root_fn``, ``root_cap``,
+``root_terminal``, ``root_directions``), the quadrature block
 (``quad_rhs``/``quad0``, ``quad_err_con``), constraints, the breakdown
 reset, NaN-poison statuses, the per-lane post-mortem stats and checkpoint
 recording for the adjoint (``save_steps``, ``checkpoint_thinning``,
@@ -30,9 +32,8 @@ reset run unconditionally (cheaper than a sync), above that behind a host
 check; the Newton and sensitivity iterations are unrolled for ``n <= 16``
 and stop early once every lane is done above that.
 
-Not ported yet (they raise ``NotImplementedError``): rootfinding, staggered
-sensitivities, the band, sparse and spgmr linear solvers, ``jac_prod`` and
-per-lane observation grids.
+Not ported yet (they raise ``NotImplementedError``): the band, sparse and
+spgmr linear solvers, ``jac_prod`` and per-lane observation grids.
 """
 
 from __future__ import annotations
@@ -53,7 +54,11 @@ from sunode_torch.ops.bdf import (
     THRESH,
     BDFOptions,
     BDFResult,
+    RootRecord,
+    _batched_roots,
     _order_constants,
+    _root_scan,
+    _root_setup,
     _unsupported,
     newton_tol_for,
 )
@@ -195,9 +200,20 @@ def bdf_solve_batched(
     ``rhs(t, y, p)``, ``jac`` (``-> (n, n)``), ``sens_rhs(t, y, S, p)``
     (``S (k, n)``) and ``quad_rhs`` take one lane unless ``batched_fns``,
     where they take ``t (B,)``, ``y (n, B)``, ``S (k, n, B)``, ``p (n_p, B)``
-    and return the lane axis last.  ``root_cap``, ``root_terminal`` and
-    ``root_directions`` belong to rootfinding, which is not ported."""
-    _unsupported("bdf_solve_batched", root_fn=root_fn, jac_prod=jac_prod)
+    and return the lane axis last.
+
+    ``options.sens_staggered`` runs the sensitivities as CVODES's
+    ``CV_STAGGERED``: a lane's sensitivity corrector runs only after its
+    state has converged and passed its own error test, with the state's
+    factored Newton matrix.  ``root_fn(t, y, p) -> (nrt,)`` (one lane, or
+    batched with ``batched_fns``) turns on rootfinding on the dense output:
+    with ``root_terminal`` a lane stops at its first root with status
+    ROOT_RETURN; else up to ``root_cap`` roots a lane are recorded and
+    ``stats['n_roots']`` counts on past the cap.  ``root_directions`` (0
+    both, +1 rising, -1 falling, per component) filters the crossings.  The
+    roots are ``stats['roots_t']`` (B, cap), ``['roots_y']`` (B, cap, n) and
+    ``['roots_found']`` (B, cap, nrt), as in the reference."""
+    _unsupported("bdf_solve_batched", jac_prod=jac_prod)
     if options.linear_solver != "dense":
         raise NotImplementedError(
             f"bdf_solve_batched: linear_solver={options.linear_solver!r} is not "
@@ -205,10 +221,7 @@ def bdf_solve_batched(
         )
     with_sens = sens_rhs is not None
     with_quad = quad_rhs is not None
-    if with_sens and options.sens_staggered:
-        raise NotImplementedError(
-            "bdf_solve_batched: sens_staggered is not ported to sunode_torch yet"
-        )
+    staggered = with_sens and bool(options.sens_staggered)
     y0 = torch.as_tensor(y0)
     device = y0.device
     dtype = torch.promote_types(y0.dtype, torch.float32)
@@ -309,6 +322,12 @@ def bdf_solve_batched(
 
     newton_tol = newton_tol_for(options, float(rtol_s), dtype)
     eps = torch.finfo(dtype).eps
+
+    with_roots = root_fn is not None
+    if with_roots:
+        root_b = _batched_roots(root_fn, batched_fns, dtype)
+        g_init, rdir, root_cap = _root_setup(root_b, t0, y0, params, root_cap, root_directions)
+        roots = RootRecord(g_init, n, root_cap)
 
     f0 = rhs_b(t0, y0, params)
     bad_init = ~(torch.isfinite(y0).all(dim=0) & torch.isfinite(f0).all(dim=0))
@@ -489,12 +508,24 @@ def bdf_solve_batched(
         d_parts = [d_corr]
         nfevS_n = zeros_i
         if with_sens:
-            # simultaneous corrector: every active lane, after the state's
+            if staggered:
+                # CV_STAGGERED: a lane's state must converge and pass its own
+                # error test before any sensitivity work; the corrector below
+                # holds the other lanes converged (for n > 16 its first sync
+                # skips it when no lane is gated in, as the reference's cond)
+                err_y_only = torch.sqrt(
+                    torch.mean(((error_const[q][None, :] * d_corr) * w_y) ** 2, dim=0)
+                )
+                state_err_ok = conv & (err_y_only <= 1.0)
+                sens_gate = active & state_err_ok
+            else:
+                # simultaneous corrector: every active lane, after the state's
+                sens_gate = active
             S = z_pred[sl_S].reshape(k_sens, n, B)
             psi_S = psi_z[sl_S].reshape(k_sens, n, B)
             wS = w_z[sl_S].reshape(k_sens, n, B)
             dS, old = torch.zeros_like(S), inf_b
-            s_conv, s_bad = ~active, false_b
+            s_conv, s_bad = ~sens_gate, false_b
             for it_s in range(SENS_MAXITER):
                 live = ~(s_conv | s_bad)
                 if n > 16 and not bool(live.any()):
@@ -515,7 +546,12 @@ def bdf_solve_batched(
                 s_conv = s_conv | (live & conv_new & ~s_bad)
                 nfevS_n = nfevS_n + live.to(torch.int32)
                 old = torch.where(live, norm, old)
-            conv = conv & s_conv & ~s_bad
+            if staggered:
+                # a gated-off corrector must not mask the state's rejection
+                conv = conv & ((s_conv & ~s_bad) | ~state_err_ok)
+                dS = torch.where(state_err_ok[None, None, :], dS, 0.0)
+            else:
+                conv = conv & s_conv & ~s_bad
             d_parts.append(dS.reshape(n_S, B))
         if with_quad:
             dQ_corr = c_coef[None, :] * quad_rhs_b(t_new, y_new, params) - psi_z[sl_Q]
@@ -553,11 +589,30 @@ def bdf_solve_batched(
         err_rows = ec[:, None, :] * torch.cat([d_z[None], rows])  # (3, nt, B)
         err3 = torch.sqrt(torch.sum((err_rows * w_z[None]) ** 2 * v_err[None], dim=1))
         err_norm_tot = err3[0]
-        err_ok = err_norm_tot <= 1.0
+        if staggered:
+            # the state's own error test gates acceptance, and the step
+            # reduction sees the state's failure too (a gated-off corrector
+            # left the sensitivity rows of d_z zero)
+            err_norm_tot = torch.maximum(err_norm_tot, err_y_only)
+            err_ok = (err_norm_tot <= 1.0) & state_err_ok
+        else:
+            err_ok = err_norm_tot <= 1.0
         accept = active & conv & err_ok & ~constraint_fail
         err_reject = active & conv & (~err_ok | constraint_fail)
         n_equal = torch.where(accept, c["n_equal"] + 1, 0)
         t_next = torch.where(accept, t_new, t)
+
+        # ---- rootfinding on the dense output of the accepted step ----------
+        t_stop = None
+        if with_roots:
+            D_y = D_upd[:, :n]
+            root_hit, t_root, dirs, y_root, g_new = _root_scan(
+                root_b, params, rdir, roots.g_prev, t, t_new, h_use, y_new,
+                lambda tt: _interpolate(D_y, in_q, t_new, h_use, tt), accept,
+            )
+            roots.update(accept, root_hit, t_root, dirs, y_root, g_new)
+            if root_terminal:
+                t_stop = t_root  # inf where no root was hit
 
         # ---- emission (shared loop; per-lane masks) -----------------------
         i_out = c["i_out"]
@@ -565,6 +620,8 @@ def bdf_solve_batched(
             idx = torch.clamp(i_out, max=n_t - 1)
             te = tvals[idx]
             pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
+            if t_stop is not None:
+                pend = pend & (te <= t_stop)
             if not bool(pend.any()):
                 break
             zi = _interpolate(D_upd, in_q, t_new, h_use, te)  # (nt, B)
@@ -652,10 +709,14 @@ def bdf_solve_batched(
             (status == -1) & active & (nsteps >= options.max_steps), STATUS["MAX_STEPS"], status
         )
         status = torch.where((status == -1) & underflow, STATUS["STEP_UNDERFLOW"], status)
+        root_ret_now = false_b
+        if with_roots and root_terminal:
+            root_ret_now = (status == -1) & root_hit
+            status = torch.where(root_ret_now, STATUS["ROOT_RETURN"], status)
 
         # per-lane post-mortem: snapshot (t, attempted h, order, worst state)
         # on the attempt where a lane's status turns fatal
-        fatal_now = (c["status"] == -1) & (status != -1)
+        fatal_now = (c["status"] == -1) & (status != -1) & ~root_ret_now
         e_err = torch.abs(ec[0][None, :] * d_z[:n]) * w_y
         e_newt = torch.abs(d_corr) * w_y
         worst = torch.argmax(torch.where(n_conv[None, :], e_err, e_newt), dim=0)
@@ -714,6 +775,8 @@ def bdf_solve_batched(
     )
     if with_sens:
         stats["n_sens_rhs_evals"] = c["nfevS"]
+    if with_roots:
+        stats.update(roots.stats())
     saved_out = None
     if save_steps > 0:
         # shared across lanes: the stride follows the shared attempt counter

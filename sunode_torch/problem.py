@@ -14,6 +14,7 @@ axes):
     adjoint_jac_dense(t, y, lam, p) -> (n, n, ...)    -J^T
     dfdp(t, y, p)             -> (n, n_deriv, ...)    df/dp_subset
     sensitivity_rhs(t, y, S, p) -> (n_deriv, n, ...)  S @ J^T + (df/dp_subset)^T
+    root_fn(t, y, p)          -> (n_roots, ...)       event functions (make_root_fn)
 
 where ``p`` is the full flat parameter vector and the derivative subset is
 selected by ``self.params.subset_indices``.  The trailing batch dims of the
@@ -217,6 +218,23 @@ class Problem:
             return S @ J.T + dfdp.T
 
         return over_lanes(sensitivity_rhs, (0, 1, 2, 1))
+
+    def make_root_fn(self, roots: Callable) -> Callable:
+        """Lower a record-view event function to the flat ``(t, y, p) ->
+        (nrt, ...)`` contract of the integrator cores (the counterpart of
+        ``sunode_tpu/problem.py``'s): ``roots(t, y_record, p_record)`` on one
+        lane returns a sequence or tensor of event-function values, and the
+        result is mapped over the trailing batch dims as ``make_rhs`` is."""
+        states, params = self.states, self.params
+
+        def root_fn(t, y, p):
+            out = roots(t, states.record(y), params.record(p))
+            if isinstance(out, (list, tuple)):
+                out = torch.stack([torch.as_tensor(g, dtype=y.dtype, device=y.device)
+                                   for g in out])
+            return torch.as_tensor(out, dtype=y.dtype, device=y.device).reshape(-1)
+
+        return over_lanes(root_fn, (0, 1, 1))
 
 
 class TorchProblem(Problem):

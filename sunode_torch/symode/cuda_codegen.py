@@ -6,7 +6,7 @@ functions that ``csrc/pece_step.cu`` includes, so the problem's right-hand
 side is compiled into the kernel and evaluated in registers, one thread per
 lane.
 
-Four systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
+Six systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
 
   * :func:`forward_system` -- ``out = f(t, y, p)`` (n inputs, n outputs);
   * :func:`transition_system` -- the transition-adjoint backward system in
@@ -22,7 +22,15 @@ Four systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
     over ``lam``, with y(t) staged once per attempt in the parameter rows
     after the problem's (``p[n_p + i]``): ``dlam = J^T lam`` and ``lam^T
     df/dp`` (n inputs, n + n_deriv outputs, n_p + n parameters), the form of
-    ``sunode_tpu/adjoint.py:861-865``.
+    ``sunode_tpu/adjoint.py:861-865``;
+  * :func:`sensitivity_system` -- simultaneous forward sensitivities, the
+    augmented state ``z = [y | vec S]``: ``[f | vec(J S + df/dp)]``
+    (n + k n inputs and outputs, k = n_deriv), the row layout of
+    ``bench.py``'s ``rhs_aug`` and ``Solver._adams_sens_setup``;
+  * :func:`staged_sensitivity_system` -- the sensitivity block of a
+    staggered attempt: state ``vec S``, y read from the parameter rows after
+    the problem's, ``vec(J S + df/dp)`` (k n inputs and outputs, n_p + n
+    parameters).
 
 A function the printer cannot emit raises ``ValueError`` here, at codegen
 time; there is no fallback to the plain path.
@@ -44,6 +52,8 @@ __all__ = [
     "transition_system",
     "resolve_system",
     "staged_adjoint_system",
+    "sensitivity_system",
+    "staged_sensitivity_system",
 ]
 
 # helpers for the custom sympy functions of symode.lambdify
@@ -266,4 +276,47 @@ def staged_adjoint_system(problem) -> DeviceSystem:
     body = emit_device_function("pece_fz", np.array(dlam + quad, dtype=object), varmap, _SIG)
     return DeviceSystem(
         "staged_adjoint", n, nz, n_p + n, _header("staged_adjoint", n, nz, n_p + n, body),
+    )
+
+
+def _sensitivity_rows(problem) -> list:
+    """``vec(J S + df/dp)`` over the problem's ``__s_k_i`` symbols, row
+    ``k n + i`` being ``sum_j J[i, j] S[k, j] + df_i/dp_k``, as
+    ``make_sensitivity_rhs`` computes ``S J^T + (df/dp)^T``."""
+    n, nd = problem.n_states, problem.n_params
+    J = np.asarray(problem.sym_jac, dtype=object).reshape(n, n)
+    Bm = np.asarray(problem.sym_dfdp, dtype=object).reshape(n, nd)
+    S = problem.sym_sens
+    return [sum(J[i, j] * S[k, j] for j in range(n)) + Bm[i, k]
+            for k in range(nd) for i in range(n)]
+
+
+def sensitivity_system(problem) -> DeviceSystem:
+    """Simultaneous forward sensitivities: state ``z = [y | vec S]``
+    (``S[k, i] = z[n + k n + i]``), outputs ``[f | vec(J S + df/dp)]``."""
+    n, nd, n_p = problem.n_states, problem.n_params, problem.n_all_params
+    varmap = _base_varmap(problem)
+    varmap.update({f"__s_{k}_{i}": f"y[{n + k * n + i}]" for k in range(nd) for i in range(n)})
+    varmap[problem.sym_time.name] = "t"
+    exprs = np.array(list(problem.sym_rhs) + _sensitivity_rows(problem), dtype=object)
+    body = emit_device_function("pece_fz", exprs, varmap, _SIG)
+    nz = n + nd * n
+    return DeviceSystem("sensitivity", nz, nz, n_p, _header("sensitivity", nz, nz, n_p, body))
+
+
+def staged_sensitivity_system(problem) -> DeviceSystem:
+    """The sensitivity block of a staggered attempt: state ``vec S``
+    (``S[k, i] = z[k n + i]``), y read from the parameter rows ``n_p..n_p
+    + n - 1``; outputs ``vec(J S + df/dp)``."""
+    n, nd, n_p = problem.n_states, problem.n_params, problem.n_all_params
+    varmap = _base_varmap(problem)
+    varmap.update({f"__y_{i}": f"p[{n_p + i}]" for i in range(n)})
+    varmap.update({f"__s_{k}_{i}": f"y[{k * n + i}]" for k in range(nd) for i in range(n)})
+    varmap[problem.sym_time.name] = "t"
+    body = emit_device_function(
+        "pece_fz", np.array(_sensitivity_rows(problem), dtype=object), varmap, _SIG
+    )
+    nS = nd * n
+    return DeviceSystem(
+        "staged_sensitivity", nS, nS, n_p + n, _header("staged_sensitivity", nS, nS, n_p + n, body)
     )

@@ -13,8 +13,9 @@ symbolically and lowered twice:
 
 The symbolic pieces the emitter needs are public: :attr:`sym_time`,
 :attr:`sym_rhs` (f),
-:attr:`sym_jac` (df/dy) and :attr:`sym_dfdp` (df/dp over the derivative
-subset).
+:attr:`sym_jac` (df/dy), :attr:`sym_dfdp` (df/dp over the derivative
+subset) and :attr:`sym_sens` (the sensitivity symbols).  Event functions are
+lowered from sympy by :meth:`SympyProblem.make_root_fn`.
 """
 
 from __future__ import annotations
@@ -79,6 +80,9 @@ class SympyProblem(problem_mod.Problem):
             self._varmap[f"__p_{j}"] = f"_p[{j}]"
         for i in range(n):
             self._varmap[f"__lam_{i}"] = f"_lam[{i}]"
+        for k in range(self.n_params):
+            for i in range(n):
+                self._varmap[f"__s_{k}_{i}"] = f"_s[{k}, {i}]"
 
         self._sym_statevec = np.array(
             [sy.Symbol(f"__y_{i}", real=True) for i in range(n)], dtype=object
@@ -90,6 +94,11 @@ class SympyProblem(problem_mod.Problem):
         self._sym_lamda = np.array(
             [sy.Symbol(f"__lam_{i}", real=True) for i in range(n)], dtype=object
         )
+        self._sym_sens = np.array(
+            [[sy.Symbol(f"__s_{k}_{i}", real=True) for i in range(n)]
+             for k in range(self.n_params)],
+            dtype=object,
+        ).reshape(self.n_params, n)
 
         state_rec = self.states.record(
             lambda path, shape: _symbol_leaf("__y_", self.states.slices[path].start, shape)
@@ -156,6 +165,11 @@ class SympyProblem(problem_mod.Problem):
     def sym_dfdp(self) -> np.ndarray:
         """df/dp over the derivative subset, shape (n, n_deriv)."""
         return self._sym_dydp
+
+    @property
+    def sym_sens(self) -> np.ndarray:
+        """The sensitivity symbols ``__s_k_i``, shape (n_deriv, n)."""
+        return self._sym_sens
 
     # ------------------------------------------------------------------
     def _make_dydt(self, state_rec, param_rec) -> np.ndarray:
@@ -227,6 +241,43 @@ class SympyProblem(problem_mod.Problem):
             return torch.einsum("kj...,ij...->ki...", S, J) + dfdp_T
 
         return sensitivity_rhs
+
+    def make_sensitivity_rhs_explicit(self) -> Callable:
+        """Fully symbolic forward sensitivities: every entry of ``J S_k +
+        df/dp_k`` is one generated expression, ``(t, y, S (k, n, ...), p)
+        -> (k, n, ...)``."""
+        n = self.n_states
+        J, S = self._sym_dydt_jac, self._sym_sens
+        exprs = np.array(
+            [[sum(J[i, j] * S[k, j] for j in range(n)) + self._sym_dydp[i, k]
+              for i in range(n)] for k in range(self.n_params)],
+            dtype=object,
+        ).reshape(self.n_params, n)
+        return self._lower("sensitivity_rhs_explicit", ["_t", "_y", "_s", "_p"], exprs)
+
+    def symbolic_roots(self, roots_sympy: Callable) -> np.ndarray:
+        """The event functions as an object array of sympy expressions:
+        ``roots_sympy`` is called once with the same ``(t, states, params)``
+        symbol records as ``rhs_sympy`` and returns an expression or a list
+        or tuple of them."""
+        state_rec = self.states.record(
+            lambda path, shape: _symbol_leaf("__y_", self.states.slices[path].start, shape)
+        )
+        param_rec = self.params.record(
+            lambda path, shape: _symbol_leaf("__p_", self.params.slices[path].start, shape)
+        )
+        exprs = roots_sympy(self._sym_time, state_rec, param_rec)
+        if not isinstance(exprs, (list, tuple)):
+            exprs = [exprs]
+        return np.array([sy.sympify(e) for e in exprs], dtype=object)
+
+    def make_root_fn(self, roots_sympy: Callable) -> Callable:
+        """Symbolic event functions lowered to ``(t, y, p) -> (nrt, ...)``:
+        a zero crossing of each component is an event for the batched
+        cores' ``root_fn``."""
+        # not cached: distinct roots_sympy callables would share any key
+        return lambdify_torch(["_t", "_y", "_p"], self.symbolic_roots(roots_sympy),
+                              self._varmap, name="roots")
 
     def make_adjoint_rhs(self) -> Callable:
         """Generated -lam^T J: ``(t, y, lam, p) -> (n, ...)``."""

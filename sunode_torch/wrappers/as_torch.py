@@ -75,7 +75,11 @@ class BatchedSolve:
         self._device_systems: dict[str, cuda_codegen.DeviceSystem] = {}
 
     def device_system(self, kind: str, device: torch.device):
-        """The emitted right-hand side for the fused kernel; None on CPU, and
+        """The emitted right-hand side for the fused kernel, ``kind`` one of
+        ``cuda_codegen``'s systems ('forward', 'transition', 'resolve',
+        'staged_adjoint', and for forward sensitivities, which this wrapper
+        does not differentiate through, 'sensitivity' and
+        'staged_sensitivity', the entry points' solves); None on CPU, and
         None for a problem that is not a ``SympyProblem`` (a ``TorchProblem``
         has no symbolic form to emit), whose CUDA attempts then run the split
         kernels with the right-hand side in torch between them
@@ -89,6 +93,8 @@ class BatchedSolve:
                 "transition": cuda_codegen.transition_system,
                 "resolve": cuda_codegen.resolve_system,
                 "staged_adjoint": cuda_codegen.staged_adjoint_system,
+                "sensitivity": cuda_codegen.sensitivity_system,
+                "staged_sensitivity": cuda_codegen.staged_sensitivity_system,
             }[kind]
             self._device_systems[kind] = emit(self.problem)
         return self._device_systems[kind]

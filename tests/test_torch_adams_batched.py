@@ -193,10 +193,12 @@ def test_failure_statuses_and_post_mortem_match_jax(problems):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(root_fn=lambda t, y, p: y[0]),
-        dict(sens_rhs=lambda t, y, S, p: S),
-        # the adjoint machinery is ported, but not what the reference refuses
-        # to combine it with: rootfinding and staggered sensitivities
+        # rootfinding, staggered sensitivities and the adjoint machinery are
+        # ported, but not what the reference refuses to combine: either of
+        # the first two with injections or a stage
+        dict(root_fn=lambda t, y, p: y[0], stage_fn=lambda t: t[None]),
+        dict(sens_rhs=lambda t, y, S, p: S, sens0=np.zeros((2, 2, 2)),
+             inject_times=np.array([1.0]), inject_deltas=np.zeros((1, 2, 2))),
         dict(inject_times=np.array([1.0]), inject_deltas=np.zeros((1, 2, 2)),
              root_fn=lambda t, y, p: y[0]),
         dict(stage_fn=lambda t: t[None], sens_rhs=lambda t, y, S, p: S),

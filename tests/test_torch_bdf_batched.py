@@ -360,10 +360,13 @@ def test_make_sensitivity_rhs_matches_jax():
 @pytest.mark.parametrize(
     "kwargs, opts, match",
     [
-        (dict(root_fn=lambda t, y, p: y[0]), {}, "root_fn"),
+        # rootfinding and staggered sensitivities are ported, not with
+        # per-lane grids or another linear solver
+        (dict(root_fn=lambda t, y, p: y[0], tvals=torch.ones((2, 3), dtype=torch.float64)), {},
+         "per-lane"),
         (dict(jac_prod=lambda t, y, v, p: v), {}, "jac_prod"),
         (dict(sens_rhs=lv_sens_rhs, S0=torch.zeros((2, 2, 2), dtype=torch.float64)),
-         dict(sens_staggered=True), "sens_staggered"),
+         dict(sens_staggered=True, linear_solver="spgmr"), "linear_solver"),
         (dict(core="adams", tvals=torch.ones((2, 3), dtype=torch.float64)),
          dict(save_steps=16), "per-lane"),
         ({}, dict(linear_solver="band", band_lower=1, band_upper=1), "linear_solver"),

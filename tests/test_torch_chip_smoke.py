@@ -221,3 +221,42 @@ def test_phase_6_profiled_horizon():
     assert cs.PROFILED_HORIZON == 0.25
     assert torch.equal(short, tvals[:4]) and float(short[-1]) == pytest.approx(2.35)
     assert torch.equal(cs.leading_times(tvals, 1.0), tvals)
+
+
+def test_phase_9_bookkeeping():
+    """Phase 9's expected launches by system, its runs of the root solve,
+    the sensitivity block's split-stage inputs on the CPU at B=8 (one
+    attempt of the Adams staggered solve, on which the split stages run and
+    every lane converges), and the plain right-hand sides of both new
+    systems on phase 3c's inputs at B=64, which take the rows their emitted
+    systems take."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.ops.pece_step import PeceSystem
+    from sunode_torch.symode import cuda_codegen
+
+    cs = _chip_smoke()
+    assert cs.sens_expected_launches("BDF", "staggered", 9) == {}
+    assert cs.sens_expected_launches("ADAMS", "staggered", 9) == {
+        "forward": 9, "staged_sensitivity": 9}
+    assert cs.sens_expected_launches("ADAMS", "simultaneous", 9) == {"sensitivity": 9}
+    assert cs.ROOT_RUNS == ((True, None), (False, None), (False, [-1]))
+    fz, n, nz = cs.split_system("staged_sensitivity")
+    x = cs.lv_sens_split_inputs(8, "cpu")
+    assert (n, nz) == (4, 4) and x["params"].shape == (6, 8)
+    assert x["DF"].shape == (cs.P_MAX + 3, 4, 8)
+    # a real attempt: the solve's orders and gate, and every lane converges
+    assert x["active"].all() and (x["p"] >= 1).all() and (x["p"] <= cs.P_MAX).all()
+    out = sp.adams_split_attempt(
+        PeceSystem(fz=fz, n=n, nz=nz), x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"],
+        x["DF"], x["z_prev"], x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"],
+        x["v_err"], x["newton_tol"], FUNCTIONAL_MAXITER, cs.P_MAX)
+    assert torch.isfinite(out.DF_upd).all() and out.conv.all()
+    for kind in cs.SENS_KINDS:
+        ds = getattr(cuda_codegen, f"{kind}_system")(lv_problem())
+        xh = cs.history_inputs(ds, 64, 2, "cpu")
+        rows = cs.lv_sens_fz(kind)(xh["t_new"], xh["z_prev"], xh["params"])
+        assert rows.shape == (ds.nz, 64) and torch.isfinite(rows).all()
+        nbytes, flops = cs.history_cost(ds, xh, torch.ones(64, dtype=torch.int32))
+        assert cs.bound(nbytes, flops)["bound_by"] == "bytes"

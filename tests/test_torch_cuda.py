@@ -3,8 +3,11 @@ kernel and the split attempt's three kernels against their plain versions
 and each other, and the CUDA main path,
 the batched BDF solve, with and without sensitivities, the default call
 (BDF with the checkpointed adjoint) and the ADAMS adjoints 'resolve',
-'hermite' and 'polynomial' and the SIR workload (a ``TorchProblem``,
-through the split kernels) against the CPU ones.
+'hermite' and 'polynomial', the SIR workload (a ``TorchProblem``,
+through the split kernels), forward sensitivities in every mode
+(``build_lv_sens``, and a ``TorchProblem``'s staggered sensitivity block
+through the split kernels) and rootfinding on both cores
+(``build_lv_roots``) against the CPU ones.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -20,8 +23,11 @@ import torch
 
 from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
 from sunode_torch.entry import (
+    LV_SENS_MODES,
     build_lv_adams,
     build_lv_adjoint,
+    build_lv_roots,
+    build_lv_sens,
     build_robertson,
     build_sir,
     lv_problem,
@@ -32,7 +38,9 @@ from sunode_torch.ops.adams import _GAMMA_STAR, FUNCTIONAL_MAXITER
 from sunode_torch.ops.adams_attempt import (
     adams_history_attempt,
     adams_history_attempt_reference,
+    build_attempt_kernel,
 )
+from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops import adams_split
 from sunode_torch.ops.adams_split import adams_split_attempt, adams_split_attempt_reference
 from sunode_torch.ops.bdf import BDFOptions
@@ -68,6 +76,18 @@ def _system(kind):
         return PeceSystem(
             fz=lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
             n=4, nz=6, device=cuda_codegen.resolve_system(problem),
+        )
+    sens = problem.make_sensitivity_rhs()
+    if kind == "sensitivity":  # [y | vec S]
+        return PeceSystem(
+            fz=lambda t, z, p: torch.cat(
+                [rhs(t, z[:2], p), sens(t, z[:2], z[2:].reshape(2, 2, -1), p).reshape(4, -1)]),
+            n=6, nz=6, device=cuda_codegen.sensitivity_system(problem),
+        )
+    if kind == "staged_sensitivity":  # vec S, the parameter rows [params | y_new]
+        return PeceSystem(
+            fz=lambda t, S, p: sens(t, p[4:], S.reshape(2, 2, -1), p[:4]).reshape(4, -1),
+            n=4, nz=4, device=cuda_codegen.staged_sensitivity_system(problem),
         )
     if kind == "staged_adjoint":
         # the parameter rows are [params | y(t)], as the Adams core passes them
@@ -180,7 +200,8 @@ def _history_against_plain(system, args, lanes=None):
 
 
 @pytest.mark.parametrize("kab", [9, 11])
-@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint",
+                                  "sensitivity", "staged_sensitivity"])
 def test_history_kernel_matches_plain(cuda, kind, kab):
     system = _system(kind)
     _history_against_plain(system, _history_case(system, cuda, 2, kab))
@@ -386,7 +407,8 @@ def _relerr(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint"])
+@pytest.mark.parametrize("kind", ["forward", "transition", "resolve", "staged_adjoint",
+                                  "staged_sensitivity"])
 def test_split_kernels_match_plain(cuda, kind):
     """A CUDA attempt without an emitted system goes to the split kernels:
     one predict, four sweeps and one finish, against the plain stages
@@ -539,3 +561,86 @@ def test_cuda_torch_problem_transition_matches_cpu(cuda):
         out[device] = (ys.detach().cpu().numpy(), gp.cpu().numpy())
     for got, ref in zip(out[cuda], out["cpu"]):
         np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("method, mode", LV_SENS_MODES, ids=["-".join(m) for m in LV_SENS_MODES])
+def test_cuda_lv_sens_matches_cpu(cuda, method, mode):
+    """``build_lv_sens`` on the 16 lanes of lv_sens.npz: on the Adams core
+    every attempt is one launch of the forward and one of the
+    'staged_sensitivity' build (staggered) or one of the 'sensitivity' build
+    (simultaneous), none on the BDF core; ys and sensitivities within 1e-8
+    of the CPU's (floored at 1e-9) and inside the fixture's gate."""
+    g = np.load(Path(__file__).parent / "golden" / "lv_sens.npz")
+    problem = lv_problem()
+    kinds = {"forward": cuda_codegen.forward_system(problem),
+             "sensitivity": cuda_codegen.sensitivity_system(problem),
+             "staged_sensitivity": cuda_codegen.staged_sensitivity_system(problem)}
+    out = {}
+    for device in (cuda, "cpu"):
+        solve, (y0s, ps, tvals) = build_lv_sens(16, method, mode, device=device)
+        before = {k: build_attempt_kernel(ds, 9).launches for k, ds in kinds.items()}
+        res = solve(y0s, ps, tvals)
+        assert (res.status == 0).all()
+        out[device] = (res.ys.cpu().numpy(), res.sens.cpu().numpy())
+        if device == cuda:
+            n = res.stats["n_attempts"]
+            want = ({} if method == "BDF" else
+                    {"forward": n, "staged_sensitivity": n} if mode == "staggered" else
+                    {"sensitivity": n})
+            got = {k: build_attempt_kernel(ds, 9).launches - before[k] for k, ds in kinds.items()}
+            assert {k: v for k, v in got.items() if v} == want
+    for got, ref in zip(out[cuda], out["cpu"]):
+        assert np.max(np.abs(got - ref) / (np.abs(ref) + 1e-9)) <= 1e-8
+    np.testing.assert_allclose(out[cuda][0], g["ys"], rtol=5e-6 if mode == "simultaneous" else 1e-6,
+                               atol=1e-8)
+    np.testing.assert_allclose(out[cuda][1], g["sens"], rtol=2e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("method", ["BDF", "ADAMS"])
+@pytest.mark.parametrize("terminal", [True, False])
+def test_cuda_lv_roots_match_cpu(cuda, method, terminal):
+    """``build_lv_roots`` on 16 lanes: statuses, n_roots and directions
+    equal to the CPU's, root times within 1e-8 (non-terminal with falling
+    crossings only)."""
+    directions = None if terminal else [-1]
+    out = {}
+    for device in (cuda, "cpu"):
+        solve, (y0s, ps, tvals) = build_lv_roots(16, method, terminal, device=device)
+        res = solve(y0s, ps, tvals, root_directions=directions)
+        out[device] = (res.status.cpu().numpy(),
+                       *(res.stats[k].cpu().numpy() for k in ("n_roots", "roots_found", "roots_t")))
+    for got, ref in zip(out[cuda][:3], out["cpu"][:3]):
+        np.testing.assert_array_equal(got, ref)
+    hit = np.isfinite(out["cpu"][3])
+    assert hit[:, 0].all() and np.array_equal(np.isfinite(out[cuda][3]), hit)
+    np.testing.assert_allclose(out[cuda][3][hit], out["cpu"][3][hit], rtol=1e-8)
+
+
+def test_cuda_torch_problem_staggered_matches_cpu(cuda):
+    """Staggered sensitivities of SIR over 30 regions written in torch (a
+    ``TorchProblem``, no emitted system) on 8 lanes: the state and the
+    sensitivity block both through the split kernels, two predicts an
+    attempt, no fused launch; within 1e-8 of the CPU's."""
+    problem = sir_problem(30)
+    rng = np.random.default_rng(8)
+    y0s = np.concatenate([0.99 + 0.005 * rng.standard_normal((8, 30)),
+                          0.01 * (1 + 0.1 * np.abs(rng.standard_normal((8, 30)))),
+                          np.zeros((8, 30))], axis=1)
+    ps = np.array([0.4, 0.15, 0.05]) * (1 + 0.05 * rng.standard_normal((8, 3)))
+    out = {}
+    for device in (cuda, "cpu"):
+        f64 = dict(dtype=torch.float64, device=device)
+        before, history = adams_split_attempt.launches["predict"], adams_history_attempt.launches
+        res = adams_solve_batched(
+            problem.make_rhs(), 0.0, torch.as_tensor(y0s, **f64), torch.as_tensor(ps, **f64),
+            torch.linspace(5.0, 30.0, 4, **f64),
+            BDFOptions(rtol=1e-8, atol=1e-10, sens_staggered=True), batched_fns=True,
+            sens_rhs=problem.make_sensitivity_rhs(), sens0=torch.zeros((8, 2, 90), **f64),
+        )
+        assert (res.status == 0).all()
+        expected = 2 * res.stats["n_attempts"] if device == cuda else 0
+        assert adams_split_attempt.launches["predict"] - before == expected
+        assert adams_history_attempt.launches == history
+        out[device] = (res.ys.cpu().numpy(), res.sens.cpu().numpy())
+    for got, ref in zip(out[cuda], out["cpu"]):
+        assert np.max(np.abs(got - ref) / (np.abs(ref) + 1e-12)) <= 1e-8

@@ -1,8 +1,9 @@
 """sunode_torch must import torch and never jax, and leave torch's global
 state alone, through an Adams gradient step, a BDF solve, a BDF gradient
-step with the checkpointed (hermite) adjoint and a TorchProblem's
-derivatives, with the split attempt's module imported; checked in a fresh
-interpreter."""
+step with the checkpointed (hermite) adjoint, a TorchProblem's
+derivatives, staggered and simultaneous sensitivities, rootfinding on both
+cores and the two emitted sensitivity systems, with the split attempt's
+module imported; checked in a fresh interpreter."""
 
 import json
 import os
@@ -21,7 +22,9 @@ import sunode_torch
 import sunode_torch.experiments.exp_pece2d
 import sunode_torch.ops.pece_2d
 import sunode_torch.ops.adams_split
-from sunode_torch.entry import build_lv_adjoint, build_lv_checkpointed, build_robertson, sir_problem
+from sunode_torch.entry import (build_lv_adjoint, build_lv_checkpointed, build_lv_roots,
+                                build_lv_sens, build_robertson, sir_problem, LV_SENS_MODES)
+from sunode_torch.symode import cuda_codegen
 
 step, (y0s, p_subs) = build_lv_adjoint(batch=2, tvals_n=3, rtol=1e-6, device="cpu")
 gy, gp = step(y0s, p_subs)
@@ -33,7 +36,23 @@ sir = sir_problem(3)
 f64 = dict(dtype=torch.float64)
 lam = sir.make_adjoint_rhs()(torch.zeros(2, **f64), torch.ones(9, 2, **f64),
                              torch.ones(9, 2, **f64), torch.ones(3, 2, **f64))
+sens_ok = []
+for method, mode in LV_SENS_MODES:
+    solve, (sy0, sps, stv) = build_lv_sens(2, method, mode, device="cpu")
+    res = solve(sy0, sps, stv[:3])
+    sens_ok.append(bool((res.status == 0).all()) and bool(torch.isfinite(res.sens).all()))
+roots_ok = []
+for method in ("BDF", "ADAMS"):
+    rsolve, (ry0, rps, rtv) = build_lv_roots(2, method, True, device="cpu")
+    rres = rsolve(ry0, rps, rtv[:3])
+    roots_ok.append(bool((rres.status == 5).all()) and bool((rres.stats["n_roots"] == 1).all()))
+from sunode_torch.entry import lv_problem
+lvp = lv_problem()
+emitted = [cuda_codegen.sensitivity_system(lvp).nz, cuda_codegen.staged_sensitivity_system(lvp).n_p]
 print(json.dumps({
+    "sens_ok": sens_ok,
+    "roots_ok": roots_ok,
+    "emitted": emitted,
     "jax_loaded": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "tpu_loaded": sorted(m for m in sys.modules if m.startswith("sunode_tpu")),
     "default_dtype_kept": torch.get_default_dtype() == default_before,
@@ -62,3 +81,5 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["bdf_finite"]
     assert out["checkpointed_finite"] and out["recorded"]
     assert out["torch_problem_finite"]
+    assert out["sens_ok"] == [True] * 3 and out["roots_ok"] == [True] * 2
+    assert out["emitted"] == [6, 6]
