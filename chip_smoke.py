@@ -31,11 +31,15 @@ Phases, one line each; any failure exits non-zero:
      card at B=10,000, on phase 3's inputs plus a seeded step ratio
      log-uniform in [0.2, 2] and the main path's error weights; normwise
      relative error <= 1e-12 on DF_resc, DF_upd, z_pred, z_new, err0 and
-     err3, conv and niter equal in every lane, at the seeded orders and with
-     every lane at p = 1 and at p = P_MAX, per-call times as in phase 3 and
-     the device time at each of the two orders; phase 7's three builds at
-     its history depth (order 1..8) and tolerances (1e-8 on every row), the
-     staged build with seeded y(t) rows after the parameters;
+     err3, conv and niter equal in every lane, and ROADMAP C6's checks:
+     DF_resc and z_pred bit for bit, z_new, err0 and DF_upd bit for bit in
+     the lanes where the build's emitted right-hand side gives the plain f
+     bit for bit at every point the plain attempt evaluates it (their count
+     printed); at the seeded orders and with every lane at p = 1 and at p =
+     P_MAX, per-call times as in phase 3 and the device time at each of the
+     two orders; phase 7's three builds at its history depth (order 1..8)
+     and tolerances (1e-8 on every row), the staged build with seeded y(t)
+     rows after the parameters;
   3d. split kernels: the attempt with its right-hand side in torch between
      three kernels (predict, sweep, finish) for SIR over 1,000 regions at
      each shape phase 8 gives them: its forward attempts (nz = n = 3,000,
@@ -49,21 +53,22 @@ Phases, one line each; any failure exits non-zero:
      <= 1e-12, normwise on the (rows, B) fields (DF_resc, DF_upd, z_new and
      the rest) and lane by lane on err3, c_A and dy_old; conv, div, bad and
      niter equal in every lane; per-call times as in phase 3 at the forward
-     shape, the kernels' device times at the backward ones;
+     shape, the kernels' device times at the backward ones; the sweep's
+     geometry at each shape (cluster, rows a block, lanes a tile, blocks);
   4. main path: batched LV adjoint gradients at B=10,000, 21 observation
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: the history-attempt launches equal to the attempts
      the solves report and no PECE-kernel launch; then one more step under
-     the profiler for the device kernels per attempt and the device-busy
-     share; every lane finite, lanes 0-15 inside the golden gate
+     the profiler for the device kernels per attempt (counted from the
+     profiler's raw records and from its public event list, which must
+     agree) and the device-busy share; every lane finite, lanes 0-15 inside the golden gate
      (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), and the same lanes
      against the plain path on the CPU within 1e-6;
   5. stiff BDF: bench.py's Robertson workload at B=10,000 (8 observation
      times to 4e6, rtol 1e-8, atol [1e-10, 1e-12, 1e-10]) through
      ``make_batched_solve_fn(method='BDF', derivatives=None)``: one solve
-     under the profiler for the device kernels per attempt (counted from the
-     profiler's raw records and from its public event list, which must
-     agree) and the device-busy share, then one timed solve, warm; status 0 in every lane
+     under the profiler for the device kernels per attempt and the
+     device-busy share, then one timed solve, warm; status 0 in every lane
      (finite ys after the wrapper's NaN poisoning), lanes 0-15 inside the
      golden gate (tests/golden/robertson.npz, rtol 2e-5, atol 1e-10) and
      against the plain path on the CPU within 1e-6 relative (floored at the
@@ -80,8 +85,8 @@ Phases, one line each; any failure exits non-zero:
      rows, backward tolerances 1e-10) on phase 4's Lotka-Volterra inputs at
      B=10,000, 21 observation times, rtol = atol = 1e-8, through
      ``entry.build_lv_checkpointed``: one timed gradient step, then one
-     under the profiler over the first quarter of the horizon (the leading
-     4 of the 21 observation times, the same width and options), with the
+     under the profiler over the first tenth of the horizon (the leading
+     observation times, the same width and options), with the
      attempts of each solve, the device kernels and host ms per attempt and
      the device-busy share; status 0 and finite
      gradients in every lane, lanes 0-15 inside the golden gate and against
@@ -103,11 +108,13 @@ Phases, one line each; any failure exits non-zero:
   8. SIR over 1,000 regions, a TorchProblem (scripts/bench_sir_scale.py's
      configuration: 12 observation times, rtol 1e-8 / atol 1e-10 both ways,
      1,024 checkpoints) through ``entry.build_sir``: 'resolve' at B=1,024 and
-     'hermite' at B=256 (an 18.9 GB table), per mode a warm-up, one timed
-     gradient step with every kernel count set to 0 before it, and one step
-     under the profiler; split launches equal to 1 / 4 / 1 x the forward
-     plus backward attempts (predict / sweep / finish), no launch of any
-     other kernel and no plain-stage call; status 0 and finite in every
+     'hermite' at B=256 (an 18.9 GB table), per mode one step under the
+     profiler, which is also the warm-up, and one timed gradient step with
+     every kernel count set to 0 before it; split launches equal to 1 / 4 /
+     1 x the forward plus backward attempts (predict / sweep / finish), no
+     launch of any other kernel and no plain-stage call; in the profile, no
+     fill right before a sweep (one before each predict, its tile counter's
+     reset); status 0 and finite in every
      lane, lane 0 (set to the golden case's inputs, as the script sets it)
      inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
      atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
@@ -119,8 +126,9 @@ Phases, one line each; any failure exits non-zero:
      in phase 3d, timed as at its first shape, on the sensitivity block (4
      rows, B=10,000, history depth 9) of one attempt of (b)'s Adams
      staggered solve, its inputs taken where the solve calls the history
-     attempt; the 'staged_sensitivity' build on that attempt too, its
-     error rows held against the terms they are the difference of; (b)
+     attempt; the 'staged_sensitivity' build on that attempt too, with
+     phase 3c's C6 checks, its error rows held against themselves lane by
+     lane and against the terms they are the difference of; (b)
      ``entry.build_lv_sens``: BDF and
      Adams staggered at rtol = atol = 1e-9 and Adams simultaneous at rtol
      1e-8 (bench.py's lv_sens), one timed solve each with every kernel count
@@ -256,6 +264,34 @@ def pece_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
         DF=T(DF), z_prev=T(z_prev), params=T(params),
         atol_z=T(atol), rtol_z=T(rtol), newton_tol=tol,
     )
+
+
+def lv_plain_fz(problem, kind):
+    """The plain right-hand side of one of the emitted Lotka-Volterra systems
+    'forward', 'transition', 'resolve' and 'staged_adjoint', composed as the
+    Adams core composes it (the staged one reads ``[params | y(t)]`` from its
+    parameter rows)."""
+    import torch
+
+    from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
+
+    rhs = problem.make_rhs()
+    if kind == "forward":
+        return rhs
+    if kind == "transition":
+        rhs_c, quad_c = transition_fz(
+            rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), problem.n_states)
+        return lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)])
+    aj, qr = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
+    if kind == "resolve":
+        res_c, res_q = resolve_fz(rhs, aj, qr, problem.n_states)
+        return lambda t, y, p: torch.cat([res_c(t, y, p), res_q(t, y, p)])
+    if kind != "staged_adjoint":
+        raise ValueError(f"no plain right-hand side for the system {kind!r}")
+    stg_c, stg_q = staged_adjoint_fz(aj, qr)
+    n_p = problem.n_all_params
+    return lambda t, y, p: torch.cat(
+        [stg_c(t, y, p[:n_p], p[n_p:]), stg_q(t, y, p[:n_p], p[n_p:])])
 
 
 def rhs_flops(system) -> int:
@@ -400,6 +436,58 @@ def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
 
 HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_new", "err3", "z_pred", "err0")
 HISTORY_KERNEL = "adams_attempt_kernel"  # the history attempt's kernel, as the profiler names it
+C6_BITWISE = ("z_new", "err0", "DF_upd")  # bit for bit in the lanes where f rounds alike
+
+
+def rhs_agreement(launch, fz, n, x, p_max):
+    """(B,) bool: the lanes in which the emitted right-hand side of the
+    build behind ``launch`` gives the plain ``fz`` bit for bit at every point
+    the plain attempt evaluates it, its corrector's iterates (the plain
+    stages of ``ops/adams_split.py``, bit for bit the plain attempt's) and
+    the final one.  The build's own f at a point y: an attempt at order 1
+    on a zero history from z_prev = y with no sweep evaluates f once, at y,
+    and its DF_upd[0] = (f - 0) exactly.  ``launch(p, DF, z_prev, maxiter)``
+    runs the build on ``x`` with those four replaced."""
+    import torch
+
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+
+    t, par = x["t_new"], x["params"]
+    pred = sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"], x["atol_z"],
+                            x["rtol_z"], p_max)
+    y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
+    points = []
+    for k in range(FUNCTIONAL_MAXITER):
+        f = fz(t, y, par)
+        points.append((y, f))
+        y, state = sp.split_sweep(k, f, y, pred, state, x["newton_tol"], n)
+    points.append((y, fz(t, y, par)))
+    ones, zeros = torch.ones_like(x["p"]), torch.zeros_like(x["DF"])
+    agree = torch.ones_like(x["active"])
+    for y, f in points:
+        emitted = launch(ones, zeros, torch.cat([y, x["z_prev"][n:]]), 0).DF_upd[0]
+        agree &= (emitted == f).all(dim=0)
+    return agree
+
+
+def c6_check(got, ref, agree) -> dict:
+    """ROADMAP C6's checks of a history build against its plain version:
+    DF_resc and z_pred bit for bit in every lane (neither reads f), z_new,
+    err0 and DF_upd in the lanes ``agree`` (:func:`rhs_agreement`)."""
+    import torch
+
+    out = {f"{k}_bitwise": bool(torch.equal(getattr(got, k), getattr(ref, k)))
+           for k in ("DF_resc", "z_pred")}
+    for k in C6_BITWISE:
+        out[f"{k}_bitwise_where_f_agrees"] = bool(
+            torch.equal(getattr(got, k)[..., agree], getattr(ref, k)[..., agree]))
+    return out
+
+
+def fmt_c6(checks: dict, agree) -> str:
+    return (f" f_agrees_in={int(agree.sum())}/{agree.shape[0]} lanes "
+            + " ".join(f"{k}={v}" for k, v in checks.items()))
 
 
 def history_cost(device_system, x, niter) -> tuple[int, int]:
@@ -456,6 +544,17 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
     rel, abs_err = normwise(got, ref, HISTORY_FIELDS)
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
+
+    def agreement(x_q):
+        def launch(p, DF, z, maxiter):
+            a = list(args(z, p))
+            a[5], a[13] = DF, maxiter
+            return adams_history_attempt(system, *a)
+
+        return rhs_agreement(launch, fz, system.n, x_q, p_max)
+
+    agree = agreement(x)
+    c6 = {"seeded": (c6_check(got, ref, agree), agree)}
     # one order in every lane: p = 1 (no rescale) and p = P_MAX (the whole
     # tables), against the plain version and timed
     at_p, ok_p = {}, {}
@@ -468,6 +567,8 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
         abs_err = max(abs_err, err_q)
         ok_p[q] = (max(rel_q.values()), bool(torch.equal(got_q.conv, ref_q.conv)
                                               and torch.equal(got_q.niter, ref_q.niter)))
+        agree_q = agreement({**x, "p": p_q})
+        c6[f"p{q}"] = (c6_check(got_q, ref_q, agree_q), agree_q)
         at_p[q] = device_us(lambda: adams_history_attempt(system, *args(x["z_prev"], p_q)),
                             kernel=HISTORY_KERNEL)
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
@@ -488,11 +589,13 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
         + "".join(f" kernel_device_us_all_p{q}={fmt_us(v)}" for q, v in at_p.items())
         + "".join(f" all_p{q}: max_rel={r:.3e} flags_equal={same}"
                   for q, (r, same) in ok_p.items())
-        + f" bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
+        + "".join(f" | C6 {o}:" + fmt_c6(checks, a) for o, (checks, a) in c6.items())
+        + f" | bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
         f" ({entry['bound_by']})"
     )
     if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same
-            and all(r <= REL_BOUND and same for r, same in ok_p.values())):
+            and all(r <= REL_BOUND and same for r, same in ok_p.values())
+            and all(all(checks.values()) for checks, _ in c6.values())):
         raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
     return entry
 
@@ -653,14 +756,19 @@ def history_on_attempt(device_system, x) -> float:
     """Phase 9(a): the 'staged_sensitivity' history build against its plain
     version on the attempt of :func:`lv_sens_split_inputs`, inputs it meets
     in phase 9(b); returns the worst max|a - b|.  DF_resc, DF_upd, z_pred and
-    z_new are held normwise to REL_BOUND, conv and niter equal.  The error
-    row err0 = |gamma*_p| h (f - f_ex) is, where the corrector converged, a
-    difference far under f: the kernel's z_pred and iterates may round an
-    ulp from the plain version's (nvcc contracts its sums of products into
-    FMAs), which moves err0 by far more than 1e-12 of itself.  So err0 is
-    held to REL_BOUND normwise against |gamma*_p| h f_ex, the terms it is
-    the difference of, and err3 lane by lane against those terms' weighted
-    norm; both errors against themselves are logged."""
+    z_new are held normwise to REL_BOUND, conv and niter equal, and ROADMAP
+    C6's checks (:func:`c6_check`): DF_resc and z_pred bit for bit, z_new,
+    err0 and DF_upd bit for bit where the emitted f rounds as the plain one
+    (:func:`rhs_agreement`).  The error row err0 = |gamma*_p| h (f - f_ex)
+    is, where the corrector converged, a difference far under f: an f an
+    ulp apart moves it by far more than 1e-12 of itself.  So err0 and err3
+    are held against themselves lane by lane (to REL_BOUND, per element)
+    where the emitted f rounds as the plain one (the plain sensitivity
+    right-hand side is torch's einsum, which the emitted sums do not
+    follow: most lanes differ by an ulp of f), and in every lane against
+    the terms they are the difference of (err0 normwise against |gamma*_p|
+    h f_ex, err3 lane by lane against those terms' weighted norm); their
+    errors against themselves in every lane are logged."""
     import torch
 
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
@@ -672,14 +780,26 @@ def history_on_attempt(device_system, x) -> float:
 
     system = PeceSystem(fz=lv_sens_fz("staged_sensitivity"), n=device_system.n,
                         nz=device_system.nz, device=device_system)
+    p_max = x["DF"].shape[0] - 3
     args = (x["t_new"], x["h"], x["pre_factor"], x["p"], x["active"], x["DF"], x["z_prev"],
             x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
-            x["newton_tol"], FUNCTIONAL_MAXITER, x["DF"].shape[0] - 3)
+            x["newton_tol"], FUNCTIONAL_MAXITER, p_max)
     got = adams_history_attempt(system, *args)
     ref = adams_history_attempt_reference(system, *args)
     torch.cuda.synchronize()
+
+    def launch(p, DF, z, maxiter):
+        a = list(args)
+        a[3], a[5], a[6], a[13] = p, DF, z, maxiter
+        return adams_history_attempt(system, *a)
+
+    agree = rhs_agreement(launch, system.fz, system.n, x, p_max)
+    c6 = c6_check(got, ref, agree)
     rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_pred", "z_new"))
-    own, _ = split_errors({"err0": (got.err0, ref.err0)}, {"err3": (got.err3, ref.err3)})
+    own = {"err0/lane": lane_rel(got.err0, ref.err0), "err3/lane": lane_rel(got.err3, ref.err3)}
+    own_agree = {k: lane_rel(getattr(got, f)[:, agree], getattr(ref, f)[:, agree])
+                 if bool(agree.any()) else 0.0
+                 for k, f in (("err0/lane", "err0"), ("err3/lane", "err3"))}
     p = x["p"].long()
     below_p = torch.arange(ref.DF_resc.shape[0], device=p.device)[:, None, None] < p
     f_ex = (ref.DF_resc * below_p).sum(dim=0)
@@ -691,9 +811,12 @@ def history_on_attempt(device_system, x) -> float:
     flags = bool(torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter))
     log(f"[history-kernel-vs-plain staged_sensitivity on the attempt] B={x['p'].shape[0]} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
-        + " (against themselves: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own.items())
-        + f") flags_equal={flags} converged={int(got.conv.sum())}/{x['p'].shape[0]}")
-    if not (max(rel.values()) <= REL_BOUND and flags):
+        + " against themselves: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own.items())
+        + " (where f agrees: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own_agree.items())
+        + f") flags_equal={flags} converged={int(got.conv.sum())}/{x['p'].shape[0]} |"
+        + fmt_c6(c6, agree))
+    if not (max(rel.values()) <= REL_BOUND and max(own_agree.values()) <= REL_BOUND and flags
+            and all(c6.values())):
         raise SystemExit("chip_smoke: the staged_sensitivity history kernel disagrees with the "
                          "plain version on the solve's attempt")
     return max(abs_err, float((got.err0 - ref.err0).abs().max()),
@@ -744,6 +867,16 @@ def split_errors(normwise_pairs, lane_pairs):
     return rel, abs_err
 
 
+def fmt_sweep(nz, B) -> str:
+    """The sweep kernel's geometry at (nz, B), as ``ops/adams_split.py``
+    chooses it."""
+    from sunode_torch.ops.adams_split import sweep_geometry
+
+    g = sweep_geometry(nz, B)
+    return (f"sweep: cluster={g.cluster} rows_per_block={g.rows} lanes_per_tile={g.lanes} "
+            f"row_threads={g.row_threads} blocks={g.blocks}")
+
+
 def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     """Phase 3d at one shape: the composed attempt on the kernels against
     the plain stages composed on the card, then each kernel against its
@@ -778,7 +911,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
         f"[split-kernels-vs-plain attempt {shape}] "
         f"{'LV sensitivity block' if kind == 'staged_sensitivity' else f'SIR R={R}'} "
         f"KAB={p_max + 3} "
-        f"row_chunks={-(-nz // sp.CHUNK_ROWS)} "
+        f"predict_finish_row_chunks={-(-nz // sp.CHUNK_ROWS)} {fmt_sweep(nz, B)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
         f" converged={int(got.conv.sum())}/{B}"
@@ -945,10 +1078,14 @@ def sir_phase(smi, counted) -> dict:
         p_subs[0] = torch.as_tensor(golden["p0"][:2], dtype=p_subs.dtype)
         np.testing.assert_allclose(float(grad_step.p_fix[0]), golden["p0"][2], rtol=1e-6)
         stats = grad_step.solve.last_stats
-        t0 = time.perf_counter()
-        grad_step(y0s, p_subs)  # warm-up
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
+
+        def attempts():
+            return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+
+        # one step under the profiler, which is also the warm-up (as phase
+        # 5's profiled solve is): device kernels per attempt, busy share and
+        # the fills right before each split kernel
+        prof = device_kernels_per_attempt(lambda: grad_step(y0s, p_subs), attempts)
         for k in (*counted, SplitLaunches()):
             k.launches = 0
         sp.split_predict.calls = sp.split_sweep.calls = sp.split_finish.calls = 0
@@ -975,25 +1112,32 @@ def sir_phase(smi, counted) -> dict:
         peak = torch.cuda.max_memory_allocated()
         log(
             f"[sir {mode} step] R={R} B={B} wall_s={wall:.4f} grads_per_s={B / wall:.1f} "
-            f"warm_up_s={warm:.2f} attempts fwd={fwd} bwd={bwd} "
+            f"attempts fwd={fwd} bwd={bwd} "
             f"host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} "
             f"table_MB={sir_table_bytes(mode, B) / 1e6:.1f} peak_MB={peak / 1e6:.1f} | {smi}"
         )
-
-        def attempts():
-            return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
-
-        prof = device_kernels_per_attempt(lambda: grad_step(y0s, p_subs), attempts)
         log(
             f"[sir {mode} device kernels per attempt] {prof['per_attempt']:.1f} "
             f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
             f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
             f"wall_s_under_profiler={prof['wall_s']:.4f} host_ms_per_attempt_under_profiler="
             f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} "
-            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
+            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step, "
+            f"the warm-up) | {smi}"
         )
         log(f"[sir {mode} device kernels by kind] (kind: per attempt, device ms in the step) "
             + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+        # the sweep zeroes no scratch: no fill runs right before one, while
+        # one runs before each predict and finish (their tile counters)
+        fills = fills_before(prof["events"], [f"split_{s}_kernel" for s in SPLIT_STAGES])
+        n_att = prof["attempts"]
+        log(f"[sir {mode} fills] (kernel: records, records right after a memset) "
+            + "; ".join(f"{k}: {n}, {f}" for k, (n, f) in fills.items())
+            + f"; attempts {n_att}")
+        if not (fills["split_sweep_kernel"][0] > 0 and fills["split_sweep_kernel"][1] == 0
+                and fills["split_predict_kernel"][1] > 0):
+            raise SystemExit(f"chip_smoke: sir {mode}: a fill ran right before a sweep (or the "
+                             f"profile shows no sweep, or no predict's fill)")
 
         ys_np, gp_np = ys.cpu().numpy(), gp.cpu().numpy()
         status = stats["backward"]["status"].cpu().numpy()
@@ -1079,17 +1223,35 @@ def kernel_class(name: str) -> str:
 
 
 def _raw_device_events(prof):
-    """(name, µs) of every device record of a finished profile, read from
-    the profiler's raw records (``kineto_results``, not a public API):
-    building its Python event tree takes minutes for the millions of kernels
-    of a checkpointed gradient step.  Raises if this torch lacks them."""
+    """(name, µs) of every device record of a finished profile, in the order
+    they started, read from the profiler's raw records (``kineto_results``,
+    not a public API): building its Python event tree takes minutes for the
+    millions of kernels of a checkpointed gradient step.  Raises if this
+    torch lacks them."""
     from torch.autograd import DeviceType
 
     results = getattr(prof.profiler, "kineto_results", None)
     if results is None or not hasattr(results, "events"):
         raise SystemExit("chip_smoke: this torch's profiler has no kineto_results.events()")
-    return [(e.name(), e.duration_ns() / 1e3) for e in results.events()
-            if e.device_type() == DeviceType.CUDA]
+    records = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3) for e in results.events()
+                     if e.device_type() == DeviceType.CUDA)
+    return [(name, us) for _, name, us in records]
+
+
+def fills_before(events, kernels) -> dict:
+    """{kernel: (records, records right after a fill)}: for each name in
+    ``kernels`` (a part of a kernel's name, as the profiler spells it: a
+    template's begins with its return type), its device records in
+    ``events`` (:func:`_raw_device_events`) and how many of them follow a
+    memset directly, as a launcher's fill of its scratch does (the split
+    predict and finish zero a counter per lane tile before each launch)."""
+    out = {k: [0, 0] for k in kernels}
+    for prev, (name, _) in zip([("", 0.0)] + events, events):
+        for k in kernels:
+            if k in name:
+                out[k][0] += 1
+                out[k][1] += prev[0].startswith("Memset")
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def _count(names) -> tuple[int, int]:
@@ -1130,7 +1292,7 @@ def device_kernels_per_attempt(run, attempts, cross_check=False) -> dict:
         entry = by_class.setdefault(kernel_class(name), [0, 0.0])
         entry[0] += 1
         entry[1] += us
-    return dict(attempts=attempts, kernels=kernels, copies=copies, public=public,
+    return dict(attempts=attempts, kernels=kernels, copies=copies, public=public, events=events,
                 per_attempt=kernels / attempts, busy_s=busy_us / 1e6, wall_s=wall,
                 by_class={c: (n / attempts, us / 1e3) for c, (n, us) in
                           sorted(by_class.items(), key=lambda kv: -kv[1][1])})
@@ -1154,7 +1316,7 @@ def max_rel(got, ref) -> float:
     return max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(got, ref))
 
 
-PROFILED_HORIZON = 0.25  # phase 6's profiled step: this share of the observation horizon
+PROFILED_HORIZON = 0.1  # phase 6's profiled step: this share of the observation horizon
 
 
 def leading_times(tvals, share):
@@ -1365,11 +1527,8 @@ def bdf_robertson_phase(smi) -> None:
     def run():
         return solve(0.0, *inputs)
 
-    # the profiled solve comes first and is the timed solve's warm-up; the
-    # profiler's public event list counts its kernels too (a few seconds at
-    # this size), as a check of the raw-record count every phase uses
-    prof = device_kernels_per_attempt(run, lambda: solve.last_stats["forward"]["n_attempts"],
-                                      cross_check=True)
+    # the profiled solve comes first and is the timed solve's warm-up
+    prof = device_kernels_per_attempt(run, lambda: solve.last_stats["forward"]["n_attempts"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ys = run()
@@ -1392,8 +1551,7 @@ def bdf_robertson_phase(smi) -> None:
     log(
         f"[bdf robertson device kernels per attempt] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts in one solve; prof.events() counts "
-        f"{prof['public'][0]} and {prof['public'][1]}) device_busy_s={prof['busy_s']:.4f} "
+        f"{prof['attempts']} attempts in one solve) device_busy_s={prof['busy_s']:.4f} "
         f"wall_s_under_profiler={prof['wall_s']:.4f} "
         f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled solve) | {smi}"
     )
@@ -1656,7 +1814,6 @@ def main() -> None:
     # batched LU of tiny matrices is far slower on many threads than on one
     torch.set_num_threads(1)
 
-    from sunode_torch.adjoint import resolve_fz, staged_adjoint_fz, transition_fz
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
     from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
     from sunode_torch.ops.adams_split import build_split_kernels
@@ -1708,22 +1865,8 @@ def main() -> None:
     adams_kernels = {kind: built[f"history_{kind}_kab{P_MAX_ADAMS + 3}"] for kind in adams_systems}
 
     # phase 3: kernel vs plain on the card
-    rhs = problem.make_rhs()
-    rhs_c, quad_c = transition_fz(
-        rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), problem.n_states
-    )
-    aj, qr = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
-    res_c, res_q = resolve_fz(rhs, aj, qr, problem.n_states)
-    stg_c, stg_q = staged_adjoint_fz(aj, qr)
-    n_p = problem.n_all_params
-    fz = {
-        "forward": rhs,
-        "transition": lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
-        "resolve": lambda t, y, p: torch.cat([res_c(t, y, p), res_q(t, y, p)]),
-        # the parameter rows are [params | y(t)], as the Adams core passes them
-        "staged_adjoint": lambda t, y, p: torch.cat(
-            [stg_c(t, y, p[:n_p], p[n_p:]), stg_q(t, y, p[:n_p], p[n_p:])]),
-    }
+    fz = {kind: lv_plain_fz(problem, kind)
+          for kind in ("forward", "transition", "resolve", "staged_adjoint")}
     table = {
         kind: compare_kernel(kind, systems[kind], fz[kind], seed)
         for seed, kind in enumerate(systems)
@@ -1794,11 +1937,15 @@ def main() -> None:
         stats = grad_step.solve.last_stats
         return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
 
-    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), step_attempts)
+    # the profiler's public event list counts the step's kernels too, as a
+    # check of the raw-record count every phase uses
+    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), step_attempts,
+                                      cross_check=True)
     log(
         f"[main-path device kernels per attempt] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+        f"{prof['attempts']} attempts in one step; prof.events() counts {prof['public'][0]} "
+        f"and {prof['public'][1]}) device_busy_s={prof['busy_s']:.4f} "
         f"wall_s_under_profiler={prof['wall_s']:.4f} | {smi}"
     )
 

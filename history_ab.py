@@ -1,28 +1,38 @@
 """The history-attempt kernel against another version of itself, on the card.
 
-    python3 history_ab.py [--old-root DIR] [--phase-clocks]
+    python3 history_ab.py [--old-root DIR] [--fmad-true] [--phase-clocks]
 
-Builds ``sunode_torch/csrc/adams_attempt.cu`` for the five systems
-``chip_smoke.py`` phase 3c holds against the plain version (the LV forward
-and transition systems at history depth 9; the forward, 'resolve' and
-staged-adjoint systems at depth 11), and beside each build:
+Builds ``sunode_torch/csrc/adams_attempt.cu`` for the seven systems
+``chip_smoke.py`` phases 3c and 9(a) hold against the plain version (the LV
+forward, transition, sensitivity and staged-sensitivity systems at history
+depth 9; the forward, 'resolve' and staged-adjoint systems at depth 11),
+and beside each build:
 
   * ``--old-root DIR``: the same file of another checkout (unpack the parent
     with ``git archive`` into a directory ``.gitignore`` lists), whose
     ``adams_attempt_launch`` takes the same arguments;
+  * ``--fmad-true``: this tree's source built without the default build's
+    ``-fmad=false`` (``adams_attempt.FMAD_FLAGS``), so that nvcc contracts
+    the emitted right-hand side's products and sums into FMAs (the kernel's
+    own arithmetic is rounded op by op in every build);
   * ``--phase-clocks``: this tree's source built with ``ADAMS_PHASE_CLOCKS``,
     which also traces the kernel by phase (loads and R, rows, PECE, update,
     norms): the mean cycles a block spends in each over 20 launches, at each
     of the three order settings.
 
-On phase 3c's inputs (``chip_smoke.history_inputs``, the same seeds, and
+On phase 3c's inputs (``chip_smoke.history_inputs``, the seeds of phases
+3c and 9(a), and
 the same inputs with every lane at p = 1 and at p = P_MAX) every other
 version is held against this tree's default build: ``DF_resc`` bit for bit,
 ``DF_upd``, ``z_pred``, ``z_new`` and ``err0`` normwise, ``err3`` lane by
-lane, ``conv`` and ``niter`` equal.  Then each version's device time
-(profiler, 20 launches) at the three order settings, in turns (the default
-first and last).  Prints ptxas's registers and spills and one line per
-build and version, and writes every number to
+lane, ``conv`` and ``niter`` equal.  This tree's builds are also held to
+ROADMAP C6's checks against the plain version (``chip_smoke.c6_check``):
+``DF_resc`` and ``z_pred`` bit for bit, ``z_new``, ``err0`` and ``DF_upd``
+bit for bit in the lanes where the build's emitted right-hand side rounds
+as the plain one (``chip_smoke.rhs_agreement``, whose count is printed).
+Then each version's device time (profiler, 20 launches) at the three order
+settings, in turns (the default first and last).  Prints ptxas's registers
+and spills and one line per build and version, and writes every number to
 ``chiprun_out/history_ab.json``.  Exits non-zero if a comparison fails.
 """
 
@@ -35,11 +45,14 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SAME_BOUND = 1e-14  # FMA contraction only: the rescale is rounded op by op in both
+SAME_BOUND = 1e-12  # the emitted right-hand side's FMA contraction (with and without
+# -fmad=false) moves err3 by up to ~2.5e-13 of a lane's own; the rest rounds op by op
 
 
 def _builds(cs):
-    """(label, device system, P_MAX, tol, seed) of phase 3c's five builds."""
+    """(label, device system, P_MAX, tol, seed) of the seven builds of
+    phases 3c and 9(a); the device system's name is its plain right-hand
+    side's (``chip_smoke.lv_plain_fz``, ``chip_smoke.lv_sens_fz``)."""
     from sunode_torch.entry import lv_problem
     from sunode_torch.symode import cuda_codegen
 
@@ -53,6 +66,9 @@ def _builds(cs):
          cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 3),
         (f"staged_adjoint KAB={cs.P_MAX_ADAMS + 3}", cuda_codegen.staged_adjoint_system(problem),
          cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 4),
+        ("sensitivity", cuda_codegen.sensitivity_system(problem), cs.P_MAX, None, 20),
+        ("staged_sensitivity", cuda_codegen.staged_sensitivity_system(problem), cs.P_MAX, None,
+         21),
     ]
 
 
@@ -96,6 +112,7 @@ def _phase_cycles(kernel, launch, reps=20) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-root", default=None)
+    ap.add_argument("--fmad-true", action="store_true")
     ap.add_argument("--phase-clocks", action="store_true")
     args = ap.parse_args(argv)
 
@@ -105,19 +122,26 @@ def main(argv=None) -> None:
     from sunode_torch.experiments.exp_pece2d import device_us
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
     from sunode_torch.ops._nvcc_build import build_library
-    from sunode_torch.ops.adams_attempt import _AttemptKernel
-    from sunode_torch.ops.pece_step import _tables_header
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.ops.adams_attempt import (
+        _CSRC,
+        _AttemptKernel,
+        adams_history_attempt_reference,
+    )
+    from sunode_torch.ops.pece_step import PeceSystem, _tables_header
 
     if not torch.cuda.is_available():
         raise SystemExit("history_ab: no CUDA device")
     _, smi = cs.check_device()
 
-    def old_build(ds, kab):
-        return build_library(
-            f"adams_attempt_{ds.name}_kab{kab}_old",
-            Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu",
-            headers={"pece_rhs.h": ds.source, "pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}",))
+    def other_build(tag, source, flags=()):
+        def build(ds, kab):
+            return build_library(
+                f"adams_attempt_{ds.name}_kab{kab}_{tag}", source,
+                headers={"pece_rhs.h": ds.source, "pece_tables.h": _tables_header()},
+                defines=(f"ADAMS_KAB={kab}",), extra_flags=flags)
+
+        return build
 
     def bound_as(kernel, built):
         """``kernel``'s wrapper on another build of the same C entry point."""
@@ -131,7 +155,10 @@ def main(argv=None) -> None:
 
     versions = {"default": _AttemptKernel}
     if args.old_root:
-        versions["old"] = old_build
+        versions["old"] = other_build(
+            "old", Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu")
+    if args.fmad_true:
+        versions["fmad=true"] = other_build("fmad_true", _CSRC)
     if args.phase_clocks:
         versions["ADAMS_PHASE_CLOCKS"] = lambda ds, kab: _AttemptKernel(
             ds, kab, defines=("ADAMS_PHASE_CLOCKS",))
@@ -144,7 +171,7 @@ def main(argv=None) -> None:
         }
         kernels = {key: f.result() for key, f in futures.items()}
     for (label, name), k in kernels.items():
-        if name == "old":
+        if name in ("old", "fmad=true"):
             kernels[(label, name)] = k = bound_as(kernels[(label, "default")], k)
         ptxas = [ln.strip() for ln in k.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -152,24 +179,38 @@ def main(argv=None) -> None:
                f"sass_instructions={cs.sass_instructions(k.lib_path)}; ptxas: {'; '.join(ptxas)}")
 
     results, ok = [], True
+    problem = lv_problem()
     for label, ds, p_max, tol, seed in builds:
         x = cs.history_inputs(ds, cs.B_MAIN, seed, "cuda", p_max, tol)
         orders = {"seeded": x["p"], "p1": torch.full_like(x["p"], 1),
                   f"p{p_max}": torch.full_like(x["p"], p_max)}
+        fz = (cs.lv_sens_fz(ds.name) if ds.name in cs.SENS_KINDS
+              else cs.lv_plain_fz(problem, ds.name))
+        plain = PeceSystem(fz=fz, n=ds.n, nz=ds.nz, device=ds)
 
-        def run(name, p):
+        def run(name, p, DF=x["DF"], z=x["z_prev"], maxiter=FUNCTIONAL_MAXITER):
             return kernels[(label, name)].launch(
-                x["t_new"], x["h"], x["pre_factor"], p, x["active"], x["DF"], x["z_prev"],
+                x["t_new"], x["h"], x["pre_factor"], p, x["active"], DF, z,
                 x["params"], x["atol_z"], x["rtol_z"], x["gamma_star_abs"], x["v_err"],
-                x["newton_tol"], FUNCTIONAL_MAXITER)
+                x["newton_tol"], maxiter)
 
         row = {"build": label, "smi": smi, "versions": {}}
         names = list(versions)
         for name in names:
-            row["versions"][name] = {"checks": {}, "device_us": {}}
+            row["versions"][name] = {"checks": {}, "c6": {}, "device_us": {}}
             for o, p in orders.items():
                 got, ref = run(name, p), run("default", p)
                 torch.cuda.synchronize()
+                if name in ("default", "fmad=true"):  # this tree's source: C6's checks
+                    agree = cs.rhs_agreement(lambda *a: run(name, *a), fz, ds.n,
+                                             {**x, "p": p}, p_max)
+                    c6 = cs.c6_check(got, adams_history_attempt_reference(
+                        plain, x["t_new"], x["h"], x["pre_factor"], p, x["active"], x["DF"],
+                        x["z_prev"], x["params"], x["atol_z"], x["rtol_z"],
+                        x["gamma_star_abs"], x["v_err"], x["newton_tol"], FUNCTIONAL_MAXITER,
+                        p_max), agree)
+                    row["versions"][name]["c6"][o] = dict(c6, f_agrees_in=int(agree.sum()))
+                    ok &= all(c6.values())
                 if name == "default":
                     continue
                 check = _compare(cs, got, ref)
@@ -196,15 +237,19 @@ def main(argv=None) -> None:
                 for o, c in v["checks"].items())
             times = " ".join(f"{o}=" + "/".join(cs.fmt_us(t) for t in ts)
                              for o, ts in v["device_us"].items())
+            c6 = "; ".join(f"{o}: " + " ".join(f"{k}={c}" for k, c in checks_o.items())
+                           for o, checks_o in v["c6"].items())
             cs.log(f"[history-ab {label} | {name}] device_us {times}"
-                   + (f" | {checks}" if checks else "") + f" | {smi}")
+                   + (f" | {checks}" if checks else "") + (f" | C6 {c6}" if c6 else "")
+                   + f" | {smi}")
         results.append(row)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "history_ab.json").write_text(json.dumps(results, indent=1))
     if not ok:
-        raise SystemExit("history_ab: a version differs from the default build beyond its bounds")
+        raise SystemExit("history_ab: a version differs from the default build beyond its "
+                         "bounds, or a build of this tree fails C6's checks")
     cs.log("[history-ab] every version agrees with the default build")
 
 

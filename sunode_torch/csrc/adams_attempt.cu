@@ -31,10 +31,14 @@
 //            (orders p, p-1, p+1);
 //   norms    the lane's first thread sums the weighted squares over the
 //            rows, in row order, into err3.
-// Each product, difference and quotient of the rescale is rounded on its own
-// (no FMA contraction; the quotients by small integers of div_small() are
-// those of __ddiv_rn), in the order of the plain version, so a finite
-// history rescales as the plain version on the CPU does, bit for bit.
+// Every f64 product, sum, difference and quotient the kernel writes out
+// (rescale, predictor, error weights, update, error rows and norms, and the
+// corrector of pece_core.cuh) is rounded on its own (__dmul_rn, __dadd_rn,
+// ...: no FMA contraction; the quotients by small integers of div_small()
+// are those of __ddiv_rn), in the order of the plain version.  So a finite
+// history gives DF_resc and z_pred bit for bit the plain version's, and the
+// rest too in every lane where the emitted right-hand side's f rounds as
+// the plain one's; only the emitted right-hand side is left to nvcc.
 //
 // What bounds it on an H100: bytes, in principle.  The history is read from
 // device memory once and written twice (DF_resc, DF_upd), at B = 10,000 for
@@ -205,7 +209,7 @@ adams_attempt_kernel(const double* __restrict__ t_new,
   const double g1 = valid ? gamma_star_abs[p - 1] : 0.0;               // order p - 1
   const double g2 = valid ? gamma_star_abs[min(p + 1, ADAMS_K)] : 0.0;  // order p + 1, at most P_MAX + 1
   const double g0 = valid ? PECE_GAMMA_STAR_ABS[p] : 0.0;              // order p
-  const double c_A = valid ? h * PECE_GAMMA[p - 1] : 0.0;              // h gamma_{p-1}
+  const double c_A = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : 0.0;    // h gamma_{p-1}
 
   // R(fac): column i's running product over j < p, for every column i < K,
   // the chains of a thread's columns interleaved
@@ -274,15 +278,15 @@ adams_attempt_kernel(const double* __restrict__ t_new,
 #pragma unroll
     for (int i = 0; i < ADAMS_K; ++i) {
       if (i < p) {
-        acc_z = acc_z + PECE_GAMMA[i] * col[k][i];
-        acc_f = acc_f + col[k][i];
+        acc_z = __dadd_rn(acc_z, __dmul_rn(PECE_GAMMA[i], col[k][i]));
+        acc_f = __dadd_rn(acc_f, col[k][i]);
       }
     }
-    const double zp = zprev[k] + h * acc_z;
+    const double zp = __dadd_rn(zprev[k], __dmul_rn(h, acc_z));
     z_pred_out[r * sB + b] = zp;
     zp_s[r] = zp;
     fex_s[r] = acc_f;
-    wz[k] = 1.0 / (atol_r[k] + rtol_r[k] * fabs(zp));
+    wz[k] = __ddiv_rn(1.0, __dadd_rn(atol_r[k], __dmul_rn(rtol_r[k], fabs(zp))));
     w_s[r] = wz[k];
   }
   __syncthreads();
@@ -310,18 +314,18 @@ adams_attempt_kernel(const double* __restrict__ t_new,
 
   // update: difference update, new state, error row and weighted error terms
   if (valid) {
-    const double g0_h = g0 * h, g1_h = g1 * h, g2_h = g2 * h;
+    const double g0_h = __dmul_rn(g0, h), g1_h = __dmul_rn(g1, h), g2_h = __dmul_rn(g2, h);
 #pragma unroll
     for (int k = 0; k < ADAMS_RPT; ++k) {
       const int r = ty + k * ADAMS_ROWS;
       if (r >= PECE_NZ) continue;
       const double zp = zp_s[r];
-      const double d = f_s[r] - fex_s[r];
+      const double d = __dsub_rn(f_s[r], fex_s[r]);
       // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
       double S[ADAMS_KAB + 1];
       S[ADAMS_KAB] = 0.0;
 #pragma unroll
-      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = S[i + 1] + col[k][i];
+      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = __dadd_rn(S[i + 1], col[k][i]);
       double Sp = 0.0, col_p = 0.0;
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
@@ -334,20 +338,20 @@ adams_attempt_kernel(const double* __restrict__ t_new,
       double u_lo = 0.0, u_hi = 0.0;  // the updated rows p - 1 and p + 1
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
-        const double u = i <= p - 1 ? (S[i] - Sp) + d
+        const double u = i <= p - 1 ? __dadd_rn(__dsub_rn(S[i], Sp), d)
                          : i == p   ? d
-                         : i == p + 1 ? d - col_p
+                         : i == p + 1 ? __dsub_rn(d, col_p)
                                       : col[k][i];
         DF_upd[HIST(i, r)] = u;
         if (i == p - 1) u_lo = u;
         if (i == p + 1) u_hi = u;
       }
-      const double e0 = g0_h * d;
-      z_new_out[r * sB + b] = zp + c_A * d;
+      const double e0 = __dmul_rn(g0_h, d);
+      z_new_out[r * sB + b] = __dadd_rn(zp, __dmul_rn(c_A, d));
       err0_out[r * sB + b] = e0;
-      zp_s[r] = e0 * wz[k];
-      fex_s[r] = (g1_h * u_lo) * wz[k];
-      f_s[r] = (g2_h * u_hi) * wz[k];
+      zp_s[r] = __dmul_rn(e0, wz[k]);
+      fex_s[r] = __dmul_rn(__dmul_rn(g1_h, u_lo), wz[k]);
+      f_s[r] = __dmul_rn(__dmul_rn(g2_h, u_hi), wz[k]);
     }
   } else if (lane) {
 #pragma unroll
@@ -373,14 +377,14 @@ adams_attempt_kernel(const double* __restrict__ t_new,
       for (int r = 0; r < PECE_NZ; ++r) {
         const double v = v_s[r];
         const double a0 = zp_s[r], a1 = fex_s[r], a2 = f_s[r];
-        ss0 = ss0 + a0 * a0 * v;
-        ss1 = ss1 + a1 * a1 * v;
-        ss2 = ss2 + a2 * a2 * v;
+        ss0 = __dadd_rn(ss0, __dmul_rn(__dmul_rn(a0, a0), v));
+        ss1 = __dadd_rn(ss1, __dmul_rn(__dmul_rn(a1, a1), v));
+        ss2 = __dadd_rn(ss2, __dmul_rn(__dmul_rn(a2, a2), v));
       }
     }
-    err3_out[b] = sqrt(ss0);
-    err3_out[sB + b] = sqrt(ss1);
-    err3_out[2 * sB + b] = sqrt(ss2);
+    err3_out[b] = __dsqrt_rn(ss0);
+    err3_out[sB + b] = __dsqrt_rn(ss1);
+    err3_out[2 * sB + b] = __dsqrt_rn(ss2);
   }
   ADAMS_MARK(4);
 #ifdef ADAMS_PHASE_CLOCKS

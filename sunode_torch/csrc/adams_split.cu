@@ -34,24 +34,44 @@
 // 3.35 TB/s), a sweep moves six (n, B) rows (~0.04 ms).  The rescale's
 // arithmetic is ~2 p^2 products a row, well under the f64 rate.
 //
-// Layout: the history is (KAB, nz, B), lane-contiguous.  A block is a tile
-// of 32 lanes (threadIdx.x, so each warp reads 32 neighbouring lanes: one
-// coalesced 256-byte transaction per row) by 8 row threads (threadIdx.y),
-// and covers a chunk of 64 rows (blockIdx.y); blockIdx.x walks the lane
-// tiles.  At nz = 3,000, B = 1,024 that is 47 x 32 = 1,504 blocks of 256
-// threads, enough for the 132 SMs at any B the workloads use.  The
-// rescale's coefficients R(fac)[j][i] (running index j, column i) are built
-// once per lane and block into shared memory (K x K x 32 doubles), U once
-// per block, instead of once per row as the fused kernel does.
+// Layout: the history is (KAB, nz, B), lane-contiguous.
 //
-// Per-lane sums over the rows: each block sums its rows per lane through
-// shared memory (in row-thread order) into a partial per (chunk, lane);
-// the last block of a lane tile to finish (a counter per tile, zeroed by a
-// memset at each launch, and a fence) adds the partials in chunk order, so
-// the result does not depend on the blocks' schedule, and writes the
-// lane's outputs.  Lanes with p outside the history (p < 1 or p > KAB - 2)
-// are poisoned with NaN, as the fused kernel poisons them.
+// Predict and finish: a block is a tile of 32 lanes (threadIdx.x, so each
+// warp reads 32 neighbouring lanes: one coalesced 256-byte transaction per
+// row) by 8 row threads (threadIdx.y), and covers a chunk of 64 rows
+// (blockIdx.y); blockIdx.x walks the lane tiles.  At nz = 3,000, B = 1,024
+// that is 47 x 32 = 1,504 blocks of 256 threads.  The rescale's
+// coefficients R(fac)[j][i] (running index j, column i) are built once per
+// lane and block into shared memory (K x K x 32 doubles), U once per block,
+// instead of once per row as the fused kernel does.  Per-lane sums over the
+// rows: each block sums its rows per lane through shared memory (in
+// row-thread order) into a partial per (chunk, lane); the last block of a
+// lane tile to finish (a counter per tile, zeroed by a memset at each
+// launch, and a fence) adds the partials in chunk order, so the result does
+// not depend on the blocks' schedule, and writes the lane's outputs.
+//
+// Sweep: its geometry follows (nz, B), chosen by
+// ops/adams_split.py::sweep_geometry and passed in: a block is
+// SWEEP_THREADS threads, a tile of L lanes (threadIdx.x; 32, 16 where the
+// card would not fill, more where nz is small) by 256 / L row threads
+// (threadIdx.y), and covers `rows` consecutive rows; the C blocks of a lane
+// tile (gridDim.x, 16 at most) form one thread-block cluster along the rows,
+// gridDim.y walks the tiles.  Thread (x, y) of cluster rank c reads rows
+// c rows + y + j (256 / L), j = 0, 1, ..., below min((c + 1) rows, nz), in
+// steps of SWEEP_UNROLL rows whose loads are all issued before any of them
+// is used.  Per lane, each thread sums its rows in order, the block sums its
+// row threads in order in shared memory, and after a cluster barrier the
+// rank-0 block adds the blocks' sums in rank order through distributed
+// shared memory: a fixed order, no global scratch, no counter, no fill.
+// f is read as the right-hand side returns it: row-major, or lane-major (a
+// torch right-hand side mapped over the lanes with vmap), then through a
+// shared-memory tile per step, so that no transposing copy precedes the
+// launch.
+//
+// Lanes with p outside the history (p < 1 or p > KAB - 2) are poisoned with
+// NaN, as the fused kernel poisons them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -64,6 +84,9 @@
 #define SPLIT_TILE 32            // lanes of a block
 #define SPLIT_ROWS 8             // row threads of a block
 #define SPLIT_CHUNK 64           // rows of a block
+#define SWEEP_THREADS 256        // threads of a sweep block (ops/adams_split.py: SWEEP_THREADS)
+#define SWEEP_UNROLL 4           // rows a sweep thread loads at once (SWEEP_UNROLL)
+#define SWEEP_CLUSTER_MAX 16     // blocks of a cluster, with the non-portable size allowed
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
@@ -71,6 +94,23 @@
 
 // element (i, r) of a (KAB, nz, B) history, lane b
 #define HIST(i, r) (((size_t)(i) * nz + (r)) * sB + b)
+
+#ifdef SPLIT_PHASE_CLOCKS
+// A trace of the sweep by phase: the cycles from each mark to the next on
+// thread (0, 0) of a block (rows, the block's sum, the first cluster
+// barrier, rank 0's reads and the second barrier, rank 0's tail), summed
+// over the blocks of every launch since the last read, and the blocks
+// counted (split_ab.py --phase-clocks).
+__device__ unsigned long long split_phase_cycles[6];
+#define SWEEP_MARK(k)                                                        \
+  if (tx == 0 && ty == 0) {                                                  \
+    const long long now = clock64();                                         \
+    atomicAdd(&split_phase_cycles[k], (unsigned long long)(now - mark));     \
+    mark = now;                                                              \
+  }
+#else
+#define SWEEP_MARK(k)
+#endif
 
 // True in every thread of the block that finished its lane tile last; its
 // partials, and those of every other block of the tile, are then visible.
@@ -209,54 +249,126 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
 }
 
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+// FZ_LANE_MAJOR: fz arrives lane-major (element (r, b) at b nz + r), as a
+// right-hand side mapped over the lanes with vmap returns it.  Each step's
+// (SWEEP_UNROLL row threads' rows) x (lanes) tile of it is then read along
+// the rows, 256 bytes a warp, into shared memory and read back by lane, in
+// place of a transposing copy before the launch.
+template <bool FZ_LANE_MAJOR>
+__global__ void __launch_bounds__(SWEEP_THREADS)
 split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restrict__ y_it,
                    const double* __restrict__ z_pred, const double* __restrict__ f_ex,
                    const double* __restrict__ w_z, const double* __restrict__ c_A,
                    const unsigned char* __restrict__ conv, const unsigned char* __restrict__ div,
                    const unsigned char* __restrict__ bad, const double* __restrict__ dy_old,
                    const int* __restrict__ niter, double newton_tol, double tol_lo, int fixed,
-                   int n, int nz, int B, double* __restrict__ y_next,
+                   int n, int nz, int B, int rows, double* __restrict__ y_next,
                    unsigned char* __restrict__ conv_o, unsigned char* __restrict__ div_o,
                    unsigned char* __restrict__ bad_o, double* __restrict__ dy_old_o,
-                   int* __restrict__ niter_o, double* part_ss, unsigned char* part_bad,
-                   unsigned int* done) {
-  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * SPLIT_TILE + tx;
+                   int* __restrict__ niter_o) {
+  __shared__ double ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
+  __shared__ int bad_s[SWEEP_THREADS];
+  // a step's fz tile, (rows) x (lanes + 1): the odd stride keeps a warp's
+  // reads of one row and its writes of one lane's rows off each other's banks
+  __shared__ double fz_s[FZ_LANE_MAJOR ? SWEEP_THREADS * SWEEP_UNROLL + 64 : 1];
+  const int tx = threadIdx.x, ty = threadIdx.y, L = blockDim.x, T = blockDim.y;
+#ifdef SPLIT_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.y * L + tx;
   const bool lane = b < B;
   const size_t sB = (size_t)B;
   const bool live = lane && !(conv[b] || div[b] || bad[b]);
   const double cA = lane ? c_A[b] : 0.0;
-  const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
-  double ss = 0.0, nonfinite = 0.0;
-  if (lane) {
-    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
-      const double f = fz[r * sB + b];
-      if (!isfinite(f)) nonfinite = 1.0;
+  const int r_begin = blockIdx.x * rows, r_end = min(r_begin + rows, nz);  // the block's rows
+  const int step = T * SWEEP_UNROLL;
+  double ss = 0.0;
+  int nonfinite = 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += step) {  // the same steps in every thread
+    double f[SWEEP_UNROLL], fe[SWEEP_UNROLL], zp[SWEEP_UNROLL], yi[SWEEP_UNROLL],
+        w[SWEEP_UNROLL];
+    if (FZ_LANE_MAJOR) {
+      // the tile's element e = (row e % step, lane e / step): a warp reads
+      // consecutive rows of one lane, contiguous in fz
+      const int tid = ty * L + tx;
+#pragma unroll
+      for (int u = 0; u < SWEEP_UNROLL; ++u) {
+        const int e = tid + u * SWEEP_THREADS, row = e % step, lane_t = e / step;
+        const int r = r0 + row, bb = blockIdx.y * L + lane_t;
+        fz_s[row * (L + 1) + lane_t] =
+            (r < r_end && bb < B) ? fz[(size_t)bb * nz + r] : 0.0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SWEEP_UNROLL; ++u) {  // every load of the step first
+      const int r = r0 + ty + u * T;
+      const bool row = lane && r < r_end, state = row && r < n;
+      if (!FZ_LANE_MAJOR) f[u] = row ? fz[r * sB + b] : 0.0;
+      fe[u] = state ? f_ex[r * sB + b] : 0.0;
+      zp[u] = state ? z_pred[r * sB + b] : 0.0;
+      yi[u] = state ? y_it[r * sB + b] : 0.0;
+      w[u] = state ? w_z[r * sB + b] : 0.0;
+    }
+    if (FZ_LANE_MAJOR) {
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < SWEEP_UNROLL; ++u) f[u] = fz_s[(ty + u * T) * (L + 1) + tx];
+      __syncthreads();  // the tile is read before the next step writes it
+    }
+#pragma unroll
+    for (int u = 0; u < SWEEP_UNROLL; ++u) {
+      const int r = r0 + ty + u * T;
+      if (!lane || r >= r_end) break;
+      if (!isfinite(f[u])) nonfinite = 1;  // the quadrature rows too
       if (r < n) {
-        const double zn = __dadd_rn(z_pred[r * sB + b], __dmul_rn(cA, __dsub_rn(f, f_ex[r * sB + b])));
-        const double yi = y_it[r * sB + b];
-        const double q = __dmul_rn(__dsub_rn(zn, yi), w_z[r * sB + b]);
+        const double zn = __dadd_rn(zp[u], __dmul_rn(cA, __dsub_rn(f[u], fe[u])));
+        const double q = __dmul_rn(__dsub_rn(zn, yi[u]), w[u]);
         ss = __dadd_rn(ss, __dmul_rn(q, q));
-        y_next[r * sB + b] = live ? zn : yi;
+        y_next[r * sB + b] = live ? zn : yi[u];
       }
     }
   }
-  const double ss_rows = sum_rows(ss, red);
-  const double bad_rows = sum_rows(nonfinite, red);
-  if (ty == 0 && lane) {
-    part_ss[blockIdx.y * sB + b] = ss_rows;
-    part_bad[blockIdx.y * sB + b] = bad_rows != 0.0;
+  SWEEP_MARK(0);
+  // the block's sum per lane, over its row threads in order, into slot tx
+  ss_s[ty * L + tx] = ss;
+  bad_s[ty * L + tx] = nonfinite;
+  __syncthreads();
+  if (ty == 0) {  // every load first, then the sums in order (T <= SWEEP_THREADS / 16)
+    double v[SWEEP_THREADS / 16];
+#pragma unroll
+    for (int y = 1; y < SWEEP_THREADS / 16; ++y) {
+      v[y] = y < T ? ss_s[y * L + tx] : 0.0;
+      nonfinite |= y < T ? bad_s[y * L + tx] : 0;
+    }
+#pragma unroll
+    for (int y = 1; y < SWEEP_THREADS / 16; ++y)
+      if (y < T) ss = __dadd_rn(ss, v[y]);
+    ss_s[tx] = ss;
+    bad_s[tx] = nonfinite;
   }
-  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
-  double sum = 0.0;
-  bool bad_f = false;
-  for (int c = 0; c < (int)gridDim.y; ++c) {
-    sum = __dadd_rn(sum, *((volatile const double*)part_ss + c * sB + b));
-    bad_f = bad_f || *((volatile const unsigned char*)part_bad + c * sB + b);
+  // the cluster's sum per lane, over its blocks in rank order, in rank 0
+  const int C = gridDim.x;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  SWEEP_MARK(1);
+  if (C > 1) cluster.sync();
+  SWEEP_MARK(2);
+  const bool tail = blockIdx.x == 0 && ty == 0 && lane;
+  if (tail && C > 1) {
+    ss = 0.0;
+    nonfinite = 0;
+    for (int c = 0; c < C; ++c) {
+      ss = __dadd_rn(ss, cluster.map_shared_rank(&ss_s[0], c)[tx]);
+      nonfinite |= cluster.map_shared_rank(&bad_s[0], c)[tx];
+    }
   }
-  const double dy_norm = __dsqrt_rn(__ddiv_rn(sum, (double)n));
+  // no block leaves while rank 0 may still read its shared memory
+  if (C > 1) cluster.sync();
+  SWEEP_MARK(3);
+#ifdef SPLIT_PHASE_CLOCKS
+  if (tx == 0 && ty == 0) atomicAdd(&split_phase_cycles[5], 1ull);
+#endif
+  if (!tail) return;
+  const double dy_norm = __dsqrt_rn(__ddiv_rn(ss, (double)n));
   const double rate = __ddiv_rn(dy_norm, dy_old[b]);
   bool conv_new = false, div_new = false;
   if (!fixed) {
@@ -266,12 +378,13 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
                dy_norm < tol_lo;
     div_new = rate >= 2.0 && k > 0;
   }
-  const bool bad_n = bad[b] || (live && bad_f);
+  const bool bad_n = bad[b] || (live && nonfinite);
   conv_o[b] = conv[b] || (live && conv_new && !bad_n);
   div_o[b] = div[b] || (live && div_new && !conv_new);
   bad_o[b] = bad_n;
   niter_o[b] = niter[b] + (live ? 1 : 0);
   dy_old_o[b] = live ? dy_norm : dy_old[b];
+  SWEEP_MARK(4);
 }
 
 // ---------------------------------------------------------------------------
@@ -388,7 +501,8 @@ extern "C" {
 // Each launch goes on `stream` without synchronising and returns 0, -1
 // when the history depth is not the build's, -3 when nz needs more row
 // chunks than a grid has, or the cudaError_t of the counter reset or the
-// launch.  `part` and `done` are scratch of (chunks, B) and (lane tiles,).
+// launch.  Predict's and finish's `part` and `done` are scratch of
+// (chunks, B) and (lane tiles,); the sweep has none.
 int split_predict_launch(const double* DF, const int* order, const double* pre_factor,
                          const double* h_use, const double* z_prev, const double* atol_z,
                          const double* rtol_z, int kab, int nz, int B, double* DF_resc,
@@ -408,24 +522,55 @@ int split_predict_launch(const double* DF, const int* order, const double* pre_f
   return (int)cudaGetLastError();
 }
 
+// The sweep on the geometry of ops/adams_split.py::sweep_geometry: lane
+// tiles of `lanes` lanes, `rows` rows a block, `cluster` blocks a tile along
+// the rows; fz row-major (nz, B) or, with `fz_lane_major`, lane-major.
+// Returns -3 when the geometry does not cover (nz, B) exactly once, a tile
+// has fewer than 16 lanes or the cluster is too large, -1 when n > nz.
 int split_sweep_launch(int k, const double* fz, const double* y_it, const double* z_pred,
                        const double* f_ex, const double* w_z, const double* c_A,
                        const unsigned char* conv, const unsigned char* div,
                        const unsigned char* bad, const double* dy_old, const int* niter,
                        double newton_tol, double tol_lo, int fixed, int n, int nz, int B,
-                       double* y_next, unsigned char* conv_o, unsigned char* div_o,
-                       unsigned char* bad_o, double* dy_old_o, int* niter_o, double* part,
-                       unsigned char* part_bad, unsigned int* done, void* stream) {
+                       int fz_lane_major, int lanes, int rows, int cluster, double* y_next,
+                       unsigned char* conv_o, unsigned char* div_o, unsigned char* bad_o,
+                       double* dy_old_o, int* niter_o, void* stream) {
   if (n > nz) return -1;
   if (B <= 0 || nz <= 0) return 0;
-  dim3 grid;
-  if (grid_for(nz, B, &grid)) return -3;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (lanes < 16 || SWEEP_THREADS % lanes || rows < 1 || cluster < 1 ||
+      cluster > SWEEP_CLUSTER_MAX || (long long)cluster * rows < nz ||
+      (long long)(cluster - 1) * rows >= nz)
+    return -3;
+  const int tiles = (B + lanes - 1) / lanes;
+  if (tiles > 65535) return -3;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, tiles);
+  cfg.blockDim = dim3(lanes, SWEEP_THREADS / lanes);
+  cfg.stream = (cudaStream_t)stream;
+  auto kernel = fz_lane_major ? split_sweep_kernel<true> : split_sweep_kernel<false>;
+  cudaLaunchAttribute attr[1];
+  if (cluster > 1) {
+    static bool non_portable = false;  // set at the first launch, outside any graph capture
+    if (cluster > 8 && !non_portable) {
+      cudaError_t err = cudaFuncSetAttribute(
+          split_sweep_kernel<true>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(split_sweep_kernel<false>,
+                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return (int)err;
+      non_portable = true;
+    }
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, k, fz, y_it, z_pred, f_ex, w_z, c_A, conv,
+                                       div, bad, dy_old, niter, newton_tol, tol_lo, fixed, n, nz,
+                                       B, rows, y_next, conv_o, div_o, bad_o, dy_old_o, niter_o);
   if (err != cudaSuccess) return (int)err;
-  split_sweep_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
-      k, fz, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad, dy_old, niter, newton_tol, tol_lo,
-      fixed, n, nz, B, y_next, conv_o, div_o, bad_o, dy_old_o, niter_o, part, part_bad, done);
   return (int)cudaGetLastError();
 }
 
@@ -451,5 +596,15 @@ int split_finish_launch(const double* fz, const double* DF_resc, const double* z
 }
 
 const char* split_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+#ifdef SPLIT_PHASE_CLOCKS
+// Copies the sweep's phase cycles and block count into out[6] and zeroes them.
+int split_phase_cycles_read(unsigned long long* out) {
+  static const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(out, split_phase_cycles, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(split_phase_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 }  // extern "C"

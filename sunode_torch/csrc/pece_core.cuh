@@ -5,7 +5,10 @@
 //
 // Include after pece_rhs.h (PECE_N, PECE_NZ, PECE_NP, pece_fz()).  Every
 // array is indexed with compile-time indices once the loops unroll, so after
-// inlining they all stay in registers.
+// inlining they all stay in registers.  Every f64 operation of the
+// corrector is rounded on its own (__dadd_rn, __dmul_rn, ...), in the order
+// of the plain version (ops/pece_step.py), so nvcc contracts none of them
+// into an FMA; the emitted pece_fz() is the only code left to nvcc.
 #pragma once
 
 #include <math.h>
@@ -42,17 +45,19 @@ __device__ __forceinline__ bool pece_correct(double t, const double* par,
     double ss = 0.0;
 #pragma unroll
     for (int r = 0; r < PECE_N; ++r) {
-      const double zn = zp[r] + c_A * (f[r] - fex[r]);
-      const double e = (zn - y[r]) * w[r];
-      ss = ss + e * e;
+      const double zn = __dadd_rn(zp[r], __dmul_rn(c_A, __dsub_rn(f[r], fex[r])));
+      const double e = __dmul_rn(__dsub_rn(zn, y[r]), w[r]);
+      ss = __dadd_rn(ss, __dmul_rn(e, e));
       y[r] = zn;
     }
-    const double dy = sqrt(ss / PECE_N);
-    const double rate = dy / dy_old;
+    const double dy = __dsqrt_rn(__ddiv_rn(ss, (double)PECE_N));
+    const double rate = __ddiv_rn(dy, dy_old);
     const bool conv_new =
-        !fixed && ((dy == 0.0) ||
-                   (k > 0 && rate < 1.0 && rate / (1.0 - rate) * dy < newton_tol) ||
-                   (dy < 0.1 * newton_tol));
+        !fixed &&
+        ((dy == 0.0) ||
+         (k > 0 && rate < 1.0 &&
+          __dmul_rn(__ddiv_rn(rate, __dsub_rn(1.0, rate)), dy) < newton_tol) ||
+         (dy < __dmul_rn(0.1, newton_tol)));
     const bool div_new = !fixed && k > 0 && rate >= 2.0;
     bad = bad_f;
     conv = conv_new && !bad;

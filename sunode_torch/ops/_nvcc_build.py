@@ -3,8 +3,8 @@
 Every kernel of the port is a ``.cu`` file under ``sunode_torch/csrc/`` with
 a plain C interface.  :func:`build_library` compiles it for Hopper
 (``sm_90a``) together with the headers generated for it (written next to
-the library and found with ``-I``) and the compile-time defines, into
-``build/sunode_torch_kernels/<name>_<hash>/``.  The hash covers the source,
+the library and found with ``-I``), the compile-time defines and any extra
+flags, into ``build/sunode_torch_kernels/<name>_<hash>/``.  The hash covers the source,
 the shared headers beside it (``csrc/*.cuh``), the generated headers, the
 defines and the flags, so a change to any of them builds anew and an
 unchanged build is loaded from disk.  The library is compiled to a temporary name and renamed into place, so processes that
@@ -55,10 +55,12 @@ def build_library(
     source: Path,
     headers: Mapping[str, str] = {},
     defines: Sequence[str] = (),
+    extra_flags: Sequence[str] = (),
 ) -> NvccBuild:
-    """Compile ``source`` with ``headers`` ({file name: text}) and ``-D``
-    ``defines``, or load the cached build of the same inputs."""
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    """Compile ``source`` with ``headers`` ({file name: text}), ``-D``
+    ``defines`` and ``extra_flags`` after :data:`NVCC_FLAGS`, or load the
+    cached build of the same inputs."""
+    flags = [*NVCC_FLAGS, *extra_flags, *(f"-D{d}" for d in defines)]
     parts = [source.read_text(), " ".join(flags)]
     parts += [f"{h.name}\n{h.read_text()}" for h in sorted(source.parent.glob("*.cuh"))]
     parts += [f"{k}\n{v}" for k, v in sorted(headers.items())]

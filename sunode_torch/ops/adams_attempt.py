@@ -49,6 +49,11 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_attempt.cu"
+# nvcc contracts no product and sum of the emitted right-hand side into an
+# FMA either, so its f rounds as its C reads (the kernel's own arithmetic
+# is rounded op by op in the source): the emitted forward system's f is
+# then the plain one's bit for bit (ROADMAP C6)
+FMAD_FLAGS = ("-fmad=false",)
 
 
 class HistoryOut(NamedTuple):
@@ -177,7 +182,7 @@ class _AttemptKernel:
         built = build_library(
             f"adams_attempt_{system.name}_kab{kab}", _CSRC,
             headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}", *defines),
+            defines=(f"ADAMS_KAB={kab}", *defines), extra_flags=FMAD_FLAGS,
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib

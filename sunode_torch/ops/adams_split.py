@@ -14,7 +14,10 @@ torch code between them:
     ``pred_ok``;
   * :func:`split_sweep` -- one functional corrector sweep given
     ``fz_k = fz(t, y_it)``: the next iterate, the lane's weighted
-    ``dy_norm`` and the masked conv/div/bad/niter/dy_old update;
+    ``dy_norm`` and the masked conv/div/bad/niter/dy_old update (its kernel
+    launches on :func:`sweep_geometry`'s geometry, the blocks of a lane
+    tile one thread-block cluster, and reads a lane-major ``fz_k`` as a
+    right-hand side mapped over the lanes returns it);
   * :func:`split_finish` -- given the final ``fz``: ``d_fz``, ``z_new``,
     the error row ``err0``, the accepted-step difference update ``DF_upd``,
     the three error-test norms ``err3`` and the attempt's ``conv``.
@@ -63,13 +66,19 @@ __all__ = [
     "adams_split_attempt",
     "adams_split_attempt_reference",
     "build_split_kernels",
+    "SweepGeometry",
+    "sweep_geometry",
     "CHUNK_ROWS",
     "TILE_LANES",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
-TILE_LANES = 32  # lanes of one block (csrc/adams_split.cu: SPLIT_TILE)
-CHUNK_ROWS = 64  # history rows of one block (SPLIT_CHUNK)
+TILE_LANES = 32  # lanes of a predict or finish block (csrc/adams_split.cu: SPLIT_TILE)
+CHUNK_ROWS = 64  # history rows of a predict or finish block (SPLIT_CHUNK)
+SWEEP_THREADS = 256  # threads of a sweep block (SWEEP_THREADS)
+SWEEP_UNROLL = 4  # rows a sweep thread loads at once (SWEEP_UNROLL)
+SWEEP_CLUSTER_MAX = 16  # blocks of a cluster, the non-portable size allowed
+CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 class Predicted(NamedTuple):
@@ -95,6 +104,63 @@ class Finished(NamedTuple):
     err0: torch.Tensor  # (nz, B) |gamma*_p| h d_fz
     err3: torch.Tensor  # (3, B)
     conv: torch.Tensor  # (B,) bool
+
+
+class SweepGeometry(NamedTuple):
+    """Launch geometry of the sweep kernel (``csrc/adams_split.cu``)."""
+
+    lanes: int  # lanes of a tile (threadIdx.x)
+    rows: int  # consecutive rows of a block
+    cluster: int  # blocks of a lane tile, one cluster along the rows (gridDim.x)
+    tiles: int  # lane tiles (gridDim.y)
+
+    @property
+    def row_threads(self) -> int:  # threadIdx.y
+        return SWEEP_THREADS // self.lanes
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.tiles
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _pow2_at_most(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def sweep_geometry(nz: int, B: int) -> SweepGeometry:
+    """The sweep's geometry at ``nz`` rows and ``B`` lanes.
+
+    A block is ``SWEEP_THREADS`` threads: a tile of lanes by the row threads
+    that cover ``nz`` at ``SWEEP_UNROLL`` rows a thread (at most 8, so 32
+    lanes at any large nz: a warp reads one 256-byte line a row); while the
+    card would not get a block an SM (132) from every cluster size allowed,
+    the tile halves, down to 16 lanes.  The blocks of a tile form one
+    cluster along the rows: the smallest power of two that gives two blocks
+    an SM, at most 8 (portable) where 8 already gives one, at most 16, and
+    never more than the rows fill at one step a thread.  Each block takes
+    ``ceil(nz / cluster)`` rows, so none is empty."""
+    if nz < 1 or B < 1:
+        raise ValueError(f"sweep_geometry: needs nz >= 1 and B >= 1, got {nz}, {B}")
+    lanes = SWEEP_THREADS // min(8, _pow2_at_least(-(-nz // SWEEP_UNROLL)))
+
+    def plan(lanes):  # (tiles, the largest cluster whose blocks all get rows)
+        steps = -(-nz // (SWEEP_THREADS // lanes * SWEEP_UNROLL))
+        return -(-B // lanes), min(SWEEP_CLUSTER_MAX, _pow2_at_most(steps))
+
+    tiles, cluster_max = plan(lanes)
+    while lanes > 16 and tiles * cluster_max < CARD_SMS:
+        lanes //= 2
+        tiles, cluster_max = plan(lanes)
+    cluster = 1
+    while cluster < cluster_max and tiles * cluster < 2 * CARD_SMS:
+        cluster *= 2
+    if cluster > 8 and tiles * 8 >= CARD_SMS:
+        cluster = 8
+    return SweepGeometry(lanes, -(-nz // cluster), cluster, tiles)
 
 
 def sweep_start(active: torch.Tensor, dtype=torch.float64) -> SweepState:
@@ -197,20 +263,22 @@ split_predict.calls = split_sweep.calls = split_finish.calls = 0
 # CUDA build and launches
 # ---------------------------------------------------------------------------
 class _SplitKernels:
-    """One compiled build of ``csrc/adams_split.cu`` for one history depth."""
+    """One compiled build of ``csrc/adams_split.cu`` for one history depth;
+    ``defines`` adds compile-time defines (``SPLIT_PHASE_CLOCKS``, the
+    sweep's trace by phase of ``experiments/split_ab.py``)."""
 
-    def __init__(self, kab: int):
+    def __init__(self, kab: int, defines: tuple[str, ...] = ()):
         self.kab = kab
         built = build_library(
             f"adams_split_kab{kab}", _CSRC, headers={"pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}",),
+            defines=(f"ADAMS_KAB={kab}", *defines),
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib
         vp, c_int, c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.split_predict_launch.argtypes = [vp] * 7 + [c_int] * 3 + [vp] * 8 + [vp]
         lib.split_sweep_launch.argtypes = (
-            [c_int] + [vp] * 11 + [c_double] * 2 + [c_int] * 4 + [vp] * 9 + [vp]
+            [c_int] + [vp] * 11 + [c_double] * 2 + [c_int] * 8 + [vp] * 6 + [vp]
         )
         lib.split_finish_launch.argtypes = [vp] * 13 + [c_int] * 5 + [vp] * 7 + [vp]
         for fn in (lib.split_predict_launch, lib.split_sweep_launch, lib.split_finish_launch):
@@ -227,7 +295,8 @@ class _SplitKernels:
             raise ValueError(f"adams_split {stage}: the shapes do not match the kernel "
                              f"built for KAB={self.kab}")
         if code == -3:
-            raise ValueError(f"adams_split {stage}: too many history rows for one grid")
+            raise ValueError(f"adams_split {stage}: too many history rows for one grid, or a "
+                             f"sweep geometry that does not cover the rows and lanes")
         if code != 0:
             msg = self._lib.split_error_string(code).decode()
             raise RuntimeError(f"adams_split {stage} launch failed: {msg} ({code})")
@@ -264,31 +333,34 @@ class _SplitKernels:
         )
         return out
 
-    def sweep(self, k, fz_k, y_it, pred: Predicted, state: SweepState, newton_tol, n):
-        fz_k, y_it = fz_k.contiguous(), y_it.contiguous()
+    def sweep(self, k, fz_k, y_it, pred: Predicted, state: SweepState, newton_tol, n,
+              geometry: SweepGeometry | None = None):
+        """One sweep, on :func:`sweep_geometry`'s geometry or ``geometry``.
+        ``fz_k`` may be lane-major (the transpose of a contiguous (B, nz), as
+        a right-hand side mapped over the lanes returns it): the kernel
+        reads it so, without a copy."""
         nz, B = pred.z_pred.shape
+        lane_major = fz_k.ndim == 2 and not fz_k.is_contiguous() and fz_k.t().is_contiguous()
+        fz_k, y_it = (fz_k.t() if lane_major else fz_k).contiguous(), y_it.contiguous()
         dev = fz_k.device
-        _check(fz_k, torch.float64, (nz, B), dev, "fz_k")
+        _check(fz_k, torch.float64, (B, nz) if lane_major else (nz, B), dev, "fz_k")
         _check(y_it, torch.float64, (n, B), dev, "y_it")
         for name, x, dtype in (("conv", state.conv, torch.bool), ("div", state.div, torch.bool),
                                ("bad", state.bad, torch.bool),
                                ("dy_old", state.dy_old, torch.float64),
                                ("niter", state.niter, torch.int32)):
             _check(x, dtype, (B,), dev, name)
-        chunks, tiles = self._grid(nz, B)
+        g = sweep_geometry(nz, B) if geometry is None else geometry
         y_next = torch.empty((n, B), dtype=torch.float64, device=dev)
         new = SweepState(*(torch.empty_like(x) for x in state))
-        part = torch.empty((chunks, B), dtype=torch.float64, device=dev)
-        part_bad = torch.empty((chunks, B), dtype=torch.uint8, device=dev)
-        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
         fixed = not newton_tol > 0
         self._run(
             "sweep", self._lib.split_sweep_launch, dev,
             int(k), fz_k.data_ptr(), y_it.data_ptr(), pred.z_pred.data_ptr(),
             pred.f_ex.data_ptr(), pred.w_z.data_ptr(), pred.c_A.data_ptr(),
             *(x.data_ptr() for x in state), float(newton_tol), 0.1 * float(newton_tol),
-            int(fixed), n, nz, B, y_next.data_ptr(), *(x.data_ptr() for x in new),
-            part.data_ptr(), part_bad.data_ptr(), done.data_ptr(),
+            int(fixed), n, nz, B, int(lane_major), g.lanes, g.rows, g.cluster,
+            y_next.data_ptr(), *(x.data_ptr() for x in new),
         )
         return y_next, new
 

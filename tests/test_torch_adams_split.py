@@ -109,6 +109,47 @@ def test_plain_stages_compose_to_the_history_reference(staged, newton_tol, nan_l
         assert not bool(got.conv[1]) and torch.isnan(got.DF_resc[:, :, 1]).any()
 
 
+# the sweep's path shapes (nz, B): SIR-1000's forward and 'resolve' backward at
+# B=1,024, the staged 'hermite' backward and forward at B=256, and the
+# sensitivity block of Lotka-Volterra's staggered solve at B=10,000
+SWEEP_PATH_SHAPES = [(3000, 1024), (6002, 1024), (3002, 256), (3000, 256), (4, 10000)]
+SWEEP_EDGE_SHAPES = [(1, 1024), (1, 1), (3001, 1024), (513, 300), (3000, 1), (3000, 1025),
+                     (3002, 257), (4, 10001), (6002, 33)]
+
+
+@pytest.mark.parametrize(
+    "nz, B, path",
+    [(*s, True) for s in SWEEP_PATH_SHAPES] + [(*s, False) for s in SWEEP_EDGE_SHAPES],
+)
+def test_sweep_geometry_covers_every_row_and_lane_once(nz, B, path):
+    """The sweep kernel's geometry (``sweep_geometry``) walked as the kernel
+    walks it: cluster rank c takes rows [c rows, min((c + 1) rows, nz)),
+    its row thread y the rows c rows + y + j row_threads, tile t the lanes t
+    lanes + x below B.  Every (row, lane) is covered once, no block is
+    empty, the block is SWEEP_THREADS threads, the cluster a power of two
+    the card allows (16 at most, above the portable 8 only where 8 would not
+    give the card a block an SM), and every path shape fills the card with
+    a block an SM at least."""
+    g = adams_split.sweep_geometry(nz, B)
+    assert g.lanes * g.row_threads == adams_split.SWEEP_THREADS and g.lanes >= 16
+    assert g.cluster in (1, 2, 4, 8, 16)
+    assert g.cluster <= 8 or g.tiles * 8 < adams_split.CARD_SMS
+    rows = np.zeros(nz, dtype=np.int64)
+    for c in range(g.cluster):
+        lo, hi = c * g.rows, min((c + 1) * g.rows, nz)
+        assert hi > lo, f"block {c} of a cluster has no rows"
+        for y in range(g.row_threads):
+            rows[np.arange(lo + y, hi, g.row_threads)] += 1
+    lanes = np.zeros(B, dtype=np.int64)
+    for t in range(g.tiles):
+        b = t * g.lanes + np.arange(g.lanes)
+        lanes[b[b < B]] += 1
+    assert (rows == 1).all() and (lanes == 1).all()
+    assert g.tiles == -(-B // g.lanes)
+    if path:
+        assert g.blocks >= adams_split.CARD_SMS
+
+
 def test_cpu_solve_keeps_the_fused_plain_path(monkeypatch):
     """On CPU tensors the history attempt runs its own plain version, never
     the split one; a CUDA solve without an emitted system is what takes

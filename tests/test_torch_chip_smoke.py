@@ -213,13 +213,16 @@ def test_history_cost_builds_the_tables_once_a_lane():
 
 
 def test_phase_6_profiled_horizon():
-    """Phase 6 profiles a quarter of the horizon: the leading observation
-    times at the same spacing."""
+    """Phase 6 profiles a tenth of the horizon: the leading observation
+    times at the same spacing (here the first alone), and a quarter would
+    take the leading four."""
     cs = _chip_smoke()
     tvals = torch.linspace(1.0, 10.0, 21, dtype=torch.float64)
     short = cs.leading_times(tvals, cs.PROFILED_HORIZON)
-    assert cs.PROFILED_HORIZON == 0.25
-    assert torch.equal(short, tvals[:4]) and float(short[-1]) == pytest.approx(2.35)
+    assert cs.PROFILED_HORIZON == 0.1
+    assert torch.equal(short, tvals[:1]) and float(short[-1]) == pytest.approx(1.0)
+    quarter = cs.leading_times(tvals, 0.25)
+    assert torch.equal(quarter, tvals[:4]) and float(quarter[-1]) == pytest.approx(2.35)
     assert torch.equal(cs.leading_times(tvals, 1.0), tvals)
 
 

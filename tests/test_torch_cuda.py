@@ -15,6 +15,7 @@ jax, so on a GPU machine without jax it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +57,19 @@ from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
 pytestmark = pytest.mark.cuda
 B = 1000
+
+
+@functools.cache
+def _chip_smoke():
+    """``chip_smoke.py`` (beside the tests' directory) as a module, for its
+    checks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 @pytest.fixture
@@ -182,20 +196,36 @@ HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3")
 def _history_against_plain(system, args, lanes=None):
     """One launch of the history kernel against the plain version on
     ``args``, on every lane or on the ``lanes`` mask's; returns the kernel's
-    result."""
+    result.  Normwise within 1e-12 (the emitted right-hand side's own
+    rounding), and ROADMAP C6's checks: DF_resc and z_pred bit for bit,
+    z_new, err0 and DF_upd bit for bit in the lanes where the emitted
+    right-hand side gives the plain one's f bit for bit at every point the
+    plain attempt evaluates it (``chip_smoke.rhs_agreement``)."""
     before = adams_history_attempt.launches
     got = adams_history_attempt(system, *args)
     ref = adams_history_attempt_reference(system, *args)
     torch.cuda.synchronize()
     assert adams_history_attempt.launches == before + 1
-    lanes = slice(None) if lanes is None else lanes
-    # the card's plain version divides by a scalar as a multiply by its
-    # reciprocal; FMA contraction in the corrector; the RHS's own rounding
+    mask = torch.ones_like(args[4]) if lanes is None else lanes
     for name in HISTORY_FIELDS:
-        a, b = getattr(got, name)[..., lanes], getattr(ref, name)[..., lanes]
+        a, b = getattr(got, name)[..., mask], getattr(ref, name)[..., mask]
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
-    assert torch.equal(got.conv[lanes], ref.conv[lanes])
-    assert torch.equal(got.niter[lanes], ref.niter[lanes])
+    assert torch.equal(got.conv[mask], ref.conv[mask])
+    assert torch.equal(got.niter[mask], ref.niter[mask])
+    names = ("t_new", "h", "pre_factor", "p", "active", "DF", "z_prev", "params", "atol_z",
+             "rtol_z", "gamma_star_abs", "v_err", "newton_tol")
+
+    def launch(p, DF, z, maxiter):
+        a = list(args)
+        a[3], a[5], a[6], a[13] = p, DF, z, maxiter
+        return adams_history_attempt(system, *a)
+
+    agree = _chip_smoke().rhs_agreement(launch, system.fz, system.n, dict(zip(names, args)),
+                                        args[-1]) & mask
+    for name in ("DF_resc", "z_pred"):
+        assert torch.equal(getattr(got, name)[..., mask], getattr(ref, name)[..., mask]), name
+    for name in ("z_new", "err0", "DF_upd"):
+        assert torch.equal(getattr(got, name)[..., agree], getattr(ref, name)[..., agree]), name
     return got
 
 
@@ -478,14 +508,108 @@ def test_split_kernels_at_backward_shapes(cuda, kind, B):
     quadratures stay out of dy_norm and y_next), over 19 and 10 row chunks,
     stage by stage against the plain stages, per-lane errors on err3, c_A
     and dy_old; it exits on a disagreement."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    out = cs.compare_split(kind, B, 5, adams_split.build_split_kernels(11), R=200)
+    out = _chip_smoke().compare_split(kind, B, 5, adams_split.build_split_kernels(11), R=200)
     assert out["n"] == (1200 if kind == "resolve" else 600)
+
+
+# the sweep's path shapes (nz, n, B): SIR-1000's forward attempts at B=1,024
+# and 256, its 'resolve' and staged 'hermite' backward attempts, and the
+# sensitivity block of Lotka-Volterra's staggered solve at B=10,000
+SWEEP_SHAPES = [(3000, 3000, 1024), (6002, 6000, 1024), (3002, 3000, 256), (3000, 3000, 256),
+                (4, 4, 10_000)]
+
+
+def _sweep_case(nz, n, B, seed, device):
+    """Seeded inputs of one sweep: a prediction near 1 with error weights at
+    rtol 1e-8, an iterate and f within small corrections of it, steps
+    log-uniform, and a state with a tenth of the lanes converged, a tenth
+    diverged, a tenth bad, some not yet swept (dy_old inf)."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    T = lambda a: torch.as_tensor(a, **f64)  # noqa: E731
+    z_pred = 1.0 + rng.uniform(size=(nz, B))
+    f_ex = rng.standard_normal((nz, B))
+    pred = adams_split.Predicted(
+        torch.empty(0, **f64), T(z_pred), T(f_ex), T(1.0 / (1e-10 + 1e-8 * z_pred)),
+        T(10.0 ** rng.uniform(-6, -2, B)), torch.ones(B, dtype=torch.bool, device=device))
+    fz = T(f_ex + 1e-4 * rng.standard_normal((nz, B)))
+    y_it = T(z_pred[:n] + 1e-9 * rng.standard_normal((n, B)))
+    flags = rng.uniform(size=(3, B)) < 0.1
+    dy_old = np.where(rng.uniform(size=B) < 0.1, np.inf, 10.0 ** rng.uniform(-3, 3, B))
+    state = adams_split.SweepState(
+        *(torch.as_tensor(f, device=device) for f in flags), T(dy_old),
+        torch.as_tensor(rng.integers(0, 3, B).astype(np.int32), device=device))
+    return fz, y_it, pred, state
+
+
+def _same(a, b) -> bool:
+    """Bit for bit, a NaN equal to a NaN (a lane whose f is not finite)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def _sweep_against_plain(fz, y_it, pred, state, n, k=1, newton_tol=1e-1):
+    """The sweep kernel against ``split_sweep``: y_next bit for bit, dy_old
+    within 1e-12 lane by lane (the sums over the rows add in another order),
+    conv, div, bad and niter equal, and a second launch bit for bit the
+    first; returns the kernel's state."""
+    kernels = adams_split.build_split_kernels(11)
+    before = adams_split_attempt.launches["sweep"]
+    y_k, st_k = kernels.sweep(k, fz, y_it, pred, state, newton_tol, n)
+    y_k2, st_k2 = kernels.sweep(k, fz, y_it, pred, state, newton_tol, n)
+    y_p, st_p = adams_split.split_sweep(k, fz, y_it, pred, state, newton_tol, n)
+    torch.cuda.synchronize()
+    assert adams_split_attempt.launches["sweep"] == before + 2
+    assert _same(y_k, y_p)
+    assert _same(y_k, y_k2) and all(_same(a, b) for a, b in zip(st_k, st_k2))
+    for f in ("conv", "div", "bad", "niter"):
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    fin = torch.isfinite(st_p.dy_old)
+    assert torch.equal(fin, torch.isfinite(st_k.dy_old))
+    rel = (st_k.dy_old[fin] - st_p.dy_old[fin]).abs() / st_p.dy_old[fin].abs()
+    assert float(rel.max()) <= 1e-12
+    return st_k
+
+
+def _lane_major(fz):
+    """``fz`` laid out as a right-hand side mapped over the lanes returns
+    it: the transpose of a contiguous (B, nz)."""
+    return fz.t().contiguous().t()
+
+
+@pytest.mark.parametrize("layout", ["row-major", "lane-major"])
+@pytest.mark.parametrize("nz, n, B", SWEEP_SHAPES)
+def test_split_sweep_matches_plain_at_path_shapes(cuda, nz, n, B, layout):
+    """The sweep at each shape the card's paths give it, on the geometry
+    ``sweep_geometry`` chooses there (clusters of 8 and 16 blocks, and
+    none at the sensitivity block), with f row-major and lane-major."""
+    fz, y_it, pred, state = _sweep_case(nz, n, B, 40, cuda)
+    if layout == "lane-major":
+        fz = _lane_major(fz)
+    st = _sweep_against_plain(fz, y_it, pred, state, n)
+    assert st.conv.any() and not st.conv.all()
+
+
+@pytest.mark.parametrize("nz, n, B, layout", [(3002, 3000, 256, "row-major"),
+                                               (3000, 3000, 1024, "lane-major"),
+                                               (4, 4, 10_000, "lane-major")])
+def test_split_sweep_finds_a_nonfinite_last_row(cuda, nz, n, B, layout):
+    """A lane whose only non-finite f is in the last row, which the last
+    block of its lane tile's cluster holds (a quadrature row where n < nz),
+    is bad after the sweep, as in the plain sweep."""
+    fz, y_it, pred, state = _sweep_case(nz, n, B, 41, cuda)
+    state = state._replace(conv=torch.zeros_like(state.conv), div=torch.zeros_like(state.div),
+                           bad=torch.zeros_like(state.bad))
+    g = adams_split.sweep_geometry(nz, B)
+    assert (g.cluster - 1) * g.rows <= nz - 1 < g.cluster * g.rows
+    lane = B - 1 - g.lanes // 2  # inside the last lane tile
+    fz = fz.clone()
+    fz[nz - 1, lane] = float("nan")
+    if layout == "lane-major":
+        fz = _lane_major(fz)
+    st = _sweep_against_plain(fz, y_it, pred, state, n)
+    assert bool(st.bad[lane]) and int(st.bad.sum()) == 1
 
 
 def test_split_kernels_refuse_bad_inputs(cuda):
