@@ -113,8 +113,8 @@ Phases, one line each; any failure exits non-zero:
      every kernel count set to 0 before it; split launches equal to 1 / 4 /
      1 x the forward plus backward attempts (predict / sweep / finish), no
      launch of any other kernel and no plain-stage call; in the profile, no
-     fill right before a sweep (one before each predict, its tile counter's
-     reset); status 0 and finite in every
+     fill right before a predict or a sweep (one before each finish, its tile
+     counter's reset); status 0 and finite in every
      lane, lane 0 (set to the golden case's inputs, as the script sets it)
      inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
      atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
@@ -877,6 +877,16 @@ def fmt_sweep(nz, B) -> str:
             f"row_threads={g.row_threads} blocks={g.blocks}")
 
 
+def fmt_predict(nz, B) -> str:
+    """The predict kernel's geometry at (nz, B), as ``ops/adams_split.py``
+    chooses it."""
+    from sunode_torch.ops.adams_split import predict_geometry
+
+    g = predict_geometry(nz, B)
+    return (f"predict: cluster={g.cluster} rows_per_block={g.rows} lanes_per_tile={g.lanes} "
+            f"row_threads={g.row_threads} blocks={g.blocks}")
+
+
 def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     """Phase 3d at one shape: the composed attempt on the kernels against
     the plain stages composed on the card, then each kernel against its
@@ -911,7 +921,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
         f"[split-kernels-vs-plain attempt {shape}] "
         f"{'LV sensitivity block' if kind == 'staged_sensitivity' else f'SIR R={R}'} "
         f"KAB={p_max + 3} "
-        f"predict_finish_row_chunks={-(-nz // sp.CHUNK_ROWS)} {fmt_sweep(nz, B)} "
+        f"{fmt_predict(nz, B)} {fmt_sweep(nz, B)} finish_row_chunks={-(-nz // sp.CHUNK_ROWS)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
         f" converged={int(got.conv.sum())}/{B}"
@@ -1127,17 +1137,14 @@ def sir_phase(smi, counted) -> dict:
         )
         log(f"[sir {mode} device kernels by kind] (kind: per attempt, device ms in the step) "
             + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
-        # the sweep zeroes no scratch: no fill runs right before one, while
-        # one runs before each predict and finish (their tile counters)
         fills = fills_before(prof["events"], [f"split_{s}_kernel" for s in SPLIT_STAGES])
         n_att = prof["attempts"]
         log(f"[sir {mode} fills] (kernel: records, records right after a memset) "
             + "; ".join(f"{k}: {n}, {f}" for k, (n, f) in fills.items())
             + f"; attempts {n_att}")
-        if not (fills["split_sweep_kernel"][0] > 0 and fills["split_sweep_kernel"][1] == 0
-                and fills["split_predict_kernel"][1] > 0):
-            raise SystemExit(f"chip_smoke: sir {mode}: a fill ran right before a sweep (or the "
-                             f"profile shows no sweep, or no predict's fill)")
+        if not split_fills_ok(fills):
+            raise SystemExit(f"chip_smoke: sir {mode}: a fill ran right before a predict or a "
+                             f"sweep (or the profile shows neither, or no finish's fill)")
 
         ys_np, gp_np = ys.cpu().numpy(), gp.cpu().numpy()
         status = stats["backward"]["status"].cpu().numpy()
@@ -1244,7 +1251,7 @@ def fills_before(events, kernels) -> dict:
     template's begins with its return type), its device records in
     ``events`` (:func:`_raw_device_events`) and how many of them follow a
     memset directly, as a launcher's fill of its scratch does (the split
-    predict and finish zero a counter per lane tile before each launch)."""
+    finish zeroes a counter per lane tile before each launch)."""
     out = {k: [0, 0] for k in kernels}
     for prev, (name, _) in zip([("", 0.0)] + events, events):
         for k in kernels:
@@ -1252,6 +1259,16 @@ def fills_before(events, kernels) -> dict:
                 out[k][0] += 1
                 out[k][1] += prev[0].startswith("Memset")
     return {k: tuple(v) for k, v in out.items()}
+
+
+def split_fills_ok(fills) -> bool:
+    """Phase 8's check of :func:`fills_before`'s counts of the split
+    kernels: predict and the sweep ran and no fill ran right before either
+    (their sums over the rows go through the cluster, with no scratch),
+    while the finish's fills are seen (its launcher still zeroes a counter
+    per lane tile)."""
+    predict, sweep, finish = (fills[f"split_{s}_kernel"] for s in SPLIT_STAGES)
+    return predict[0] > 0 and sweep[0] > 0 and predict[1] == 0 and sweep[1] == 0 and finish[1] > 0
 
 
 def _count(names) -> tuple[int, int]:

@@ -75,6 +75,7 @@
 #include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[], PECE_U[][]
 #include "pece_rhs.h"     // PECE_N, PECE_NZ, PECE_NP, pece_fz()
 #include "pece_core.cuh"  // pece_correct(): corrector and final evaluation
+#include "div_small.cuh"  // div_small(): t / j rounded as __ddiv_rn
 
 #ifndef ADAMS_KAB
 #error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
@@ -99,25 +100,6 @@
 static_assert(sizeof(double) * (ADAMS_K * ADAMS_K * ADAMS_TILE + 4 * ADAMS_TILE * ADAMS_NZ_PAD +
                                  PECE_NZ) <= 48 * 1024,
               "the R tables and row vectors exceed a block's static shared memory");
-
-// t / j for a small integer j, rounded as __ddiv_rn(t, j) is.  A power of
-// two divides exactly as the product by its reciprocal.  Otherwise, with
-// y = RN(1/j): q = RN(t y) lies within 1.5 ulp of t / j, so the remainder
-// t - q j is a small multiple of ulp(q) and the FMA gives it exactly, and
-// RN(q + r y) differs from t / j by under 2^-52 ulp(q), while t / j lies at
-// least ulp(q) / 2j from every rounding midpoint (j's odd factor cannot
-// divide a 53-bit significand into a half-integer): it rounds as t / j does.
-// A second step repeats it from the rounded quotient.  Zero and non-finite
-// t, whose remainder is not a number or loses zero's sign, take q itself,
-// which is then RN(t / j) too.
-__device__ __forceinline__ double div_small(double t, int j) {
-  if ((j & (j - 1)) == 0) return __dmul_rn(t, 1.0 / j);
-  const double y = 1.0 / j, d = (double)j;
-  const double q0 = __dmul_rn(t, y);
-  double q = __fma_rn(__fma_rn(-q0, d, t), y, q0);
-  q = __fma_rn(__fma_rn(-q, d, t), y, q);
-  return (q0 == 0.0 || !isfinite(q0)) ? q0 : q;
-}
 
 #ifdef ADAMS_PHASE_CLOCKS
 // A trace of the kernel by phase: the cycles from each barrier to the next

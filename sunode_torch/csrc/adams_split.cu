@@ -30,43 +30,77 @@
 //
 // What bounds them on an H100: bytes.  At SIR over 1,000 regions (nz =
 // 3,000) and B = 1,024 the history is 11 x 3,000 x 1,024 x 8 B = 270 MB;
-// predict and finish each read it once and write it once (~0.17 ms each at
-// 3.35 TB/s), a sweep moves six (n, B) rows (~0.04 ms).  The rescale's
-// arithmetic is ~2 p^2 products a row, well under the f64 rate.
+// predict and finish each read it once and write it once (predict 639 MB
+// in all, 0.19 ms at 3.35 TB/s; finish ~0.21 ms), a sweep moves six (n, B)
+// rows (~0.04 ms).  The rescale's arithmetic is 4 K^2 f64 products and sums
+// a row (K = KAB - 2), under half the time of its bytes.
 //
 // Layout: the history is (KAB, nz, B), lane-contiguous.
 //
-// Predict and finish: a block is a tile of 32 lanes (threadIdx.x, so each
-// warp reads 32 neighbouring lanes: one coalesced 256-byte transaction per
-// row) by 8 row threads (threadIdx.y), and covers a chunk of 64 rows
-// (blockIdx.y); blockIdx.x walks the lane tiles.  At nz = 3,000, B = 1,024
-// that is 47 x 32 = 1,504 blocks of 256 threads.  The rescale's
-// coefficients R(fac)[j][i] (running index j, column i) are built once per
-// lane and block into shared memory (K x K x 32 doubles), U once per block,
-// instead of once per row as the fused kernel does.  Per-lane sums over the
-// rows: each block sums its rows per lane through shared memory (in
-// row-thread order) into a partial per (chunk, lane); the last block of a
-// lane tile to finish (a counter per tile, zeroed by a memset at each
-// launch, and a fence) adds the partials in chunk order, so the result does
-// not depend on the blocks' schedule, and writes the lane's outputs.
+// Predict's and the sweep's geometry follows (nz, B), chosen by
+// ops/adams_split.py (predict_geometry, sweep_geometry) and passed in: a
+// block is SWEEP_THREADS threads, a tile of L lanes (threadIdx.x) by 256 / L
+// row threads (threadIdx.y), and covers `rows` consecutive rows; the C
+// blocks of a lane tile (gridDim.x, 16 at most) form one thread-block
+// cluster along the rows, gridDim.y walks the tiles.  Predict takes 32
+// lanes (16 only where half the SMs would get no block) and the largest C
+// up to 16 that gives each block a step of rows: the card holds 14 of its
+// clusters of 16 at once and 30 of 8, no multiple of the 32 tiles at
+// B = 1,024, so many short blocks fill it more evenly than one wave of 8s.
+// The sweep takes 32 lanes (16 where the card would not fill, more where
+// nz is small) and the smallest C that gives two blocks an SM.  Thread
+// (x, y) of cluster rank c reads rows c rows + y + j (256 / L), j = 0, 1,
+// ..., below min((c + 1) rows, nz): predict one row a step, the sweep
+// SWEEP_UNROLL rows a step whose loads are all issued before any of them is
+// used.  Per lane, each block sums its rows per lane (the sweep's squares in
+// row order, in shared memory over its row threads in order; predict's
+// non-finite flags), and after a cluster barrier the rank-0 block adds the
+// blocks' sums in rank order through distributed shared memory, then a
+// second barrier keeps every block's shared memory alive until rank 0 has
+// read it: a fixed order, no global scratch, no counter, no fill.
 //
-// Sweep: its geometry follows (nz, B), chosen by
-// ops/adams_split.py::sweep_geometry and passed in: a block is
-// SWEEP_THREADS threads, a tile of L lanes (threadIdx.x; 32, 16 where the
-// card would not fill, more where nz is small) by 256 / L row threads
-// (threadIdx.y), and covers `rows` consecutive rows; the C blocks of a lane
-// tile (gridDim.x, 16 at most) form one thread-block cluster along the rows,
-// gridDim.y walks the tiles.  Thread (x, y) of cluster rank c reads rows
-// c rows + y + j (256 / L), j = 0, 1, ..., below min((c + 1) rows, nz), in
-// steps of SWEEP_UNROLL rows whose loads are all issued before any of them
-// is used.  Per lane, each thread sums its rows in order, the block sums its
-// row threads in order in shared memory, and after a cluster barrier the
-// rank-0 block adds the blocks' sums in rank order through distributed
-// shared memory: a fixed order, no global scratch, no counter, no fill.
-// f is read as the right-hand side returns it: row-major, or lane-major (a
-// torch right-hand side mapped over the lanes with vmap), then through a
-// shared-memory tile per step, so that no transposing copy precedes the
-// launch.
+// Predict: R'(fac) of each of the block's lanes is built once into shared
+// memory (K x K x L doubles; R(fac) inside the lane's leading p block, the
+// identity outside, as the plain version masks it), the K columns' running
+// products spread over the row threads and each quotient by a small integer
+// the exact div_small() of div_small.cuh; at (3,000, 1,024) a block's
+// tables serve 188 rows, not 64.  A thread walks
+// its rows one a step and holds two: the one it computes, and the next,
+// whose loads it issues before the arithmetic, so that they are in flight
+// while it runs.  U = R(1)
+// is the constant table PECE_U of pece_tables.h, its entries read as the
+// products' operands; it is lower-triangular (U[j][i] = +-0 for j > i), so
+// the plain version's masked sum over all K rows j comes to U's over
+// j <= i inside the block, and to the identity's outside, each NaN where
+// the plain sum meets 0 x inf.  Every other sum runs over all K rows in
+// the plain version's order, so a non-finite history element spreads to
+// the same outputs as there.  At one row a step the kernel takes 114-122
+// registers, so two blocks (16 warps) share an SM; measured on an H100,
+// that beat two rows a step, whose every R'[j][i] read serves both rows,
+// with the next step in flight (188 registers, one block an SM) and
+// without it (the loads exposed), at every path shape.
+//
+// Why no tensor cores (wgmma) or TMA in predict: every lane has its own
+// K x K factor R(fac) restricted to its own order, so a matrix unit has no
+// operand shared across lanes to reuse, and a lane's product is at most
+// 9 x 9 (order 8); the history's lane axis is contiguous, so coalesced
+// loads of a warp's 32 lanes already read whole 256-byte lines at full
+// width, and a TMA tile would only stage in shared memory what each thread
+// reads once into its registers.
+//
+// The sweep reads f as the right-hand side returns it: row-major, or
+// lane-major (a torch right-hand side mapped over the lanes with vmap), then
+// through a shared-memory tile per step, so that no transposing copy
+// precedes the launch.
+//
+// Finish: a block is a tile of 32 lanes (threadIdx.x) by 8
+// row threads (threadIdx.y) and covers a chunk of 64 rows (blockIdx.y);
+// blockIdx.x walks the lane tiles.  Per-lane sums over the rows: each block
+// sums its rows per lane through shared memory (in row-thread order) into
+// a partial per (chunk, lane); the last block of a lane tile to finish (a
+// counter per tile, zeroed by a memset at each launch, and a fence) adds
+// the partials in chunk order, so the result does not depend on the
+// blocks' schedule, and writes the lane's outputs.
 //
 // Lanes with p outside the history (p < 1 or p > KAB - 2) are poisoned with
 // NaN, as the fused kernel poisons them.
@@ -75,41 +109,52 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[]
+#include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[], PECE_U[][]
+#include "div_small.cuh"  // div_small(): t / j rounded as __ddiv_rn
 
 #ifndef ADAMS_KAB
 #error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
 #endif
 #define ADAMS_K (ADAMS_KAB - 2)  // rows 0..P_MAX + 1 of the R(fac)U block
-#define SPLIT_TILE 32            // lanes of a block
-#define SPLIT_ROWS 8             // row threads of a block
-#define SPLIT_CHUNK 64           // rows of a block
-#define SWEEP_THREADS 256        // threads of a sweep block (ops/adams_split.py: SWEEP_THREADS)
+// the constants ops/adams_split.py mirrors under the same names
+#define SPLIT_TILE 32            // lanes of a finish block
+#define SPLIT_ROWS 8             // row threads of a finish block
+#define SPLIT_CHUNK 64           // rows of a finish block
+#define SWEEP_THREADS 256        // threads of a predict or sweep block (SWEEP_THREADS)
 #define SWEEP_UNROLL 4           // rows a sweep thread loads at once (SWEEP_UNROLL)
 #define SWEEP_CLUSTER_MAX 16     // blocks of a cluster, with the non-portable size allowed
+#define PREDICT_LANES_MAX 32     // lanes of a predict tile at most (PREDICT_LANES_MAX)
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
 #endif
+static_assert(sizeof(double) * ADAMS_K * ADAMS_K * PREDICT_LANES_MAX +
+                      sizeof(int) * SWEEP_THREADS <= 48 * 1024,
+              "predict's R tables exceed a block's static shared memory");
 
 // element (i, r) of a (KAB, nz, B) history, lane b
 #define HIST(i, r) (((size_t)(i) * nz + (r)) * sB + b)
 
 #ifdef SPLIT_PHASE_CLOCKS
-// A trace of the sweep by phase: the cycles from each mark to the next on
-// thread (0, 0) of a block (rows, the block's sum, the first cluster
-// barrier, rank 0's reads and the second barrier, rank 0's tail), summed
-// over the blocks of every launch since the last read, and the blocks
-// counted (split_ab.py --phase-clocks).
+// A trace of predict and the sweep by phase: the cycles from each mark to
+// the next on thread (0, 0) of a block, summed over the blocks of every
+// launch since the last read, and the blocks counted in the last slot
+// (split_ab.py --phase-clocks).  Predict: R(fac) and U built, the rows, the
+// block's flag sum, the lane tail.  Sweep: the rows, the block's sum, the
+// first cluster barrier, rank 0's reads and the second barrier, rank 0's
+// tail.
 __device__ unsigned long long split_phase_cycles[6];
-#define SWEEP_MARK(k)                                                        \
+#define SPLIT_MARK(k)                                                        \
   if (tx == 0 && ty == 0) {                                                  \
     const long long now = clock64();                                         \
     atomicAdd(&split_phase_cycles[k], (unsigned long long)(now - mark));     \
     mark = now;                                                              \
   }
+#define SPLIT_COUNT_BLOCK() \
+  if (tx == 0 && ty == 0) atomicAdd(&split_phase_cycles[5], 1ull);
 #else
-#define SWEEP_MARK(k)
+#define SPLIT_MARK(k)
+#define SPLIT_COUNT_BLOCK()
 #endif
 
 // True in every thread of the block that finished its lane tile last; its
@@ -141,111 +186,151 @@ __device__ __forceinline__ double sum_rows(double v, double (*s)[SPLIT_TILE]) {
 __device__ __forceinline__ bool order_ok(int p) { return p >= 1 && p <= ADAMS_K; }
 
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+__global__ void __launch_bounds__(SWEEP_THREADS, 2)  // two blocks an SM
 split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ order,
                      const double* __restrict__ pre_factor, const double* __restrict__ h_use,
                      const double* __restrict__ z_prev, const double* __restrict__ atol_z,
-                     const double* __restrict__ rtol_z, int nz, int B,
+                     const double* __restrict__ rtol_z, int nz, int B, int rows,
                      double* __restrict__ DF_resc, double* __restrict__ z_pred,
                      double* __restrict__ f_ex, double* __restrict__ w_z,
-                     double* __restrict__ c_A, unsigned char* __restrict__ pred_ok,
-                     unsigned char* part_ok, unsigned int* done) {
-  __shared__ double Rs[ADAMS_K][ADAMS_K][SPLIT_TILE];  // R(fac)[j][i], per lane
-  __shared__ double Us[ADAMS_K][ADAMS_K];              // U = R(1)[j][i]
-  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * SPLIT_TILE + tx;
+                     double* __restrict__ c_A, unsigned char* __restrict__ pred_ok) {
+  // R'[j][i] of the tile's lanes: R(fac) inside the lane's leading p block,
+  // the identity outside, as the plain version masks it
+  __shared__ double Rs[ADAMS_K][ADAMS_K][PREDICT_LANES_MAX];
+  __shared__ int bad_s[SWEEP_THREADS];  // (row thread, lane), then the block's flag per lane
+  const int tx = threadIdx.x, ty = threadIdx.y, L = blockDim.x, T = blockDim.y;
+#ifdef SPLIT_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.y * L + tx;
   const bool lane = b < B;
   const size_t sB = (size_t)B;
   const int p = lane ? order[b] : 1;
   const bool valid = lane && order_ok(p);
-  const double fac = lane ? pre_factor[b] : 0.0;
-  const double h = lane ? h_use[b] : 0.0;
+  const double fac = valid ? pre_factor[b] : 0.0;
+  const double h = valid ? h_use[b] : 0.0;
+  const int r_begin = blockIdx.x * rows, r_end = min(r_begin + rows, nz);  // the block's rows
 
-  // R[0][i] = 1, R[j][i] = (R[j-1][i] ((j-1) - fac i)) / j: column i's
-  // running product, as the plain version builds it row by row
-  for (int i = ty; i < ADAMS_K; i += SPLIT_ROWS) {
-    const double fi = __dmul_rn(fac, (double)i);
-    double c = 1.0;
-    Rs[0][i][tx] = 1.0;
-    for (int j = 1; j < ADAMS_K; ++j) {
-      c = __ddiv_rn(__dmul_rn(c, __dsub_rn((double)(j - 1), fi)), (double)j);
-      Rs[j][i][tx] = c;
-    }
-  }
-  if (ty == SPLIT_ROWS - 1 && tx < ADAMS_K) {
-    const int i = tx;
-    double c = 1.0;
-    Us[0][i] = 1.0;
-    for (int j = 1; j < ADAMS_K; ++j) {
-      c = __ddiv_rn(__dmul_rn(c, __dsub_rn((double)(j - 1), (double)i)), (double)j);
-      Us[j][i] = c;
+  // R(fac)[j][i] = R[j-1][i] ((j-1) - fac i) / j: column i's running product
+  // over j < p, the K columns over the row threads
+  if (valid) {
+    for (int i = ty; i < ADAMS_K; i += T) {
+      const double fi = __dmul_rn(fac, (double)i);
+      double c = 1.0;
+      Rs[0][i][tx] = i < p ? 1.0 : 0.0;
+#pragma unroll
+      for (int j = 1; j < ADAMS_K; ++j) {
+        const bool in = j < p && i < p;
+        if (in) c = div_small(__dmul_rn(c, __dsub_rn((double)(j - 1), fi)), j);
+        Rs[j][i][tx] = in ? c : (i == j ? 1.0 : 0.0);
+      }
     }
   }
   __syncthreads();
+  SPLIT_MARK(0);
 
-  const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
-  double not_ok = 0.0;  // a count of non-finite predictions, summed as doubles
-  if (lane) {
-    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
-      if (!valid) {
+  int nonfinite = 0;
+  if (!valid) {  // outside the history: poison the lane
+    if (lane) {
+      for (int r = r_begin + ty; r < r_end; r += T) {
 #pragma unroll
         for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = NAN;
         z_pred[r * sB + b] = f_ex[r * sB + b] = w_z[r * sB + b] = NAN;
-        continue;
       }
-      double col[ADAMS_K], t1[ADAMS_K];
+    }
+  } else {
+    // one row a step, r = ty, ty + T, ...; the next row's loads are issued
+    // before this row's arithmetic, so that they are in flight while it runs
+    double col[ADAMS_KAB], nx_col[ADAMS_KAB], nx_zprev, nx_atol, nx_rtol;
+    // the loads of row r (none past the block's rows) into the next row's registers
+    auto load_next = [&](int r) {
+      const bool row = r < r_end;
 #pragma unroll
-      for (int i = 0; i < ADAMS_K; ++i) col[i] = DF[HIST(i, r)];
-      // t1[i] = sum_{j<p} R[j][i] col[j], then col[i] = sum_{j<p} U[j][i] t1[j]
+      for (int i = 0; i < ADAMS_KAB; ++i) nx_col[i] = row ? DF[HIST(i, r)] : 0.0;
+      nx_zprev = row ? z_prev[r * sB + b] : 0.0;
+      nx_atol = row ? atol_z[r] : 0.0;
+      nx_rtol = row ? rtol_z[r] : 0.0;
+    };
+    load_next(r_begin + ty);
+    for (int r = r_begin + ty; r < r_end; r += T) {
+      // the tables are read anew each step: held in registers across the
+      // steps (the compiler's choice without this), R' alone would take 162
+      asm volatile("" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < ADAMS_KAB; ++i) col[i] = nx_col[i];
+      const double zprev = nx_zprev, atol_r = nx_atol, rtol_r = nx_rtol;
+      load_next(r + T);
+#pragma unroll
+      for (int i = ADAMS_K; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = col[i];  // copied as they are
+      // t1[i] = sum_j R'[j][i] col[j] over all K rows j in order from 0, as
+      // the plain version's sum, the masked entries multiplying as 0.0 or 1.0
+      double t1[ADAMS_K];
+      unsigned int bad = 0u;  // bit j: t1[j] not finite
 #pragma unroll
       for (int i = 0; i < ADAMS_K; ++i) {
-        double acc = col[i];
-        if (i < p) {
-          acc = 0.0;
+        double acc = 0.0;
 #pragma unroll
-          for (int j = 0; j < ADAMS_K; ++j)
-            if (j < p) acc = __dadd_rn(acc, __dmul_rn(Rs[j][i][tx], col[j]));
-        }
+        for (int j = 0; j < ADAMS_K; ++j) acc = __dadd_rn(acc, __dmul_rn(Rs[j][i][tx], col[j]));
         t1[i] = acc;
+        bad |= isfinite(acc) ? 0u : 1u << i;
       }
-#pragma unroll
-      for (int i = 0; i < ADAMS_K; ++i) {
-        double acc = t1[i];
-        if (i < p) {
-          acc = 0.0;
-#pragma unroll
-          for (int j = 0; j < ADAMS_K; ++j)
-            if (j < p) acc = __dadd_rn(acc, __dmul_rn(Us[j][i], t1[j]));
-        }
-        col[i] = acc;
-      }
+      // DF_resc[i] = sum_j U'[j][i] t1[j] in the plain version's order, U'
+      // = U inside the lane's leading p block and the identity outside.
+      // U[j][i] is 0 (signed) for j > i, as is U'[j][i] wherever it is not
+      // U's, and x + (+-0) = x for every sum here (none starts at -0): so
+      // inside the block the sum is U's over j <= i, NaN if a later t1[j]
+      // is not finite (0 x inf); outside it is 0 + t1[i], NaN if another
+      // t1[j] is not finite.  U's entries are the constant table's, read
+      // as operands.  With each DF_resc[i], the predictor's and the
+      // extrapolation's sums over all K rows, those from p on multiplied
+      // by 0.0.
       double acc_z = 0.0, acc_f = 0.0;
 #pragma unroll
       for (int i = 0; i < ADAMS_K; ++i) {
-        DF_resc[HIST(i, r)] = col[i];
+        double v;
         if (i < p) {
-          acc_z = __dadd_rn(acc_z, __dmul_rn(PECE_GAMMA[i], col[i]));
-          acc_f = __dadd_rn(acc_f, col[i]);
-        }
-      }
+          v = 0.0;
 #pragma unroll
-      for (int i = ADAMS_K; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = DF[HIST(i, r)];
-      const double zp = __dadd_rn(z_prev[r * sB + b], __dmul_rn(h, acc_z));
+          for (int j = 0; j <= i; ++j) v = __dadd_rn(v, __dmul_rn(PECE_U[j][i], t1[j]));
+          if (bad >> (i + 1)) v = NAN;
+        } else {
+          v = (bad & ~(1u << i)) ? NAN : __dadd_rn(0.0, t1[i]);
+        }
+        DF_resc[HIST(i, r)] = v;
+        acc_z = __dadd_rn(acc_z, i < p ? __dmul_rn(PECE_GAMMA[i], v) : __dmul_rn(0.0, v));
+        acc_f = __dadd_rn(acc_f, i < p ? v : __dmul_rn(0.0, v));
+      }
+      const double zp = __dadd_rn(zprev, __dmul_rn(h, acc_z));
       z_pred[r * sB + b] = zp;
       f_ex[r * sB + b] = acc_f;
-      w_z[r * sB + b] = __ddiv_rn(1.0, __dadd_rn(atol_z[r], __dmul_rn(rtol_z[r], fabs(zp))));
-      if (!isfinite(zp)) not_ok = 1.0;
+      w_z[r * sB + b] = __ddiv_rn(1.0, __dadd_rn(atol_r, __dmul_rn(rtol_r, fabs(zp))));
+      if (!isfinite(zp)) nonfinite = 1;
     }
   }
-  const double bad_rows = sum_rows(not_ok, red);
-  if (ty == 0 && lane) part_ok[blockIdx.y * sB + b] = bad_rows == 0.0;
-  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
-  bool ok = valid;
-  for (int c = 0; c < (int)gridDim.y; ++c)
-    ok = ok && *((volatile const unsigned char*)part_ok + c * sB + b);
-  pred_ok[b] = ok;
-  c_A[b] = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : NAN;
+  SPLIT_MARK(1);
+  // the block's flag per lane, over its row threads, into slot tx
+  bad_s[ty * L + tx] = nonfinite;
+  __syncthreads();
+  if (ty == 0) {
+    for (int y = 1; y < T; ++y) nonfinite |= bad_s[y * L + tx];
+    bad_s[tx] = nonfinite;
+  }
+  SPLIT_MARK(2);
+  // the cluster's flag per lane, over its blocks in rank order, in rank 0
+  const int C = gridDim.x;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  if (C > 1) cluster.sync();
+  const bool tail = blockIdx.x == 0 && ty == 0 && lane;
+  if (tail)
+    for (int c = 1; c < C; ++c) nonfinite |= cluster.map_shared_rank(&bad_s[0], c)[tx];
+  // no block leaves while rank 0 may still read its shared memory
+  if (C > 1) cluster.sync();
+  if (tail) {
+    pred_ok[b] = valid && !nonfinite;
+    c_A[b] = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : NAN;
+  }
+  SPLIT_MARK(3);
+  SPLIT_COUNT_BLOCK();
 }
 
 // ---------------------------------------------------------------------------
@@ -328,7 +413,7 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
       }
     }
   }
-  SWEEP_MARK(0);
+  SPLIT_MARK(0);
   // the block's sum per lane, over its row threads in order, into slot tx
   ss_s[ty * L + tx] = ss;
   bad_s[ty * L + tx] = nonfinite;
@@ -349,9 +434,9 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   // the cluster's sum per lane, over its blocks in rank order, in rank 0
   const int C = gridDim.x;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  SWEEP_MARK(1);
+  SPLIT_MARK(1);
   if (C > 1) cluster.sync();
-  SWEEP_MARK(2);
+  SPLIT_MARK(2);
   const bool tail = blockIdx.x == 0 && ty == 0 && lane;
   if (tail && C > 1) {
     ss = 0.0;
@@ -363,10 +448,8 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   }
   // no block leaves while rank 0 may still read its shared memory
   if (C > 1) cluster.sync();
-  SWEEP_MARK(3);
-#ifdef SPLIT_PHASE_CLOCKS
-  if (tx == 0 && ty == 0) atomicAdd(&split_phase_cycles[5], 1ull);
-#endif
+  SPLIT_MARK(3);
+  SPLIT_COUNT_BLOCK();
   if (!tail) return;
   const double dy_norm = __dsqrt_rn(__ddiv_rn(ss, (double)n));
   const double rate = __ddiv_rn(dy_norm, dy_old[b]);
@@ -384,7 +467,7 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   bad_o[b] = bad_n;
   niter_o[b] = niter[b] + (live ? 1 : 0);
   dy_old_o[b] = live ? dy_norm : dy_old[b];
-  SWEEP_MARK(4);
+  SPLIT_MARK(4);
 }
 
 // ---------------------------------------------------------------------------
@@ -496,37 +579,82 @@ static int grid_for(int nz, int B, dim3* grid) {
   return 0;
 }
 
+// Whether tiles of `lanes` lanes by SWEEP_THREADS / lanes row threads,
+// `rows` rows a block and `cluster` blocks a tile cover (nz, B) exactly
+// once with no empty block, on a grid and a cluster the card takes.
+static bool covers(int nz, int B, int lanes, int rows, int cluster) {
+  return lanes >= 16 && SWEEP_THREADS % lanes == 0 && rows >= 1 && cluster >= 1 &&
+         cluster <= SWEEP_CLUSTER_MAX && (long long)cluster * rows >= nz &&
+         (long long)(cluster - 1) * rows < nz && (B + lanes - 1) / lanes <= 65535;
+}
+
+// Whether predict's, the row-major and the lane-major sweep's kernel allow
+// the non-portable cluster size yet.
+static bool non_portable[3] = {false, false, false};
+
+// The launch of a kernel on that geometry: the tile's blocks one cluster
+// along gridDim.x.  A cluster above the portable 8 needs the kernel's
+// non-portable attribute, set at its first such launch (outside any graph
+// capture) and remembered in *allowed.
+static cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                                  const void* kernel, bool* allowed, int B, int lanes,
+                                  int cluster, void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(cluster, (B + lanes - 1) / lanes);
+  cfg->blockDim = dim3(lanes, SWEEP_THREADS / lanes);
+  cfg->stream = (cudaStream_t)stream;
+  if (cluster == 1) return cudaSuccess;
+  if (cluster > 8 && !*allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    *allowed = true;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 extern "C" {
 
 // Each launch goes on `stream` without synchronising and returns 0, -1
-// when the history depth is not the build's, -3 when nz needs more row
-// chunks than a grid has, or the cudaError_t of the counter reset or the
-// launch.  Predict's and finish's `part` and `done` are scratch of
-// (chunks, B) and (lane tiles,); the sweep has none.
+// when the history depth is not the build's (or, for the sweep, n > nz),
+// -3 when the geometry does not cover (nz, B) exactly once (or, for the
+// finish, nz needs more row chunks than a grid has), or a cudaError_t.
+// Finish's `part` and `done` are scratch of (3, chunks, B) and (lane
+// tiles,), its counters zeroed by a fill before the launch; predict and
+// the sweep take none.
+
+// Predict on the geometry of ops/adams_split.py::predict_geometry: lane
+// tiles of `lanes` lanes (at most PREDICT_LANES_MAX), `rows` rows a block,
+// `cluster` blocks a tile along the rows.
 int split_predict_launch(const double* DF, const int* order, const double* pre_factor,
                          const double* h_use, const double* z_prev, const double* atol_z,
-                         const double* rtol_z, int kab, int nz, int B, double* DF_resc,
-                         double* z_pred, double* f_ex, double* w_z, double* c_A,
-                         unsigned char* pred_ok, unsigned char* part, unsigned int* done,
-                         void* stream) {
+                         const double* rtol_z, int kab, int nz, int B, int lanes, int rows,
+                         int cluster, double* DF_resc, double* z_pred, double* f_ex, double* w_z,
+                         double* c_A, unsigned char* pred_ok, void* stream) {
   if (kab != ADAMS_KAB) return -1;
   if (B <= 0 || nz <= 0) return 0;
-  dim3 grid;
-  if (grid_for(nz, B, &grid)) return -3;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (lanes > PREDICT_LANES_MAX || !covers(nz, B, lanes, rows, cluster)) return -3;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config(&cfg, attr, (const void*)split_predict_kernel,
+                                   &non_portable[0], B, lanes, cluster, stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, split_predict_kernel, DF, order, pre_factor, h_use, z_prev,
+                             atol_z, rtol_z, nz, B, rows, DF_resc, z_pred, f_ex, w_z, c_A,
+                             pred_ok);
   if (err != cudaSuccess) return (int)err;
-  split_predict_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
-      DF, order, pre_factor, h_use, z_prev, atol_z, rtol_z, nz, B, DF_resc, z_pred, f_ex,
-      w_z, c_A, pred_ok, part, done);
   return (int)cudaGetLastError();
 }
 
 // The sweep on the geometry of ops/adams_split.py::sweep_geometry: lane
 // tiles of `lanes` lanes, `rows` rows a block, `cluster` blocks a tile along
 // the rows; fz row-major (nz, B) or, with `fz_lane_major`, lane-major.
-// Returns -3 when the geometry does not cover (nz, B) exactly once, a tile
-// has fewer than 16 lanes or the cluster is too large, -1 when n > nz.
 int split_sweep_launch(int k, const double* fz, const double* y_it, const double* z_pred,
                        const double* f_ex, const double* w_z, const double* c_A,
                        const unsigned char* conv, const unsigned char* div,
@@ -537,39 +665,17 @@ int split_sweep_launch(int k, const double* fz, const double* y_it, const double
                        double* dy_old_o, int* niter_o, void* stream) {
   if (n > nz) return -1;
   if (B <= 0 || nz <= 0) return 0;
-  if (lanes < 16 || SWEEP_THREADS % lanes || rows < 1 || cluster < 1 ||
-      cluster > SWEEP_CLUSTER_MAX || (long long)cluster * rows < nz ||
-      (long long)(cluster - 1) * rows >= nz)
-    return -3;
-  const int tiles = (B + lanes - 1) / lanes;
-  if (tiles > 65535) return -3;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, tiles);
-  cfg.blockDim = dim3(lanes, SWEEP_THREADS / lanes);
-  cfg.stream = (cudaStream_t)stream;
+  if (!covers(nz, B, lanes, rows, cluster)) return -3;
   auto kernel = fz_lane_major ? split_sweep_kernel<true> : split_sweep_kernel<false>;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  if (cluster > 1) {
-    static bool non_portable = false;  // set at the first launch, outside any graph capture
-    if (cluster > 8 && !non_portable) {
-      cudaError_t err = cudaFuncSetAttribute(
-          split_sweep_kernel<true>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(split_sweep_kernel<false>,
-                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return (int)err;
-      non_portable = true;
-    }
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, k, fz, y_it, z_pred, f_ex, w_z, c_A, conv,
-                                       div, bad, dy_old, niter, newton_tol, tol_lo, fixed, n, nz,
-                                       B, rows, y_next, conv_o, div_o, bad_o, dy_old_o, niter_o);
+  cudaError_t err = cluster_config(&cfg, attr, (const void*)kernel,
+                                   &non_portable[fz_lane_major ? 2 : 1], B, lanes, cluster,
+                                   stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, kernel, k, fz, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad,
+                             dy_old, niter, newton_tol, tol_lo, fixed, n, nz, B, rows, y_next,
+                             conv_o, div_o, bad_o, dy_old_o, niter_o);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -595,10 +701,32 @@ int split_finish_launch(const double* fz, const double* DF_resc, const double* z
   return (int)cudaGetLastError();
 }
 
+// The clusters of `cluster` blocks of predict's kernel (kernel 0) or the
+// sweep's (1: f row-major, 2: lane-major) that the card holds at once, at
+// tiles of `lanes` lanes, into *out (cudaOccupancyMaxActiveClusters): the
+// experiments print it beside a geometry's clusters.
+int split_max_active_clusters(int kernel, int lanes, int cluster, int* out) {
+  const void* fn = kernel == 0   ? (const void*)split_predict_kernel
+                   : kernel == 1 ? (const void*)split_sweep_kernel<false>
+                                 : (const void*)split_sweep_kernel<true>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err =
+      cluster_config(&cfg, attr, fn, &non_portable[kernel], lanes, lanes, cluster, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  attr[0].id = cudaLaunchAttributeClusterDimension;  // a cluster of one block too
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+}
+
 const char* split_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 #ifdef SPLIT_PHASE_CLOCKS
-// Copies the sweep's phase cycles and block count into out[6] and zeroes them.
+// Copies the phase cycles and block count into out[6] and zeroes them.
 int split_phase_cycles_read(unsigned long long* out) {
   static const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
   cudaError_t e = cudaMemcpyFromSymbol(out, split_phase_cycles, sizeof(zero));

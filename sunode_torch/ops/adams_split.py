@@ -11,7 +11,9 @@ torch code between them:
   * :func:`split_predict` -- the rescale ``R(h/h_D) U`` of the history, the
     predictor ``z_pred``, the extrapolation ``f_ex``, the error weights
     ``w_z``, the corrector coefficient ``c_A = h gamma_{p-1}`` and
-    ``pred_ok``;
+    ``pred_ok`` (its kernel launches on :func:`predict_geometry`'s
+    geometry, the blocks of a lane tile one thread-block cluster along the
+    rows, R(fac) built once a lane and block);
   * :func:`split_sweep` -- one functional corrector sweep given
     ``fz_k = fz(t, y_it)``: the next iterate, the lane's weighted
     ``dy_norm`` and the masked conv/div/bad/niter/dy_old update (its kernel
@@ -68,16 +70,18 @@ __all__ = [
     "build_split_kernels",
     "SweepGeometry",
     "sweep_geometry",
+    "predict_geometry",
     "CHUNK_ROWS",
     "TILE_LANES",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
-TILE_LANES = 32  # lanes of a predict or finish block (csrc/adams_split.cu: SPLIT_TILE)
-CHUNK_ROWS = 64  # history rows of a predict or finish block (SPLIT_CHUNK)
-SWEEP_THREADS = 256  # threads of a sweep block (SWEEP_THREADS)
+TILE_LANES = 32  # lanes of a finish block (csrc/adams_split.cu: SPLIT_TILE)
+CHUNK_ROWS = 64  # history rows of a finish block (SPLIT_CHUNK)
+SWEEP_THREADS = 256  # threads of a predict or sweep block (SWEEP_THREADS)
 SWEEP_UNROLL = 4  # rows a sweep thread loads at once (SWEEP_UNROLL)
 SWEEP_CLUSTER_MAX = 16  # blocks of a cluster, the non-portable size allowed
+PREDICT_LANES_MAX = 32  # lanes of a predict tile at most (PREDICT_LANES_MAX)
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -161,6 +165,31 @@ def sweep_geometry(nz: int, B: int) -> SweepGeometry:
     if cluster > 8 and tiles * 8 >= CARD_SMS:
         cluster = 8
     return SweepGeometry(lanes, -(-nz // cluster), cluster, tiles)
+
+
+def predict_geometry(nz: int, B: int) -> SweepGeometry:
+    """Predict's geometry at ``nz`` rows and ``B`` lanes.
+
+    A block is ``SWEEP_THREADS`` threads: a tile of ``PREDICT_LANES_MAX``
+    (32) lanes, so that a warp reads one 256-byte line a row, by 8 row
+    threads that take one row each a step.  The blocks of
+    a tile form one cluster along the rows, the largest power of two up to
+    16 that still gives every block a step of rows: many blocks of a few
+    hundred rows spread over the card's cluster slots, whose count is no
+    multiple of the tiles (an H100 holds 30 of predict's clusters of 8 at
+    once and 14 of 16, against 32 tiles at B = 1,024), at the cost of one
+    R(fac) table a block.  The tile halves to 16 lanes only where 32-lane
+    tiles would leave half the SMs without a block.  Each block takes
+    ``ceil(nz / cluster)`` rows, so none is empty."""
+    if nz < 1 or B < 1:
+        raise ValueError(f"predict_geometry: needs nz >= 1 and B >= 1, got {nz}, {B}")
+    lanes = PREDICT_LANES_MAX
+    while True:
+        steps = -(-nz // (SWEEP_THREADS // lanes))
+        cluster, tiles = min(SWEEP_CLUSTER_MAX, _pow2_at_most(steps)), -(-B // lanes)
+        if lanes == 16 or tiles * cluster >= CARD_SMS // 2:
+            return SweepGeometry(lanes, -(-nz // cluster), cluster, tiles)
+        lanes //= 2
 
 
 def sweep_start(active: torch.Tensor, dtype=torch.float64) -> SweepState:
@@ -264,19 +293,20 @@ split_predict.calls = split_sweep.calls = split_finish.calls = 0
 # ---------------------------------------------------------------------------
 class _SplitKernels:
     """One compiled build of ``csrc/adams_split.cu`` for one history depth;
-    ``defines`` adds compile-time defines (``SPLIT_PHASE_CLOCKS``, the
-    sweep's trace by phase of ``experiments/split_ab.py``)."""
+    ``defines`` adds compile-time defines and ``source`` takes another
+    checkout's file (``experiments/split_ab.py``: ``SPLIT_PHASE_CLOCKS``,
+    the kernels' trace by phase; the parent's source)."""
 
-    def __init__(self, kab: int, defines: tuple[str, ...] = ()):
+    def __init__(self, kab: int, defines: tuple[str, ...] = (), source: Path = _CSRC):
         self.kab = kab
         built = build_library(
-            f"adams_split_kab{kab}", _CSRC, headers={"pece_tables.h": _tables_header()},
+            f"adams_split_kab{kab}", source, headers={"pece_tables.h": _tables_header()},
             defines=(f"ADAMS_KAB={kab}", *defines),
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib
         vp, c_int, c_double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.split_predict_launch.argtypes = [vp] * 7 + [c_int] * 3 + [vp] * 8 + [vp]
+        lib.split_predict_launch.argtypes = [vp] * 7 + [c_int] * 6 + [vp] * 6 + [vp]
         lib.split_sweep_launch.argtypes = (
             [c_int] + [vp] * 11 + [c_double] * 2 + [c_int] * 8 + [vp] * 6 + [vp]
         )
@@ -295,8 +325,8 @@ class _SplitKernels:
             raise ValueError(f"adams_split {stage}: the shapes do not match the kernel "
                              f"built for KAB={self.kab}")
         if code == -3:
-            raise ValueError(f"adams_split {stage}: too many history rows for one grid, or a "
-                             f"sweep geometry that does not cover the rows and lanes")
+            raise ValueError(f"adams_split {stage}: a geometry that does not cover the rows and "
+                             f"lanes once, or too many history rows for one grid")
         if code != 0:
             msg = self._lib.split_error_string(code).decode()
             raise RuntimeError(f"adams_split {stage} launch failed: {msg} ({code})")
@@ -306,7 +336,9 @@ class _SplitKernels:
     def _grid(nz: int, B: int) -> tuple[int, int]:
         return -(-nz // CHUNK_ROWS), -(-B // TILE_LANES)
 
-    def predict(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z) -> Predicted:
+    def predict(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z,
+                geometry: SweepGeometry | None = None) -> Predicted:
+        """Predict on :func:`predict_geometry`'s geometry or ``geometry``."""
         KAB, nz, B = DF.shape
         dev = DF.device
         _check(DF, torch.float64, (self.kab, nz, B), dev, "DF")
@@ -316,20 +348,18 @@ class _SplitKernels:
         _check(z_prev, torch.float64, (nz, B), dev, "z_prev")
         _check(atol_z, torch.float64, (nz,), dev, "atol_z")
         _check(rtol_z, torch.float64, (nz,), dev, "rtol_z")
-        chunks, tiles = self._grid(nz, B)
+        g = predict_geometry(nz, B) if geometry is None else geometry
         f64 = dict(dtype=torch.float64, device=dev)
         out = Predicted(
             torch.empty((KAB, nz, B), **f64), torch.empty((nz, B), **f64),
             torch.empty((nz, B), **f64), torch.empty((nz, B), **f64), torch.empty((B,), **f64),
             torch.empty((B,), dtype=torch.bool, device=dev),
         )
-        part = torch.empty((chunks, B), dtype=torch.uint8, device=dev)
-        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
         self._run(
             "predict", self._lib.split_predict_launch, dev,
             DF.data_ptr(), p.data_ptr(), pre_factor.data_ptr(), h_use.data_ptr(),
             z_prev.data_ptr(), atol_z.data_ptr(), rtol_z.data_ptr(), KAB, nz, B,
-            *(o.data_ptr() for o in out), part.data_ptr(), done.data_ptr(),
+            g.lanes, g.rows, g.cluster, *(o.data_ptr() for o in out),
         )
         return out
 

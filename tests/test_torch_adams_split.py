@@ -150,6 +150,48 @@ def test_sweep_geometry_covers_every_row_and_lane_once(nz, B, path):
         assert g.blocks >= adams_split.CARD_SMS
 
 
+# predict's edge shapes beside the five path shapes: a history of one row,
+# the sensitivity block's four, a row short of and past a 64-row step, the
+# deepest SIR backward; one lane, a lane short of a 32-lane tile, B=10,000
+PREDICT_EDGE_SHAPES = [(nz, B) for nz in (1, 4, 63, 65, 6002) for B in (1, 31, 10_000)]
+
+
+@pytest.mark.parametrize(
+    "nz, B, path",
+    [(*s, True) for s in SWEEP_PATH_SHAPES] + [(*s, False) for s in PREDICT_EDGE_SHAPES],
+)
+def test_predict_geometry_covers_every_row_and_lane_once(nz, B, path):
+    """Predict's geometry (``predict_geometry``) walked as the kernel walks
+    it: cluster rank c takes rows [c rows, min((c + 1) rows, nz)), its
+    row thread y the rows c rows + y + j row_threads, j = 0, 1, ...; tile t
+    the lanes t lanes + x below B.  Every (row, lane) is covered once, no block is
+    empty, every block gets a step of rows, the cluster is one the card
+    allows, a tile's R(fac) tables fit the kernel's static shared memory up
+    to order 12 (K = 13), and at the SIR path shapes the tiles are 32 lanes
+    (a warp reads 256-byte lines) in clusters of 16 blocks."""
+    g = adams_split.predict_geometry(nz, B)
+    assert g.lanes * g.row_threads == adams_split.SWEEP_THREADS
+    assert 16 <= g.lanes <= adams_split.PREDICT_LANES_MAX
+    assert 8 * 13 * 13 * adams_split.PREDICT_LANES_MAX + 4 * adams_split.SWEEP_THREADS <= 48 * 1024
+    assert g.cluster in (1, 2, 4, 8, 16)
+    T = g.row_threads
+    assert g.cluster == 1 or g.rows >= T
+    rows = np.zeros(nz, dtype=np.int64)
+    for c in range(g.cluster):
+        lo, hi = c * g.rows, min((c + 1) * g.rows, nz)
+        assert hi > lo, f"block {c} of a cluster has no rows"
+        for y in range(T):
+            rows[lo + y:hi:T] += 1
+    lanes = np.zeros(B, dtype=np.int64)
+    for t in range(g.tiles):
+        b = t * g.lanes + np.arange(g.lanes)
+        lanes[b[b < B]] += 1
+    assert (rows == 1).all() and (lanes == 1).all()
+    assert g.tiles == -(-B // g.lanes)
+    if path and nz > 4:
+        assert (g.lanes, g.cluster) == (32, 16)
+
+
 def test_cpu_solve_keeps_the_fused_plain_path(monkeypatch):
     """On CPU tensors the history attempt runs its own plain version, never
     the split one; a CUDA solve without an emitted system is what takes

@@ -35,6 +35,20 @@ def test_history_ab_fails_without_cuda():
     assert proc.returncode != 0
     assert "history_ab: no CUDA device" in proc.stderr
 
+def test_split_ab_fails_without_cuda():
+    """split_ab.py (the split predict and sweep against another version)
+    imports what it needs and stops without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: split_ab.py would run for real")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sunode_torch.experiments.split_ab", "--phase-clocks",
+         "--geometry", "32,8"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "split_ab: no CUDA device" in proc.stderr
+
+
 def _chip_smoke():
     import importlib.util
 
@@ -263,3 +277,51 @@ def test_phase_9_bookkeeping():
         assert rows.shape == (ds.nz, 64) and torch.isfinite(rows).all()
         nbytes, flops = cs.history_cost(ds, xh, torch.ones(64, dtype=torch.int32))
         assert cs.bound(nbytes, flops)["bound_by"] == "bytes"
+
+
+# synthetic device records (name, µs) of one split attempt: predict, four
+# sweeps and finish, the finish after its launcher's fill of tile counters
+_ATTEMPT = ([("split_predict_kernel(double const*, ...)", 1.0)]
+            + [("void split_sweep_kernel<true>(int, ...)", 1.0)] * 4
+            + [("Memset (Device)", 0.1), ("split_finish_kernel(double const*, ...)", 1.0)])
+_SPLIT = ["split_predict_kernel", "split_sweep_kernel", "split_finish_kernel"]
+
+
+def test_fills_before_counts_records_right_after_a_memset():
+    """Each kernel's records, and those that directly follow a memset: a
+    memset two records back, or a copy, does not count."""
+    cs = _chip_smoke()
+    events = (_ATTEMPT * 3 + [("Memset (Device)", 0.1), ("elementwise_kernel", 1.0)]
+              + _ATTEMPT[:1] + [("Memcpy DtoD (Device -> Device)", 0.1)] + _ATTEMPT[1:2])
+    assert cs.fills_before(events, _SPLIT) == {
+        "split_predict_kernel": (4, 0), "split_sweep_kernel": (13, 0),
+        "split_finish_kernel": (3, 3)}
+    assert cs.fills_before([], _SPLIT) == dict.fromkeys(_SPLIT, (0, 0))
+    assert cs.fills_before([("Memset (Device)", 0.1)] + _ATTEMPT[:1], _SPLIT)[
+        "split_predict_kernel"] == (1, 1)
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("attempts", True),
+    ("fill before a predict", False),
+    ("fill before a sweep", False),
+    ("no predict", False),
+    ("no sweep", False),
+    ("finish without its fill", False),
+])
+def test_split_fills_ok(case, ok):
+    """Phase 8's fill check: no fill right before a predict or a sweep, both
+    seen, and the finish's fill seen."""
+    cs = _chip_smoke()
+    events = _ATTEMPT * 2
+    if case == "fill before a predict":
+        events = events + [("Memset (Device)", 0.1)] + _ATTEMPT
+    elif case == "fill before a sweep":
+        events = events[:3] + [("Memset (Device)", 0.1)] + events[3:]
+    elif case == "no predict":
+        events = [e for e in events if "predict" not in e[0]]
+    elif case == "no sweep":
+        events = [e for e in events if "sweep" not in e[0]]
+    elif case == "finish without its fill":
+        events = [e for e in events if not e[0].startswith("Memset")]
+    assert cs.split_fills_ok(cs.fills_before(events, _SPLIT)) is ok

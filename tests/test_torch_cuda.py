@@ -612,6 +612,73 @@ def test_split_sweep_finds_a_nonfinite_last_row(cuda, nz, n, B, layout):
     assert bool(st.bad[lane]) and int(st.bad.sum()) == 1
 
 
+# predict's path shapes (chip_smoke.split_inputs' kinds at B): SIR-1000's
+# forward and 'resolve' backward at B=1,024, its staged 'hermite' backward and
+# forward at B=256, and the sensitivity block of Lotka-Volterra's staggered
+# solve at B=10,000 (history depth 9)
+PREDICT_SHAPES = [("forward", 1024), ("resolve", 1024), ("staged_adjoint", 256),
+                  ("forward", 256), ("staged_sensitivity", 10_000)]
+
+
+def _predict_against_plain(args, keep):
+    """Predict's kernel against ``split_predict`` in the lanes ``keep``: all
+    six outputs bit for bit (a NaN equal to a NaN), and a second launch on
+    the same inputs bit for bit the first in every lane; returns the
+    kernel's outputs."""
+    kab = args[0].shape[0]
+    kernels = adams_split.build_split_kernels(kab)
+    before = adams_split_attempt.launches["predict"]
+    got, again = kernels.predict(*args), kernels.predict(*args)
+    ref = adams_split.split_predict(*args, kab - 3)
+    torch.cuda.synchronize()
+    assert adams_split_attempt.launches["predict"] == before + 2
+    for name in adams_split.Predicted._fields:
+        assert _same(getattr(got, name)[..., keep], getattr(ref, name)[..., keep]), name
+        assert _same(getattr(got, name), getattr(again, name)), name
+    return got
+
+
+@pytest.mark.parametrize("kind, B", PREDICT_SHAPES)
+def test_split_predict_matches_plain_at_path_shapes(cuda, kind, B):
+    """Predict at each shape the card's paths give it, on the geometry
+    ``predict_geometry`` chooses there (clusters of 16 blocks, and none at
+    the sensitivity block), at phase 3d's seeded orders and with
+    every lane at p = 1 and at P_MAX: bit for bit the plain version's.  One
+    lane's order lies outside the history (its outputs NaN, pred_ok false),
+    and one history element, in the last row (which the last block of its
+    tile's cluster holds), is infinite: pred_ok is false in that lane alone,
+    and the NaNs spread as in the plain version."""
+    x = _chip_smoke().split_inputs(B, 50, cuda, kind=kind)
+    DF, p = x["DF"].clone(), x["p"].clone()
+    kab, nz = DF.shape[0], DF.shape[1]
+    g = adams_split.predict_geometry(nz, B)
+    assert (g.cluster - 1) * g.rows <= nz - 1 < g.cluster * g.rows
+    bad_order, bad_row = B - 1 - g.lanes // 2, B // 3
+    p[bad_order] = kab - 1  # p <= KAB - 2 is the history's
+    DF[0, nz - 1, bad_row] = float("inf")
+    args = [DF, p, x["pre_factor"], x["h"], x["z_prev"], x["atol_z"], x["rtol_z"]]
+    keep = torch.ones(B, dtype=torch.bool, device=cuda)
+    keep[bad_order] = False
+    got = _predict_against_plain(args, keep)
+    for name in ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"):
+        assert torch.isnan(getattr(got, name)[..., bad_order]).all(), name
+    lanes = torch.arange(B, device=cuda)
+    assert torch.equal(got.pred_ok, (lanes != bad_order) & (lanes != bad_row))
+    for order in (1, kab - 3):
+        args[1] = torch.full_like(p, order)
+        got = _predict_against_plain(args, torch.ones_like(keep))
+        assert torch.equal(got.pred_ok, lanes != bad_row)
+    launches = adams_split_attempt.launches["predict"]
+    # a block short of the rows, an empty block, or a tile wider than
+    # predict's tables is refused before any launch
+    kernels = adams_split.build_split_kernels(kab)
+    for bad in (g._replace(rows=g.rows - 1), g._replace(cluster=g.cluster + 1),
+                adams_split.SweepGeometry(64, nz, 1, -(-B // 64))):
+        with pytest.raises(ValueError, match="geometry"):
+            kernels.predict(*args, geometry=bad)
+        assert adams_split_attempt.launches["predict"] == launches
+
+
 def test_split_kernels_refuse_bad_inputs(cuda):
     kernels = adams_split.build_split_kernels(11)
     f64 = dict(dtype=torch.float64, device=cuda)
