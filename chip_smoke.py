@@ -6,7 +6,9 @@
 Phases, one line each; any failure exits non-zero:
 
   1. device: the card's name and power limit (no CUDA device -> exit 1);
-  2. build: nvcc builds, all at once, the PECE kernel and the history-attempt
+  2. build: nvcc builds, all at once (phase 10's float32 builds of the
+     history-attempt kernel and the split kernels among them), the PECE
+     kernel and the history-attempt
      kernel for both emitted systems (forward LV, and the transition-adjoint
      backward system) and the flat-history PECE kernel at order 6, and the
      history-attempt kernel at phase 7's depth (adams_max_order 8) for the
@@ -84,11 +86,9 @@ Phases, one line each; any failure exits non-zero:
      the checkpointed adjoint over 1024 recorded steps with quintic Hermite
      rows, backward tolerances 1e-10) on phase 4's Lotka-Volterra inputs at
      B=10,000, 21 observation times, rtol = atol = 1e-8, through
-     ``entry.build_lv_checkpointed``: one timed gradient step, then one
-     under the profiler over the first tenth of the horizon (the leading
-     observation times, the same width and options), with the
-     attempts of each solve, the device kernels and host ms per attempt and
-     the device-busy share; status 0 and finite
+     ``entry.build_lv_checkpointed``: one timed gradient step (no profiled
+     one: the script's time went to phases 10 and 11), with the attempts of
+     each solve and host ms per attempt; status 0 and finite
      gradients in every lane, lanes 0-15 inside the golden gate and against
      the plain path on the CPU within 1e-6; then 'polynomial' on lanes 0-15,
      the card against the CPU within 1e-6 and the golden gate; no kernel of
@@ -100,9 +100,9 @@ Phases, one line each; any failure exits non-zero:
      modes): per mode one timed gradient step with every kernel count set to
      0 before it, the history-attempt launches equal to the forward plus the
      backward attempts, split by system, and no launch of the PECE, the
-     flat-history or a split kernel; then one step under the profiler (device kernels
-     and host ms per attempt, device-busy share), the table's bytes and the
-     peak memory; status 0 and finite gradients in every lane, lanes 0-15
+     flat-history or a split kernel (no profiled step: the script's time went
+     to phases 10 and 11), the table's bytes and the peak memory; status 0
+     and finite gradients in every lane, lanes 0-15
      inside the golden gate and against the same call on the CPU within
      1e-6;
   8. SIR over 1,000 regions, a TorchProblem (scripts/bench_sir_scale.py's
@@ -143,10 +143,34 @@ Phases, one line each; any failure exits non-zero:
      root times (1e-8), |g| at every recorded root <= 9e-6, every terminal
      lane with a root stopped at its first root with status 5 (a lane whose
      hares stay above 9 on [0, 10] succeeds);
-  10. the kernel table and the result line.  Each kernel's bound is the
+  10. float32 end to end: (a) the float32 builds of the history-attempt
+     kernel for lv_adjoint_f32's systems (forward and transition) against
+     their plain versions at float32 on phase 3c's draws at B=10,000 with
+     that workload's tolerances (rtol = atol = 1e-6 forward, 1e-5 backward),
+     normwise within 1e-5 and C6's bit-for-bit checks, conv and niter
+     equal, and the float32 split kernels at phase 3d's forward shape
+     (3,000, 1,024) with SIR's float32 tolerances, within 1e-5 and DF_resc
+     and z_pred bit for bit, each timed as in phase 3 with its bound at 4
+     bytes an element; (b) bench.py's lv_adjoint_f32 through
+     ``entry.build_lv_adjoint_f32`` at B=10,000: one warm and one gated step
+     (float32 gradients, every lane finite, lanes 0-15 within 1e-2 worst
+     lane of lv_adjoint.npz, the float32 builds' launches equal to the
+     attempts and no other kernel); (c) SIR-1000 'resolve' at float32 and
+     B=1,024 through ``entry.build_sir(dtype=torch.float32)`` (rtol 1e-6 /
+     atol 1e-8 forward, 1e-5 / 1e-7 backward), one gated step: status 0 and
+     finite in every lane, lane 0's gradient within 1e-2 of sir_1000.npz,
+     the float32 split build's launches 1 / 4 / 1 x the attempts;
+  11. per-lane observation grids: ``entry.build_lv_per_lane`` at B=10,000
+     (6 to 21 seeded times a lane on [0.5, 10], padded with copies of the
+     last) on the Adams core (the forward build's launches equal to the
+     attempts) and on BDF (no kernel): status 0 everywhere, every padded
+     slot its lane's last value bit for bit, lanes 0-15 within 1e-8 of the
+     CPU's plain path;
+  12. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
-     for the rows these inputs read) over 3.35 TB/s and its f64 operations
-     over 34 TFLOP/s (H100 SXM, NVIDIA's data sheet).  No single PyTorch
+     for the rows these inputs read, at 8 bytes a value, 4 in the float32
+     builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
+     67 at float32 (H100 SXM, NVIDIA's data sheet).  No single PyTorch
      call computes a PECE attempt, a history attempt or a split stage, so
      library_ms is null.
 """
@@ -178,6 +202,9 @@ SENS_KINDS = ("sensitivity", "staged_sensitivity")  # phase 9's builds, at KAB =
 ADAMS_MODES = ("resolve", "hermite", "polynomial")
 ADAMS_RTOL = 1e-8  # phase 7's tolerances, forward and backward, every row
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet)
+F32_REL_BOUND = 1e-5  # float32 kernel vs plain, where the emitted f is not the plain f's
+F32_FWD_TOL, F32_BWD_TOL = 1e-6, 1e-5  # bench.py's lv_adjoint_f32 tolerances
 
 
 def log(msg: str) -> None:
@@ -218,13 +245,15 @@ def sass_instructions(lib_path):
     return sum(1 for ln in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln))
 
 
-def pece_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
+def pece_inputs(system, B, seed, device, p_max=P_MAX, tol=None, dtype=None):
     """Seeded inputs of one PECE attempt for ``system``: history depth KAB =
     p_max + 3, order 1..p_max per lane, 90% of lanes active, steps
     log-uniform in [1e-6, 1e-2]; the main path's tolerances, or, with
-    ``tol``, rtol = atol = tol on every row (phase 7).  A system with more
-    parameter rows than the problem's reads a staged y(t) there: seeded rows
-    uniform in [0.5, 12] (the range of the LV states)."""
+    ``tol``, rtol = atol = tol on every row (phases 7 and 10).  A system with
+    more parameter rows than the problem's reads a staged y(t) there: seeded
+    rows uniform in [0.5, 12] (the range of the LV states).  The tensors and
+    the corrector tolerance are float64's, or ``dtype``'s (phase 10: the
+    same draws rounded to float32)."""
     import torch
 
     from sunode_torch.entry import lv_options
@@ -254,9 +283,10 @@ def pece_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
         rtol = np.concatenate([adj.rtol, np.full(nz - n, adj.quad_rtol)])
         atol = np.concatenate([np.full(n, adj.atol), np.full(nz - n, adj.quad_atol)])
         opts = adj
-    tol = newton_tol_for(opts, float(np.min(rtol[:n])), torch.float64)
-    f64 = dict(dtype=torch.float64, device=device)
-    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), **f64)  # noqa: E731
+    dtype = torch.float64 if dtype is None else dtype
+    tol = newton_tol_for(opts, float(np.min(rtol[:n])), dtype)
+    f_kw = dict(dtype=dtype, device=device)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), **f_kw)  # noqa: E731
     return dict(
         t_new=T(t_new), h=T(h),
         p=torch.as_tensor(p, device=device),
@@ -296,18 +326,23 @@ def lv_plain_fz(problem, kind):
 
 def rhs_flops(system) -> int:
     """Arithmetic operators in the emitted right-hand side's assignments: the
-    float64 operations of one evaluation, counted from the source."""
+    operations of one evaluation at the system's type, counted from the
+    source."""
     body = system.source.split("pece_fz(", 1)[1]
     lines = [ln.split("=", 1)[1] for ln in body.splitlines()
-             if ln.strip().startswith(("out[", "const double x_"))]
+             if ln.strip().startswith(("out[", f"const {system.real} x_"))]
     return sum(ln.count(c) for ln in lines for c in "+-*/")
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """Kernel-table fields: the least time on the card and what sets it."""
+def bound(nbytes: float, flops: float, dtype=None) -> dict:
+    """Kernel-table fields: the least time on the card and what sets it, the
+    operations at the float64 rate, or at ``dtype``'s (float32: 67 TFLOP/s)."""
+    import torch
+
     from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS
+    rate = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return dict(
         bound_ms=1e3 * max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -408,24 +443,24 @@ def compare_kernel(kind, device_system, fz, seed):
                 **bound(nbytes, flops))
 
 
-def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None):
+def history_inputs(system, B, seed, device, p_max=P_MAX, tol=None, dtype=None):
     """Phase 3's inputs plus what the history attempt also reads, as the main
     path builds it: the step ratio h / h_D (seeded, log-uniform in [0.2, 2]),
     |gamma*| and the error norm's weights (1/n on the state rows; with the
     quadrature under error control, as every backward solve has it, half of
-    each block's share)."""
+    each block's share); at float64 or ``dtype``."""
     import torch
 
     from sunode_torch.ops.adams import _GAMMA_STAR
 
-    x = pece_inputs(system, B, seed, device, p_max, tol)
+    x = pece_inputs(system, B, seed, device, p_max, tol, dtype)
     rng = np.random.default_rng(1000 + seed)
     n, nz = system.n, system.nz
     if nz == n:
         v_err = np.full(n, 1.0 / n)
     else:
         v_err = np.concatenate([np.full(n, 0.5 / n), np.full(nz - n, 0.5 / (nz - n))])
-    f64 = dict(dtype=torch.float64, device=device)
+    f64 = dict(dtype=x["DF"].dtype, device=device)
     x.update(
         pre_factor=torch.as_tensor(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B)), **f64),
         gamma_star_abs=torch.as_tensor(np.abs(_GAMMA_STAR), **f64),
@@ -456,7 +491,7 @@ def rhs_agreement(launch, fz, n, x, p_max):
     t, par = x["t_new"], x["params"]
     pred = sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"], x["atol_z"],
                             x["rtol_z"], p_max)
-    y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
+    y, state = pred.z_pred[:n], sp.sweep_start(x["active"], x["DF"].dtype)
     points = []
     for k in range(FUNCTIONAL_MAXITER):
         f = fz(t, y, par)
@@ -498,14 +533,16 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
     order.  The rescale's factor R(fac) is built once a lane (p(p - 1)
     running-product steps of a difference, a product and a quotient, and p
     products fac i) and U = R(1) not at all (a constant table); each row
-    applies both, p^2 products and p^2 sums each."""
+    applies both, p^2 products and p^2 sums each.  Floating values take the
+    inputs' size, 8 bytes at float64 and 4 at float32."""
     n, nz, n_p = device_system.n, device_system.nz, device_system.n_p
     KAB, _, B = x["DF"].shape
     p = x["p"].long()
-    nbytes = 8 * 3 * KAB * nz * B  # DF in; DF_resc, DF_upd out
-    nbytes += 8 * B * (nz + n_p + 3) + 4 * B + B  # z_prev, params, t, h, ratio; p; active
-    nbytes += 8 * (3 * nz + x["gamma_star_abs"].numel())  # atol_z, rtol_z, v_err, |gamma*|
-    nbytes += 8 * B * (3 * nz + 3) + B + 4 * B  # z_pred, z_new, err0, err3; conv; niter
+    w = x["DF"].element_size()
+    nbytes = w * 3 * KAB * nz * B  # DF in; DF_resc, DF_upd out
+    nbytes += w * B * (nz + n_p + 3) + 4 * B + B  # z_prev, params, t, h, ratio; p; active
+    nbytes += w * (3 * nz + x["gamma_star_abs"].numel())  # atol_z, rtol_z, v_err, |gamma*|
+    nbytes += w * B * (3 * nz + 3) + B + 4 * B  # z_pred, z_new, err0, err3; conv; niter
     f = rhs_flops(device_system)
     # per lane: R(fac); per row: R and U applied (p outputs of p products
     # and sums each), predictor and f_ex; suffix sums, update, new state,
@@ -517,8 +554,10 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
     return nbytes, flops
 
 
-def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None):
-    """Phase 3c for one build: returns the kernel-table entry fields."""
+def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None, dtype=None):
+    """Phase 3c (and 10(a) at ``dtype`` float32) for one build: returns the
+    kernel-table entry fields.  At float32 the normwise bound is
+    F32_REL_BOUND, C6's bit-for-bit checks stay."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import device_us
@@ -530,7 +569,8 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
     from sunode_torch.ops.pece_step import PeceSystem
 
     system = PeceSystem(fz=fz, n=device_system.n, nz=device_system.nz, device=device_system)
-    x = history_inputs(device_system, B_MAIN, seed, "cuda", p_max, tol)
+    x = history_inputs(device_system, B_MAIN, seed, "cuda", p_max, tol, dtype)
+    rel_bound = F32_REL_BOUND if x["DF"].dtype == torch.float32 else REL_BOUND
 
     def args(z, p=x["p"]):
         return (x["t_new"], x["h"], x["pre_factor"], p, x["active"], x["DF"], z,
@@ -577,10 +617,11 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
     t_p = per_call_times(call_p, x["z_prev"])
     nbytes, flops = history_cost(device_system, x, got.niter)
     entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
-                 **bound(nbytes, flops))
+                 **bound(nbytes, flops, x["DF"].dtype))
     log(
         f"[history-kernel-vs-plain {kind}] B={B_MAIN} n={system.n} nz={system.nz} "
-        f"n_p={device_system.n_p} KAB={p_max + 3} "
+        f"n_p={device_system.n_p} KAB={p_max + 3} dtype={x['DF'].dtype} "
+        f"newton_tol={x['newton_tol']:.3e} bound={rel_bound:.0e} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same}"
         f" converged={int(got.conv.sum())}/{B_MAIN}"
@@ -593,8 +634,8 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None)
         + f" | bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
         f" ({entry['bound_by']})"
     )
-    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same
-            and all(r <= REL_BOUND and same for r, same in ok_p.values())
+    if not (max(rel.values()) <= rel_bound and conv_same and niter_same
+            and all(r <= rel_bound and same for r, same in ok_p.values())
             and all(all(checks.values()) for checks, _ in c6.values())):
         raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
     return entry
@@ -644,7 +685,7 @@ def split_system(kind, R=SIR_R):
     raise ValueError(f"unknown split case {kind!r}")
 
 
-def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
+def split_inputs(B, seed, device, R=SIR_R, kind="forward", dtype=None):
     """Phase 3d's inputs: one attempt of the SIR model over ``R`` regions
     in the solve ``kind`` (:func:`split_system`) at history depth KAB = 11
     (orders 1..8), seeded history, a step ratio log-uniform in [0.2, 2] as
@@ -653,7 +694,10 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
     ``scripts/bench_sir_scale.py``'s (S ~ 0.99, I ~ 0.01, R ~ 0.01),
     adjoints and quadratures ~ 0.1, (beta, gamma, mix) with a 5% spread,
     the workload's tolerances (rtol 1e-8, atol 1e-10 on every row, the
-    quadratures under error control) and corrector tolerance."""
+    quadratures under error control) and corrector tolerance.  With
+    ``dtype`` float32 (phase 10(a)): the same draws at float32, with the
+    workload's float32 forward tolerances (``entry.sir_options``: rtol 1e-6,
+    atol 1e-8) and their corrector tolerance."""
     import torch
 
     from sunode_torch.ops.adams import _GAMMA_STAR
@@ -679,7 +723,9 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
         # the error norm's two blocks: the corrected rows and the quadratures
         v_err = np.concatenate([np.full(n, 0.5 / n), np.full(SIR_DERIVS, 0.5 / SIR_DERIVS)])
         sign = -1.0
-    f64 = dict(dtype=torch.float64, device=device)
+    dtype = torch.float64 if dtype is None else dtype
+    rtol, atol = (1e-8, 1e-10) if dtype == torch.float64 else (1e-6, 1e-8)
+    f64 = dict(dtype=dtype, device=device)
     T = lambda a: torch.as_tensor(np.ascontiguousarray(a), **f64)  # noqa: E731
     return dict(
         t_new=T(sign * rng.uniform(0.0, 60.0, B)), h=T(10.0 ** rng.uniform(-3, 0, B)),
@@ -687,9 +733,9 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward"):
         p=torch.as_tensor(rng.integers(1, P_MAX_ADAMS + 1, B).astype(np.int32), device=device),
         active=torch.as_tensor(rng.uniform(size=B) < 0.9, device=device),
         DF=T(DF), z_prev=T(z_prev), params=T(params),
-        atol_z=T(np.full(nz, 1e-10)), rtol_z=T(np.full(nz, 1e-8)),
+        atol_z=T(np.full(nz, atol)), rtol_z=T(np.full(nz, rtol)),
         gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(v_err),
-        newton_tol=newton_tol_for(BDFOptions(rtol=1e-8, atol=1e-10), 1e-8, torch.float64),
+        newton_tol=newton_tol_for(BDFOptions(rtol=rtol, atol=atol), rtol, dtype),
     )
 
 
@@ -824,22 +870,24 @@ def history_on_attempt(device_system, x) -> float:
 
 
 def split_costs(x, n) -> dict:
-    """{stage: (bytes, f64 operations)} of the three kernels on the inputs
+    """{stage: (bytes, operations)} of the three kernels on the inputs
     ``x``: each input read once and each output written once (the history
     whole, as DF_resc and DF_upd are), and the operations each row's lane
     needs at its own order p: the rescale's two p x p products, predictor,
     extrapolation and weight; a sweep's update and square; the finish's
-    suffix sums, update, new state and three weighted error squares."""
+    suffix sums, update, new state and three weighted error squares.
+    Floating values take the inputs' size (8 or 4 bytes)."""
     KAB, nz, B = x["DF"].shape
     p = x["p"].long()
-    hist = 8 * KAB * nz * B
-    lanes_in = 8 + 1 + 1 + 1 + 8 + 4  # c_A, conv, div, bad, dy_old, niter
+    w = x["DF"].element_size()
+    hist = w * KAB * nz * B
+    lanes_in = w + 1 + 1 + 1 + w + 4  # c_A, conv, div, bad, dy_old, niter
     costs = {
-        "predict": (2 * hist + 8 * nz * B * 4 + B * (8 + 8 + 4 + 8 + 1) + 8 * 2 * nz,
+        "predict": (2 * hist + w * nz * B * 4 + B * (w + w + 4 + w + 1) + w * 2 * nz,
                     int((nz * (4 * p * p + 3 * p + 6)).sum())),
-        "sweep": (8 * nz * B + 8 * 4 * n * B + 8 * n * B + 2 * B * lanes_in, 9 * n * B + 8 * B),
-        "finish": (2 * hist + 8 * nz * B * 4 + 8 * nz * B * 2 + B * (8 + 1 + 4 + 8 + 2)
-                   + 8 * nz + 8 * x["gamma_star_abs"].numel() + B * (3 * 8 + 1),
+        "sweep": (w * nz * B + w * 4 * n * B + w * n * B + 2 * B * lanes_in, 9 * n * B + 8 * B),
+        "finish": (2 * hist + w * nz * B * 4 + w * nz * B * 2 + B * (w + 1 + 4 + w + 2)
+                   + w * nz + w * x["gamma_star_abs"].numel() + B * (3 * w + 1),
                    nz * B * (3 * KAB + 22) + 8 * B),
     }
     return costs
@@ -887,19 +935,23 @@ def fmt_predict(nz, B) -> str:
             f"row_threads={g.row_threads} blocks={g.blocks}")
 
 
-def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
+def compare_split(kind, B, seed, kernels, R=SIR_R, dtype=None) -> dict:
     """Phase 3d at one shape: the composed attempt on the kernels against
     the plain stages composed on the card, then each kernel against its
     plain stage on the same inputs (the plain stages' outputs feed the next
     stage of both).  Exits on any disagreement; returns the inputs, the
-    plain stages' results and the errors by stage."""
+    plain stages' results and the errors by stage.  At ``dtype`` float32
+    (phase 10(a), the kernels a float32 build) the bound is F32_REL_BOUND
+    and DF_resc and z_pred are held bit for bit."""
     import torch
 
     from sunode_torch.ops import adams_split as sp
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
     from sunode_torch.ops.pece_step import PeceSystem
 
-    x = split_inputs(B, seed, "cuda", R, kind)
+    x = split_inputs(B, seed, "cuda", R, kind, dtype)
+    f32 = x["DF"].dtype == torch.float32
+    rel_bound = F32_REL_BOUND if f32 else REL_BOUND
     p_max = x["DF"].shape[0] - 3
     fz, n, nz = split_system(kind, R)
     system = PeceSystem(fz=fz, n=n, nz=nz)
@@ -916,18 +968,22 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
     )
     conv_same = bool(torch.equal(got.conv, ref.conv))
     niter_same = bool(torch.equal(got.niter, ref.niter))
-    shape = f"{kind} nz={nz} n={n} B={B}"
+    # predict's outputs round as the plain stage's (held bit for bit at float32)
+    bitwise = all(bool(torch.equal(getattr(got, k), getattr(ref, k)))
+                  for k in ("DF_resc", "z_pred"))
+    shape = f"{kind} nz={nz} n={n} B={B}" + (" float32" if f32 else "")
     log(
         f"[split-kernels-vs-plain attempt {shape}] "
         f"{'LV sensitivity block' if kind == 'staged_sensitivity' else f'SIR R={R}'} "
         f"KAB={p_max + 3} "
         f"{fmt_predict(nz, B)} {fmt_sweep(nz, B)} finish_row_chunks={-(-nz // sp.CHUNK_ROWS)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
-        + f" conv_equal={conv_same} niter_equal={niter_same}"
+        + f" conv_equal={conv_same} niter_equal={niter_same} DF_resc_z_pred_bitwise={bitwise}"
         f" converged={int(got.conv.sum())}/{B}"
         f" niter_hist={torch.bincount(got.niter.long(), minlength=5).tolist()}"
     )
-    if not (max(rel.values()) <= REL_BOUND and conv_same and niter_same):
+    if not (max(rel.values()) <= rel_bound and conv_same and niter_same
+            and (bitwise or not f32)):
         raise SystemExit(f"chip_smoke: the split attempt's kernels disagree with the plain "
                          f"stages ({shape})")
 
@@ -938,7 +994,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
         {"c_A": (pred_k.c_A, pred.c_A)},
     )}
     same = {"predict": bool(torch.equal(pred_k.pred_ok, pred.pred_ok))}
-    y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
+    y, state = pred.z_pred[:n], sp.sweep_start(x["active"], x["DF"].dtype)
     sweep_rel, sweep_abs, same["sweep"] = {}, 0.0, True
     for k in range(FUNCTIONAL_MAXITER):
         fz_k = fz(x["t_new"], y, x["params"])
@@ -967,18 +1023,19 @@ def compare_split(kind, B, seed, kernels, R=SIR_R) -> dict:
         log(f"[split-kernel-vs-plain {stage} {shape}] "
             + " ".join(f"rel_{k}={v:.3e}" for k, v in rel_s.items())
             + f" flags_equal={same[stage]}")
-        if not (max(rel_s.values()) <= REL_BOUND and same[stage]):
+        if not (max(rel_s.values()) <= rel_bound and same[stage]):
             raise SystemExit(f"chip_smoke: the split {stage} kernel disagrees with its plain "
                              f"stage ({shape})")
     return dict(x=x, fz=fz, n=n, p_max=p_max, pred=pred, state=state, fin_in=fin_in, errs=errs,
                 shape=shape)
 
 
-def split_phase(smi, kernels, cases=SPLIT_CASES) -> dict:
+def split_phase(smi, kernels, cases=SPLIT_CASES, dtype=None) -> dict:
     """Phase 3d: the three split kernels against their plain stages on the
-    card at each of phase 8's shapes (:data:`SPLIT_CASES`, or ``cases``);
-    returns the kernel-table fields by stage, timed at the first shape,
-    with the worst error over the shapes."""
+    card at each of phase 8's shapes (:data:`SPLIT_CASES`, or ``cases``; at
+    ``dtype`` float32 a float32 build, phase 10(a)); returns the
+    kernel-table fields by stage, timed at the first shape, with the worst
+    error over the shapes."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import device_us
@@ -986,7 +1043,7 @@ def split_phase(smi, kernels, cases=SPLIT_CASES) -> dict:
 
     table, worst = {}, dict.fromkeys(SPLIT_STAGES, 0.0)
     for seed, (kind, B) in enumerate(cases, start=11):
-        c = compare_split(kind, B, seed, kernels)
+        c = compare_split(kind, B, seed, kernels, dtype=dtype)
         for stage in SPLIT_STAGES:
             worst[stage] = max(worst[stage], c["errs"][stage][1])
         x, fz, n, p_max, pred, state, fin_in = (
@@ -1013,7 +1070,7 @@ def split_phase(smi, kernels, cases=SPLIT_CASES) -> dict:
         costs = split_costs(x, n)
         for stage, (call_k, call_p, z) in calls.items():
             nbytes, flops = costs[stage]
-            b = bound(nbytes, flops)
+            b = bound(nbytes, flops, x["DF"].dtype)
             if timed:
                 t_k = per_call_times(call_k, z, f"split_{stage}_kernel")
                 t_p = per_call_times(call_p, z)
@@ -1039,20 +1096,25 @@ def split_phase(smi, kernels, cases=SPLIT_CASES) -> dict:
 
 class SplitLaunches:
     """The split kernels' launches, counted by stage in
-    ``adams_split_attempt.launches``, as one count: read as their sum, set
-    to a value in every stage (the phases' ``k.launches = 0``)."""
+    ``adams_split_attempt.launches`` (every build's), or in one build's
+    ``.launches`` (``build``), as one count: read as their sum, set to a
+    value in every stage (the phases' ``k.launches = 0``)."""
+
+    def __init__(self, build=None):
+        self.build = build
+
+    def _counts(self) -> dict:
+        from sunode_torch.ops.adams_split import adams_split_attempt
+
+        return adams_split_attempt.launches if self.build is None else self.build.launches
 
     @property
     def launches(self) -> int:
-        from sunode_torch.ops.adams_split import adams_split_attempt
-
-        return sum(adams_split_attempt.launches.values())
+        return sum(self._counts().values())
 
     @launches.setter
     def launches(self, value: int) -> None:
-        from sunode_torch.ops.adams_split import adams_split_attempt
-
-        adams_split_attempt.launches.update(dict.fromkeys(SPLIT_STAGES, value))
+        self._counts().update(dict.fromkeys(SPLIT_STAGES, value))
 
 
 def split_expected_launches(attempts: int) -> dict:
@@ -1333,7 +1395,7 @@ def max_rel(got, ref) -> float:
     return max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(got, ref))
 
 
-PROFILED_HORIZON = 0.1  # phase 6's profiled step: this share of the observation horizon
+PROFILED_HORIZON = 0.1  # phase 9(b)'s profiled solves: this share of the horizon, t <= 1 of [0, 10]
 
 
 def leading_times(tvals, share):
@@ -1354,10 +1416,6 @@ def checkpointed_phase(smi) -> None:
     golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
     grad_step, _ = build_lv_checkpointed(B_MAIN, 21, 1e-8, device="cuda")
     stats = grad_step.solve.last_stats
-
-    def attempts():
-        return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
-
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1376,22 +1434,8 @@ def checkpointed_phase(smi) -> None:
         f"{bwd_steps.max()} table_MB={1025 * W * B_MAIN * 8 / 1e6:.1f} "
         f"peak_MB={torch.cuda.max_memory_allocated() / 1e6:.1f} | {smi}"
     )
-    # the profiled step feeds only the kernels per attempt and the busy
-    # share: the same width and options over a shorter horizon, which spares
-    # the profiler most of a full step's records
-    short = leading_times(grad_step.tvals, PROFILED_HORIZON)
-    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t, tvals=short), attempts)
-    log(
-        f"[checkpointed device kernels per attempt, profiled step over t <= {float(short[-1])} "
-        f"({len(short)} of {len(grad_step.tvals)} observation times)] {prof['per_attempt']:.1f} "
-        f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts, {prof['attempts'] / (fwd + bwd):.3f} of the timed step's) "
-        f"device_busy_s={prof['busy_s']:.4f} wall_s_under_profiler={prof['wall_s']:.4f} "
-        f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
-    )
-    log("[checkpointed device kernels by kind] (kind: per attempt, device ms in the step) "
-        + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
-    log_elapsed("6, the profiled step")
+    # no profiled step: phases 10 and 11 took its time (PERF.md §4)
+    log_elapsed("6, the timed step")
 
     gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
     finite = int((np.isfinite(gy_np).all(axis=1) & np.isfinite(gp_np).all(axis=1)).sum())
@@ -1492,21 +1536,7 @@ def adams_modes_phase(smi, counted, history_kernels) -> dict:
             f"peak_MB={torch.cuda.max_memory_allocated() / 1e6:.1f} | {smi}"
         )
 
-        def attempts():
-            return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
-
-        prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), attempts)
-        log(
-            f"[adams {mode} device kernels per attempt] {prof['per_attempt']:.1f} "
-            f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-            f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
-            f"wall_s_under_profiler={prof['wall_s']:.4f} host_ms_per_attempt_under_profiler="
-            f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} "
-            f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step) | {smi}"
-        )
-        log(f"[adams {mode} device kernels by kind] (kind: per attempt, device ms in the step) "
-            + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
-
+        # no profiled step: phases 10 and 11 took its time (PERF.md §4)
         gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
         finite = int((np.isfinite(gy_np).all(axis=1) & np.isfinite(gp_np).all(axis=1)).sum())
         if not (gy_np.shape == gp_np.shape == (B_MAIN, 2) and finite == B_MAIN
@@ -1708,7 +1738,7 @@ def lv_sens_phase(smi, counted, by_system) -> dict:
             total[kind] = total.get(kind, 0) + count
         # kernels per attempt and the busy share over the first tenth of
         # the horizon (its attempts are a third of the solve's)
-        short = leading_times(tvals, SENS_PROFILED_HORIZON)
+        short = leading_times(tvals, PROFILED_HORIZON)
         held = []
         prof = device_kernels_per_attempt(lambda: held.append(solve(y0s, ps, short)),
                                           lambda: held[0].stats["n_attempts"])
@@ -1750,7 +1780,6 @@ def lv_sens_phase(smi, counted, by_system) -> dict:
     return total
 
 
-SENS_PROFILED_HORIZON = 0.1  # phase 9(b)'s profiled solves: t <= 1 of [0, 10]
 ROOT_RUNS = ((True, None), (False, None), (False, [-1]))  # phase 9(c): terminal, directions
 
 
@@ -1822,6 +1851,180 @@ def lv_roots_phase(smi, counted, by_system) -> dict:
     return total
 
 
+F32_KINDS = ("forward", "transition")  # phase 10's history builds: lv_adjoint_f32's systems
+
+
+def f32_history_phase(problem, f32_systems) -> dict:
+    """Phase 10(a), history: the float32 forward and transition builds
+    against their plain versions at float32 on phase 3c's draws at
+    B=10,000, with lv_adjoint_f32's tolerances (rtol = atol = 1e-6 forward,
+    1e-5 backward) and their float32 corrector tolerance; returns the
+    kernel-table fields by kind."""
+    import torch
+
+    table = {}
+    for seed, kind in enumerate(F32_KINDS):
+        tol = F32_FWD_TOL if kind == "forward" else F32_BWD_TOL
+        table[kind] = compare_history_kernel(f"{kind} float32", f32_systems[kind],
+                                             lv_plain_fz(problem, kind), seed, P_MAX, tol,
+                                             torch.float32)
+    return table
+
+
+def lv_adjoint_f32_phase(smi, counted, f32_kernels) -> dict:
+    """Phase 10(b): ``entry.build_lv_adjoint_f32`` at B=10,000 (bench.py's
+    lv_adjoint_f32): one warm step, then one gated step with every count
+    set to 0 before it, the float32 forward and transition builds' launches
+    equal to the forward and backward attempts and no other kernel
+    launched; float32 and finite gradients in every lane, lanes 0-15 within
+    bench.py's 1e-2 worst lane of lv_adjoint.npz.  Returns the launches by
+    kind."""
+    import torch
+
+    from sunode_torch.entry import build_lv_adjoint_f32
+
+    golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
+    grad_step, (y0s, p_subs) = build_lv_adjoint_f32(B_MAIN, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad_step(y0s, p_subs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    all_counted = (*counted, *f32_kernels.values())
+    for k in all_counted:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gy, gp = grad_step(y0s, p_subs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = grad_step.solve.last_stats
+    fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+    launches = check_launches("lv_adjoint_f32", all_counted, f32_kernels,
+                              {"forward": fwd, "transition": bwd})
+    log(f"[lv_adjoint_f32 step] B={B_MAIN} wall_s={wall:.4f} grads_per_s={B_MAIN / wall:.1f} "
+        f"(warm-up step {warm:.4f} s) attempts fwd={fwd} bwd={bwd} "
+        f"host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} | {smi}")
+    gy_np = gy.cpu().numpy().astype(np.float64)
+    gp_np = gp.cpu().numpy().astype(np.float64)
+    finite = int((np.isfinite(gy_np).all(axis=1) & np.isfinite(gp_np).all(axis=1)).sum())
+    err = float(np.max(np.abs(gy_np[:16] - golden["gy"]) / (np.abs(golden["gy"]) + 1e-3)))
+    err_p = float(np.max(np.abs(gp_np[:16] - golden["gp"]) / (np.abs(golden["gp"]) + 1e-3)))
+    log(f"[lv_adjoint_f32 check] dtype={gy.dtype}/{gp.dtype} finite={finite}/{B_MAIN} "
+        f"golden worst-lane gy err={err:.3e} (bench.py's gate 1e-2) gp err={err_p:.3e}")
+    if not (gy.dtype == gp.dtype == torch.float32 and finite == B_MAIN and err < 1e-2):
+        raise SystemExit("chip_smoke: lv_adjoint_f32 failed its gate")
+    return launches
+
+
+def sir_f32_phase(smi, counted, f32_split) -> dict:
+    """Phase 10(c): SIR-1000 'resolve' at float32 and B=1,024 through
+    ``entry.build_sir(dtype=torch.float32)`` (``entry.sir_options``), one
+    gated step with every count set to 0 before it: the float32 split
+    build's launches 1 / 4 / 1 x the attempts, no other kernel and no plain
+    stage; status 0 and finite in every lane, lane 0 (the golden case's
+    inputs) within 1e-2 of sir_1000.npz's gradient.  Returns the float32
+    build's launches by stage."""
+    import torch
+
+    from sunode_torch.entry import build_sir
+    from sunode_torch.ops import adams_split as sp
+
+    golden = np.load(os.path.join(HERE, "tests", "golden", "sir_1000.npz"))
+    R, B = SIR_R, B_SPLIT
+    grad_step, (y0s, p_subs) = build_sir(R, B, "resolve", device="cuda", dtype=torch.float32)
+    y0s[0] = torch.as_tensor(golden["y0"], dtype=y0s.dtype)
+    p_subs[0] = torch.as_tensor(golden["p0"][:2], dtype=p_subs.dtype)
+    for k in (*counted, SplitLaunches(f32_split), SplitLaunches()):
+        k.launches = 0
+    sp.split_predict.calls = sp.split_sweep.calls = sp.split_finish.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, gp = grad_step(y0s, p_subs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = grad_step.solve.last_stats
+    fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+    launches = dict(f32_split.launches)
+    expected = split_expected_launches(fwd + bwd)
+    plain = [sp.split_predict.calls, sp.split_sweep.calls, sp.split_finish.calls]
+    others = [k.launches for k in counted]
+    log(f"[sir float32 launches] float32 split build {launches} expected={expected}; every "
+        f"split build {dict(sp.adams_split_attempt.launches)}; plain-stage calls {plain}; "
+        f"other kernels {others}")
+    if not (launches == expected and dict(sp.adams_split_attempt.launches) == expected):
+        raise SystemExit("chip_smoke: sir float32: split launches do not match the attempts")
+    if any(plain) or any(others):
+        raise SystemExit("chip_smoke: sir float32: the path ran a plain stage or another kernel")
+    ys_np, gp_np = ys.cpu().numpy().astype(np.float64), gp.cpu().numpy().astype(np.float64)
+    status = stats["backward"]["status"].cpu().numpy()
+    finite = int((np.isfinite(ys_np).all(axis=(1, 2)) & np.isfinite(gp_np).all(axis=1)).sum())
+    gold_rel = float(np.max(np.abs(gp_np[0] - golden["gp"]) / np.abs(golden["gp"])))
+    ys_rel = floored_rel(ys_np[0], golden["ys"], 1e-8)
+    log(f"[sir float32 step] R={R} B={B} rtol fwd/bwd={F32_FWD_TOL}/{F32_BWD_TOL} "
+        f"wall_s={wall:.4f} grads_per_s={B / wall:.1f} attempts fwd={fwd} bwd={bwd} "
+        f"host_ms_per_attempt={1e3 * wall / (fwd + bwd):.3f} | {smi}")
+    log(f"[sir float32 check] dtype={ys.dtype}/{gp.dtype} status 0 and finite in "
+        f"{min(finite, int((status == 0).sum()))}/{B} lanes; lane 0 golden gp_rel={gold_rel:.3e} "
+        f"(gate 1e-2) ys_rel={ys_rel:.3e} (floored at 1e-8)")
+    if not (ys.dtype == gp.dtype == torch.float32 and ys_np.shape == (B, 12, 3 * R)
+            and finite == B and (status == 0).all() and gold_rel <= 1e-2):
+        raise SystemExit("chip_smoke: sir float32 failed its gate")
+    return launches
+
+
+def per_lane_phase(smi, counted, forward_build) -> int:
+    """Phase 11: ``entry.build_lv_per_lane`` at B=10,000 on the Adams core
+    (through the float64 forward build: its launches equal to the attempts)
+    and on BDF (no kernel), each solve with the counts set to 0 before it:
+    status 0 in every lane, each padded slot its lane's last emitted value
+    bit for bit, lanes 0-15 within 1e-8 of the CPU's plain path (floored at
+    atol 1e-8).  Returns the forward build's launches."""
+    import torch
+
+    from sunode_torch.entry import build_lv_per_lane
+
+    total = 0
+    for method in ("ADAMS", "BDF"):
+        label = f"per-lane {method}"
+        solve, (y0s, ps, tvals) = build_lv_per_lane(B_MAIN, method, device="cuda")
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(y0s, ps, tvals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        attempts = res.stats["n_attempts"]
+        expected = {"forward": attempts} if method == "ADAMS" else {}
+        total += check_launches(label, counted, {"forward": forward_build}, expected).get(
+            "forward", 0)
+        ys, tv = res.ys.cpu(), tvals.cpu()
+        ok = int((res.status == 0).sum())
+        finite = int(torch.isfinite(ys).all(dim=(1, 2)).sum())
+        # the first slot at each lane's last time, and every slot after it
+        last = (tv == tv[:, -1:]).int().argmax(dim=1)
+        pad = torch.arange(tv.shape[1])[None, :] >= last[:, None]
+        padded_same = bool((~pad[:, :, None] | (ys == ys[torch.arange(B_MAIN), last][:, None])
+                            ).all())
+        t1 = time.perf_counter()
+        cpu_solve, _ = build_lv_per_lane(16, method, device="cpu")
+        cpu = cpu_solve(y0s[:16].cpu(), ps[:16].cpu(), tvals[:16].cpu())
+        plain_rel = floored_rel(ys[:16].numpy(), cpu.ys.numpy(), 1e-8)
+        log(f"[{label} solve] B={B_MAIN} observation times a lane {int(last.min()) + 1}-"
+            f"{int(last.max()) + 1} wall_s={wall:.4f} attempts={attempts} "
+            f"host_ms_per_attempt={1e3 * wall / attempts:.3f} | {smi}")
+        log(f"[{label} check] status 0 in {ok}/{B_MAIN} lanes, finite {finite}; padded slots "
+            f"equal to the lane's last value bit for bit: {padded_same}; "
+            f"cuda_vs_cpu_lanes_0_15_max_rel={plain_rel:.3e} (bound 1e-8, floored at 1e-8; the "
+            f"CPU took {time.perf_counter() - t1:.2f} s)")
+        if not (ok == finite == B_MAIN and padded_same and (cpu.status == 0).all()
+                and plain_rel <= 1e-8):
+            raise SystemExit(f"chip_smoke: {label} failed")
+        log_elapsed(f"11, {method}")
+    return total
+
+
 def main() -> None:
     card, smi = check_device()
 
@@ -1852,9 +2055,13 @@ def main() -> None:
         "resolve": cuda_codegen.resolve_system(problem),
         "staged_adjoint": cuda_codegen.staged_adjoint_system(problem),
     }
+    # phase 10's float32 builds: lv_adjoint_f32's systems, and the split kernels
+    f32_systems = {kind: getattr(cuda_codegen, f"{kind}_system")(problem, "float")
+                   for kind in F32_KINDS}
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(systems) + 3 + len(adams_systems) + len(sens_systems)) as pool:
+    with ThreadPoolExecutor(2 * len(systems) + 3 + len(adams_systems) + len(sens_systems)
+                            + len(f32_systems) + 1) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
         futures.update({
             f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
@@ -1866,9 +2073,13 @@ def main() -> None:
                 build_attempt_kernel, ds, P_MAX_ADAMS + 3)
             for kind, ds in adams_systems.items()
         })
-        # the split kernels: one build per history depth, for any problem
+        # the split kernels: one build per history depth and type, for any problem
         for kab in (P_MAX_ADAMS + 3, P_MAX + 3):
             futures[f"split_kab{kab}"] = pool.submit(build_split_kernels, kab)
+        futures.update({f"history_{kind}_f32": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
+                        for kind, ds in f32_systems.items()})
+        futures[f"split_kab{P_MAX_ADAMS + 3}_f32"] = pool.submit(
+            build_split_kernels, P_MAX_ADAMS + 3, torch.float32)
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1880,6 +2091,8 @@ def main() -> None:
     history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
     sens_kernels = {kind: built[f"history_{kind}"] for kind in SENS_KINDS}
     adams_kernels = {kind: built[f"history_{kind}_kab{P_MAX_ADAMS + 3}"] for kind in adams_systems}
+    f32_kernels = {kind: built[f"history_{kind}_f32"] for kind in F32_KINDS}
+    f32_split = built[f"split_kab{P_MAX_ADAMS + 3}_f32"]
 
     # phase 3: kernel vs plain on the card
     fz = {kind: lv_plain_fz(problem, kind)
@@ -2043,6 +2256,25 @@ def main() -> None:
     for kind, count in lv_roots_phase(smi, counted, by_system).items():
         phase9[kind] = phase9.get(kind, 0) + count
 
+    # phase 10: float32 end to end.  (a) the float32 builds against their
+    # plain versions; (b) lv_adjoint_f32 and (c) SIR-1000 'resolve' at
+    # float32, each gated step with every count set to 0 just before it
+    # (the float64 builds and the float32 ones) and read just after
+    f32_table = f32_history_phase(problem, f32_systems)
+    f32_split_table = split_phase(smi, f32_split, (("forward", B_SPLIT),), torch.float32)
+    log_elapsed("10a")
+    f32_split_count = SplitLaunches(f32_split)
+    f32_launches = lv_adjoint_f32_phase(smi, (*counted, f32_split_count), f32_kernels)
+    log_elapsed("10b")
+    # every split build's count (split_count) is read inside, beside the float32 build's
+    f32_split_launches = sir_f32_phase(smi, (*counted[:-1], *f32_kernels.values()), f32_split)
+    log_elapsed("10c")
+
+    # phase 11: per-lane observation grids on both cores; the float64
+    # forward build on the Adams core, every other count 0
+    phase11 = per_lane_phase(smi, (*counted, *f32_kernels.values(), f32_split_count),
+                             history_kernels["forward"])
+
     entries = [
         dict(
             name=f"adams_pece_attempt[{kind}]",
@@ -2064,10 +2296,22 @@ def main() -> None:
             route="cuda",
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
-            launches=launches[kind] + phase9.get(kind, 0),
+            launches=(launches[kind] + phase9.get(kind, 0)
+                      + (phase11 if kind == "forward" else 0)),
             **history_table[kind],
         )
         for kind in systems
+    ]
+    entries += [
+        dict(
+            name=f"adams_history_attempt[{kind}, float32]",
+            route="cuda",
+            source=KERNEL_SOURCE_ATTEMPT,
+            replaces=TPU_KERNEL,
+            launches=f32_launches[kind],
+            **f32_table[kind],
+        )
+        for kind in F32_KINDS
     ]
     entries += [
         dict(
@@ -2112,6 +2356,17 @@ def main() -> None:
             replaces=TPU_KERNEL,
             launches=0,
             **split_sens[stage],
+        )
+        for stage in SPLIT_STAGES
+    ]
+    entries += [
+        dict(
+            name=f"adams_split_{stage}[KAB={P_MAX_ADAMS + 3}, float32]",
+            route="cuda",
+            source=KERNEL_SOURCE_SPLIT,
+            replaces=TPU_KERNEL,
+            launches=f32_split_launches[stage],
+            **f32_split_table[stage],
         )
         for stage in SPLIT_STAGES
     ]

@@ -1,6 +1,7 @@
 """The history-attempt kernel against another version of itself, on the card.
 
     python3 history_ab.py [--old-root DIR] [--fmad-true] [--phase-clocks]
+                          [--dtype float64|float32]
 
 Builds ``sunode_torch/csrc/adams_attempt.cu`` for the seven systems
 ``chip_smoke.py`` phases 3c and 9(a) hold against the plain version (the LV
@@ -10,7 +11,8 @@ and beside each build:
 
   * ``--old-root DIR``: the same file of another checkout (unpack the parent
     with ``git archive`` into a directory ``.gitignore`` lists), whose
-    ``adams_attempt_launch`` takes the same arguments;
+    ``adams_attempt_launch`` takes the same arguments, built with this
+    tree's flags (``-fmad=false``, as the wrapper builds it since C6);
   * ``--fmad-true``: this tree's source built without the default build's
     ``-fmad=false`` (``adams_attempt.FMAD_FLAGS``), so that nvcc contracts
     the emitted right-hand side's products and sums into FMAs (the kernel's
@@ -18,14 +20,21 @@ and beside each build:
   * ``--phase-clocks``: this tree's source built with ``ADAMS_PHASE_CLOCKS``,
     which also traces the kernel by phase (loads and R, rows, PECE, update,
     norms): the mean cycles a block spends in each over 20 launches, at each
-    of the three order settings.
+    of the three order settings;
+  * ``--dtype float32``: every build, this tree's and the others, at
+    float32 (``-DSUNODE_REAL=float``, the systems emitted at float), on the
+    same draws at float32 with lv_adjoint_f32's tolerances (rtol = atol =
+    1e-6 on a forward system, 1e-5 on a backward one), its bounds
+    float32's (``chip_smoke.F32_REL_BOUND``); an old root must have the
+    float32 build too.  The default is float64.
 
 On phase 3c's inputs (``chip_smoke.history_inputs``, the seeds of phases
 3c and 9(a), and
 the same inputs with every lane at p = 1 and at p = P_MAX) every other
 version is held against this tree's default build: ``DF_resc`` bit for bit,
 ``DF_upd``, ``z_pred``, ``z_new`` and ``err0`` normwise, ``err3`` lane by
-lane, ``conv`` and ``niter`` equal.  This tree's builds are also held to
+lane, ``conv`` and ``niter`` equal; the old root's build bit for bit on
+every output (``all_bitwise``).  This tree's builds are also held to
 ROADMAP C6's checks against the plain version (``chip_smoke.c6_check``):
 ``DF_resc`` and ``z_pred`` bit for bit, ``z_new``, ``err0`` and ``DF_upd``
 bit for bit in the lanes where the build's emitted right-hand side rounds
@@ -33,7 +42,9 @@ as the plain one (``chip_smoke.rhs_agreement``, whose count is printed).
 Then each version's device time (profiler, 20 launches) at the three order
 settings, in turns (the default first and last).  Prints ptxas's registers
 and spills and one line per build and version, and writes every number to
-``chiprun_out/history_ab.json``.  Exits non-zero if a comparison fails.
+``history_ab.json`` (``history_ab_float32.json`` at float32) in the output
+directory at the repository root (one that ``.gitignore`` lists).  Exits
+non-zero if a comparison fails.
 """
 
 from __future__ import annotations
@@ -49,27 +60,37 @@ SAME_BOUND = 1e-12  # the emitted right-hand side's FMA contraction (with and wi
 # -fmad=false) moves err3 by up to ~2.5e-13 of a lane's own; the rest rounds op by op
 
 
-def _builds(cs):
+def _builds(cs, real="double"):
     """(label, device system, P_MAX, tol, seed) of the seven builds of
-    phases 3c and 9(a); the device system's name is its plain right-hand
-    side's (``chip_smoke.lv_plain_fz``, ``chip_smoke.lv_sens_fz``)."""
+    phases 3c and 9(a), the systems emitted at the C type ``real``; the
+    device system's name is its plain right-hand side's
+    (``chip_smoke.lv_plain_fz``, ``chip_smoke.lv_sens_fz``).  At float the
+    tolerances are lv_adjoint_f32's: 1e-6 on a forward system (its rows all
+    state), 1e-5 on a backward one."""
     from sunode_torch.entry import lv_problem
     from sunode_torch.symode import cuda_codegen
 
     problem = lv_problem()
-    fwd = cuda_codegen.forward_system(problem)
-    return [
-        ("forward", fwd, cs.P_MAX, None, 0),
-        ("transition", cuda_codegen.transition_system(problem), cs.P_MAX, None, 1),
-        (f"forward KAB={cs.P_MAX_ADAMS + 3}", fwd, cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 2),
-        (f"resolve KAB={cs.P_MAX_ADAMS + 3}", cuda_codegen.resolve_system(problem),
-         cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 3),
-        (f"staged_adjoint KAB={cs.P_MAX_ADAMS + 3}", cuda_codegen.staged_adjoint_system(problem),
-         cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 4),
-        ("sensitivity", cuda_codegen.sensitivity_system(problem), cs.P_MAX, None, 20),
-        ("staged_sensitivity", cuda_codegen.staged_sensitivity_system(problem), cs.P_MAX, None,
-         21),
+
+    def emit(kind):
+        return getattr(cuda_codegen, f"{kind}_system")(problem, real)
+
+    def tol(ds, f64_tol):
+        if real == "double":
+            return f64_tol
+        return cs.F32_FWD_TOL if ds.nz == ds.n else cs.F32_BWD_TOL
+
+    builds = [
+        ("forward", emit("forward"), cs.P_MAX, None, 0),
+        ("transition", emit("transition"), cs.P_MAX, None, 1),
+        (f"forward KAB={cs.P_MAX_ADAMS + 3}", emit("forward"), cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 2),
+        (f"resolve KAB={cs.P_MAX_ADAMS + 3}", emit("resolve"), cs.P_MAX_ADAMS, cs.ADAMS_RTOL, 3),
+        (f"staged_adjoint KAB={cs.P_MAX_ADAMS + 3}", emit("staged_adjoint"), cs.P_MAX_ADAMS,
+         cs.ADAMS_RTOL, 4),
+        ("sensitivity", emit("sensitivity"), cs.P_MAX, None, 20),
+        ("staged_sensitivity", emit("staged_sensitivity"), cs.P_MAX, None, 21),
     ]
+    return [(label, ds, p_max, tol(ds, t), seed) for label, ds, p_max, t, seed in builds]
 
 
 def _compare(cs, got, ref) -> dict:
@@ -77,10 +98,14 @@ def _compare(cs, got, ref) -> dict:
 
     rel, _ = cs.normwise(got, ref, ("DF_upd", "z_pred", "z_new", "err0"))
     rel["err3/lane"] = cs.lane_rel(got.err3, ref.err3)
+    # every output bit for bit, a NaN equal to a NaN
+    same = [torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+            if a.is_floating_point() else torch.equal(a, b) for a, b in zip(got, ref)]
     return dict(
         DF_resc_bitwise=bool(torch.equal(got.DF_resc, ref.DF_resc)),
         rel=rel,
         flags_equal=bool(torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)),
+        all_bitwise=all(same),
     )
 
 
@@ -114,6 +139,7 @@ def main(argv=None) -> None:
     ap.add_argument("--old-root", default=None)
     ap.add_argument("--fmad-true", action="store_true")
     ap.add_argument("--phase-clocks", action="store_true")
+    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
     args = ap.parse_args(argv)
 
     import torch
@@ -125,21 +151,27 @@ def main(argv=None) -> None:
     from sunode_torch.entry import lv_problem
     from sunode_torch.ops.adams_attempt import (
         _CSRC,
+        FMAD_FLAGS,
         _AttemptKernel,
         adams_history_attempt_reference,
+        real_build,
     )
     from sunode_torch.ops.pece_step import PeceSystem, _tables_header
 
     if not torch.cuda.is_available():
         raise SystemExit("history_ab: no CUDA device")
     _, smi = cs.check_device()
+    dtype = getattr(torch, args.dtype)
+    real = "float" if dtype == torch.float32 else "double"
+    same_bound = cs.F32_REL_BOUND if real == "float" else SAME_BOUND
 
     def other_build(tag, source, flags=()):
         def build(ds, kab):
+            suffix, defines, _ = real_build(ds.real)
             return build_library(
-                f"adams_attempt_{ds.name}_kab{kab}_{tag}", source,
-                headers={"pece_rhs.h": ds.source, "pece_tables.h": _tables_header()},
-                defines=(f"ADAMS_KAB={kab}",), extra_flags=flags)
+                f"adams_attempt_{ds.name}_kab{kab}{suffix}_{tag}", source,
+                headers={"pece_rhs.h": ds.source, "pece_tables.h": _tables_header(ds.real)},
+                defines=(f"ADAMS_KAB={kab}", *defines), extra_flags=flags)
 
         return build
 
@@ -154,16 +186,17 @@ def main(argv=None) -> None:
         return k
 
     versions = {"default": _AttemptKernel}
-    if args.old_root:
+    if args.old_root:  # built as the other checkout's wrapper builds it
         versions["old"] = other_build(
-            "old", Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu")
+            "old", Path(args.old_root).resolve() / "sunode_torch/csrc/adams_attempt.cu",
+            FMAD_FLAGS)
     if args.fmad_true:
         versions["fmad=true"] = other_build("fmad_true", _CSRC)
     if args.phase_clocks:
         versions["ADAMS_PHASE_CLOCKS"] = lambda ds, kab: _AttemptKernel(
             ds, kab, defines=("ADAMS_PHASE_CLOCKS",))
 
-    builds = _builds(cs)
+    builds = _builds(cs, real)
     with ThreadPoolExecutor(len(builds) * len(versions)) as pool:
         futures = {
             (label, name): pool.submit(make, ds, p_max + 3)
@@ -181,7 +214,7 @@ def main(argv=None) -> None:
     results, ok = [], True
     problem = lv_problem()
     for label, ds, p_max, tol, seed in builds:
-        x = cs.history_inputs(ds, cs.B_MAIN, seed, "cuda", p_max, tol)
+        x = cs.history_inputs(ds, cs.B_MAIN, seed, "cuda", p_max, tol, dtype)
         orders = {"seeded": x["p"], "p1": torch.full_like(x["p"], 1),
                   f"p{p_max}": torch.full_like(x["p"], p_max)}
         fz = (cs.lv_sens_fz(ds.name) if ds.name in cs.SENS_KINDS
@@ -216,7 +249,8 @@ def main(argv=None) -> None:
                 check = _compare(cs, got, ref)
                 row["versions"][name]["checks"][o] = check
                 ok &= (check["DF_resc_bitwise"] and check["flags_equal"]
-                       and max(check["rel"].values()) <= SAME_BOUND)
+                       and max(check["rel"].values()) <= same_bound
+                       and (check["all_bitwise"] or name != "old"))
         # device times in turns: default, the others, the others reversed, default
         for name in names + names[::-1]:
             for o, p in orders.items():
@@ -232,7 +266,8 @@ def main(argv=None) -> None:
                 cs.log(f"[history-ab {label} | {name}] {o}: mean cycles a block by phase "
                        + " ".join(f"{k}={c:.0f}" for k, c in cycles.items()))
             checks = "; ".join(
-                f"{o}: DF_resc_bitwise={c['DF_resc_bitwise']} flags_equal={c['flags_equal']} "
+                f"{o}: DF_resc_bitwise={c['DF_resc_bitwise']} all_bitwise={c['all_bitwise']} "
+                f"flags_equal={c['flags_equal']} "
                 + " ".join(f"{k}={e:.2e}" for k, e in c["rel"].items())
                 for o, c in v["checks"].items())
             times = " ".join(f"{o}=" + "/".join(cs.fmt_us(t) for t in ts)
@@ -246,7 +281,8 @@ def main(argv=None) -> None:
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "history_ab.json").write_text(json.dumps(results, indent=1))
+    fname = "history_ab.json" if real == "double" else "history_ab_float32.json"
+    (out / fname).write_text(json.dumps(results, indent=1))
     if not ok:
         raise SystemExit("history_ab: a version differs from the default build beyond its "
                          "bounds, or a build of this tree fails C6's checks")

@@ -6,8 +6,10 @@
 // corrector, final evaluation and error estimate) together with the history
 // arithmetic the JAX main path left to XLA fusion around it
 // (sunode_tpu/ops/adams_batched.py: _rescale :376-399, the error rows
-// :617-632, _update :989-1007).  Per lane, in float64, with the lane's own
-// order p and step ratio fac = h / h_D:
+// :617-632, _update :989-1007).  Per lane, at the build's type `real`
+// (real.cuh: float64, or float32 with -DSUNODE_REAL=float, each build
+// keyed on it by ops/adams_attempt.py), with the lane's own order p and
+// step ratio fac = h / h_D:
 //   tables   R(fac)[j][i] = R[j-1][i] ((j-1) - fac i) / j for j < p and every
 //            column i < K, once per lane into shared memory, the lane's
 //            threads sharing its columns; U = R(1) is the same for every
@@ -31,11 +33,12 @@
 //            (orders p, p-1, p+1);
 //   norms    the lane's first thread sums the weighted squares over the
 //            rows, in row order, into err3.
-// Every f64 product, sum, difference and quotient the kernel writes out
+// Every product, sum, difference and quotient the kernel writes out
 // (rescale, predictor, error weights, update, error rows and norms, and the
-// corrector of pece_core.cuh) is rounded on its own (__dmul_rn, __dadd_rn,
-// ...: no FMA contraction; the quotients by small integers of div_small()
-// are those of __ddiv_rn), in the order of the plain version.  So a finite
+// corrector of pece_core.cuh) is rounded on its own (r_mul, r_add, ...:
+// __dmul_rn or __fmul_rn, ...; no FMA contraction; the quotients by small
+// integers of div_small() are those of __ddiv_rn or __fdiv_rn), in the
+// order of the plain version at the build's type.  So a finite
 // history gives DF_resc and z_pred bit for bit the plain version's, and the
 // rest too in every lane where the emitted right-hand side's f rounds as
 // the plain one's; only the emitted right-hand side is left to nvcc.
@@ -43,7 +46,8 @@
 // What bounds it on an H100: bytes, in principle.  The history is read from
 // device memory once and written twice (DF_resc, DF_upd), at B = 10,000 for
 // the transition system 9 x 10 x 10k x 8 B = 7.2 MB each time, 25.7 MB in
-// all with the other rows: 7.7 us at 3.35 TB/s.  The arithmetic is ~4p^2
+// all with the other rows: 7.7 us at 3.35 TB/s; a float32 build moves half
+// the bytes.  The arithmetic is ~4p^2
 // operations a row and p^2 quotients a lane, far under the float64 rate.
 // In practice one wave of blocks holds every lane at that width, and each
 // block's chain of phases (device memory, R, rows, the corrector's sweeps,
@@ -74,8 +78,9 @@
 
 #include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[], PECE_U[][]
 #include "pece_rhs.h"     // PECE_N, PECE_NZ, PECE_NP, pece_fz()
+#include "real.cuh"       // real (SUNODE_REAL), r_add, r_mul, ...
 #include "pece_core.cuh"  // pece_correct(): corrector and final evaluation
-#include "div_small.cuh"  // div_small(): t / j rounded as __ddiv_rn
+#include "div_small.cuh"  // div_small(): t / j rounded as r_div
 
 #ifndef ADAMS_KAB
 #error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
@@ -88,7 +93,7 @@
 #define ADAMS_THREADS (ADAMS_TILE * ADAMS_ROWS)
 #define ADAMS_RPT ((PECE_NZ + ADAMS_ROWS - 1) / ADAMS_ROWS)   // history rows a thread holds
 #define ADAMS_CPT ((ADAMS_K + ADAMS_ROWS - 1) / ADAMS_ROWS)   // R columns a thread builds
-#define ADAMS_NZ_PAD (PECE_NZ | 1)  // odd stride: a warp's 8-byte accesses miss no bank twice
+#define ADAMS_NZ_PAD (PECE_NZ | 1)  // odd stride: a warp's accesses miss no bank twice
 #define ADAMS_NP_ALLOC (PECE_NP > 0 ? PECE_NP : 1)
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
@@ -97,7 +102,7 @@
 #if ADAMS_RPT * ADAMS_KAB > 64
 #error "the history columns a thread holds do not fit in its registers"
 #endif
-static_assert(sizeof(double) * (ADAMS_K * ADAMS_K * ADAMS_TILE + 4 * ADAMS_TILE * ADAMS_NZ_PAD +
+static_assert(sizeof(real) * (ADAMS_K * ADAMS_K * ADAMS_TILE + 4 * ADAMS_TILE * ADAMS_NZ_PAD +
                                  PECE_NZ) <= 48 * 1024,
               "the R tables and row vectors exceed a block's static shared memory");
 
@@ -118,34 +123,34 @@ __device__ unsigned long long adams_phase_cycles[6];
 #endif
 
 __global__ void __launch_bounds__(ADAMS_THREADS)
-adams_attempt_kernel(const double* __restrict__ t_new,
-                     const double* __restrict__ h_use,
-                     const double* __restrict__ pre_factor,
+adams_attempt_kernel(const real* __restrict__ t_new,
+                     const real* __restrict__ h_use,
+                     const real* __restrict__ pre_factor,
                      const int* __restrict__ order,
                      const unsigned char* __restrict__ active,
-                     const double* __restrict__ DF,
-                     const double* __restrict__ z_prev,
-                     const double* __restrict__ params,
-                     const double* __restrict__ atol_z,
-                     const double* __restrict__ rtol_z,
-                     const double* __restrict__ gamma_star_abs,
-                     const double* __restrict__ v_err,
+                     const real* __restrict__ DF,
+                     const real* __restrict__ z_prev,
+                     const real* __restrict__ params,
+                     const real* __restrict__ atol_z,
+                     const real* __restrict__ rtol_z,
+                     const real* __restrict__ gamma_star_abs,
+                     const real* __restrict__ v_err,
                      double newton_tol, int maxiter, int B,
-                     double* __restrict__ DF_resc,
-                     double* __restrict__ DF_upd,
-                     double* __restrict__ z_pred_out,
-                     double* __restrict__ z_new_out,
-                     double* __restrict__ err0_out,
-                     double* __restrict__ err3_out,
+                     real* __restrict__ DF_resc,
+                     real* __restrict__ DF_upd,
+                     real* __restrict__ z_pred_out,
+                     real* __restrict__ z_new_out,
+                     real* __restrict__ err0_out,
+                     real* __restrict__ err3_out,
                      unsigned char* __restrict__ conv_out,
                      int* __restrict__ niter_out) {
-  __shared__ double Rs[ADAMS_K][ADAMS_K][ADAMS_TILE];  // R(fac)[j][i], per lane
+  __shared__ real Rs[ADAMS_K][ADAMS_K][ADAMS_TILE];  // R(fac)[j][i], per lane
   // Per lane, lane-major so the corrector reads its lane's rows as arrays:
   // z_pred, f_ex, f and the error weights w; in the update each row thread
   // then overwrites its own row's first three with its weighted error terms
   // for the norms.
-  __shared__ double rows_s[4][ADAMS_TILE][ADAMS_NZ_PAD];
-  __shared__ double v_s[PECE_NZ];  // the error norm's weights
+  __shared__ real rows_s[4][ADAMS_TILE][ADAMS_NZ_PAD];
+  __shared__ real v_s[PECE_NZ];  // the error norm's weights
   const int tx = threadIdx.x, ty = threadIdx.y;
 #ifdef ADAMS_PHASE_CLOCKS
   long long mark = clock64();
@@ -153,10 +158,10 @@ adams_attempt_kernel(const double* __restrict__ t_new,
   const int b = blockIdx.x * ADAMS_TILE + tx;
   const bool lane = b < B;
   const size_t sB = (size_t)B;
-  double* zp_s = rows_s[0][tx];
-  double* fex_s = rows_s[1][tx];
-  double* f_s = rows_s[2][tx];
-  double* w_s = rows_s[3][tx];
+  real* zp_s = rows_s[0][tx];
+  real* fex_s = rows_s[1][tx];
+  real* f_s = rows_s[2][tx];
+  real* w_s = rows_s[3][tx];
   // element (i, r) of a (KAB, PECE_NZ, B) history, this lane
 #define HIST(i, r) ((size_t)((i) * PECE_NZ + (r)) * sB + b)
 
@@ -164,21 +169,21 @@ adams_attempt_kernel(const double* __restrict__ t_new,
   // a lane's chain of phases then waits on device memory once.  This
   // thread's history columns and rows first, then the lane's scalars, the
   // corrector's inputs in its warp, and the norm's weights.
-  double col[ADAMS_RPT][ADAMS_KAB], zprev[ADAMS_RPT], atol_r[ADAMS_RPT], rtol_r[ADAMS_RPT];
+  real col[ADAMS_RPT][ADAMS_KAB], zprev[ADAMS_RPT], atol_r[ADAMS_RPT], rtol_r[ADAMS_RPT];
 #pragma unroll
   for (int k = 0; k < ADAMS_RPT; ++k) {
     const int r = ty + k * ADAMS_ROWS;
     const bool row = lane && r < PECE_NZ;
 #pragma unroll
-    for (int i = 0; i < ADAMS_KAB; ++i) col[k][i] = row ? DF[HIST(i, r)] : 0.0;
-    zprev[k] = row ? z_prev[r * sB + b] : 0.0;
-    atol_r[k] = row ? atol_z[r] : 0.0;
-    rtol_r[k] = row ? rtol_z[r] : 0.0;
+    for (int i = 0; i < ADAMS_KAB; ++i) col[k][i] = row ? DF[HIST(i, r)] : (real)0;
+    zprev[k] = row ? z_prev[r * sB + b] : (real)0;
+    atol_r[k] = row ? atol_z[r] : (real)0;
+    rtol_r[k] = row ? rtol_z[r] : (real)0;
   }
   const int p = lane ? order[b] : 0;
-  const double fac = lane ? pre_factor[b] : 0.0;
-  const double h = lane ? h_use[b] : 0.0;
-  double par[ADAMS_NP_ALLOC], t = 0.0;
+  const real fac = lane ? pre_factor[b] : (real)0;
+  const real h = lane ? h_use[b] : (real)0;
+  real par[ADAMS_NP_ALLOC], t = 0;
   bool act = false;
   if (ty == 0 && lane) {
 #pragma unroll
@@ -188,21 +193,21 @@ adams_attempt_kernel(const double* __restrict__ t_new,
   }
   for (int r = ty * ADAMS_TILE + tx; r < PECE_NZ; r += ADAMS_THREADS) v_s[r] = v_err[r];
   const bool valid = lane && p >= 1 && p <= ADAMS_K;
-  const double g1 = valid ? gamma_star_abs[p - 1] : 0.0;               // order p - 1
-  const double g2 = valid ? gamma_star_abs[min(p + 1, ADAMS_K)] : 0.0;  // order p + 1, at most P_MAX + 1
-  const double g0 = valid ? PECE_GAMMA_STAR_ABS[p] : 0.0;              // order p
-  const double c_A = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : 0.0;    // h gamma_{p-1}
+  const real g1 = valid ? gamma_star_abs[p - 1] : (real)0;               // order p - 1
+  const real g2 = valid ? gamma_star_abs[min(p + 1, ADAMS_K)] : (real)0;  // order p + 1, at most P_MAX + 1
+  const real g0 = valid ? PECE_GAMMA_STAR_ABS[p] : (real)0;              // order p
+  const real c_A = valid ? r_mul(h, PECE_GAMMA[p - 1]) : (real)0;    // h gamma_{p-1}
 
   // R(fac): column i's running product over j < p, for every column i < K,
   // the chains of a thread's columns interleaved
   if (valid) {
-    double c[ADAMS_CPT], fi[ADAMS_CPT];
+    real c[ADAMS_CPT], fi[ADAMS_CPT];
 #pragma unroll
     for (int m = 0; m < ADAMS_CPT; ++m) {
       const int i = ty + m * ADAMS_ROWS;
-      fi[m] = __dmul_rn(fac, (double)i);
-      c[m] = 1.0;
-      if (i < ADAMS_K) Rs[0][i][tx] = 1.0;
+      fi[m] = r_mul(fac, (real)i);
+      c[m] = 1;
+      if (i < ADAMS_K) Rs[0][i][tx] = 1;
     }
 #pragma unroll
     for (int j = 1; j < ADAMS_K; ++j) {
@@ -210,7 +215,7 @@ adams_attempt_kernel(const double* __restrict__ t_new,
 #pragma unroll
       for (int m = 0; m < ADAMS_CPT; ++m) {
         const int i = ty + m * ADAMS_ROWS;
-        const double prod = __dmul_rn(c[m], __dsub_rn((double)(j - 1), fi[m]));
+        const real prod = r_mul(c[m], r_sub((real)(j - 1), fi[m]));
         c[m] = div_small(prod, j);
         if (i < ADAMS_K) Rs[j][i][tx] = c[m];
       }
@@ -220,7 +225,7 @@ adams_attempt_kernel(const double* __restrict__ t_new,
   ADAMS_MARK(0);
 
   // rows: rescale, write DF_resc, predictor, f_ex and the row's error weight
-  double wz[ADAMS_RPT];
+  real wz[ADAMS_RPT];
 #pragma unroll
   for (int k = 0; k < ADAMS_RPT; ++k) {
     const int r = ty + k * ADAMS_ROWS;
@@ -235,40 +240,40 @@ adams_attempt_kernel(const double* __restrict__ t_new,
     // for i < p; each sum runs over j in order from 0, as the plain
     // version's, and the K columns step together (those from p on are
     // dropped), so a step's products are independent
-    double t1[ADAMS_K], t2[ADAMS_K];
+    real t1[ADAMS_K], t2[ADAMS_K];
 #pragma unroll
-    for (int i = 0; i < ADAMS_K; ++i) t1[i] = t2[i] = 0.0;
+    for (int i = 0; i < ADAMS_K; ++i) t1[i] = t2[i] = 0;
 #pragma unroll
     for (int j = 0; j < ADAMS_K; ++j) {
       if (j >= p) break;
 #pragma unroll
       for (int i = 0; i < ADAMS_K; ++i)
-        t1[i] = __dadd_rn(t1[i], __dmul_rn(Rs[j][i][tx], col[k][j]));
+        t1[i] = r_add(t1[i], r_mul(Rs[j][i][tx], col[k][j]));
     }
 #pragma unroll
     for (int j = 0; j < ADAMS_K; ++j) {
       if (j >= p) break;
 #pragma unroll
-      for (int i = 0; i < ADAMS_K; ++i) t2[i] = __dadd_rn(t2[i], __dmul_rn(PECE_U[j][i], t1[j]));
+      for (int i = 0; i < ADAMS_K; ++i) t2[i] = r_add(t2[i], r_mul(PECE_U[j][i], t1[j]));
     }
 #pragma unroll
     for (int i = 0; i < ADAMS_K; ++i)
       if (i < p) col[k][i] = t2[i];
 #pragma unroll
     for (int i = 0; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = col[k][i];
-    double acc_z = 0.0, acc_f = 0.0;
+    real acc_z = 0, acc_f = 0;
 #pragma unroll
     for (int i = 0; i < ADAMS_K; ++i) {
       if (i < p) {
-        acc_z = __dadd_rn(acc_z, __dmul_rn(PECE_GAMMA[i], col[k][i]));
-        acc_f = __dadd_rn(acc_f, col[k][i]);
+        acc_z = r_add(acc_z, r_mul(PECE_GAMMA[i], col[k][i]));
+        acc_f = r_add(acc_f, col[k][i]);
       }
     }
-    const double zp = __dadd_rn(zprev[k], __dmul_rn(h, acc_z));
+    const real zp = r_add(zprev[k], r_mul(h, acc_z));
     z_pred_out[r * sB + b] = zp;
     zp_s[r] = zp;
     fex_s[r] = acc_f;
-    wz[k] = __ddiv_rn(1.0, __dadd_rn(atol_r[k], __dmul_rn(rtol_r[k], fabs(zp))));
+    wz[k] = r_div((real)1, r_add(atol_r[k], r_mul(rtol_r[k], r_abs(zp))));
     w_s[r] = wz[k];
   }
   __syncthreads();
@@ -280,7 +285,7 @@ adams_attempt_kernel(const double* __restrict__ t_new,
       bool pred_ok = true;
 #pragma unroll
       for (int r = 0; r < PECE_NZ; ++r) pred_ok = pred_ok && isfinite(zp_s[r]);
-      double y[PECE_N];
+      real y[PECE_N];
       int niter;
       const bool conv = pece_correct(t, par, zp_s, fex_s, c_A, w_s, act,
                                      pred_ok, newton_tol, maxiter, y, f_s, &niter);
@@ -296,19 +301,19 @@ adams_attempt_kernel(const double* __restrict__ t_new,
 
   // update: difference update, new state, error row and weighted error terms
   if (valid) {
-    const double g0_h = __dmul_rn(g0, h), g1_h = __dmul_rn(g1, h), g2_h = __dmul_rn(g2, h);
+    const real g0_h = r_mul(g0, h), g1_h = r_mul(g1, h), g2_h = r_mul(g2, h);
 #pragma unroll
     for (int k = 0; k < ADAMS_RPT; ++k) {
       const int r = ty + k * ADAMS_ROWS;
       if (r >= PECE_NZ) continue;
-      const double zp = zp_s[r];
-      const double d = __dsub_rn(f_s[r], fex_s[r]);
+      const real zp = zp_s[r];
+      const real d = r_sub(f_s[r], fex_s[r]);
       // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
-      double S[ADAMS_KAB + 1];
-      S[ADAMS_KAB] = 0.0;
+      real S[ADAMS_KAB + 1];
+      S[ADAMS_KAB] = 0;
 #pragma unroll
-      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = __dadd_rn(S[i + 1], col[k][i]);
-      double Sp = 0.0, col_p = 0.0;
+      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = r_add(S[i + 1], col[k][i]);
+      real Sp = 0, col_p = 0;
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
         if (i == p) {
@@ -317,23 +322,23 @@ adams_attempt_kernel(const double* __restrict__ t_new,
         }
       }
       // i <= p-1: sum_{j=i..p-1} DF[j] + d;  i == p: d;  i == p+1: d - DF[p]
-      double u_lo = 0.0, u_hi = 0.0;  // the updated rows p - 1 and p + 1
+      real u_lo = 0, u_hi = 0;  // the updated rows p - 1 and p + 1
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
-        const double u = i <= p - 1 ? __dadd_rn(__dsub_rn(S[i], Sp), d)
+        const real u = i <= p - 1 ? r_add(r_sub(S[i], Sp), d)
                          : i == p   ? d
-                         : i == p + 1 ? __dsub_rn(d, col_p)
+                         : i == p + 1 ? r_sub(d, col_p)
                                       : col[k][i];
         DF_upd[HIST(i, r)] = u;
         if (i == p - 1) u_lo = u;
         if (i == p + 1) u_hi = u;
       }
-      const double e0 = __dmul_rn(g0_h, d);
-      z_new_out[r * sB + b] = __dadd_rn(zp, __dmul_rn(c_A, d));
+      const real e0 = r_mul(g0_h, d);
+      z_new_out[r * sB + b] = r_add(zp, r_mul(c_A, d));
       err0_out[r * sB + b] = e0;
-      zp_s[r] = __dmul_rn(e0, wz[k]);
-      fex_s[r] = __dmul_rn(__dmul_rn(g1_h, u_lo), wz[k]);
-      f_s[r] = __dmul_rn(__dmul_rn(g2_h, u_hi), wz[k]);
+      zp_s[r] = r_mul(e0, wz[k]);
+      fex_s[r] = r_mul(r_mul(g1_h, u_lo), wz[k]);
+      f_s[r] = r_mul(r_mul(g2_h, u_hi), wz[k]);
     }
   } else if (lane) {
 #pragma unroll
@@ -352,21 +357,21 @@ adams_attempt_kernel(const double* __restrict__ t_new,
 
   // norms: the weighted squares summed over the rows in row order
   if (ty == 0 && lane) {
-    double ss0 = NAN, ss1 = NAN, ss2 = NAN;
+    real ss0 = NAN, ss1 = NAN, ss2 = NAN;
     if (valid) {
-      ss0 = ss1 = ss2 = 0.0;
+      ss0 = ss1 = ss2 = 0;
 #pragma unroll
       for (int r = 0; r < PECE_NZ; ++r) {
-        const double v = v_s[r];
-        const double a0 = zp_s[r], a1 = fex_s[r], a2 = f_s[r];
-        ss0 = __dadd_rn(ss0, __dmul_rn(__dmul_rn(a0, a0), v));
-        ss1 = __dadd_rn(ss1, __dmul_rn(__dmul_rn(a1, a1), v));
-        ss2 = __dadd_rn(ss2, __dmul_rn(__dmul_rn(a2, a2), v));
+        const real v = v_s[r];
+        const real a0 = zp_s[r], a1 = fex_s[r], a2 = f_s[r];
+        ss0 = r_add(ss0, r_mul(r_mul(a0, a0), v));
+        ss1 = r_add(ss1, r_mul(r_mul(a1, a1), v));
+        ss2 = r_add(ss2, r_mul(r_mul(a2, a2), v));
       }
     }
-    err3_out[b] = __dsqrt_rn(ss0);
-    err3_out[sB + b] = __dsqrt_rn(ss1);
-    err3_out[2 * sB + b] = __dsqrt_rn(ss2);
+    err3_out[b] = r_sqrt(ss0);
+    err3_out[sB + b] = r_sqrt(ss1);
+    err3_out[2 * sB + b] = r_sqrt(ss2);
   }
   ADAMS_MARK(4);
 #ifdef ADAMS_PHASE_CLOCKS
@@ -379,14 +384,14 @@ extern "C" {
 // Launch on `stream` without synchronising.  Returns 0, -1 when the shapes
 // do not match the compiled system and history depth, -2 when the history
 // is deeper than the coefficient tables, or the cudaError_t of the launch.
-int adams_attempt_launch(const double* t_new, const double* h_use, const double* pre_factor,
-                         const int* order, const unsigned char* active, const double* DF,
-                         const double* z_prev, const double* params, const double* atol_z,
-                         const double* rtol_z, const double* gamma_star_abs,
-                         const double* v_err, double newton_tol, int maxiter, int n_iter,
-                         int nz, int kab, int n_p, int n_gamma, int B, double* DF_resc,
-                         double* DF_upd, double* z_pred, double* z_new, double* err0,
-                         double* err3, unsigned char* conv, int* niter, void* stream) {
+int adams_attempt_launch(const real* t_new, const real* h_use, const real* pre_factor,
+                         const int* order, const unsigned char* active, const real* DF,
+                         const real* z_prev, const real* params, const real* atol_z,
+                         const real* rtol_z, const real* gamma_star_abs,
+                         const real* v_err, double newton_tol, int maxiter, int n_iter,
+                         int nz, int kab, int n_p, int n_gamma, int B, real* DF_resc,
+                         real* DF_upd, real* z_pred, real* z_new, real* err0,
+                         real* err3, unsigned char* conv, int* niter, void* stream) {
   if (n_iter != PECE_N || nz != PECE_NZ || n_p != PECE_NP || kab != ADAMS_KAB) return -1;
   if (kab - 2 > PECE_TABLE_LEN - 1 || n_gamma < kab - 1) return -2;
   if (B <= 0) return 0;

@@ -10,9 +10,11 @@
 // :456-520, _update :989-1007, the error rows :617-632).  The plain PyTorch
 // versions are split_predict, split_sweep and split_finish in
 // sunode_torch/ops/adams_split.py; per element every product, difference
-// and quotient is rounded on its own (__dmul_rn, __ddiv_rn, ...), in their
-// order, so only the sums over the rows (dy_norm, err3) add in another
-// order.
+// and quotient is rounded on its own (r_mul, r_div, ...: __dmul_rn or
+// __fmul_rn, ...), in their order, so only the sums over the rows (dy_norm,
+// err3) add in another order.  A build computes at one type `real`
+// (real.cuh: float64, or float32 with -DSUNODE_REAL=float, each keyed on it
+// by the wrapper), the plain stages' type.
 //
 //   split_predict  R(fac) then U = R(1) on each history column's leading p
 //                  rows (identity elsewhere), DF_resc, z_pred = z_prev +
@@ -33,7 +35,8 @@
 // predict and finish each read it once and write it once (predict 639 MB
 // in all, 0.19 ms at 3.35 TB/s; finish ~0.21 ms), a sweep moves six (n, B)
 // rows (~0.04 ms).  The rescale's arithmetic is 4 K^2 f64 products and sums
-// a row (K = KAB - 2), under half the time of its bytes.
+// a row (K = KAB - 2), under half the time of its bytes.  A float32 build
+// moves half the bytes, and its f32 operations have twice the f64 rate.
 //
 // Layout: the history is (KAB, nz, B), lane-contiguous.
 //
@@ -60,7 +63,7 @@
 // read it: a fixed order, no global scratch, no counter, no fill.
 //
 // Predict: R'(fac) of each of the block's lanes is built once into shared
-// memory (K x K x L doubles; R(fac) inside the lane's leading p block, the
+// memory (K x K x L values; R(fac) inside the lane's leading p block, the
 // identity outside, as the plain version masks it), the K columns' running
 // products spread over the row threads and each quotient by a small integer
 // the exact div_small() of div_small.cuh; at (3,000, 1,024) a block's
@@ -110,7 +113,8 @@
 #include <math.h>
 
 #include "pece_tables.h"  // PECE_TABLE_LEN, PECE_GAMMA[], PECE_GAMMA_STAR_ABS[], PECE_U[][]
-#include "div_small.cuh"  // div_small(): t / j rounded as __ddiv_rn
+#include "div_small.cuh"  // div_small(): t / j rounded as r_div
+#include "real.cuh"       // real (SUNODE_REAL), r_add, r_mul, ...
 
 #ifndef ADAMS_KAB
 #error "build with -DADAMS_KAB=<history rows>, that is P_MAX + 3"
@@ -128,7 +132,7 @@
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
 #endif
-static_assert(sizeof(double) * ADAMS_K * ADAMS_K * PREDICT_LANES_MAX +
+static_assert(sizeof(real) * ADAMS_K * ADAMS_K * PREDICT_LANES_MAX +
                       sizeof(int) * SWEEP_THREADS <= 48 * 1024,
               "predict's R tables exceed a block's static shared memory");
 
@@ -171,13 +175,13 @@ __device__ bool last_block_of_tile(unsigned int* done, int n_chunks) {
 
 // Sum of v over the row threads of lane threadIdx.x, in row-thread order;
 // valid in the threads with threadIdx.y == 0.
-__device__ __forceinline__ double sum_rows(double v, double (*s)[SPLIT_TILE]) {
+__device__ __forceinline__ real sum_rows(real v, real (*s)[SPLIT_TILE]) {
   s[threadIdx.y][threadIdx.x] = v;
   __syncthreads();
-  double acc = 0.0;
+  real acc = 0;
   if (threadIdx.y == 0) {
 #pragma unroll
-    for (int k = 0; k < SPLIT_ROWS; ++k) acc = __dadd_rn(acc, s[k][threadIdx.x]);
+    for (int k = 0; k < SPLIT_ROWS; ++k) acc = r_add(acc, s[k][threadIdx.x]);
   }
   __syncthreads();
   return acc;
@@ -187,16 +191,16 @@ __device__ __forceinline__ bool order_ok(int p) { return p >= 1 && p <= ADAMS_K;
 
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(SWEEP_THREADS, 2)  // two blocks an SM
-split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ order,
-                     const double* __restrict__ pre_factor, const double* __restrict__ h_use,
-                     const double* __restrict__ z_prev, const double* __restrict__ atol_z,
-                     const double* __restrict__ rtol_z, int nz, int B, int rows,
-                     double* __restrict__ DF_resc, double* __restrict__ z_pred,
-                     double* __restrict__ f_ex, double* __restrict__ w_z,
-                     double* __restrict__ c_A, unsigned char* __restrict__ pred_ok) {
+split_predict_kernel(const real* __restrict__ DF, const int* __restrict__ order,
+                     const real* __restrict__ pre_factor, const real* __restrict__ h_use,
+                     const real* __restrict__ z_prev, const real* __restrict__ atol_z,
+                     const real* __restrict__ rtol_z, int nz, int B, int rows,
+                     real* __restrict__ DF_resc, real* __restrict__ z_pred,
+                     real* __restrict__ f_ex, real* __restrict__ w_z,
+                     real* __restrict__ c_A, unsigned char* __restrict__ pred_ok) {
   // R'[j][i] of the tile's lanes: R(fac) inside the lane's leading p block,
   // the identity outside, as the plain version masks it
-  __shared__ double Rs[ADAMS_K][ADAMS_K][PREDICT_LANES_MAX];
+  __shared__ real Rs[ADAMS_K][ADAMS_K][PREDICT_LANES_MAX];
   __shared__ int bad_s[SWEEP_THREADS];  // (row thread, lane), then the block's flag per lane
   const int tx = threadIdx.x, ty = threadIdx.y, L = blockDim.x, T = blockDim.y;
 #ifdef SPLIT_PHASE_CLOCKS
@@ -207,22 +211,22 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
   const size_t sB = (size_t)B;
   const int p = lane ? order[b] : 1;
   const bool valid = lane && order_ok(p);
-  const double fac = valid ? pre_factor[b] : 0.0;
-  const double h = valid ? h_use[b] : 0.0;
+  const real fac = valid ? pre_factor[b] : (real)0;
+  const real h = valid ? h_use[b] : (real)0;
   const int r_begin = blockIdx.x * rows, r_end = min(r_begin + rows, nz);  // the block's rows
 
   // R(fac)[j][i] = R[j-1][i] ((j-1) - fac i) / j: column i's running product
   // over j < p, the K columns over the row threads
   if (valid) {
     for (int i = ty; i < ADAMS_K; i += T) {
-      const double fi = __dmul_rn(fac, (double)i);
-      double c = 1.0;
-      Rs[0][i][tx] = i < p ? 1.0 : 0.0;
+      const real fi = r_mul(fac, (real)i);
+      real c = 1;
+      Rs[0][i][tx] = i < p ? 1 : 0;
 #pragma unroll
       for (int j = 1; j < ADAMS_K; ++j) {
         const bool in = j < p && i < p;
-        if (in) c = div_small(__dmul_rn(c, __dsub_rn((double)(j - 1), fi)), j);
-        Rs[j][i][tx] = in ? c : (i == j ? 1.0 : 0.0);
+        if (in) c = div_small(r_mul(c, r_sub((real)(j - 1), fi)), j);
+        Rs[j][i][tx] = in ? c : (real)(i == j ? 1 : 0);
       }
     }
   }
@@ -241,15 +245,15 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
   } else {
     // one row a step, r = ty, ty + T, ...; the next row's loads are issued
     // before this row's arithmetic, so that they are in flight while it runs
-    double col[ADAMS_KAB], nx_col[ADAMS_KAB], nx_zprev, nx_atol, nx_rtol;
+    real col[ADAMS_KAB], nx_col[ADAMS_KAB], nx_zprev, nx_atol, nx_rtol;
     // the loads of row r (none past the block's rows) into the next row's registers
     auto load_next = [&](int r) {
       const bool row = r < r_end;
 #pragma unroll
-      for (int i = 0; i < ADAMS_KAB; ++i) nx_col[i] = row ? DF[HIST(i, r)] : 0.0;
-      nx_zprev = row ? z_prev[r * sB + b] : 0.0;
-      nx_atol = row ? atol_z[r] : 0.0;
-      nx_rtol = row ? rtol_z[r] : 0.0;
+      for (int i = 0; i < ADAMS_KAB; ++i) nx_col[i] = row ? DF[HIST(i, r)] : (real)0;
+      nx_zprev = row ? z_prev[r * sB + b] : (real)0;
+      nx_atol = row ? atol_z[r] : (real)0;
+      nx_rtol = row ? rtol_z[r] : (real)0;
     };
     load_next(r_begin + ty);
     for (int r = r_begin + ty; r < r_end; r += T) {
@@ -258,19 +262,19 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
       asm volatile("" ::: "memory");
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) col[i] = nx_col[i];
-      const double zprev = nx_zprev, atol_r = nx_atol, rtol_r = nx_rtol;
+      const real zprev = nx_zprev, atol_r = nx_atol, rtol_r = nx_rtol;
       load_next(r + T);
 #pragma unroll
       for (int i = ADAMS_K; i < ADAMS_KAB; ++i) DF_resc[HIST(i, r)] = col[i];  // copied as they are
       // t1[i] = sum_j R'[j][i] col[j] over all K rows j in order from 0, as
       // the plain version's sum, the masked entries multiplying as 0.0 or 1.0
-      double t1[ADAMS_K];
+      real t1[ADAMS_K];
       unsigned int bad = 0u;  // bit j: t1[j] not finite
 #pragma unroll
       for (int i = 0; i < ADAMS_K; ++i) {
-        double acc = 0.0;
+        real acc = 0;
 #pragma unroll
-        for (int j = 0; j < ADAMS_K; ++j) acc = __dadd_rn(acc, __dmul_rn(Rs[j][i][tx], col[j]));
+        for (int j = 0; j < ADAMS_K; ++j) acc = r_add(acc, r_mul(Rs[j][i][tx], col[j]));
         t1[i] = acc;
         bad |= isfinite(acc) ? 0u : 1u << i;
       }
@@ -284,26 +288,26 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
       // as operands.  With each DF_resc[i], the predictor's and the
       // extrapolation's sums over all K rows, those from p on multiplied
       // by 0.0.
-      double acc_z = 0.0, acc_f = 0.0;
+      real acc_z = 0, acc_f = 0;
 #pragma unroll
       for (int i = 0; i < ADAMS_K; ++i) {
-        double v;
+        real v;
         if (i < p) {
-          v = 0.0;
+          v = 0;
 #pragma unroll
-          for (int j = 0; j <= i; ++j) v = __dadd_rn(v, __dmul_rn(PECE_U[j][i], t1[j]));
+          for (int j = 0; j <= i; ++j) v = r_add(v, r_mul(PECE_U[j][i], t1[j]));
           if (bad >> (i + 1)) v = NAN;
         } else {
-          v = (bad & ~(1u << i)) ? NAN : __dadd_rn(0.0, t1[i]);
+          v = (bad & ~(1u << i)) ? NAN : r_add((real)0, t1[i]);
         }
         DF_resc[HIST(i, r)] = v;
-        acc_z = __dadd_rn(acc_z, i < p ? __dmul_rn(PECE_GAMMA[i], v) : __dmul_rn(0.0, v));
-        acc_f = __dadd_rn(acc_f, i < p ? v : __dmul_rn(0.0, v));
+        acc_z = r_add(acc_z, i < p ? r_mul(PECE_GAMMA[i], v) : r_mul((real)0, v));
+        acc_f = r_add(acc_f, i < p ? v : r_mul((real)0, v));
       }
-      const double zp = __dadd_rn(zprev, __dmul_rn(h, acc_z));
+      const real zp = r_add(zprev, r_mul(h, acc_z));
       z_pred[r * sB + b] = zp;
       f_ex[r * sB + b] = acc_f;
-      w_z[r * sB + b] = __ddiv_rn(1.0, __dadd_rn(atol_r, __dmul_rn(rtol_r, fabs(zp))));
+      w_z[r * sB + b] = r_div((real)1, r_add(atol_r, r_mul(rtol_r, r_abs(zp))));
       if (!isfinite(zp)) nonfinite = 1;
     }
   }
@@ -327,7 +331,7 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
   if (C > 1) cluster.sync();
   if (tail) {
     pred_ok[b] = valid && !nonfinite;
-    c_A[b] = valid ? __dmul_rn(h, PECE_GAMMA[p - 1]) : NAN;
+    c_A[b] = valid ? r_mul(h, PECE_GAMMA[p - 1]) : NAN;
   }
   SPLIT_MARK(3);
   SPLIT_COUNT_BLOCK();
@@ -341,21 +345,21 @@ split_predict_kernel(const double* __restrict__ DF, const int* __restrict__ orde
 // place of a transposing copy before the launch.
 template <bool FZ_LANE_MAJOR>
 __global__ void __launch_bounds__(SWEEP_THREADS)
-split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restrict__ y_it,
-                   const double* __restrict__ z_pred, const double* __restrict__ f_ex,
-                   const double* __restrict__ w_z, const double* __restrict__ c_A,
+split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ y_it,
+                   const real* __restrict__ z_pred, const real* __restrict__ f_ex,
+                   const real* __restrict__ w_z, const real* __restrict__ c_A,
                    const unsigned char* __restrict__ conv, const unsigned char* __restrict__ div,
-                   const unsigned char* __restrict__ bad, const double* __restrict__ dy_old,
+                   const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
                    const int* __restrict__ niter, double newton_tol, double tol_lo, int fixed,
-                   int n, int nz, int B, int rows, double* __restrict__ y_next,
+                   int n, int nz, int B, int rows, real* __restrict__ y_next,
                    unsigned char* __restrict__ conv_o, unsigned char* __restrict__ div_o,
-                   unsigned char* __restrict__ bad_o, double* __restrict__ dy_old_o,
+                   unsigned char* __restrict__ bad_o, real* __restrict__ dy_old_o,
                    int* __restrict__ niter_o) {
-  __shared__ double ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
+  __shared__ real ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
   __shared__ int bad_s[SWEEP_THREADS];
   // a step's fz tile, (rows) x (lanes + 1): the odd stride keeps a warp's
   // reads of one row and its writes of one lane's rows off each other's banks
-  __shared__ double fz_s[FZ_LANE_MAJOR ? SWEEP_THREADS * SWEEP_UNROLL + 64 : 1];
+  __shared__ real fz_s[FZ_LANE_MAJOR ? SWEEP_THREADS * SWEEP_UNROLL + 64 : 1];
   const int tx = threadIdx.x, ty = threadIdx.y, L = blockDim.x, T = blockDim.y;
 #ifdef SPLIT_PHASE_CLOCKS
   long long mark = clock64();
@@ -364,13 +368,13 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   const bool lane = b < B;
   const size_t sB = (size_t)B;
   const bool live = lane && !(conv[b] || div[b] || bad[b]);
-  const double cA = lane ? c_A[b] : 0.0;
+  const real cA = lane ? c_A[b] : (real)0;
   const int r_begin = blockIdx.x * rows, r_end = min(r_begin + rows, nz);  // the block's rows
   const int step = T * SWEEP_UNROLL;
-  double ss = 0.0;
+  real ss = 0;
   int nonfinite = 0;
   for (int r0 = r_begin; r0 < r_end; r0 += step) {  // the same steps in every thread
-    double f[SWEEP_UNROLL], fe[SWEEP_UNROLL], zp[SWEEP_UNROLL], yi[SWEEP_UNROLL],
+    real f[SWEEP_UNROLL], fe[SWEEP_UNROLL], zp[SWEEP_UNROLL], yi[SWEEP_UNROLL],
         w[SWEEP_UNROLL];
     if (FZ_LANE_MAJOR) {
       // the tile's element e = (row e % step, lane e / step): a warp reads
@@ -381,18 +385,18 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
         const int e = tid + u * SWEEP_THREADS, row = e % step, lane_t = e / step;
         const int r = r0 + row, bb = blockIdx.y * L + lane_t;
         fz_s[row * (L + 1) + lane_t] =
-            (r < r_end && bb < B) ? fz[(size_t)bb * nz + r] : 0.0;
+            (r < r_end && bb < B) ? fz[(size_t)bb * nz + r] : (real)0;
       }
     }
 #pragma unroll
     for (int u = 0; u < SWEEP_UNROLL; ++u) {  // every load of the step first
       const int r = r0 + ty + u * T;
       const bool row = lane && r < r_end, state = row && r < n;
-      if (!FZ_LANE_MAJOR) f[u] = row ? fz[r * sB + b] : 0.0;
-      fe[u] = state ? f_ex[r * sB + b] : 0.0;
-      zp[u] = state ? z_pred[r * sB + b] : 0.0;
-      yi[u] = state ? y_it[r * sB + b] : 0.0;
-      w[u] = state ? w_z[r * sB + b] : 0.0;
+      if (!FZ_LANE_MAJOR) f[u] = row ? fz[r * sB + b] : (real)0;
+      fe[u] = state ? f_ex[r * sB + b] : (real)0;
+      zp[u] = state ? z_pred[r * sB + b] : (real)0;
+      yi[u] = state ? y_it[r * sB + b] : (real)0;
+      w[u] = state ? w_z[r * sB + b] : (real)0;
     }
     if (FZ_LANE_MAJOR) {
       __syncthreads();
@@ -406,9 +410,9 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
       if (!lane || r >= r_end) break;
       if (!isfinite(f[u])) nonfinite = 1;  // the quadrature rows too
       if (r < n) {
-        const double zn = __dadd_rn(zp[u], __dmul_rn(cA, __dsub_rn(f[u], fe[u])));
-        const double q = __dmul_rn(__dsub_rn(zn, yi[u]), w[u]);
-        ss = __dadd_rn(ss, __dmul_rn(q, q));
+        const real zn = r_add(zp[u], r_mul(cA, r_sub(f[u], fe[u])));
+        const real q = r_mul(r_sub(zn, yi[u]), w[u]);
+        ss = r_add(ss, r_mul(q, q));
         y_next[r * sB + b] = live ? zn : yi[u];
       }
     }
@@ -419,15 +423,15 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   bad_s[ty * L + tx] = nonfinite;
   __syncthreads();
   if (ty == 0) {  // every load first, then the sums in order (T <= SWEEP_THREADS / 16)
-    double v[SWEEP_THREADS / 16];
+    real v[SWEEP_THREADS / 16];
 #pragma unroll
     for (int y = 1; y < SWEEP_THREADS / 16; ++y) {
-      v[y] = y < T ? ss_s[y * L + tx] : 0.0;
+      v[y] = y < T ? ss_s[y * L + tx] : (real)0;
       nonfinite |= y < T ? bad_s[y * L + tx] : 0;
     }
 #pragma unroll
     for (int y = 1; y < SWEEP_THREADS / 16; ++y)
-      if (y < T) ss = __dadd_rn(ss, v[y]);
+      if (y < T) ss = r_add(ss, v[y]);
     ss_s[tx] = ss;
     bad_s[tx] = nonfinite;
   }
@@ -439,10 +443,10 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   SPLIT_MARK(2);
   const bool tail = blockIdx.x == 0 && ty == 0 && lane;
   if (tail && C > 1) {
-    ss = 0.0;
+    ss = 0;
     nonfinite = 0;
     for (int c = 0; c < C; ++c) {
-      ss = __dadd_rn(ss, cluster.map_shared_rank(&ss_s[0], c)[tx]);
+      ss = r_add(ss, cluster.map_shared_rank(&ss_s[0], c)[tx]);
       nonfinite |= cluster.map_shared_rank(&bad_s[0], c)[tx];
     }
   }
@@ -451,15 +455,15 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
   SPLIT_MARK(3);
   SPLIT_COUNT_BLOCK();
   if (!tail) return;
-  const double dy_norm = __dsqrt_rn(__ddiv_rn(ss, (double)n));
-  const double rate = __ddiv_rn(dy_norm, dy_old[b]);
+  const real dy_norm = r_sqrt(r_div(ss, (real)n));
+  const real rate = r_div(dy_norm, dy_old[b]);
   bool conv_new = false, div_new = false;
   if (!fixed) {
-    conv_new = dy_norm == 0.0 ||
-               (k > 0 && rate < 1.0 &&
-                __dmul_rn(__ddiv_rn(rate, __dsub_rn(1.0, rate)), dy_norm) < newton_tol) ||
-               dy_norm < tol_lo;
-    div_new = rate >= 2.0 && k > 0;
+    conv_new = dy_norm == 0 ||
+               (k > 0 && rate < 1 &&
+                r_mul(r_div(rate, r_sub((real)1, rate)), dy_norm) < (real)newton_tol) ||
+               dy_norm < (real)tol_lo;
+    div_new = rate >= 2 && k > 0;
   }
   const bool bad_n = bad[b] || (live && nonfinite);
   conv_o[b] = conv[b] || (live && conv_new && !bad_n);
@@ -472,31 +476,31 @@ split_sweep_kernel(int k, const double* __restrict__ fz, const double* __restric
 
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
-split_finish_kernel(const double* __restrict__ fz, const double* __restrict__ DF_resc,
-                    const double* __restrict__ z_pred, const double* __restrict__ f_ex,
-                    const double* __restrict__ w_z, const double* __restrict__ c_A,
+split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_resc,
+                    const real* __restrict__ z_pred, const real* __restrict__ f_ex,
+                    const real* __restrict__ w_z, const real* __restrict__ c_A,
                     const unsigned char* __restrict__ pred_ok, const int* __restrict__ order,
-                    const double* __restrict__ h_use, const double* __restrict__ gamma_star_abs,
-                    const double* __restrict__ v_err, const unsigned char* __restrict__ conv,
+                    const real* __restrict__ h_use, const real* __restrict__ gamma_star_abs,
+                    const real* __restrict__ v_err, const unsigned char* __restrict__ conv,
                     const unsigned char* __restrict__ bad, int fixed, int nz, int B,
-                    double* __restrict__ DF_upd, double* __restrict__ z_new,
-                    double* __restrict__ err0, double* __restrict__ err3,
-                    unsigned char* __restrict__ conv_o, double* part, unsigned int* done) {
-  __shared__ double red[SPLIT_ROWS][SPLIT_TILE];
+                    real* __restrict__ DF_upd, real* __restrict__ z_new,
+                    real* __restrict__ err0, real* __restrict__ err3,
+                    unsigned char* __restrict__ conv_o, real* part, unsigned int* done) {
+  __shared__ real red[SPLIT_ROWS][SPLIT_TILE];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int b = blockIdx.x * SPLIT_TILE + tx;
   const bool lane = b < B;
   const size_t sB = (size_t)B;
   const int p = lane ? order[b] : 1;
   const bool valid = lane && order_ok(p);
-  const double h = lane ? h_use[b] : 0.0;
-  const double cA = lane ? c_A[b] : 0.0;
+  const real h = lane ? h_use[b] : (real)0;
+  const real cA = lane ? c_A[b] : (real)0;
   // the error rows' coefficients at orders p, p - 1 and p + 1 (at most P_MAX + 1)
-  const double g0 = valid ? __dmul_rn(PECE_GAMMA_STAR_ABS[p], h) : NAN;
-  const double g1 = valid ? __dmul_rn(gamma_star_abs[p - 1], h) : NAN;
-  const double g2 = valid ? __dmul_rn(gamma_star_abs[min(p + 1, ADAMS_K)], h) : NAN;
+  const real g0 = valid ? r_mul(PECE_GAMMA_STAR_ABS[p], h) : NAN;
+  const real g1 = valid ? r_mul(gamma_star_abs[p - 1], h) : NAN;
+  const real g2 = valid ? r_mul(gamma_star_abs[min(p + 1, ADAMS_K)], h) : NAN;
   const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
-  double ss0 = 0.0, ss1 = 0.0, ss2 = 0.0;
+  real ss0 = 0, ss1 = 0, ss2 = 0;
   if (lane) {
     for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
       if (!valid) {
@@ -506,19 +510,19 @@ split_finish_kernel(const double* __restrict__ fz, const double* __restrict__ DF
         ss0 = ss1 = ss2 = NAN;
         continue;
       }
-      const double d = __dsub_rn(fz[r * sB + b], f_ex[r * sB + b]);
-      z_new[r * sB + b] = __dadd_rn(z_pred[r * sB + b], __dmul_rn(cA, d));
-      const double e0 = __dmul_rn(g0, d);
+      const real d = r_sub(fz[r * sB + b], f_ex[r * sB + b]);
+      z_new[r * sB + b] = r_add(z_pred[r * sB + b], r_mul(cA, d));
+      const real e0 = r_mul(g0, d);
       err0[r * sB + b] = e0;
-      double col[ADAMS_KAB];
+      real col[ADAMS_KAB];
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) col[i] = DF_resc[HIST(i, r)];
       // suffix sums S[i] = sum_{j >= i} col[j], from the last row down
-      double S[ADAMS_KAB + 1];
-      S[ADAMS_KAB] = 0.0;
+      real S[ADAMS_KAB + 1];
+      S[ADAMS_KAB] = 0;
 #pragma unroll
-      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = __dadd_rn(S[i + 1], col[i]);
-      double Sp = 0.0, col_p = 0.0, upd_m = 0.0, upd_p = 0.0;
+      for (int i = ADAMS_KAB - 1; i >= 0; --i) S[i] = r_add(S[i + 1], col[i]);
+      real Sp = 0, col_p = 0, upd_m = 0, upd_p = 0;
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
         if (i == p) {
@@ -529,26 +533,26 @@ split_finish_kernel(const double* __restrict__ fz, const double* __restrict__ DF
       // i <= p-1: sum_{j=i..p-1} DF[j] + d;  i == p: d;  i == p+1: d - DF[p]
 #pragma unroll
       for (int i = 0; i < ADAMS_KAB; ++i) {
-        const double u = i <= p - 1 ? __dadd_rn(__dsub_rn(S[i], Sp), d)
+        const real u = i <= p - 1 ? r_add(r_sub(S[i], Sp), d)
                          : i == p   ? d
-                         : i == p + 1 ? __dsub_rn(d, col_p)
+                         : i == p + 1 ? r_sub(d, col_p)
                                       : col[i];
         DF_upd[HIST(i, r)] = u;
         if (i == p - 1) upd_m = u;
         if (i == p + 1) upd_p = u;
       }
-      const double wz = w_z[r * sB + b], v = v_err[r];
-      const double a0 = __dmul_rn(e0, wz);
-      const double a1 = __dmul_rn(__dmul_rn(g1, upd_m), wz);
-      const double a2 = __dmul_rn(__dmul_rn(g2, upd_p), wz);
-      ss0 = __dadd_rn(ss0, __dmul_rn(__dmul_rn(a0, a0), v));
-      ss1 = __dadd_rn(ss1, __dmul_rn(__dmul_rn(a1, a1), v));
-      ss2 = __dadd_rn(ss2, __dmul_rn(__dmul_rn(a2, a2), v));
+      const real wz = w_z[r * sB + b], v = v_err[r];
+      const real a0 = r_mul(e0, wz);
+      const real a1 = r_mul(r_mul(g1, upd_m), wz);
+      const real a2 = r_mul(r_mul(g2, upd_p), wz);
+      ss0 = r_add(ss0, r_mul(r_mul(a0, a0), v));
+      ss1 = r_add(ss1, r_mul(r_mul(a1, a1), v));
+      ss2 = r_add(ss2, r_mul(r_mul(a2, a2), v));
     }
   }
-  const double s0 = sum_rows(ss0, red);
-  const double s1 = sum_rows(ss1, red);
-  const double s2 = sum_rows(ss2, red);
+  const real s0 = sum_rows(ss0, red);
+  const real s1 = sum_rows(ss1, red);
+  const real s2 = sum_rows(ss2, red);
   const size_t sP = (size_t)gridDim.y * sB;  // one (chunks, B) block per error row
   if (ty == 0 && lane) {
     part[blockIdx.y * sB + b] = s0;
@@ -556,15 +560,15 @@ split_finish_kernel(const double* __restrict__ fz, const double* __restrict__ DF
     part[2 * sP + blockIdx.y * sB + b] = s2;
   }
   if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
-  double t0 = 0.0, t1 = 0.0, t2 = 0.0;
+  real t0 = 0, t1 = 0, t2 = 0;
   for (int c = 0; c < (int)gridDim.y; ++c) {
-    t0 = __dadd_rn(t0, *((volatile const double*)part + c * sB + b));
-    t1 = __dadd_rn(t1, *((volatile const double*)part + sP + c * sB + b));
-    t2 = __dadd_rn(t2, *((volatile const double*)part + 2 * sP + c * sB + b));
+    t0 = r_add(t0, *((volatile const real*)part + c * sB + b));
+    t1 = r_add(t1, *((volatile const real*)part + sP + c * sB + b));
+    t2 = r_add(t2, *((volatile const real*)part + 2 * sP + c * sB + b));
   }
-  err3[b] = __dsqrt_rn(t0);
-  err3[sB + b] = __dsqrt_rn(t1);
-  err3[2 * sB + b] = __dsqrt_rn(t2);
+  err3[b] = r_sqrt(t0);
+  err3[sB + b] = r_sqrt(t1);
+  err3[2 * sB + b] = r_sqrt(t2);
   const bool c0 = fixed ? (conv[b] || !bad[b]) : conv[b];
   conv_o[b] = c0 && !bad[b] && pred_ok[b];
 }
@@ -632,11 +636,11 @@ extern "C" {
 // Predict on the geometry of ops/adams_split.py::predict_geometry: lane
 // tiles of `lanes` lanes (at most PREDICT_LANES_MAX), `rows` rows a block,
 // `cluster` blocks a tile along the rows.
-int split_predict_launch(const double* DF, const int* order, const double* pre_factor,
-                         const double* h_use, const double* z_prev, const double* atol_z,
-                         const double* rtol_z, int kab, int nz, int B, int lanes, int rows,
-                         int cluster, double* DF_resc, double* z_pred, double* f_ex, double* w_z,
-                         double* c_A, unsigned char* pred_ok, void* stream) {
+int split_predict_launch(const real* DF, const int* order, const real* pre_factor,
+                         const real* h_use, const real* z_prev, const real* atol_z,
+                         const real* rtol_z, int kab, int nz, int B, int lanes, int rows,
+                         int cluster, real* DF_resc, real* z_pred, real* f_ex, real* w_z,
+                         real* c_A, unsigned char* pred_ok, void* stream) {
   if (kab != ADAMS_KAB) return -1;
   if (B <= 0 || nz <= 0) return 0;
   if (lanes > PREDICT_LANES_MAX || !covers(nz, B, lanes, rows, cluster)) return -3;
@@ -655,14 +659,14 @@ int split_predict_launch(const double* DF, const int* order, const double* pre_f
 // The sweep on the geometry of ops/adams_split.py::sweep_geometry: lane
 // tiles of `lanes` lanes, `rows` rows a block, `cluster` blocks a tile along
 // the rows; fz row-major (nz, B) or, with `fz_lane_major`, lane-major.
-int split_sweep_launch(int k, const double* fz, const double* y_it, const double* z_pred,
-                       const double* f_ex, const double* w_z, const double* c_A,
+int split_sweep_launch(int k, const real* fz, const real* y_it, const real* z_pred,
+                       const real* f_ex, const real* w_z, const real* c_A,
                        const unsigned char* conv, const unsigned char* div,
-                       const unsigned char* bad, const double* dy_old, const int* niter,
+                       const unsigned char* bad, const real* dy_old, const int* niter,
                        double newton_tol, double tol_lo, int fixed, int n, int nz, int B,
-                       int fz_lane_major, int lanes, int rows, int cluster, double* y_next,
+                       int fz_lane_major, int lanes, int rows, int cluster, real* y_next,
                        unsigned char* conv_o, unsigned char* div_o, unsigned char* bad_o,
-                       double* dy_old_o, int* niter_o, void* stream) {
+                       real* dy_old_o, int* niter_o, void* stream) {
   if (n > nz) return -1;
   if (B <= 0 || nz <= 0) return 0;
   if (!covers(nz, B, lanes, rows, cluster)) return -3;
@@ -680,13 +684,13 @@ int split_sweep_launch(int k, const double* fz, const double* y_it, const double
   return (int)cudaGetLastError();
 }
 
-int split_finish_launch(const double* fz, const double* DF_resc, const double* z_pred,
-                        const double* f_ex, const double* w_z, const double* c_A,
-                        const unsigned char* pred_ok, const int* order, const double* h_use,
-                        const double* gamma_star_abs, const double* v_err,
+int split_finish_launch(const real* fz, const real* DF_resc, const real* z_pred,
+                        const real* f_ex, const real* w_z, const real* c_A,
+                        const unsigned char* pred_ok, const int* order, const real* h_use,
+                        const real* gamma_star_abs, const real* v_err,
                         const unsigned char* conv, const unsigned char* bad, int fixed, int kab,
-                        int nz, int B, int n_gamma, double* DF_upd, double* z_new, double* err0,
-                        double* err3, unsigned char* conv_o, double* part, unsigned int* done,
+                        int nz, int B, int n_gamma, real* DF_upd, real* z_new, real* err0,
+                        real* err3, unsigned char* conv_o, real* part, unsigned int* done,
                         void* stream) {
   if (kab != ADAMS_KAB || n_gamma < ADAMS_K + 1) return -1;
   if (B <= 0 || nz <= 0) return 0;

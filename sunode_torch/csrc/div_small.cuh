@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "real.cuh"  // real, r_div
+
 // t / j for a small integer j, rounded as __ddiv_rn(t, j) is.  A power of
 // two divides exactly as the product by its reciprocal.  Otherwise, with
 // y = RN(1/j): q = RN(t y) lies within 1.5 ulp of t / j, so the remainder
@@ -24,3 +26,8 @@ __device__ __forceinline__ double div_small(double t, int j) {
   q = __fma_rn(__fma_rn(-q, d, t), y, q);
   return (q0 == 0.0 || !isfinite(q0)) ? q0 : q;
 }
+
+// At float32 the quotient is the correctly rounded division itself, as the
+// plain version divides by a tensor (correctly rounded on the card and the
+// CPU): the argument above is written for a 53-bit significand.
+__device__ __forceinline__ float div_small(float t, int j) { return r_div(t, (float)j); }

@@ -26,12 +26,20 @@ as the augmented state ``[y | vec S]``.  :func:`build_lv_roots` solves them
 with the event ``hares = 9``, stopping at the first root or recording up to
 eight.
 
+:func:`build_lv_adjoint_f32` is ``bench.py``'s ``lv_adjoint_f32``: the
+same transition-adjoint gradients at float32 end to end (rtol 1e-6 forward,
+1e-5 backward), every kernel launch the float32 build.
+:func:`build_lv_per_lane` solves the Lotka-Volterra chains on seeded ragged
+per-lane observation grids, ``tvals (B, 21)``.
+
 :func:`build_sir` is ``scripts/bench_sir_scale.py``'s workload: an SIR
 model over ``R`` regions coupled to their ring neighbours, written in torch
 (:func:`sir_problem`, a ``TorchProblem``: 3R states), with ADAMS adjoint
 gradients of ``sum(ys[:, :, R:2R]**2)`` with respect to (beta, gamma) in
 'resolve' or 'hermite'.  On the card its attempts run the split Adams
-kernels (``ops/adams_split.py``), the right-hand side in torch between them.
+kernels (``ops/adams_split.py``), the right-hand side in torch between them;
+``dtype=torch.float32`` runs it at float32 with ``bench.py``'s float32
+tolerances (the float32 builds of the split kernels).
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ __all__ = [
     "lv_problem",
     "lv_options",
     "build_lv_adjoint",
+    "build_lv_adjoint_f32",
+    "lv_adjoint_inputs",
     "build_lv_checkpointed",
     "build_lv_adams",
     "LV_ADAMS_CHECKPOINTS",
@@ -61,12 +71,15 @@ __all__ = [
     "lv_root_inputs",
     "build_lv_roots",
     "LV_ROOT_CAP",
+    "lv_per_lane_tvals",
+    "build_lv_per_lane",
     "robertson_problem",
     "robertson_options",
     "build_robertson",
     "ROBERTSON_K",
     "sir_problem",
     "sir_inputs",
+    "sir_options",
     "build_sir",
 ]
 
@@ -163,10 +176,34 @@ def build_lv_adams(batch: int, tvals_n: int, rtol: float, interpolation: str,
     return _lv_grad_step(solve, batch, tvals_n, device)
 
 
-def _lv_grad_step(solve, batch: int, tvals_n: int, device):
-    f64 = dict(dtype=torch.float64, device=device)
-    tvals = torch.as_tensor(np.linspace(1.0, 10.0, tvals_n), **f64)
-    p_fix = torch.as_tensor(LV_P_FIX, **f64)
+def build_lv_adjoint_f32(batch: int, tvals_n: int = 21, device="cuda"):
+    """``bench.py``'s ``lv_adjoint_f32`` (``bench.py:157-229``): the
+    :func:`build_lv_adjoint` gradients at float32 end to end, ADAMS with the
+    transition adjoint, rtol = atol = 1e-6 forward and 1e-5 backward,
+    ``adams_max_order=6``, on the bench's chains (:func:`lv_adjoint_inputs`:
+    a 5% spread from ``default_rng(42)``, lanes 0-15
+    ``tests/golden/lv_adjoint.npz``'s, which the bench gates at 1e-2 worst
+    lane).  Same ``(grad_step, (y0s, p_subs))`` as :func:`build_lv_adjoint`,
+    every tensor float32; on the card every attempt launches the float32
+    builds of the history-attempt kernel.  It runs on the card unless
+    ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    solve = make_batched_solve_fn(
+        lv_problem(),
+        derivatives="adjoint",
+        options=BDFOptions(rtol=1e-6, atol=1e-6, adams_max_order=6),
+        adjoint_options=BDFOptions(rtol=1e-5, atol=1e-5, adams_max_order=6),
+        method="ADAMS",
+        adjoint_interpolation="transition",
+    )
+    return _lv_grad_step(solve, batch, tvals_n, device, torch.float32,
+                         inputs=lv_adjoint_inputs(batch))
+
+
+def _lv_grad_step(solve, batch: int, tvals_n: int, device, dtype=torch.float64, inputs=None):
+    f_kw = dict(dtype=dtype, device=device)
+    tvals = torch.as_tensor(np.linspace(1.0, 10.0, tvals_n), **f_kw)
+    p_fix = torch.as_tensor(LV_P_FIX, **f_kw)
 
     def grad_step(y0s, p_subs, tvals=tvals):
         """Gradients of sum(ys**2) over the observation times ``tvals``
@@ -180,10 +217,12 @@ def _lv_grad_step(solve, batch: int, tvals_n: int, device):
     grad_step.tvals = tvals
     grad_step.p_fix = p_fix
 
-    rng = np.random.default_rng(0)
-    y0s = np.array([10.0, 2.0]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
-    p_subs = np.array([1.0, 0.3]) * (1 + 0.1 * rng.standard_normal((batch, 2)))
-    return grad_step, (torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64))
+    if inputs is None:
+        rng = np.random.default_rng(0)
+        inputs = (np.array([10.0, 2.0]) * (1 + 0.1 * rng.standard_normal((batch, 2))),
+                  np.array([1.0, 0.3]) * (1 + 0.1 * rng.standard_normal((batch, 2))))
+    y0s, p_subs = inputs
+    return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))
 
 
 def lv_sens_inputs(batch: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -273,14 +312,14 @@ LV_ROOT_CAP = 8  # roots a lane records when the solve goes on past them
 LV_ADJOINT_BATCH = 10_000  # the lanes of bench.py's lv_adjoint draw
 
 
-def lv_root_inputs(batch: int) -> tuple[np.ndarray, np.ndarray]:
-    """``(y0s (B, 2), ps (B, 4))``: ``bench.py``'s ``lv_adjoint`` chains (a
-    5% spread around (10, 2) and (alpha, beta) = (1, 0.3) from
-    ``default_rng(42)``), with (gamma, delta) = :data:`LV_P_FIX`.  Lanes 0-15
-    are those of the bench's draw of :data:`LV_ADJOINT_BATCH` lanes at every
-    batch, which are ``tests/golden/lv_adjoint.npz``'s (the parameters are
-    drawn after every lane's initial state, so a draw of another width
-    gives these lanes other parameters)."""
+def lv_adjoint_inputs(batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(y0s (B, 2), p_subs (B, 2))``: ``bench.py``'s ``lv_adjoint`` chains,
+    a 5% spread around (10, 2) and (alpha, beta) = (1, 0.3) from
+    ``default_rng(42)``.  Lanes 0-15 are those of the bench's draw of
+    :data:`LV_ADJOINT_BATCH` lanes at every batch, which are
+    ``tests/golden/lv_adjoint.npz``'s (the parameters are drawn after every
+    lane's initial state, so a draw of another width gives these lanes
+    other parameters)."""
 
     def draw(B):
         rng = np.random.default_rng(42)
@@ -292,6 +331,13 @@ def lv_root_inputs(batch: int) -> tuple[np.ndarray, np.ndarray]:
     m = min(batch, 16)
     head = draw(LV_ADJOINT_BATCH)
     y0s[:m], p_subs[:m] = head[0][:m], head[1][:m]
+    return y0s, p_subs
+
+
+def lv_root_inputs(batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(y0s (B, 2), ps (B, 4))``: the chains of :func:`lv_adjoint_inputs`
+    with (gamma, delta) = :data:`LV_P_FIX`."""
+    y0s, p_subs = lv_adjoint_inputs(batch)
     return y0s, np.concatenate([p_subs, np.tile(LV_P_FIX, (batch, 1))], axis=1)
 
 
@@ -334,6 +380,55 @@ def build_lv_roots(batch: int, method: str, terminal: bool, device="cuda"):
     y0s, ps = lv_root_inputs(batch)
     tvals = np.linspace(0.0, 10.0, 21)
     return solve, tuple(torch.as_tensor(a, **f64) for a in (y0s, ps, tvals))
+
+
+LV_PER_LANE_TIMES = (6, 21)  # the fewest and most observation times of a lane
+
+
+def lv_per_lane_tvals(batch: int, seed: int = 0) -> np.ndarray:
+    """``(B, 21)`` seeded ragged observation grids: lane b has 6 to 21
+    sorted times uniform on [0.5, 10] (``default_rng(seed)``), padded to 21
+    with copies of its last time, the reference's convention for a ragged
+    dataset (``tests/test_per_lane_tvals.py``)."""
+    lo, hi = LV_PER_LANE_TIMES
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(lo, hi + 1, batch)
+    pad = np.arange(hi)[None, :] >= counts[:, None]
+    # a lane's first `count` draws, sorted; the slots past them take its last
+    times = np.sort(np.where(pad, np.inf, rng.uniform(0.5, 10.0, (batch, hi))), axis=1)
+    last = times[np.arange(batch), counts - 1]
+    return np.where(pad, last[:, None], times)
+
+
+def build_lv_per_lane(batch: int, method: str, device="cuda"):
+    """``(solve, (y0s, ps, tvals))``: ``solve(y0s, ps, tvals)`` is one batched
+    forward solve of the chains of :func:`lv_root_inputs` (phase 4's), each
+    lane on its own observation grid, ``tvals (B, 21)`` from
+    :func:`lv_per_lane_tvals`, a ``BDFResult`` with ``ys (B, 21, 2)``; the
+    padded slots repeat the lane's last value.  ``method`` 'ADAMS' (through
+    the history-attempt kernel's forward build on the card) or 'BDF', at
+    the main path's forward options (rtol = atol = 1e-8,
+    ``adams_max_order=6``).  It runs on the card unless ``device="cpu"``;
+    without a card the default raises."""
+    device = device_or_raise(device)
+    if method not in ("BDF", "ADAMS"):
+        raise ValueError(f"method must be 'BDF' or 'ADAMS', got {method!r}")
+    problem = lv_problem()
+    systems = make_batched_solve_fn(problem, derivatives=None, method=method)
+    rhs = problem.make_rhs()
+    opts = lv_options(1e-8)[0]
+
+    def solve(y0s, ps, tvals):
+        if method == "BDF":
+            return bdf_solve_batched(rhs, problem.make_jac_dense(), 0.0, y0s, ps, tvals, opts,
+                                     batched_fns=True)
+        return adams_solve_batched(rhs, 0.0, y0s, ps, tvals, opts, batched_fns=True,
+                                   device_system=systems.device_system("forward", device))
+
+    solve.options = opts
+    f64 = dict(dtype=torch.float64, device=device)
+    y0s, ps = lv_root_inputs(batch)
+    return solve, tuple(torch.as_tensor(a, **f64) for a in (y0s, ps, lv_per_lane_tvals(batch)))
 
 
 ROBERTSON_K = (0.04, 3e7, 1e4)  # k1, k2, k3
@@ -427,27 +522,41 @@ def sir_inputs(R: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
     return y0s, p_subs
 
 
-def build_sir(R: int, batch: int, mode: str, device="cuda"):
+def sir_options(dtype=torch.float64) -> tuple[BDFOptions, BDFOptions]:
+    """(forward, backward) options of :func:`build_sir`: rtol 1e-8 / atol
+    1e-10 both ways at float64 (``scripts/bench_sir_scale.py``); at float32
+    ``bench.py``'s float32 tolerances, rtol 1e-6 forward and 1e-5 backward,
+    at the configuration's atol / rtol ratio of 1e-2."""
+    if dtype == torch.float64:
+        opts = BDFOptions(rtol=1e-8, atol=1e-10)
+        return opts, opts
+    if dtype == torch.float32:
+        return BDFOptions(rtol=1e-6, atol=1e-8), BDFOptions(rtol=1e-5, atol=1e-7)
+    raise ValueError(f"dtype must be torch.float64 or torch.float32, got {dtype}")
+
+
+def build_sir(R: int, batch: int, mode: str, device="cuda", dtype=torch.float64):
     """``(grad_step, (y0s, p_subs))`` for ``scripts/bench_sir_scale.py``'s
     configuration: ``grad_step(y0s, p_subs) -> (ys, gp)`` is one batched
     solve and the gradient of ``sum(ys[:, :, R:2R]**2)`` with respect to
     ``p_subs`` (beta, gamma), ``ys (B, 12, 3R)`` detached.  Twelve
     observation times ``linspace(5, 60, 12)``, ``mix = 0.05``, ADAMS with
-    rtol 1e-8 / atol 1e-10 forward and backward, ``checkpoint_n=1024``,
-    ``mode`` 'resolve' or 'hermite'; inputs from :func:`sir_inputs`.  It
-    runs on the card unless ``device="cpu"``; without a card the default
+    :func:`sir_options` at ``dtype`` (float64: rtol 1e-8 / atol 1e-10
+    forward and backward), ``checkpoint_n=1024``, ``mode`` 'resolve' or
+    'hermite'; inputs from :func:`sir_inputs`, every tensor at ``dtype``.
+    It runs on the card unless ``device="cpu"``; without a card the default
     raises."""
     device = device_or_raise(device)
     if mode not in ("resolve", "hermite"):
         raise ValueError(f"mode must be 'resolve' or 'hermite', got {mode!r}")
-    opts = BDFOptions(rtol=1e-8, atol=1e-10)
+    fwd_opts, adj_opts = sir_options(dtype)
     solve = make_batched_solve_fn(
-        sir_problem(R), options=opts, adjoint_options=opts, checkpoint_n=SIR_CHECKPOINTS,
-        method="ADAMS", adjoint_interpolation=mode,
+        sir_problem(R), options=fwd_opts, adjoint_options=adj_opts,
+        checkpoint_n=SIR_CHECKPOINTS, method="ADAMS", adjoint_interpolation=mode,
     )
-    f64 = dict(dtype=torch.float64, device=device)
-    tvals = torch.as_tensor(np.linspace(5.0, 60.0, 12), **f64)
-    p_fix = torch.as_tensor([0.05], **f64)
+    f_kw = dict(dtype=dtype, device=device)
+    tvals = torch.as_tensor(np.linspace(5.0, 60.0, 12), **f_kw)
+    p_fix = torch.as_tensor([0.05], **f_kw)
 
     def grad_step(y0s, p_subs):
         p_subs = p_subs.detach().requires_grad_(True)
@@ -459,4 +568,4 @@ def build_sir(R: int, batch: int, mode: str, device="cuda"):
     grad_step.tvals = tvals
     grad_step.p_fix = p_fix
     y0s, p_subs = sir_inputs(R, batch)
-    return grad_step, (torch.as_tensor(y0s, **f64), torch.as_tensor(p_subs, **f64))
+    return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))

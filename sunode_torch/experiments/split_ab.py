@@ -1,17 +1,16 @@
-"""The split attempt's predict and sweep kernels against other versions of themselves, on the card.
+"""The split attempt's three kernels against other versions of themselves, on the card.
 
     python -m sunode_torch.experiments.split_ab [--old-root DIR] [--phase-clocks]
-        [--geometry LANES,CLUSTER ...]
+        [--geometry LANES,CLUSTER ...] [--dtype float64|float32]
 
 Run from the repository root (it reads ``chip_smoke.py``'s inputs).  Builds
 ``sunode_torch/csrc/adams_split.cu`` at history depths 11 (SIR) and 9 (the
 sensitivity block), every build at once, and beside it:
 
   * ``--old-root DIR``: the parent's ``adams_split.cu`` (unpack the parent
-    with ``git archive`` into a directory ``.gitignore`` lists), its predict
-    (32 lanes by 64 rows a block, with a scratch of per-chunk flags and a
-    tile counter that its launcher zeroes with a fill) and its sweep
-    launched as the parent's wrapper launched them;
+    with ``git archive`` into a directory ``.gitignore`` lists), whose three
+    kernels take this tree's arguments and geometries, launched through
+    this tree's wrapper;
   * ``--geometry LANES,CLUSTER``: this tree's predict and sweep at another
     geometry, a tile of LANES lanes and CLUSTER blocks a tile (each
     ``ceil(nz / CLUSTER)`` rows) in place of ``predict_geometry``'s and
@@ -20,7 +19,13 @@ sensitivity block), every build at once, and beside it:
     which also traces predict (R(fac) built, the rows, the block's flag
     sum, the lane tail) and the sweep (rows, the block's sum, the first
     cluster barrier, rank 0's reads and the second barrier, rank 0's tail)
-    by phase: the mean cycles a block spends in each over 20 launches.
+    by phase: the mean cycles a block spends in each over 20 launches;
+  * ``--dtype float32``: every build at float32 (``-DSUNODE_REAL=float``)
+    on the same draws at float32 with SIR's float32 tolerances
+    (``chip_smoke.split_inputs``; the sensitivity block's attempt rounded
+    to float32), the per-lane sums' bound float32's
+    (``chip_smoke.F32_REL_BOUND``); an old root must have the float32
+    build too.  The default is float64.
 
 At the five shapes the card's paths give the split kernels (SIR over 1,000
 regions: its forward attempts at B=1,024 and 256, the 'resolve' backward at
@@ -38,16 +43,22 @@ staggered solve at B=10,000, on its 300th attempt's inputs):
     iterates, and every version is held against the plain ``split_sweep``:
     ``y_next`` bit for bit, ``dy_old`` within 1e-12 lane by lane, conv, div,
     bad and niter equal; this tree's two launches on the same inputs bit
-    for bit.  Then each version's device time on the second sweep, in
-    turns, beside the sweep's bytes bound: with f as the right-hand side
-    returns it (lane-major from a ``vmap`` over the lanes, as at the
-    forward and sensitivity-block shapes) and with f row-major (the kernel
-    alone).
+    for bit, and every other version's outputs bit for bit this tree's.
+    Then each version's device time on the second sweep, in turns, beside
+    the sweep's bytes bound: with f as the right-hand side returns it
+    (lane-major from a ``vmap`` over the lanes, as at the forward and
+    sensitivity-block shapes) and with f row-major (the kernel alone);
+  * finish: on the plain stages' last iterate, every version against the
+    plain ``split_finish`` (DF_upd, z_new and err0 bit for bit, err3 within
+    1e-12 lane by lane, conv equal) and bit for bit this tree's; device
+    time in turns, the launcher's fill of its tile counters counted with
+    it, beside its bytes bound.
 
 Prints ptxas's registers and spills of every build, one line per shape,
-kernel and version, and writes every number to ``split_ab.json`` in the
-output directory at the repository root (one that ``.gitignore`` lists); exits
-non-zero on a mismatch.
+kernel and version, and writes every number to ``split_ab.json``
+(``split_ab_float32.json`` at float32) in the output directory at the
+repository root (one that ``.gitignore`` lists); exits non-zero on a
+mismatch.
 """
 
 from __future__ import annotations
@@ -75,43 +86,6 @@ def _same(a, b) -> bool:
     if not a.is_floating_point():
         return bool(torch.equal(a, b))
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()))
-
-
-class _OldPredict:
-    """The parent's predict (32 lanes by 64 rows a block), launched as its
-    wrapper launched it: a scratch of per-chunk flags and a counter per lane
-    tile, which its launcher zeroes with a fill.  ``lib_path`` is the
-    parent's build; this handle's argument types are its own."""
-
-    def __init__(self, lib_path):
-        fn = ctypes.CDLL(str(lib_path)).split_predict_launch
-        vp, c_int = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [c_int] * 3 + [vp] * 8 + [vp]
-        fn.restype = c_int
-        self.fn = fn
-
-    def __call__(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z):
-        import torch
-
-        from sunode_torch.ops.adams_split import Predicted
-
-        KAB, nz, B = DF.shape
-        dev = DF.device
-        f64 = dict(dtype=torch.float64, device=dev)
-        out = Predicted(torch.empty((KAB, nz, B), **f64), *(torch.empty((nz, B), **f64)
-                                                              for _ in range(3)),
-                        torch.empty((B,), **f64), torch.empty((B,), dtype=torch.bool, device=dev))
-        part = torch.empty((-(-nz // 64), B), dtype=torch.uint8, device=dev)
-        done = torch.empty((-(-B // 32),), dtype=torch.int32, device=dev)
-        code = self.fn(
-            DF.data_ptr(), p.data_ptr(), pre_factor.data_ptr(), h_use.data_ptr(),
-            z_prev.data_ptr(), atol_z.data_ptr(), rtol_z.data_ptr(), KAB, nz, B,
-            *(o.data_ptr() for o in out), part.data_ptr(), done.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if code != 0:
-            raise RuntimeError(f"split_ab: the old predict's launch failed ({code})")
-        return out
 
 
 def _checks(cs, got, ref, swept) -> dict:
@@ -224,11 +198,20 @@ def _predict_row(cs, sp, x, n, nz, versions, clocks, smi, lib,
     return row, ok
 
 
+def _rel_bound(cs, x) -> float:
+    """The per-lane sums' bound at the inputs' type."""
+    import torch
+
+    return cs.F32_REL_BOUND if x["DF"].dtype == torch.float32 else cs.REL_BOUND
+
+
 def _sweep_row(cs, sp, x, fz, n, nz, pred, versions, clocks, smi, lib) -> tuple[dict, bool]:
     """The sweep at one shape: the four sweeps of one attempt on the plain
-    iterates, every version against the plain ``split_sweep``, device µs on
-    the second sweep in turns (f as the right-hand side gives it, then
-    row-major) beside the bytes bound, and the trace by phase."""
+    iterates, every version against the plain ``split_sweep`` and bit for
+    bit this tree's, device µs on the second sweep in turns (f as the
+    right-hand side gives it, then row-major) beside the bytes bound, and
+    the trace by phase; returns the row, whether it passed and the plain
+    stages' last iterate and state."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S, device_us
@@ -240,24 +223,24 @@ def _sweep_row(cs, sp, x, fz, n, nz, pred, versions, clocks, smi, lib) -> tuple[
     row = {"geometry": g._asdict(), "blocks": g.blocks,
            "versions": {name: {"checks": [], "device_us": []} for name in versions}}
     ok = True
-    y, state = pred.z_pred[:n], sp.sweep_start(x["active"])
+    y, state = pred.z_pred[:n], sp.sweep_start(x["active"], x["DF"].dtype)
     timed = None
     for k in range(FUNCTIONAL_MAXITER):
         fz_k = fz(x["t_new"], y, x["params"])
         ref = sp.split_sweep(k, fz_k, y, pred, state, tol, n)
         swept = torch.isfinite(ref[1].dy_old)  # lanes that never swept keep inf
+        default = versions["default"](k, fz_k, y, pred, state, tol, n)
         for name, run in versions.items():
             got = run(k, fz_k, y, pred, state, tol, n)
             check = _checks(cs, got, ref, swept)
-            if name == "default":
-                again = run(k, fz_k, y, pred, state, tol, n)
-                check["two_launches_bitwise"] = bool(
-                    torch.equal(got[0], again[0])
-                    and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
+            # a second launch of this tree's, every other version's against it
+            check["two_launches_bitwise" if name == "default" else "same_as_default"] = (
+                _same(got[0], default[0]) and all(_same(a, b) for a, b in zip(got[1], default[1])))
             row["versions"][name]["checks"].append(check)
             ok &= (check["y_next_bitwise"] and check["flags_equal"]
-                   and check["dy_old_lane_rel"] <= cs.REL_BOUND
-                   and check.get("two_launches_bitwise", True))
+                   and check["dy_old_lane_rel"] <= _rel_bound(cs, x)
+                   and check.get("two_launches_bitwise", True)
+                   and (check.get("same_as_default", True) or name != "old"))
         if k == 1:
             timed = (fz_k, y.clone(), state)
             row["fz_lane_major"] = not fz_k.is_contiguous()
@@ -288,16 +271,57 @@ def _sweep_row(cs, sp, x, fz, n, nz, pred, versions, clocks, smi, lib) -> tuple[
         worst = max(c["dy_old_lane_rel"] for c in v["checks"])
         bitwise = all(c["y_next_bitwise"] for c in v["checks"])
         flags = all(c["flags_equal"] for c in v["checks"])
-        again = all(c.get("two_launches_bitwise", True) for c in v["checks"])
+        key = "two_launches_bitwise" if name == "default" else "same_as_default"
+        again = all(c[key] for c in v["checks"])
         times = "/".join(cs.fmt_us(t) for t in v["device_us"])
         rows_t = "/".join(cs.fmt_us(t) for t in v["device_us_row_major"])
         cs.log(f"[split-ab sweep {shape} | {name}] device_us={times} "
                f"device_us_fz_row_major={rows_t} y_next_bitwise={bitwise} "
-               f"dy_old_lane_rel={worst:.2e} flags_equal={flags}"
-               + (f" two_launches_bitwise={again}" if name == "default" else ""))
+               f"dy_old_lane_rel={worst:.2e} flags_equal={flags} {key}={again}")
     if "phase_cycles" in row:
         cs.log(f"[split-ab sweep {shape} | SPLIT_PHASE_CLOCKS] mean cycles a block by phase "
                + " ".join(f"{k}={c:.0f}" for k, c in row["phase_cycles"].items()))
+    return row, ok, (y, state)
+
+
+FINISH_KERNEL = "split_finish_kernel"
+
+
+def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, smi) -> tuple[dict, bool]:
+    """The finish at one shape, on the plain stages' last iterate and state:
+    every version against the plain ``split_finish`` (DF_upd, z_new and err0
+    bit for bit, err3 lane by lane, conv equal) and bit for bit this
+    tree's, device µs in turns (the launcher's fill with it) beside the
+    bytes bound."""
+    from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S, device_us
+
+    y, state = last
+    fin_in = (fz(x["t_new"], y, x["params"]), pred, state, x["p"], x["h"], x["gamma_star_abs"],
+              x["v_err"], x["newton_tol"])
+    ref = sp.split_finish(*fin_in, x["DF"].shape[0] - 3)
+    default = versions["default"](*fin_in)
+    row, ok = {"versions": {}}, True
+    for name, run in versions.items():
+        got = run(*fin_in)
+        check = {f: _same(getattr(got, f), getattr(ref, f)) for f in ("DF_upd", "z_new", "err0",
+                                                                       "conv")}
+        check["err3_lane_rel"] = cs.lane_rel(got.err3, ref.err3)
+        key = "two_launches_bitwise" if name == "default" else "same_as_default"
+        check[key] = all(_same(a, b) for a, b in zip(got, default))
+        ok &= (all(v for k, v in check.items() if k != "err3_lane_rel")
+               and check["err3_lane_rel"] <= _rel_bound(cs, x))
+        row["versions"][name] = {"checks": check, "device_us": []}
+    _in_turns(versions, lambda name: row["versions"][name]["device_us"].append(
+        device_us(lambda: versions[name](*fin_in), kernel=FINISH_KERNEL)))
+    nbytes = cs.split_costs(x, n)["finish"][0]
+    row["bytes"], row["bound_us"] = nbytes, 1e6 * nbytes / HBM_BYTES_PER_S
+    shape = f"{x['kind']} nz={nz} n={n} B={x['DF'].shape[2]}"
+    cs.log(f"[split-ab finish {shape}] bytes={nbytes} bound_us={row['bound_us']:.3f} | {smi}")
+    for name, v in row["versions"].items():
+        times = "/".join(cs.fmt_us(t) for t in v["device_us"])
+        cs.log(f"[split-ab finish {shape} | {name}] device_us={times} "
+               + " ".join(f"{k}={c:.2e}" if isinstance(c, float) else f"{k}={c}"
+                          for k, c in v["checks"].items()))
     return row, ok
 
 
@@ -307,6 +331,7 @@ def main(argv=None) -> None:
     ap.add_argument("--phase-clocks", action="store_true")
     ap.add_argument("--geometry", action="append", default=[],
                     help="LANES,CLUSTER: this tree's predict and sweep at another geometry")
+    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
     args = ap.parse_args(argv)
 
     import torch
@@ -317,20 +342,23 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("split_ab: no CUDA device")
     _, smi = cs.check_device()
+    dtype = getattr(torch, args.dtype)
+    real = sp.c_real(dtype)
 
-    # predict's builds at each shape's history depth (9 for the sensitivity
-    # block, 11 for SIR), the sweep's at 11 (it does not read the history)
+    # predict's and the finish's builds at each shape's history depth (9 for
+    # the sensitivity block, 11 for SIR), the sweep's at 11 (it does not
+    # read the history)
     kabs = sorted({KAB, 9})
     old_root = Path(args.old_root).resolve() if args.old_root else None
     jobs = {}
     for kab in kabs:
-        jobs[("default", kab)] = lambda kab=kab: sp.build_split_kernels(kab)
+        jobs[("default", kab)] = lambda kab=kab: sp.build_split_kernels(kab, dtype)
         if old_root is not None:
             jobs[("old", kab)] = lambda kab=kab: sp._SplitKernels(
-                kab, source=old_root / "sunode_torch/csrc/adams_split.cu")
+                kab, source=old_root / "sunode_torch/csrc/adams_split.cu", real=real)
         if args.phase_clocks:
             jobs[("SPLIT_PHASE_CLOCKS", kab)] = lambda kab=kab: sp._SplitKernels(
-                kab, defines=("SPLIT_PHASE_CLOCKS",))
+                kab, defines=("SPLIT_PHASE_CLOCKS",), real=real)
     with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc for each build, all at once
         built = dict(zip(jobs, pool.map(lambda job: job(), jobs.values())))
     for (name, kab), b in built.items():
@@ -340,7 +368,10 @@ def main(argv=None) -> None:
 
     results, ok = [], True
     for seed, (kind, B) in enumerate(SHAPES, start=30):
-        x = cs.split_inputs(B, seed, "cuda", kind=kind)
+        x = cs.split_inputs(B, seed, "cuda", kind=kind, dtype=dtype)
+        # the sensitivity block's attempt is a float64 solve's: rounded to the type
+        x = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+             for k, v in x.items()}
         x["kind"] = kind
         fz, n, nz = cs.split_system(kind)
         geometries = []
@@ -358,9 +389,11 @@ def main(argv=None) -> None:
         sweeps = {"default": built[("default", KAB)].sweep}
         for label, g in geometries:
             sweeps[label] = lambda *a, g=g: built[("default", KAB)].sweep(*a, geometry=g)
-        if old_root is not None:  # the parent's sweep takes this tree's arguments
-            predicts["old"] = _OldPredict(built[("old", kab)].lib_path)
+        finishes = {"default": kernels.finish}
+        if old_root is not None:  # the parent's kernels take this tree's arguments
+            predicts["old"] = built[("old", kab)].predict
             sweeps["old"] = built[("old", KAB)].sweep
+            finishes["old"] = built[("old", kab)].finish
         clocks = built.get(("SPLIT_PHASE_CLOCKS", kab))
         if clocks is not None:
             predicts["SPLIT_PHASE_CLOCKS"] = clocks.predict
@@ -371,20 +404,22 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         pred = sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"],
                                 x["atol_z"], x["rtol_z"], x["DF"].shape[0] - 3)
-        row["sweep"], ok_s = _sweep_row(cs, sp, x, fz, n, nz, pred, sweeps,
-                                        built.get(("SPLIT_PHASE_CLOCKS", KAB)), smi,
-                                        built[("default", KAB)]._lib)
-        ok &= ok_p and ok_s
+        row["sweep"], ok_s, last = _sweep_row(cs, sp, x, fz, n, nz, pred, sweeps,
+                                              built.get(("SPLIT_PHASE_CLOCKS", KAB)), smi,
+                                              built[("default", KAB)]._lib)
+        row["finish"], ok_f = _finish_row(cs, sp, x, fz, n, nz, pred, last, finishes, smi)
+        ok &= ok_p and ok_s and ok_f
         results.append(row)
-        del x, pred
+        del x, pred, last
         torch.cuda.empty_cache()
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "split_ab.json").write_text(json.dumps(results, indent=1))
+    fname = "split_ab.json" if real == "double" else "split_ab_float32.json"
+    (out / fname).write_text(json.dumps(results, indent=1))
     if not ok:
-        raise SystemExit("split_ab: a predict or a sweep disagrees with the plain stage")
-    cs.log("[split-ab] every version agrees with the plain predict and sweep")
+        raise SystemExit("split_ab: a kernel disagrees with its plain stage or with this tree's")
+    cs.log("[split-ab] every version agrees with the plain stages and with this tree's build")
 
 
 if __name__ == "__main__":

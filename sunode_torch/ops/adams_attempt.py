@@ -10,9 +10,11 @@ order-selection error estimates.  Here those steps are one function:
 
   * :func:`adams_history_attempt` -- the wrapper the integrator calls.  On
     CUDA tensors it launches ``csrc/adams_attempt.cu`` (built with ``nvcc``
-    for ``sm_90a`` at first use, one build per generated right-hand side and
-    history depth) and raises if the build, a check or the launch fails.  On
-    CPU tensors it runs the plain version.  It counts its kernel launches in
+    for ``sm_90a`` at first use, one build per generated right-hand side,
+    history depth and type: float64, or float32 for a system emitted at
+    ``real='float'``) and raises if the build, a check or the launch fails;
+    every floating input of a launch has the build's type, or it raises.  On
+    CPU tensors it runs the plain version, at the inputs' type.  It counts its kernel launches in
     ``adams_history_attempt.launches``.  A CUDA solve without an emitted
     system takes the split attempt of :mod:`sunode_torch.ops.adams_split`
     instead, whose right-hand side stays outside the kernels.
@@ -42,6 +44,7 @@ from sunode_torch.symode.cuda_codegen import DeviceSystem
 
 __all__ = [
     "HistoryOut",
+    "c_real",
     "on_card",
     "adams_history_attempt",
     "adams_history_attempt_reference",
@@ -54,6 +57,24 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_attempt.cu"
 # is rounded op by op in the source): the emitted forward system's f is
 # then the plain one's bit for bit (ROADMAP C6)
 FMAD_FLAGS = ("-fmad=false",)
+def c_real(dtype: torch.dtype) -> str:
+    """The C type of the kernel builds for ``dtype`` (csrc/real.cuh's
+    ``SUNODE_REAL``): 'double' or 'float'."""
+    if dtype == torch.float64:
+        return "double"
+    if dtype == torch.float32:
+        return "float"
+    raise ValueError(f"the kernels are built for float64 and float32, not {dtype}")
+
+
+def real_build(real: str) -> tuple[str, tuple[str, ...], torch.dtype]:
+    """(name suffix, defines, torch dtype) of a build at the C type ``real``:
+    float64 keeps the unsuffixed name and no define (real.cuh's default)."""
+    if real == "double":
+        return "", (), torch.float64
+    if real == "float":
+        return "_f32", ("SUNODE_REAL=float",), torch.float32
+    raise ValueError(f"real must be 'double' or 'float', got {real!r}")
 
 
 class HistoryOut(NamedTuple):
@@ -173,16 +194,18 @@ def adams_history_attempt_reference(
 # ---------------------------------------------------------------------------
 class _AttemptKernel:
     """One compiled build of ``csrc/adams_attempt.cu`` for one right-hand
-    side and history depth; ``defines`` adds compile-time defines
+    side and history depth, at the type the system was emitted at
+    (``system.real``); ``defines`` adds compile-time defines
     (``ADAMS_PHASE_CLOCKS``, the trace by phase of ``history_ab.py``)."""
 
     def __init__(self, system: DeviceSystem, kab: int, defines: tuple[str, ...] = ()):
         self.system, self.kab = system, kab
         self.launches = 0
+        suffix, real_defines, self.dtype = real_build(system.real)
         built = build_library(
-            f"adams_attempt_{system.name}_kab{kab}", _CSRC,
-            headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}", *defines), extra_flags=FMAD_FLAGS,
+            f"adams_attempt_{system.name}_kab{kab}{suffix}", _CSRC,
+            headers={"pece_rhs.h": system.source, "pece_tables.h": _tables_header(system.real)},
+            defines=(f"ADAMS_KAB={kab}", *real_defines, *defines), extra_flags=FMAD_FLAGS,
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib
@@ -197,32 +220,33 @@ class _AttemptKernel:
 
     def launch(self, t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z,
                rtol_z, gamma_star_abs, v_err, newton_tol, maxiter) -> HistoryOut:
-        s = self.system
+        s, real = self.system, self.dtype
         KAB, nz, B = DF.shape
         dev = DF.device
-        _check(DF, torch.float64, (self.kab, s.nz, B), dev, "DF")
-        _check(z_prev, torch.float64, (s.nz, B), dev, "z_prev")
-        _check(params, torch.float64, (s.n_p, B), dev, "params")
-        _check(t_new, torch.float64, (B,), dev, "t_new")
-        _check(h_use, torch.float64, (B,), dev, "h_use")
-        _check(pre_factor, torch.float64, (B,), dev, "pre_factor")
+        # every floating input at the build's type: nothing is cast
+        _check(DF, real, (self.kab, s.nz, B), dev, "DF")
+        _check(z_prev, real, (s.nz, B), dev, "z_prev")
+        _check(params, real, (s.n_p, B), dev, "params")
+        _check(t_new, real, (B,), dev, "t_new")
+        _check(h_use, real, (B,), dev, "h_use")
+        _check(pre_factor, real, (B,), dev, "pre_factor")
         _check(p, torch.int32, (B,), dev, "p")
         _check(active, torch.bool, (B,), dev, "active")
-        _check(atol_z, torch.float64, (s.nz,), dev, "atol_z")
-        _check(rtol_z, torch.float64, (s.nz,), dev, "rtol_z")
-        _check(v_err, torch.float64, (s.nz,), dev, "v_err")
+        _check(atol_z, real, (s.nz,), dev, "atol_z")
+        _check(rtol_z, real, (s.nz,), dev, "rtol_z")
+        _check(v_err, real, (s.nz,), dev, "v_err")
         # |gamma*| up to order P_MAX + 1 = KAB - 2: at least KAB - 1 entries
         g = gamma_star_abs
         n_gamma = max(KAB - 1, g.shape[0] if torch.is_tensor(g) and g.ndim == 1 else 0)
-        _check(gamma_star_abs, torch.float64, (n_gamma,), dev, "gamma_star_abs")
-        f64 = dict(dtype=torch.float64, device=dev)
+        _check(gamma_star_abs, real, (n_gamma,), dev, "gamma_star_abs")
+        f_kw = dict(dtype=real, device=dev)
         out = HistoryOut(
-            torch.empty((KAB, s.nz, B), **f64),
-            torch.empty((KAB, s.nz, B), **f64),
-            torch.empty((s.nz, B), **f64),
-            torch.empty((s.nz, B), **f64),
-            torch.empty((s.nz, B), **f64),
-            torch.empty((3, B), **f64),
+            torch.empty((KAB, s.nz, B), **f_kw),
+            torch.empty((KAB, s.nz, B), **f_kw),
+            torch.empty((s.nz, B), **f_kw),
+            torch.empty((s.nz, B), **f_kw),
+            torch.empty((s.nz, B), **f_kw),
+            torch.empty((3, B), **f_kw),
             torch.empty((B,), dtype=torch.bool, device=dev),
             torch.empty((B,), dtype=torch.int32, device=dev),
         )
@@ -251,7 +275,8 @@ _KERNELS: dict[tuple[DeviceSystem, int], _AttemptKernel] = {}
 
 
 def build_attempt_kernel(system: DeviceSystem, kab: int) -> _AttemptKernel:
-    """Build (or reuse) the kernel for one emitted system and history depth."""
+    """Build (or reuse) the kernel for one emitted system (its right-hand
+    side and type) and history depth."""
     kernel = _KERNELS.get((system, kab))
     if kernel is None:
         kernel = _AttemptKernel(system, kab)

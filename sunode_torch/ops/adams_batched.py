@@ -1,7 +1,9 @@
 """Batch-native Adams-Moulton integrator (non-stiff fast path), in PyTorch.
 
 Port of ``sunode_tpu/ops/adams_batched.py::adams_solve_batched``: shared
-observation times, scalar or per-state vector ``rtol``, the quadrature block
+``(n_t,)`` or per-lane ``(B, n_t)`` observation times (each lane emits on its
+own ascending grid and ends at its own last time; a ragged grid is padded
+with copies of its last time), scalar or per-state vector ``rtol``, the quadrature block
 (``quad_rhs``/``quad0``, ``quad_err_con``), batched or per-lane right-hand
 sides, step-size and order adaptation, the breakdown reset, NaN-poison
 statuses, the per-lane post-mortem stats, and what the adjoint backward
@@ -38,8 +40,9 @@ joined per lane as ``sqrt(a^2 + b^2)`` where the reference sums once over
 (Simultaneous sensitivities are the augmented state ``[y | vec S]`` with
 its own right-hand side, ``cuda_codegen.sensitivity_system``.)
 
-Not ported yet (it raises ``NotImplementedError``): per-lane observation
-grids.
+The solve runs at the type of its inputs, float64 or float32 (at least
+float32): every tensor of the loop, the history attempt's kernel build
+included, has that type.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from sunode_torch.ops.bdf import (
     BDFResult,
     RootRecord,
     _batched_roots,
+    _grid_columns,
     _root_scan,
     _root_setup,
     newton_tol_for,
@@ -84,7 +88,7 @@ def adams_solve_batched(
     t0,
     y0: torch.Tensor,  # (B, n)
     params: torch.Tensor,  # (B, n_p)
-    tvals: torch.Tensor,  # (n_t,) shared
+    tvals: torch.Tensor,  # (n_t,) shared or (B, n_t) per-lane grids
     options: BDFOptions = BDFOptions(),
     *,
     quad_rhs: Optional[Callable] = None,
@@ -125,7 +129,13 @@ def adams_solve_batched(
     system (``cuda_codegen.staged_sensitivity_system``), required on CUDA
     tensors exactly when ``device_system`` is given.  ``root_fn`` turns on
     rootfinding as in :func:`sunode_torch.ops.bdf_batched.bdf_solve_batched`.
-    Neither combines with injections or a stage, as in the reference."""
+    Neither combines with injections or a stage, as in the reference.
+
+    ``tvals (B, n_t)`` gives each lane its own ascending observation grid
+    (pad a ragged one with copies of its last time): the lane ends at its
+    own last time and emits where its own grid says.  It composes with
+    sensitivities and roots, not with injections or a stage (the adjoint's
+    machinery, whose observation times are shared)."""
     with_sens, with_roots = sens_rhs is not None, root_fn is not None
     if (with_sens or with_roots) and (inject_times is not None or stage_fn is not None):
         raise NotImplementedError(
@@ -142,12 +152,15 @@ def adams_solve_batched(
     n, B = y0.shape
     t0 = torch.broadcast_to(torch.as_tensor(t0, **f_kw), (B,)).contiguous()
     tvals = torch.as_tensor(tvals, **f_kw)
-    if tvals.ndim != 1:
+    # the grid as (n_t, B) columns, one a lane, and each lane's last time
+    tvals_tb = _grid_columns("adams_solve_batched", tvals, B)
+    if tvals.ndim == 2 and (inject_times is not None or stage_fn is not None):
         raise NotImplementedError(
-            "adams_solve_batched: per-lane observation grids are not ported yet"
+            "adams_solve_batched: per-lane observation grids do not combine with injections "
+            "or a stage (the adjoint's machinery reads shared observation times)"
         )
-    n_t = tvals.shape[0]
-    t_end = tvals[-1]
+    n_t = tvals_tb.shape[0]
+    t_end = tvals_tb[-1]
     params = torch.as_tensor(params, **f_kw).T.contiguous()  # (n_p, B)
     n_p = params.shape[0]
 
@@ -360,7 +373,7 @@ def adams_solve_batched(
         pad_row = pad_column(row0.shape[0], row0)
 
     zs = torch.full((n_t, nz, B), float("nan"), **f_kw)
-    emit_mask0 = tvals[:, None] <= t0[None, :]  # (n_t, B)
+    emit_mask0 = tvals_tb <= t0[None, :]  # (n_t, B), each lane on its own grid
     zs = torch.where(emit_mask0[:, None, :], z0[None], zs)
     i_out = emit_mask0.sum(dim=0).to(torch.int32)
 
@@ -539,7 +552,7 @@ def adams_solve_batched(
         # emission (exact integral-basis interpolation)
         while True:
             idx = torch.clamp(i_out, max=n_t - 1)
-            te = tvals[idx.long()]
+            te = tvals_tb.gather(0, idx.long()[None, :])[0]  # each lane's next time
             pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
             if t_stop is not None:
                 pend = pend & (te <= t_stop)

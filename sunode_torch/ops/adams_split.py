@@ -36,10 +36,13 @@ regrouped, so that their composition, :func:`adams_split_attempt_reference`,
 gives the same bits.  On CPU tensors :func:`adams_split_attempt` runs it.  On
 CUDA tensors :func:`adams_split_attempt` launches ``csrc/adams_split.cu``
 instead (built with ``nvcc`` for ``sm_90a`` at first use, one build per
-history depth: the kernels do not depend on the problem) and raises if the
-build, a check or a launch fails; it never runs the plain stages there.  It
-counts its launches in ``adams_split_attempt.launches`` by kernel, and each
-plain stage counts its calls in ``.calls``.
+history depth and type, float64 or float32, the history's: the kernels do
+not depend on the problem) and raises if the build, a check or a launch
+fails, or if a floating input has another type than the history; it never
+runs the plain stages there and casts nothing.  It
+counts its launches in ``adams_split_attempt.launches`` by kernel (each
+build in its own ``.launches`` too), and each plain stage counts its calls
+in ``.calls``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,14 @@ import torch
 from sunode_torch.ops import adams_attempt
 from sunode_torch.ops._nvcc_build import build_library
 from sunode_torch.ops.adams import _GAMMA, _GAMMA_STAR
-from sunode_torch.ops.adams_attempt import HistoryOut, _rescale, _take_row, _update
+from sunode_torch.ops.adams_attempt import (
+    HistoryOut,
+    _rescale,
+    _take_row,
+    _update,
+    c_real,
+    real_build,
+)
 from sunode_torch.ops.pece_step import PeceSystem, _check, _tables_header
 
 __all__ = [
@@ -135,8 +145,14 @@ def _pow2_at_most(x: int) -> int:
     return 1 << (max(1, x).bit_length() - 1)
 
 
-def sweep_geometry(nz: int, B: int) -> SweepGeometry:
-    """The sweep's geometry at ``nz`` rows and ``B`` lanes.
+def _check_itemsize(itemsize: int) -> None:
+    if itemsize not in (4, 8):
+        raise ValueError(f"the split kernels are built for 4- and 8-byte values, not {itemsize}")
+
+
+def sweep_geometry(nz: int, B: int, itemsize: int = 8) -> SweepGeometry:
+    """The sweep's geometry at ``nz`` rows and ``B`` lanes of ``itemsize``
+    bytes (8 for the float64 build, 4 for the float32 one).
 
     A block is ``SWEEP_THREADS`` threads: a tile of lanes by the row threads
     that cover ``nz`` at ``SWEEP_UNROLL`` rows a thread (at most 8, so 32
@@ -146,7 +162,15 @@ def sweep_geometry(nz: int, B: int) -> SweepGeometry:
     cluster along the rows: the smallest power of two that gives two blocks
     an SM, at most 8 (portable) where 8 already gives one, at most 16, and
     never more than the rows fill at one step a thread.  Each block takes
-    ``ceil(nz / cluster)`` rows, so none is empty."""
+    ``ceil(nz / cluster)`` rows, so none is empty.
+
+    The geometry is the same at both sizes: a warp's 32 lanes read one
+    whole 128-byte line a row at 4 bytes as they read two at 8, and what
+    sets the tile and the cluster is the SMs' count, which the element size
+    does not change (the float32 build takes fewer registers and half the
+    shared memory, so the card holds at least as many of its clusters:
+    ``experiments/split_ab.py --dtype float32`` prints them)."""
+    _check_itemsize(itemsize)
     if nz < 1 or B < 1:
         raise ValueError(f"sweep_geometry: needs nz >= 1 and B >= 1, got {nz}, {B}")
     lanes = SWEEP_THREADS // min(8, _pow2_at_least(-(-nz // SWEEP_UNROLL)))
@@ -167,8 +191,9 @@ def sweep_geometry(nz: int, B: int) -> SweepGeometry:
     return SweepGeometry(lanes, -(-nz // cluster), cluster, tiles)
 
 
-def predict_geometry(nz: int, B: int) -> SweepGeometry:
-    """Predict's geometry at ``nz`` rows and ``B`` lanes.
+def predict_geometry(nz: int, B: int, itemsize: int = 8) -> SweepGeometry:
+    """Predict's geometry at ``nz`` rows and ``B`` lanes of ``itemsize``
+    bytes (8 or 4), the same at both sizes as :func:`sweep_geometry`'s.
 
     A block is ``SWEEP_THREADS`` threads: a tile of ``PREDICT_LANES_MAX``
     (32) lanes, so that a warp reads one 256-byte line a row, by 8 row
@@ -181,6 +206,7 @@ def predict_geometry(nz: int, B: int) -> SweepGeometry:
     R(fac) table a block.  The tile halves to 16 lanes only where 32-lane
     tiles would leave half the SMs without a block.  Each block takes
     ``ceil(nz / cluster)`` rows, so none is empty."""
+    _check_itemsize(itemsize)
     if nz < 1 or B < 1:
         raise ValueError(f"predict_geometry: needs nz >= 1 and B >= 1, got {nz}, {B}")
     lanes = PREDICT_LANES_MAX
@@ -292,16 +318,22 @@ split_predict.calls = split_sweep.calls = split_finish.calls = 0
 # CUDA build and launches
 # ---------------------------------------------------------------------------
 class _SplitKernels:
-    """One compiled build of ``csrc/adams_split.cu`` for one history depth;
-    ``defines`` adds compile-time defines and ``source`` takes another
-    checkout's file (``experiments/split_ab.py``: ``SPLIT_PHASE_CLOCKS``,
-    the kernels' trace by phase; the parent's source)."""
+    """One compiled build of ``csrc/adams_split.cu`` for one history depth
+    at the C type ``real`` ('double' or 'float'); ``defines`` adds
+    compile-time defines and ``source`` takes another checkout's file
+    (``experiments/split_ab.py``: ``SPLIT_PHASE_CLOCKS``, the kernels'
+    trace by phase; the parent's source)."""
 
-    def __init__(self, kab: int, defines: tuple[str, ...] = (), source: Path = _CSRC):
+    def __init__(self, kab: int, defines: tuple[str, ...] = (), source: Path = _CSRC,
+                 real: str = "double"):
         self.kab = kab
+        self.launches = {"predict": 0, "sweep": 0, "finish": 0}  # this build's, by kernel
+        suffix, real_defines, self.dtype = real_build(real)
+        self.itemsize = torch.empty((), dtype=self.dtype).element_size()
         built = build_library(
-            f"adams_split_kab{kab}", source, headers={"pece_tables.h": _tables_header()},
-            defines=(f"ADAMS_KAB={kab}", *defines),
+            f"adams_split_kab{kab}{suffix}", source,
+            headers={"pece_tables.h": _tables_header(real)},
+            defines=(f"ADAMS_KAB={kab}", *real_defines, *defines),
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib
@@ -331,6 +363,7 @@ class _SplitKernels:
             msg = self._lib.split_error_string(code).decode()
             raise RuntimeError(f"adams_split {stage} launch failed: {msg} ({code})")
         adams_split_attempt.launches[stage] += 1
+        self.launches[stage] += 1
 
     @staticmethod
     def _grid(nz: int, B: int) -> tuple[int, int]:
@@ -340,19 +373,20 @@ class _SplitKernels:
                 geometry: SweepGeometry | None = None) -> Predicted:
         """Predict on :func:`predict_geometry`'s geometry or ``geometry``."""
         KAB, nz, B = DF.shape
-        dev = DF.device
-        _check(DF, torch.float64, (self.kab, nz, B), dev, "DF")
+        dev, real = DF.device, self.dtype
+        _check(DF, real, (self.kab, nz, B), dev, "DF")
         _check(p, torch.int32, (B,), dev, "p")
-        _check(pre_factor, torch.float64, (B,), dev, "pre_factor")
-        _check(h_use, torch.float64, (B,), dev, "h_use")
-        _check(z_prev, torch.float64, (nz, B), dev, "z_prev")
-        _check(atol_z, torch.float64, (nz,), dev, "atol_z")
-        _check(rtol_z, torch.float64, (nz,), dev, "rtol_z")
-        g = predict_geometry(nz, B) if geometry is None else geometry
-        f64 = dict(dtype=torch.float64, device=dev)
+        _check(pre_factor, real, (B,), dev, "pre_factor")
+        _check(h_use, real, (B,), dev, "h_use")
+        _check(z_prev, real, (nz, B), dev, "z_prev")
+        _check(atol_z, real, (nz,), dev, "atol_z")
+        _check(rtol_z, real, (nz,), dev, "rtol_z")
+        g = predict_geometry(nz, B, self.itemsize) if geometry is None else geometry
+        f_kw = dict(dtype=real, device=dev)
         out = Predicted(
-            torch.empty((KAB, nz, B), **f64), torch.empty((nz, B), **f64),
-            torch.empty((nz, B), **f64), torch.empty((nz, B), **f64), torch.empty((B,), **f64),
+            torch.empty((KAB, nz, B), **f_kw), torch.empty((nz, B), **f_kw),
+            torch.empty((nz, B), **f_kw), torch.empty((nz, B), **f_kw),
+            torch.empty((B,), **f_kw),
             torch.empty((B,), dtype=torch.bool, device=dev),
         )
         self._run(
@@ -372,16 +406,18 @@ class _SplitKernels:
         nz, B = pred.z_pred.shape
         lane_major = fz_k.ndim == 2 and not fz_k.is_contiguous() and fz_k.t().is_contiguous()
         fz_k, y_it = (fz_k.t() if lane_major else fz_k).contiguous(), y_it.contiguous()
-        dev = fz_k.device
-        _check(fz_k, torch.float64, (B, nz) if lane_major else (nz, B), dev, "fz_k")
-        _check(y_it, torch.float64, (n, B), dev, "y_it")
+        dev, real = fz_k.device, self.dtype
+        _check(fz_k, real, (B, nz) if lane_major else (nz, B), dev, "fz_k")
+        _check(y_it, real, (n, B), dev, "y_it")
         for name, x, dtype in (("conv", state.conv, torch.bool), ("div", state.div, torch.bool),
                                ("bad", state.bad, torch.bool),
-                               ("dy_old", state.dy_old, torch.float64),
+                               ("dy_old", state.dy_old, real),
                                ("niter", state.niter, torch.int32)):
             _check(x, dtype, (B,), dev, name)
-        g = sweep_geometry(nz, B) if geometry is None else geometry
-        y_next = torch.empty((n, B), dtype=torch.float64, device=dev)
+        for name in ("z_pred", "f_ex", "w_z", "c_A"):
+            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
+        g = sweep_geometry(nz, B, self.itemsize) if geometry is None else geometry
+        y_next = torch.empty((n, B), dtype=real, device=dev)
         new = SweepState(*(torch.empty_like(x) for x in state))
         fixed = not newton_tol > 0
         self._run(
@@ -398,24 +434,26 @@ class _SplitKernels:
                newton_tol) -> Finished:
         fz = fz.contiguous()
         KAB, nz, B = pred.DF_resc.shape
-        dev = fz.device
-        _check(fz, torch.float64, (nz, B), dev, "fz")
+        dev, real = fz.device, self.dtype
+        _check(fz, real, (nz, B), dev, "fz")
         _check(p, torch.int32, (B,), dev, "p")
-        _check(h_use, torch.float64, (B,), dev, "h_use")
+        _check(h_use, real, (B,), dev, "h_use")
         _check(state.conv, torch.bool, (B,), dev, "conv")
         _check(state.bad, torch.bool, (B,), dev, "bad")
-        _check(v_err, torch.float64, (nz,), dev, "v_err")
+        _check(v_err, real, (nz,), dev, "v_err")
+        for name in ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"):
+            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
         # |gamma*| up to order P_MAX + 1 = KAB - 2: at least KAB - 1 entries
         n_gamma = gamma_star_abs.shape[0] if torch.is_tensor(gamma_star_abs) else 0
-        _check(gamma_star_abs, torch.float64, (max(KAB - 1, n_gamma),), dev, "gamma_star_abs")
+        _check(gamma_star_abs, real, (max(KAB - 1, n_gamma),), dev, "gamma_star_abs")
         chunks, tiles = self._grid(nz, B)
-        f64 = dict(dtype=torch.float64, device=dev)
+        f_kw = dict(dtype=real, device=dev)
         out = Finished(
-            torch.empty((KAB, nz, B), **f64), torch.empty((nz, B), **f64),
-            torch.empty((nz, B), **f64), torch.empty((3, B), **f64),
+            torch.empty((KAB, nz, B), **f_kw), torch.empty((nz, B), **f_kw),
+            torch.empty((nz, B), **f_kw), torch.empty((3, B), **f_kw),
             torch.empty((B,), dtype=torch.bool, device=dev),
         )
-        part = torch.empty((3, chunks, B), **f64)
+        part = torch.empty((3, chunks, B), **f_kw)
         done = torch.empty((tiles,), dtype=torch.int32, device=dev)
         self._run(
             "finish", self._lib.split_finish_launch, dev,
@@ -429,14 +467,15 @@ class _SplitKernels:
         return out
 
 
-_KERNELS: dict[int, _SplitKernels] = {}
+_KERNELS: dict[tuple[int, torch.dtype], _SplitKernels] = {}
 
 
-def build_split_kernels(kab: int) -> _SplitKernels:
-    """Build (or reuse) the three kernels for one history depth."""
-    kernels = _KERNELS.get(kab)
+def build_split_kernels(kab: int, dtype: torch.dtype = torch.float64) -> _SplitKernels:
+    """Build (or reuse) the three kernels for one history depth and type
+    (float64 or float32)."""
+    kernels = _KERNELS.get((kab, dtype))
     if kernels is None:
-        kernels = _KERNELS[kab] = _SplitKernels(kab)
+        kernels = _KERNELS[(kab, dtype)] = _SplitKernels(kab, real=c_real(dtype))
     return kernels
 
 
@@ -510,7 +549,7 @@ def adams_split_attempt(
             f"adams_split_attempt: DF must be (P_MAX + 3, nz, B) = ({P_MAX + 3}, nz, B), "
             f"got {tuple(DF.shape)}"
         )
-    return _compose(build_split_kernels(P_MAX + 3), system, *args)
+    return _compose(build_split_kernels(P_MAX + 3, DF.dtype), system, *args)
 
 
 adams_split_attempt.launches = {"predict": 0, "sweep": 0, "finish": 0}

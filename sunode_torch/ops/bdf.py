@@ -100,6 +100,21 @@ class BDFOptions(NamedTuple):
     hermite_order: int = 5
 
 
+def _grid_columns(core: str, tvals: torch.Tensor, B: int) -> torch.Tensor:
+    """The observation grid as ``(n_t, B)`` columns, one a lane: shared
+    ``tvals (n_t,)`` broadcast over the lanes, or per-lane grids ``tvals (B,
+    n_t)`` (each ascending; a ragged one padded with copies of its last
+    time), as the reference's ``tvals_tb``."""
+    if tvals.ndim == 1:
+        return tvals[:, None].expand(tvals.shape[0], B)
+    if tvals.ndim == 2 and tvals.shape[0] == B:
+        return tvals.T
+    raise ValueError(
+        f"{core}: tvals must be (n_t,) or per lane (B, n_t) = ({B}, n_t), "
+        f"got {tuple(tvals.shape)}"
+    )
+
+
 def _batched_roots(root_fn: Callable, batched_fns: bool, dtype: torch.dtype) -> Callable:
     """``root_fn`` as ``(t (B,), y (n, B), p (n_p, B)) -> (nrt, B)``: as it
     is with ``batched_fns``, else its one-lane form mapped over the lanes."""

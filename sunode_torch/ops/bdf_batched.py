@@ -1,7 +1,10 @@
 """Batch-native BDF integrator (stiff problems, forward sensitivities), in PyTorch.
 
 Port of ``sunode_tpu/ops/bdf_batched.py::bdf_solve_batched`` with the dense
-Newton solve: shared observation times, scalar or per-state vector ``rtol``,
+Newton solve: shared ``(n_t,)`` or per-lane ``(B, n_t)`` observation times
+(each lane emits on its own ascending grid and ends at its own last time; a
+ragged grid is padded with copies of its last time), scalar or per-state
+vector ``rtol``,
 BDF or NDF formulas of orders 1..5, lazy Jacobian refresh and refactoring
 only when the step coefficient changes, forward sensitivities,
 simultaneous or staggered (``sens_rhs``/``S0``, ``sens_err_con``,
@@ -33,7 +36,7 @@ check; the Newton and sensitivity iterations are unrolled for ``n <= 16``
 and stop early once every lane is done above that.
 
 Not ported yet (they raise ``NotImplementedError``): the band, sparse and
-spgmr linear solvers, ``jac_prod`` and per-lane observation grids.
+spgmr linear solvers and ``jac_prod``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from sunode_torch.ops.bdf import (
     BDFResult,
     RootRecord,
     _batched_roots,
+    _grid_columns,
     _order_constants,
     _root_scan,
     _root_setup,
@@ -176,7 +180,7 @@ def bdf_solve_batched(
     t0,
     y0: torch.Tensor,  # (B, n)
     params: torch.Tensor,  # (B, n_p)
-    tvals: torch.Tensor,  # (n_t,) shared
+    tvals: torch.Tensor,  # (n_t,) shared or (B, n_t) per-lane grids
     options: BDFOptions = BDFOptions(),
     *,
     sens_rhs: Optional[Callable] = None,
@@ -212,7 +216,9 @@ def bdf_solve_batched(
     ``stats['n_roots']`` counts on past the cap.  ``root_directions`` (0
     both, +1 rising, -1 falling, per component) filters the crossings.  The
     roots are ``stats['roots_t']`` (B, cap), ``['roots_y']`` (B, cap, n) and
-    ``['roots_found']`` (B, cap, nrt), as in the reference."""
+    ``['roots_found']`` (B, cap, nrt), as in the reference.  ``tvals (B,
+    n_t)`` gives each lane its own ascending grid (a ragged one padded with
+    copies of its last time), ending the lane at its own last time."""
     _unsupported("bdf_solve_batched", jac_prod=jac_prod)
     if options.linear_solver != "dense":
         raise NotImplementedError(
@@ -232,12 +238,10 @@ def bdf_solve_batched(
     # t0 may be per-lane (B,): lanes resuming an interrupted solve
     t0 = torch.broadcast_to(torch.as_tensor(t0, **f_kw), (B,)).contiguous()
     tvals = torch.as_tensor(tvals, **f_kw)
-    if tvals.ndim != 1:
-        raise NotImplementedError(
-            "bdf_solve_batched: per-lane observation grids are not ported yet"
-        )
-    n_t = tvals.shape[0]
-    t_end = tvals[-1]
+    # the grid as (n_t, B) columns, one a lane, and each lane's last time
+    tvals_tb = _grid_columns("bdf_solve_batched", tvals, B)
+    n_t = tvals_tb.shape[0]
+    t_end = tvals_tb[-1]
     params = torch.as_tensor(params, **f_kw).T.contiguous()  # (n_p, B)
 
     k_sens = S0.shape[1] if with_sens else 0
@@ -374,7 +378,7 @@ def bdf_solve_batched(
     D0[1] = h0[None, :] * fz_at(t0, y0, S0_t if with_sens else None, params)
 
     zs = torch.full((n_t, nt_tot, B), float("nan"), **f_kw)
-    emit_mask0 = tvals[:, None] <= t0[None, :]  # (n_t, B)
+    emit_mask0 = tvals_tb <= t0[None, :]  # (n_t, B), each lane on its own grid
     zs = torch.where(emit_mask0[:, None, :], z0[None], zs)
 
     eye = torch.eye(n, **f_kw)[:, :, None]
@@ -618,7 +622,7 @@ def bdf_solve_batched(
         i_out = c["i_out"]
         while True:
             idx = torch.clamp(i_out, max=n_t - 1)
-            te = tvals[idx]
+            te = tvals_tb.gather(0, idx[None, :].long())[0]  # each lane's next time
             pend = accept & (i_out < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
             if t_stop is not None:
                 pend = pend & (te <= t_stop)

@@ -169,8 +169,18 @@ def _u_table(K: int) -> np.ndarray:
     return U
 
 
-def _tables_header() -> str:
-    vals = lambda xs: ", ".join(repr(float(x)) for x in xs)  # noqa: E731
+def _tables_header(real: str = "double") -> str:
+    """The coefficient tables at the C type ``real``: 'double', the float64
+    values' exact repr, or 'float', each value rounded to float32 as
+    ``torch.as_tensor(..., dtype=torch.float32)`` rounds it, printed
+    exactly with an F suffix."""
+    if real == "double":
+        vals = lambda xs: ", ".join(repr(float(x)) for x in xs)  # noqa: E731
+    elif real == "float":
+        vals = lambda xs: ", ".join(  # noqa: E731
+            repr(float(np.float32(x))) + "F" for x in xs)
+    else:
+        raise ValueError(f"_tables_header: real must be 'double' or 'float', got {real!r}")
     L = len(_GAMMA)
     U = _u_table(L - 1)  # the deepest rescale block the tables allow
     return "\n".join(
@@ -178,10 +188,10 @@ def _tables_header() -> str:
             "// Adams coefficient tables (sunode_torch.ops.adams), exact repr",
             "#pragma once",
             f"#define PECE_TABLE_LEN {L}",
-            f"__constant__ double PECE_GAMMA[{L}] = {{{vals(_GAMMA)}}};",
-            f"__constant__ double PECE_GAMMA_STAR_ABS[{L}] = "
+            f"__constant__ {real} PECE_GAMMA[{L}] = {{{vals(_GAMMA)}}};",
+            f"__constant__ {real} PECE_GAMMA_STAR_ABS[{L}] = "
             f"{{{vals(np.abs(_GAMMA_STAR))}}};",
-            f"__constant__ double PECE_U[{L - 1}][{L - 1}] = "
+            f"__constant__ {real} PECE_U[{L - 1}][{L - 1}] = "
             f"{{{', '.join('{' + vals(row) + '}' for row in U)}}};",
             "",
         ]

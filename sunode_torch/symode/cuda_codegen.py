@@ -32,6 +32,13 @@ Six systems are emitted from a :class:`~sunode_torch.symode.SympyProblem`:
     the problem's, ``vec(J S + df/dp)`` (k n inputs and outputs, n_p + n
     parameters).
 
+Each system is emitted at a C type, ``real='double'`` (the default) or
+``'float'``: at float every literal carries an ``F`` suffix and every
+function is its ``float`` form (``expf``, ``fmaxf``; sympy's C printer with
+``type_aliases={real: float32}``), so that nothing in the emitted code
+promotes an expression to double and the kernel's f rounds as the plain
+float32 version's.
+
 A function the printer cannot emit raises ``ValueError`` here, at codegen
 time; there is no fallback to the plain path.
 """
@@ -42,6 +49,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import sympy as sy
+from sympy.codegen.ast import float32
+from sympy.codegen.ast import real as real_type
 from sympy.printing.c import C99CodePrinter
 from sympy.printing.codeprinter import PrintMethodNotImplementedError
 
@@ -56,8 +65,9 @@ __all__ = [
     "staged_sensitivity_system",
 ]
 
-# helpers for the custom sympy functions of symode.lambdify
-_PROLOGUE = r"""#include <math.h>
+# helpers for the custom sympy functions of symode.lambdify, by C type
+_PROLOGUE = {
+    "double": r"""#include <math.h>
 static __device__ __forceinline__ double sunode_expit(double x) {
   return 1.0 / (1.0 + exp(-x));
 }
@@ -70,7 +80,23 @@ static __device__ __forceinline__ double sunode_logaddexp(double a, double b) {
   if (isinf(m)) return m;
   return m + log1p(exp(-fabs(a - b)));
 }
-"""
+""",
+    "float": r"""#include <math.h>
+static __device__ __forceinline__ float sunode_expit(float x) {
+  return 1.0F / (1.0F + expf(-x));
+}
+static __device__ __forceinline__ float sunode_dexpit(float x) {
+  const float s = sunode_expit(x);
+  return s * (1.0F - s);
+}
+static __device__ __forceinline__ float sunode_logaddexp(float a, float b) {
+  const float m = fmaxf(a, b);
+  if (isinf(m)) return m;
+  return m + log1pf(expf(-fabsf(a - b)));
+}
+""",
+}
+REALS = tuple(_PROLOGUE)  # the C types a system is emitted at
 
 _USER_FUNCTIONS = {
     "expit": "sunode_expit",
@@ -81,17 +107,22 @@ _USER_FUNCTIONS = {
 
 class _CudaPrinter(C99CodePrinter):
     """C99 printer that spells small integer powers as products, the way the
-    torch and XLA paths evaluate them, instead of calling ``pow``."""
+    torch and XLA paths evaluate them, instead of calling ``pow``; at
+    ``real='float'`` with float literals and functions."""
 
-    def __init__(self):
-        super().__init__({"user_functions": dict(_USER_FUNCTIONS), "strict": True})
+    def __init__(self, real: str = "double"):
+        settings = {"user_functions": dict(_USER_FUNCTIONS), "strict": True}
+        if real == "float":
+            settings["type_aliases"] = {real_type: float32}
+        super().__init__(settings)
+        self._one = "1.0F" if real == "float" else "1.0"
 
     def _print_Pow(self, expr):
         b, e = expr.args
         if e.is_Integer and 2 <= abs(int(e)) <= 8:
             base = self.parenthesize(b, 1000)
             prod = "(" + "*".join([base] * abs(int(e))) + ")"
-            return prod if e > 0 else f"(1.0/{prod})"
+            return prod if e > 0 else f"({self._one}/{prod})"
         return super()._print_Pow(expr)
 
 
@@ -100,19 +131,28 @@ def _expand_for_c(e):
     return e.doit() if e.has(sy.Derivative) else e
 
 
-def emit_device_function(name: str, exprs, varmap: dict, args_sig: str) -> str:
-    """One ``__device__`` function assigning CSE'd expressions into out[].
+def emit_device_function(name: str, exprs, varmap: dict, args_sig: str,
+                         real: str = "double") -> str:
+    """One ``__device__`` function assigning CSE'd expressions into out[],
+    computed at the C type ``real`` ('double' or 'float').
 
     ``varmap`` maps sympy symbol names to C access expressions (``y[0]``).
     Structural zeros are written as explicit zeros so ``out`` can stay in
-    registers."""
+    registers.  At 'float' the number symbols (pi, E) become float
+    literals, where C's macros would be double."""
+    if real not in REALS:
+        raise ValueError(f"{name}: real must be one of {REALS}, got {real!r}")
     exprs = np.asarray(exprs, dtype=object).reshape(-1)
     sympified = [_expand_for_c(e) for e in exprs]
+    if real == "float":
+        sympified = [e.xreplace({c: sy.Float(float(c), 17) for c in e.atoms(sy.NumberSymbol)})
+                     for e in sympified]
     nz = [(i, e) for i, e in enumerate(sympified) if e != 0]
+    zero = "0.0F" if real == "float" else "0.0"
     lines = [f"__device__ __forceinline__ void {name}({args_sig}) {{"]
     for i, e in enumerate(sympified):
         if e == 0:
-            lines.append(f"  out[{i}] = 0.0;")
+            lines.append(f"  out[{i}] = {zero};")
     if nz:
         repl, reduced = sy.cse([e for _, e in nz], sy.numbered_symbols("x_"))
         subs = {}
@@ -120,7 +160,7 @@ def emit_device_function(name: str, exprs, varmap: dict, args_sig: str) -> str:
             for s in expr.free_symbols:
                 if s.name in varmap:
                     subs[s] = sy.Symbol(varmap[s.name], real=True)
-        printer = _CudaPrinter()
+        printer = _CudaPrinter(real)
 
         def pr(e):
             try:
@@ -131,7 +171,7 @@ def emit_device_function(name: str, exprs, varmap: dict, args_sig: str) -> str:
                 ) from None
 
         for sym, sub in repl:
-            lines.append(f"  const double {sym.name} = {pr(sub)};")
+            lines.append(f"  const {real} {sym.name} = {pr(sub)};")
         for (i, _), e in zip(nz, reduced):
             lines.append(f"  out[{i}] = {pr(e)};")
     lines.append("}")
@@ -144,31 +184,42 @@ class DeviceSystem:
 
     ``source`` is a header defining ``PECE_N`` (state rows the function
     reads), ``PECE_NZ`` (rows it writes), ``PECE_NP`` (params per lane) and
-    ``pece_fz(double t, const double* y, const double* p, double* out)``."""
+    ``pece_fz(real t, const real* y, const real* p, real* out)`` with
+    ``real`` the C type ``real`` ('double' or 'float') it was emitted at,
+    the type of the kernel build that includes it."""
 
     name: str
     n: int
     nz: int
     n_p: int
     source: str
+    real: str = "double"
 
 
-_SIG = "double t, const double* y, const double* p, double* out"
+def _sig(real: str) -> str:
+    return f"{real} t, const {real}* y, const {real}* p, {real}* out"
 
 
-def _header(name: str, n: int, nz: int, n_p: int, body: str) -> str:
+def _header(name: str, n: int, nz: int, n_p: int, body: str, real: str) -> str:
     return "\n".join(
         [
-            f"// generated by sunode_torch.symode.cuda_codegen: {name}",
+            f"// generated by sunode_torch.symode.cuda_codegen: {name}"
+            + ("" if real == "double" else f" at {real}"),
             "#pragma once",
             f"#define PECE_N {n}",
             f"#define PECE_NZ {nz}",
             f"#define PECE_NP {n_p}",
-            _PROLOGUE,
+            _PROLOGUE[real],
             body,
             "",
         ]
     )
+
+
+def _system(name: str, n: int, nz: int, n_p: int, exprs, varmap: dict,
+            real: str) -> DeviceSystem:
+    body = emit_device_function("pece_fz", exprs, varmap, _sig(real), real)
+    return DeviceSystem(name, n, nz, n_p, _header(name, n, nz, n_p, body, real), real)
 
 
 def _base_varmap(problem) -> dict:
@@ -177,19 +228,15 @@ def _base_varmap(problem) -> dict:
     return varmap
 
 
-def forward_system(problem) -> DeviceSystem:
+def forward_system(problem, real: str = "double") -> DeviceSystem:
     """``out = f(t, y, p)`` for the forward solve."""
     n = problem.n_states
     varmap = _base_varmap(problem)
     varmap[problem.sym_time.name] = "t"
-    body = emit_device_function("pece_fz", problem.sym_rhs, varmap, _SIG)
-    return DeviceSystem(
-        "forward", n, n, problem.n_all_params,
-        _header("forward", n, n, problem.n_all_params, body),
-    )
+    return _system("forward", n, n, problem.n_all_params, problem.sym_rhs, varmap, real)
 
 
-def transition_system(problem) -> DeviceSystem:
+def transition_system(problem, real: str = "double") -> DeviceSystem:
     """The transition-adjoint backward system, in tau = -t.
 
     State ``z = [y | vec M]`` (row-major ``M[i, j] = z[n + i*n + j]``);
@@ -218,13 +265,8 @@ def transition_system(problem) -> DeviceSystem:
     varmap["__tau"] = "t"
     n_state = n + n * n
     nz = n_state + n * nd
-    body = emit_device_function(
-        "pece_fz", np.array(dy + dM + dW, dtype=object), varmap, _SIG
-    )
-    return DeviceSystem(
-        "transition", n_state, nz, problem.n_all_params,
-        _header("transition", n_state, nz, problem.n_all_params, body),
-    )
+    return _system("transition", n_state, nz, problem.n_all_params,
+                   np.array(dy + dM + dW, dtype=object), varmap, real)
 
 
 def _adjoint_rows(problem, to_t: dict):
@@ -242,7 +284,7 @@ def _adjoint_rows(problem, to_t: dict):
     return dlam, quad
 
 
-def resolve_system(problem) -> DeviceSystem:
+def resolve_system(problem, real: str = "double") -> DeviceSystem:
     """The backsolve adjoint, in tau = -t: state ``z = [y | lam]``, outputs
     ``[-f | J^T lam | lam^T df/dp]``."""
     n, nd = problem.n_states, problem.n_params
@@ -254,14 +296,11 @@ def resolve_system(problem) -> DeviceSystem:
     varmap.update({f"__lam_{i}": f"y[{n + i}]" for i in range(n)})
     varmap["__tau"] = "t"
     nz = 2 * n + nd
-    body = emit_device_function("pece_fz", np.array(dy + dlam + quad, dtype=object), varmap, _SIG)
-    return DeviceSystem(
-        "resolve", 2 * n, nz, problem.n_all_params,
-        _header("resolve", 2 * n, nz, problem.n_all_params, body),
-    )
+    return _system("resolve", 2 * n, nz, problem.n_all_params,
+                   np.array(dy + dlam + quad, dtype=object), varmap, real)
 
 
-def staged_adjoint_system(problem) -> DeviceSystem:
+def staged_adjoint_system(problem, real: str = "double") -> DeviceSystem:
     """The checkpointed adjoint, in tau = -t: state ``lam``, y(t) read from
     the parameter rows ``n_p..n_p + n - 1``; outputs ``[J^T lam | lam^T
     df/dp]``."""
@@ -273,10 +312,8 @@ def staged_adjoint_system(problem) -> DeviceSystem:
     varmap.update({f"__lam_{i}": f"y[{i}]" for i in range(n)})
     varmap["__tau"] = "t"
     nz = n + nd
-    body = emit_device_function("pece_fz", np.array(dlam + quad, dtype=object), varmap, _SIG)
-    return DeviceSystem(
-        "staged_adjoint", n, nz, n_p + n, _header("staged_adjoint", n, nz, n_p + n, body),
-    )
+    return _system("staged_adjoint", n, nz, n_p + n, np.array(dlam + quad, dtype=object),
+                   varmap, real)
 
 
 def _sensitivity_rows(problem) -> list:
@@ -291,7 +328,7 @@ def _sensitivity_rows(problem) -> list:
             for k in range(nd) for i in range(n)]
 
 
-def sensitivity_system(problem) -> DeviceSystem:
+def sensitivity_system(problem, real: str = "double") -> DeviceSystem:
     """Simultaneous forward sensitivities: state ``z = [y | vec S]``
     (``S[k, i] = z[n + k n + i]``), outputs ``[f | vec(J S + df/dp)]``."""
     n, nd, n_p = problem.n_states, problem.n_params, problem.n_all_params
@@ -299,12 +336,11 @@ def sensitivity_system(problem) -> DeviceSystem:
     varmap.update({f"__s_{k}_{i}": f"y[{n + k * n + i}]" for k in range(nd) for i in range(n)})
     varmap[problem.sym_time.name] = "t"
     exprs = np.array(list(problem.sym_rhs) + _sensitivity_rows(problem), dtype=object)
-    body = emit_device_function("pece_fz", exprs, varmap, _SIG)
     nz = n + nd * n
-    return DeviceSystem("sensitivity", nz, nz, n_p, _header("sensitivity", nz, nz, n_p, body))
+    return _system("sensitivity", nz, nz, n_p, exprs, varmap, real)
 
 
-def staged_sensitivity_system(problem) -> DeviceSystem:
+def staged_sensitivity_system(problem, real: str = "double") -> DeviceSystem:
     """The sensitivity block of a staggered attempt: state ``vec S``
     (``S[k, i] = z[k n + i]``), y read from the parameter rows ``n_p..n_p
     + n - 1``; outputs ``vec(J S + df/dp)``."""
@@ -313,10 +349,6 @@ def staged_sensitivity_system(problem) -> DeviceSystem:
     varmap.update({f"__y_{i}": f"p[{n_p + i}]" for i in range(n)})
     varmap.update({f"__s_{k}_{i}": f"y[{k * n + i}]" for k in range(nd) for i in range(n)})
     varmap[problem.sym_time.name] = "t"
-    body = emit_device_function(
-        "pece_fz", np.array(_sensitivity_rows(problem), dtype=object), varmap, _SIG
-    )
     nS = nd * n
-    return DeviceSystem(
-        "staged_sensitivity", nS, nS, n_p + n, _header("staged_sensitivity", nS, nS, n_p + n, body)
-    )
+    return _system("staged_sensitivity", nS, nS, n_p + n,
+                   np.array(_sensitivity_rows(problem), dtype=object), varmap, real)

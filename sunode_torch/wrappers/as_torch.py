@@ -20,6 +20,11 @@ Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
   ``TorchProblem``) run through the split attempt's three kernels with the
   right-hand side in torch between them (``ops/adams_split.py``).
 
+The solve runs at its inputs' type, float64 or float32 (the kernels have a
+build of each).  Per-lane observation grids, ``tvals (B, n_t)``, go through
+the undifferentiated solve, as in the reference; a gradient through them
+raises ``NotImplementedError``.
+
 Not ported yet (``NotImplementedError``): non-dense linear solvers and
 ``derivatives='forward'``, which the reference's batched solver refuses too.
 """
@@ -31,6 +36,7 @@ from typing import Optional
 import torch
 
 from sunode_torch.adjoint import adjoint_backward_batched, adjoint_backward_transition_batched
+from sunode_torch.ops.adams_attempt import c_real
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
@@ -72,22 +78,24 @@ class BatchedSolve:
         self.jac = problem.make_jac_dense() if method == "BDF" else None
         self.n_deriv = problem.n_params
         self.last_stats: dict = {}
-        self._device_systems: dict[str, cuda_codegen.DeviceSystem] = {}
+        self._device_systems: dict[tuple[str, torch.dtype], cuda_codegen.DeviceSystem] = {}
 
-    def device_system(self, kind: str, device: torch.device):
+    def device_system(self, kind: str, device: torch.device, dtype=torch.float64):
         """The emitted right-hand side for the fused kernel, ``kind`` one of
         ``cuda_codegen``'s systems ('forward', 'transition', 'resolve',
         'staged_adjoint', and for forward sensitivities, which this wrapper
         does not differentiate through, 'sensitivity' and
-        'staged_sensitivity', the entry points' solves); None on CPU, and
-        None for a problem that is not a ``SympyProblem`` (a ``TorchProblem``
-        has no symbolic form to emit), whose CUDA attempts then run the split
-        kernels with the right-hand side in torch between them
-        (``ops/adams_split.py``).  Decided by the problem's type, never by a
-        failed emit."""
+        'staged_sensitivity', the entry points' solves), at the solve's
+        ``dtype`` (float64 or float32: the kernel build of that type); None
+        on CPU, and None for a problem that is not a ``SympyProblem`` (a
+        ``TorchProblem`` has no symbolic form to emit), whose CUDA attempts
+        then run the split kernels with the right-hand side in torch between
+        them (``ops/adams_split.py``).  Decided by the problem's type, never
+        by a failed emit."""
         if device.type != "cuda" or not isinstance(self.problem, SympyProblem):
             return None
-        if kind not in self._device_systems:
+        key = (kind, dtype)
+        if key not in self._device_systems:
             emit = {
                 "forward": cuda_codegen.forward_system,
                 "transition": cuda_codegen.transition_system,
@@ -96,8 +104,8 @@ class BatchedSolve:
                 "sensitivity": cuda_codegen.sensitivity_system,
                 "staged_sensitivity": cuda_codegen.staged_sensitivity_system,
             }[kind]
-            self._device_systems[kind] = emit(self.problem)
-        return self._device_systems[kind]
+            self._device_systems[key] = emit(self.problem, c_real(dtype))
+        return self._device_systems[key]
 
     def combine(self, p_sub, p_fix):
         B = p_sub.shape[0]
@@ -110,10 +118,11 @@ class BatchedSolve:
                 self.rhs, self.jac, t0, y0, p, tvals, options, batched_fns=True
             )
         else:
+            dtype = torch.promote_types(torch.as_tensor(y0).dtype, torch.float32)
             res = adams_solve_batched(
                 self.rhs, t0, y0, p, tvals, options,
                 batched_fns=True,
-                device_system=self.device_system("forward", y0.device),
+                device_system=self.device_system("forward", y0.device, dtype),
             )
         self.last_stats["forward"] = res.stats
         return res
@@ -125,10 +134,16 @@ class BatchedSolve:
         )
         if self.derivatives is None or not wants_grad:
             # the primal: no recording, as the reference's undifferentiated call
+            # (per-lane grids included)
             with torch.no_grad():
                 p = self.combine(p_sub, p_fix)
                 res = self.forward_solve(t0, y0, p, tvals, self.options)
                 return _poison_b(res.ys, res.status)
+        if torch.as_tensor(tvals).ndim != 1:
+            raise NotImplementedError(
+                "make_batched_solve_fn: gradients through per-lane observation grids "
+                "(tvals (B, n_t)) are not ported; the reference's adjoint takes shared tvals"
+            )
         return _Adjoint.apply(self, *inputs)
 
 
@@ -168,14 +183,14 @@ class _Adjoint(torch.autograd.Function):
                 solver.n_deriv,
                 ys_fwd[:, -1, :],
                 solver.adjoint_options,
-                device_system=solver.device_system("transition", y0.device),
+                device_system=solver.device_system("transition", y0.device, dtype),
             )
         else:
             resolve = solver.interpolation == "resolve"
             device_system = None
             if solver.method == "ADAMS":
                 kind = "resolve" if resolve else "staged_adjoint"
-                device_system = solver.device_system(kind, y0.device)
+                device_system = solver.device_system(kind, y0.device, dtype)
             adj = adjoint_backward_batched(
                 problem.make_adjoint_rhs(),
                 problem.make_adjoint_jac_dense(),

@@ -216,14 +216,20 @@ def test_unported_features_raise(problems, kwargs):
 
 
 def test_unported_save_steps_and_per_lane_tvals_raise(problems):
-    """Recording is ported (tests/test_torch_adams_checkpoint.py); per-lane
-    observation grids are not, with it or without."""
+    """Recording is ported (tests/test_torch_adams_checkpoint.py), and so are
+    per-lane observation grids (tests/test_torch_per_lane_tvals.py), with
+    recording and without: both solve, each lane on its own grid (here three
+    copies of t = 1, so three equal slots).  What still raises is a per-lane
+    grid with the adjoint's machinery, a stage or injections, as in the
+    reference."""
     _, tp = problems
     y0 = torch.ones((2, 2), dtype=torch.float64)
     p = torch.ones((2, 4), dtype=torch.float64)
+    grid = torch.ones((2, 3), dtype=torch.float64)
+    for opts in (BDFOptions(save_steps=16), BDFOptions()):
+        res = adams_solve_batched(tp.make_rhs(), 0.0, y0, p, grid, opts)
+        assert (res.status == 0).all() and res.ys.shape == (2, 3, 2)
+        assert torch.equal(res.ys[:, 1:], res.ys[:, :1].expand(2, 2, 2))
     with pytest.raises(NotImplementedError, match="per-lane"):
-        adams_solve_batched(tp.make_rhs(), 0.0, y0, p, torch.ones((2, 3), dtype=torch.float64),
-                            BDFOptions(save_steps=16))
-    with pytest.raises(NotImplementedError):
-        adams_solve_batched(tp.make_rhs(), 0.0, y0, p, torch.ones((2, 3), dtype=torch.float64),
-                            BDFOptions())
+        adams_solve_batched(tp.make_rhs(), 0.0, y0, p, grid, BDFOptions(save_steps=16),
+                            stage_fn=lambda t: t[None])

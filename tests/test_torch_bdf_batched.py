@@ -360,33 +360,44 @@ def test_make_sensitivity_rhs_matches_jax():
 @pytest.mark.parametrize(
     "kwargs, opts, match",
     [
-        # rootfinding and staggered sensitivities are ported, not with
-        # per-lane grids or another linear solver
+        # rootfinding, staggered sensitivities and per-lane grids are
+        # ported, with each other too (match None: the call solves); not
+        # another linear solver
         (dict(root_fn=lambda t, y, p: y[0], tvals=torch.ones((2, 3), dtype=torch.float64)), {},
-         "per-lane"),
+         None),
         (dict(jac_prod=lambda t, y, v, p: v), {}, "jac_prod"),
         (dict(sens_rhs=lv_sens_rhs, S0=torch.zeros((2, 2, 2), dtype=torch.float64)),
          dict(sens_staggered=True, linear_solver="spgmr"), "linear_solver"),
         (dict(core="adams", tvals=torch.ones((2, 3), dtype=torch.float64)),
-         dict(save_steps=16), "per-lane"),
+         dict(save_steps=16), None),
         ({}, dict(linear_solver="band", band_lower=1, band_upper=1), "linear_solver"),
         ({}, dict(linear_solver="spgmr"), "linear_solver"),
-        (dict(tvals=torch.ones((2, 3), dtype=torch.float64)), {}, "per-lane"),
+        (dict(tvals=torch.ones((2, 3), dtype=torch.float64)), {}, None),
     ],
     ids=["roots", "jac_prod", "staggered", "save_steps", "band", "spgmr", "per_lane_tvals"],
 )
 def test_unported_options_raise(kwargs, opts, match):
-    """Every option the batched BDF core has not ported raises; checkpoint
-    recording is ported on both cores, and on the Adams core with per-lane
-    grids it still raises, for the grids."""
+    """Every option the batched BDF core has not ported raises.  Checkpoint
+    recording is ported on both cores, and per-lane grids on both, with
+    roots and recording too: those cases (match None) solve, every lane
+    emitting its own grid (here three copies of t = 1, so three equal
+    slots)."""
     kwargs = dict(kwargs)
     tvals = kwargs.pop("tvals", torch.tensor([1.0], dtype=torch.float64))
     y0, p = torch.ones((2, 2), dtype=torch.float64), torch.ones((2, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=match):
+
+    def solve():
         if kwargs.pop("core", "bdf") == "adams":
-            adams_solve_batched(lv_rhs, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
-        else:
-            bdf_solve_batched(lv_rhs, lv_jac, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
+            return adams_solve_batched(lv_rhs, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
+        return bdf_solve_batched(lv_rhs, lv_jac, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
+
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            solve()
+        return
+    res = solve()
+    assert (res.status == 0).all() and res.ys.shape == (2, 3, 2)
+    assert torch.equal(res.ys[:, 1:], res.ys[:, :1].expand(2, 2, 2))
 
 
 # ---- the wrapper ---------------------------------------------------------------

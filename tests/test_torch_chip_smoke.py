@@ -1,9 +1,11 @@
 """chip_smoke.py refuses to run without a CUDA device and prints no result."""
 
 import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +49,19 @@ def test_split_ab_fails_without_cuda():
     )
     assert proc.returncode != 0
     assert "split_ab: no CUDA device" in proc.stderr
+
+
+def test_sass_ab_fails_without_a_toolkit():
+    """sass_ab.py (the float64 builds' machine code against another
+    checkout's) imports what it needs and stops without nvcc."""
+    if shutil.which("nvcc"):
+        pytest.skip("a CUDA toolkit is present: sass_ab.py would build for real")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sunode_torch.experiments.sass_ab", "--old-root", ROOT],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "sass_ab: no CUDA toolkit" in proc.stderr or "sass_ab: no cuobjdump" in proc.stderr
 
 
 def _chip_smoke():
@@ -227,9 +242,10 @@ def test_history_cost_builds_the_tables_once_a_lane():
 
 
 def test_phase_6_profiled_horizon():
-    """Phase 6 profiles a tenth of the horizon: the leading observation
-    times at the same spacing (here the first alone), and a quarter would
-    take the leading four."""
+    """The profiled solves (phase 9(b)'s, and phase 6's step's before it ran
+    none) take a tenth of the horizon: the leading observation times at the
+    same spacing (here the first alone), and a quarter would take the
+    leading four."""
     cs = _chip_smoke()
     tvals = torch.linspace(1.0, 10.0, 21, dtype=torch.float64)
     short = cs.leading_times(tvals, cs.PROFILED_HORIZON)
@@ -325,3 +341,80 @@ def test_split_fills_ok(case, ok):
     elif case == "finish without its fill":
         events = [e for e in events if not e[0].startswith("Memset")]
     assert cs.split_fills_ok(cs.fills_before(events, _SPLIT)) is ok
+
+
+def test_phase_10_float32_inputs_and_bounds():
+    """Phase 10(a)'s inputs at float32 on the CPU: the same draws rounded,
+    lv_adjoint_f32's tolerances with their float32 corrector tolerance, the
+    bytes bound at 4 bytes a value (the float64 one's floating bytes
+    halved), the operations at float32's rate and counted from the float
+    source as from the double one; the split inputs at SIR's float32
+    tolerances, their costs at 4 bytes."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
+    from sunode_torch.symode import cuda_codegen
+
+    cs = _chip_smoke()
+    problem = lv_problem()
+    for kind in cs.F32_KINDS:
+        ds64 = getattr(cuda_codegen, f"{kind}_system")(problem)
+        ds32 = getattr(cuda_codegen, f"{kind}_system")(problem, "float")
+        assert cs.rhs_flops(ds32) == cs.rhs_flops(ds64) > 0
+        x64 = cs.history_inputs(ds64, 64, 1, "cpu", cs.P_MAX, cs.F32_FWD_TOL)
+        x32 = cs.history_inputs(ds32, 64, 1, "cpu", cs.P_MAX, cs.F32_FWD_TOL, torch.float32)
+        for k, v in x64.items():
+            if torch.is_tensor(v) and v.is_floating_point():
+                assert x32[k].dtype == torch.float32 and torch.equal(x32[k], v.float()), k
+        assert x32["newton_tol"] == newton_tol_for(
+            BDFOptions(rtol=1e-6, atol=1e-6), 1e-6, torch.float32) > x64["newton_tol"]
+        niter = torch.full((64,), 2, dtype=torch.int32)
+        (b64, f64), (b32, f32) = (cs.history_cost(ds, x, niter) for ds, x in ((ds64, x64),
+                                                                              (ds32, x32)))
+        lanes_int = 4 * 64 + 64 + 64 + 4 * 64  # p, active, conv, niter
+        assert f32 == f64 and b32 - lanes_int == (b64 - lanes_int) // 2
+        assert cs.bound(b32, f32, torch.float32)["bound_ms"] <= cs.bound(b64, f64)["bound_ms"]
+    x = cs.split_inputs(32, 11, "cpu", 10, dtype=torch.float32)
+    assert x["DF"].dtype == torch.float32
+    assert (x["rtol_z"] == np.float32(1e-6)).all() and (x["atol_z"] == np.float32(1e-8)).all()
+    x64 = cs.split_inputs(32, 11, "cpu", 10)
+    c32, c64 = cs.split_costs(x, 30), cs.split_costs(x64, 30)
+    assert all(c32[k][1] == c64[k][1] and c32[k][0] < 0.6 * c64[k][0] for k in c32)
+
+
+def test_phase_10_counts_a_build():
+    """Phase 10(c) reads and resets one split build's counts, apart from
+    every build's."""
+    from sunode_torch.ops.adams_split import adams_split_attempt
+
+    cs = _chip_smoke()
+
+    class Build:
+        launches = {"predict": 1, "sweep": 4, "finish": 1}
+
+    build, saved = Build(), dict(adams_split_attempt.launches)
+    try:
+        count = cs.SplitLaunches(build)
+        assert count.launches == 6
+        count.launches = 0
+        assert build.launches == {"predict": 0, "sweep": 0, "finish": 0}
+        assert adams_split_attempt.launches == saved
+    finally:
+        adams_split_attempt.launches.update(saved)
+
+
+def test_phase_11_grids():
+    """Phase 11's grids: 6 to 21 times a lane on [0.5, 10], sorted, padded
+    with the last, the first slot at the last time where phase 11 looks for
+    it; lanes 0-15 of the 10,000-lane chains are the golden ones whatever
+    the width."""
+    from sunode_torch.entry import lv_per_lane_tvals, lv_root_inputs
+
+    tv = torch.as_tensor(lv_per_lane_tvals(1000))
+    last = (tv == tv[:, -1:]).int().argmax(dim=1)
+    assert int(last.min()) + 1 == 6 and int(last.max()) + 1 == 21
+    pad = torch.arange(21)[None, :] >= last[:, None]
+    assert (tv[pad] == tv[:, -1:].expand_as(tv)[pad]).all()
+    assert (tv[~pad] < tv[:, -1:].expand_as(tv)[~pad]).all()
+    y16, p16 = lv_root_inputs(16)
+    y, p = lv_root_inputs(100)
+    assert np.array_equal(y[:16], y16) and np.array_equal(p[:16], p16)

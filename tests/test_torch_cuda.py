@@ -7,7 +7,11 @@ the batched BDF solve, with and without sensitivities, the default call
 through the split kernels), forward sensitivities in every mode
 (``build_lv_sens``, and a ``TorchProblem``'s staggered sensitivity block
 through the split kernels) and rootfinding on both cores
-(``build_lv_roots``) against the CPU ones.
+(``build_lv_roots``) against the CPU ones; the float32 builds of the
+history-attempt and split kernels against their plain versions at float32,
+float32 solves through them (``build_lv_adjoint_f32``, ``build_sir`` at
+float32) and per-lane observation grids on both cores
+(``build_lv_per_lane``).
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -27,6 +31,8 @@ from sunode_torch.entry import (
     LV_SENS_MODES,
     build_lv_adams,
     build_lv_adjoint,
+    build_lv_adjoint_f32,
+    build_lv_per_lane,
     build_lv_roots,
     build_lv_sens,
     build_robertson,
@@ -79,43 +85,46 @@ def cuda():
     return torch.device("cuda")
 
 
-def _system(kind):
+def _system(kind, real="double"):
+    """The emitted system ``kind`` of Lotka-Volterra at the C type ``real``
+    beside its plain right-hand side, composed as the Adams core composes it."""
     problem = lv_problem()
     rhs = problem.make_rhs()
+    emit = functools.partial(getattr(cuda_codegen, f"{kind}_system"), problem, real)
     if kind == "forward":
-        return PeceSystem(fz=rhs, n=2, nz=2, device=cuda_codegen.forward_system(problem))
+        return PeceSystem(fz=rhs, n=2, nz=2, device=emit())
     aj, qr = problem.make_adjoint_rhs(), problem.make_adjoint_quad_rhs()
     if kind == "resolve":
         rhs_c, quad_c = resolve_fz(rhs, aj, qr, 2)
         return PeceSystem(
             fz=lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
-            n=4, nz=6, device=cuda_codegen.resolve_system(problem),
+            n=4, nz=6, device=emit(),
         )
     sens = problem.make_sensitivity_rhs()
     if kind == "sensitivity":  # [y | vec S]
         return PeceSystem(
             fz=lambda t, z, p: torch.cat(
                 [rhs(t, z[:2], p), sens(t, z[:2], z[2:].reshape(2, 2, -1), p).reshape(4, -1)]),
-            n=6, nz=6, device=cuda_codegen.sensitivity_system(problem),
+            n=6, nz=6, device=emit(),
         )
     if kind == "staged_sensitivity":  # vec S, the parameter rows [params | y_new]
         return PeceSystem(
             fz=lambda t, S, p: sens(t, p[4:], S.reshape(2, 2, -1), p[:4]).reshape(4, -1),
-            n=4, nz=4, device=cuda_codegen.staged_sensitivity_system(problem),
+            n=4, nz=4, device=emit(),
         )
     if kind == "staged_adjoint":
         # the parameter rows are [params | y(t)], as the Adams core passes them
         rhs_s, quad_s = staged_adjoint_fz(aj, qr)
         return PeceSystem(
             fz=lambda t, y, p: torch.cat([rhs_s(t, y, p[:4], p[4:]), quad_s(t, y, p[:4], p[4:])]),
-            n=2, nz=4, device=cuda_codegen.staged_adjoint_system(problem),
+            n=2, nz=4, device=emit(),
         )
     rhs_c, quad_c = transition_fz(
         rhs, problem.make_adjoint_jac_dense(), problem.make_dfdp(), 2
     )
     return PeceSystem(
         fz=lambda t, y, p: torch.cat([rhs_c(t, y, p), quad_c(t, y, p)]),
-        n=6, nz=10, device=cuda_codegen.transition_system(problem),
+        n=6, nz=10, device=emit(),
     )
 
 
@@ -193,11 +202,12 @@ def _history_case(system, device, seed, kab=9, width=B):
 HISTORY_FIELDS = ("DF_resc", "DF_upd", "z_pred", "z_new", "err0", "err3")
 
 
-def _history_against_plain(system, args, lanes=None):
+def _history_against_plain(system, args, lanes=None, tol=1e-12):
     """One launch of the history kernel against the plain version on
     ``args``, on every lane or on the ``lanes`` mask's; returns the kernel's
-    result.  Normwise within 1e-12 (the emitted right-hand side's own
-    rounding), and ROADMAP C6's checks: DF_resc and z_pred bit for bit,
+    result.  Normwise within ``tol`` (the emitted right-hand side's own
+    rounding: 1e-12 at float64, 1e-5 at float32), and ROADMAP C6's checks:
+    DF_resc and z_pred bit for bit,
     z_new, err0 and DF_upd bit for bit in the lanes where the emitted
     right-hand side gives the plain one's f bit for bit at every point the
     plain attempt evaluates it (``chip_smoke.rhs_agreement``)."""
@@ -209,7 +219,7 @@ def _history_against_plain(system, args, lanes=None):
     mask = torch.ones_like(args[4]) if lanes is None else lanes
     for name in HISTORY_FIELDS:
         a, b = getattr(got, name)[..., mask], getattr(ref, name)[..., mask]
-        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, name
+        assert float((a - b).abs().max() / b.abs().max()) <= tol, name
     assert torch.equal(got.conv[mask], ref.conv[mask])
     assert torch.equal(got.niter[mask], ref.niter[mask])
     names = ("t_new", "h", "pre_factor", "p", "active", "DF", "z_prev", "params", "atol_z",
@@ -835,3 +845,157 @@ def test_cuda_torch_problem_staggered_matches_cpu(cuda):
         out[device] = (res.ys.cpu().numpy(), res.sens.cpu().numpy())
     for got, ref in zip(out[cuda], out["cpu"]):
         assert np.max(np.abs(got - ref) / (np.abs(ref) + 1e-12)) <= 1e-8
+
+
+HISTORY_KINDS = ["forward", "transition", "resolve", "staged_adjoint", "sensitivity",
+                 "staged_sensitivity"]
+
+
+def _f32(args):
+    """A history case at float32: its floating tensors rounded, with
+    lv_adjoint_f32's forward tolerances (rtol = atol = 1e-6 on every row)
+    and their float32 corrector tolerance (``newton_tol_for``), as float32
+    solves meet it; at the float64 case's 1e-7 the corrector's tests would
+    compare rounding noise."""
+    from sunode_torch.ops.bdf import newton_tol_for
+
+    out = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    out[8], out[9] = torch.full_like(out[8], 1e-6), torch.full_like(out[9], 1e-6)
+    out[12] = newton_tol_for(BDFOptions(rtol=1e-6, atol=1e-6), 1e-6, torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("kab", [9, 11])
+@pytest.mark.parametrize("kind", HISTORY_KINDS)
+def test_history_kernel_f32_matches_plain(cuda, kind, kab):
+    """The float32 build of every emitted system against the plain version at
+    float32: DF_resc and z_pred bit for bit, the rest within 1e-5 normwise
+    (float32's rounding of the emitted right-hand side where it is not the
+    plain one's) and bit for bit where the emitted f equals the plain f;
+    every output float32."""
+    system = _system(kind, "float")
+    got = _history_against_plain(system, _f32(_history_case(system, cuda, 2, kab)), tol=1e-5)
+    assert all(getattr(got, name).dtype == torch.float32 for name in HISTORY_FIELDS)
+
+
+def test_kernels_refuse_mixed_types(cuda):
+    """A launch whose floating inputs are not all of its build's type raises,
+    on the history kernel and on the split kernels; nothing is cast."""
+    system = _system("forward", "float")
+    args = _f32(_history_case(system, cuda, 3))
+    args[6] = args[6].double()  # z_prev float64 beside a float32 history
+    with pytest.raises(ValueError, match="^z_prev:"):
+        adams_history_attempt(system, *args)
+    with pytest.raises(ValueError, match="^DF:"):  # a float64 attempt on the float32 build
+        adams_history_attempt(system, *_history_case(system, cuda, 3))
+    no_device = PeceSystem(fz=system.fz, n=system.n, nz=system.nz)
+    args = _f32(_history_case(system, cuda, 3))
+    args[2] = args[2].double()  # pre_factor
+    with pytest.raises(ValueError, match="^pre_factor:"):
+        adams_history_attempt(no_device, *args)
+    kernels = adams_split.build_split_kernels(9, torch.float32)
+    args = _f32(_history_case(system, cuda, 3))
+    pred = kernels.predict(*(args[i] for i in (5, 3, 2, 1, 6, 8, 9)))
+    state = adams_split.sweep_start(args[4], torch.float64)  # dy_old float64
+    with pytest.raises(ValueError, match="^dy_old:"):
+        kernels.sweep(0, system.fz(args[0], pred.z_pred, args[7]), pred.z_pred, pred, state,
+                      1e-3, 2)
+
+
+@pytest.mark.parametrize("kind", ["forward", "resolve", "staged_adjoint"])
+def test_split_kernels_f32_match_plain(cuda, kind):
+    """The split attempt on float32 inputs runs the float32 build (its own
+    counts; the float64 build's unchanged), against the plain stages
+    composed at float32 on the card: DF_resc and z_pred bit for bit, the
+    rest within 1e-5 normwise (the row sums' order), flags equal."""
+    system = _system(kind)
+    no_device = PeceSystem(fz=system.fz, n=system.n, nz=system.nz)
+    args = _f32(_history_case(system, cuda, 4))
+    f32_build = adams_split.build_split_kernels(9, torch.float32)
+    before = dict(f32_build.launches)
+    got = adams_history_attempt(no_device, *args)
+    ref = adams_split_attempt_reference(no_device, *args)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in f32_build.launches.items()} == {
+        "predict": 1, "sweep": FUNCTIONAL_MAXITER, "finish": 1}
+    for name in ("DF_resc", "z_pred"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for name in ("DF_upd", "z_new", "err0", "err3"):
+        assert getattr(got, name).dtype == torch.float32
+        assert _relerr(getattr(got, name), getattr(ref, name)) <= 1e-5, name
+    assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+
+
+def test_split_kernels_f32_stage_by_stage(cuda):
+    """chip_smoke.py's phase 10(a) at SIR over 200 regions and 100 lanes:
+    each float32 kernel against its plain stage at float32 (1e-5; it exits
+    on a disagreement)."""
+    out = _chip_smoke().compare_split("forward", 100, 5,
+                                      adams_split.build_split_kernels(11, torch.float32), R=200,
+                                      dtype=torch.float32)
+    assert out["x"]["DF"].dtype == torch.float32
+
+
+def test_cuda_lv_adjoint_f32_launches_the_f32_builds(cuda):
+    """``build_lv_adjoint_f32`` on the 16 golden lanes: float32 gradients
+    inside bench.py's gate (1e-2 worst lane against lv_adjoint.npz), every
+    attempt one launch of the float32 forward or transition build and no
+    other launch."""
+    step, (y0s, p_subs) = build_lv_adjoint_f32(16, device=cuda)
+    builds = {kind: build_attempt_kernel(step.solve.device_system(kind, cuda, torch.float32), 9)
+              for kind in ("forward", "transition")}
+    before = {kind: k.launches for kind, k in builds.items()}
+    total = adams_history_attempt.launches
+    gy, gp = step(y0s, p_subs)
+    stats = step.solve.last_stats
+    assert {kind: k.launches - before[kind] for kind, k in builds.items()} == {
+        "forward": stats["forward"]["n_attempts"], "transition": stats["backward"]["n_attempts"]}
+    assert adams_history_attempt.launches - total == sum(
+        stats[s]["n_attempts"] for s in ("forward", "backward"))
+    assert gy.dtype == gp.dtype == torch.float32
+    golden = np.load(Path(__file__).resolve().parent / "golden" / "lv_adjoint.npz")
+    err = np.max(np.abs(gy.cpu().numpy().astype(np.float64) - golden["gy"])
+                 / (np.abs(golden["gy"]) + 1e-3))
+    assert err < 1e-2
+
+
+def test_cuda_sir_f32_launches_the_f32_build(cuda):
+    """``build_sir`` at float32 (30 regions, 4 lanes, 'resolve'): every
+    attempt through the float32 split build, none through the float64 one,
+    the gradient within 1e-2 of the float64 run's."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        step, (y0s, p_subs) = build_sir(30, 4, "resolve", device=cuda, dtype=dtype)
+        build = adams_split.build_split_kernels(11, dtype)
+        other = adams_split.build_split_kernels(
+            11, torch.float64 if dtype == torch.float32 else torch.float32)
+        before, before_other = dict(build.launches), dict(other.launches)
+        ys, gp = step(y0s, p_subs)
+        stats = step.solve.last_stats
+        attempts = stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
+        assert {k: v - before[k] for k, v in build.launches.items()} == {
+            "predict": attempts, "sweep": FUNCTIONAL_MAXITER * attempts, "finish": attempts}
+        assert other.launches == before_other
+        assert ys.dtype == gp.dtype == dtype and (stats["backward"]["status"] == 0).all()
+        out[dtype] = gp.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(out[torch.float32], out[torch.float64], rtol=1e-2)
+
+
+@pytest.mark.parametrize("method", ["ADAMS", "BDF"])
+def test_cuda_lv_per_lane_matches_cpu(cuda, method):
+    """``build_lv_per_lane`` on 64 ragged grids: status 0, the CPU's ys
+    within 1e-8, padded slots their lane's last value bit for bit, and on
+    the Adams core one history launch an attempt."""
+    solve, (y0s, ps, tvals) = build_lv_per_lane(64, method, device=cuda)
+    total = adams_history_attempt.launches
+    res = solve(y0s, ps, tvals)
+    launches = adams_history_attempt.launches - total
+    assert launches == (res.stats["n_attempts"] if method == "ADAMS" else 0)
+    assert (res.status == 0).all()
+    cpu, inputs = build_lv_per_lane(64, method, device="cpu")
+    ref = cpu(*inputs)
+    np.testing.assert_allclose(res.ys.cpu().numpy(), ref.ys.numpy(), rtol=1e-8, atol=1e-8)
+    ys, tv = res.ys.cpu(), tvals.cpu()
+    last = (tv == tv[:, -1:]).int().argmax(dim=1)  # the first slot at the lane's last time
+    for b in range(64):
+        assert torch.equal(ys[b, last[b]:], ys[b, last[b]].expand_as(ys[b, last[b]:]))
