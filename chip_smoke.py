@@ -166,13 +166,43 @@ Phases, one line each; any failure exits non-zero:
      attempts) and on BDF (no kernel): status 0 everywhere, every padded
      slot its lane's last value bit for bit, lanes 0-15 within 1e-8 of the
      CPU's plain path;
-  12. the kernel table and the result line.  Each kernel's bound is the
+  12. structured Newton and splines (phase 2 builds the banded kernels,
+     ``csrc/banded.cu``, at bandwidths (1, 1) at both types, and the spline
+     LV's forward and transition history builds at both types): (a) the
+     banded factor and solve kernels against their plain versions at
+     float64 and float32 on the Fisher-KPP chain's Newton matrices I - c J
+     at y0 (``entry.kpp_inputs``, c log-uniform in [1e-4, 1e-2], eight lanes
+     of random band entries, one lane zero) at (n, B) = (128, 1,024) and
+     (256, 1,024): lu, piv, sing and the solutions (1 and 3 right-hand
+     sides, poisoned and not) bit for bit, the singular lane NaN in both;
+     timed as in phase 3 with the bytes bound, ``torch.linalg.lu_factor_ex``
+     / ``lu_solve`` on the dense matrices as the yardstick; (b)
+     ``entry.build_kpp(128, 1024, 'band')`` (``scripts/bench_batched_
+     structured.py``'s inputs, rtol 1e-8 / atol 1e-10, 1,024 checkpoints):
+     a profiled forward solve (status 0 everywhere, lanes 0-2 within 5e-6 of
+     scipy's LSODA at rtol 1e-11, lanes 0-3 within 1e-6 of the CPU's plain
+     path) and a timed adjoint-gradient step (finite everywhere, lanes 0-3
+     within rtol 1e-4 / atol 1e-8 of the dense solver's on the card, run on
+     lanes 0-15); (c) the same chain at n = 256, forward only; (d)
+     ``entry.build_hub(128, 1024, 'sparse')`` (129 states, the plan's border
+     takes the hub): a forward (status 0, lanes 0-3 within 1e-6 of the CPU,
+     lanes 0-15 within 1e-6 / 1e-10 of the dense solve) and a gradient step
+     (as (b)); (e) (b)'s chain with spgmr, forward (status 0, LSODA); each
+     with the banded launches equal to the Newton solver's lockstep
+     factorizations and solves (and one solve more a factorization with the
+     BBD border) and no other kernel; (f) the spline LV's four builds
+     against their plain versions as in phases 3c and 10(a), then
+     ``entry.build_lv_spline`` at B=10,000, one profiled ADAMS forward +
+     transition-adjoint step: the float64 builds' launches equal to the
+     attempts, every lane finite, lanes 0-3 within 1e-8 of the CPU;
+  13. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read, at 8 bytes a value, 4 in the float32
      builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
      67 at float32 (H100 SXM, NVIDIA's data sheet).  No single PyTorch
      call computes a PECE attempt, a history attempt or a split stage, so
-     library_ms is null.
+     their library_ms is null; the banded kernels' is the dense
+     ``torch.linalg`` call's time, which the port never makes.
 """
 
 from __future__ import annotations
@@ -217,6 +247,171 @@ T_START = time.perf_counter()
 def log_elapsed(phase: str) -> None:
     """The script's wall time so far, after each phase."""
     log(f"[elapsed] after phase {phase}: {time.perf_counter() - T_START:.1f} s")
+
+
+# ---- the CPU references, in worker processes while the card works -------------
+CPU_REF_WORKERS = 4  # processes, one torch thread each, beside the script's own
+
+
+def _ref_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+class CpuRefs:
+    """The plain path's references on the CPU that phases 5 to 8 and 12 read
+    (the CPU's lanes of each gate), computed in worker processes from the
+    same seeded inputs while the card runs the phases before them: main
+    submits every one before phase 2, each phase reads its own.  A phase
+    whose reference was not submitted computes it inline (:func:`cpu_ref`).
+    ``close`` stops every worker."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=mp.get_context("spawn"),
+                                        initializer=_ref_worker_init)
+        self.futures: dict = {}
+
+    def submit(self, fn, *args) -> None:
+        self.futures[(fn.__name__, args)] = self.pool.submit(fn, *args)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_REFS: CpuRefs | None = None
+
+
+def cpu_ref(fn, *args):
+    """``fn(*args)``'s result: from the worker that computed it, when main
+    submitted it, else computed here."""
+    future = CPU_REFS.futures.pop((fn.__name__, args), None) if CPU_REFS else None
+    return future.result() if future is not None else fn(*args)
+
+
+def ref_checkpointed(interpolation: str) -> dict:
+    """Phase 6's CPU reference: the default call's gradients of lanes 0-15."""
+    import torch
+
+    from sunode_torch.entry import build_lv_checkpointed
+
+    y0s, p_subs = lv_main_inputs()
+    t0 = time.perf_counter()
+    step, _ = build_lv_checkpointed(16, 21, 1e-8, interpolation, device="cpu")
+    grads = step(torch.as_tensor(y0s[:16]), torch.as_tensor(p_subs[:16]))
+    st = step.solve.last_stats
+    return dict(grads=[g.numpy() for g in grads], wall=time.perf_counter() - t0,
+                fwd=st["forward"]["n_attempts"], bwd=st["backward"]["n_attempts"])
+
+
+def ref_robertson() -> dict:
+    """Phase 5's CPU reference: the 16 golden lanes' ys."""
+    from sunode_torch.entry import build_robertson
+
+    t0 = time.perf_counter()
+    cpu_solve, cpu_inputs = build_robertson(16, device="cpu")
+    return dict(ys=cpu_solve(0.0, *cpu_inputs).numpy(), wall=time.perf_counter() - t0)
+
+
+def ref_adams(mode: str) -> dict:
+    """Phase 7's CPU reference: one ADAMS mode's gradients of lanes 0-15."""
+    import torch
+
+    from sunode_torch.entry import build_lv_adams
+
+    y0s, p_subs = lv_main_inputs()
+    t0 = time.perf_counter()
+    cpu_step, _ = build_lv_adams(16, 21, ADAMS_RTOL, mode, device="cpu")
+    grads = cpu_step(torch.as_tensor(y0s[:16]), torch.as_tensor(p_subs[:16]))
+    return dict(grads=[a.numpy() for a in grads], wall=time.perf_counter() - t0)
+
+
+def sir_lane_inputs(mode: str, B: int):
+    """Phase 8's inputs: ``entry.sir_inputs`` with lane 0 the golden case's."""
+    from sunode_torch.entry import sir_inputs
+
+    golden = np.load(os.path.join(HERE, "tests", "golden", "sir_1000.npz"))
+    y0s, p_subs = sir_inputs(SIR_R, B)
+    y0s[0], p_subs[0] = golden["y0"], golden["p0"][:2]
+    return y0s, p_subs
+
+
+def ref_sir(mode: str, B: int) -> dict:
+    """Phase 8's CPU reference: lanes 0-3's ys and gradient."""
+    import torch
+
+    from sunode_torch.entry import build_sir
+
+    y0s, p_subs = sir_lane_inputs(mode, B)
+    t0 = time.perf_counter()
+    step, _ = build_sir(SIR_R, 1, mode, device="cpu")
+    cy, cg = step(torch.as_tensor(y0s[:4]), torch.as_tensor(p_subs[:4]))
+    st = step.solve.last_stats
+    return dict(ys=cy.numpy(), gp=cg.numpy(), wall=time.perf_counter() - t0,
+                fwd=st["forward"]["n_attempts"], bwd=st["backward"]["n_attempts"])
+
+
+def ref_structured(workload: str, n: int, solver: str) -> dict:
+    """Phase 12's CPU reference: lanes 0-3's forward ys of ``entry.build_kpp``
+    or ``build_hub`` (``workload`` 'kpp' or 'hub') on the B=1,024 draw's
+    inputs."""
+    import torch
+
+    from sunode_torch import entry
+
+    build = getattr(entry, f"build_{workload}")
+    y0, p, _ = getattr(entry, f"{workload}_inputs")(n, B_STRUCT)
+    t0 = time.perf_counter()
+    forward, _, _ = build(n, 4, solver, device="cpu")
+    ys = forward(torch.as_tensor(y0[:4]), torch.as_tensor(p[:4])).numpy()
+    return dict(ys=ys, wall=time.perf_counter() - t0)
+
+
+def ref_hub_dense() -> dict:
+    """Phase 12(d)'s dense reference on the CPU: lanes 0-15's forward ys and
+    gradients of ``entry.build_hub`` with dense Newton, on the B=1,024
+    draw's inputs."""
+    import torch
+
+    from sunode_torch.entry import build_hub, hub_inputs
+
+    y0, p, _ = hub_inputs(128, B_STRUCT)
+    y0, p = torch.as_tensor(y0[:16]), torch.as_tensor(p[:16])
+    t0 = time.perf_counter()
+    forward, grad_step, _ = build_hub(128, 16, "dense", device="cpu")
+    ys = forward(y0, p).numpy()
+    grads = [g.numpy() for g in grad_step(y0, p)]
+    return dict(ys=ys, grads=grads, wall=time.perf_counter() - t0)
+
+
+def ref_lv_spline() -> dict:
+    """Phase 12(f)'s CPU reference: lanes 0-3's gradients (a draw of 4 lanes
+    is lanes 0-3 of the 10,000-lane one)."""
+    from sunode_torch.entry import build_lv_spline
+
+    t0 = time.perf_counter()
+    step, (y0s, p_subs) = build_lv_spline(4, device="cpu")
+    return dict(grads=[g.numpy() for g in step(y0s, p_subs)], wall=time.perf_counter() - t0)
+
+
+def submit_cpu_refs() -> CpuRefs:
+    """Start every CPU reference of phases 5 to 8 and 12 in the workers."""
+    refs = CpuRefs()
+    refs.submit(ref_robertson)  # in the order the phases read them
+    for interpolation in ("hermite", "polynomial"):
+        refs.submit(ref_checkpointed, interpolation)
+    for mode in ADAMS_MODES:
+        refs.submit(ref_adams, mode)
+    for mode, B in SIR_MODES:
+        refs.submit(ref_sir, mode, B)
+    for args in (("kpp", 128, "band"), ("kpp", 256, "band"), ("hub", 128, "sparse")):
+        refs.submit(ref_structured, *args)
+    refs.submit(ref_hub_dense)
+    refs.submit(ref_lv_spline)
+    return refs
 
 
 def check_device():
@@ -350,7 +545,7 @@ def bound(nbytes: float, flops: float, dtype=None) -> dict:
     )
 
 
-def per_call_times(call, z, kernel=None) -> dict:
+def per_call_times(call, z, kernel=None, reps=None) -> dict:
     """Per-call times of ``call(z_prev) -> (z_new, ...)`` at ``z``:
     graph-replayed (20 chained calls in one CUDA graph), on the stream (CUDA
     events, host cost included) and device-busy (profiler, its sessions held
@@ -360,10 +555,11 @@ def per_call_times(call, z, kernel=None) -> dict:
     the host on every call, which a graph cannot capture (graph None)."""
     from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us, graph_us
 
+    kw = {} if reps is None else dict(reps=reps)  # fewer calls for a slow plain version
     return dict(
         graph=graph_us(call, z) if kernel else None,
-        stream=1e3 * cuda_ms(lambda: call(z)),
-        device=device_us(lambda: call(z), kernel=kernel),
+        stream=1e3 * cuda_ms(lambda: call(z), **kw),
+        device=device_us(lambda: call(z), kernel=kernel, **kw),
     )
 
 
@@ -554,10 +750,13 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
     return nbytes, flops
 
 
-def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None, dtype=None):
+def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None, dtype=None,
+                           plain_reps=None):
     """Phase 3c (and 10(a) at ``dtype`` float32) for one build: returns the
     kernel-table entry fields.  At float32 the normwise bound is
-    F32_REL_BOUND, C6's bit-for-bit checks stay."""
+    F32_REL_BOUND, C6's bit-for-bit checks stay.  ``plain_reps`` times the
+    plain version over fewer calls (12(f): its spline is hundreds of torch
+    operations a right-hand side)."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import device_us
@@ -614,7 +813,7 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None,
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
     call_p = lambda z: (run_p(z).z_new,)  # noqa: E731
     t_k = per_call_times(call_k, x["z_prev"], HISTORY_KERNEL)
-    t_p = per_call_times(call_p, x["z_prev"])
+    t_p = per_call_times(call_p, x["z_prev"], reps=plain_reps)
     nbytes, flops = history_cost(device_system, x, got.niter)
     entry = dict(max_abs_err=abs_err, ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
                  **bound(nbytes, flops, x["DF"].dtype))
@@ -1218,18 +1417,18 @@ def sir_phase(smi, counted) -> dict:
         np.testing.assert_allclose(ys_np[0], golden["ys"], rtol=1e-5, atol=1e-7)
         np.testing.assert_allclose(gp_np[0], golden["gp"], rtol=1e-3)
         gold_rel = float(np.max(np.abs(gp_np[0] - golden["gp"]) / np.abs(golden["gp"])))
-        t0 = time.perf_counter()
-        cpu_step, _ = build_sir(R, 1, mode, device="cpu")
-        cy, cg = cpu_step(y0s[:4].cpu(), p_subs[:4].cpu())
-        plain_rel = max(floored_rel(ys_np[:4], cy.numpy(), 1e-10),
-                        float(np.max(np.abs(gp_np[:4] - cg.numpy()) / np.abs(cg.numpy()))))
+        ref = cpu_ref(ref_sir, mode, B)
+        if not (np.array_equal(sir_lane_inputs(mode, B)[0][:4], y0s[:4].cpu().numpy())
+                and np.array_equal(sir_lane_inputs(mode, B)[1][:4], p_subs[:4].cpu().numpy())):
+            raise SystemExit(f"chip_smoke: sir {mode}: the CPU reference has other inputs")
+        plain_rel = max(floored_rel(ys_np[:4], ref["ys"], 1e-10),
+                        float(np.max(np.abs(gp_np[:4] - ref["gp"]) / np.abs(ref["gp"]))))
         log(
             f"[sir {mode} check] status 0 and finite in {finite}/{B} lanes; lane 0 golden "
             f"gp_rel={gold_rel:.3e} (gate 1e-3; ys rtol 1e-5 / atol 1e-7 passed) "
             f"cuda_vs_cpu_lanes_0_3_max_rel={plain_rel:.3e} (bound 1e-8, ys floored at atol "
-            f"1e-10; the CPU took {time.perf_counter() - t0:.2f} s for "
-            f"{cpu_step.solve.last_stats['forward']['n_attempts']} + "
-            f"{cpu_step.solve.last_stats['backward']['n_attempts']} attempts)"
+            f"1e-10; the CPU took {ref['wall']:.2f} s for {ref['fwd']} + {ref['bwd']} attempts "
+            f"in a worker process)"
         )
         if not plain_rel <= 1e-8:
             raise SystemExit(f"chip_smoke: the CUDA sir {mode} gradients disagree with the CPU")
@@ -1450,18 +1649,20 @@ def checkpointed_phase(smi) -> None:
     for interpolation in ("hermite", "polynomial"):
         # hermite: the full-width step's lanes 0-15 against the CPU
         out = {"cuda": [gy_np[:16], gp_np[:16]]} if interpolation == "hermite" else {}
-        for device in ("cuda", "cpu"):
-            if device in out:
-                continue
+        if "cuda" not in out:
             t0 = time.perf_counter()
-            step, _ = build_lv_checkpointed(16, 21, 1e-8, interpolation, device=device)
-            f64 = dict(dtype=torch.float64, device=device)
+            step, _ = build_lv_checkpointed(16, 21, 1e-8, interpolation, device="cuda")
+            f64 = dict(dtype=torch.float64, device="cuda")
             grads = step(torch.as_tensor(y0s[:16], **f64), torch.as_tensor(p_subs[:16], **f64))
-            out[device] = [a.cpu().numpy() for a in grads]
-            log(f"[checkpointed {interpolation} 16 lanes on {device}] "
+            out["cuda"] = [a.cpu().numpy() for a in grads]
+            log(f"[checkpointed {interpolation} 16 lanes on cuda] "
                 f"wall_s={time.perf_counter() - t0:.2f} attempts fwd="
                 f"{step.solve.last_stats['forward']['n_attempts']} "
                 f"bwd={step.solve.last_stats['backward']['n_attempts']}")
+        ref = cpu_ref(ref_checkpointed, interpolation)
+        out["cpu"] = ref["grads"]
+        log(f"[checkpointed {interpolation} 16 lanes on cpu] wall_s={ref['wall']:.2f} "
+            f"attempts fwd={ref['fwd']} bwd={ref['bwd']} (a worker process)")
         np.testing.assert_allclose(out["cuda"][0], golden["gy"], rtol=2e-3, atol=1e-3)
         np.testing.assert_allclose(out["cuda"][1], golden["gp"], rtol=2e-3, atol=1e-3)
         rels[interpolation] = max_rel(out["cuda"], out["cpu"])
@@ -1546,14 +1747,12 @@ def adams_modes_phase(smi, counted, history_kernels) -> dict:
         np.testing.assert_allclose(gy_np[:16], golden["gy"], rtol=2e-3, atol=1e-3)
         np.testing.assert_allclose(gp_np[:16], golden["gp"], rtol=2e-3, atol=1e-3)
         gold_rel = max_rel((gy_np[:16], gp_np[:16]), (golden["gy"], golden["gp"]))
-        t0 = time.perf_counter()
-        cpu_step, _ = build_lv_adams(16, 21, ADAMS_RTOL, mode, device="cpu")
-        cpu = [a.numpy() for a in cpu_step(torch.as_tensor(y0s[:16]), torch.as_tensor(p_subs[:16]))]
-        plain_rel = max_rel((gy_np[:16], gp_np[:16]), cpu)
+        ref = cpu_ref(ref_adams, mode)
+        plain_rel = max_rel((gy_np[:16], gp_np[:16]), ref["grads"])
         log(
             f"[adams {mode} check] status 0 and finite in {finite}/{B_MAIN} lanes; "
             f"golden_max_rel={gold_rel:.3e} (gate 2e-3) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} "
-            f"(bound 1e-6; the CPU's 16 lanes took {time.perf_counter() - t0:.2f} s)"
+            f"(bound 1e-6; the CPU's 16 lanes took {ref['wall']:.2f} s in a worker process)"
         )
         if not plain_rel <= 1e-6:
             raise SystemExit(f"chip_smoke: the CUDA {mode} adjoint disagrees with the plain path")
@@ -1615,8 +1814,7 @@ def bdf_robertson_phase(smi) -> None:
         )
     np.testing.assert_allclose(ys_np[:16], golden["ys"], rtol=2e-5, atol=1e-10)
     gold_rel = floored_rel(ys_np[:16], golden["ys"], atol)
-    cpu_solve, cpu_inputs = build_robertson(16, device="cpu")
-    plain_rel = floored_rel(ys_np[:16], cpu_solve(0.0, *cpu_inputs).numpy(), atol)
+    plain_rel = floored_rel(ys_np[:16], cpu_ref(ref_robertson)["ys"], atol)
     log(
         f"[bdf robertson check] status 0 in {finite}/{B_MAIN} lanes; golden_max_rel={gold_rel:.3e} "
         f"(gate 2e-5, atol 1e-10) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (bound 1e-6)"
@@ -2025,9 +2223,460 @@ def per_lane_phase(smi, counted, forward_build) -> int:
     return total
 
 
+# ---- phase 12: structured Newton on the batched BDF core, and splines -------------
+B_STRUCT = 1024  # phase 12's lanes: scripts/bench_batched_structured.py's B
+STRUCT_N = (128, 256)  # its n, and twice it
+STRUCT_GOLD_LANES = 3  # lanes held against scipy's LSODA at rtol 1e-11 (the script's N_GOLD)
+BANDED_SOURCE = "sunode_torch/csrc/banded.cu"
+SINGULAR_LANE = 5  # 12(a): this lane's Newton matrix is zero
+PIVOT_LANES = slice(16, 24)  # 12(a): seeded random band entries, so rows swap
+SPLINE_KINDS = ("forward", "transition")  # 12(f)'s history builds, at both types
+
+
+def bits_equal(a, b) -> bool:
+    """Bit for bit: the same NaN pattern, and every other element the same
+    bits (so -0.0 is not +0.0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return bool(torch.equal(a[~na].view(ints), b[~nb].view(ints)))
+
+
+def newton_band_inputs(n, B, dtype):
+    """12(a)'s inputs on the card: the Newton matrices ``M = I - c J`` of the
+    Fisher-KPP chain at its initial states (``entry.kpp_inputs``), J in
+    banded storage from ``make_banded_jac(1, 1)``, c log-uniform in [1e-4,
+    1e-2] a lane (``default_rng(12)``), lanes 16-23 random band entries
+    (rows swap there), lane 5 zero (singular); three right-hand sides."""
+    import torch
+
+    from sunode_torch.entry import kpp_inputs, kpp_problem
+
+    y0, params, _ = kpp_inputs(n, B)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    J = kpp_problem(n).make_banded_jac(1, 1)(
+        torch.zeros(B, **f64), torch.as_tensor(y0.T, **f64), torch.as_tensor(params.T, **f64))
+    rng = np.random.default_rng(12)
+    c = torch.as_tensor(10.0 ** rng.uniform(-4, -2, B), **f64)
+    M = (-c) * J
+    M[1] += 1.0
+    M[:, :, PIVOT_LANES] = torch.as_tensor(rng.standard_normal((3, n, 8)), **f64)
+    M[:, :, SINGULAR_LANE] = 0.0
+    b = torch.as_tensor(rng.standard_normal((3, n, B)), **f64)
+    return M.to(dtype).contiguous(), b.to(dtype).contiguous()
+
+
+def banded_cost(n, B, m, l, u, itemsize) -> dict:
+    """(bytes, operations) of one factor and one solve of m right-hand
+    sides: each input read once and each output written once (the factor:
+    ab in, the working storage, pivots and flags out; the solve: the working
+    storage, pivots, flags and b in, x out); the factor's l (2 (l+u) + 1)
+    and the solve's 2 l + 2 (l+u) + 1 operations a row and lane."""
+    w = l + u
+    ab = (l + u + 1) * n * B * itemsize
+    lu = (2 * l + u + 1) * (n + w) * B * itemsize
+    factor = (ab + lu + 4 * n * B + B, n * B * l * (2 * w + 1))
+    solve = (lu + 4 * n * B + B + 2 * m * n * B * itemsize, m * n * B * (2 * l + 2 * w + 1))
+    return {"factor": factor, "solve": solve}
+
+
+def compare_banded(n, dtype) -> dict:
+    """12(a) at one (n, type): the factor and solve kernels against their
+    plain versions on :func:`newton_band_inputs` at B=1,024 (lu, piv, sing
+    and the solutions bit for bit, with ``sing`` and without; the singular
+    lane NaN in both), each timed as in phase 3 with its bounds, and
+    ``torch.linalg.lu_factor_ex`` / ``lu_solve`` on the dense matrices at
+    the same shapes as the yardstick.  Returns {'factor', 'solve'}: the
+    kernel-table fields."""
+    import torch
+
+    from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us
+    from sunode_torch.ops import banded as bd
+
+    l = u = 1
+    M, b = newton_band_inputs(n, B_STRUCT, dtype)
+    f_k = bd.banded_factor(M, l, u)
+    f_p = bd.banded_factor_reference(M, l, u)
+    checks = {f"{name}_bitwise": bits_equal(x, y) for name, x, y in zip(("lu", "piv", "sing"),
+                                                                       f_k, f_p)}
+    abs_err = 0.0
+    for m in (1, 3):
+        for label, sing in (("", True), ("_unpoisoned", False)):
+            fk = f_k if sing else (f_k[0], f_k[1], None)
+            fp = f_p if sing else (f_p[0], f_p[1], None)
+            x_k = bd.banded_solve(fk, b[:m].contiguous(), l, u)
+            x_p = bd.banded_solve_reference(fp, b[:m].contiguous(), l, u)
+            checks[f"x_m{m}{label}_bitwise"] = bits_equal(x_k, x_p)
+            fin = torch.isfinite(x_p)
+            abs_err = max(abs_err, float((x_k - x_p)[fin].abs().max()))
+            if sing:
+                checks[f"singular_lane_nan_m{m}"] = bool(
+                    torch.isnan(x_k[:, :, SINGULAR_LANE]).all()
+                    and torch.isnan(x_p[:, :, SINGULAR_LANE]).all())
+    torch.cuda.synchronize()
+    swapped = int((f_k[1] != 0).any(dim=0).sum())
+    itemsize = torch.finfo(dtype).bits // 8
+    cost = banded_cost(n, B_STRUCT, 1, l, u, itemsize)
+    w = l + u
+    b1 = b[:1].contiguous()
+
+    def factor_k(z):
+        return (bd.banded_factor(z, l, u)[0][l : l + w + 1, :n],)
+
+    def factor_p(z):
+        return (bd.banded_factor_reference(z, l, u)[0][l : l + w + 1, :n],)
+
+    def plain_times(call, z):
+        # the plain versions launch ~18 kernels a column: a few calls, and at
+        # the path's n only
+        if n != STRUCT_N[0]:
+            return dict(graph=None, stream=float("nan"), device=None)
+        return dict(graph=None, stream=1e3 * cuda_ms(lambda: call(z), reps=5),
+                    device=device_us(lambda: call(z), reps=5))
+
+    times = {
+        "factor": (per_call_times(factor_k, M, "banded_factor_kernel"), plain_times(factor_p, M)),
+        "solve": (per_call_times(lambda z: (bd.banded_solve(f_k, z, l, u),), b1,
+                                 "banded_solve_kernel"),
+                  plain_times(lambda z: (bd.banded_solve_reference(f_p, z, l, u),), b1)),
+    }
+    # the yardstick: the same matrices dense, one torch.linalg call each
+    A = bd.banded_to_dense(M, l, u).permute(2, 0, 1).contiguous()
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    rhs = b1[0].T.contiguous()[:, :, None]
+    library = {
+        "factor": cuda_ms(lambda: torch.linalg.lu_factor_ex(A), reps=20),
+        "solve": cuda_ms(lambda: torch.linalg.lu_solve(LU, piv, rhs), reps=20),
+    }
+    out = {}
+    for kind in ("factor", "solve"):
+        t_k, t_p = times[kind]
+        nbytes, flops = cost[kind]
+        out[kind] = dict(max_abs_err=abs_err if kind == "solve" else 0.0,
+                         ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
+                         **bound(nbytes, flops, dtype))
+        out[kind]["library_ms"] = library[kind]
+        log(f"[banded-{kind}-vs-plain n={n} B={B_STRUCT} l=u=1 dtype={dtype}] "
+            + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
+            + f" library(torch.linalg.{'lu_factor_ex' if kind == 'factor' else 'lu_solve'}, "
+            f"dense)_ms={library[kind]:.4f} bytes={nbytes} flops={flops} "
+            f"bound_us={1e3 * out[kind]['bound_ms']:.3f} ({out[kind]['bound_by']}) "
+            f"device_over_bound="
+            f"{fmt_us(t_k['device'] and t_k['device'] / (1e3 * out[kind]['bound_ms']))}")
+    log(f"[banded-kernels-vs-plain n={n} B={B_STRUCT} dtype={dtype}] lanes with a row swap "
+        f"{swapped}; singular lanes {int(f_k[2].sum())}; max_abs_err (finite solutions)="
+        f"{abs_err:.3e} "
+        + " ".join(f"{k}={v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the banded kernels disagree with their plain versions "
+                         f"(n={n}, {dtype})")
+    return out
+
+
+def kpp_lsoda(y0, params, tvals, lanes=STRUCT_GOLD_LANES) -> list:
+    """scipy's LSODA at rtol 1e-11 / atol 1e-13 on the first ``lanes``
+    lanes of the Fisher-KPP chain, as ``scripts/bench_batched_structured.py
+    ::_golden_gate`` solves it: the oracle of 12(b), (c) and (e)."""
+    from scipy.integrate import solve_ivp
+
+    def f_np(t, u, D, r):
+        lap = np.empty_like(u)
+        lap[0] = u[1] - u[0]
+        lap[-1] = u[-2] - u[-1]
+        lap[1:-1] = u[2:] - 2 * u[1:-1] + u[:-2]
+        return D * lap + r * u * (1 - u)
+
+    out = []
+    for i in range(lanes):
+        sol = solve_ivp(f_np, (0.0, tvals[-1]), y0[i], t_eval=tvals, method="LSODA",
+                        rtol=1e-11, atol=1e-13, args=(params[i, 0], params[i, 1]))
+        out.append(sol.y.T)
+    return out
+
+
+class BandedCounts:
+    """Every banded build's and wrapper's launches, set to 0 and read as
+    one: ``launches`` is the wrappers' total (factor + solve)."""
+
+    def __init__(self, builds):
+        from sunode_torch.ops.banded import banded_factor, banded_solve
+
+        self.builds = builds
+        self.wrappers = (banded_factor, banded_solve)
+
+    @property
+    def launches(self):
+        return sum(w.launches for w in self.wrappers)
+
+    @launches.setter
+    def launches(self, value):
+        for w in self.wrappers:
+            w.launches = value
+        for k in self.builds:
+            k.factor_launches = k.solve_launches = value
+
+    def by_kind(self):
+        return {"factor": self.wrappers[0].launches, "solve": self.wrappers[1].launches}
+
+
+def expected_banded(stats, bbd: bool) -> dict:
+    """Banded launches of a solve (or of a forward and backward, summed
+    stats): one factor a lockstep factorization, one solve a lockstep Newton
+    solve, and with a BBD border one more solve a factorization (X = Bb^-1 F)."""
+    f, s = stats["n_linear_factors"], stats["n_linear_solves"]
+    return {"factor": f, "solve": s + (f if bbd else 0)}
+
+
+def structured_counts(label, counted, banded, expected) -> None:
+    """The banded launches since the counts were set to 0 against
+    ``expected``, every other kernel's none."""
+    got = banded.by_kind()
+    others = [k.launches for k in counted if k is not banded]
+    log(f"[{label} launches] banded {got} expected={expected}; other kernels {others}")
+    if got != expected or any(others):
+        raise SystemExit(f"chip_smoke: {label}: the banded launches do not match the Newton solver")
+
+
+def drive(label, run, attempts, counted, smi) -> dict:
+    """One sub-phase's run under the profiler, with every count set to 0 just
+    before it: attempts, device kernels an attempt, host ms an attempt and
+    the device-busy share, logged; returns the profile with ``out``, the
+    run's result."""
+    for k in counted:
+        k.launches = 0
+    box = {}
+    prof = device_kernels_per_attempt(lambda: box.setdefault("out", run()), attempts)
+    prof["out"] = box["out"]
+    log(f"[{label} profiled] attempts={prof['attempts']} "
+        f"wall_s_under_profiler={prof['wall_s']:.4f} "
+        f"host_ms_per_attempt_under_profiler={1e3 * prof['wall_s'] / prof['attempts']:.3f} "
+        f"device kernels per attempt {prof['per_attempt']:.1f} ({prof['kernels']} kernels, "
+        f"{prof['copies']} copies and fills) device_busy_s={prof['busy_s']:.4f} "
+        f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} | {smi}")
+    log(f"[{label} device kernels by kind] (kind: per attempt, device ms) "
+        + "; ".join(f"{c}: {per:.1f}, {ms:.1f}" for c, (per, ms) in prof["by_class"].items()))
+    return prof
+
+
+def lsoda_gate(label, ys, y0, params, tvals) -> float:
+    worst = 0.0
+    for i, ref in enumerate(kpp_lsoda(y0, params, tvals)):
+        worst = max(worst, float(np.max(np.abs(ys[i] - ref))))
+    log(f"[{label} LSODA] lanes 0-{STRUCT_GOLD_LANES - 1} max_abs_err={worst:.3e} (gate 5e-6, "
+        f"scipy LSODA rtol 1e-11)")
+    if not worst < 5e-6:
+        raise SystemExit(f"chip_smoke: {label} failed the LSODA gate")
+    return worst
+
+
+def structured_forward(label, make, n, solver, counted, banded, smi, cpu=True, lsoda=True):
+    """12(b)-(e)'s forward solve at B=1,024 through ``make`` (``entry
+    .build_kpp`` or ``build_hub``), profiled, with the banded launches equal
+    to the Newton solver's calls: status 0 everywhere, LSODA on lanes 0-2
+    (the chain), lanes 0-3 within 1e-6 of the CPU's plain path (floored at
+    atol 1e-10).  Returns (forward, grad_step, inputs, ys)."""
+    import torch
+
+    forward, grad_step, (y0, p, tvals) = make(n, B_STRUCT, solver, device="cuda")
+    prof = drive(f"{label} forward", lambda: forward(y0, p),
+                 lambda: forward.last_stats["n_attempts"], counted, smi)
+    stats = forward.last_stats
+    if solver == "spgmr":
+        structured_counts(f"{label} forward", counted, banded, {"factor": 0, "solve": 0})
+    else:
+        structured_counts(f"{label} forward", counted, banded,
+                          expected_banded(stats, make.__name__ == "build_hub"))
+    ys = prof["out"].cpu().numpy()  # a failed lane's ys are NaN
+    ok = int(np.isfinite(ys).all(axis=(1, 2)).sum())
+    msg = f"[{label} forward check] n={n} B={B_STRUCT} finite (status 0) in {ok}/{B_STRUCT} lanes"
+    if lsoda:
+        lsoda_gate(label, ys, y0.cpu().numpy(), p.cpu().numpy(), tvals)
+    if cpu:
+        ref = cpu_ref(ref_structured, make.__name__[len("build_"):], n, solver)
+        rel = floored_rel(ys[:4], ref["ys"], 1e-10)
+        msg += (f"; cuda_vs_cpu_plain lanes 0-3 max_rel={rel:.3e} (bound 1e-6, floored at 1e-10; "
+                f"the CPU took {ref['wall']:.2f} s in a worker process)")
+        if not rel <= 1e-6:
+            raise SystemExit(f"chip_smoke: {label} disagrees with the plain path")
+    log(msg)
+    if ok != B_STRUCT:
+        raise SystemExit(f"chip_smoke: {label}: failed lanes")
+    return forward, grad_step, (y0, p, tvals), ys
+
+
+def structured_grad(label, make, n, grad_step, inputs, counted, banded, smi, bbd=False,
+                    dense=None):
+    """One timed gradient step at B=1,024 with the counts set to 0 before
+    it (banded launches = the forward's and backward's Newton calls):
+    finite everywhere, and lanes 0-3 within rtol 1e-4 / atol 1e-8 of the
+    dense solver's gradient (``tests/test_batched_structured.py:200``'s
+    tolerances): on the card, run on lanes 0-15, or, given ``dense``, those
+    gradients (12(d): lanes 0-15, the CPU's, from a worker)."""
+    import torch
+
+    y0, p, _ = inputs
+    for k in counted:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gy, gp = grad_step(y0, p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = grad_step.solve.last_stats
+    fwd, bwd = st["forward"], st["backward"]
+    summed = {k: fwd[k] + bwd[k] for k in ("n_linear_factors", "n_linear_solves")}
+    structured_counts(f"{label} gradient", counted, banded, expected_banded(summed, bbd))
+    attempts = fwd["n_attempts"] + bwd["n_attempts"]
+    log(f"[{label} gradient step] n={n} B={B_STRUCT} wall_s={wall:.4f} grads_per_s="
+        f"{B_STRUCT / wall:.1f} attempts fwd={fwd['n_attempts']} bwd={bwd['n_attempts']} "
+        f"host_ms_per_attempt={1e3 * wall / attempts:.3f} | {smi}")
+    gy, gp = gy.cpu().numpy(), gp.cpu().numpy()
+    finite = int((np.isfinite(gy).all(axis=1) & np.isfinite(gp).all(axis=1)).sum())
+    if dense is None:
+        _, dense_grad, _ = make(n, 16, "dense", device="cuda")
+        dy, dp = (g.cpu().numpy() for g in dense_grad(y0[:16], p[:16]))
+        lanes, where = 4, "on the card (16 lanes)"
+    else:
+        (dy, dp), lanes, where = dense, 16, "on the CPU"
+    rel = max(float(np.max(np.abs(gp[:lanes] - dp[:lanes]) / (np.abs(dp[:lanes]) + 1e-4))),
+              float(np.max(np.abs(gy[:lanes] - dy[:lanes]) / (np.abs(dy[:lanes]) + 1e-4))))
+    close = (np.allclose(gp[:lanes], dp[:lanes], rtol=1e-4, atol=1e-8)
+             and np.allclose(gy[:lanes], dy[:lanes], rtol=1e-4, atol=1e-8))
+    log(f"[{label} gradient check] finite in {finite}/{B_STRUCT} lanes; lanes 0-{lanes - 1} "
+        f"against the dense solver's gradient {where}: max |diff| / (|dense| + 1e-4) = "
+        f"{rel:.3e} within rtol 1e-4 / atol 1e-8: {close}")
+    if not (finite == B_STRUCT and close):
+        raise SystemExit(f"chip_smoke: {label}: the gradient failed its gate")
+
+
+def hub_dense_check(label, ys, dense) -> None:
+    """12(d): lanes 0-15 of the sparse forward within rtol 1e-6 / atol 1e-10
+    of the dense solver's (the CPU's, from a worker)."""
+    ref = dense["ys"]
+    close = np.allclose(ys[:16], ref, rtol=1e-6, atol=1e-10)
+    log(f"[{label} vs dense] lanes 0-15 max_rel={floored_rel(ys[:16], ref, 1e-10):.3e} "
+        f"within rtol 1e-6 / atol 1e-10: {close} (the dense solve on the CPU took "
+        f"{dense['wall']:.2f} s with its gradient, in a worker process)")
+    if not close:
+        raise SystemExit(f"chip_smoke: {label} disagrees with the dense solve")
+
+
+def structured_phase(smi, counted, banded_builds) -> dict:
+    """Phase 12(a)-(e); returns the banded kernel-table fields by
+    (kind, dtype) and the launches by build."""
+    import torch
+
+    from sunode_torch.entry import build_hub, build_kpp
+
+    table = {}
+    for dtype in (torch.float64, torch.float32):
+        per_n = {n: compare_banded(n, dtype) for n in STRUCT_N}
+        for kind in ("factor", "solve"):
+            table[(kind, dtype)] = per_n[STRUCT_N[0]][kind]
+    log_elapsed("12a")
+    banded = BandedCounts(banded_builds)
+    counted = (*counted, banded)
+    launches = {id(k): [0, 0] for k in banded_builds}
+
+    def tally():
+        for k in banded_builds:
+            launches[id(k)][0] += k.factor_launches
+            launches[id(k)][1] += k.solve_launches
+
+    forward, grad_step, inputs, _ = structured_forward("12(b) kpp band", build_kpp, 128, "band",
+                                                      counted, banded, smi)
+    tally()
+    structured_grad("12(b) kpp band", build_kpp, 128, grad_step, inputs, counted, banded, smi)
+    tally()
+    log_elapsed("12b")
+    structured_forward("12(c) kpp band", build_kpp, 256, "band", counted, banded, smi)
+    tally()
+    log_elapsed("12c")
+    _, hub_grad, hub_in, hub_ys = structured_forward("12(d) hub sparse", build_hub, 128, "sparse",
+                                                     counted, banded, smi, lsoda=False)
+    tally()
+    dense = cpu_ref(ref_hub_dense)
+    hub_dense_check("12(d) hub sparse", hub_ys, dense)
+    structured_grad("12(d) hub sparse", build_hub, 128, hub_grad, hub_in, counted, banded, smi,
+                    bbd=True, dense=dense["grads"])
+    tally()
+    log_elapsed("12d")
+    structured_forward("12(e) kpp spgmr", build_kpp, 128, "spgmr", counted, banded, smi,
+                       cpu=False)
+    log_elapsed("12e")
+    return {"table": table, "launches": launches}
+
+
+def spline_phase(smi, counted, spline_systems, spline_kernels) -> dict:
+    """Phase 12(f): the spline LV's forward and transition builds at both
+    types against their plain versions as in phase 3c (C6's checks; 10(a)'s
+    bound at float32), then one gated ADAMS forward + transition-adjoint
+    step at B=10,000 through ``entry.build_lv_spline``, profiled, with the
+    counts set to 0 before it: the float64 builds' launches equal to the
+    attempts, every lane finite, lanes 0-3 within 1e-8 of the CPU's plain
+    path.  Returns the kernel-table fields and launches by (kind, dtype)."""
+    import torch
+
+    from sunode_torch.entry import build_lv_spline, lv_spline_problem
+
+    problem = lv_spline_problem()
+    table = {}
+    for seed, kind in enumerate(SPLINE_KINDS, start=40):
+        fz = lv_plain_fz(problem, kind)
+        table[(kind, torch.float64)] = compare_history_kernel(
+            f"spline {kind}", spline_systems[(kind, torch.float64)], fz, seed, plain_reps=5)
+        tol = F32_FWD_TOL if kind == "forward" else F32_BWD_TOL
+        table[(kind, torch.float32)] = compare_history_kernel(
+            f"spline {kind} float32", spline_systems[(kind, torch.float32)], fz, seed, P_MAX, tol,
+            torch.float32, plain_reps=5)
+    log_elapsed("12f, the builds")
+    grad_step, (y0s, p_subs) = build_lv_spline(B_MAIN, device="cuda")
+    by_system = {kind: spline_kernels[(kind, torch.float64)] for kind in SPLINE_KINDS}
+    all_counted = (*counted, *spline_kernels.values())
+
+    def attempts():
+        st = grad_step.solve.last_stats
+        return st["forward"]["n_attempts"] + st["backward"]["n_attempts"]
+
+    prof = drive("12(f) lv spline gradient", lambda: grad_step(y0s, p_subs), attempts,
+                 all_counted, smi)
+    st = grad_step.solve.last_stats
+    fwd, bwd = st["forward"]["n_attempts"], st["backward"]["n_attempts"]
+    launches = check_launches("12(f) lv spline", all_counted, by_system,
+                              {"forward": fwd, "transition": bwd})
+    gy, gp = (g.cpu().numpy() for g in prof["out"])
+    finite = int((np.isfinite(gy).all(axis=1) & np.isfinite(gp).all(axis=1)).sum())
+    ref = cpu_ref(ref_lv_spline)
+    cy, cp = ref["grads"]
+    rel = max(float(np.max(np.abs(gy[:4] - cy) / np.abs(cy))),
+              float(np.max(np.abs(gp[:4] - cp) / np.abs(cp))))
+    log(f"[12(f) lv spline check] B={B_MAIN} attempts fwd={fwd} bwd={bwd} finite={finite}/"
+        f"{B_MAIN} cuda_vs_cpu_plain lanes 0-3 max_rel={rel:.3e} (bound 1e-8; the CPU took "
+        f"{ref['wall']:.2f} s in a worker process)")
+    if not (finite == B_MAIN and rel <= 1e-8):
+        raise SystemExit("chip_smoke: the spline LV gradient failed its gate")
+    log_elapsed("12f")
+    return {"table": table, "launches": {(k, torch.float64): v for k, v in launches.items()}}
+
+
 def main() -> None:
     card, smi = check_device()
+    try:
+        run(card, smi)
+    finally:
+        if CPU_REFS is not None:
+            CPU_REFS.close()
 
+
+def run(card, smi) -> None:
+    global CPU_REFS
     import torch
 
     # the plain-path references run 16 lanes on the CPU, where torch's
@@ -2035,9 +2684,11 @@ def main() -> None:
     torch.set_num_threads(1)
 
     from sunode_torch.entry import LV_P_FIX, build_lv_adjoint, lv_problem
-    from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel
+    from sunode_torch.ops.adams_attempt import adams_history_attempt, build_attempt_kernel, c_real
     from sunode_torch.ops.adams_split import build_split_kernels
     from sunode_torch.ops.pece_2d import P_ORDER, build_pece_2d, lv_system, pece_2d_attempt
+    from sunode_torch.entry import lv_spline_problem
+    from sunode_torch.ops.banded import build_banded_kernels
     from sunode_torch.ops.pece_step import adams_pece_attempt, build_kernel
     from sunode_torch.symode import cuda_codegen
 
@@ -2058,10 +2709,18 @@ def main() -> None:
     # phase 10's float32 builds: lv_adjoint_f32's systems, and the split kernels
     f32_systems = {kind: getattr(cuda_codegen, f"{kind}_system")(problem, "float")
                    for kind in F32_KINDS}
+    # phase 12's: the banded kernels at the structured paths' bandwidths (1, 1)
+    # and both types, the spline LV's forward and transition systems at both
+    spline_problem = lv_spline_problem()
+    spline_systems = {(kind, dt): getattr(cuda_codegen, f"{kind}_system")(spline_problem,
+                                                                          c_real(dt))
+                      for kind in SPLINE_KINDS for dt in (torch.float64, torch.float32)}
+    banded_dtypes = (torch.float64, torch.float32)
     lv_system()  # emit the flat-history kernel's system before the threads need it
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2 * len(systems) + 3 + len(adams_systems) + len(sens_systems)
-                            + len(f32_systems) + 1) as pool:
+                            + len(f32_systems) + 1 + len(spline_systems)
+                            + len(banded_dtypes)) as pool:
         futures = {kind: pool.submit(build_kernel, ds) for kind, ds in systems.items()}
         futures.update({
             f"history_{kind}": pool.submit(build_attempt_kernel, ds, P_MAX + 3)
@@ -2080,12 +2739,19 @@ def main() -> None:
                         for kind, ds in f32_systems.items()})
         futures[f"split_kab{P_MAX_ADAMS + 3}_f32"] = pool.submit(
             build_split_kernels, P_MAX_ADAMS + 3, torch.float32)
+        futures.update({f"banded_{dt}": pool.submit(build_banded_kernels, 1, 1, dt)
+                        for dt in banded_dtypes})
+        futures.update({f"history_spline_{kind}_{dt}": pool.submit(build_attempt_kernel, ds,
+                                                                   P_MAX + 3)
+                        for (kind, dt), ds in spline_systems.items()})
         built = {kind: f.result() for kind, f in futures.items()}
     for kind, k in built.items():
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
         log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; "
             f"sass_instructions={sass_instructions(k.lib_path)}; ptxas: {'; '.join(regs)}")
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
+    # the CPU references of phases 5-8 and 12, in worker processes from here
+    CPU_REFS = submit_cpu_refs()
     log_elapsed("2")
     kernels = {kind: built[kind] for kind in systems}
     history_kernels = {kind: built[f"history_{kind}"] for kind in systems}
@@ -2093,6 +2759,9 @@ def main() -> None:
     adams_kernels = {kind: built[f"history_{kind}_kab{P_MAX_ADAMS + 3}"] for kind in adams_systems}
     f32_kernels = {kind: built[f"history_{kind}_f32"] for kind in F32_KINDS}
     f32_split = built[f"split_kab{P_MAX_ADAMS + 3}_f32"]
+    banded_builds = {dt: built[f"banded_{dt}"] for dt in banded_dtypes}
+    spline_kernels = {(kind, dt): built[f"history_spline_{kind}_{dt}"]
+                      for kind, dt in spline_systems}
 
     # phase 3: kernel vs plain on the card
     fz = {kind: lv_plain_fz(problem, kind)
@@ -2214,7 +2883,8 @@ def main() -> None:
     # each path's counts are set to 0 just before it and read just after
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
                *history_kernels.values(), *adams_kernels.values(), *sens_kernels.values(),
-               pece_2d_attempt, build_pece_2d(P_ORDER), split_count)
+               pece_2d_attempt, build_pece_2d(P_ORDER), *spline_kernels.values(),
+               BandedCounts(tuple(banded_builds.values())), split_count)
     for label, name, phase in (("5", "robertson", bdf_robertson_phase),
                                ("5b", "sens", bdf_sens_phase),
                                ("6", "checkpointed", checkpointed_phase)):
@@ -2274,6 +2944,15 @@ def main() -> None:
     # forward build on the Adams core, every other count 0
     phase11 = per_lane_phase(smi, (*counted, *f32_kernels.values(), f32_split_count),
                              history_kernels["forward"])
+
+    # phase 12: structured Newton on the batched BDF core through the banded
+    # kernels, and the spline LV on the history kernel; every path's counts
+    # set to 0 just before it and read just after
+    others12 = tuple(k for k in (*counted, *f32_kernels.values(), f32_split_count)
+                     if not isinstance(k, BandedCounts) and k not in spline_kernels.values())
+    struct = structured_phase(smi, others12, tuple(banded_builds.values()))
+    spline = spline_phase(smi, (*others12, BandedCounts(tuple(banded_builds.values()))),
+                          spline_systems, spline_kernels)
 
     entries = [
         dict(
@@ -2370,6 +3049,20 @@ def main() -> None:
         )
         for stage in SPLIT_STAGES
     ]
+    replaces = {"factor": "none (the XLA column loop sunode_tpu/ops/banded.py:63)",
+                "solve": "none (the XLA column loop sunode_tpu/ops/banded.py:135)"}
+    for (kind, dt), fields in struct["table"].items():
+        launches = struct["launches"][id(banded_builds[dt])][0 if kind == "factor" else 1]
+        entries.append(dict(
+            name=f"banded_{kind}[{str(dt).split('.')[1]}, l=1, u=1]", route="cuda",
+            source=BANDED_SOURCE, replaces=replaces[kind], launches=launches, **fields,
+        ))
+    for (kind, dt), fields in spline["table"].items():
+        entries.append(dict(
+            name=f"adams_history_attempt[spline {kind}, {str(dt).split('.')[1]}]", route="cuda",
+            source=KERNEL_SOURCE_ATTEMPT, replaces=TPU_KERNEL,
+            launches=spline["launches"].get((kind, dt), 0), **fields,
+        ))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({
         "ok": True,

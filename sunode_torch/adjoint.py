@@ -433,7 +433,7 @@ def adjoint_backward_batched(
     status = torch.zeros((B,), dtype=torch.int32, device=device)
     nsteps = torch.zeros((B,), dtype=torch.int32, device=device)
     h_prev = torch.full((B,), -1.0, **f_kw)  # the first interval starts automatically
-    attempts = 0
+    attempts = factors = solves = 0
     lower = tvals_h[::-1][1:] + [t0_h]
     for k, (t_hi, t_lo) in enumerate(zip(tvals_h[::-1], lower)):
         lam = lam + grads[:, n_t - 1 - k, :]
@@ -450,6 +450,8 @@ def adjoint_backward_batched(
         nsteps = nsteps + res.stats["n_steps"]
         h_prev = res.stats["final_step_size"]
         attempts += res.stats["n_attempts"]
+        factors += res.stats["n_linear_factors"]
+        solves += res.stats["n_linear_solves"]
 
     # an overflowed recording is incomplete: poison instead of interpolating
     overflow = saved["overflow"]
@@ -458,7 +460,8 @@ def adjoint_backward_batched(
     status = torch.where(overflow, 99, status).to(torch.int32)
     return AdjointResult(
         lamda=lam, quad=q, status=status,
-        stats=dict(n_backward_steps=nsteps, n_attempts=attempts),
+        stats=dict(n_backward_steps=nsteps, n_attempts=attempts, n_linear_factors=factors,
+                   n_linear_solves=solves),
     )
 
 

@@ -40,6 +40,19 @@ gradients of ``sum(ys[:, :, R:2R]**2)`` with respect to (beta, gamma) in
 kernels (``ops/adams_split.py``), the right-hand side in torch between them;
 ``dtype=torch.float32`` runs it at float32 with ``bench.py``'s float32
 tolerances (the float32 builds of the split kernels).
+
+The structured Newton solves: :func:`build_kpp` is
+``scripts/bench_batched_structured.py``'s Fisher-KPP reaction-diffusion
+chain (n states, tridiagonal Jacobian, stiff through the diffusion term)
+with band, sparse or dense Newton through ``make_batched_solve_fn`` (a
+forward solve and adjoint gradients), or spgmr through
+``bdf_solve_batched``; :func:`build_hub` is ``tests/test_bbd.py``'s hub
+problem (a chain of n nodes plus one hub coupled to every node: an
+arrowhead Jacobian) with sparse Newton, whose plan borders the hub.
+:func:`build_lv_spline` is the Lotka-Volterra gradient step with the prey
+birth rate a cubic ``interpolate_spline`` of t whose values are
+parameters: on the card the emitted forward and transition systems carry
+the spline into the history-attempt kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import TorchProblem
+from sunode_torch.symode.lambdify import interpolate_spline
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
@@ -81,6 +95,14 @@ __all__ = [
     "sir_inputs",
     "sir_options",
     "build_sir",
+    "kpp_problem",
+    "kpp_inputs",
+    "build_kpp",
+    "hub_problem",
+    "hub_inputs",
+    "build_hub",
+    "lv_spline_problem",
+    "build_lv_spline",
 ]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
@@ -569,3 +591,197 @@ def build_sir(R: int, batch: int, mode: str, device="cuda", dtype=torch.float64)
     grad_step.p_fix = p_fix
     y0s, p_subs = sir_inputs(R, batch)
     return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))
+
+
+# ---- structured Newton: Fisher-KPP, the hub, and a spline input ------------------
+KPP_RTOL, KPP_ATOL = 1e-8, 1e-10  # scripts/bench_batched_structured.py's
+STRUCTURED_CHECKPOINTS = 1024  # its checkpoint_n
+
+
+def _kpp(t, y, p):
+    u = y.u
+    zero = torch.zeros(1, dtype=u.dtype, device=u.device)
+    lap = torch.cat([u[1:2] - u[0:1], u[2:] - u[1:-1], u[-2:-1] - u[-1:]])
+    lap2 = torch.cat([zero, u[:-2] - u[1:-1], zero])
+    return {"u": p.D * (lap + lap2) + p.r * u * (1.0 - u)}
+
+
+def kpp_problem(n: int) -> TorchProblem:
+    """The Fisher-KPP chain of n nodes: ``du/dt = D lap(u) + r u (1 - u)``
+    with reflecting ends, derivatives with respect to D and r."""
+    return TorchProblem(
+        params={"D": (), "r": ()}, states={"u": (n,)}, rhs=_kpp,
+        derivative_params=[("D",), ("r",)],
+    )
+
+
+def kpp_inputs(n: int, batch: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(y0 (B, n), params (B, 2), tvals (8,))`` as
+    ``scripts/bench_batched_structured.py:68-75`` draws them from
+    ``default_rng(0)``: D around ``0.25 n^2 / 64``, r around 1, t in [0.05, 1]."""
+    rng = np.random.default_rng(0)
+    y0 = 0.5 + 0.3 * rng.random((batch, n))
+    d_scale = 0.25 * n * n / 64.0
+    params = np.stack(
+        [d_scale * (1 + 0.2 * rng.random(batch)), 1.0 + 0.1 * rng.random(batch)], axis=1
+    )
+    return y0, params, np.linspace(0.05, 1.0, 8)
+
+
+def _structured_run(problem, linear_solver, p_fix, tvals, device, linear_solver_kwargs=None):
+    """``(forward, grad_step)`` of one structured workload at rtol 1e-8 /
+    atol 1e-10: ``forward(y0, p) -> ys`` (no gradient, failed lanes NaN;
+    ``forward.last_stats`` the solve's stats) and ``grad_step(y0, p) -> (gy,
+    gp)``, the gradients of ``sum(ys**2)`` (``grad_step.solve.last_stats``),
+    through ``make_batched_solve_fn(method='BDF', checkpoint_n=1024)``.
+    spgmr, which that wrapper refuses as the reference does, has the
+    forward only, through ``bdf_solve_batched``."""
+    f_kw = dict(dtype=torch.float64, device=device)
+    tvals = torch.as_tensor(tvals, **f_kw)
+    p_fix = torch.as_tensor(p_fix, **f_kw)
+    options = BDFOptions(rtol=KPP_RTOL, atol=KPP_ATOL)
+    if linear_solver == "spgmr":
+        rhs = problem.make_rhs()
+        options = options._replace(linear_solver="spgmr")
+
+        def forward(y0, p):
+            full = problem.params.combine(p, torch.broadcast_to(p_fix, (p.shape[0],) + p_fix.shape))
+            res = bdf_solve_batched(rhs, None, 0.0, y0, full, tvals, options, batched_fns=True)
+            forward.last_stats = res.stats
+            return torch.where((res.status == 0)[:, None, None], res.ys, float("nan"))
+
+        return forward, None
+    solve = make_batched_solve_fn(
+        problem, options=options, checkpoint_n=STRUCTURED_CHECKPOINTS,
+        linear_solver=linear_solver, linear_solver_kwargs=linear_solver_kwargs,
+    )
+
+    def forward(y0, p):
+        with torch.no_grad():
+            ys = solve(0.0, y0, p, p_fix, tvals)
+        forward.last_stats = solve.last_stats["forward"]
+        return ys
+
+    def grad_step(y0, p):
+        y0 = y0.detach().requires_grad_(True)
+        p = p.detach().requires_grad_(True)
+        ys = solve(0.0, y0, p, p_fix, tvals)
+        return torch.autograd.grad(torch.sum(ys**2), (y0, p))
+
+    grad_step.solve = solve
+    return forward, grad_step
+
+
+def _tensors(device, *arrays):
+    return tuple(torch.as_tensor(a, dtype=torch.float64, device=device) for a in arrays)
+
+
+def build_kpp(n: int, batch: int, linear_solver: str = "band", device="cuda"):
+    """``(forward, grad_step, (y0, params, tvals))`` of the Fisher-KPP chain
+    (:func:`kpp_problem`, :func:`kpp_inputs`; ``tvals`` numpy):
+    ``linear_solver`` 'band' (bandwidths 1 and 1), 'sparse', 'dense' or
+    'spgmr' (forward only, ``grad_step`` None).  It runs on the card unless
+    ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    y0, params, tvals = kpp_inputs(n, batch)
+    kw = dict(lower_bandwidth=1, upper_bandwidth=1) if linear_solver == "band" else None
+    forward, grad_step = _structured_run(kpp_problem(n), linear_solver, [], tvals, device, kw)
+    return forward, grad_step, (*_tensors(device, y0, params), tvals)
+
+
+HUB_P_FIX = (30.0, 0.5)  # a, c: the hub's relaxation rate and its coupling
+
+
+def _hub(t, y, p):
+    u = y.u
+    zero = torch.zeros(1, dtype=u.dtype, device=u.device)
+    lap = torch.cat([u[1:2] - u[0:1], u[2:] - u[1:-1], u[-2:-1] - u[-1:]])
+    lap2 = torch.cat([zero, u[:-2] - u[1:-1], zero])
+    du = p.D * (lap + lap2) - u * (u - 1.0) + p.c * y.h
+    dh = -p.a * y.h + p.b * torch.mean(u)
+    return {"u": du, "h": dh}
+
+
+def hub_problem(n: int) -> TorchProblem:
+    """``tests/test_bbd.py:31-53``'s hub problem: a diffusion chain of n
+    nodes and one hub state coupled to every node (n + 1 states, an
+    arrowhead Jacobian), derivatives with respect to D and b."""
+    return TorchProblem(
+        params={"D": (), "a": (), "b": (), "c": ()}, states={"u": (n,), "h": ()}, rhs=_hub,
+        derivative_params=[("D",), ("b",)],
+    )
+
+
+def hub_inputs(n: int, batch: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(y0 (B, n+1), p_sub (B, 2), tvals (6,))``: ``tests/test_bbd.py``'s
+    draws (``_hub_inputs``, ``default_rng(2)``) of the initial chain, hub
+    and the per-lane (D, b); (a, c) is :data:`HUB_P_FIX` for every lane."""
+    rng = np.random.default_rng(2)
+    y0 = np.concatenate([0.4 + 0.3 * rng.random((batch, n)), 0.1 * rng.random((batch, 1))], axis=1)
+    params = np.stack(
+        [
+            40.0 * (1 + 0.2 * rng.random(batch)),  # D
+            30.0 * (1 + 0.1 * rng.random(batch)),  # a (drawn, as the test draws it)
+            2.0 + 0.2 * rng.random(batch),  # b
+            0.5 + 0.1 * rng.random(batch),  # c
+        ],
+        axis=1,
+    )
+    return y0, params[:, [0, 2]], np.linspace(0.05, 1.0, 6)
+
+
+def build_hub(n: int, batch: int, linear_solver: str = "sparse", device="cuda"):
+    """``(forward, grad_step, (y0, p_sub, tvals))`` of the hub problem
+    (:func:`hub_problem`, :func:`hub_inputs`; ``tvals`` numpy) with
+    ``linear_solver`` 'sparse' (the exact pattern by probing, the plan's
+    border 'auto', which takes the hub) or 'dense', as :func:`build_kpp`.
+    It runs on the card unless ``device="cpu"``; without a card the default
+    raises."""
+    device = device_or_raise(device)
+    y0, p_sub, tvals = hub_inputs(n, batch)
+    forward, grad_step = _structured_run(hub_problem(n), linear_solver, HUB_P_FIX, tvals, device)
+    return forward, grad_step, (*_tensors(device, y0, p_sub), tvals)
+
+
+LV_SPLINE_K = 6  # spline values of the prey birth rate
+LV_SPLINE_HORIZON = (0.0, 10.0)  # the span the spline covers: the solve's
+
+
+def _lv_spline(t, y, p):
+    alpha = interpolate_spline(t, list(p.alpha), *LV_SPLINE_HORIZON, 3)
+    return {
+        "hares": alpha * y.hares - p.beta * y.lynx * y.hares,
+        "lynx": p.delta * y.hares * y.lynx - p.gamma * y.lynx,
+    }
+
+
+def lv_spline_problem() -> SympyProblem:
+    """Lotka-Volterra with the prey birth rate a cubic spline of t over
+    [0, 10] through :data:`LV_SPLINE_K` values, which are parameters
+    (derivatives with respect to them and beta)."""
+    return SympyProblem(
+        params={"alpha": (LV_SPLINE_K,), "beta": (), "gamma": (), "delta": ()},
+        states={"hares": (), "lynx": ()},
+        rhs_sympy=_lv_spline,
+        derivative_params=[("alpha",), ("beta",)],
+    )
+
+
+def build_lv_spline(batch: int, tvals_n: int = 21, rtol: float = 1e-8, device="cuda"):
+    """:func:`build_lv_adjoint` on :func:`lv_spline_problem`: the Adams
+    forward solve and transition-adjoint gradients of ``sum(ys**2)``, with
+    :func:`lv_options`; ``(grad_step, (y0s, p_subs))``, p_subs the spline's
+    values around 1 (5% seeded spread a value) and beta as
+    :func:`lv_adjoint_inputs` draws it.  It runs on the card unless
+    ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    fwd_opts, adj_opts = lv_options(rtol)
+    solve = make_batched_solve_fn(
+        lv_spline_problem(), derivatives="adjoint", options=fwd_opts,
+        adjoint_options=adj_opts, method="ADAMS", adjoint_interpolation="transition",
+    )
+    y0s, p_lv = lv_adjoint_inputs(batch)
+    rng = np.random.default_rng(7)
+    alpha = p_lv[:, :1] * (1 + 0.05 * rng.standard_normal((batch, LV_SPLINE_K)))
+    return _lv_grad_step(solve, batch, tvals_n, device,
+                         inputs=(y0s, np.concatenate([alpha, p_lv[:, 1:]], axis=1)))

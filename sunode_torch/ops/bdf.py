@@ -54,22 +54,16 @@ STATUS = {
 }
 
 
-def _unsupported(core: str, **kwargs):
-    """Raise for the first argument given (not None) that ``core`` has not
-    ported yet, naming it."""
-    for name, value in kwargs.items():
-        if value is not None:
-            raise NotImplementedError(f"{core}: {name} is not ported to sunode_torch yet")
-
-
 class BDFOptions(NamedTuple):
     """Field-for-field copy of ``sunode_tpu.ops.bdf.BDFOptions``; see there
     for what each field does.  The batched Adams core of this package reads
     the tolerances, step bounds, ``max_steps``, ``newton_tol_factor``,
     ``adams_max_order``, ``constraints`` and the quadrature fields; the
     batched BDF core also ``max_order``, ``use_ndf``, ``first_step``, the
-    sensitivity fields ``sens_err_con`` and ``sens_pbar`` and the recording
-    fields ``save_steps``, ``checkpoint_thinning`` and ``hermite_order``."""
+    sensitivity fields ``sens_err_con`` and ``sens_pbar``, the recording
+    fields ``save_steps``, ``checkpoint_thinning`` and ``hermite_order`` and
+    the linear-solver fields ``linear_solver``, ``krylov_dim``,
+    ``band_lower``, ``band_upper``, ``sparse_perm`` and ``sparse_border``."""
 
     rtol: Any = 1e-8
     atol: Any = 1e-8

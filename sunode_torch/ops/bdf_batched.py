@@ -1,10 +1,9 @@
 """Batch-native BDF integrator (stiff problems, forward sensitivities), in PyTorch.
 
-Port of ``sunode_tpu/ops/bdf_batched.py::bdf_solve_batched`` with the dense
-Newton solve: shared ``(n_t,)`` or per-lane ``(B, n_t)`` observation times
-(each lane emits on its own ascending grid and ends at its own last time; a
-ragged grid is padded with copies of its last time), scalar or per-state
-vector ``rtol``,
+Port of ``sunode_tpu/ops/bdf_batched.py::bdf_solve_batched``: shared
+``(n_t,)`` or per-lane ``(B, n_t)`` observation times (each lane emits on
+its own ascending grid and ends at its own last time; a ragged grid is
+padded with copies of its last time), scalar or per-state vector ``rtol``,
 BDF or NDF formulas of orders 1..5, lazy Jacobian refresh and refactoring
 only when the step coefficient changes, forward sensitivities,
 simultaneous or staggered (``sens_rhs``/``S0``, ``sens_err_con``,
@@ -17,11 +16,14 @@ recording for the adjoint (``save_steps``, ``checkpoint_thinning``,
 
 Layout: states are ``(rows, B)`` with the lane axis last, the difference
 array ``D`` is ``(KD, nt, B)`` over the combined state ``z = [y | vec S | q]``
-and Newton matrices are ``(n, n, B)``.  The lockstep loop is a host loop, as
-in :mod:`sunode_torch.ops.adams_batched`: one device sync per attempt to see
-whether any lane is active and one per emission sweep.  Every per-lane
-scalar stays a tensor on the device.  The Newton matrices are factored by
-``torch.linalg`` (see :mod:`sunode_torch.ops.linalg`).  The small
+and Newton matrices are ``(n, n, B)``, or structured (``linear_solver``
+'band', 'sparse' or 'spgmr'; :mod:`sunode_torch.ops.linsolve`: the banded
+and the bordered-block-diagonal storage, factored by the banded LU's
+kernels on CUDA tensors, or no matrix at all).  The lockstep loop is a host
+loop, as in :mod:`sunode_torch.ops.adams_batched`: one device sync per
+attempt to see whether any lane is active and one per emission sweep.
+Every per-lane scalar stays a tensor on the device.  Dense Newton matrices are factored
+by ``torch.linalg`` (see :mod:`sunode_torch.ops.linalg`).  The small
 fixed-size contractions that the reference unrolls element by element (the
 rescale, the predictor, the difference update, the dense output) are
 products and sequential ``cumsum``s over the leading axis of ``(K, nt, B)``
@@ -30,13 +32,11 @@ tensors, which round in the reference's order; the LU and the libraries'
 rounding, not bit for bit.
 
 The reference's size rule decides what runs only when a lane needs it: for
-``n <= 4`` the refactorization, the Jacobian refresh and the breakdown
-reset run unconditionally (cheaper than a sync), above that behind a host
-check; the Newton and sensitivity iterations are unrolled for ``n <= 16``
-and stop early once every lane is done above that.
-
-Not ported yet (they raise ``NotImplementedError``): the band, sparse and
-spgmr linear solvers and ``jac_prod``.
+``n <= 4`` with dense algebra the refactorization and the Jacobian refresh
+run unconditionally (cheaper than a sync), above that and with any
+structured solver behind a host check, as the breakdown reset for
+``n > 4``; the Newton and sensitivity iterations are unrolled for ``n <=
+16`` and stop early once every lane is done above that.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ from sunode_torch.ops.bdf import (
     _order_constants,
     _root_scan,
     _root_setup,
-    _unsupported,
     newton_tol_for,
 )
 from sunode_torch.ops._recording import (
@@ -73,7 +72,7 @@ from sunode_torch.ops._recording import (
     pad_column,
     record_step_batched,
 )
-from sunode_torch.ops.linalg import factor_newton_b, solve_factored_b
+from sunode_torch.ops.linsolve import newton_linear_solver
 
 __all__ = ["bdf_solve_batched"]
 
@@ -218,13 +217,18 @@ def bdf_solve_batched(
     roots are ``stats['roots_t']`` (B, cap), ``['roots_y']`` (B, cap, n) and
     ``['roots_found']`` (B, cap, nrt), as in the reference.  ``tvals (B,
     n_t)`` gives each lane its own ascending grid (a ragged one padded with
-    copies of its last time), ending the lane at its own last time."""
-    _unsupported("bdf_solve_batched", jac_prod=jac_prod)
-    if options.linear_solver != "dense":
-        raise NotImplementedError(
-            f"bdf_solve_batched: linear_solver={options.linear_solver!r} is not "
-            "ported to sunode_torch yet (only 'dense')"
-        )
+    copies of its last time), ending the lane at its own last time.
+
+    ``options.linear_solver`` 'band' (``jac`` returns banded storage ``(l+u+1,
+    n)``, ``band_lower``/``band_upper``), 'sparse' (``jac`` returns a
+    ``SparsePlan``'s packed storage in its permuted coordinates,
+    ``sparse_perm``, ``sparse_border``) or 'spgmr' (no ``jac``: GMRES of
+    depth ``krylov_dim`` on ``jac_prod(t, y, v, p) -> J v``, by default a
+    ``torch.func.jvp`` of ``rhs``) replace the dense Newton solve
+    (:mod:`sunode_torch.ops.linsolve`); ``stats['n_linear_factors']`` and
+    ``['n_linear_solves']`` count the lockstep factorizations and solves;
+    another ``linear_solver`` raises ``NotImplementedError``."""
+    use_spgmr = options.linear_solver == "spgmr"
     with_sens = sens_rhs is not None
     with_quad = quad_rhs is not None
     staggered = with_sens and bool(options.sens_staggered)
@@ -250,19 +254,30 @@ def bdf_solve_batched(
     sl_S = slice(n, n + n_S)
     sl_Q = slice(n + n_S, n + n_S + m_quad)
 
+    jac_prod_b = None
     if batched_fns:
         rhs_b, jac_b, sens_rhs_b, quad_rhs_b = rhs, jac, sens_rhs, quad_rhs
+        jac_prod_b = jac_prod
     else:
         vmap = torch.func.vmap
         rhs_b = vmap(rhs, in_dims=(0, 1, 1), out_dims=1)
-        jac_b = vmap(jac, in_dims=(0, 1, 1), out_dims=2)
+        if not use_spgmr:
+            jac_b = vmap(jac, in_dims=(0, 1, 1), out_dims=2)
         if with_sens:
             sens_rhs_b = vmap(sens_rhs, in_dims=(0, 1, 2, 1), out_dims=2)
         if with_quad:
             quad_rhs_b = vmap(quad_rhs, in_dims=(0, 1, 1), out_dims=1)
+        if jac_prod is not None:
+            jac_prod_b = vmap(jac_prod, in_dims=(0, 1, 1, 1), out_dims=1)
+    if use_spgmr and jac_prod_b is None:
+        # each lane's tangent is its own column: one jvp of the batched rhs
+        def jac_prod_b(t, y, v, p):
+            return torch.func.jvp(lambda y_: rhs_b(t, y_, p), (y,), (v,))[1]
+
+    lin = newton_linear_solver(options, n, jac_prod_b)
 
     def jac_full(t, y, p):  # generated Jacobians may leave constant entries unbatched
-        return torch.broadcast_to(jac_b(t, y, p), (n, n, B))
+        return torch.broadcast_to(jac_b(t, y, p), lin.jac_shape() + (B,))
 
     def fz_at(t, y, S, p):
         """Combined derivative ``[f | vec dS/dt | g]`` at the state ``y``."""
@@ -381,9 +396,9 @@ def bdf_solve_batched(
     emit_mask0 = tvals_tb <= t0[None, :]  # (n_t, B), each lane on its own grid
     zs = torch.where(emit_mask0[:, None, :], z0[None], zs)
 
-    eye = torch.eye(n, **f_kw)[:, :, None]
     grid = _Grid(dtype, device)
-    J0 = jac_full(t0, y0, params)
+    # matrix-free spgmr: no Jacobian, no factors
+    J0 = torch.zeros((1, 1, B), **f_kw) if use_spgmr else jac_full(t0, y0, params)
 
     save_steps = int(options.save_steps)
     thinning = bool(options.checkpoint_thinning)
@@ -391,11 +406,11 @@ def bdf_solve_batched(
 
     def record_row(t, y, f, J):
         """``(t, y, f[, fdot, L])`` as ``(W, B)``: quintic rows add the total
-        derivative of f and ``L = ||J||_inf`` (the Newton's current J) for
-        the evaluator's stiffness gate."""
+        derivative of f and a Lipschitz scale of the Newton's current J
+        (``lin.lip_norm``) for the evaluator's stiffness gate."""
         parts = [t[None, :], y, f]
         if rec_fd:
-            parts += [fdot(rhs_b, t, y, f, params), torch.abs(J).sum(dim=1).amax(dim=0)[None]]
+            parts += [fdot(rhs_b, t, y, f, params), lin.lip_norm(J)[None]]
         return torch.cat(parts)
 
     if save_steps > 0:
@@ -416,7 +431,7 @@ def bdf_solve_batched(
         n_equal=zeros_i,
         J=J0,
         J_current=torch.ones((B,), dtype=torch.bool, device=device),
-        factors=factor_newton_b(eye.expand(n, n, B)),
+        factors=None if use_spgmr else lin.identity(J0),
         c_factored=torch.zeros((B,), **f_kw),
         need_factor=torch.ones((B,), dtype=torch.bool, device=device),
         i_out=emit_mask0.sum(dim=0),
@@ -464,9 +479,12 @@ def bdf_solve_batched(
         )
         need = active & (c["need_factor"] | c_changed)
         factors, c_factored, nfactor = c["factors"], c["c_factored"], c["nfactor"]
-        # tiny systems: refactoring every lane is cheaper than a sync
-        if n <= 4 or bool(need.any()):
-            factors = factor_newton_b(eye - c_coef[None, None, :] * c["J"]).where(need, factors)
+        if use_spgmr:
+            # matrix-free: nothing to factor (linearised per attempt below)
+            c_factored = c_coef
+        # tiny dense systems: refactoring every lane is cheaper than a sync
+        elif lin.always or bool(need.any()):
+            factors = lin.factor(c["J"], c_coef).where(need, factors)
             c_factored = torch.where(need, c_coef, c_factored)
             nfactor = nfactor + need.to(torch.int32)
 
@@ -476,6 +494,12 @@ def bdf_solve_batched(
         w_z = 1.0 / (atol_z + rtol_z * torch.abs(z_pred))
         y_pred, w_y, psi_y = z_pred[:n], w_z[:n], psi_z[:n]
         pred_ok = torch.isfinite(z_pred).all(dim=0)
+        if use_spgmr:
+            # (I - c J) x = b linearised at the predictor, as CVODES's
+            # difference-quotient jtimes freezes ycur
+            lin_solve = lin.linearized(t_new, y_pred, c_coef, params)
+        else:
+            lin_solve = lambda res: lin.solve(factors, res)  # noqa: E731
 
         # ---- Newton on the y block (per-lane masked; shared loop) ---------
         y, d_corr, dy_old = y_pred, torch.zeros_like(y_pred), inf_b
@@ -487,7 +511,7 @@ def bdf_solve_batched(
                 break
             f = rhs_b(t_new, y, params)
             bad_f = ~torch.isfinite(f).all(dim=0)
-            delta = solve_factored_b(factors, c_coef[None, :] * f - psi_y - d_corr)
+            delta = lin_solve(c_coef[None, :] * f - psi_y - d_corr)
             bad_d = ~torch.isfinite(delta).all(dim=0)
             dy_norm = torch.sqrt(torch.mean((delta * w_y) ** 2, dim=0))
             rate = dy_norm / dy_old
@@ -535,7 +559,7 @@ def bdf_solve_batched(
                 if n > 16 and not bool(live.any()):
                     break
                 FS = sens_rhs_b(t_new, y_new, S, params)
-                deltaS = solve_factored_b(factors, c_coef[None, None, :] * FS - psi_S - dS)
+                deltaS = lin_solve(c_coef[None, None, :] * FS - psi_S - dS)
                 bad_new = ~torch.isfinite(deltaS).all(dim=1).all(dim=0)
                 norm = torch.sqrt(torch.mean((deltaS * wS) ** 2, dim=(0, 1)))
                 rate = norm / old
@@ -576,10 +600,13 @@ def bdf_solve_batched(
             constraint_fail = false_b
 
         newton_failed = active & ~conv
-        refresh_J = newton_failed & ~c["J_current"]
-        halve = newton_failed & c["J_current"]
+        # spgmr's linearisation is always fresh: a Newton failure goes
+        # straight to a step reduction
+        refresh_J = false_b if use_spgmr else newton_failed & ~c["J_current"]
+        halve = newton_failed & (c["J_current"] | use_spgmr)
         J_new = c["J"]
-        if n <= 4 or bool(refresh_J.any()):  # cheap for tiny systems; no sync
+        # cheap for tiny dense systems; no sync
+        if not use_spgmr and (lin.always or bool(refresh_J.any())):
             J_new = torch.where(refresh_J[None, None, :], jac_full(t_new, y_pred, params), J_new)
         njev = c["njev"] + refresh_J.to(torch.int32)
 
@@ -771,6 +798,9 @@ def bdf_solve_batched(
         # (B, n + k n + m) combined state at final_time
         final_state=c["D"][0].T,
         n_attempts=it,
+        # lockstep calls of the Newton solver (host ints)
+        n_linear_factors=lin.n_factors,
+        n_linear_solves=lin.n_solves,
         # where each fatal lane died (NaN / -1 on success)
         error_time=c["pm_t"],
         error_step_size=c["pm_h"],

@@ -13,6 +13,7 @@ axes):
     adjoint_quad_rhs(t, y, lam, p) -> (n_deriv, ...)  lam^T @ df/dp_subset
     adjoint_jac_dense(t, y, lam, p) -> (n, n, ...)    -J^T
     dfdp(t, y, p)             -> (n, n_deriv, ...)    df/dp_subset
+    banded_jac(t, y, p)       -> (l+u+1, n, ...)      df/dy in banded storage
     sensitivity_rhs(t, y, S, p) -> (n_deriv, n, ...)  S @ J^T + (df/dp_subset)^T
     root_fn(t, y, p)          -> (n_roots, ...)       event functions (make_root_fn)
 
@@ -194,6 +195,77 @@ class Problem:
             return -jac(t, y, p).transpose(0, 1)
 
         return adjoint_jac_dense
+
+    def _stripe_columns(self, width: int) -> Callable:
+        """``cols(t, y, p) -> (width, n, ...)``: ``cols[s] = J @ seed_s`` with
+        ``seed_s[j] = (j % width == s)``, one jvp of the right-hand side a
+        stripe over every lane at once (each lane's tangent its own)."""
+        rhs = self.make_rhs()
+        n = self.n_states
+
+        def cols(t, y, p):
+            ar = torch.arange(n, device=y.device)
+            out = []
+            for s in range(width):
+                seed = (ar % width == s).to(y.dtype).reshape((n,) + (1,) * (y.ndim - 1))
+                tangent = seed.expand(y.shape)
+                out.append(torch.func.jvp(lambda y_: rhs(t, y_, p), (y,), (tangent,))[1])
+            return torch.stack([torch.broadcast_to(c, y.shape) for c in out])
+
+        return cols
+
+    def make_banded_jac_dense(self, lower: int, upper: int) -> Callable:
+        """df/dy from ``lower + upper + 1`` striped jvps instead of n: a dense
+        ``(n, n, ...)`` matrix, exactly zero outside the band
+        (``sunode_tpu/problem.py::make_banded_jac_dense``)."""
+        n, width = self.n_states, lower + upper + 1
+        cols = self._stripe_columns(width)
+
+        def jac(t, y, p):
+            c = cols(t, y, p)
+            i = torch.arange(n, device=y.device)[:, None]
+            j = torch.arange(n, device=y.device)[None, :]
+            band = ((j - i <= upper) & (i - j <= lower)).reshape((n, n) + (1,) * (y.ndim - 1))
+            return torch.where(band, c[(j % width).expand(n, n), i.expand(n, n)], 0.0)
+
+        return jac
+
+    def make_banded_jac(self, lower: int, upper: int) -> Callable:
+        """df/dy in banded storage ``(lower+upper+1, n, ...)``, ``ab[u + i - j,
+        j] = J[i, j]``, from ``lower + upper + 1`` striped jvps: the input of
+        :func:`sunode_torch.ops.banded.banded_factor`, so a banded Newton
+        solve never builds a dense matrix
+        (``sunode_tpu/problem.py::make_banded_jac``)."""
+        n, width = self.n_states, lower + upper + 1
+        cols = self._stripe_columns(width)
+
+        def jac(t, y, p):
+            c = cols(t, y, p)
+            j = torch.arange(n, device=y.device)[None, :]
+            r = torch.arange(width, device=y.device)[:, None]
+            i = j + r - upper
+            valid = ((i >= 0) & (i < n)).reshape((width, n) + (1,) * (y.ndim - 1))
+            return torch.where(valid, c[(j % width).expand(width, n), i.clamp(0, n - 1)], 0.0)
+
+        return jac
+
+    def jac_sparsity(self, n_probes: int = 3, seed: int = 0) -> np.ndarray:
+        """Structural ``(n, n)`` boolean pattern of df/dy: the union of the
+        nonzero (or non-finite) entries of the Jacobian at ``n_probes``
+        random points, drawn as ``sunode_tpu/problem.py::jac_sparsity`` draws
+        them.  Probabilistic: ``SympyProblem`` overrides it with the exact
+        pattern of its symbolic Jacobian."""
+        jac = self.make_jac_dense()
+        n = self.n_states
+        rng = np.random.default_rng(seed)
+        pattern = np.zeros((n, n), bool)
+        for _ in range(n_probes):
+            y = torch.as_tensor(0.5 + rng.uniform(0.1, 1.0, n))
+            p = torch.as_tensor(0.5 + rng.uniform(0.1, 1.0, self.n_all_params))
+            t = torch.tensor(float(rng.uniform(0.1, 1.0)), dtype=torch.float64)
+            J = torch.broadcast_to(jac(t, y, p), (n, n)).numpy()
+            pattern |= ~(J == 0.0)
+        return pattern
 
     def make_dfdp(self) -> Callable:
         """df/dp_subset with shape (n_states, n_deriv_params, ...)."""

@@ -39,8 +39,11 @@ function is its ``float`` form (``expf``, ``fmaxf``; sympy's C printer with
 promotes an expression to double and the kernel's f rounds as the plain
 float32 version's.
 
-A function the printer cannot emit raises ``ValueError`` here, at codegen
-time; there is no fallback to the plain path.
+A :class:`~sunode_torch.symode.lambdify.CardinalBSpline` (an
+``interpolate_spline`` term) is emitted as its horner-form Piecewise, C
+ternaries at either type, as the plain path prints it as ``torch.where``
+chains.  A function the printer cannot emit raises ``ValueError`` here, at
+codegen time; there is no fallback to the plain path.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from sympy.codegen.ast import float32
 from sympy.codegen.ast import real as real_type
 from sympy.printing.c import C99CodePrinter
 from sympy.printing.codeprinter import PrintMethodNotImplementedError
+from sympy.printing.numpy import NumPyPrinter
 
 __all__ = [
     "DeviceSystem",
@@ -115,7 +119,21 @@ class _CudaPrinter(C99CodePrinter):
         if real == "float":
             settings["type_aliases"] = {real_type: float32}
         super().__init__(settings)
+        self._real = real
         self._one = "1.0F" if real == "float" else "1.0"
+        self._python = NumPyPrinter()
+
+    def _print_Float(self, expr):
+        # at double, the decimal digits the plain path's printer writes
+        # (``symode/lambdify.py``: 15 significant digits), so the emitted
+        # constant is the double the plain f multiplies by; C's own 17-digit
+        # spelling of a sum of Floats (the spline's 0.1 * 3) is another double
+        if self._real == "double":
+            return self._python._print_Float(expr)
+        return super()._print_Float(expr)
+
+    def _print_CardinalBSpline(self, expr):
+        return self._print(expr.as_piecewise())
 
     def _print_Pow(self, expr):
         b, e = expr.args

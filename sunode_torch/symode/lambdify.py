@@ -9,12 +9,19 @@ dimensions, so one call evaluates a whole ``(n, B)`` batch.
 
 The output dtype follows the floating tensor arguments (float64 when there
 are none); torch's global default dtype is never read.
+
+The opt-in parts of the reference come along: :class:`CardinalBSpline` and
+:func:`interpolate_spline` (time-varying inputs as cubic or any-degree
+splines, printed as their horner Piecewise), :func:`stabilize_exp_products`
+and the ``explog_opt`` rewrite (sign-definite exp-sum products through log
+space), and ``lambdify_torch``'s ``optims``, ``simplify`` and ``debug``.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+from functools import partial
 import linecache
 import math
 from typing import Any, Callable, Mapping, Sequence
@@ -30,7 +37,11 @@ __all__ = [
     "logaddexp",
     "expit",
     "dexpit",
+    "CardinalBSpline",
+    "interpolate_spline",
     "logsumexp_2terms_opt",
+    "explog_opt",
+    "stabilize_exp_products",
     "DEFAULT_OPTIMS",
 ]
 
@@ -81,6 +92,47 @@ class dexpit(sy.Function):
         return self.args[0].is_real
 
 
+class CardinalBSpline(sy.Function):
+    """Cardinal B-spline basis of a degree at x: ``CardinalBSpline(degree, x)``
+    on the integer knots ``0..degree+1``, lowered as its horner-form
+    Piecewise (``sunode_tpu/symode/lambdify.py::CardinalBSpline``)."""
+
+    nargs = (2,)
+
+    def fdiff(self, argindex=1):
+        if argindex == 2:
+            degree, x = self.args
+            d = int(degree)
+            if d == 0:
+                return sy.Integer(0)
+            # on cardinal knots B'_d(x) = B_{d-1}(x) - B_{d-1}(x - 1)
+            return CardinalBSpline(d - 1, x) - CardinalBSpline(d - 1, x - 1)
+        raise sy.function.ArgumentIndexError(self, argindex)
+
+    def as_piecewise(self):
+        degree, x = self.args
+        d = int(degree)
+        knots = tuple(sy.Integer(i) for i in range(d + 2))
+        basis = sy.functions.special.bsplines.bspline_basis(d, knots, 0, x)
+        pieces = [(sy.horner(e) if not e.is_Atom else e, c) for e, c in basis.args]
+        return sy.Piecewise(*pieces)
+
+
+def interpolate_spline(x, vals, lower, upper, degree, as_pure: bool = False):
+    """Spline through ``vals`` on ``[lower, upper]`` from cardinal B-splines
+    of ``degree`` (``sunode_tpu/symode/lambdify.py::interpolate_spline``);
+    ``as_pure`` expands each basis function to its Piecewise now."""
+    n_vals = len(vals)
+    n_knots = degree + n_vals + 1
+    basis = partial(CardinalBSpline, degree)
+    x = (x - lower) / (upper - lower)
+    x = degree + x * (n_knots - 2 * degree - 1)
+    basis_vecs = [basis(x - i) for i in range(n_vals)]
+    if as_pure:
+        basis_vecs = [b.as_piecewise() for b in basis_vecs]
+    return sum(val * b for val, b in zip(vals, basis_vecs))
+
+
 # Rewrite: log(exp(a) + exp(b)) -> logaddexp(a, b)
 logsumexp_2terms_opt = sympy.codegen.rewriting.ReplaceOptim(
     lambda l: (
@@ -93,6 +145,61 @@ logsumexp_2terms_opt = sympy.codegen.rewriting.ReplaceOptim(
 )
 
 DEFAULT_OPTIMS = (sympy.codegen.rewriting.log1p_opt, logsumexp_2terms_opt)
+
+
+def _is_exp_sum(e):
+    """exp(a) or a two-term sum of exps (the logaddexp-rewritable shape)."""
+    if isinstance(e, sy.exp):
+        return True
+    return isinstance(e, sy.Add) and len(e.args) == 2 and all(
+        isinstance(a, sy.exp) for a in e.args
+    )
+
+
+def _is_exp_like_factor(e):
+    if _is_exp_sum(e):
+        return True
+    if isinstance(e, sy.Pow) and _is_exp_sum(e.args[0]):
+        return True
+    if isinstance(e, sy.Mul):
+        return any(_is_exp_like_factor(a) for a in e.args)
+    return False
+
+
+def _has_multiple_exp_factors(e):
+    return isinstance(e, sy.Mul) and sum(bool(_is_exp_like_factor(a)) for a in e.args) > 1
+
+
+def stabilize_exp_products(expr, optims=None):
+    """Rewrite sign-definite products and quotients of exp-sums through log
+    space: ``exp(c2)/(exp(c1)+exp(c2))`` becomes ``exp(c2 - logaddexp(c1,
+    c2))``, which cannot overflow
+    (``sunode_tpu/symode/lambdify.py::stabilize_exp_products``)."""
+    from sympy.assumptions import Q, ask
+
+    if optims is None:
+        optims = DEFAULT_OPTIMS
+    pos = ask(Q.positive(expr))
+    neg = False if pos else ask(Q.negative(expr))
+    if not (pos or neg):
+        if expr.args:
+            return expr.func(*[stabilize_exp_products(a, optims) for a in expr.args])
+        return expr
+    sign = sy.S.One if pos else sy.S.NegativeOne
+    log_expr = sy.expand_log(sy.log(sign * expr), force=True)
+    log_expr = sympy.codegen.rewriting.optimize(log_expr, optims)
+    return sign * sy.exp(log_expr, evaluate=False)
+
+
+def _explog_filter(l):
+    from sympy.assumptions import Q, ask
+
+    return (ask(Q.positive(l)) or ask(Q.negative(l))) and _has_multiple_exp_factors(l)
+
+
+# opt-in: ``lambdify_torch(optims=DEFAULT_OPTIMS + (explog_opt,))``, as the
+# reference defines it without enabling it
+explog_opt = sympy.codegen.rewriting.ReplaceOptim(_explog_filter, stabilize_exp_products)
 
 # numpy names that torch spells differently, and constants taken from math
 _TORCH_RENAMES = {
@@ -167,6 +274,9 @@ class _TorchExprPrinter(NumPyPrinter):
 
     def _print_dexpit(self, expr):
         return f"_dexpit(_tt({self._print(expr.args[0])}))"
+
+    def _print_CardinalBSpline(self, expr):
+        return self._print(expr.as_piecewise())
 
     def _print__safe_where(self, expr):
         cond, val, safe = (self._print(a) for a in expr.args)
@@ -276,6 +386,9 @@ def lambdify_torch(
     varmap: Mapping[str, str],
     *,
     name: str = "compute",
+    optims: Sequence[Any] | None = None,
+    simplify: bool = False,
+    debug: bool = False,
 ) -> Callable:
     """Compile a sympy expression array into a torch function.
 
@@ -283,12 +396,21 @@ def lambdify_torch(
     are the positional arguments as they appear in the ``varmap`` access
     expressions (e.g. ``["_t", "_y", "_p"]``); the function returns a tensor
     of shape ``exprs.shape + batch``, where ``batch`` is the broadcast shape
-    of the elements.  The generated source is attached as ``f.__source__``.
+    of the elements.  ``optims`` are the ``sympy.codegen.rewriting``
+    rewrites applied to each element before CSE (default log1p and the
+    two-term logsumexp; ``()`` none), ``simplify`` runs ``sympy.simplify``
+    on each element first, ``debug`` prints the source.  The generated
+    source is attached as ``f.__source__``.
     """
     exprs = np.asarray(exprs, dtype=object)
     shape = exprs.shape
     flat = [sy.sympify(e) for e in exprs.reshape(-1)]
-    flat = [sympy.codegen.rewriting.optimize(e, DEFAULT_OPTIMS) for e in flat]
+    if simplify:
+        flat = [sy.simplify(e) for e in flat]
+    if optims is None:
+        optims = DEFAULT_OPTIMS
+    if optims:
+        flat = [sympy.codegen.rewriting.optimize(e, optims) for e in flat]
     flat = [_expand_special(e) for e in flat]
     flat = [_apply_piecewise_guards(e) for e in flat]
     flat = [_fold_numbers(e) for e in flat]
@@ -341,4 +463,6 @@ def lambdify_torch(
     exec(code, namespace)
     fn = namespace[name]
     fn.__source__ = source
+    if debug:
+        print(source)
     return fn

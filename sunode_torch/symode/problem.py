@@ -14,8 +14,10 @@ symbolically and lowered twice:
 The symbolic pieces the emitter needs are public: :attr:`sym_time`,
 :attr:`sym_rhs` (f),
 :attr:`sym_jac` (df/dy), :attr:`sym_dfdp` (df/dp over the derivative
-subset) and :attr:`sym_sens` (the sensitivity symbols).  Event functions are
-lowered from sympy by :meth:`SympyProblem.make_root_fn`.
+subset) and :attr:`sym_sens` (the sensitivity symbols); with ``simplify=``
+the first three are the simplified elements, the ones the plain path
+lambdifies, so an emitted system computes what the plain one does.  Event
+functions are lowered from sympy by :meth:`SympyProblem.make_root_fn`.
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ class SympyProblem(problem_mod.Problem):
         Paths of params to differentiate with respect to.
     coords:
         Coordinate arrays for named dims.
+    simplify:
+        Optional per-element ``sympy.Expr -> Expr`` transform applied to every
+        expression array before it is lowered (``sunode_tpu``'s ``simplify``).
     """
 
     def __init__(
@@ -65,10 +70,12 @@ class SympyProblem(problem_mod.Problem):
         rhs_sympy: Callable,
         derivative_params: Any = (),
         coords: Optional[Mapping[str, Any]] = None,
+        simplify: Optional[Callable] = None,
         dtype: Any = np.float64,
     ):
         self._init_specs(params, states, derivative_params, coords, dtype)
         self._rhs_sympy_func = rhs_sympy
+        self._simplify_elem = simplify
 
         n = self.n_states
 
@@ -138,11 +145,23 @@ class SympyProblem(problem_mod.Problem):
         )
 
         self._fn_cache: dict[str, Callable] = {}
+        self._simplified_cache: dict[str, np.ndarray] = {}
 
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_fn_cache"] = {}
         return state
+
+    def _simplified(self, key: str, exprs) -> np.ndarray:
+        """``exprs`` with the ``simplify`` transform applied to each element
+        (cached by ``key``); unchanged without one."""
+        exprs = np.asarray(exprs, dtype=object)
+        if self._simplify_elem is None:
+            return exprs
+        if key not in self._simplified_cache:
+            flat = [self._simplify_elem(e) for e in exprs.reshape(-1)]
+            self._simplified_cache[key] = np.array(flat, dtype=object).reshape(exprs.shape)
+        return self._simplified_cache[key]
 
     # ------------------------------------------------------------------
     # Symbolic pieces (read by the CUDA emitter)
@@ -153,18 +172,19 @@ class SympyProblem(problem_mod.Problem):
 
     @property
     def sym_rhs(self) -> np.ndarray:
-        """f, shape (n,)."""
-        return self._sym_dydt
+        """f, shape (n,), as :meth:`make_rhs` lowers it."""
+        return self._simplified("rhs", self._sym_dydt)
 
     @property
     def sym_jac(self) -> np.ndarray:
-        """df/dy, shape (n, n)."""
-        return self._sym_dydt_jac
+        """df/dy, shape (n, n), as :meth:`make_jac_dense` lowers it."""
+        return self._simplified("jac_dense", self._sym_dydt_jac)
 
     @property
     def sym_dfdp(self) -> np.ndarray:
-        """df/dp over the derivative subset, shape (n, n_deriv)."""
-        return self._sym_dydp
+        """df/dp over the derivative subset, shape (n, n_deriv), as
+        :meth:`make_dfdp` lowers it."""
+        return self._simplified("dfdp", self._sym_dydp)
 
     @property
     def sym_sens(self) -> np.ndarray:
@@ -210,7 +230,9 @@ class SympyProblem(problem_mod.Problem):
     # ------------------------------------------------------------------
     def _lower(self, key: str, argnames, exprs) -> Callable:
         if key not in self._fn_cache:
-            self._fn_cache[key] = lambdify_torch(argnames, exprs, self._varmap, name=key)
+            self._fn_cache[key] = lambdify_torch(
+                argnames, self._simplified(key, exprs), self._varmap, name=key
+            )
         return self._fn_cache[key]
 
     def make_rhs(self) -> Callable:
@@ -220,6 +242,12 @@ class SympyProblem(problem_mod.Problem):
     def make_jac_dense(self) -> Callable:
         """Generated df/dy: ``-> (n, n, ...)``."""
         return self._lower("jac_dense", ["_t", "_y", "_p"], self._sym_dydt_jac)
+
+    def jac_sparsity(self, **_ignored) -> np.ndarray:
+        """The exact structural ``(n, n)`` pattern of df/dy: the entries of
+        the symbolic Jacobian that sympy did not reduce to zero
+        (``sunode_tpu/symode/problem.py::jac_sparsity``)."""
+        return np.asarray(self._sym_dydt_jac != 0, dtype=bool).reshape(self.n_states, self.n_states)
 
     def make_dfdp(self) -> Callable:
         """Generated df/dp_subset: ``-> (n, n_deriv, ...)``."""
@@ -269,7 +297,10 @@ class SympyProblem(problem_mod.Problem):
         exprs = roots_sympy(self._sym_time, state_rec, param_rec)
         if not isinstance(exprs, (list, tuple)):
             exprs = [exprs]
-        return np.array([sy.sympify(e) for e in exprs], dtype=object)
+        vec = np.array([sy.sympify(e) for e in exprs], dtype=object)
+        if self._simplify_elem is not None:
+            vec = np.array([self._simplify_elem(e) for e in vec], dtype=object)
+        return vec
 
     def make_root_fn(self, roots_sympy: Callable) -> Callable:
         """Symbolic event functions lowered to ``(t, y, p) -> (nrt, ...)``:

@@ -25,14 +25,24 @@ build of each).  Per-lane observation grids, ``tvals (B, n_t)``, go through
 the undifferentiated solve, as in the reference; a gradient through them
 raises ``NotImplementedError``.
 
-Not ported yet (``NotImplementedError``): non-dense linear solvers and
-``derivatives='forward'``, which the reference's batched solver refuses too.
+``linear_solver`` 'band' or 'sparse' (``method='BDF'`` only, as in the
+reference) gives both BDF solves a structured Newton solve
+(:func:`_structured_setup`): the forward solve's Jacobian in banded storage
+from striped jvps, or in a :class:`~sunode_torch.ops.sparsity.SparsePlan`'s
+packed storage from colored jvps, and the backward solve's matrix, -J^T,
+the transposed structure (the bandwidths swapped; the plan of the
+transposed pattern).  On CUDA tensors both factor and solve through the
+banded LU's kernels (``csrc/banded.cu``).
+
+Not ported (``NotImplementedError``): ``derivatives='forward'``, which the
+reference's batched solver refuses too.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sunode_torch.adjoint import adjoint_backward_batched, adjoint_backward_transition_batched
@@ -51,6 +61,66 @@ def _poison_b(ys, status):
     return torch.where((status == 0)[:, None, None], ys, float("nan"))
 
 
+def _structured_setup(problem, rhs, linear_solver, linear_solver_kwargs, options,
+                      adjoint_options):
+    """The Newton structure of both BDF solves, as
+    ``sunode_tpu/wrappers/as_jax.py::_structured_setup``: ``(jac, options,
+    adjoint_jac, adjoint_options)`` for ``linear_solver`` 'dense', 'band'
+    (``linear_solver_kwargs`` with 'lower_bandwidth' and 'upper_bandwidth')
+    or 'sparse' (the pattern ``linear_solver_kwargs['sparsity']`` or
+    ``problem.jac_sparsity()``, 'permute' and 'border' for the plan).  The
+    backward matrix is -J^T: the bandwidths swap, and the sparse plan is
+    made on the transposed pattern.  Every function is batched over the
+    trailing lane axis."""
+    from sunode_torch.ops.banded import dense_to_banded
+
+    kw = dict(linear_solver_kwargs or {})
+    if linear_solver == "band":
+        if "lower_bandwidth" not in kw or "upper_bandwidth" not in kw:
+            raise ValueError(
+                "linear_solver='band' requires linear_solver_kwargs with "
+                "'lower_bandwidth' and 'upper_bandwidth'"
+            )
+        lb, ub = int(kw["lower_bandwidth"]), int(kw["upper_bandwidth"])
+        options = options._replace(linear_solver="band", band_lower=lb, band_upper=ub)
+        aj_dense = problem.make_adjoint_jac_dense()
+
+        def adjoint_jac(t, y, lam, p):
+            return dense_to_banded(aj_dense(t, y, lam, p), ub, lb)
+
+        adjoint_options = adjoint_options._replace(
+            linear_solver="band", band_lower=ub, band_upper=lb
+        )
+        return problem.make_banded_jac(lb, ub), options, adjoint_jac, adjoint_options
+    if linear_solver == "sparse":
+        from sunode_torch.ops.bbd import dense_to_packed
+        from sunode_torch.ops.sparsity import SparsePlan, make_colored_banded_jac
+
+        pattern = (
+            np.asarray(kw["sparsity"], bool) if "sparsity" in kw else problem.jac_sparsity()
+        )
+        plans = [SparsePlan(pat, permute=kw.get("permute", True), border=kw.get("border", "auto"))
+                 for pat in (pattern, pattern.T)]
+
+        def fields(plan):
+            return dict(linear_solver="sparse", band_lower=plan.lower, band_upper=plan.upper,
+                        sparse_perm=plan.perm, sparse_border=plan.k_border)
+
+        plan_b = plans[1]
+        aj_dense = problem.make_adjoint_jac_dense()
+
+        def adjoint_jac(t, y, lam, p):
+            return dense_to_packed(aj_dense(t, y, lam, p), plan_b)
+
+        return (make_colored_banded_jac(rhs, plans[0]), options._replace(**fields(plans[0])),
+                adjoint_jac, adjoint_options._replace(**fields(plan_b)))
+    if linear_solver != "dense":
+        raise ValueError(
+            f"linear_solver must be 'dense', 'band' or 'sparse', got {linear_solver!r}"
+        )
+    return problem.make_jac_dense(), options, problem.make_adjoint_jac_dense(), adjoint_options
+
+
 class BatchedSolve:
     """``solve(t0, y0, p_sub, p_fix, tvals) -> ys``: y0 (B, n), p_sub (B, k)
     per lane; t0, tvals (n_t,) and p_fix (k2,) shared; ys (B, n_t, n), NaN on
@@ -59,8 +129,15 @@ class BatchedSolve:
     forward (``'forward'``) and backward (``'backward'``) solves."""
 
     def __init__(self, problem: Problem, derivatives, options, adjoint_options,
-                 method: str, interpolation: Optional[str], checkpoint_n: int):
+                 method: str, interpolation: Optional[str], checkpoint_n: int,
+                 linear_solver: str = "dense", linear_solver_kwargs: Optional[dict] = None):
         self.problem = problem
+        self.rhs = problem.make_rhs()
+        self.jac = self.adjoint_jac = None
+        if method == "BDF":
+            self.jac, options, self.adjoint_jac, adjoint_options = _structured_setup(
+                problem, self.rhs, linear_solver, linear_solver_kwargs, options, adjoint_options
+            )
         self.derivatives = derivatives
         self.options = options
         self.adjoint_options = adjoint_options
@@ -74,8 +151,6 @@ class BatchedSolve:
             self.fwd_options = options._replace(save_steps=checkpoint_n)
             if interpolation == "polynomial":
                 self.fwd_options = self.fwd_options._replace(hermite_order=3)
-        self.rhs = problem.make_rhs()
-        self.jac = problem.make_jac_dense() if method == "BDF" else None
         self.n_deriv = problem.n_params
         self.last_stats: dict = {}
         self._device_systems: dict[tuple[str, torch.dtype], cuda_codegen.DeviceSystem] = {}
@@ -193,7 +268,7 @@ class _Adjoint(torch.autograd.Function):
                 device_system = solver.device_system(kind, y0.device, dtype)
             adj = adjoint_backward_batched(
                 problem.make_adjoint_rhs(),
-                problem.make_adjoint_jac_dense(),
+                solver.adjoint_jac,
                 problem.make_adjoint_quad_rhs(),
                 ctx.saved,
                 ctx.t0,
@@ -245,18 +320,26 @@ def make_batched_solve_fn(
     linear_solver_kwargs: Optional[dict] = None,
 ) -> BatchedSolve:
     """Batch-native differentiable solver; same signature and defaults as
-    the JAX package's.  Ported, with dense linear algebra: ``derivatives=
-    None`` or ``'adjoint'`` with ``method='BDF'`` and ``adjoint_interpolation``
-    'hermite' or 'polynomial', and with ``method='ADAMS'`` and
-    'hermite', 'polynomial', 'resolve' or 'transition'.  With 'hermite' and
-    'polynomial' the forward solve records ``checkpoint_n`` checkpoints when
-    gradients are wanted.  Failed lanes come back NaN, and so do their
-    gradients.  Another ``linear_solver`` or ``linear_solver_kwargs`` raises
-    ``NotImplementedError``."""
+    the JAX package's: ``derivatives=None`` or ``'adjoint'`` with
+    ``method='BDF'`` and ``adjoint_interpolation`` 'hermite' or
+    'polynomial', and with ``method='ADAMS'`` and 'hermite', 'polynomial',
+    'resolve' or 'transition'.  With 'hermite' and 'polynomial' the forward
+    solve records ``checkpoint_n`` checkpoints when gradients are wanted.
+    ``linear_solver`` 'dense' (the default), 'band' or 'sparse' with
+    ``linear_solver_kwargs`` as the reference's (``method='BDF'`` only; see
+    :func:`_structured_setup`).  Failed lanes come back NaN, and so do their
+    gradients."""
     if method not in ("BDF", "ADAMS"):
         raise ValueError("method must be 'BDF' or 'ADAMS'")
-    if linear_solver != "dense" or linear_solver_kwargs:
-        raise NotImplementedError("sunode_torch: only dense linear algebra is ported yet")
+    if linear_solver not in ("dense", "band", "sparse"):
+        raise ValueError(
+            "make_batched_solve_fn linear_solver must be 'dense', 'band' or 'sparse'"
+        )
+    if linear_solver != "dense" and method != "BDF":
+        raise ValueError(
+            f"linear_solver={linear_solver!r} requires method='BDF' (ADAMS uses "
+            "functional iteration: no Newton matrices)"
+        )
     if derivatives not in (None, "adjoint"):
         raise NotImplementedError(
             "batched solver supports derivatives='adjoint' or None"
@@ -275,4 +358,4 @@ def make_batched_solve_fn(
         adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)
     interpolation = adjoint_interpolation if derivatives == "adjoint" else None
     return BatchedSolve(problem, derivatives, options, adjoint_options, method,
-                        interpolation, checkpoint_n)
+                        interpolation, checkpoint_n, linear_solver, linear_solver_kwargs)

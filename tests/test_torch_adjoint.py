@@ -203,18 +203,22 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [dict(method="BDF", derivatives="forward"),
-     dict(method="ADAMS", adjoint_interpolation="hermite", linear_solver="banded"),
-     dict(method="ADAMS", adjoint_interpolation="polynomial", linear_solver="krylov"),
-     dict(method="ADAMS", adjoint_interpolation="resolve", linear_solver_kwargs=dict(krylov_dim=3)),
-     dict(method="ADAMS", derivatives="forward")],
+    "kwargs, error",
+    [(dict(method="BDF", derivatives="forward"), NotImplementedError),
+     (dict(method="ADAMS", adjoint_interpolation="hermite", linear_solver="banded"), ValueError),
+     (dict(method="ADAMS", adjoint_interpolation="polynomial", linear_solver="krylov"),
+      ValueError),
+     (dict(method="ADAMS", adjoint_interpolation="resolve", linear_solver="band",
+           linear_solver_kwargs=dict(lower_bandwidth=1, upper_bandwidth=1)), ValueError),
+     (dict(method="ADAMS", derivatives="forward"), NotImplementedError)],
     ids=["bdf", "hermite", "polynomial", "resolve", "forward-sens"],
 )
-def test_unported_modes_raise(kwargs):
+def test_unported_modes_raise(kwargs, error):
     """Batched forward sensitivities are not in the reference either; the
     ADAMS checkpointed and resolve adjoints are ported
-    (tests/test_torch_adams_checkpoint.py), structured linear solvers are
-    not, with them or without (ROADMAP A9)."""
-    with pytest.raises(NotImplementedError):
+    (tests/test_torch_adams_checkpoint.py), and the structured linear
+    solvers ('band', 'sparse'; tests/test_torch_structured.py), which the
+    reference refuses with ADAMS, as it refuses an unknown solver's name
+    (ValueError)."""
+    with pytest.raises(error):
         make_batched_solve_fn(lv_problem(), **kwargs)

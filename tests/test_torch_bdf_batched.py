@@ -357,47 +357,63 @@ def test_make_sensitivity_rhs_matches_jax():
 
 
 # ---- what is not ported yet --------------------------------------------------
+def lv_band_jac(t, y, p):
+    """lv_jac in banded storage at bandwidths (1, 1)."""
+    from sunode_torch.ops.banded import dense_to_banded
+
+    return dense_to_banded(lv_jac(t, y, p), 1, 1)
+
+
 @pytest.mark.parametrize(
     "kwargs, opts, match",
     [
-        # rootfinding, staggered sensitivities and per-lane grids are
-        # ported, with each other too (match None: the call solves); not
-        # another linear solver
+        # rootfinding, staggered sensitivities, per-lane grids, jac_prod and
+        # the band and spgmr linear solvers are ported, with each other too
+        # (match None: the call solves, as the dense solve does)
         (dict(root_fn=lambda t, y, p: y[0], tvals=torch.ones((2, 3), dtype=torch.float64)), {},
          None),
-        (dict(jac_prod=lambda t, y, v, p: v), {}, "jac_prod"),
+        (dict(jac_prod=lambda t, y, v, p: v), {}, None),
         (dict(sens_rhs=lv_sens_rhs, S0=torch.zeros((2, 2, 2), dtype=torch.float64)),
-         dict(sens_staggered=True, linear_solver="spgmr"), "linear_solver"),
+         dict(sens_staggered=True, linear_solver="spgmr"), None),
         (dict(core="adams", tvals=torch.ones((2, 3), dtype=torch.float64)),
          dict(save_steps=16), None),
-        ({}, dict(linear_solver="band", band_lower=1, band_upper=1), "linear_solver"),
-        ({}, dict(linear_solver="spgmr"), "linear_solver"),
+        (dict(jac=lv_band_jac), dict(linear_solver="band", band_lower=1, band_upper=1), None),
+        ({}, dict(linear_solver="spgmr"), None),
         (dict(tvals=torch.ones((2, 3), dtype=torch.float64)), {}, None),
+        ({}, dict(linear_solver="klu"), "linear_solver"),
     ],
-    ids=["roots", "jac_prod", "staggered", "save_steps", "band", "spgmr", "per_lane_tvals"],
+    ids=["roots", "jac_prod", "staggered", "save_steps", "band", "spgmr", "per_lane_tvals",
+         "unknown_solver"],
 )
 def test_unported_options_raise(kwargs, opts, match):
-    """Every option the batched BDF core has not ported raises.  Checkpoint
-    recording is ported on both cores, and per-lane grids on both, with
-    roots and recording too: those cases (match None) solve, every lane
-    emitting its own grid (here three copies of t = 1, so three equal
-    slots)."""
+    """An unknown linear solver raises, as the reference's.  Every other
+    option is ported, and with each other too: those cases (match None)
+    solve, every lane on a (2, 3) grid emitting its own grid (here three
+    copies of t = 1, so three equal slots), every other case as the dense
+    solve without the option (within 1e-6)."""
     kwargs = dict(kwargs)
     tvals = kwargs.pop("tvals", torch.tensor([1.0], dtype=torch.float64))
+    jac = kwargs.pop("jac", lv_jac)
     y0, p = torch.ones((2, 2), dtype=torch.float64), torch.ones((2, 4), dtype=torch.float64)
 
-    def solve():
+    def solve(opts=opts, kwargs=kwargs, jac=jac):
+        kwargs = dict(kwargs)
         if kwargs.pop("core", "bdf") == "adams":
             return adams_solve_batched(lv_rhs, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
-        return bdf_solve_batched(lv_rhs, lv_jac, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
+        return bdf_solve_batched(lv_rhs, jac, 0.0, y0, p, tvals, BDFOptions(**opts), **kwargs)
 
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             solve()
         return
     res = solve()
-    assert (res.status == 0).all() and res.ys.shape == (2, 3, 2)
-    assert torch.equal(res.ys[:, 1:], res.ys[:, :1].expand(2, 2, 2))
+    assert (res.status == 0).all()
+    if tvals.ndim == 2:
+        assert res.ys.shape == (2, 3, 2)
+        assert torch.equal(res.ys[:, 1:], res.ys[:, :1].expand(2, 2, 2))
+        return
+    plain = solve({}, {k: v for k, v in kwargs.items() if k in ("sens_rhs", "S0")}, lv_jac)
+    np.testing.assert_allclose(res.ys.numpy(), plain.ys.numpy(), rtol=1e-6)
 
 
 # ---- the wrapper ---------------------------------------------------------------

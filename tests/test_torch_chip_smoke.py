@@ -418,3 +418,88 @@ def test_phase_11_grids():
     y16, p16 = lv_root_inputs(16)
     y, p = lv_root_inputs(100)
     assert np.array_equal(y[:16], y16) and np.array_equal(p[:16], p16)
+
+
+def test_phase_12_bits_and_costs():
+    """Phase 12(a)'s bit-for-bit check tells -0.0 from +0.0 and matches NaN
+    patterns; its bounds count each input once and each output once."""
+    cs = _chip_smoke()
+    a = torch.tensor([0.0, float("nan"), 1.5], dtype=torch.float64)
+    assert cs.bits_equal(a, a.clone())
+    assert not cs.bits_equal(a, torch.tensor([-0.0, float("nan"), 1.5], dtype=torch.float64))
+    assert not cs.bits_equal(a, torch.tensor([0.0, 2.0, 1.5], dtype=torch.float64))
+    assert not cs.bits_equal(a, a.float())
+    assert cs.bits_equal(torch.arange(3, dtype=torch.int32), torch.arange(3, dtype=torch.int32))
+    n, B = 128, 1024
+    cost = cs.banded_cost(n, B, 1, 1, 1, 8)
+    ab, lu = 3 * n * B * 8, 4 * (n + 2) * B * 8
+    assert cost["factor"] == (ab + lu + 4 * n * B + B, n * B * 5)
+    assert cost["solve"] == (lu + 4 * n * B + B + 2 * n * B * 8, n * B * 7)
+    assert cs.expected_banded({"n_linear_factors": 3, "n_linear_solves": 10}, False) == {
+        "factor": 3, "solve": 10}
+    assert cs.expected_banded({"n_linear_factors": 3, "n_linear_solves": 10}, True) == {
+        "factor": 3, "solve": 13}
+
+
+def test_phase_12_counts_every_banded_build():
+    """Phase 12's counter sets the banded wrappers' and builds' counts to 0
+    at once and reads the wrappers' by kind."""
+    from sunode_torch.ops import banded as bd
+
+    cs = _chip_smoke()
+
+    class Build:
+        factor_launches, solve_launches = 2, 5
+
+    saved = (bd.banded_factor.launches, bd.banded_solve.launches)
+    try:
+        bd.banded_factor.launches, bd.banded_solve.launches = 1, 3
+        build = Build()
+        count = cs.BandedCounts((build,))
+        assert count.launches == 4 and count.by_kind() == {"factor": 1, "solve": 3}
+        count.launches = 0
+        assert (bd.banded_factor.launches, bd.banded_solve.launches) == (0, 0)
+        assert (build.factor_launches, build.solve_launches) == (0, 0)
+    finally:
+        bd.banded_factor.launches, bd.banded_solve.launches = saved
+
+
+def test_phase_12_lsoda_oracle_agrees_with_the_plain_band_path():
+    """Phase 12's oracle (scipy's LSODA at rtol 1e-11) against the port's
+    band solve on the CPU, on the chain's first lanes at n = 12: within the
+    gate of 5e-6, as phase 12 holds the card's solve to it; lanes 0-15 of
+    a wide draw are a narrow draw's initial states."""
+    from sunode_torch.entry import build_kpp, kpp_inputs
+
+    cs = _chip_smoke()
+    forward, _, (y0, p, tvals) = build_kpp(12, 3, "band", device="cpu")
+    ys = forward(y0, p).numpy()
+    worst = cs.lsoda_gate("test", ys, y0.numpy(), p.numpy(), tvals)
+    assert worst < 5e-6
+    wide = kpp_inputs(12, 64)
+    assert np.array_equal(wide[0][:3], y0.numpy()) and np.array_equal(wide[2], tvals)
+
+
+def test_cpu_refs_from_a_worker_equal_the_inline_ones():
+    """chip_smoke's CPU references run in spawned worker processes give what
+    the phase would compute inline, and ``close`` stops the workers."""
+    cs = _chip_smoke()
+    # the workers import the script by name, as they import it as __main__
+    # when it runs
+    sys.modules["chip_smoke"] = cs
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    refs = cs.CpuRefs()
+    try:
+        refs.submit(cs.ref_structured, "kpp", 12, "band")
+        cs.CPU_REFS = refs
+        got = cs.cpu_ref(cs.ref_structured, "kpp", 12, "band")
+        assert not refs.futures  # read once
+    finally:
+        cs.CPU_REFS = None
+        refs.close()
+        del sys.modules["chip_smoke"]
+    want = cs.cpu_ref(cs.ref_structured, "kpp", 12, "band")  # no worker: inline
+    np.testing.assert_array_equal(got["ys"], want["ys"])
+    assert got["ys"].shape == (4, 8, 12)
+    assert not any(p.is_alive() for p in (refs.pool._processes or {}).values())

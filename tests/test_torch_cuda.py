@@ -10,8 +10,10 @@ through the split kernels) and rootfinding on both cores
 (``build_lv_roots``) against the CPU ones; the float32 builds of the
 history-attempt and split kernels against their plain versions at float32,
 float32 solves through them (``build_lv_adjoint_f32``, ``build_sir`` at
-float32) and per-lane observation grids on both cores
-(``build_lv_per_lane``).
+float32), per-lane observation grids on both cores
+(``build_lv_per_lane``), the banded LU's kernels against their plain
+versions and the structured Newton paths (``build_kpp``, ``build_hub``)
+against the CPU, and the spline LV's emitted builds.
 
 Every test here needs a card and skips without one.  The file imports no
 jax, so on a GPU machine without jax it runs as
@@ -999,3 +1001,146 @@ def test_cuda_lv_per_lane_matches_cpu(cuda, method):
     last = (tv == tv[:, -1:]).int().argmax(dim=1)  # the first slot at the lane's last time
     for b in range(64):
         assert torch.equal(ys[b, last[b]:], ys[b, last[b]].expand_as(ys[b, last[b]:]))
+
+
+# ---- the banded LU's kernels and the structured Newton paths ---------------------
+def _banded_case(n, l, u, B, dtype, device, seed):
+    """Random band entries (lane 1 zero: singular; lane 2 a NaN first pivot),
+    and three right-hand sides."""
+    rng = np.random.default_rng(seed)
+    ab = rng.standard_normal((l + u + 1, n, B))
+    ab[:, :, 1] = 0.0
+    ab[u, 0, 2] = np.nan
+    b = rng.standard_normal((3, n, B))
+    return (torch.as_tensor(ab, dtype=dtype, device=device),
+            torch.as_tensor(b, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("l, u", [(1, 1), (2, 1), (0, 2), (3, 0)])
+def test_banded_kernels_match_plain(cuda, l, u, dtype):
+    """lu, piv, sing and the solutions (one and three right-hand sides,
+    poisoned and not) bit for bit the plain versions', with partial lane
+    tiles (B = 45), the singular lane NaN in both."""
+    from sunode_torch.ops import banded as bd
+
+    bits = _chip_smoke().bits_equal
+    ab, b = _banded_case(37, l, u, 45, dtype, cuda, l + 7 * u)
+    before = (bd.banded_factor.launches, bd.banded_solve.launches)
+    got, ref = bd.banded_factor(ab, l, u), bd.banded_factor_reference(ab, l, u)
+    for x, y in zip(got, ref):
+        assert bits(x, y)
+    for m in (1, 3):
+        for sing in (got[2], None):
+            x = bd.banded_solve((got[0], got[1], sing), b[:m].contiguous(), l, u)
+            y = bd.banded_solve_reference((ref[0], ref[1], sing), b[:m].contiguous(), l, u)
+            assert bits(x, y)
+            if sing is not None:  # unpoisoned, the zero pivot gives inf or NaN
+                assert torch.isnan(x[:, :, 1]).all()
+    assert (bd.banded_factor.launches, bd.banded_solve.launches) == (before[0] + 1,
+                                                                     before[1] + 4)
+    assert bool(got[2][1]) and not bool(got[2][0])
+
+
+def test_banded_wrappers_refuse(cuda):
+    """A CUDA tensor goes to the kernel or raises: a type, shape or layout the
+    kernel does not take is refused, never solved by the plain version."""
+    from sunode_torch.ops import banded as bd
+
+    ab, b = _banded_case(12, 1, 1, 8, torch.float64, cuda, 0)
+    lu, piv, sing = bd.banded_factor(ab, 1, 1)
+    before = (bd.banded_factor.launches, bd.banded_solve.launches)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        bd.banded_factor(ab.half(), 1, 1)
+    with pytest.raises(ValueError, match="l\\+u\\+1"):
+        bd.banded_factor(ab, 2, 1)
+    with pytest.raises(ValueError, match="^ab:"):
+        bd.banded_factor(ab.transpose(1, 2).contiguous().transpose(1, 2), 1, 1)
+    with pytest.raises(ValueError, match="^b:"):
+        bd.banded_solve((lu, piv, sing), b.float(), 1, 1)
+    with pytest.raises(ValueError, match="^piv:"):
+        bd.banded_solve((lu, piv.long(), sing), b, 1, 1)
+    with pytest.raises(ValueError, match="^lu:"):
+        bd.banded_solve((lu, piv, sing), b, 2, 0)
+    assert (bd.banded_factor.launches, bd.banded_solve.launches) == before
+
+
+@pytest.mark.parametrize("case", ["kpp_band", "hub_sparse", "kpp_spgmr"])
+def test_cuda_structured_forward_matches_cpu(cuda, case):
+    """``build_kpp`` (band, spgmr) and ``build_hub`` (sparse with the BBD
+    border) on 8 lanes at n = 32: the CPU's ys within 1e-8, and the banded
+    launches equal to the Newton solver's lockstep factorizations and solves
+    (one solve more a factorization with the border; none with spgmr)."""
+    from sunode_torch.entry import build_hub, build_kpp
+    from sunode_torch.ops import banded as bd
+
+    make, solver = {"kpp_band": (build_kpp, "band"), "hub_sparse": (build_hub, "sparse"),
+                       "kpp_spgmr": (build_kpp, "spgmr")}[case]
+    forward, _, (y0, p, _) = make(32, 8, solver, device=cuda)
+    before = (bd.banded_factor.launches, bd.banded_solve.launches)
+    ys = forward(y0, p)
+    st = forward.last_stats
+    launched = (bd.banded_factor.launches - before[0], bd.banded_solve.launches - before[1])
+    f, s = st["n_linear_factors"], st["n_linear_solves"]
+    want = {"kpp_band": (f, s), "hub_sparse": (f, s + f), "kpp_spgmr": (0, 0)}[case]
+    assert launched == want and (case == "kpp_spgmr" or f > 0)
+    cpu_forward, _, _ = make(32, 8, solver, device="cpu")
+    ref = cpu_forward(y0.cpu(), p.cpu())
+    np.testing.assert_allclose(ys.cpu().numpy(), ref.numpy(), rtol=1e-8, atol=1e-12)
+
+
+def test_cuda_band_gradient_matches_cpu(cuda):
+    """The band adjoint's gradient (forward and backward through the banded
+    kernels) on 4 lanes at n = 24 against the CPU's plain path (1e-8)."""
+    from sunode_torch.entry import build_kpp
+    from sunode_torch.ops import banded as bd
+
+    _, grad_step, (y0, p, _) = build_kpp(24, 4, "band", device=cuda)
+    before = bd.banded_factor.launches
+    gy, gp = grad_step(y0, p)
+    st = grad_step.solve.last_stats
+    assert bd.banded_factor.launches - before == (st["forward"]["n_linear_factors"]
+                                                  + st["backward"]["n_linear_factors"])
+    _, cpu_grad, _ = build_kpp(24, 4, "band", device="cpu")
+    hy, hp = cpu_grad(y0.cpu(), p.cpu())
+    np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
+
+
+def _spline_system(kind, real):
+    from sunode_torch.entry import lv_spline_problem
+
+    problem = lv_spline_problem()
+    ds = getattr(cuda_codegen, f"{kind}_system")(problem, real)
+    return PeceSystem(fz=_chip_smoke().lv_plain_fz(problem, kind), n=ds.n, nz=ds.nz, device=ds)
+
+
+@pytest.mark.parametrize("real", ["double", "float"])
+@pytest.mark.parametrize("kind", ["forward", "transition"])
+def test_spline_history_builds_match_plain(cuda, kind, real):
+    """The spline LV's emitted systems (the spline as C ternaries) build at
+    both types and match their plain versions with C6's checks."""
+    system = _spline_system(kind, real)
+    args = _history_case(system, cuda, 6)
+    if real == "float":
+        _history_against_plain(system, _f32(args), tol=1e-5)
+    else:
+        _history_against_plain(system, args)
+
+
+def test_cuda_lv_spline_gradient_matches_cpu(cuda):
+    """``build_lv_spline`` on 4 lanes: one history launch an attempt (the
+    spline's forward and transition builds), the CPU's gradients within
+    1e-8."""
+    from sunode_torch.entry import build_lv_spline
+
+    step, (y0s, p_subs) = build_lv_spline(4, device=cuda)
+    before = adams_history_attempt.launches
+    gy, gp = step(y0s, p_subs)
+    st = step.solve.last_stats
+    assert adams_history_attempt.launches - before == (st["forward"]["n_attempts"]
+                                                       + st["backward"]["n_attempts"])
+    cpu, _ = build_lv_spline(4, device="cpu")
+    hy, hp = cpu(y0s.cpu(), p_subs.cpu())
+    np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
