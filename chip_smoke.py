@@ -175,8 +175,11 @@ Phases, one line each; any failure exits non-zero:
      of random band entries, one lane zero) at (n, B) = (128, 1,024) and
      (256, 1,024): lu, piv, sing and the solutions (1 and 3 right-hand
      sides, poisoned and not) bit for bit, the singular lane NaN in both;
-     timed as in phase 3 with the bytes bound, ``torch.linalg.lu_factor_ex``
-     / ``lu_solve`` on the dense matrices as the yardstick; (b)
+     timed as in phase 3 with the bytes bound and the chain bound (n
+     dependent steps of measured latencies, ``banded_chain``),
+     ``torch.linalg.lu_factor_ex`` / ``lu_solve`` on the dense matrices as
+     the yardstick, and device-timed once more on the Newton matrices alone
+     (no test lane, whose tile takes the IEEE divide's slow path); (b)
      ``entry.build_kpp(128, 1024, 'band')`` (``scripts/bench_batched_
      structured.py``'s inputs, rtol 1e-8 / atol 1e-10, 1,024 checkpoints):
      a profiled forward solve (status 0 everywhere, lanes 0-2 within 5e-6 of
@@ -2249,12 +2252,16 @@ def bits_equal(a, b) -> bool:
     return bool(torch.equal(a[~na].view(ints), b[~nb].view(ints)))
 
 
-def newton_band_inputs(n, B, dtype):
+def newton_band_inputs(n, B, dtype, test_lanes=True):
     """12(a)'s inputs on the card: the Newton matrices ``M = I - c J`` of the
     Fisher-KPP chain at its initial states (``entry.kpp_inputs``), J in
     banded storage from ``make_banded_jac(1, 1)``, c log-uniform in [1e-4,
-    1e-2] a lane (``default_rng(12)``), lanes 16-23 random band entries
-    (rows swap there), lane 5 zero (singular); three right-hand sides."""
+    1e-2] a lane (``default_rng(12)``), and with ``test_lanes`` lanes 16-23
+    random band entries (rows swap there) and lane 5 zero (singular); three
+    right-hand sides.  Without the test lanes every lane is a Newton matrix
+    of the path, whose divisions all take the fast path of the IEEE divide
+    (a zero or tiny pivot, as in lane 5, takes its slow path every column,
+    and its lane tile with it)."""
     import torch
 
     from sunode_torch.entry import kpp_inputs, kpp_problem
@@ -2267,8 +2274,10 @@ def newton_band_inputs(n, B, dtype):
     c = torch.as_tensor(10.0 ** rng.uniform(-4, -2, B), **f64)
     M = (-c) * J
     M[1] += 1.0
-    M[:, :, PIVOT_LANES] = torch.as_tensor(rng.standard_normal((3, n, 8)), **f64)
-    M[:, :, SINGULAR_LANE] = 0.0
+    pivots = torch.as_tensor(rng.standard_normal((3, n, 8)), **f64)
+    if test_lanes:
+        M[:, :, PIVOT_LANES] = pivots
+        M[:, :, SINGULAR_LANE] = 0.0
     b = torch.as_tensor(rng.standard_normal((3, n, B)), **f64)
     return M.to(dtype).contiguous(), b.to(dtype).contiguous()
 
@@ -2287,14 +2296,45 @@ def banded_cost(n, B, m, l, u, itemsize) -> dict:
     return {"factor": factor, "solve": solve}
 
 
+# Cycles of one dependent operation on an H100 SXM, one thread's chain of
+# 2,048 (sunode_torch/experiments/banded_ab.py --latencies): add or multiply,
+# the IEEE divide (__ddiv_rn / __fdiv_rn, its fast path; the same with the
+# dividend or the divisor on the chain), |a| compared and selected.
+CHAIN_LATENCY = {
+    "double": dict(add=8.2, mul=8.2, div=111.8, compare_select=14.3),
+    "float": dict(add=4.2, mul=4.2, div=44.4, compare_select=8.4),
+}
+SM_CLOCK_HZ = 1.98e9  # an H100 SXM's SM clock, as %globaltimer read it under the kernels
+
+
+def banded_chain(n, l, u, real) -> dict:
+    """The chain bound of one factor and one solve: a lane's n steps are
+    dependent, and each step's dependent instructions in the SASS
+    (csrc/banded.cu) cost at least their latencies (:data:`CHAIN_LATENCY`).
+    Factor column: l compare-selects for the pivot, one for the _TINY guard,
+    the divide (the pivot on the chain), then the multiply and subtract that
+    the next column's pivot reads.  Solve row: forward, the multiply and
+    subtract (the pivot's select left out: no latency measured for it);
+    backward, U's first product, l+u-1 adds, the subtract and the divide.
+    Returns {kind: (cycles, seconds)}."""
+    lat = CHAIN_LATENCY[real]
+    factor = (l + 1) * lat["compare_select"] + lat["div"] + lat["mul"] + lat["add"]
+    forward = lat["mul"] + lat["add"] if l else 0.0
+    backward = lat["div"] + ((l + u - 1) * lat["add"] + lat["mul"] + lat["add"] if l + u else 0.0)
+    out = {"factor": n * factor, "solve": n * (forward + backward)}
+    return {k: (c, c / SM_CLOCK_HZ) for k, c in out.items()}
+
+
 def compare_banded(n, dtype) -> dict:
     """12(a) at one (n, type): the factor and solve kernels against their
     plain versions on :func:`newton_band_inputs` at B=1,024 (lu, piv, sing
     and the solutions bit for bit, with ``sing`` and without; the singular
     lane NaN in both), each timed as in phase 3 with its bounds, and
     ``torch.linalg.lu_factor_ex`` / ``lu_solve`` on the dense matrices at
-    the same shapes as the yardstick.  Returns {'factor', 'solve'}: the
-    kernel-table fields."""
+    the same shapes as the yardstick, each beside its bytes bound and its
+    chain bound (:func:`banded_chain`), and each kernel's device time on the
+    Newton matrices alone (no test lane, whose tile takes the divide's slow
+    path).  Returns {'factor', 'solve'}: the kernel-table fields."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import cuda_ms, device_us
@@ -2347,6 +2387,13 @@ def compare_banded(n, dtype) -> dict:
                                  "banded_solve_kernel"),
                   plain_times(lambda z: (bd.banded_solve_reference(f_p, z, l, u),), b1)),
     }
+    Mn, _ = newton_band_inputs(n, B_STRUCT, dtype, test_lanes=False)
+    f_n = bd.banded_factor(Mn, l, u)
+    newton_us = {
+        "factor": device_us(lambda: bd.banded_factor(Mn, l, u), kernel="banded_factor_kernel"),
+        "solve": device_us(lambda: bd.banded_solve(f_n, b1, l, u), kernel="banded_solve_kernel"),
+    }
+    chain = banded_chain(n, l, u, "double" if dtype == torch.float64 else "float")
     # the yardstick: the same matrices dense, one torch.linalg call each
     A = bd.banded_to_dense(M, l, u).permute(2, 0, 1).contiguous()
     LU, piv, _ = torch.linalg.lu_factor_ex(A)
@@ -2363,13 +2410,18 @@ def compare_banded(n, dtype) -> dict:
                          ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
                          **bound(nbytes, flops, dtype))
         out[kind]["library_ms"] = library[kind]
+        chain_us = 1e6 * chain[kind][1]
         log(f"[banded-{kind}-vs-plain n={n} B={B_STRUCT} l=u=1 dtype={dtype}] "
             + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
             + f" library(torch.linalg.{'lu_factor_ex' if kind == 'factor' else 'lu_solve'}, "
             f"dense)_ms={library[kind]:.4f} bytes={nbytes} flops={flops} "
             f"bound_us={1e3 * out[kind]['bound_ms']:.3f} ({out[kind]['bound_by']}) "
             f"device_over_bound="
-            f"{fmt_us(t_k['device'] and t_k['device'] / (1e3 * out[kind]['bound_ms']))}")
+            f"{fmt_us(t_k['device'] and t_k['device'] / (1e3 * out[kind]['bound_ms']))} "
+            f"chain_cycles={chain[kind][0]:.0f} chain_bound_us={chain_us:.3f} "
+            f"device_over_chain={fmt_us(t_k['device'] and t_k['device'] / chain_us)} "
+            f"newton_only_device_us={fmt_us(newton_us[kind])} "
+            f"newton_only_over_chain={fmt_us(newton_us[kind] and newton_us[kind] / chain_us)}")
     log(f"[banded-kernels-vs-plain n={n} B={B_STRUCT} dtype={dtype}] lanes with a row swap "
         f"{swapped}; singular lanes {int(f_k[2].sum())}; max_abs_err (finite solutions)="
         f"{abs_err:.3e} "

@@ -18,8 +18,10 @@ costs O(n (l+u)^2) a lane instead of the dense O(n^3).
     Newton loop's finiteness check rejects it, unless ``sing`` is None.
 
 On CUDA tensors each launches its kernel (``csrc/banded.cu``, built with
-``nvcc`` for ``sm_90a`` at first use, one build a bandwidth pair and type)
-and raises on a tensor it does not take; on CPU tensors each runs its plain
+``nvcc`` for ``sm_90a`` at first use, one build a bandwidth pair and type;
+one thread a lane, each lane's factors streamed through a ring in shared
+memory that :func:`banded_geometry` sizes) and raises on a tensor it does
+not take; on CPU tensors each runs its plain
 version (:func:`banded_factor_reference`, :func:`banded_solve_reference`),
 column for column the reference's loop.  Both round every operation on its
 own in the same order, so the kernels give the plain versions' outputs bit
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +52,8 @@ __all__ = [
     "banded_solve",
     "banded_factor_reference",
     "banded_solve_reference",
+    "banded_geometry",
+    "BandedGeometry",
     "build_banded_kernels",
 ]
 
@@ -168,25 +173,112 @@ def banded_solve_reference(factors, b: torch.Tensor, lower: int, upper: int) -> 
 # ---------------------------------------------------------------------------
 # CUDA build and launch
 # ---------------------------------------------------------------------------
+LANES = 32  # lanes a tile; a block is one tile, a producer and a consumer warp (kLanes)
+STAGES = 4  # chunks a ring (csrc/banded.cu's kStages)
+ROWS_MAX = 16  # records a chunk at most: 48 records ahead of the step reading them
+SMS = 132  # an H100 SXM's streaming multiprocessors
+SMEM_BLOCK = 232_448  # the most dynamic shared memory a block can have (227 KB)
+SMEM_SM = 233_472  # an SM's shared memory for blocks (228 KB), 1 KB reserved a block
+RESIDENT_MAX = 8  # blocks an SM is sized to hold at once, at most
+BARRIER = 8  # bytes of one mbarrier: two a stage in the factor, four in the solve
+
+
+class BandedGeometry(NamedTuple):
+    factor_rows: int  # records a chunk of the factor's ring
+    solve_rows: int  # records a chunk of each of the solve's two rings
+    stages: int  # chunks a ring
+    keep: int  # forward results the solve keeps in shared memory (the last rows)
+    factor_smem: int  # dynamic shared memory of a factor block, bytes
+    solve_smem: int  # of a solve block
+
+
+def _fit_rows(records: int, per_record: int, fixed, budget: int) -> int:
+    """The most records a chunk, at most ROWS_MAX and no more than the
+    stream needs, whose ring (and ``fixed(rows)`` bytes beside it) fits in
+    ``budget``; 0 if one record a chunk does not."""
+    rows = ROWS_MAX
+    while rows > 1 and rows // 2 >= records:
+        rows //= 2
+    while rows >= 1 and STAGES * rows * per_record + fixed(rows) > budget:
+        rows //= 2
+    return rows
+
+
+def banded_geometry(n: int, B: int, lower: int, upper: int, itemsize: int,
+                    m: int = 1) -> BandedGeometry:
+    """The rings of ``csrc/banded.cu`` for ``B`` lanes of order ``n``,
+    bandwidths ``(lower, upper)``, ``itemsize``-byte values and ``m``
+    right-hand sides a solve: records a chunk (at most 16), the solve's
+    kept rows and each block's dynamic shared memory.
+
+    A block is one lane tile; its shared memory is sized so that an SM
+    holds every block of a launch at once, up to 8 an SM (at B = 1,024 the
+    32 tiles, one an SM: the largest rings and every forward result kept up
+    to n ~ 500 at float64).  The solve keeps at least the rows its backward
+    ring's first chunks cover (so they never read x), all n when they fit.
+    Raises ``ValueError`` when one record a chunk does not fit in a block
+    (a band too wide for the kernel)."""
+    if n < 1 or B < 1 or m < 1 or lower < 0 or upper < 0:
+        raise ValueError(f"banded_geometry: n, B, m must be >= 1 and l, u >= 0, got "
+                         f"{(n, B, m, lower, upper)}")
+    w = lower + upper
+    tiles = -(-B // LANES)
+
+    def budget(blocks: int) -> int:
+        resident = min(RESIDENT_MAX, max(1, -(-blocks // SMS)))
+        return min(SMEM_BLOCK, SMEM_SM // resident - 1024)
+
+    value = itemsize * LANES  # one value of every lane of a tile
+    factor_record = (w + 1) * value
+    solve_record = (lower + 1 + w + 2) * value + 4 * LANES  # forward + backward, the pivot
+    factor_bars, solve_bars = 2 * STAGES * BARRIER, 4 * STAGES * BARRIER
+    factor_rows = _fit_rows(n + lower + 1, factor_record, lambda r: factor_bars, budget(tiles))
+    if factor_rows == 0:
+        factor_rows = _fit_rows(n + lower + 1, factor_record, lambda r: factor_bars, SMEM_BLOCK)
+    solve_budget = budget(tiles * m)
+
+    def least_keep(rows):
+        return solve_bars + min(n, STAGES * rows) * value
+
+    solve_rows = _fit_rows(n + lower + 1, solve_record, least_keep, solve_budget)
+    if solve_rows == 0:
+        solve_budget = SMEM_BLOCK
+        solve_rows = _fit_rows(n + lower + 1, solve_record, least_keep, solve_budget)
+    if factor_rows == 0 or solve_rows == 0:
+        raise ValueError(f"banded_geometry: bandwidths ({lower}, {upper}) at {itemsize} bytes "
+                         f"a value need more shared memory than a block has")
+    ring = solve_bars + STAGES * solve_rows * solve_record
+    keep = min(n, max(STAGES * solve_rows, (solve_budget - ring) // value))
+    return BandedGeometry(factor_rows, solve_rows, STAGES, keep,
+                          factor_bars + STAGES * factor_rows * factor_record, ring + keep * value)
+
+
 class _BandedKernels:
     """One build of ``csrc/banded.cu`` for a bandwidth pair and a type."""
 
-    def __init__(self, lower: int, upper: int, dtype: torch.dtype):
+    def __init__(self, lower: int, upper: int, dtype: torch.dtype, defines=()):
         self.lower, self.upper = lower, upper
         self.factor_launches = self.solve_launches = 0  # this build's
         suffix, real_defines, self.dtype = real_build(c_real(dtype))
         built = build_library(
             f"banded_l{lower}_u{upper}{suffix}", _CSRC,
-            defines=(f"BAND_L={lower}", f"BAND_U={upper}", *real_defines),
+            defines=(f"BAND_L={lower}", f"BAND_U={upper}", *real_defines, *defines),
             extra_flags=FMAD_FLAGS,
         )
         self.build_log, self.build_seconds, self.lib_path = built.log, built.seconds, built.path
         lib = built.lib
         vp, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.banded_factor_launch.argtypes = [vp] + [c_int] * 4 + [vp] * 4
+        lib.banded_factor_launch.argtypes = [vp] + [c_int] * 6 + [vp] * 4
         lib.banded_factor_launch.restype = c_int
-        lib.banded_solve_launch.argtypes = [vp] * 4 + [c_int] * 5 + [vp] * 2
+        lib.banded_solve_launch.argtypes = [vp] * 4 + [c_int] * 8 + [vp] * 2
         lib.banded_solve_launch.restype = c_int
+        lib.banded_factor_smem.argtypes = [c_int]
+        lib.banded_solve_smem.argtypes = [c_int, c_int]
+        lib.banded_factor_smem.restype = lib.banded_solve_smem.restype = ctypes.c_longlong
+        lib.banded_stages.restype = c_int
+        if lib.banded_stages() != STAGES:
+            raise RuntimeError(f"banded: the build has {lib.banded_stages()} stages, "
+                               f"the geometry {STAGES}")
         lib.banded_error_string.argtypes = [c_int]
         lib.banded_error_string.restype = ctypes.c_char_p
         self._lib = lib
@@ -194,21 +286,28 @@ class _BandedKernels:
     def _raise(self, what: str, code: int) -> None:
         if code == -1:
             raise ValueError(f"{what}: the build is for bandwidths ({self.lower}, {self.upper})")
+        if code == -2:
+            raise ValueError(f"{what}: the build does not take this geometry")
         if code != 0:
             msg = self._lib.banded_error_string(code).decode()
             raise RuntimeError(f"{what} launch failed: {msg} ({code})")
+
+    def geometry(self, n: int, B: int, m: int = 1) -> BandedGeometry:
+        return banded_geometry(n, B, self.lower, self.upper, self.dtype.itemsize, m)
 
     def factor(self, ab: torch.Tensor):
         _, n, B = ab.shape
         w = self.lower + self.upper
         dev = ab.device
+        g = self.geometry(n, B)
         lu = torch.empty((2 * self.lower + self.upper + 1, n + w, B), dtype=ab.dtype, device=dev)
         piv = torch.empty((n, B), dtype=torch.int32, device=dev)
         sing = torch.empty((B,), dtype=torch.bool, device=dev)
         with torch.cuda.device(dev):
             code = self._lib.banded_factor_launch(
-                ab.data_ptr(), self.lower, self.upper, n, B, lu.data_ptr(), piv.data_ptr(),
-                sing.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                ab.data_ptr(), self.lower, self.upper, n, B, g.factor_rows, g.stages,
+                lu.data_ptr(), piv.data_ptr(), sing.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         self._raise("banded_factor", code)
         self.factor_launches += 1
@@ -216,12 +315,13 @@ class _BandedKernels:
 
     def solve(self, lu, piv, sing, b):
         m, n, B = b.shape
+        g = self.geometry(n, B, m)
         x = torch.empty_like(b)
         with torch.cuda.device(b.device):
             code = self._lib.banded_solve_launch(
                 lu.data_ptr(), piv.data_ptr(), None if sing is None else sing.data_ptr(),
-                b.data_ptr(), self.lower, self.upper, n, m, B, x.data_ptr(),
-                torch.cuda.current_stream(b.device).cuda_stream,
+                b.data_ptr(), self.lower, self.upper, n, m, B, g.solve_rows, g.stages, g.keep,
+                x.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream,
             )
         self._raise("banded_solve", code)
         self.solve_launches += 1

@@ -123,6 +123,26 @@ def test_float32_tiny_is_zero():
     assert _normwise(lu.numpy(), np.asarray(jf[0]).transpose(1, 2, 0)) <= 1e-6
 
 
+@pytest.mark.parametrize("l, u", [(1, 1), (2, 1), (0, 2), (3, 0), (4, 3)])
+def test_geometry_fits_a_block(l, u):
+    """The kernels' rings and kept rows fit a block's 227 KB at every tested
+    pair, n, type, B and m; the solve keeps at least the rows its backward
+    ring's first chunks cover, and at the structured paths' shapes (B =
+    1,024, n = 128 and 256, l = u = 1) every row in chunks of 16."""
+    for n in (1, 2, 37, 128, 200, 256, 1100, 10_000):
+        for itemsize in (8, 4):
+            for B, m in ((45, 1), (77, 3), (1024, 1), (1024, 3), (10_000, 1), (10_000, 3)):
+                g = tb.banded_geometry(n, B, l, u, itemsize, m)
+                assert g.stages == tb.STAGES
+                assert 1 <= g.factor_rows <= tb.ROWS_MAX and 1 <= g.solve_rows <= tb.ROWS_MAX
+                assert g.factor_smem <= tb.SMEM_BLOCK and g.solve_smem <= tb.SMEM_BLOCK
+                assert min(n, g.stages * g.solve_rows) <= g.keep <= n
+                if (l, u) == (1, 1) and B == 1024 and n in (128, 256):
+                    assert g.keep == n and g.factor_rows == g.solve_rows == tb.ROWS_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        tb.banded_geometry(128, 1024, 100, 100, 8)
+
+
 @pytest.mark.parametrize(
     "call, match",
     [

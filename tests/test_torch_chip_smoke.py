@@ -503,3 +503,34 @@ def test_cpu_refs_from_a_worker_equal_the_inline_ones():
     np.testing.assert_array_equal(got["ys"], want["ys"])
     assert got["ys"].shape == (4, 8, 12)
     assert not any(p.is_alive() for p in (refs.pool._processes or {}).values())
+
+
+def test_phase_12a_bounds():
+    """Phase 12(a)'s bounds of the banded kernels at the path's shape: the
+    bytes each call must move, and the chain of dependent steps (n columns
+    or rows of measured latencies), which is the larger by far."""
+    cs = _chip_smoke()
+    cost = cs.banded_cost(128, 1024, 1, 1, 1, 8)
+    assert cost["factor"][0] == 3 * 128 * 1024 * 8 + 4 * 130 * 1024 * 8 + 4 * 128 * 1024 + 1024
+    chain = cs.banded_chain(128, 1, 1, "double")
+    for kind in ("factor", "solve"):
+        cycles, seconds = chain[kind]
+        assert seconds == cycles / cs.SM_CLOCK_HZ
+        assert seconds > 4 * cost[kind][0] / 3.35e12  # the chain, not the bytes, bounds it
+    lat = cs.CHAIN_LATENCY["double"]
+    assert chain["factor"][0] == 128 * (2 * lat["compare_select"] + lat["div"] + lat["mul"]
+                                        + lat["add"])
+    assert cs.banded_chain(128, 1, 1, "float")["solve"][0] < chain["solve"][0]
+
+
+def test_banded_ab_needs_a_card():
+    """The banded A/B harness measures only on a card: without one it stops
+    before building anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the harness would run for real")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sunode_torch.experiments.banded_ab"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "banded_ab: no CUDA device" in proc.stderr

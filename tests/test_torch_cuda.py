@@ -1017,15 +1017,25 @@ def _banded_case(n, l, u, B, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("l, u", [(1, 1), (2, 1), (0, 2), (3, 0)])
-def test_banded_kernels_match_plain(cuda, l, u, dtype):
+@pytest.mark.parametrize("l, u", [(1, 1), (2, 1), (0, 2), (3, 0), (4, 3)])
+@pytest.mark.parametrize("n, B", [(37, 45), (1, 45), (200, 77), (1500, 45)])
+def test_banded_kernels_match_plain(cuda, l, u, dtype, n, B):
     """lu, piv, sing and the solutions (one and three right-hand sides,
     poisoned and not) bit for bit the plain versions', with partial lane
-    tiles (B = 45), the singular lane NaN in both."""
+    tiles (B = 45 and 77), the singular lane NaN in both: at n = 1, at n
+    over several ring chunks, and at n = 1,500, whose solve keeps only its
+    last rows in shared memory (the rest leave through x and come back)."""
     from sunode_torch.ops import banded as bd
 
     bits = _chip_smoke().bits_equal
-    ab, b = _banded_case(37, l, u, 45, dtype, cuda, l + 7 * u)
+    ab, b = _banded_case(n, l, u, B, dtype, cuda, l + 7 * u + n)
+    itemsize = torch.finfo(dtype).bits // 8
+    kernels = bd.build_banded_kernels(l, u, dtype)
+    for m in (1, 3):
+        g = bd.banded_geometry(n, B, l, u, itemsize, m)
+        assert kernels._lib.banded_factor_smem(g.factor_rows) == g.factor_smem
+        assert kernels._lib.banded_solve_smem(g.solve_rows, g.keep) == g.solve_smem
+        assert (g.keep < n) == (n == 1500)
     before = (bd.banded_factor.launches, bd.banded_solve.launches)
     got, ref = bd.banded_factor(ab, l, u), bd.banded_factor_reference(ab, l, u)
     for x, y in zip(got, ref):
@@ -1039,7 +1049,9 @@ def test_banded_kernels_match_plain(cuda, l, u, dtype):
                 assert torch.isnan(x[:, :, 1]).all()
     assert (bd.banded_factor.launches, bd.banded_solve.launches) == (before[0] + 1,
                                                                      before[1] + 4)
-    assert bool(got[2][1]) and not bool(got[2][0])
+    assert bool(got[2][1])
+    if n == 37:  # the long random bands at (3, 0) underflow pivots in other lanes too
+        assert not bool(got[2][0])
 
 
 def test_banded_wrappers_refuse(cuda):
