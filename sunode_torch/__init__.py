@@ -8,6 +8,11 @@ never jax, works in float64 per tensor and changes no global torch state
   * :class:`SympyProblem` -- an ODE declared in sympy;
   * :class:`TorchProblem` -- an ODE whose right-hand side is torch code on
     one lane's named records, every derivative from ``torch.func``;
+  * :func:`make_solve_fn` and :func:`solve_ivp` -- the single-chain
+    functional surface: one chain through the single-instance BDF core,
+    gradients through ``torch.autograd`` by the checkpointed adjoint or
+    forward sensitivities; :func:`solve_lanes` takes per-lane observation
+    grids lane by lane through such a solve;
   * :func:`make_batched_solve_fn` -- batched solves with gradients through
     ``torch.autograd``: BDF with the checkpointed adjoint (the default
     call; 'hermite' or 'polynomial' interpolation), and Adams with the
@@ -29,7 +34,10 @@ problem, its right-hand side in torch between them; on CPU tensors the
 plain PyTorch version of the same math runs instead.  The
 BDF core (:mod:`sunode_torch.ops.bdf_batched`, forward sensitivities and
 checkpoint recording included) and its checkpointed adjoint are torch code
-with a ``torch.linalg`` Newton solve on either device.
+with a ``torch.linalg`` Newton solve on either device, as are the
+single-instance cores (``ops/bdf.py::bdf_solve``, ``ops/adams.py::
+adams_solve``); 'band' and 'sparse' Newton solves factor and solve through
+the banded LU's kernels (``sunode_torch/csrc/banded.cu``) on CUDA tensors.
 """
 
 from sunode_torch.entry import (
@@ -42,7 +50,13 @@ from sunode_torch.entry import (
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.problem import SympyProblem
-from sunode_torch.wrappers.as_torch import make_batched_solve_fn
+from sunode_torch.wrappers.as_torch import (
+    SolveResult,
+    make_batched_solve_fn,
+    make_solve_fn,
+    solve_ivp,
+    solve_lanes,
+)
 
 __version__ = "0.1.0"
 
@@ -57,5 +71,9 @@ __all__ = [
     "build_lv_sens",
     "build_sir",
     "make_batched_solve_fn",
+    "make_solve_fn",
+    "solve_ivp",
+    "solve_lanes",
+    "SolveResult",
     "__version__",
 ]

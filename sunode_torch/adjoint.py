@@ -1,6 +1,11 @@
-"""Adjoint gradients of the batched solves.
+"""Adjoint gradients of the single-instance and the batched solves.
 
-Port of ``sunode_tpu/adjoint.py``'s batched half: the transition-matrix
+Port of ``sunode_tpu/adjoint.py``.  Its single half: the Hermite and the
+polynomial evaluators over one recorded trajectory
+(:func:`make_hermite_eval`, :func:`make_polynomial_eval`) and
+:func:`adjoint_backward`, one time-reversed
+:func:`~sunode_torch.ops.bdf.bdf_solve` an observation interval.  Its
+batched half: the transition-matrix
 adjoint of the Adams solve (``adjoint_backward_transition_batched``), and
 ``adjoint_backward_batched``: with ``method='BDF'`` one backward BDF solve
 per observation interval, with ``method='ADAMS'`` one fused backward Adams
@@ -18,12 +23,14 @@ Conventions (for L = sum_i g_i^T y(t_i)):
 
 from __future__ import annotations
 
+import bisect
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sunode_torch.ops.adams_batched import adams_solve_batched
-from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf import BDFOptions, _np_dtype, _upload, bdf_solve, host_time, host_value
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.ops.linalg import solve_dense
 from sunode_torch.symode.cuda_codegen import DeviceSystem
@@ -35,6 +42,9 @@ __all__ = [
     "resolve_fz",
     "staged_adjoint_fz",
     "POLY_K",
+    "make_hermite_eval",
+    "make_polynomial_eval",
+    "adjoint_backward",
     "make_hermite_eval_batched",
     "make_polynomial_eval_batched",
     "adjoint_backward_batched",
@@ -44,9 +54,9 @@ POLY_K = 6  # polynomial interpolation window (degree POLY_K - 1)
 
 
 class AdjointResult(NamedTuple):
-    lamda: torch.Tensor  # (B, n)  = dL/dy0
-    quad: torch.Tensor  # (B, k)  = dL/dp_subset
-    status: torch.Tensor  # (B,) 0 on success
+    lamda: torch.Tensor  # (B, n) = dL/dy0; (n,) from adjoint_backward
+    quad: torch.Tensor  # (B, k) = dL/dp_subset; (k,) from adjoint_backward
+    status: torch.Tensor  # (B,) 0 on success; an int from adjoint_backward
     stats: dict
 
 
@@ -255,6 +265,286 @@ def _bracket(ts, ts_rows, n_saved, t):
     S = ts.shape[0]
     i = _left_row(ts_rows, n_saved, t)
     return torch.remainder(i, S), torch.clamp(i + 1, max=S - 1)
+
+
+def _single_bracket(ts: torch.Tensor, n_saved: int, t: torch.Tensor):
+    """The bracketing interval's rows ``(i0, i1)`` of ``t (m,)`` in one
+    recording: the rightmost row at or before t, clipped to ``[0, n_saved -
+    2]`` as the reference clips it, a negative row read from the end and a
+    row past the table from its last slot, as the reference's indexing
+    reads them."""
+    S = ts.shape[0]
+    idx = torch.searchsorted(ts, t, right=True) - 1
+    idx = torch.where(torch.isnan(t), -1, idx)
+    i = torch.minimum(torch.clamp(idx, min=0), torch.full_like(idx, int(n_saved) - 2))
+    return torch.remainder(i, S), torch.clamp(i + 1, max=S - 1)
+
+
+def _host_rows(table: torch.Tensor, rows: list, weights) -> torch.Tensor:
+    """``sum_k weights[k] table[rows[k]]`` for host weights: one product, the
+    rows a view of the table where they are consecutive."""
+    w = _upload(np.asarray(weights, _np_dtype(table.dtype)), table.device)
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        picked = table[rows[0] : rows[0] + len(rows)]
+    else:
+        picked = table[torch.as_tensor(rows, device=table.device)]
+    return w @ picked.reshape(len(weights), -1)
+
+
+def make_hermite_eval(saved: dict) -> Callable:
+    """Hermite evaluator over one recorded forward trajectory:
+    ``y_at(t) -> (n,)`` for a scalar ``t`` (``(m, n)`` for a tensor ``t
+    (m,)``).  ``saved`` is :func:`~sunode_torch.ops.bdf.bdf_solve`'s
+    recording: ``t (S,)`` padded with +inf, ``y``, ``f (S, n)``,
+    ``n_saved``, and ``fd (S, n)`` where the rows are quintic (then quintic
+    Hermite, gated to ``h L <= 1`` where the rows carry ``L``, cubic
+    beyond); without ``fd`` CVODES's cubic CV_HERMITE.  A time held on the
+    host (a number, or a time the single cores pass) finds its interval and
+    weights on the host and costs one product on the device; a tensor of
+    times is evaluated on the device.  Port of ``sunode_tpu/adjoint.py::
+    make_hermite_eval``."""
+    ts, ys, fs = saved["t"].contiguous(), saved["y"], saved["f"]
+    n_saved = int(saved["n_saved"])
+    fds, Ls = saved.get("fd"), saved.get("L")
+    S, n = ys.shape
+    host = {}
+
+    def host_eval(t):
+        if not host:  # the table's times on the host, read once
+            host["ts"] = ts.tolist()
+            host["L"] = None if Ls is None else Ls.tolist()
+            host["yf"] = torch.cat([ys, fs] + ([fds] if fds is not None else []), dim=1)
+        sc = _np_dtype(ys.dtype)
+        idx = -1 if t != t else bisect.bisect_right(host["ts"], t) - 1
+        i = min(max(idx, 0), n_saved - 2)
+        i0, i1 = i % S, min(i + 1, S - 1)
+        with np.errstate(all="ignore"):
+            t0, t1 = sc(host["ts"][i0]), sc(host["ts"][i1])
+            h = t1 - t0
+            tau = np.clip((sc(t) - t0) / h, sc(0.0), sc(1.0))
+            cubic = [(1 + 2 * tau) * (1 - tau) ** 2, tau * (1 - tau) ** 2 * h,
+                     tau**2 * (3 - 2 * tau), tau**2 * (tau - 1) * h]
+            if fds is None:
+                return _host_rows(host["yf"], [i0, i1], cubic[:2] + cubic[2:])
+            quintic = True
+            if host["L"] is not None:
+                quintic = bool(h * np.maximum(sc(host["L"][i0]), sc(host["L"][i1])) <= 1.0)
+            if quintic:
+                H0, H1, H2, H3, H4, H5 = _quintic_basis(tau)
+                w = [H0, H1 * h, H2 * (h * h), H3, H4 * h, H5 * (h * h)]
+            else:
+                w = cubic[:2] + [sc(0)] + cubic[2:] + [sc(0)]
+        return _host_rows(host["yf"], [i0, i1], w)
+
+    def y_at(t):
+        th = host_value(t)
+        if th is not None:
+            return host_eval(th)
+        t = torch.as_tensor(t, dtype=ts.dtype, device=ts.device)
+        scalar = t.ndim == 0
+        t = t.reshape(-1)
+        i0, i1 = _single_bracket(ts, n_saved, t)
+        t0, t1 = ts[i0], ts[i1]
+        h = t1 - t0
+        tau = torch.clamp((t - t0) / h, 0.0, 1.0)[:, None]
+        hc = h[:, None]
+        y0, y1, f0, f1 = ys[i0], ys[i1], fs[i0], fs[i1]
+        h00 = (1 + 2 * tau) * (1 - tau) ** 2
+        h10 = tau * (1 - tau) ** 2
+        h01 = tau**2 * (3 - 2 * tau)
+        h11 = tau**2 * (tau - 1)
+        out = h00 * y0 + h10 * hc * f0 + h01 * y1 + h11 * hc * f1
+        if fds is not None:
+            H0, H1, H2, H3, H4, H5 = _quintic_basis(tau)
+            h2 = hc * hc
+            quintic = (H0 * y0 + H1 * hc * f0 + H2 * h2 * fds[i0] + H3 * y1 + H4 * hc * f1
+                       + H5 * h2 * fds[i1])
+            if Ls is None:
+                out = quintic
+            else:
+                ok = (h * torch.maximum(Ls[i0], Ls[i1]) <= 1.0)[:, None]
+                out = torch.where(ok, quintic, out)
+        return out[0] if scalar else out
+
+    return y_at
+
+
+def make_polynomial_eval(saved: dict) -> Callable:
+    """The CV_POLYNOMIAL analog over one recorded trajectory: barycentric
+    Lagrange through the ``POLY_K`` recorded y rows around the bracketing
+    interval (window clamped at the ends, degree lower with fewer rows), the
+    nearest node itself within 1e-14 relative.  ``y_at(t) -> (n,)`` (``(m,
+    n)`` for a tensor ``t (m,)``); a time held on the host is evaluated with
+    host weights, as in :func:`make_hermite_eval`.  Port of
+    ``sunode_tpu/adjoint.py::make_polynomial_eval``."""
+    ts, ys = saved["t"].contiguous(), saved["y"]
+    n_saved = int(saved["n_saved"])
+    S = ts.shape[0]
+    K = min(POLY_K, S)
+    off = torch.arange(K, device=ts.device)
+    offd = off[:, None] != off[None, :]
+    host = {}
+
+    def host_eval(t):
+        if not host:
+            host["ts"] = ts.tolist()
+        sc = _np_dtype(ys.dtype)
+        idx = -1 if t != t else bisect.bisect_right(host["ts"], t) - 1
+        i = min(max(idx, 0), n_saved - 2)
+        s0 = min(max(i - (K // 2 - 1), 0), max(n_saved - K, 0))
+        jdx = [min(max(s0 + o, 0), S - 1) for o in range(K)]
+        valid = [s0 + o < n_saved for o in range(K)]
+        tj = [sc(host["ts"][j]) for j in jdx]
+        t = sc(t)
+        with np.errstate(all="ignore"):
+            absd = [abs(t - v) for v in tj]
+            exact = [valid[k] and absd[k] <= 1e-14 * (1.0 + abs(t)) for k in range(K)]
+            if any(exact):
+                # the nearest exact node only: two rows may lie within the tolerance
+                near = min((k for k in range(K) if valid[k]), key=lambda k: absd[k])
+                return ys[jdx[near]]
+            w = []
+            for k in range(K):
+                prod = sc(1.0)
+                for m in range(K):
+                    if m != k and valid[m]:
+                        prod = prod * (tj[k] - tj[m])
+                w.append(sc(1.0) / prod / (t - tj[k]) if valid[k] else sc(0.0))
+            den = sc(0.0)
+            for v in w:
+                den = den + v
+            w = [v / den for v in w]
+        return _host_rows(ys, jdx, w)
+
+    def y_at(t):
+        th = host_value(t)
+        if th is not None:
+            return host_eval(th)
+        t = torch.as_tensor(t, dtype=ts.dtype, device=ts.device)
+        scalar = t.ndim == 0
+        t = t.reshape(-1)
+        idx = torch.searchsorted(ts, t, right=True) - 1
+        idx = torch.where(torch.isnan(t), -1, idx)
+        i = torch.minimum(torch.clamp(idx, min=0), torch.full_like(idx, n_saved - 2))
+        s = torch.clamp(i - (K // 2 - 1), min=0, max=max(n_saved - K, 0))
+        j = s[:, None] + off[None, :]  # (m, K)
+        jdx = torch.clamp(j, 0, S - 1)
+        valid = j < n_saved
+        tj = ts[jdx]  # (m, K)
+        yj = ys[jdx]  # (m, K, n)
+        diff = tj[:, :, None] - tj[:, None, :]
+        prods = torch.prod(torch.where(offd & valid[:, None, :], diff, 1.0), dim=2)
+        w = torch.where(valid, 1.0 / prods, 0.0)
+        d = t[:, None] - tj
+        absd = torch.abs(d)
+        exact = (absd <= 1e-14 * (1.0 + torch.abs(t))[:, None]) & valid
+        c = torch.where(exact, 0.0, w / torch.where(exact, 1.0, d))
+        y_interp = torch.sum(c[:, :, None] * yj, dim=1) / torch.sum(c, dim=1)[:, None]
+        # the nearest exact node only: two rows may lie within the tolerance
+        nearest = torch.argmin(torch.where(valid, absd, float("inf")), dim=1)
+        y_exact = yj[torch.arange(t.shape[0], device=t.device), nearest]
+        out = torch.where(exact.any(dim=1)[:, None], y_exact, y_interp)
+        return out[0] if scalar else out
+
+    return y_at
+
+
+def adjoint_backward(
+    adjoint_rhs: Callable,  # (t, y, lam, p) -> -J^T lam
+    adjoint_jac: Callable,  # (t, y, lam, p) -> -J^T (the options' storage)
+    quad_rhs: Callable,  # (t, y, lam, p) -> lam^T df/dp_subset
+    saved: dict,
+    t0,
+    tvals: torch.Tensor,
+    grads: torch.Tensor,  # (n_t, n) observation cotangents g_i
+    params: torch.Tensor,
+    n_deriv: int,
+    options: BDFOptions = BDFOptions(rtol=1e-10, atol=1e-10),
+    lamda_end: Optional[torch.Tensor] = None,
+    interpolation: str = "hermite",
+) -> AdjointResult:
+    """Backward adjoint solve of one trajectory over its observation
+    intervals (the reference's ``AdjointSolver.solve_backward`` semantics):
+    walk the observation times in reverse, add each cotangent to lambda at
+    its time, and integrate ``dlam/dtau = J^T lam`` with the quadrature
+    ``dq/dtau = lam^T df/dp`` (under error control) in ``tau = -t`` down to
+    the next time and finally to ``t0``: one :func:`bdf_solve` an interval,
+    warm-started from the previous interval's last step, the first from the
+    automatic one.  y(t) from the recording, ``interpolation`` 'hermite' or
+    'polynomial'.  A failed interval poisons lambda and q with NaN and
+    raises the status; an overflowed recording gives status 99 and NaN.
+    Port of ``sunode_tpu/adjoint.py::adjoint_backward``; ``stats`` adds the
+    attempts and the Newton solver's calls to ``n_backward_steps``."""
+    if interpolation == "polynomial":
+        y_at = make_polynomial_eval(saved)
+    elif interpolation == "hermite":
+        y_at = make_hermite_eval(saved)
+    else:
+        raise ValueError(
+            f"interpolation must be 'hermite' or 'polynomial', got {interpolation!r}"
+        )
+    y = saved["y"]
+    f_kw = dict(dtype=y.dtype, device=y.device)
+    n = y.shape[-1]
+    tvals_h = torch.as_tensor(tvals).detach().to(y.dtype).reshape(-1).tolist()
+    grads = torch.as_tensor(grads).detach().to(**f_kw)
+    params = torch.as_tensor(params).detach().to(**f_kw)
+    t0_h = float(t0)
+    n_t = len(tvals_h)
+
+    # every function of one attempt evaluates at the same tau tensor, so
+    # y(t) is computed once per tau and reused
+    last = [None, None]
+
+    def y_of(tau):
+        if last[0] is not tau:
+            last[0], last[1] = tau, y_at(-host_time(tau))
+        return last[1]
+
+    def rhs_b(tau, lam, p):
+        return -adjoint_rhs(-tau, y_of(tau), lam, p)  # dlam/dtau = +J^T lam
+
+    def jac_b(tau, lam, p):
+        return -adjoint_jac(-tau, y_of(tau), lam, p)
+
+    def quad_b(tau, lam, p):
+        return quad_rhs(-tau, y_of(tau), lam, p)  # dq/dtau = +lam^T df/dp
+
+    quad_opts = options._replace(quad_err_con=True, save_steps=0)
+    lam = (torch.zeros((n,), **f_kw) if lamda_end is None
+           else torch.as_tensor(lamda_end).detach().to(**f_kw))
+    q = torch.zeros((n_deriv,), **f_kw)
+    status, nsteps, attempts, factors, solves = 0, 0, 0, 0, 0
+    h_prev = -1.0  # the first interval starts automatically
+    lower = tvals_h[::-1][1:] + [t0_h]
+    for k, (t_hi, t_lo) in enumerate(zip(tvals_h[::-1], lower)):
+        lam = lam + grads[n_t - 1 - k]  # inject the observation's cotangent
+        if not (t_hi - t_lo) > 1e-14 * (1.0 + abs(t_hi)):
+            continue
+        res = bdf_solve(
+            rhs_b, jac_b, -t_hi, lam, params, torch.tensor([-t_lo], **f_kw), quad_opts,
+            quad_rhs=quad_b, quad0=q, first_step=h_prev,
+        )
+        ok = res.status == 0
+        lam = res.ys[0] if ok else torch.full_like(lam, float("nan"))
+        q = res.quad[0] if ok else torch.full_like(q, float("nan"))
+        status = max(status, res.status)
+        nsteps += res.stats["n_steps"]
+        h_prev = res.stats["final_step_size"]
+        attempts += res.stats["n_attempts"]
+        factors += res.stats["n_linear_factors"]
+        solves += res.stats["n_linear_solves"]
+
+    # an overflowed recording is incomplete: poison instead of interpolating
+    if bool(saved.get("overflow", int(saved["n_saved"]) >= saved["t"].shape[0])):
+        lam = torch.full_like(lam, float("nan"))
+        q = torch.full_like(q, float("nan"))
+        status = 99
+    return AdjointResult(
+        lamda=lam, quad=q, status=status,
+        stats=dict(n_backward_steps=nsteps, n_attempts=attempts, n_linear_factors=factors,
+                   n_linear_solves=solves),
+    )
 
 
 def make_hermite_eval_batched(saved: dict) -> Callable:

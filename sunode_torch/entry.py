@@ -53,6 +53,12 @@ arrowhead Jacobian) with sparse Newton, whose plan borders the hub.
 birth rate a cubic ``interpolate_spline`` of t whose values are
 parameters: on the card the emitted forward and transition systems carry
 the spline into the history-attempt kernel.
+
+The single-chain surface: :func:`build_lv_single` is the Lotka-Volterra
+gradient of :func:`build_lv_checkpointed` for one chain at a time, through
+``make_solve_fn`` (the single-instance BDF core and its checkpointed
+adjoint); :func:`build_kpp_single` is the Fisher-KPP chain through it with
+band, sparse or dense Newton.
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import TorchProblem
 from sunode_torch.symode.lambdify import interpolate_spline
 from sunode_torch.symode.problem import SympyProblem
-from sunode_torch.wrappers.as_torch import make_batched_solve_fn
+from sunode_torch.wrappers.as_torch import make_batched_solve_fn, make_solve_fn
 
 __all__ = [
     "lv_problem",
@@ -76,6 +82,8 @@ __all__ = [
     "build_lv_adjoint_f32",
     "lv_adjoint_inputs",
     "build_lv_checkpointed",
+    "build_lv_single",
+    "build_kpp_single",
     "build_lv_adams",
     "LV_ADAMS_CHECKPOINTS",
     "LV_P_FIX",
@@ -171,6 +179,34 @@ def build_lv_checkpointed(batch: int, tvals_n: int, rtol: float, interpolation="
     kw = {} if interpolation == "hermite" else dict(adjoint_interpolation=interpolation)
     solve = make_batched_solve_fn(lv_problem(), options=BDFOptions(rtol=rtol, atol=rtol), **kw)
     return _lv_grad_step(solve, batch, tvals_n, device)
+
+
+def build_lv_single(batch: int = 16, tvals_n: int = 21, rtol: float = 1e-8, device="cuda"):
+    """``(grad_step, (y0s, p_subs))``: ``grad_step(y0 (2,), p_sub (2,)) ->
+    (gy, gp)`` is one chain's gradient of ``sum(ys**2)`` (the loss of
+    :func:`build_lv_checkpointed`) through ``make_solve_fn(lv_problem(),
+    options=BDFOptions(rtol=rtol, atol=rtol))`` with every other argument at
+    its default (the checkpointed 'hermite' adjoint over 4,096 recorded
+    steps, backward tolerances 1e-10); ``y0s``, ``p_subs`` ``(batch, 2)``
+    are the bench's chains (:func:`lv_adjoint_inputs`, lanes 0-15
+    ``tests/golden/lv_adjoint.npz``'s).  ``grad_step.solve`` is the solve,
+    whose ``last_stats`` report the latest step's attempts.  It runs on the
+    card unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    f_kw = dict(dtype=torch.float64, device=device)
+    solve = make_solve_fn(lv_problem(), options=BDFOptions(rtol=rtol, atol=rtol))
+    tvals = torch.as_tensor(np.linspace(1.0, 10.0, tvals_n), **f_kw)
+    p_fix = torch.as_tensor(LV_P_FIX, **f_kw)
+
+    def grad_step(y0, p_sub, tvals=tvals):
+        y0 = y0.detach().requires_grad_(True)
+        p_sub = p_sub.detach().requires_grad_(True)
+        ys = solve(0.0, y0, p_sub, p_fix, tvals)
+        return torch.autograd.grad(torch.sum(ys**2), (y0, p_sub))
+
+    grad_step.solve, grad_step.tvals, grad_step.p_fix = solve, tvals, p_fix
+    y0s, p_subs = lv_adjoint_inputs(batch)
+    return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))
 
 
 LV_ADAMS_CHECKPOINTS = 384  # checkpoint_n of tests/test_golden.py's ADAMS modes
@@ -687,6 +723,40 @@ def build_kpp(n: int, batch: int, linear_solver: str = "band", device="cuda"):
     kw = dict(lower_bandwidth=1, upper_bandwidth=1) if linear_solver == "band" else None
     forward, grad_step = _structured_run(kpp_problem(n), linear_solver, [], tvals, device, kw)
     return forward, grad_step, (*_tensors(device, y0, params), tvals)
+
+
+def build_kpp_single(n: int, linear_solver: str = "band", device="cuda"):
+    """``(forward, grad_step, (y0 (n,), params (2,), tvals))``: one Fisher-KPP
+    chain (:func:`kpp_problem`, lane 0 of :func:`kpp_inputs`; ``tvals``
+    numpy) through ``make_solve_fn`` at rtol 1e-8 / atol 1e-10 with
+    ``linear_solver`` 'band' (bandwidths 1 and 1), 'sparse' or 'dense':
+    ``forward(y0, p) -> ys`` (no gradient, NaN on failure) and
+    ``grad_step(y0, p) -> (gy, gp)``, the gradients of ``sum(ys**2)``;
+    ``forward.solve`` and ``grad_step.solve`` are the solve, whose
+    ``last_stats`` carry the Newton solver's ``n_linear_factors`` and
+    ``n_linear_solves``.  It runs on the card unless ``device="cpu"``;
+    without a card the default raises."""
+    device = device_or_raise(device)
+    y0, params, tvals = kpp_inputs(n, 1)
+    kw = dict(lower_bandwidth=1, upper_bandwidth=1) if linear_solver == "band" else None
+    solve = make_solve_fn(kpp_problem(n), options=BDFOptions(rtol=KPP_RTOL, atol=KPP_ATOL),
+                          linear_solver=linear_solver, linear_solver_kwargs=kw)
+    f_kw = dict(dtype=torch.float64, device=device)
+    tv = torch.as_tensor(tvals, **f_kw)
+    p_fix = torch.zeros((0,), **f_kw)
+
+    def forward(y0, p):
+        with torch.no_grad():
+            return solve(0.0, y0, p, p_fix, tv)
+
+    def grad_step(y0, p):
+        y0 = y0.detach().requires_grad_(True)
+        p = p.detach().requires_grad_(True)
+        ys = solve(0.0, y0, p, p_fix, tv)
+        return torch.autograd.grad(torch.sum(ys**2), (y0, p))
+
+    forward.solve = grad_step.solve = solve
+    return forward, grad_step, (*_tensors(device, y0[0], params[0]), tvals)
 
 
 HUB_P_FIX = (30.0, 0.5)  # a, c: the hub's relaxation rate and its coupling

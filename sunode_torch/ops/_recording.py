@@ -1,6 +1,7 @@
-"""Checkpoint recording with automatic thinning, for the batched cores.
+"""Checkpoint recording with automatic thinning, for the batched and the
+single-instance cores.
 
-Port of the batched half of ``sunode_tpu/ops/_recording.py``.  The forward
+Port of ``sunode_tpu/ops/_recording.py``.  The forward
 solve records every accepted step's ``(t, y, f[, f', L])`` row into a fixed
 buffer of ``save_steps`` slots indexed by the shared attempt counter; when
 the buffer fills it is compacted (every second row kept) and the recording
@@ -17,6 +18,12 @@ ints here, so recording adds no device sync; the buffer, ``n_saved``,
 Layout: ``tyf (S, W, B)``, trailing batch; rejected attempts and empty slots
 hold a pad row (``t = +inf``, zeros), compaction pads are ``+inf`` in every
 column; :func:`finalize_saved_batched` sorts each lane's rows by ``t``.
+
+The single half (``init_saved_single``, ``record_step_single``,
+``finalize_saved_single``) records accepted steps only, ``tyf (S, W)`` with
+its own write pointer: the single cores decide acceptance on the host, so
+every decision of the recording (record, compact, full, the tail's
+freshness) is a host int or bool, and a rejected attempt touches nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +37,10 @@ __all__ = [
     "init_saved_batched",
     "record_step_batched",
     "finalize_saved_batched",
+    "init_saved_single",
+    "record_step_single",
+    "finalize_saved_single",
+    "fill_fdot_single",
 ]
 
 MAX_THIN = 10
@@ -151,3 +162,96 @@ def finalize_saved_batched(sv: dict, n: int, thinning: bool) -> dict:
     if has_L:
         out["L"] = buf[:, 1 + 3 * n, :]
     return out
+
+
+def _pad_rows(rows: int, like: torch.Tensor) -> torch.Tensor:
+    """``rows`` pad rows ``(rows, W)``: ``+inf`` time, zeros below."""
+    pad = torch.zeros((rows, like.shape[-1]), dtype=like.dtype, device=like.device)
+    pad[:, 0] = float("inf")
+    return pad
+
+
+def init_saved_single(row0: torch.Tensor, save_steps: int, thinning: bool) -> dict:
+    """Recording state of one solve: a buffer ``(save_steps, W)`` of pad rows
+    whose slot 0 holds the initial row ``row0 (W,)``; ``n_saved`` and
+    ``overflow`` host values, and under thinning the stride's ``shift``,
+    the accepted-step counter ``k`` and the rolling ``tail`` (None while
+    no accepted step waits unrecorded)."""
+    buf = _pad_rows(save_steps, row0)
+    buf[0] = row0
+    sv = {"tyf": buf, "n_saved": 1, "overflow": False}
+    if thinning:
+        sv.update(shift=0, k=0, tail=None)
+    return sv
+
+
+def record_step_single(sv: dict, accept: bool, row, save_steps: int, thinning: bool) -> dict:
+    """One recording update of a single-instance core
+    (``sunode_tpu/ops/_recording.py::record_step_single``): ``row`` is a
+    zero-argument callable giving the step's row ``(W,)``, called only
+    when an accepted step is written or becomes the tail."""
+    buf = sv["tyf"]
+    if not thinning:
+        ns = sv["n_saved"]
+        if accept:
+            buf[min(ns, save_steps - 1)] = row()
+        return dict(
+            tyf=buf,
+            n_saved=min(ns + 1, save_steps) if accept else ns,
+            overflow=sv["overflow"] or (accept and ns >= save_steps),
+        )
+
+    shift, ns, tail = sv["shift"], sv["n_saved"], sv["tail"]
+    k_new = sv["k"] + 1 if accept else sv["k"]
+    if accept and (k_new & ((1 << shift) - 1)) == 0 and ns >= save_steps and shift < MAX_THIN:
+        kept = (save_steps + 1) // 2
+        pad = torch.full((save_steps - kept, buf.shape[1]), float("inf"),
+                         dtype=buf.dtype, device=buf.device)
+        buf = torch.cat([buf[::2], pad])
+        ns, shift = kept, shift + 1
+    # the stride may have doubled: test this step against the new one
+    rec = accept and (k_new & ((1 << shift) - 1)) == 0
+    full = ns >= save_steps  # only once the stride is at MAX_THIN
+    do_write = rec and not full
+    if do_write:
+        buf[ns] = row()
+        tail = None
+    elif accept:
+        tail = row()
+    return dict(
+        tyf=buf,
+        n_saved=ns + int(do_write),
+        # a step that should record at the current stride but cannot
+        overflow=sv["overflow"] or (rec and full),
+        shift=shift,
+        k=k_new,
+        tail=tail,
+    )
+
+
+def finalize_saved_single(sv: dict, thinning: bool):
+    """``(tyf, n_saved, overflow)``; under thinning the buffer gains one row
+    of capacity and the rolling tail, when there is one, goes into the
+    first free slot, so the recording ends at the last accepted step."""
+    buf, ns = sv["tyf"], sv["n_saved"]
+    if not thinning:
+        return buf, ns, sv["overflow"]
+    buf = torch.cat([buf, _pad_rows(1, buf)])
+    if sv["tail"] is not None:
+        buf[min(ns, buf.shape[0] - 1)] = sv["tail"]
+        ns += 1
+    return buf, ns, sv["overflow"]
+
+
+def fill_fdot_single(buf: torch.Tensor, n_rows: int, n: int, rhs, params) -> torch.Tensor:
+    """The quintic rows' ``f'`` columns (``2n+1 .. 3n``) of a single
+    recording's first ``n_rows`` rows, from their ``(t, y, f)`` in one
+    forward-mode product over all rows at once: each row's value is
+    :func:`fdot` of that row, and the single cores fill the column here,
+    after the solve, instead of once an accepted step."""
+    if n_rows:
+        rows = buf[:n_rows]
+        fd = fdot(rhs, rows[:, 0], rows[:, 1 : n + 1].T, rows[:, n + 1 : 2 * n + 1].T,
+                  params[:, None])
+        buf[:n_rows, 2 * n + 1 : 3 * n + 1] = torch.broadcast_to(fd, (n, n_rows)).T
+    return buf

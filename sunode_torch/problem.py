@@ -49,7 +49,8 @@ def over_lanes(fn: Callable, item_ndims: Sequence[int]) -> Callable:
     Argument ``k`` has ``item_ndims[k]`` leading item dims and any trailing
     batch dims; the batch dims of all arguments broadcast against each other
     (aligned from the right), are flattened into one axis for
-    ``torch.func.vmap`` and restored on the result, after its item dims.
+    ``torch.func.vmap`` and restored on the result, after its item dims;
+    arguments without batch dims (one lane) go to ``fn`` as they are.
     A non-tensor argument (a float ``t``) takes the dtype and device of the
     first floating tensor."""
 
@@ -58,6 +59,8 @@ def over_lanes(fn: Callable, item_ndims: Sequence[int]) -> Callable:
         args = [a if torch.is_tensor(a) else torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
                 for a in args]
         batch = torch.broadcast_shapes(*(tuple(a.shape[k:]) for a, k in zip(args, item_ndims)))
+        if not batch:  # one lane (the single-instance cores): no map needed
+            return fn(*args)
         size = math.prod(batch)
         flat = []
         for a, k in zip(args, item_ndims):

@@ -1,6 +1,23 @@
-"""Differentiable batched solve as a ``torch.autograd.Function``.
+"""Differentiable solves as ``torch.autograd.Function``s: the single-chain
+functional surface and the batched solve.
 
-Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
+Port of ``sunode_tpu/wrappers/as_jax.py``.  The single-chain surface:
+
+* :func:`make_solve_fn` -- ``solve(t0, y0, p_sub, p_fix, tvals) -> ys (n_t,
+  n)`` through the single-instance BDF core (``ops/bdf.py::bdf_solve``),
+  with ``derivatives`` None, 'adjoint' (the forward solve records
+  ``checkpoint_n`` checkpoints and the backward is
+  ``adjoint.py::adjoint_backward``, 'hermite' or 'polynomial') or
+  'forward' (sensitivities of the augmented ``[params | initial values]``
+  block); gradients to t0, y0, p_sub and tvals, zero to p_fix;
+* :func:`solve_lanes` -- per-lane observation grids with gradients, a loop
+  over lanes of such a solve (the counterpart of the reference's ``vmap``
+  of ``make_solve_fn``);
+* :func:`solve_ivp` and :class:`SolveResult` -- declare and solve in one
+  call, gradients through ``torch.autograd`` to every parameter given as a
+  tensor that requires them.
+
+The batched solve, :func:`make_batched_solve_fn`:
 
 * ``method='BDF'`` (the default) with ``derivatives=None`` or ``'adjoint'``
   and ``adjoint_interpolation`` 'hermite' (the default) or 'polynomial':
@@ -23,7 +40,8 @@ Port of ``sunode_tpu/wrappers/as_jax.py::make_batched_solve_fn``:
 The solve runs at its inputs' type, float64 or float32 (the kernels have a
 build of each).  Per-lane observation grids, ``tvals (B, n_t)``, go through
 the undifferentiated solve, as in the reference; a gradient through them
-raises ``NotImplementedError``.
+raises ``NotImplementedError`` that names :func:`solve_lanes`, as the
+reference routes that case through the single-chain solve.
 
 ``linear_solver`` 'band' or 'sparse' (``method='BDF'`` only, as in the
 reference) gives both BDF solves a structured Newton solve
@@ -40,21 +58,38 @@ reference's batched solver refuses too.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from sunode_torch.adjoint import adjoint_backward_batched, adjoint_backward_transition_batched
+from sunode_torch.adjoint import (
+    adjoint_backward,
+    adjoint_backward_batched,
+    adjoint_backward_transition_batched,
+    make_hermite_eval,
+)
 from sunode_torch.ops.adams_attempt import c_real
 from sunode_torch.ops.adams_batched import adams_solve_batched
-from sunode_torch.ops.bdf import BDFOptions
+from sunode_torch.ops.bdf import BDFOptions, bdf_solve
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import Problem
 from sunode_torch.symode import cuda_codegen
 from sunode_torch.symode.problem import SympyProblem
 
-__all__ = ["make_batched_solve_fn", "BatchedSolve"]
+__all__ = [
+    "make_solve_fn",
+    "SolveFn",
+    "solve_lanes",
+    "solve_ivp",
+    "SolveResult",
+    "make_batched_solve_fn",
+    "BatchedSolve",
+]
+
+
+def _poison(ys, status):
+    return ys if status == 0 else torch.full_like(ys, float("nan"))
 
 
 def _poison_b(ys, status):
@@ -217,7 +252,9 @@ class BatchedSolve:
         if torch.as_tensor(tvals).ndim != 1:
             raise NotImplementedError(
                 "make_batched_solve_fn: gradients through per-lane observation grids "
-                "(tvals (B, n_t)) are not ported; the reference's adjoint takes shared tvals"
+                "(tvals (B, n_t)) go lane by lane, as the reference routes them through "
+                "vmap of its single-chain solve: use sunode_torch.wrappers.as_torch."
+                "solve_lanes(make_solve_fn(problem, ...), t0, y0, p_sub, p_fix, tvals)"
             )
         return _Adjoint.apply(self, *inputs)
 
@@ -359,3 +396,344 @@ def make_batched_solve_fn(
     interpolation = adjoint_interpolation if derivatives == "adjoint" else None
     return BatchedSolve(problem, derivatives, options, adjoint_options, method,
                         interpolation, checkpoint_n, linear_solver, linear_solver_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# The single-chain functional surface
+# ---------------------------------------------------------------------------
+class SolveFn:
+    """``solve(t0, y0, p_sub, p_fix, tvals) -> ys (n_t, n)`` for one chain
+    (:func:`make_solve_fn`): y0 (n,), p_sub (k,), p_fix (k2,), tvals (n_t,);
+    a failed solve returns NaN and so do its gradients.  The solve runs on
+    y0's device; gradients flow to a tensor t0, y0, p_sub and a tensor
+    tvals through ``torch.autograd``, and p_fix's is zero.  ``last_stats``
+    holds the latest forward (``'forward'``) and backward (``'backward'``)
+    solve's stats, each with its ``status``."""
+
+    def __init__(self, problem: Problem, derivatives, options, adjoint_options,
+                 checkpoint_n: int, interpolation: str, linear_solver: str,
+                 linear_solver_kwargs: Optional[dict]):
+        self.problem = problem
+        self.rhs = problem.make_rhs()
+        self.jac, self.options, self.adjoint_jac, self.adjoint_options = _structured_setup(
+            problem, self.rhs, linear_solver, linear_solver_kwargs, options, adjoint_options
+        )
+        self.derivatives = derivatives
+        self.interpolation = interpolation
+        self.n_deriv = problem.n_params
+        self.fwd_options = self.options._replace(save_steps=checkpoint_n)
+        if interpolation == "polynomial":
+            # polynomial interpolation reads only (t, y) rows
+            self.fwd_options = self.fwd_options._replace(hermite_order=3)
+        if derivatives == "forward":
+            self._jac_dense = problem.make_jac_dense()
+            self._dfdp = problem.make_dfdp()
+        self.last_stats: dict = {}
+
+    def combine(self, p_sub, p_fix):
+        return self.problem.params.combine(p_sub, p_fix)
+
+    def _sens_rhs_aug(self, t, y, S, p):
+        """Sensitivities of the augmented block: rows ``[0:k]`` the
+        parameters', rows ``[k:k+n]`` the initial values' (the reference's
+        '__initial_values' rows): ``S J^T + [df/dp^T ; 0]``."""
+        n, k = y.shape[0], self.n_deriv
+        J = torch.broadcast_to(self._jac_dense(t, y, p), (n, n))
+        extra = torch.cat([torch.broadcast_to(self._dfdp(t, y, p), (n, k)).T,
+                           torch.zeros((n, n), dtype=S.dtype, device=S.device)])
+        return S @ J.T + extra
+
+    def solve_primal(self, t0, y0, p, tvals, options):
+        res = bdf_solve(self.rhs, self.jac, t0, y0, p, tvals, options)
+        self.last_stats["forward"] = dict(res.stats, status=res.status)
+        return res
+
+    def run_forward(self, t0, y0, p, tvals):
+        """The 'forward' mode's solve: ``(ys, sens (n_t, k + n, n))``, both
+        NaN on failure."""
+        n, k = y0.shape[0], self.n_deriv
+        S0 = torch.cat([torch.zeros((k, n), dtype=y0.dtype, device=y0.device),
+                        torch.eye(n, dtype=y0.dtype, device=y0.device)])
+        res = bdf_solve(self.rhs, self.jac, t0, y0, p, tvals, self.options,
+                        sens_rhs=self._sens_rhs_aug, S0=S0)
+        self.last_stats["forward"] = dict(res.stats, status=res.status)
+        return _poison(res.ys, res.status), _poison(res.sens, res.status)
+
+    def __call__(self, t0, y0, p_sub, p_fix, tvals):
+        inputs = (t0, y0, p_sub, p_fix, tvals)
+        wants_grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in inputs
+        )
+        if self.derivatives is None or not wants_grad:
+            with torch.no_grad():
+                y0 = torch.as_tensor(y0)
+                p = self.combine(torch.as_tensor(p_sub, device=y0.device),
+                                 torch.as_tensor(p_fix, device=y0.device))
+                if self.derivatives == "forward":
+                    return self.run_forward(t0, y0, p, tvals)[0]
+                res = self.solve_primal(t0, y0, p, tvals, self.options)
+                return _poison(res.ys, res.status)
+        fn = _SingleForward if self.derivatives == "forward" else _SingleAdjoint
+        return fn.apply(self, *inputs)
+
+
+def _tensor_t(t, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=like.dtype, device=like.device)
+
+
+def _rhs_at(solver: SolveFn, tvals: torch.Tensor, ys: torch.Tensor, p: torch.Tensor):
+    """``f(t_i, ys_i)`` for every row, ``(n_t, n)``: one call of the
+    right-hand side over the trailing batch of the observation times."""
+    return torch.broadcast_to(solver.rhs(tvals, ys.T, p[:, None]), ys.T.shape).T
+
+
+class _SingleAdjoint(torch.autograd.Function):
+    """The forward solve with checkpoints, then the checkpointed adjoint."""
+
+    @staticmethod
+    def forward(ctx, solver: SolveFn, t0, y0, p_sub, p_fix, tvals):
+        p = solver.combine(p_sub, p_fix)
+        res = solver.solve_primal(t0, y0, p, tvals, solver.fwd_options)
+        ys = _poison(res.ys, res.status)
+        ctx.solver, ctx.t0, ctx.saved, ctx.status = solver, t0, res.saved, res.status
+        ctx.save_for_backward(y0, p, p_fix, _tensor_t(tvals, ys))
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        solver = ctx.solver
+        y0, p, p_fix, tvals = ctx.saved_tensors
+        g = g.to(p.dtype)
+        problem = solver.problem
+        adj = adjoint_backward(
+            problem.make_adjoint_rhs(), solver.adjoint_jac, problem.make_adjoint_quad_rhs(),
+            ctx.saved, float(ctx.t0), tvals, g, p, solver.n_deriv, solver.adjoint_options,
+            interpolation=solver.interpolation,
+        )
+        solver.last_stats["backward"] = dict(adj.stats, status=adj.status)
+        bad = ctx.status != 0 or adj.status != 0
+        lam, quad = _poison(adj.lamda, int(bad)), _poison(adj.quad, int(bad))
+        d_tvals = d_t0 = None
+        if ctx.needs_input_grad[5]:
+            # d/dtvals_i = g_i . f(t_i, y(t_i)), y from the Hermite table
+            f_at = _rhs_at(solver, tvals, make_hermite_eval(ctx.saved)(tvals), p)
+            d_tvals = _poison(torch.sum(g * f_at, dim=1), int(bad))
+        if ctx.needs_input_grad[1]:
+            # dL/dt0 = -lambda(t0)^T f(t0, y0)
+            f0 = solver.rhs(_tensor_t(ctx.t0, y0).to(p.dtype), y0.to(p.dtype), p)
+            d_t0 = (-torch.dot(lam, f0)).to(ctx.t0.dtype)
+        return None, d_t0, lam.to(y0.dtype), quad, torch.zeros_like(p_fix), d_tvals
+
+
+class _SingleForward(torch.autograd.Function):
+    """The solve with forward sensitivities, the gradient by contraction."""
+
+    @staticmethod
+    def forward(ctx, solver: SolveFn, t0, y0, p_sub, p_fix, tvals):
+        p = solver.combine(p_sub, p_fix)
+        ys, sens = solver.run_forward(t0, y0, p, tvals)
+        tv = _tensor_t(tvals, ys)
+        f_at = _rhs_at(solver, tv, ys, p)
+        f0 = solver.rhs(_tensor_t(t0, ys), y0.to(ys.dtype), p)
+        ctx.t0 = t0
+        ctx.save_for_backward(sens, f_at, f0, p_fix, y0)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        sens, f_at, f0, p_fix, y0 = ctx.saved_tensors
+        k = sens.shape[1] - y0.shape[0]
+        g = g.to(sens.dtype)
+        # dL/dp_k = sum_i g_i . S_k(t_i)
+        contr = torch.einsum("ij,ikj->k", g, sens)
+        d_y0 = contr[k:]
+        d_tvals = torch.sum(g * f_at, dim=1) if ctx.needs_input_grad[5] else None
+        d_t0 = (-torch.dot(d_y0, f0)).to(ctx.t0.dtype) if ctx.needs_input_grad[1] else None
+        return None, d_t0, d_y0.to(y0.dtype), contr[:k], torch.zeros_like(p_fix), d_tvals
+
+
+def make_solve_fn(
+    problem: Problem,
+    *,
+    derivatives: Optional[str] = "adjoint",
+    options: BDFOptions = BDFOptions(),
+    adjoint_options: Optional[BDFOptions] = None,
+    checkpoint_n: int = 4096,
+    adjoint_interpolation: str = "hermite",
+    linear_solver: str = "dense",
+    linear_solver_kwargs: Optional[dict] = None,
+) -> SolveFn:
+    """The single-chain differentiable solve, same signature and defaults as
+    the JAX package's (``sunode_tpu/wrappers/as_jax.py::make_solve_fn``):
+    ``derivatives`` None, 'adjoint' (the checkpointed adjoint over
+    ``checkpoint_n`` recorded steps, ``adjoint_interpolation`` 'hermite' or
+    'polynomial', backward tolerances 1e-10 unless ``adjoint_options``) or
+    'forward' (forward sensitivities, the gradient by contraction; the
+    Newton solves keep the structured solver, the sensitivity right-hand
+    side the dense Jacobian).  ``linear_solver`` 'dense', 'band' or
+    'sparse' with ``linear_solver_kwargs`` as :func:`_structured_setup`
+    reads them; the backward matrix -J^T gets the transposed structure."""
+    if derivatives not in (None, "adjoint", "forward"):
+        raise ValueError(
+            f"derivatives must be 'adjoint', 'forward' or None, got {derivatives!r}"
+        )
+    if adjoint_interpolation not in ("hermite", "polynomial"):
+        raise ValueError(
+            f"interpolation must be 'hermite' or 'polynomial', got {adjoint_interpolation!r}"
+        )
+    if adjoint_options is None:
+        adjoint_options = BDFOptions(rtol=1e-10, atol=1e-10)
+    return SolveFn(problem, derivatives, options, adjoint_options, checkpoint_n,
+                   adjoint_interpolation, linear_solver, linear_solver_kwargs)
+
+
+def solve_lanes(solve: Callable, t0, y0, p_sub, p_fix, tvals) -> torch.Tensor:
+    """Per-lane solves with gradients: ``ys (B, n_t, n)`` for y0 (B, n),
+    p_sub (B, k), t0 shared or ``(B,)`` and tvals shared ``(n_t,)`` or per
+    lane ``(B, n_t)``; ``solve`` is a :func:`make_solve_fn` solve, called
+    once a lane, so ``torch.autograd`` takes each lane's gradient through
+    its own solve.  The port's counterpart of the reference's
+    ``jax.vmap(make_solve_fn(...))`` (a host loop whose exits depend on the
+    data cannot be mapped by ``torch.func.vmap``)."""
+    per_t0 = torch.is_tensor(t0) and t0.ndim == 1
+    per_tv = torch.as_tensor(tvals).ndim == 2
+    return torch.stack([
+        solve(t0[b] if per_t0 else t0, y0[b], p_sub[b], p_fix, tvals[b] if per_tv else tvals)
+        for b in range(y0.shape[0])
+    ])
+
+
+class SolveResult(NamedTuple):
+    solution: Mapping[str, Any]  # nested dict of named state tensors (n_t, ...)
+    ys: torch.Tensor  # flat (n_t, n_states)
+    problem: Problem
+    solve_fn: Callable  # the differentiable flat solve
+
+
+def solve_ivp(
+    t0,
+    y0: Mapping[str, Any],
+    params: Mapping[str, Any],
+    tvals,
+    rhs: Callable,
+    derivatives: Optional[str] = "adjoint",
+    coords: Optional[Mapping[str, Any]] = None,
+    derivative_params: Optional[list] = None,
+    solver_kwargs: Optional[dict] = None,
+    simplify: Optional[Callable] = None,
+    use_sympy: bool = True,
+    device="cuda",
+) -> SolveResult:
+    """Declare and solve an ODE in one call, differentiable through
+    ``torch.autograd`` (``sunode_tpu/wrappers/as_jax.py::solve_ivp``).
+
+    ``y0`` / ``params``: nested dicts whose leaves are ``(value, shape)``
+    tuples or plain values (shape inferred).  ``derivative_params``: the
+    paths to differentiate with respect to; None selects every parameter
+    leaf given as a tensor that requires a gradient.  ``use_sympy=False``
+    takes ``rhs`` as torch code on one lane's records (a
+    :class:`~sunode_torch.problem.TorchProblem`).  ``solver_kwargs``:
+    ``options`` (or ``rtol``/``atol``, default 1e-8), ``adjoint_options``,
+    ``checkpoint_n``; any other key raises ``TypeError``.  The type follows
+    the tensor and array leaves.  It runs on the card unless ``device="cpu"``;
+    a leaf that is already a tensor keeps its device, which must be that
+    one."""
+    from sunode_torch.convert import device_or_raise
+    from sunode_torch.paramspec import flatten_path_dict, nest_path_dict
+    from sunode_torch.problem import TorchProblem
+
+    dev = device_or_raise(device)
+    solver_kwargs = dict(solver_kwargs or {})
+
+    def split_leaves(nested):
+        values, shapes = {}, {}
+        for path, leaf in flatten_path_dict(nested).items():
+            if isinstance(leaf, tuple) and len(leaf) == 2 and not isinstance(leaf[0], str):
+                value, shape = leaf
+                if isinstance(shape, (int, np.integer)):
+                    shape = (int(shape),)
+                shapes[path], values[path] = tuple(shape), value
+            else:
+                shapes[path] = tuple(leaf.shape) if torch.is_tensor(leaf) else np.shape(leaf)
+                values[path] = leaf
+        return values, shapes
+
+    y0_values, y0_shapes = split_leaves(y0)
+    p_values, p_shapes = split_leaves(params)
+    if derivative_params is None:
+        derivative_params = [p for p, v in p_values.items()
+                             if torch.is_tensor(v) and v.requires_grad]
+    if use_sympy:
+        problem = SympyProblem(params=nest_path_dict(p_shapes), states=nest_path_dict(y0_shapes),
+                               rhs_sympy=rhs, derivative_params=derivative_params,
+                               coords=coords, simplify=simplify)
+    else:
+        problem = TorchProblem(params=nest_path_dict(p_shapes), states=nest_path_dict(y0_shapes),
+                               rhs=rhs, derivative_params=derivative_params, coords=coords)
+
+    options = solver_kwargs.pop("options", None) or BDFOptions(
+        rtol=solver_kwargs.pop("rtol", 1e-8), atol=solver_kwargs.pop("atol", 1e-8)
+    )
+    solve_fn = make_solve_fn(
+        problem, derivatives=derivatives, options=options,
+        adjoint_options=solver_kwargs.pop("adjoint_options", None),
+        checkpoint_n=solver_kwargs.pop("checkpoint_n", 4096),
+    )
+    if solver_kwargs:
+        raise TypeError(f"Unknown solver_kwargs: {sorted(solver_kwargs)}")
+
+    y0_flat = _flatten_traced(problem.states, y0_values, dev)
+    p_sub = _flatten_subset_traced(problem.params, p_values, dev)
+    p_fix = _flatten_remainder_traced(problem.params, p_values, dev)
+    t0 = _leaf(t0, y0_flat.dtype, dev)
+    tvals = _leaf(tvals, None, dev)
+    ys = solve_fn(t0, y0_flat, p_sub, p_fix, tvals)
+    return SolveResult(solution=problem.states.unflatten(ys), ys=ys, problem=problem,
+                       solve_fn=solve_fn)
+
+
+def _leaf(v, dtype, dev: torch.device) -> torch.Tensor:
+    """A leaf as a tensor of ``dtype`` (None: its own) on ``dev``; a tensor
+    keeps its device (and its graph) and must be on ``dev``."""
+    if torch.is_tensor(v):
+        if v.device.type != dev.type or (dev.index is not None and v.device.index != dev.index):
+            raise ValueError(f"solve_ivp: a tensor leaf is on {v.device}, the solve on {dev}")
+        return v if dtype is None else v.to(dtype)
+    return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+
+
+def _traced_dtype(spec, values, paths) -> torch.dtype:
+    """The type follows the tensor and array leaves (a float32 leaf runs the
+    whole solve at float32); without a floating one, the spec's."""
+    from sunode_torch.paramspec import torch_dtype
+
+    found = [values[p].dtype if torch.is_tensor(values[p]) else torch_dtype(values[p].dtype)
+             for p in paths if hasattr(values[p], "dtype")]
+    if not found:
+        return spec.torch_dtype
+    out = found[0]
+    for d in found[1:]:
+        out = torch.promote_types(out, d)
+    return out if out.is_floating_point else spec.torch_dtype
+
+
+def _flatten_paths(spec, values, paths, dev) -> torch.Tensor:
+    dtype = _traced_dtype(spec, values, paths)
+    parts = [torch.broadcast_to(_leaf(values[p], dtype, dev), spec.shapes[p]).reshape(-1)
+             for p in paths]
+    if not parts:
+        return torch.zeros((0,), dtype=spec.torch_dtype, device=dev)
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _flatten_traced(spec, values, dev) -> torch.Tensor:
+    return _flatten_paths(spec, values, spec.paths, dev)
+
+
+def _flatten_subset_traced(spec, values, dev) -> torch.Tensor:
+    return _flatten_paths(spec, values, spec.subset_paths, dev)
+
+
+def _flatten_remainder_traced(spec, values, dev) -> torch.Tensor:
+    rem = [p for p in spec.paths if p not in spec.subset_paths]
+    return _flatten_paths(spec, values, rem, dev)

@@ -534,3 +534,51 @@ def test_banded_ab_needs_a_card():
     )
     assert proc.returncode != 0
     assert "banded_ab: no CUDA device" in proc.stderr
+
+
+def test_phase_13_inputs_gates_and_counts():
+    """Phase 13's bookkeeping on the CPU: (a) runs lanes 0-1 of
+    lv_adjoint.npz's chains, the lanes its golden gate reads; (c) is the
+    README's quickstart call; (d)'s two grids are ragged, padded with their
+    last time; the banded launches a gradient expects are its Newton
+    solver's calls; and the counting wrapper of (d) adds a lane's forward
+    attempts at its call and its backward's once the backward has run."""
+    from sunode_torch.entry import build_lv_single, lv_problem
+    from sunode_torch.ops.bdf import BDFOptions
+    from sunode_torch.wrappers.as_torch import make_solve_fn, solve_lanes
+
+    cs = _chip_smoke()
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "lv_adjoint.npz"))
+    _, (y0s, p_subs) = build_lv_single(cs.SINGLE_LANES, device="cpu")
+    np.testing.assert_array_equal(y0s.numpy(), golden["y0s"][: cs.SINGLE_LANES])
+    np.testing.assert_array_equal(p_subs.numpy(), golden["p_subs"][: cs.SINGLE_LANES])
+    kw = cs.single_ivp_kwargs(1.0)
+    assert kw["y0"] == {"hares": (10.0, ()), "lynx": (2.0, ())}
+    np.testing.assert_array_equal(kw["tvals"], np.linspace(1.0, 10.0, 21))
+    grids = cs.single_lane_grids()
+    assert grids.shape == (cs.SINGLE_LANES, 21) and (np.diff(grids, axis=1) >= 0).all()
+    assert (grids[:, -1] == grids.max(axis=1)).all()
+    assert cs.SINGLE_KPP_N == 128 and cs.SINGLE_B1_N[-1] == 128
+    assert cs.expected_banded({"n_linear_factors": 4, "n_linear_solves": 9}, False) == {
+        "factor": 4, "solve": 9}
+    opts = BDFOptions(rtol=1e-4, atol=1e-4)
+    solve = make_solve_fn(lv_problem(), options=opts, adjoint_options=opts)
+    attempts = []
+    y = y0s.clone().requires_grad_(True)
+    ys = solve_lanes(cs._CountingSolve(solve, attempts), 0.0, y, p_subs,
+                     torch.tensor([1.0, 0.4], dtype=torch.float64),
+                     torch.as_tensor(grids[:, :4]))
+    assert len(attempts) == cs.SINGLE_LANES and all(a > 0 for a in attempts)
+    torch.autograd.grad(ys.sum(), y)
+    assert len(attempts) == 2 * cs.SINGLE_LANES
+    assert attempts[-1] == solve.last_stats["backward"]["n_attempts"]
+
+
+def test_phase_6_polynomial_horizon():
+    """Phase 6 holds 'polynomial' to the CPU over the first POLY_TIMES of the
+    step's 21 observation times (t <= 2.35)."""
+    from sunode_torch.entry import build_lv_checkpointed
+
+    cs = _chip_smoke()
+    step, _ = build_lv_checkpointed(1, 21, 1e-8, "polynomial", device="cpu")
+    assert cs.POLY_TIMES == 4 and float(step.tvals[cs.POLY_TIMES - 1]) == 2.35

@@ -1054,6 +1054,59 @@ def test_banded_kernels_match_plain(cuda, l, u, dtype, n, B):
         assert not bool(got[2][0])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("l, u", [(1, 1), (2, 1), (0, 2)])
+@pytest.mark.parametrize("n", [1, 37, 200])
+def test_banded_kernels_match_plain_at_one_lane(cuda, l, u, dtype, n):
+    """B=1, the single-instance cores' width: one lane tile with 31 idle
+    lanes, a lane stride of one value for the producer's copies; lu, piv,
+    sing and the solutions (one and three right-hand sides) bit for bit the
+    plain versions', and one launch a call."""
+    from sunode_torch.ops import banded as bd
+
+    bits = _chip_smoke().bits_equal
+    rng = np.random.default_rng(l + 7 * u + n)
+    ab = torch.as_tensor(rng.standard_normal((l + u + 1, n, 1)), dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((3, n, 1)), dtype=dtype, device=cuda)
+    before = (bd.banded_factor.launches, bd.banded_solve.launches)
+    got, ref = bd.banded_factor(ab, l, u), bd.banded_factor_reference(ab, l, u)
+    for x, y in zip(got, ref):
+        assert bits(x, y)
+    for m in (1, 3):
+        x = bd.banded_solve(got, b[:m].contiguous(), l, u)
+        assert bits(x, bd.banded_solve_reference(ref, b[:m].contiguous(), l, u))
+    assert (bd.banded_factor.launches, bd.banded_solve.launches) == (before[0] + 1,
+                                                                     before[1] + 2)
+
+
+def test_single_surface_on_the_card(cuda):
+    """make_solve_fn's gradient on the card (the dense Newton in
+    torch.linalg) against the CPU's, and build_kpp_single's banded
+    gradient: its banded launches equal to the Newton solver's calls, within
+    rtol 1e-4 / atol 1e-8 of the dense solver's."""
+    from sunode_torch.entry import build_kpp_single, build_lv_single
+    from sunode_torch.ops import banded as bd
+
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        step, (y0s, p_subs) = build_lv_single(1, device=dev)
+        grads[dev] = [g.cpu().numpy() for g in step(y0s[0], p_subs[0])]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-8)
+    out = {}
+    for ls in ("band", "dense"):
+        _, grad_step, (y0, p, _) = build_kpp_single(64, ls, device="cuda")
+        before = (bd.banded_factor.launches, bd.banded_solve.launches)
+        out[ls] = [g.cpu().numpy() for g in grad_step(y0, p)]
+        st = grad_step.solve.last_stats
+        calls = tuple(st["forward"][k] + st["backward"][k]
+                      for k in ("n_linear_factors", "n_linear_solves"))
+        launched = (bd.banded_factor.launches - before[0], bd.banded_solve.launches - before[1])
+        assert launched == (calls if ls == "band" else (0, 0))
+    for a, b in zip(out["band"], out["dense"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-8)
+
+
 def test_banded_wrappers_refuse(cuda):
     """A CUDA tensor goes to the kernel or raises: a type, shape or layout the
     kernel does not take is refused, never solved by the plain version."""

@@ -1,6 +1,7 @@
 """sunode_torch must import torch and never jax, and leave torch's global
 state alone, through an Adams gradient step, a BDF solve, a BDF gradient
-step with the checkpointed (hermite) adjoint, a TorchProblem's
+step with the checkpointed (hermite) adjoint, a ``solve_ivp`` gradient
+through ``torch.autograd`` (the single-chain surface), a TorchProblem's
 derivatives, staggered and simultaneous sensitivities, rootfinding on both
 cores and the two emitted sensitivity systems, with the split attempt's
 module imported; checked in a fresh interpreter."""
@@ -46,7 +47,16 @@ for method in ("BDF", "ADAMS"):
     rsolve, (ry0, rps, rtv) = build_lv_roots(2, method, True, device="cpu")
     rres = rsolve(ry0, rps, rtv[:3])
     roots_ok.append(bool((rres.status == 5).all()) and bool((rres.stats["n_roots"] == 1).all()))
-from sunode_torch.entry import lv_problem
+from sunode_torch.entry import _lv, lv_problem
+from sunode_torch.ops.bdf import BDFOptions
+alpha = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+ivp = sunode_torch.solve_ivp(
+    0.0, {"hares": (10.0, ()), "lynx": (2.0, ())},
+    {"alpha": alpha, "beta": (0.3, ()), "gamma": np.array(1.0), "delta": np.array(0.4)},
+    np.linspace(1.0, 3.0, 3), _lv,
+    solver_kwargs=dict(rtol=1e-5, atol=1e-5, adjoint_options=BDFOptions(rtol=1e-5, atol=1e-5)),
+    device="cpu")
+(g_ivp,) = torch.autograd.grad(torch.sum(ivp.solution["hares"] ** 2), alpha)
 lvp = lv_problem()
 emitted = [cuda_codegen.sensitivity_system(lvp).nz, cuda_codegen.staged_sensitivity_system(lvp).n_p]
 print(json.dumps({
@@ -62,6 +72,7 @@ print(json.dumps({
     "recorded": cstep.solve.last_stats["forward"]["checkpoint_thinning_levels"] == 0,
     "torch_problem_finite": bool(torch.isfinite(lam).all()) and tuple(lam.shape) == (9, 2),
     "dtype": str(gy.dtype),
+    "ivp_grad_finite": bool(torch.isfinite(g_ivp)) and ivp.problem.n_params == 1,
 }))
 """
 
@@ -83,3 +94,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["torch_problem_finite"]
     assert out["sens_ok"] == [True] * 3 and out["roots_ok"] == [True] * 2
     assert out["emitted"] == [6, 6]
+    assert out["ivp_grad_finite"]
