@@ -110,13 +110,14 @@ Phases, one line each; any failure exits non-zero:
   8. SIR over 1,000 regions, a TorchProblem (scripts/bench_sir_scale.py's
      configuration: 12 observation times, rtol 1e-8 / atol 1e-10 both ways,
      1,024 checkpoints) through ``entry.build_sir``: 'resolve' at B=1,024 and
-     'hermite' at B=256 (an 18.9 GB table), per mode one step under the
-     profiler, which is also the warm-up, and one timed gradient step with
-     every kernel count set to 0 before it; split launches equal to 1 / 4 /
-     1 x the forward plus backward attempts (predict / sweep / finish), no
-     launch of any other kernel and no plain-stage call; in the profile, no
-     fill right before a predict or a sweep (one before each finish, its tile
-     counter's reset); status 0 and finite in every
+     'hermite' at B=256 (an 18.9 GB table), per mode one step over the
+     first 4 observation times (t <= 20) under the profiler, which is also
+     the warm-up, and one timed gradient step with every kernel count set
+     to 0 before it; split launches equal to 1 / 4 / 1 x the forward plus
+     backward attempts (predict / sweep / finish), no launch of any other
+     kernel and no plain-stage call; in the profile, no fill right before a
+     predict or a sweep (one before each finish, its tile counter's reset);
+     status 0 and finite in every
      lane, lane 0 (set to the golden case's inputs, as the script sets it)
      inside tests/golden/sir_1000.npz's gate (ys rtol 1e-5 /
      atol 1e-7, gradient rtol 1e-3) and lanes 0-3 against the CPU within
@@ -218,7 +219,27 @@ Phases, one line each; any failure exits non-zero:
      ``solve_lanes`` on two lanes, the CPU within 1e-6; each part with every
      count set to 0 before it, its attempts, host ms an attempt and wall
      seconds;
-  14. the kernel table and the result line.  Each kernel's bound is the
+  14. the class API and events (``Solver``, ``AdjointSolver``,
+     ``make_event_fn``, ``make_hybrid_solve_fn``): (a)
+     ``entry.build_lv_forward(10_000)``, bench.py's lv_forward through
+     ``Solver(solver='ADAMS', reltol=1e-10, abstol=1e-10)`` with per-lane
+     params, one timed solve: status 0 everywhere, lanes 0-15 within rtol
+     2e-7 / atol 2e-9 of lv_forward.npz, lanes 0-3 within 1e-8 of the CPU,
+     the KAB=11 forward build's launches equal to the attempts and no other
+     kernel; (b) ``AdjointSolver`` on the README's chain (hermite, unit
+     cotangents) as BDF/BDF and ADAMS/ADAMS: each within 1e-6 of the CPU,
+     ADAMS against BDF at ys rtol 1e-6 / atol 1e-8 and gradient and lambda
+     rtol 1e-3 / atol 1e-6, the ADAMS backward's KAB=11 staged_adjoint
+     launches equal to its attempts, the BDF pair none; (c) the ball's
+     event time through ``entry.build_ball_event`` ('forward' and
+     'adjoint') and ``entry.build_ball_hybrid``'s three impacts with the
+     final state's gradient, each within 1e-6 of the closed forms (exact
+     derivatives of the closed-form trajectory), then a restitution sweep
+     over 4 lanes through ``map_lanes`` (values only, ``derivatives=None``;
+     impact times against the closed forms), no kernel launched; each part
+     with every count set to 0 before it, its attempts (the functions'
+     ``last_stats``), host ms an attempt and wall seconds;
+  15. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read, at 8 bytes a value, 4 in the float32
      builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
@@ -506,6 +527,8 @@ def submit_cpu_refs() -> CpuRefs:
     refs.submit(ref_lv_spline)
     refs.submit(ref_single)
     refs.submit(ref_kpp_single_dense)
+    refs.submit(ref_lv_forward)
+    refs.submit(ref_class_adjoint)
     return refs
 
 
@@ -939,6 +962,7 @@ SIR_R = 1000  # scripts/bench_sir_scale.py's regions: 3,000 states
 SIR_DERIVS = 2  # the gradient's parameters, beta and gamma
 B_SPLIT = 1024  # phase 3d's lanes: the script's largest width
 SIR_MODES = (("resolve", 1024), ("hermite", 256))  # phase 8: mode, lanes
+SIR_PROFILED_TIMES = 4  # phase 8's profiled step: the first 4 observation times, t <= 20
 # phase 3d's shapes: phase 8's forward attempts, and the backward attempts
 # of each of its modes at that mode's lanes ('hermite' stages y(t))
 SPLIT_CASES = (("forward", B_SPLIT), ("resolve", 1024), ("staged_adjoint", 256))
@@ -1449,9 +1473,18 @@ def sir_phase(smi, counted) -> dict:
             return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
 
         # one step under the profiler, which is also the warm-up (as phase
-        # 5's profiled solve is): device kernels per attempt, busy share and
-        # the fills right before each split kernel
-        prof = device_kernels_per_attempt(lambda: grad_step(y0s, p_subs), attempts)
+        # 5's profiled solve is), over the first observation times only
+        # (processing a whole step's profile takes about as long as the
+        # step): device kernels per attempt, busy share and the fills right
+        # before each split kernel, forward and backward
+        short = grad_step.tvals[:SIR_PROFILED_TIMES]
+
+        def profiled_step():
+            p = p_subs.detach().requires_grad_(True)
+            ys = grad_step.solve(0.0, y0s, p, grad_step.p_fix, short)
+            torch.autograd.grad(torch.sum(ys[:, :, R:2 * R] ** 2), (p,))
+
+        prof = device_kernels_per_attempt(profiled_step, attempts)
         for k in (*counted, SplitLaunches()):
             k.launches = 0
         sp.split_predict.calls = sp.split_sweep.calls = sp.split_finish.calls = 0
@@ -1485,7 +1518,8 @@ def sir_phase(smi, counted) -> dict:
         log(
             f"[sir {mode} device kernels per attempt] {prof['per_attempt']:.1f} "
             f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-            f"{prof['attempts']} attempts in one step) device_busy_s={prof['busy_s']:.4f} "
+            f"{prof['attempts']} attempts in one step to t = {float(short[-1]):g}) "
+            f"device_busy_s={prof['busy_s']:.4f} "
             f"wall_s_under_profiler={prof['wall_s']:.4f} host_ms_per_attempt_under_profiler="
             f"{1e3 * prof['wall_s'] / prof['attempts']:.3f} "
             f"device_busy_share={prof['busy_s'] / prof['wall_s']:.4f} (of the profiled step, "
@@ -3136,6 +3170,238 @@ class _CountingSolve:
         return ys
 
 
+# ---- phase 14: the class API and events ----------------------------------------------
+LV_FORWARD_GATE = (2e-7, 2e-9)  # tests/test_golden.py:54's rtol, atol on lv_forward.npz
+LV_FORWARD_CPU_LANES = 4  # 14(a): lanes 0-3 on the CPU, within 1e-8
+CLASS_TVALS = np.linspace(0.5, 8.0, 7)  # 14(b): tests/test_solver_modes.py's README chain
+CLASS_PARAMS = {"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4}
+CLASS_Y0 = (10.0, 2.0)
+CLASS_KINDS = (("BDF", "BDF"), ("ADAMS", "ADAMS"))  # 14(b): solver, adjoint_solver
+SWEEP_LANES = 4  # 14(c): the restitution sweep's lanes
+SWEEP_E = (0.5, 0.9)  # its restitutions, evenly spaced
+PHASE14_BUDGET_S = 45.0  # the phase's wall time on a host like PERF.md's run 1
+
+
+def ref_lv_forward() -> dict:
+    """14(a)'s CPU reference: lanes 0-3 of ``entry.build_lv_forward``."""
+    from sunode_torch.entry import build_lv_forward
+
+    t0 = time.perf_counter()
+    solve, (y0s, ps, tvals) = build_lv_forward(LV_FORWARD_CPU_LANES, device="cpu")
+    return dict(ys=solve(y0s, ps, tvals), wall=time.perf_counter() - t0)
+
+
+def class_adjoint(kinds, device) -> dict:
+    """14(b)'s case on ``device``: ``AdjointSolver(interpolation='hermite',
+    solver, adjoint_solver)`` forward and backward with unit cotangents;
+    ``ys``, ``grad``, ``lam`` and the attempts of both passes."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.solver import AdjointSolver
+
+    solver, adjoint_solver = kinds
+    s = AdjointSolver(lv_problem(), interpolation="hermite", solver=solver,
+                      adjoint_solver=adjoint_solver, device=device)
+    s.set_params_dict(CLASS_PARAMS)
+    ys = s.solve_forward(0.0, CLASS_TVALS, np.array(CLASS_Y0))
+    fwd = int(s.last_stats["n_attempts"])
+    grad, lam = s.solve_backward(CLASS_TVALS[-1], 0.0, CLASS_TVALS,
+                                 np.ones((len(CLASS_TVALS), 2)))
+    return dict(ys=ys, grad=grad, lam=lam, fwd=fwd, bwd=int(s.last_stats["n_attempts"]))
+
+
+def ref_class_adjoint() -> dict:
+    """14(b)'s CPU references, both cases."""
+    t0 = time.perf_counter()
+    out = {kinds: class_adjoint(kinds, "cpu") for kinds in CLASS_KINDS}
+    return dict(cases=out, wall=time.perf_counter() - t0)
+
+
+def ball_event_closed_forms():
+    """The ball dropped from h0 at rest (``entry.BALL_H``, ``BALL_G``): t* =
+    sqrt(2 h0 / g), dt*/dg = -t*/(2 g), dt*/dh0 = 1/(g t*)."""
+    from sunode_torch.entry import BALL_G, BALL_H
+
+    t_star = np.sqrt(2 * BALL_H / BALL_G)
+    return t_star, -t_star / (2 * BALL_G), 1.0 / (BALL_G * t_star)
+
+
+def hybrid_closed_form(h0, g, e, t, K=3):
+    """The bouncing ball's impact times t_1..t_K and its state at ``t``
+    after the K-th impact (before the next), as torch expressions of
+    ``(h0, g, e)``, so that ``torch.autograd`` takes their exact
+    derivatives: t_1 = sqrt(2 h0 / g), t_{k+1} = t_k + 2 e^k t_1, and
+    after t_K the ball rises at e^K g t_1."""
+    import torch
+
+    t1 = torch.sqrt(2 * h0 / g)
+    ts = [t1]
+    for k in range(1, K):
+        ts.append(ts[-1] + 2 * e**k * t1)
+    vK = e**K * g * t1
+    s = t - ts[-1]
+    return torch.stack(ts), torch.stack([vK * s - 0.5 * g * s**2, vK - g * s])
+
+
+def timed_part(label, run, attempts_of, counted, smi):
+    """One part of phase 14 with every count set to 0 just before it:
+    its output, attempts and wall seconds, logged."""
+    import torch
+
+    for k in counted:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    attempts = attempts_of(out)
+    log(f"[14{label}] attempts={attempts} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
+        f"wall_s={wall:.4f} | {smi}")
+    return out, attempts, wall
+
+
+def class_api_phase(smi, counted, kab11) -> dict:
+    """Phase 14: the class API and events on the card (the module
+    docstring's list).  ``kab11`` are phase 7's history builds (forward,
+    resolve, staged_adjoint), which the Solver's and AdjointSolver's
+    emitted systems reuse.  Returns the phase's launches by build."""
+    import torch
+
+    from sunode_torch.entry import build_ball_event, build_ball_hybrid, build_lv_forward
+    from sunode_torch.events import map_lanes
+
+    t_phase = time.perf_counter()
+    launches = {kind: 0 for kind in kab11}
+    golden = np.load(os.path.join(HERE, "tests", "golden", "lv_forward.npz"))
+
+    # (a) lv_forward through the Solver at B=10,000
+    solve, (y0s, ps, tvals) = build_lv_forward(B_MAIN, device="cuda")
+    ys, attempts, wall = timed_part(
+        "(a) lv_forward Solver", lambda: solve(y0s, ps, tvals),
+        lambda _: int(solve.solver.last_stats["n_attempts"]), counted, smi)
+    got = check_launches("14(a)", counted, {"forward": kab11["forward"]}, {"forward": attempts})
+    launches["forward"] += got["forward"]
+    if not (ys.shape == (B_MAIN, len(tvals), 2) and np.isfinite(ys).all()):
+        raise SystemExit("chip_smoke: 14(a): non-finite or misshapen outputs")
+    rtol, atol = LV_FORWARD_GATE
+    np.testing.assert_allclose(ys[:16], golden["ys"], rtol=rtol, atol=atol)
+    gold = floored_rel(ys[:16], golden["ys"], atol)
+    ref = cpu_ref(ref_lv_forward)
+    cpu = max_rel([ys[:LV_FORWARD_CPU_LANES]], [ref["ys"]])
+    log(f"[14(a) check] B={B_MAIN} status 0 everywhere (the Solver raises otherwise); "
+        f"golden max |diff|/(|ref|+atol)={gold:.3e} within rtol {rtol:g} / atol {atol:g}; "
+        f"cuda_vs_cpu lanes 0-{LV_FORWARD_CPU_LANES - 1} max_rel={cpu:.3e} (bound 1e-8; the "
+        f"CPU took {ref['wall']:.2f} s in a worker); us_per_chain={1e6 * wall / B_MAIN:.3f}")
+    if not cpu <= 1e-8:
+        raise SystemExit("chip_smoke: 14(a) disagrees with the CPU")
+    log_elapsed("14a")
+
+    # (b) AdjointSolver at B=1, BDF/BDF and ADAMS/ADAMS
+    refs = cpu_ref(ref_class_adjoint)
+    out = {}
+    for kinds in CLASS_KINDS:
+        res, attempts, _ = timed_part(f"(b) AdjointSolver {kinds[0]}/{kinds[1]}",
+                                      lambda: class_adjoint(kinds, "cuda"),
+                                      lambda r: r["fwd"] + r["bwd"], counted, smi)
+        expected = {"staged_adjoint": res["bwd"]} if kinds[1] == "ADAMS" else {}
+        got = check_launches(f"14(b) {kinds[1]} backward", counted,
+                             {"staged_adjoint": kab11["staged_adjoint"]}, expected)
+        launches["staged_adjoint"] += got.get("staged_adjoint", 0)
+        cref = refs["cases"][kinds]
+        rel = max_rel([res[k] for k in ("ys", "grad", "lam")],
+                      [cref[k] for k in ("ys", "grad", "lam")])
+        log(f"[14(b) check] {kinds[0]}/{kinds[1]} fwd_attempts={res['fwd']} "
+            f"bwd_attempts={res['bwd']} grad={res['grad']} lamda={res['lam']} cuda_vs_cpu "
+            f"max_rel={rel:.3e} (bound 1e-6)")
+        if not rel <= 1e-6:
+            raise SystemExit(f"chip_smoke: 14(b) {kinds} disagrees with the CPU")
+        out[kinds] = res
+    bdf, adams = out[CLASS_KINDS[0]], out[CLASS_KINDS[1]]
+    np.testing.assert_allclose(adams["ys"], bdf["ys"], rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(adams["grad"], bdf["grad"], rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(adams["lam"], bdf["lam"], rtol=1e-3, atol=1e-6)
+    log(f"[14(b) check] ADAMS against BDF within the test's tolerances (the CPU's two cases "
+        f"took {refs['wall']:.2f} s in a worker)")
+    log_elapsed("14b")
+
+    # (c) events: the ball's event time, the hybrid's impacts, the sweep
+    t_star, dt_dg, dt_dh = ball_event_closed_forms()
+    for derivatives in ("forward", "adjoint"):
+        event, (y0, p_sub, p_fix, t_max) = build_ball_event(derivatives, device="cuda")
+
+        def event_run():
+            y, p = y0.clone().requires_grad_(True), p_sub.clone().requires_grad_(True)
+            t_ev, _ = event(0.0, y, p, p_fix, t_max)
+            return (float(t_ev.detach()), *torch.autograd.grad(t_ev, (p, y)))
+
+        (t_ev, g_p, g_y), _, _ = timed_part(f"(c) event {derivatives}", event_run,
+                                            lambda _: event.last_stats["n_attempts"], counted,
+                                            smi)
+        check_launches(f"14(c) event {derivatives}", counted, {}, {})
+        errs = (abs(t_ev - t_star), abs(float(g_p[0]) - dt_dg), abs(float(g_y[0]) - dt_dh))
+        log(f"[14(c) check] event {derivatives}: t*={t_ev:.15f} |t*-closed|={errs[0]:.3e} "
+            f"|dt/dg-closed|={errs[1]:.3e} |dt/dh0-closed|={errs[2]:.3e} (bound 1e-6)")
+        if not max(errs) <= 1e-6:
+            raise SystemExit(f"chip_smoke: 14(c) event {derivatives} is off the closed forms")
+
+    hybrid, (y0, p_sub, p_fix, tv) = build_ball_hybrid(3, device="cuda")
+    cpu64 = dict(dtype=torch.float64)
+
+    def hybrid_run():
+        theta = torch.tensor([float(y0[0]), float(p_sub[1])], device="cuda",
+                             **cpu64).requires_grad_(True)
+        y = torch.stack([theta[0], torch.zeros((), device="cuda", **cpu64)])
+        p = torch.stack([p_sub[0], theta[1]])
+        res = hybrid(0.0, y, p, p_fix, tv)
+        return res, torch.autograd.grad(torch.sum(res.ys[-1] ** 2), theta)[0]
+
+    (res, g_theta), _, _ = timed_part("(c) hybrid 3 impacts", hybrid_run,
+                                      lambda _: hybrid.last_stats["n_attempts"], counted, smi)
+    check_launches("14(c) hybrid", counted, {}, {})
+    theta = torch.tensor([float(y0[0]), float(p_sub[1])], **cpu64).requires_grad_(True)
+    ts_cf, yK = hybrid_closed_form(theta[0], torch.tensor(float(p_sub[0]), **cpu64), theta[1],
+                                   float(tv[-1]))
+    g_cf = torch.autograd.grad(torch.sum(yK**2), theta)[0].numpy()
+    errs = (float(np.max(np.abs(res.event_ts.detach().cpu().numpy() - ts_cf.detach().numpy()))),
+            float(np.max(np.abs(g_theta.cpu().numpy() - g_cf))))
+    log(f"[14(c) check] hybrid n_events={int(res.n_events)} impact times "
+        f"{res.event_ts.detach().cpu().numpy()} max |t-closed|={errs[0]:.3e}; d sum(y(2.2)^2) / "
+        f"d(h0, e)={g_theta.cpu().numpy()} max |g-closed|={errs[1]:.3e} (bound 1e-6)")
+    if not (int(res.n_events) == 3 and max(errs) <= 1e-6):
+        raise SystemExit("chip_smoke: 14(c): the hybrid solve is off the closed forms")
+
+    # the sweep takes values only: its solves carry no sensitivities
+    values, _ = build_ball_hybrid(3, derivatives=None, device="cuda")
+    es = torch.linspace(*SWEEP_E, SWEEP_LANES, device="cuda", **cpu64)
+
+    lane_attempts = []
+
+    def lane(e):
+        res = values(0.0, y0, torch.stack([p_sub[0], e]), p_fix, tv)
+        lane_attempts.append(values.last_stats["n_attempts"])
+        return res
+
+    sweep, _, wall = timed_part(f"(c) restitution sweep B={SWEEP_LANES}",
+                                lambda: map_lanes(lane, es, in_dims=(0,)),
+                                lambda _: sum(lane_attempts), counted, smi)
+    check_launches("14(c) sweep", counted, {}, {})
+    worst = 0.0
+    for b, e in enumerate(es.cpu().tolist()):
+        ts_b, _ = hybrid_closed_form(torch.tensor(float(y0[0]), **cpu64),
+                                     torch.tensor(float(p_sub[0]), **cpu64),
+                                     torch.tensor(e, **cpu64), float(tv[-1]))
+        worst = max(worst, float(np.max(np.abs(sweep.event_ts[b].cpu().numpy() - ts_b.numpy()))))
+    log(f"[14(c) check] sweep n_events={sweep.n_events.cpu().tolist()} max |t-closed|="
+        f"{worst:.3e} (bound 1e-6) ms_per_lane={1e3 * wall / SWEEP_LANES:.1f}")
+    if not (bool((sweep.n_events == 3).all()) and worst <= 1e-6):
+        raise SystemExit("chip_smoke: 14(c): the restitution sweep is off the closed forms")
+    wall = time.perf_counter() - t_phase
+    log(f"[14] phase wall_s={wall:.1f} (budget {PHASE14_BUDGET_S:.0f} s on a host like run 1's) "
+        f"| {smi}")
+    log_elapsed("14")
+    return launches
+
+
 def main() -> None:
     card, smi = check_device()
     try:
@@ -3432,6 +3698,11 @@ def run(card, smi) -> None:
         struct["launches"][key][0] += f
         struct["launches"][key][1] += sv
 
+    # phase 14: the class API and events; every part's counts set to 0 just
+    # before it and read just after, phase 7's KAB=11 builds reused
+    phase14 = class_api_phase(smi, (*others12, *spline_kernels.values(),
+                                    BandedCounts(tuple(banded_builds.values()))), adams_kernels)
+
     entries = [
         dict(
             name=f"adams_pece_attempt[{kind}]",
@@ -3487,7 +3758,7 @@ def run(card, smi) -> None:
             route="cuda",
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
-            launches=adams_launches[kind],
+            launches=adams_launches[kind] + phase14.get(kind, 0),
             **adams_table[kind],
         )
         for kind in adams_systems

@@ -24,7 +24,17 @@ never jax, works in float64 per tensor and changes no global torch state
     ``TorchProblem``) through the ADAMS adjoints;
   * :func:`build_lv_sens` and :func:`build_lv_roots` -- Lotka-Volterra with
     forward sensitivities (staggered on either core, simultaneous on the
-    Adams core) and with an event function (rootfinding on either core).
+    Adams core) and with an event function (rootfinding on either core);
+  * :class:`Solver` and :class:`AdjointSolver` -- the reference's class
+    API (numpy in and out, params on the object, forward sensitivities,
+    rootfinding, the CV_TOO_MUCH_WORK resume, checkpointed adjoints),
+    raising :class:`SolverError`; ``native_single`` selects nothing, as
+    every solve runs on the solver's ``device``;
+  * :func:`make_event_fn` and :func:`make_hybrid_solve_fn` -- differentiable
+    event times (the implicit function theorem around the localized root)
+    and event-restart solves with differentiable jumps
+    (:class:`HybridResult`); :func:`map_lanes` runs them lane by lane over
+    a batch.
 
 On CUDA tensors the history half of every Adams attempt, forward and
 backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``
@@ -47,8 +57,10 @@ from sunode_torch.entry import (
     build_lv_sens,
     build_sir,
 )
+from sunode_torch.events import HybridResult, make_event_fn, make_hybrid_solve_fn, map_lanes
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
+from sunode_torch.solver import AdjointSolver, Solver, SolverError
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import (
     SolveResult,
@@ -75,5 +87,12 @@ __all__ = [
     "solve_ivp",
     "solve_lanes",
     "SolveResult",
+    "Solver",
+    "AdjointSolver",
+    "SolverError",
+    "make_event_fn",
+    "make_hybrid_solve_fn",
+    "HybridResult",
+    "map_lanes",
     "__version__",
 ]

@@ -59,6 +59,14 @@ gradient of :func:`build_lv_checkpointed` for one chain at a time, through
 ``make_solve_fn`` (the single-instance BDF core and its checkpointed
 adjoint); :func:`build_kpp_single` is the Fisher-KPP chain through it with
 band, sparse or dense Newton.
+
+The class API and events: :func:`build_lv_forward` is ``bench.py``'s
+``lv_forward`` at a batch, an ADAMS forward solve at rtol 1e-10 through
+:class:`~sunode_torch.solver.Solver` with per-lane params;
+:func:`build_ball_event` and :func:`build_ball_hybrid` are the bouncing
+ball of ``tests/test_event_grads.py`` and ``tests/test_hybrid_events.py``
+through :func:`~sunode_torch.events.make_event_fn` and
+:func:`~sunode_torch.events.make_hybrid_solve_fn`.
 """
 
 from __future__ import annotations
@@ -67,10 +75,12 @@ import numpy as np
 import torch
 
 from sunode_torch.convert import device_or_raise
+from sunode_torch.events import make_event_fn, make_hybrid_solve_fn
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import TorchProblem
+from sunode_torch.solver import Solver
 from sunode_torch.symode.lambdify import interpolate_spline
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn, make_solve_fn
@@ -111,6 +121,11 @@ __all__ = [
     "build_hub",
     "lv_spline_problem",
     "build_lv_spline",
+    "lv_forward_inputs",
+    "build_lv_forward",
+    "BALL_OPTIONS",
+    "build_ball_event",
+    "build_ball_hybrid",
 ]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
@@ -855,3 +870,103 @@ def build_lv_spline(batch: int, tvals_n: int = 21, rtol: float = 1e-8, device="c
     alpha = p_lv[:, :1] * (1 + 0.05 * rng.standard_normal((batch, LV_SPLINE_K)))
     return _lv_grad_step(solve, batch, tvals_n, device,
                          inputs=(y0s, np.concatenate([alpha, p_lv[:, 1:]], axis=1)))
+
+
+# ---- the class API and events -----------------------------------------------------
+LV_FORWARD_TIMES = 50  # bench.py's lv_forward: 50 times on [0, 10]
+
+
+def lv_forward_inputs(batch: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(y0s (B, 2), ps (B, 4), tvals (50,))`` of ``bench.py``'s batched
+    ``lv_forward`` (``bench.py:279-285``): ``default_rng(42)``, y0 then p,
+    a 5% spread around (10, 2) and (1, 0.3, 1, 0.4); lanes 0-15 those of a
+    16-lane draw, ``tests/golden/lv_forward.npz``'s own; 50 times on [0, 10]."""
+
+    def draw(B):
+        rng = np.random.default_rng(42)
+        y0s = np.array([10.0, 2.0]) * (1 + 0.05 * rng.standard_normal((B, 2)))
+        ps = np.array([1.0, 0.3, 1.0, 0.4]) * (1 + 0.05 * rng.standard_normal((B, 4)))
+        return y0s, ps
+
+    y0s, ps = draw(batch)
+    m = min(batch, 16)
+    head = draw(16)
+    y0s[:m], ps[:m] = head[0][:m], head[1][:m]
+    return y0s, ps, np.linspace(0.0, 10.0, LV_FORWARD_TIMES)
+
+
+def build_lv_forward(batch: int, device="cuda"):
+    """``(solve, (y0s, ps, tvals))``: ``bench.py``'s ``lv_forward`` through
+    the class API.  ``solve(y0s, ps, tvals) -> ys (B, n_t, 2)`` (numpy) sets
+    the per-lane params ``ps (B, 4)`` on ``Solver(lv_problem(),
+    solver='ADAMS', reltol=1e-10, abstol=1e-10)`` and solves the chains
+    batched from t = 0; ``solve.solver`` is the solver, whose
+    ``last_stats`` holds the solve's statistics.  On the card every
+    attempt runs the history-attempt kernel's forward system at the
+    default Adams order cap (8: history depth 11).  It runs on the card
+    unless ``device="cpu"``; without a card the default raises."""
+    solver = Solver(lv_problem(), solver="ADAMS", reltol=1e-10, abstol=1e-10, device=device)
+
+    def solve(y0s, ps, tvals):
+        solver.set_params(ps)
+        return solver.solve(0.0, tvals, y0s)
+
+    solve.solver = solver
+    return solve, lv_forward_inputs(batch)
+
+
+BALL_OPTIONS = BDFOptions(rtol=1e-10, atol=1e-12)  # the ball tests' OPTS
+BALL_H, BALL_G = 2.0, 9.81  # tests/test_event_grads.py's drop height and gravity
+
+
+def _ball_roots(t, y, p):
+    return [y.x]
+
+
+def build_ball_event(derivatives: str = "forward", device="cuda"):
+    """``(event, (y0, p_sub, p_fix, t_max))``: ``tests/test_event_grads.py``'s
+    ball, x'' = -g dropped from h0 = 2 (a ``SympyProblem``, the gradient to
+    g), through ``make_event_fn`` with the event ``x = 0``, the tests'
+    tolerances (rtol 1e-10, atol 1e-12) and ``derivatives`` 'forward' or
+    'adjoint'; ``event(0.0, y0, p_sub, p_fix, t_max) -> (t*, y(t*))``.  It
+    runs on the card unless ``device="cpu"``; without a card the default
+    raises."""
+    dev = device_or_raise(device)
+    ball = SympyProblem(
+        params={"g": ()}, states={"x": (), "v": ()},
+        rhs_sympy=lambda t, y, p: {"x": y.v, "v": -p.g}, derivative_params=[("g",)],
+    )
+    event = make_event_fn(ball, _ball_roots, options=BALL_OPTIONS, derivatives=derivatives,
+                          device=dev)
+    f_kw = dict(dtype=torch.float64, device=dev)
+    return event, (torch.tensor([BALL_H, 0.0], **f_kw), torch.tensor([BALL_G], **f_kw),
+                   torch.zeros(0, **f_kw), 3.0)
+
+
+def ball_hybrid_problem() -> TorchProblem:
+    """``tests/test_hybrid_events.py``'s ball: h'' = -g, the restitution e
+    entering only through the jump."""
+    return TorchProblem(
+        params={"g": (), "e": ()}, states={"h": (), "v": ()},
+        rhs=lambda t, y, p: {"h": y.v, "v": -p.g}, derivative_params=[("g",), ("e",)],
+    )
+
+
+def build_ball_hybrid(max_events: int = 3, derivatives="forward", device="cuda"):
+    """``(hybrid, (y0, p_sub, p_fix, tvals))``: ``tests/test_hybrid_events.py``'s
+    bouncing ball through ``make_hybrid_solve_fn``: the event ``h = 0``
+    falling only, the jump ``(h, v) -> (h, -e v)``, ``max_events`` impacts,
+    the tests' tolerances, ``derivatives`` 'forward' (the reference's
+    default), 'adjoint' or None (values only); the inputs of its
+    final-state gradient case (h0 = 1, g = 9.81, e = 0.8, four times on
+    [0, 2.2], three impacts).  It runs on the card unless ``device="cpu"``;
+    without a card the default raises."""
+    dev = device_or_raise(device)
+    hybrid = make_hybrid_solve_fn(
+        ball_hybrid_problem(), roots=lambda t, y, p: torch.stack([y.h]),
+        jump_fn=lambda t, y, p: {"h": y.h, "v": -p.e * y.v}, max_events=max_events,
+        root_directions=[-1], options=BALL_OPTIONS, derivatives=derivatives, device=dev,
+    )
+    f_kw = dict(dtype=torch.float64, device=dev)
+    return hybrid, (torch.tensor([1.0, 0.0], **f_kw), torch.tensor([BALL_G, 0.8], **f_kw),
+                    torch.zeros(0, **f_kw), torch.linspace(0.0, 2.2, 4, **f_kw))

@@ -102,6 +102,7 @@ def adams_solve_batched(
     root_cap: int = 8,
     root_terminal: bool = True,
     root_directions: Optional[Any] = None,
+    first_step: Optional[Any] = None,  # (B,) or scalar; <= 0 -> automatic
     inject_times: Optional[Any] = None,  # (n_e,) ascending, shared
     inject_deltas: Optional[torch.Tensor] = None,  # (n_e, n, B) added to y
     stage_fn: Optional[Callable] = None,  # t (B,) -> (n_s, B), once per attempt
@@ -114,7 +115,10 @@ def adams_solve_batched(
     argument.  ``device_system`` is the combined ``[f | g]`` system emitted
     for the CUDA kernel (``symode/cuda_codegen.py``), whose parameter rows
     are ``[params | stage]`` with ``stage_fn``; a solve on CUDA tensors
-    requires it.
+    requires it.  ``first_step`` (scalar or ``(B,)``, a lane's ``t0`` may be
+    its own too) overrides the first step where positive, clipped to the
+    lane's span; elsewhere the automatic step (or ``options.first_step``
+    when no override is given) as in the reference.
 
     At ``inject_times[k]`` each lane's step ends, ``inject_deltas[k]`` is
     added to its state and its history restarts (order 1 with
@@ -333,7 +337,12 @@ def adams_solve_batched(
     )
     h_auto = torch.minimum(torch.minimum(100 * h0a, h1a), t_end - t0)
     h_auto = torch.minimum(h_auto, torch.as_tensor(options.max_step, **f_kw))
-    if options.first_step is not None:
+    if first_step is not None:
+        # a lane's own first step (the class API resumes a lane with its
+        # last step size): > 0 clipped to the span, else the automatic step
+        fs = torch.broadcast_to(torch.as_tensor(first_step, **f_kw), (B,))
+        h0 = torch.where(fs > 0, torch.minimum(fs, t_end - t0), h_auto)
+    elif options.first_step is not None:
         h0 = torch.full((B,), options.first_step, **f_kw)
     else:
         h0 = h_auto

@@ -40,7 +40,7 @@ import torch
 
 from sunode_torch.paramspec import ParamSpec, Record
 
-__all__ = ["Problem", "TorchProblem"]
+__all__ = ["Problem", "TorchProblem", "flat_solution_as_dict", "solution_to_xarray"]
 
 
 def over_lanes(fn: Callable, item_ndims: Sequence[int]) -> Callable:
@@ -312,6 +312,19 @@ class Problem:
         return over_lanes(root_fn, (0, 1, 1))
 
 
+    # ------------------------------------------------------------------
+    # Solution conversion (the reference's problem.py:100-154)
+    # ------------------------------------------------------------------
+    def solution_to_xarray(self, tvals, solution, *, unstack_state=True, unstack_params=False,
+                           params=None, sensitivity=None):
+        return solution_to_xarray(self, tvals, solution, unstack_state=unstack_state,
+                                  unstack_params=unstack_params, params=params,
+                                  sensitivity=sensitivity)
+
+    def flat_solution_as_dict(self, solution) -> dict[str, Any]:
+        return flat_solution_as_dict(self, solution)
+
+
 class TorchProblem(Problem):
     """An ODE problem whose right-hand side is written directly in torch.
 
@@ -363,3 +376,52 @@ class TorchProblem(Problem):
         """``(t, y (n, ...), p (n_p, ...)) -> (n, ...)``: the user's
         right-hand side on every lane."""
         return over_lanes(self._lane_rhs(), (0, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Output conversion (sunode_tpu/problem.py:337-400)
+# ---------------------------------------------------------------------------
+def flat_solution_as_dict(problem: Problem, solution) -> dict[str, Any]:
+    """Split a ``(n_times, n_states)`` solution into named nested arrays by
+    slicing and reshaping only, so ``solution`` may be numpy or torch."""
+    from sunode_torch.paramspec import nest_path_dict
+
+    flat = {}
+    for path in problem.states.paths:
+        s = problem.states.slices[path]
+        flat[path] = solution[:, s].reshape((-1,) + problem.states.shapes[path])
+    return nest_path_dict(flat)
+
+
+def _as_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def solution_to_xarray(problem: Problem, tvals, solution, *, unstack_state: bool = True,
+                       unstack_params: bool = False, params=None, sensitivity=None):
+    """A flat solution as an ``xarray.Dataset`` with named dims and coords;
+    the fallback :class:`sunode_torch.dataset.Dataset` when xarray does not
+    import.  Tensors are copied to numpy."""
+    try:
+        import xarray as xr  # type: ignore
+    except ImportError:
+        from sunode_torch import dataset as xr  # type: ignore
+    from sunode_torch.paramspec import flatten_path_dict
+
+    solution = _as_numpy(solution)
+    data = {}
+    coords: dict[str, Any] = {"time": _as_numpy(tvals)}
+    for dim, vals in problem.coords.items():
+        coords[dim] = np.asarray(vals)
+    if unstack_state:
+        for path, arr in flatten_path_dict(problem.states.unflatten(solution)).items():
+            data["solution_" + "_".join(path)] = (("time",) + problem.states.dims_for(path), arr)
+    else:
+        data["solution"] = (("time", "state"), solution)
+    if params is not None and unstack_params:
+        named_p = problem.params.unflatten(_as_numpy(params))
+        for path, arr in flatten_path_dict(named_p).items():
+            data["parameter_" + "_".join(path)] = (problem.params.dims_for(path), arr)
+    if sensitivity is not None:
+        data["sensitivity"] = (("time", "dparam", "state"), _as_numpy(sensitivity))
+    return xr.Dataset(data, coords=coords)

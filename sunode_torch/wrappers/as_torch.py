@@ -11,8 +11,8 @@ Port of ``sunode_tpu/wrappers/as_jax.py``.  The single-chain surface:
   'forward' (sensitivities of the augmented ``[params | initial values]``
   block); gradients to t0, y0, p_sub and tvals, zero to p_fix;
 * :func:`solve_lanes` -- per-lane observation grids with gradients, a loop
-  over lanes of such a solve (the counterpart of the reference's ``vmap``
-  of ``make_solve_fn``);
+  over lanes of such a solve through :func:`map_lanes`, the lane loop of any
+  single-chain function (the counterpart of the reference's ``vmap``);
 * :func:`solve_ivp` and :class:`SolveResult` -- declare and solve in one
   call, gradients through ``torch.autograd`` to every parameter given as a
   tensor that requires them.
@@ -81,6 +81,7 @@ __all__ = [
     "make_solve_fn",
     "SolveFn",
     "solve_lanes",
+    "map_lanes",
     "solve_ivp",
     "SolveResult",
     "make_batched_solve_fn",
@@ -591,16 +592,43 @@ def solve_lanes(solve: Callable, t0, y0, p_sub, p_fix, tvals) -> torch.Tensor:
     """Per-lane solves with gradients: ``ys (B, n_t, n)`` for y0 (B, n),
     p_sub (B, k), t0 shared or ``(B,)`` and tvals shared ``(n_t,)`` or per
     lane ``(B, n_t)``; ``solve`` is a :func:`make_solve_fn` solve, called
-    once a lane, so ``torch.autograd`` takes each lane's gradient through
-    its own solve.  The port's counterpart of the reference's
-    ``jax.vmap(make_solve_fn(...))`` (a host loop whose exits depend on the
-    data cannot be mapped by ``torch.func.vmap``)."""
+    once a lane through :func:`map_lanes`, so ``torch.autograd`` takes each
+    lane's gradient through its own solve.  The port's counterpart of the
+    reference's ``jax.vmap(make_solve_fn(...))``."""
     per_t0 = torch.is_tensor(t0) and t0.ndim == 1
     per_tv = torch.as_tensor(tvals).ndim == 2
-    return torch.stack([
-        solve(t0[b] if per_t0 else t0, y0[b], p_sub[b], p_fix, tvals[b] if per_tv else tvals)
-        for b in range(y0.shape[0])
-    ])
+    return map_lanes(solve, t0, y0, p_sub, p_fix, tvals,
+                     in_dims=(0 if per_t0 else None, 0, 0, None, 0 if per_tv else None))
+
+
+def _lane(x, b: int, batched: bool):
+    return x[b] if batched else x
+
+
+def _stack_lanes(outs: list):
+    first = outs[0]
+    if isinstance(first, tuple):
+        stacked = [_stack_lanes([o[i] for o in outs]) for i in range(len(first))]
+        return type(first)(*stacked) if hasattr(first, "_fields") else tuple(stacked)
+    return torch.stack([torch.as_tensor(o) for o in outs])
+
+
+def map_lanes(fn: Callable, *args, in_dims) -> Any:
+    """``fn`` of one chain over a batch, lane by lane: argument ``i`` is
+    split along its leading axis where ``in_dims[i]`` is 0 and shared where
+    it is None (the ``in_axes`` of ``jax.vmap``); the outputs (tensors,
+    tuples or named tuples such as :class:`HybridResult`) are stacked along
+    a new leading axis.  The port's counterpart of the reference's ``vmap``
+    of its single-chain functions (:func:`make_solve_fn`'s, and
+    ``sunode_torch.events``' event and hybrid functions): a host loop whose
+    exits depend on the data cannot be mapped by ``torch.func.vmap``.
+    Gradients flow through each lane's own call."""
+    sizes = {a.shape[0] for a, d in zip(args, in_dims) if d is not None}
+    if len(sizes) != 1:
+        raise ValueError(f"map_lanes: the mapped arguments need one batch size, got {sizes}")
+    (B,) = sizes
+    return _stack_lanes([fn(*(_lane(a, b, d is not None) for a, d in zip(args, in_dims)))
+                         for b in range(B)])
 
 
 class SolveResult(NamedTuple):
@@ -697,7 +725,7 @@ def _leaf(v, dtype, dev: torch.device) -> torch.Tensor:
     keeps its device (and its graph) and must be on ``dev``."""
     if torch.is_tensor(v):
         if v.device.type != dev.type or (dev.index is not None and v.device.index != dev.index):
-            raise ValueError(f"solve_ivp: a tensor leaf is on {v.device}, the solve on {dev}")
+            raise ValueError(f"a tensor leaf is on {v.device}, the solve on {dev}")
         return v if dtype is None else v.to(dtype)
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
 

@@ -203,6 +203,7 @@ def test_phase_8_bookkeeping():
 
     cs = _chip_smoke()
     assert cs.SIR_MODES == (("resolve", 1024), ("hermite", 256))
+    assert cs.SIR_PROFILED_TIMES == 4  # the profiled warm-up's horizon, t <= 20
     assert cs.split_expected_launches(7) == {"predict": 7, "sweep": 28, "finish": 7}
     saved = dict(adams_split_attempt.launches)
     try:
@@ -582,3 +583,48 @@ def test_phase_6_polynomial_horizon():
     cs = _chip_smoke()
     step, _ = build_lv_checkpointed(1, 21, 1e-8, "polynomial", device="cpu")
     assert cs.POLY_TIMES == 4 and float(step.tvals[cs.POLY_TIMES - 1]) == 2.35
+
+
+def test_phase_14_parts_gates_and_budget():
+    """Phase 14's static checks on the CPU: its parts (lv_forward through the
+    Solver, the AdjointSolver pair, the events and the sweep) and their
+    CPU references submitted to the workers; the gates (lv_forward.npz's
+    rtol 2e-7 / atol 2e-9, lanes 0-3 against the CPU), the 45 s budget, the
+    4-lane sweep; the kernel line's KAB=11 forward and staged_adjoint
+    entries counting the phase's launches; the closed forms of the ball
+    against the port's CPU hybrid solve; phase 14's inputs those of
+    bench.py's lv_forward (lanes 0-15 the fixture's)."""
+    import inspect
+
+    from sunode_torch.entry import BALL_G, BALL_H, build_ball_hybrid, lv_forward_inputs
+
+    cs = _chip_smoke()
+    assert cs.LV_FORWARD_GATE == (2e-7, 2e-9) and cs.LV_FORWARD_CPU_LANES == 4
+    assert cs.PHASE14_BUDGET_S == 45.0 and cs.SWEEP_LANES == 4
+    assert cs.CLASS_KINDS == (("BDF", "BDF"), ("ADAMS", "ADAMS"))
+    doc = cs.__doc__
+    assert "  14. the class API and events" in doc and "  15. the kernel table" in doc
+    submitted = inspect.getsource(cs.submit_cpu_refs)
+    assert "refs.submit(ref_lv_forward)" in submitted
+    assert "refs.submit(ref_class_adjoint)" in submitted
+    phase = inspect.getsource(cs.class_api_phase)
+    for part in ("14(a)", "14(b)", "14(c) event", "14(c) hybrid", "14(c) sweep"):
+        assert part in phase, part
+    run = inspect.getsource(cs.run)
+    assert "phase14 = class_api_phase(" in run
+    assert "launches=adams_launches[kind] + phase14.get(kind, 0)" in run
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "lv_forward.npz"))
+    y0s, ps, tvals = lv_forward_inputs(20)
+    np.testing.assert_array_equal(y0s[:16], golden["y0s"])
+    np.testing.assert_array_equal(ps[:16], golden["ps"])
+    np.testing.assert_array_equal(tvals, golden["tvals"])
+    t_star, dt_dg, dt_dh = cs.ball_event_closed_forms()
+    assert t_star == np.sqrt(2 * BALL_H / BALL_G) and dt_dg == -t_star / (2 * BALL_G)
+    # the hybrid's closed forms against the port's CPU solve
+    hybrid, (y0, p_sub, p_fix, tv) = build_ball_hybrid(3, derivatives=None, device="cpu")
+    res = hybrid(0.0, y0, p_sub, p_fix, tv)
+    f64 = dict(dtype=torch.float64)
+    ts, yK = cs.hybrid_closed_form(torch.tensor(1.0, **f64), torch.tensor(9.81, **f64),
+                                   torch.tensor(0.8, **f64), float(tv[-1]))
+    np.testing.assert_allclose(res.event_ts.numpy(), ts.numpy(), atol=1e-8)
+    np.testing.assert_allclose(res.ys[-1].numpy(), yK.numpy(), atol=1e-7)

@@ -4,7 +4,9 @@ step with the checkpointed (hermite) adjoint, a ``solve_ivp`` gradient
 through ``torch.autograd`` (the single-chain surface), a TorchProblem's
 derivatives, staggered and simultaneous sensitivities, rootfinding on both
 cores and the two emitted sensitivity systems, with the split attempt's
-module imported; checked in a fresh interpreter."""
+module imported, and through the class API (``Solver``, ``AdjointSolver``)
+and the event functions, imported and run with jax and sunode_tpu blocked
+from import; checked in a fresh interpreter."""
 
 import json
 import os
@@ -18,8 +20,20 @@ import json, sys
 import numpy as np
 import torch
 
+
+class _Blocked:
+    # any import of jax or the JAX package fails
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sunode_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
 default_before = torch.get_default_dtype()
 import sunode_torch
+import sunode_torch.solver
+import sunode_torch.events
 import sunode_torch.experiments.exp_pece2d
 import sunode_torch.ops.pece_2d
 import sunode_torch.ops.adams_split
@@ -58,6 +72,18 @@ ivp = sunode_torch.solve_ivp(
     device="cpu")
 (g_ivp,) = torch.autograd.grad(torch.sum(ivp.solution["hares"] ** 2), alpha)
 lvp = lv_problem()
+solver = sunode_torch.Solver(lvp, solver="ADAMS", reltol=1e-6, abstol=1e-6, device="cpu")
+solver.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
+class_ys = solver.solve(0.0, np.linspace(0.5, 3.0, 4), np.tile([10.0, 2.0], (2, 1)))
+adj = sunode_torch.AdjointSolver(lvp, reltol=1e-6, abstol=1e-6, checkpoint_n=512, device="cpu")
+adj.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
+adj.solve_forward(0.0, np.linspace(0.5, 3.0, 4), np.array([10.0, 2.0]))
+adj_grad, _ = adj.solve_backward(3.0, 0.0, np.linspace(0.5, 3.0, 4), np.ones((4, 2)))
+from sunode_torch.entry import build_ball_event
+event, (by0, bp, bfix, btmax) = build_ball_event("forward", device="cpu")
+bp = bp.clone().requires_grad_(True)
+t_ev, _ = event(0.0, by0, bp, bfix, btmax)
+(dt_dg,) = torch.autograd.grad(t_ev, bp)
 emitted = [cuda_codegen.sensitivity_system(lvp).nz, cuda_codegen.staged_sensitivity_system(lvp).n_p]
 print(json.dumps({
     "sens_ok": sens_ok,
@@ -73,6 +99,10 @@ print(json.dumps({
     "torch_problem_finite": bool(torch.isfinite(lam).all()) and tuple(lam.shape) == (9, 2),
     "dtype": str(gy.dtype),
     "ivp_grad_finite": bool(torch.isfinite(g_ivp)) and ivp.problem.n_params == 1,
+    "class_api_ok": bool(np.isfinite(class_ys).all()) and class_ys.shape == (2, 4, 2)
+    and bool(np.isfinite(adj_grad).all()),
+    "event_ok": abs(float(t_ev.detach()) - (2 * 2.0 / 9.81) ** 0.5) < 1e-8
+    and bool(torch.isfinite(dt_dg).all()),
 }))
 """
 
@@ -95,3 +125,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["sens_ok"] == [True] * 3 and out["roots_ok"] == [True] * 2
     assert out["emitted"] == [6, 6]
     assert out["ivp_grad_finite"]
+    assert out["class_api_ok"] and out["event_ok"]
