@@ -61,11 +61,12 @@ Phases, one line each; any failure exits non-zero:
      times, rtol 1e-8 (bench.py's lv_adjoint workload), three steps through
      ``torch.autograd``: the history-attempt launches equal to the attempts
      the solves report and no PECE-kernel launch; then one more step under
-     the profiler for the device kernels per attempt (counted from the
-     profiler's raw records and from its public event list, which must
-     agree) and the device-busy share; every lane finite, lanes 0-15 inside the golden gate
+     the profiler, over the first quarter of the horizon (t <= 2.35), for
+     the device kernels per attempt (counted from the profiler's raw
+     records and from its public event list, which must agree) and the
+     device-busy share; every lane finite, lanes 0-15 inside the golden gate
      (tests/golden/lv_adjoint.npz, rtol 2e-3, atol 1e-3), and the same lanes
-     against the plain path on the CPU within 1e-6;
+     against the plain path on the CPU within 1e-6 (in a worker);
   5. stiff BDF: bench.py's Robertson workload at B=10,000 (8 observation
      times to 4e6, rtol 1e-8, atol [1e-10, 1e-12, 1e-10]) through
      ``make_batched_solve_fn(method='BDF', derivatives=None)``: one solve
@@ -239,7 +240,28 @@ Phases, one line each; any failure exits non-zero:
      impact times against the closed forms), no kernel launched; each part
      with every count set to 0 before it, its attempts (the functions'
      ``last_stats``), host ms an attempt and wall seconds;
-  15. the kernel table and the result line.  Each kernel's bound is the
+  15. the sampler path (``sunode_torch.sample``, the PyTensor wrapper):
+     (a) BASELINE config 4 at full width, ``entry.build_lv_nuts(512)``
+     (scripts/exp_nuts_f32.py's chains, float64): the start's gradient
+     under the profiler, then one NUTS transition from log(1.0, 0.3) +
+     0.01 N(0, 1) at a fixed step size, unit mass and max_treedepth 4 (the
+     script's 6, cut), its draws from a seeded CPU source, against chains
+     0-15 through the plain path on the CPU with those chains' rows of the
+     same draws (in a worker): depth, divergence and the proposal's leaf
+     equal, q, logp, grad and the accept statistic within 1e-8; (b)
+     ``nuts_sample`` over the 512 chains from the same start, 2 warmup
+     draws (the mass swap at the second) and 2 kept, max_treedepth 2: every
+     draw finite, every chain moved, under 5% divergent, accept statistics
+     in [0, 1], the adapted step size finite and positive; wall seconds,
+     leapfrogs (batched gradients), chain-gradients and draws per second;
+     in (a) and (b) the main path's history builds' launches equal to the
+     attempts the solves report, by build, and no other kernel; (c)
+     ``tests/test_pytensor.py``'s graph through the port's PyTensor wrapper
+     (its own Op-protocol shim) with ``derivatives='adjoint'`` and
+     ``'forward'`` (simultaneous), the loss and its gradients compiled with
+     ``pytensor.function`` and evaluated with the Ops' solvers on the card
+     and on the CPU: within 1e-10, no kernel launched (BDF);
+  16. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read, at 8 bytes a value, 4 in the float32
      builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
@@ -304,7 +326,7 @@ def _ref_worker_init() -> None:
 
 
 class CpuRefs:
-    """The plain path's references on the CPU that phases 5 to 13 read
+    """The plain path's references on the CPU that phases 4 to 15 read
     (the CPU's lanes of each gate), computed in worker processes from the
     same seeded inputs while the card runs the phases before them: main
     submits every one before phase 2, each phase reads its own.  A phase
@@ -337,6 +359,20 @@ def cpu_ref(fn, *args):
 
 
 POLY_TIMES = 4  # phase 6's 'polynomial' check: the first 4 of the 21 times, t <= 2.35
+
+
+def ref_main_path() -> dict:
+    """Phase 4's CPU reference: lanes 0-15 of the main path's chains."""
+    import torch
+
+    from sunode_torch.entry import build_lv_adjoint
+
+    t0 = time.perf_counter()
+    y0s, p_subs = lv_main_inputs()
+    step, _ = build_lv_adjoint(16, 21, 1e-8, device="cpu")
+    gy, gp = step(torch.as_tensor(y0s[:16], dtype=torch.float64),
+                  torch.as_tensor(p_subs[:16], dtype=torch.float64))
+    return dict(gy=gy.numpy(), gp=gp.numpy(), wall=time.perf_counter() - t0)
 
 
 def ref_checkpointed(interpolation: str) -> dict:
@@ -502,9 +538,11 @@ def ref_per_lane(method: str) -> dict:
 
 
 def submit_cpu_refs() -> CpuRefs:
-    """Start every CPU reference of phases 5 to 13 in the workers."""
+    """Start every CPU reference of phases 4 to 15 in the workers."""
     refs = CpuRefs()
-    refs.submit(ref_robertson)  # in the order the phases read them
+    refs.submit(ref_main_path)  # in the order the phases read them
+    refs.submit(ref_robertson)
+    refs.submit(ref_bdf_sens)
     for interpolation in ("hermite", "polynomial"):
         refs.submit(ref_checkpointed, interpolation)
     for mode in ADAMS_MODES:
@@ -529,6 +567,8 @@ def submit_cpu_refs() -> CpuRefs:
     refs.submit(ref_kpp_single_dense)
     refs.submit(ref_lv_forward)
     refs.submit(ref_class_adjoint)
+    refs.submit(ref_nuts_transition)
+    refs.submit(ref_pytensor)
     return refs
 
 
@@ -1683,6 +1723,7 @@ def device_kernels_per_attempt(run, attempts, cross_check=False) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_read = time.perf_counter()
     attempts = attempts()
     events = _raw_device_events(prof)
     kernels, copies = _count([name for name, _ in events])
@@ -1692,6 +1733,8 @@ def device_kernels_per_attempt(run, attempts, cross_check=False) -> dict:
         if public != (kernels, copies):
             raise SystemExit(f"chip_smoke: the profiler's raw records count {(kernels, copies)} "
                              f"device kernels and copies, prof.events() {public}")
+    log(f"[profile] {len(events)} device records read in {time.perf_counter() - t_read:.1f} s "
+        f"after a run of {wall:.1f} s{' (and prof.events())' if cross_check else ''}")
     busy_us = 0.0
     by_class: dict[str, list] = {}
     for name, us in events:
@@ -1724,6 +1767,7 @@ def max_rel(got, ref) -> float:
 
 
 PROFILED_HORIZON = 0.1  # phase 9(b)'s profiled solves: this share of the horizon, t <= 1 of [0, 10]
+MAIN_PROFILED_SHARE = 0.25  # phase 4's profiled step: t <= 2.35 of [1, 10], 4 of its 21 times
 
 
 def leading_times(tvals, share):
@@ -1981,6 +2025,17 @@ def lv_sens_solve(problem, y0s, ps, tvals, device):
     )
 
 
+def ref_bdf_sens() -> dict:
+    """Phase 5b's CPU reference: lanes 0-15, tests/golden/lv_sens.npz's."""
+    from sunode_torch.entry import lv_problem
+
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(HERE, "tests", "golden", "lv_sens.npz"))
+    res = lv_sens_solve(lv_problem(), g["y0s"], g["ps"], g["tvals"], "cpu")
+    return dict(ys=res.ys.numpy(), sens=res.sens.numpy(), status=res.status.numpy(),
+                wall=time.perf_counter() - t0)
+
+
 def bdf_sens_phase(smi) -> None:
     """Phase 5b: BDF forward sensitivities of Lotka-Volterra at full width."""
     import torch
@@ -2001,22 +2056,23 @@ def bdf_sens_phase(smi) -> None:
     wall = time.perf_counter() - t0
     ok = int((res.status == 0).sum())
     ys, sens = res.ys.cpu().numpy(), res.sens.cpu().numpy()
-    cpu = lv_sens_solve(problem, y0s[:16], ps[:16], g["tvals"], "cpu")
-    plain_rel = max(floored_rel(ys[:16], cpu.ys.numpy(), 1e-9),
-                    floored_rel(sens[:16], cpu.sens.numpy(), 1e-9))
+    cpu = cpu_ref(ref_bdf_sens)
+    plain_rel = max(floored_rel(ys[:16], cpu["ys"], 1e-9),
+                    floored_rel(sens[:16], cpu["sens"], 1e-9))
     log(
         f"[bdf sens] B={B_MAIN} k=2 wall_s={wall:.4f} us_per_solve={1e6 * wall / B_MAIN:.2f} "
         f"n_attempts={res.stats['n_attempts']} status 0 in {ok}/{B_MAIN} lanes "
         f"finite={int(np.isfinite(sens).all(axis=(1, 2, 3)).sum())} "
         f"golden_max_abs ys={np.abs(ys[:16] - g['ys']).max():.3e} "
         f"sens={np.abs(sens[:16] - g['sens']).max():.3e} "
-        f"cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (ys and sens, atol 1e-9, bound 1e-6) | {smi}"
+        f"cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (ys and sens, atol 1e-9, bound 1e-6; the "
+        f"CPU took {cpu['wall']:.2f} s in a worker) | {smi}"
     )
     if ok != B_MAIN:
         raise SystemExit(f"chip_smoke: BDF sensitivities failed in {B_MAIN - ok} lanes")
     np.testing.assert_allclose(ys[:16], g["ys"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(sens[:16], g["sens"], rtol=2e-4, atol=5e-4)
-    if not (cpu.status == 0).all() or not plain_rel <= 1e-6:
+    if not (cpu["status"] == 0).all() or not plain_rel <= 1e-6:
         raise SystemExit("chip_smoke: the CUDA BDF sensitivities disagree with the plain path")
 
 
@@ -3402,6 +3458,256 @@ def class_api_phase(smi, counted, kab11) -> dict:
     return launches
 
 
+# ---- phase 15: the sampler path (NUTS) and the PyTensor wrapper ------------------
+NUTS_CHAINS = 512  # scripts/exp_nuts_f32.py's --chains: BASELINE config 4 at full width
+NUTS_CPU_CHAINS = 16  # 15(a): chains 0-15 on the CPU, with those chains' rows of the draws
+NUTS_START = (0.01, 1)  # 15(a), (b): log(1.0, 0.3) + 0.01 N(0, 1), default_rng(1)
+NUTS_EPS = 0.004  # 15(a)'s fixed step size (unit mass): trees of depth 1 to 4, accept 0.88-1
+NUTS_TREEDEPTH = 4  # 15(a): cut from the script's 6
+NUTS_SEED = 15  # 15(a)'s draw source; (b) takes NUTS_SEED + 1
+NUTS_REL = 1e-8  # 15(a): the card against the CPU
+NUTS_RUN = dict(num_warmup=2, num_samples=2, max_treedepth=2,
+                initial_step_size=NUTS_EPS)  # 15(b): the mass swap at warmup draw 1; depth cut to 2
+NUTS_MAX_DIVERGENT = 0.05  # 15(b): the share of divergent kept draws
+PYTENSOR_TVALS = np.linspace(0.5, 8.0, 7)  # 15(c): tests/test_pytensor.py's graph
+PYTENSOR_POINT = (1.0, 0.3, 10.0)  # alpha, beta, y0 of the hares
+PYTENSOR_REL = 1e-10  # 15(c): the card against the CPU
+PYTENSOR_CASES = (("adjoint", None), ("forward", "simultaneous"))
+
+
+class CountingLogp:
+    """A log density that counts its batched gradient evaluations and the
+    attempts of their solves: each call adds the previous call's forward
+    and backward attempts (its backward has run by then, as the sampler
+    takes a gradient of every call), ``totals()`` the last call's."""
+
+    def __init__(self, logp):
+        self.logp, self.calls, self.fwd, self.bwd = logp, 0, 0, 0
+        self._pending = False
+        self._stale = None  # the backward stats before the pending call's gradient
+
+    def _harvest(self):
+        if self._pending:
+            stats = self.logp.solve.last_stats
+            if stats.get("backward") is None or stats["backward"] is self._stale:
+                raise SystemExit("chip_smoke: a log density call had no gradient")
+            self.fwd += int(stats["forward"]["n_attempts"])
+            self.bwd += int(stats["backward"]["n_attempts"])
+            self._pending = False
+
+    def __call__(self, theta):
+        self._harvest()
+        self.calls += 1
+        out = self.logp(theta)
+        self._pending, self._stale = True, self.logp.solve.last_stats.get("backward")
+        return out
+
+    def totals(self) -> dict:
+        self._harvest()
+        return {"forward": self.fwd, "transition": self.bwd}
+
+
+def nuts_transition(device, chains, profile=None) -> dict:
+    """15(a)'s case on ``device`` over chains ``0 .. chains - 1`` of the
+    NUTS_CHAINS chains (their rows of the draws): the start's gradient and
+    one transition at NUTS_EPS, unit mass, max_treedepth NUTS_TREEDEPTH;
+    the outputs as numpy, with the gradients and attempts counted.
+    ``profile(run, attempts)``, where given, runs the start's gradient (the
+    card's: under the profiler, with the counts set to 0) and returns it;
+    ``res['start_attempts']`` are its attempts by build."""
+    import torch
+
+    from sunode_torch.entry import build_lv_nuts, lv_nuts_init
+    from sunode_torch.sample.nuts import ChainRows, TorchDraws, _transition, _value_and_grad_batched
+
+    t0 = time.perf_counter()
+    logp, _ = build_lv_nuts(chains, device=device)
+    counting = CountingLogp(logp)
+    f_kw = dict(dtype=torch.float64, device=device)
+    q0 = torch.as_tensor(lv_nuts_init(NUTS_CHAINS, *NUTS_START)[:chains], **f_kw)
+    draws = ChainRows(TorchDraws(NUTS_SEED), NUTS_CHAINS, slice(0, chains))
+    start = lambda: _value_and_grad_batched(counting, q0)  # noqa: E731
+    lp0, g0 = start() if profile is None else profile(start, lambda: sum(counting.totals().values()))
+    start_attempts = counting.totals()
+    t1 = time.perf_counter()
+    out = _transition(counting, q0, lp0, g0, NUTS_EPS, torch.ones(2, **f_kw), draws.transition(),
+                      NUTS_TREEDEPTH, return_leaf=True)
+    totals = counting.totals()
+    names = ("q", "logp", "grad", "accept", "diverged", "depth", "leaf")
+    res = {k: v.cpu().numpy() for k, v in zip(names, out)}
+    res.update(q0=q0.cpu().numpy(), logp0=lp0.cpu().numpy(), grad0=g0.cpu().numpy(),
+               calls=counting.calls, start_attempts=start_attempts,
+               attempts={k: totals[k] - start_attempts[k] for k in totals},
+               wall=time.perf_counter() - t0, transition_wall=time.perf_counter() - t1)
+    return res
+
+
+def ref_nuts_transition() -> dict:
+    """15(a)'s CPU reference: chains 0-15 (NUTS_CPU_CHAINS)."""
+    return nuts_transition("cpu", NUTS_CPU_CHAINS)
+
+
+def pytensor_case(derivatives, sens_mode, device) -> dict:
+    """15(c)'s case on ``device``: tests/test_pytensor.py's graph (LV, 7
+    times on [0.5, 8]) through the port's PyTensor wrapper (its Op-protocol
+    shim where pytensor is not installed), the loss sum(ys**2) and its
+    gradients to alpha, beta and y0 compiled with ``pytensor.function`` and
+    evaluated at PYTENSOR_POINT; the outputs, the seconds and the solver's
+    attempts."""
+    from sunode_torch._compat.pt_shim import install
+
+    install()
+    import pytensor
+    import pytensor.tensor as pt
+
+    from sunode_torch.entry import _lv
+    from sunode_torch.wrappers.as_pytensor import solve_ivp
+
+    t0 = time.perf_counter()
+    alpha, beta, y0_h = pt.dscalar("alpha"), pt.dscalar("beta"), pt.dscalar("y0_h")
+    kwargs = {"device": device}
+    if sens_mode is not None:
+        kwargs["sens_mode"] = sens_mode
+    solved = solve_ivp(
+        t0=0.0, y0={"hares": (y0_h, ()), "lynx": (np.float64(2.0), ())},
+        params={"alpha": (alpha, ()), "beta": (beta, ()), "gamma": np.float64(1.0),
+                "delta": np.float64(0.4), "extra": np.zeros(1)},
+        tvals=PYTENSOR_TVALS, rhs=_lv, derivatives=derivatives, solver_kwargs=kwargs,
+    )
+    flat = solved[1]
+    loss = (flat**2).sum()
+    grads = pytensor.grad(loss, [alpha, beta, y0_h])
+    f = pytensor.function([alpha, beta, y0_h], [loss, flat, *grads])
+    t1 = time.perf_counter()
+    out = [np.asarray(x) for x in f(*PYTENSOR_POINT)]
+    return dict(out=out, compile_s=t1 - t0, eval_s=time.perf_counter() - t1,
+                attempts=int(solved[3].last_stats["n_attempts"]))
+
+
+def ref_pytensor() -> dict:
+    """15(c)'s CPU references, both cases."""
+    return {case: pytensor_case(*case, "cpu") for case in PYTENSOR_CASES}
+
+
+def sampler_phase(smi, counted, history_kernels) -> dict:
+    """Phase 15: the sampler path on the card (the module docstring's
+    list).  ``history_kernels`` are the main path's builds (forward,
+    transition), which ``entry.build_lv_nuts``'s solves launch.  Returns the
+    phase's launches by build."""
+    import torch
+
+    from sunode_torch.entry import build_lv_nuts, lv_nuts_init
+    from sunode_torch.sample import nuts_sample
+
+    t_phase = time.perf_counter()
+    launches = {kind: 0 for kind in history_kernels}
+
+    # (a) one transition at 512 chains against chains 0-15 on the CPU; its
+    # start's gradient under the profiler, which is also the warm-up, with
+    # the counts set to 0 just before it and read just after, then again
+    # for the transition
+    def profiled(run, attempts):
+        box = {}
+        drive("15(a) start gradient", lambda: box.setdefault("out", run()), attempts, counted,
+              smi)
+        return box["out"]
+
+    torch.cuda.synchronize()
+    res = nuts_transition("cuda", NUTS_CHAINS, profile=profiled)
+    torch.cuda.synchronize()
+    log(f"[15(a) launches] the start's and the transition's, one count; the start's attempts "
+        f"{res['start_attempts']}")
+    expected = {k: res["attempts"][k] + res["start_attempts"][k] for k in res["attempts"]}
+    got = check_launches("15(a)", counted, history_kernels, expected)
+    for kind, n in got.items():
+        launches[kind] += n
+    attempts = sum(res["attempts"].values())
+    log(f"[15(a) transition] C={NUTS_CHAINS} eps={NUTS_EPS} max_treedepth={NUTS_TREEDEPTH} "
+        f"gradients={res['calls'] - 1} (and the start's) attempts fwd={res['attempts']['forward']} "
+        f"bwd={res['attempts']['transition']} wall_s={res['transition_wall']:.3f} "
+        f"host_ms_per_attempt={1e3 * res['transition_wall'] / attempts:.3f} "
+        f"s_per_gradient={res['transition_wall'] / (res['calls'] - 1):.3f} "
+        f"depth={np.bincount(res['depth']).tolist()} diverged={int(res['diverged'].sum())} "
+        f"accept_mean={float(res['accept'].mean()):.4f} | {smi}")
+    ref = cpu_ref(ref_nuts_transition)
+    n = NUTS_CPU_CHAINS
+    exact = all(np.array_equal(res[k][:n], ref[k]) for k in ("depth", "diverged", "leaf"))
+    rel = max(float(np.max(np.abs(res[k][:n] - ref[k]) / np.maximum(np.abs(ref[k]), 1e-300)))
+              for k in ("q", "logp", "grad", "accept", "logp0", "grad0"))
+    log(f"[15(a) check] chains 0-{n - 1}: depth, divergence and the proposal's leaf equal: "
+        f"{exact} (leaves {res['leaf'][:n].tolist()}); q, logp, grad, accept, logp0, grad0 "
+        f"max_rel={rel:.3e} (bound {NUTS_REL:g}); the CPU took {ref['wall']:.2f} s "
+        f"({ref['calls']} gradients) in a worker")
+    if not (exact and rel <= NUTS_REL):
+        raise SystemExit("chip_smoke: 15(a): the card's transition disagrees with the CPU")
+    log_elapsed("15a")
+
+    # (b) a short sampling run over the 512 chains through nuts_sample
+    logp, _ = build_lv_nuts(NUTS_CHAINS, device="cuda")
+    q_start = torch.as_tensor(lv_nuts_init(NUTS_CHAINS, *NUTS_START), dtype=torch.float64,
+                              device="cuda")
+    counting = CountingLogp(logp)
+    for k in counted:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = nuts_sample(counting, NUTS_SEED + 1, q_start, **NUTS_RUN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = counting.totals()
+    got = check_launches("15(b) nuts_sample", counted, history_kernels, totals)
+    for kind, n in got.items():
+        launches[kind] += n
+    samples = run.samples.cpu().numpy()
+    n_draws = NUTS_RUN["num_warmup"] + NUTS_RUN["num_samples"]
+    moved = int(np.any(samples != q_start.cpu().numpy()[:, None, :], axis=(1, 2)).sum())
+    div_share = float(run.diverging.float().mean())
+    acc = run.accept_prob.cpu().numpy()
+    attempts = sum(totals.values())
+    log(f"[15(b) nuts_sample] C={NUTS_CHAINS} warmup={NUTS_RUN['num_warmup']} "
+        f"kept={NUTS_RUN['num_samples']} max_treedepth={NUTS_RUN['max_treedepth']} wall_s={wall:.3f} "
+        f"leapfrogs={counting.calls} (batched gradients, the step-size search's included) "
+        f"chain_gradients_per_s={NUTS_CHAINS * counting.calls / wall:.1f} "
+        f"draws_per_s={NUTS_CHAINS * n_draws / wall:.2f} attempts fwd={totals['forward']} "
+        f"bwd={totals['transition']} host_ms_per_attempt={1e3 * wall / attempts:.3f} "
+        f"step_size={run.step_size:.6g} inv_mass={run.inv_mass.cpu().numpy().tolist()} "
+        f"depths={np.bincount(run.tree_depth.cpu().numpy().ravel()).tolist()} | {smi}")
+    ok = (np.isfinite(samples).all() and bool(torch.isfinite(run.logp).all())
+          and moved == NUTS_CHAINS and div_share < NUTS_MAX_DIVERGENT
+          and bool(((acc >= 0) & (acc <= 1)).all())
+          and np.isfinite(run.step_size) and run.step_size > 0)
+    log(f"[15(b) check] every draw finite: {bool(np.isfinite(samples).all())}; chains moved "
+        f"{moved}/{NUTS_CHAINS}; divergent share {div_share:.4f} (bound {NUTS_MAX_DIVERGENT}); "
+        f"accept in [{acc.min():.4f}, {acc.max():.4f}]; step size {run.step_size:.6g}")
+    if not ok:
+        raise SystemExit("chip_smoke: 15(b): the sampling run failed its gates")
+    log_elapsed("15b")
+
+    # (c) the PyTensor wrapper's Ops on the card (BDF: no kernel)
+    refs = cpu_ref(ref_pytensor)
+    for case in PYTENSOR_CASES:
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pytensor_case(*case, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_launches(f"15(c) {case[0]}", counted, {}, {})
+        want = refs[case]["out"]
+        rel = max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in zip(res["out"], want))
+        log(f"[15(c) pytensor {case[0]}{'' if case[1] is None else ' ' + case[1]}] "
+            f"loss={float(res['out'][0]):.12g} d/d(alpha, beta, y0)="
+            f"{[float(g) for g in res['out'][2:]]} wall_s={wall:.3f} (graph and compile "
+            f"{res['compile_s']:.3f}, evaluation {res['eval_s']:.3f}; the last solve's attempts "
+            f"{res['attempts']}) cuda_vs_cpu max_rel={rel:.3e} (bound {PYTENSOR_REL:g}) | {smi}")
+        if not (all(np.isfinite(x).all() for x in res["out"]) and rel <= PYTENSOR_REL):
+            raise SystemExit(f"chip_smoke: 15(c) {case}: the card disagrees with the CPU")
+    log(f"[15] phase wall_s={time.perf_counter() - t_phase:.1f} | {smi}")
+    log_elapsed("15")
+    return launches
+
+
 def main() -> None:
     card, smi = check_device()
     try:
@@ -3486,7 +3792,7 @@ def run(card, smi) -> None:
         log(f"[build {kind}] {k.build_seconds:.2f} s -> {k.lib_path.name}; "
             f"sass_instructions={sass_instructions(k.lib_path)}; ptxas: {'; '.join(regs)}")
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
-    # the CPU references of phases 5-13, in worker processes from here
+    # the CPU references of phases 4-15, in worker processes from here
     CPU_REFS = submit_cpu_refs()
     log_elapsed("2")
     kernels = {kind: built[kind] for kind in systems}
@@ -3556,6 +3862,7 @@ def run(card, smi) -> None:
             f"grads_per_s={B_MAIN / wall:.1f} attempts fwd={stats['forward']['n_attempts']} "
             f"bwd={stats['backward']['n_attempts']} | {smi}"
         )
+    log_elapsed("4, the timed steps")
     launches = {kind: k.launches for kind, k in history_kernels.items()}
     total = adams_history_attempt.launches
     pece_launches = {kind: k.launches for kind, k in kernels.items()}
@@ -3573,17 +3880,22 @@ def run(card, smi) -> None:
         return stats["forward"]["n_attempts"] + stats["backward"]["n_attempts"]
 
     # the profiler's public event list counts the step's kernels too, as a
-    # check of the raw-record count every phase uses
-    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t), step_attempts,
-                                      cross_check=True)
+    # check of the raw-record count every phase uses; the profiled step
+    # covers the first quarter of the horizon (building that list for a
+    # whole step took 20.5 s after a 2.9 s step, on an H100 machine's host)
+    short = leading_times(grad_step.tvals, MAIN_PROFILED_SHARE)
+    prof = device_kernels_per_attempt(lambda: grad_step(y0s_t, p_subs_t, tvals=short),
+                                      step_attempts, cross_check=True)
     log(
         f"[main-path device kernels per attempt] {prof['per_attempt']:.1f} "
         f"({prof['kernels']} kernels, {prof['copies']} copies and fills, "
-        f"{prof['attempts']} attempts in one step; prof.events() counts {prof['public'][0]} "
+        f"{prof['attempts']} attempts in one step to t = {float(short[-1]):g}; prof.events() "
+        f"counts {prof['public'][0]} "
         f"and {prof['public'][1]}) device_busy_s={prof['busy_s']:.4f} "
         f"wall_s_under_profiler={prof['wall_s']:.4f} | {smi}"
     )
 
+    log_elapsed("4, the profiled step")
     gy_np, gp_np = gy.cpu().numpy(), gp.cpu().numpy()
     finite = int(np.isfinite(gy_np).all(axis=1).sum() + 0)
     finite_p = int(np.isfinite(gp_np).all(axis=1).sum() + 0)
@@ -3597,19 +3909,17 @@ def run(card, smi) -> None:
         float(np.max(np.abs(gp_np[:16] - golden["gp"]) / np.abs(golden["gp"]))),
     )
 
-    # the same 16 lanes through the plain path on the CPU
-    cpu_step, _ = build_lv_adjoint(16, 21, 1e-8, device="cpu")
-    cy, cp = cpu_step(
-        torch.as_tensor(y0s[:16], dtype=torch.float64),
-        torch.as_tensor(p_subs[:16], dtype=torch.float64),
-    )
+    # the same 16 lanes through the plain path on the CPU, in a worker
+    cref = cpu_ref(ref_main_path)
+    cy, cp = cref["gy"], cref["gp"]
     plain_rel = max(
-        float(np.max(np.abs(gy_np[:16] - cy.numpy()) / np.abs(cy.numpy()))),
-        float(np.max(np.abs(gp_np[:16] - cp.numpy()) / np.abs(cp.numpy()))),
+        float(np.max(np.abs(gy_np[:16] - cy) / np.abs(cy))),
+        float(np.max(np.abs(gp_np[:16] - cp) / np.abs(cp))),
     )
     log(
         f"[main-path check] finite={finite}/{B_MAIN} golden_max_rel={gold_rel:.3e} "
-        f"(gate 2e-3) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (bound 1e-6) p_fix={LV_P_FIX}"
+        f"(gate 2e-3) cuda_vs_cpu_plain_max_rel={plain_rel:.3e} (bound 1e-6; the CPU took "
+        f"{cref['wall']:.2f} s in a worker) p_fix={LV_P_FIX}"
     )
     if not plain_rel <= 1e-6:
         raise SystemExit("chip_smoke: the CUDA main path disagrees with the plain path")
@@ -3703,6 +4013,12 @@ def run(card, smi) -> None:
     phase14 = class_api_phase(smi, (*others12, *spline_kernels.values(),
                                     BandedCounts(tuple(banded_builds.values()))), adams_kernels)
 
+    # phase 15: the sampler path (NUTS at 512 chains, the PyTensor wrapper);
+    # every part's counts set to 0 just before it and read just after, the
+    # main path's history builds (forward, transition)
+    phase15 = sampler_phase(smi, (*others12, *spline_kernels.values(),
+                                  BandedCounts(tuple(banded_builds.values()))), history_kernels)
+
     entries = [
         dict(
             name=f"adams_pece_attempt[{kind}]",
@@ -3725,7 +4041,7 @@ def run(card, smi) -> None:
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
             launches=(launches[kind] + phase9.get(kind, 0)
-                      + (phase11 if kind == "forward" else 0)),
+                      + (phase11 if kind == "forward" else 0) + phase15[kind]),
             **history_table[kind],
         )
         for kind in systems

@@ -34,7 +34,16 @@ never jax, works in float64 per tensor and changes no global torch state
     event times (the implicit function theorem around the localized root)
     and event-restart solves with differentiable jumps
     (:class:`HybridResult`); :func:`map_lanes` runs them lane by lane over
-    a batch.
+    a batch;
+  * :func:`nuts_sample` -- batch-lockstep multinomial NUTS (:class:`NUTSResult`)
+    whose every gradient is one batched log-density call, with
+    :func:`split_rhat` and :func:`ess_bulk`; ``entry.build_lv_nuts`` is
+    BASELINE config 4's Lotka-Volterra posterior through the batched ADAMS
+    transition adjoint;
+  * ``sunode_torch.wrappers.as_pytensor.solve_ivp`` -- the reference's
+    PyTensor Ops over :class:`Solver` and :class:`AdjointSolver` (for PyMC;
+    without pytensor, ``sunode_torch._compat.pt_shim.install()`` provides
+    the Op protocol).
 
 On CUDA tensors the history half of every Adams attempt, forward and
 backward, runs the hand-written kernel ``sunode_torch/csrc/adams_attempt.cu``
@@ -60,6 +69,7 @@ from sunode_torch.entry import (
 from sunode_torch.events import HybridResult, make_event_fn, make_hybrid_solve_fn, map_lanes
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
+from sunode_torch.sample import NUTSResult, ess_bulk, nuts_sample, split_rhat
 from sunode_torch.solver import AdjointSolver, Solver, SolverError
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import (
@@ -94,5 +104,9 @@ __all__ = [
     "make_hybrid_solve_fn",
     "HybridResult",
     "map_lanes",
+    "nuts_sample",
+    "NUTSResult",
+    "split_rhat",
+    "ess_bulk",
     "__version__",
 ]

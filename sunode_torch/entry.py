@@ -67,6 +67,12 @@ The class API and events: :func:`build_lv_forward` is ``bench.py``'s
 ball of ``tests/test_event_grads.py`` and ``tests/test_hybrid_events.py``
 through :func:`~sunode_torch.events.make_event_fn` and
 :func:`~sunode_torch.events.make_hybrid_solve_fn`.
+
+The sampler: :func:`build_lv_nuts` is BASELINE config 4 at the settings of
+``scripts/exp_nuts_f32.py`` (float64): the Lotka-Volterra posterior over
+log(alpha, beta), whose log density runs one batched ADAMS forward solve
+and one transition-adjoint solve for all chains a gradient, for
+:func:`~sunode_torch.sample.nuts_sample`.
 """
 
 from __future__ import annotations
@@ -126,6 +132,11 @@ __all__ = [
     "BALL_OPTIONS",
     "build_ball_event",
     "build_ball_hybrid",
+    "LV_NUTS_TIMES",
+    "LV_NUTS_SIGMA",
+    "lv_nuts_observations",
+    "lv_nuts_init",
+    "build_lv_nuts",
 ]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
@@ -970,3 +981,83 @@ def build_ball_hybrid(max_events: int = 3, derivatives="forward", device="cuda")
     f_kw = dict(dtype=torch.float64, device=dev)
     return hybrid, (torch.tensor([1.0, 0.0], **f_kw), torch.tensor([BALL_G, 0.8], **f_kw),
                     torch.zeros(0, **f_kw), torch.linspace(0.0, 2.2, 4, **f_kw))
+
+
+# ---- the sampler: BASELINE config 4 ------------------------------------------------
+LV_NUTS_TIMES = np.linspace(1.0, 10.0, 12)  # scripts/exp_nuts_f32.py's observation times
+LV_NUTS_SIGMA = 0.1  # its observation noise
+LV_NUTS_TRUE = (1.0, 0.3)  # alpha, beta of its synthetic data, and its prior's centre
+
+
+def lv_nuts_observations(tvals=LV_NUTS_TIMES) -> np.ndarray:
+    """``log y(tvals) + sigma N(0, 1)`` ``(n_t, 2)``: the script's synthetic
+    data (:118-140), y from alpha 1.0, beta 0.3, y0 (10, 2) solved by ADAMS
+    at rtol = atol 1e-10 (order 6) on the CPU, the noise from
+    ``default_rng(0)``; the same data on every device."""
+    solve = make_batched_solve_fn(
+        lv_problem(), derivatives=None, method="ADAMS",
+        options=BDFOptions(rtol=1e-10, atol=1e-10, adams_max_order=6),
+    )
+    f64 = dict(dtype=torch.float64)
+    ys = solve(0.0, torch.tensor([[10.0, 2.0]], **f64), torch.tensor([LV_NUTS_TRUE], **f64),
+               torch.tensor(LV_P_FIX, **f64), torch.as_tensor(np.asarray(tvals), **f64))[0]
+    rng = np.random.default_rng(0)
+    return np.log(ys.numpy()) + LV_NUTS_SIGMA * rng.standard_normal(tuple(ys.shape))
+
+
+def lv_nuts_init(chains: int, scale: float = 0.3, seed: int = 0) -> np.ndarray:
+    """``log(alpha, beta) (chains, 2)``: the prior's centre plus ``scale``
+    N(0, 1) from ``default_rng(seed)``; the first rows of a wide draw are a
+    narrow draw's."""
+    rng = np.random.default_rng(seed)
+    return np.log(np.asarray(LV_NUTS_TRUE))[None, :] + scale * rng.standard_normal((chains, 2))
+
+
+def build_lv_nuts(chains: int, device="cuda", tvals=LV_NUTS_TIMES, rtol: float = 1e-8,
+                  adjoint_rtol: float = 1e-7):
+    """``(logp_fn, (init, mu0))``: BASELINE config 4, the Lotka-Volterra
+    posterior of ``scripts/exp_nuts_f32.py`` (float64; ``tvals``, ``rtol``
+    and ``adjoint_rtol`` at its settings by default).  ``logp_fn(theta)``
+    takes ``theta (C, 2)`` = log(alpha, beta) on ``device`` and returns the
+    log density ``(C,)``: the Gaussian log likelihood (sigma 0.1) of the
+    log observations :func:`lv_nuts_observations` under the batched ADAMS
+    solve with the transition adjoint (y0 (10, 2), gamma, delta = 1.0, 0.4)
+    plus a unit-normal prior around
+    ``mu0 = log(1.0, 0.3)``; a non-finite value (a failed solve NaN-poisons)
+    becomes ``-inf``, which the sampler takes as a divergent leaf.  Its
+    gradient through ``torch.autograd`` is one batched forward and one
+    backward solve for all chains.  ``init`` is ``lv_nuts_init(chains)``
+    (the script's spread of 0.3); ``logp_fn.solve`` is the solver, whose
+    ``last_stats`` report the latest gradient's attempts.  It runs on the
+    card unless ``device="cpu"``; without a card the default raises."""
+    device = device_or_raise(device)
+    # the script's options (:47-66): Adams order 6, rtol = atol, max_steps
+    # 2,000 forward and 4,000 backward, so that a doomed solve in early
+    # warmup dies in milliseconds and NaN-poisons into an ordinary
+    # rejection instead of making every chain of the lockstep batch pay
+    # the library's budget
+    solve = make_batched_solve_fn(
+        lv_problem(), derivatives="adjoint", method="ADAMS", adjoint_interpolation="transition",
+        options=BDFOptions(rtol=rtol, atol=rtol, adams_max_order=6, max_steps=2000),
+        adjoint_options=BDFOptions(rtol=adjoint_rtol, atol=adjoint_rtol, adams_max_order=6,
+                                   max_steps=4000),
+    )
+    f_kw = dict(dtype=torch.float64, device=device)
+    tvals_t = torch.as_tensor(np.asarray(tvals), **f_kw)
+    obs_log = torch.as_tensor(lv_nuts_observations(tvals), **f_kw)
+    p_fix = torch.as_tensor(LV_P_FIX, **f_kw)
+    y0 = torch.tensor([10.0, 2.0], **f_kw)
+    mu0 = torch.log(torch.tensor(LV_NUTS_TRUE, **f_kw))
+
+    def logp_fn(theta):
+        ys = solve(0.0, y0.expand(theta.shape[0], 2).contiguous(), torch.exp(theta), p_fix,
+                   tvals_t)
+        ys_safe = torch.clamp_min(ys, 1e-10)
+        loglik = -0.5 * torch.sum((torch.log(ys_safe) - obs_log[None]) ** 2 / LV_NUTS_SIGMA**2,
+                                  dim=(1, 2))
+        logprior = -0.5 * torch.sum((theta - mu0) ** 2, dim=1)
+        lp = loglik + logprior
+        return torch.where(torch.isfinite(lp), lp, -torch.inf)
+
+    logp_fn.solve, logp_fn.obs_log, logp_fn.tvals = solve, obs_log, tvals_t
+    return logp_fn, (torch.as_tensor(lv_nuts_init(chains), **f_kw), mu0)

@@ -603,7 +603,7 @@ def test_phase_14_parts_gates_and_budget():
     assert cs.PHASE14_BUDGET_S == 45.0 and cs.SWEEP_LANES == 4
     assert cs.CLASS_KINDS == (("BDF", "BDF"), ("ADAMS", "ADAMS"))
     doc = cs.__doc__
-    assert "  14. the class API and events" in doc and "  15. the kernel table" in doc
+    assert "  14. the class API and events" in doc and "  16. the kernel table" in doc
     submitted = inspect.getsource(cs.submit_cpu_refs)
     assert "refs.submit(ref_lv_forward)" in submitted
     assert "refs.submit(ref_class_adjoint)" in submitted
@@ -628,3 +628,51 @@ def test_phase_14_parts_gates_and_budget():
                                    torch.tensor(0.8, **f64), float(tv[-1]))
     np.testing.assert_allclose(res.event_ts.numpy(), ts.numpy(), atol=1e-8)
     np.testing.assert_allclose(res.ys[-1].numpy(), yK.numpy(), atol=1e-7)
+
+
+def test_phase_15_bookkeeping():
+    """Phase 15's static parts on the CPU: the counting log density adds each
+    call's forward and backward attempts once its gradient has run, and
+    refuses a call without one; the start's first rows are a narrow draw's;
+    (b)'s run crosses the mass swap; (c)'s case on the CPU compiles the
+    loss and its gradients through the port's wrapper, its outputs finite
+    and shaped as the graph's."""
+    import inspect
+
+    from sunode_torch.entry import lv_nuts_init
+
+    cs = _chip_smoke()
+
+    class FakeSolve:
+        last_stats = {"forward": None, "backward": None}
+
+    solve = FakeSolve()
+
+    def logp(theta):
+        solve.last_stats = {"forward": {"n_attempts": 3}, "backward": solve.last_stats["backward"]}
+        return theta.sum(dim=1)
+
+    logp.solve = solve
+    counting = cs.CountingLogp(logp)
+    for n_bwd in (5, 7):
+        counting(torch.zeros(2, 2))
+        solve.last_stats["backward"] = {"n_attempts": n_bwd}
+    assert counting.totals() == {"forward": 6, "transition": 12} and counting.calls == 2
+    counting(torch.zeros(2, 2))
+    with pytest.raises(SystemExit):
+        counting.totals()
+    wide = lv_nuts_init(cs.NUTS_CHAINS, *cs.NUTS_START)
+    np.testing.assert_array_equal(wide[:cs.NUTS_CPU_CHAINS],
+                                  lv_nuts_init(cs.NUTS_CPU_CHAINS, *cs.NUTS_START))
+    assert int(0.75 * cs.NUTS_RUN["num_warmup"]) < cs.NUTS_RUN["num_warmup"]
+    assert cs.NUTS_CHAINS == 512 and cs.NUTS_TREEDEPTH == 4
+    assert "  15. the sampler path" in cs.__doc__
+    submitted = inspect.getsource(cs.submit_cpu_refs)
+    assert "refs.submit(ref_nuts_transition)" in submitted
+    assert "refs.submit(ref_pytensor)" in submitted
+    run = inspect.getsource(cs.run)
+    assert "phase15 = sampler_phase(" in run and "+ phase15[kind]" in run
+    res = cs.pytensor_case("adjoint", None, "cpu")
+    loss, flat, *grads = res["out"]
+    assert flat.shape == (len(cs.PYTENSOR_TVALS), 2) and len(grads) == 3
+    assert all(np.isfinite(x).all() for x in res["out"]) and res["attempts"] > 0

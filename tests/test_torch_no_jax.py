@@ -5,7 +5,10 @@ through ``torch.autograd`` (the single-chain surface), a TorchProblem's
 derivatives, staggered and simultaneous sensitivities, rootfinding on both
 cores and the two emitted sensitivity systems, with the split attempt's
 module imported, and through the class API (``Solver``, ``AdjointSolver``)
-and the event functions, imported and run with jax and sunode_tpu blocked
+and the event functions, the sampler (one NUTS transition and a short
+``nuts_sample``) and the PyTensor wrapper on the port's own Op-protocol shim
+(a loss and its gradient compiled with ``pytensor.function``, which runs
+the Ops' ``perform``), imported and run with jax and sunode_tpu blocked
 from import; checked in a fresh interpreter."""
 
 import json
@@ -84,6 +87,26 @@ event, (by0, bp, bfix, btmax) = build_ball_event("forward", device="cpu")
 bp = bp.clone().requires_grad_(True)
 t_ev, _ = event(0.0, by0, bp, bfix, btmax)
 (dt_dg,) = torch.autograd.grad(t_ev, bp)
+from sunode_torch._compat.pt_shim import install, is_shim_active
+shim_installed = install()
+import pytensor
+import pytensor.tensor as pt
+import sunode_torch.sample
+from sunode_torch.sample.nuts import TorchDraws, _transition, _value_and_grad_batched
+from sunode_torch.wrappers.as_pytensor import solve_ivp as pt_solve_ivp
+gauss = lambda q: -0.5 * torch.sum((q - 1.0) ** 2, dim=1)
+q0 = torch.zeros(3, 2, dtype=torch.float64)
+lp0, g0 = _value_and_grad_batched(gauss, q0)
+tr = _transition(gauss, q0, lp0, g0, 0.5, torch.ones(2, dtype=torch.float64),
+                 TorchDraws(0).transition(), 4)
+run = sunode_torch.sample.nuts_sample(gauss, 0, q0, num_warmup=4, num_samples=3, max_treedepth=3)
+p_alpha = pt.dscalar("alpha")
+pt_flat = pt_solve_ivp(0.0, {"hares": (np.float64(10.0), ()), "lynx": (np.float64(2.0), ())},
+                       {"alpha": (p_alpha, ()), "beta": np.float64(0.3), "gamma": np.float64(1.0),
+                        "delta": np.float64(0.4)}, np.linspace(0.5, 2.0, 3), _lv,
+                       solver_kwargs={"device": "cpu", "reltol": 1e-6, "abstol": 1e-6})[1]
+pt_loss = (pt_flat ** 2).sum()
+pt_out = pytensor.function([p_alpha], [pt_loss, pytensor.grad(pt_loss, p_alpha)])(1.0)
 emitted = [cuda_codegen.sensitivity_system(lvp).nz, cuda_codegen.staged_sensitivity_system(lvp).n_p]
 print(json.dumps({
     "sens_ok": sens_ok,
@@ -101,6 +124,9 @@ print(json.dumps({
     "ivp_grad_finite": bool(torch.isfinite(g_ivp)) and ivp.problem.n_params == 1,
     "class_api_ok": bool(np.isfinite(class_ys).all()) and class_ys.shape == (2, 4, 2)
     and bool(np.isfinite(adj_grad).all()),
+    "sampler_ok": bool(torch.isfinite(tr[0]).all()) and tuple(tr[5].shape) == (3,)
+    and tuple(run.samples.shape) == (3, 3, 2) and bool(torch.isfinite(run.samples).all()),
+    "pytensor_ok": shim_installed and is_shim_active() and bool(np.isfinite(pt_out).all()),
     "event_ok": abs(float(t_ev.detach()) - (2 * 2.0 / 9.81) ** 0.5) < 1e-8
     and bool(torch.isfinite(dt_dg).all()),
 }))
@@ -126,3 +152,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["emitted"] == [6, 6]
     assert out["ivp_grad_finite"]
     assert out["class_api_ok"] and out["event_ok"]
+    assert out["sampler_ok"] and out["pytensor_ok"]
