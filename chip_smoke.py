@@ -126,13 +126,17 @@ Phases, one line each; any failure exits non-zero:
   9. forward sensitivities and rootfinding on Lotka-Volterra at B=10,000:
      (a) the 'sensitivity' (the augmented state [y | vec S]) and
      'staged_sensitivity' (vec S, y staged after the parameters) builds
-     against their plain versions as in phase 3c, and the split kernels as
+     against their plain versions as in phase 3c (the plain f read from the
+     builds' emitted C, and that f within 1e-14 normwise of the f the Adams
+     core composes from ``make_sensitivity_rhs``, at every point each
+     attempt evaluates it), and the split kernels as
      in phase 3d, timed as at its first shape, on the sensitivity block (4
      rows, B=10,000, history depth 9) of one attempt of (b)'s Adams
      staggered solve, its inputs taken where the solve calls the history
      attempt; the 'staged_sensitivity' build on that attempt too, with
-     phase 3c's C6 checks, its error rows held against themselves lane by
-     lane and against the terms they are the difference of; (b)
+     phase 3c's C6 checks and the same 1e-14 against the core's f, its
+     error rows held against themselves lane by lane and against the terms
+     they are the difference of; (b)
      ``entry.build_lv_sens``: BDF and
      Adams staggered at rtol = atol = 1e-9 and Adams simultaneous at rtol
      1e-8 (bench.py's lv_sens), one timed solve each with every kernel count
@@ -191,15 +195,16 @@ Phases, one line each; any failure exits non-zero:
      structured.py``'s inputs, rtol 1e-8 / atol 1e-10, 1,024 checkpoints):
      a profiled forward solve (status 0 everywhere, lanes 0-2 within 5e-6 of
      scipy's LSODA at rtol 1e-11, lanes 0-3 within 1e-6 of the CPU's plain
-     path) and a timed adjoint-gradient step (finite everywhere, lanes 0-15
-     within rtol 1e-4 / atol 1e-8 of the dense solver's, run on the CPU in a
-     worker); (c) the same chain at n = 256, forward only, timed and not
+     path) and a timed adjoint-gradient step over the first 2 observation
+     times (t <= 0.19, ``STRUCT_LEADING_TIMES``: finite everywhere, lanes
+     0-15 within rtol 1e-4 / atol 1e-8 of the dense solver's over the same
+     times, run on the CPU in a worker); (c) the same chain at n = 256, forward only, timed and not
      profiled; (d)
      ``entry.build_hub(128, 1024, 'sparse')`` (129 states, the plan's border
      takes the hub): a forward, not profiled (status 0, lanes 0-3 within 1e-6 of the CPU,
      lanes 0-15 within 1e-6 / 1e-10 of the dense solve) and a gradient step
-     (as (b)); (e) (b)'s chain with spgmr, forward, timed and not profiled
-     (status 0, LSODA); each
+     (as (b), t <= 0.24); (e) (b)'s chain with spgmr, forward over its first
+     2 observation times, timed and not profiled (status 0, LSODA there); each
      with the banded launches equal to the Newton solver's lockstep
      factorizations and solves (and one solve more a factorization with the
      BBD border) and no other kernel; (f) the spline LV's four builds
@@ -261,7 +266,28 @@ Phases, one line each; any failure exits non-zero:
      ``'forward'`` (simultaneous), the loss and its gradients compiled with
      ``pytensor.function`` and evaluated with the Ops' solvers on the card
      and on the CPU: within 1e-10, no kernel launched (BDF);
-  16. the kernel table and the result line.  Each kernel's bound is the
+  16. the native host route and the chain split: (a) ``entry.build_lv_forward_single``
+     (bench.py's ``lv_forward --batch 1``) on ``device="cpu"``, which takes
+     the native route (C++ Adams): within rtol 1e-6 / atol 1e-8 of the
+     1e-13 native BDF oracle, the minimum µs over 50 solves; then on the
+     card (the single Adams core): the same gate, seconds a solve over 2
+     solves, attempts and ms an attempt, no kernel launched; (b)
+     ``entry.build_lv_adjoint_single`` (bench.py's ``lv_adjoint --batch 1``,
+     ADAMS/ADAMS) on the CPU, the native augmented backward: gy and gp
+     within rtol 2e-3 / atol 1e-3 of lv_adjoint.npz lane 0, the minimum µs
+     a pair over 50; then on the card: the same gate, seconds a pair, the
+     largest relative difference from the native pair, the KAB=11
+     staged_adjoint launches equal to the backward attempts; (c)
+     ``entry.build_lv_adjoint_sharded`` at B=10,000 on ``make_mesh()`` (the
+     one card) and on ``Mesh((cuda:0, cuda:0))``, a thread a chunk:
+     each gradient bit for bit phase 4's lane by lane (else within 1e-12,
+     the lanes printed, and the quadrature contraction split the same way
+     on seeded inputs, ROADMAP C10), the main path's history builds' launches equal to
+     the chunks' summed attempts, seconds a step; (d) the two g++ builds'
+     seconds (the core library and LV's problem library), made in a worker
+     at the pool's start; the host's CPU model and threads beside the
+     card's name and power limit, as (a) and (b) time the host;
+  17. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read, at 8 bytes a value, 4 in the float32
      builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
@@ -455,35 +481,45 @@ def ref_structured(workload: str, n: int, solver: str) -> dict:
     return dict(ys=ys, wall=time.perf_counter() - t0)
 
 
+def leading_tvals(tvals, device):
+    """Phase 12's numpy observation times cut to the first
+    STRUCT_LEADING_TIMES, as a float64 tensor on ``device``."""
+    import torch
+
+    return torch.as_tensor(tvals[:STRUCT_LEADING_TIMES], dtype=torch.float64, device=device)
+
+
 def ref_kpp_dense() -> dict:
     """Phase 12(b)'s dense reference on the CPU: lanes 0-15's gradients of
     ``entry.build_kpp`` at n = 128 with dense Newton, on the B=1,024 draw's
-    inputs."""
+    inputs, over the first STRUCT_LEADING_TIMES observation times."""
     import torch
 
     from sunode_torch.entry import build_kpp, kpp_inputs
 
-    y0, p, _ = kpp_inputs(128, B_STRUCT)
+    y0, p, tvals = kpp_inputs(128, B_STRUCT)
     t0 = time.perf_counter()
     _, grad_step, _ = build_kpp(128, 16, "dense", device="cpu")
-    grads = [g.numpy() for g in grad_step(torch.as_tensor(y0[:16]), torch.as_tensor(p[:16]))]
+    grads = [g.numpy() for g in grad_step(torch.as_tensor(y0[:16]), torch.as_tensor(p[:16]),
+                                          leading_tvals(tvals, "cpu"))]
     return dict(grads=grads, wall=time.perf_counter() - t0)
 
 
 def ref_hub_dense() -> dict:
     """Phase 12(d)'s dense reference on the CPU: lanes 0-15's forward ys and
     gradients of ``entry.build_hub`` with dense Newton, on the B=1,024
-    draw's inputs."""
+    draw's inputs (the gradients over the first STRUCT_LEADING_TIMES
+    observation times)."""
     import torch
 
     from sunode_torch.entry import build_hub, hub_inputs
 
-    y0, p, _ = hub_inputs(128, B_STRUCT)
+    y0, p, tvals = hub_inputs(128, B_STRUCT)
     y0, p = torch.as_tensor(y0[:16]), torch.as_tensor(p[:16])
     t0 = time.perf_counter()
     forward, grad_step, _ = build_hub(128, 16, "dense", device="cpu")
     ys = forward(y0, p).numpy()
-    grads = [g.numpy() for g in grad_step(y0, p)]
+    grads = [g.numpy() for g in grad_step(y0, p, leading_tvals(tvals, "cpu"))]
     return dict(ys=ys, grads=grads, wall=time.perf_counter() - t0)
 
 
@@ -540,6 +576,7 @@ def ref_per_lane(method: str) -> dict:
 def submit_cpu_refs() -> CpuRefs:
     """Start every CPU reference of phases 4 to 15 in the workers."""
     refs = CpuRefs()
+    refs.submit(ref_native_build)  # phase 16's g++ builds, while the card works
     refs.submit(ref_main_path)  # in the order the phases read them
     refs.submit(ref_robertson)
     refs.submit(ref_bdf_sens)
@@ -839,6 +876,17 @@ def rhs_agreement(launch, fz, n, x, p_max):
     runs the build on ``x`` with those four replaced."""
     import torch
 
+    ones, zeros = torch.ones_like(x["p"]), torch.zeros_like(x["DF"])
+    agree = torch.ones_like(x["active"])
+    for y, f in attempt_points(fz, n, x, p_max):
+        emitted = launch(ones, zeros, torch.cat([y, x["z_prev"][n:]]), 0).DF_upd[0]
+        agree &= (emitted == f).all(dim=0)
+    return agree
+
+
+def attempt_points(fz, n, x, p_max) -> list:
+    """[(y, fz(y))] at every point the plain attempt on ``x`` evaluates f:
+    its corrector's iterates and the final one (:func:`rhs_agreement`)."""
     from sunode_torch.ops import adams_split as sp
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
 
@@ -852,12 +900,18 @@ def rhs_agreement(launch, fz, n, x, p_max):
         points.append((y, f))
         y, state = sp.split_sweep(k, f, y, pred, state, x["newton_tol"], n)
     points.append((y, fz(t, y, par)))
-    ones, zeros = torch.ones_like(x["p"]), torch.zeros_like(x["DF"])
-    agree = torch.ones_like(x["active"])
-    for y, f in points:
-        emitted = launch(ones, zeros, torch.cat([y, x["z_prev"][n:]]), 0).DF_upd[0]
-        agree &= (emitted == f).all(dim=0)
-    return agree
+    return points
+
+
+def core_agreement(fz, core_fz, n, x, p_max) -> float:
+    """The worst normwise relative difference, over the points the plain
+    attempt on ``x`` evaluates f (:func:`attempt_points`), between ``fz``
+    (a build's emitted f, which :func:`rhs_agreement` holds bit for bit to
+    the kernel's) and ``core_fz``, the f the Adams core composes on its own
+    (:func:`lv_sens_core_fz`): a wrong emitted row shows here."""
+    t, par = x["t_new"], x["params"]
+    return max(float((f - core_fz(t, y, par)).norm() / f.norm())
+               for y, f in attempt_points(fz, n, x, p_max))
 
 
 def c6_check(got, ref, agree) -> dict:
@@ -909,12 +963,14 @@ def history_cost(device_system, x, niter) -> tuple[int, int]:
 
 
 def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None, dtype=None,
-                           plain_reps=None):
+                           plain_reps=None, core_fz=None):
     """Phase 3c (and 10(a) at ``dtype`` float32) for one build: returns the
     kernel-table entry fields.  At float32 the normwise bound is
     F32_REL_BOUND, C6's bit-for-bit checks stay.  ``plain_reps`` times the
     plain version over fewer calls (12(f): its spline is hundreds of torch
-    operations a right-hand side)."""
+    operations a right-hand side).  Given ``core_fz`` (phase 9's builds,
+    whose plain ``fz`` is read from their emitted C), ``fz`` is held to it
+    within SENS_CORE_REL at every point each attempt evaluates f."""
     import torch
 
     from sunode_torch.experiments.exp_pece2d import device_us
@@ -952,6 +1008,7 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None,
 
     agree = agreement(x)
     c6 = {"seeded": (c6_check(got, ref, agree), agree)}
+    core = {} if core_fz is None else {"seeded": core_agreement(fz, core_fz, system.n, x, p_max)}
     # one order in every lane: p = 1 (no rescale) and p = P_MAX (the whole
     # tables), against the plain version and timed
     at_p, ok_p = {}, {}
@@ -966,6 +1023,8 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None,
                                               and torch.equal(got_q.niter, ref_q.niter)))
         agree_q = agreement({**x, "p": p_q})
         c6[f"p{q}"] = (c6_check(got_q, ref_q, agree_q), agree_q)
+        if core_fz is not None:
+            core[f"p{q}"] = core_agreement(fz, core_fz, system.n, {**x, "p": p_q}, p_max)
         at_p[q] = device_us(lambda: adams_history_attempt(system, *args(x["z_prev"], p_q)),
                             kernel=HISTORY_KERNEL)
     call_k = lambda z: (run_k(z).z_new,)  # noqa: E731
@@ -988,12 +1047,15 @@ def compare_history_kernel(kind, device_system, fz, seed, p_max=P_MAX, tol=None,
         + "".join(f" all_p{q}: max_rel={r:.3e} flags_equal={same}"
                   for q, (r, same) in ok_p.items())
         + "".join(f" | C6 {o}:" + fmt_c6(checks, a) for o, (checks, a) in c6.items())
+        + "".join(f" | emitted f vs the core's {o}: normwise {r:.3e} (bound {SENS_CORE_REL:.0e})"
+                  for o, r in core.items())
         + f" | bytes={nbytes} flops={flops} bound_us={1e3 * entry['bound_ms']:.3f}"
         f" ({entry['bound_by']})"
     )
     if not (max(rel.values()) <= rel_bound and conv_same and niter_same
             and all(r <= rel_bound and same for r, same in ok_p.values())
-            and all(all(checks.values()) for checks, _ in c6.values())):
+            and all(all(checks.values()) for checks, _ in c6.values())
+            and all(r <= SENS_CORE_REL for r in core.values())):
         raise SystemExit(f"chip_smoke: {kind} history kernel disagrees with the plain version")
     return entry
 
@@ -1097,11 +1159,64 @@ def split_inputs(B, seed, device, R=SIR_R, kind="forward", dtype=None):
     )
 
 
+def emitted_fz(system):
+    """The plain right-hand side of an emitted system, read from its own
+    source: ``pece_fz``'s straight-line C (``const double x_k = ...;`` and
+    ``out[i] = ...;``) evaluated statement by statement on the rows of
+    ``y`` and ``p`` with torch's elementwise operations, each rounded as
+    the kernel's C rounds it (the builds take ``-fmad=false``: C6).  C and
+    Python read ``+``, ``-``, ``*``, ``/``, unary minus and parentheses
+    alike; the emitted calls map to torch's."""
+    import torch
+
+    body = system.source.split("pece_fz(", 1)[1]
+    body = body[body.index("{") + 1: body.rindex("}")]
+    stmts = []
+    for line in body.split(";"):
+        line = line.strip()
+        if line:
+            lhs, rhs = line.split("=", 1)
+            stmts.append((lhs.split()[-1], rhs.strip()))
+    funcs = {"exp": torch.exp, "log": torch.log, "sqrt": torch.sqrt, "fabs": torch.abs,
+             "sin": torch.sin, "cos": torch.cos, "pow": torch.pow, "log1p": torch.log1p,
+             "tanh": torch.tanh, "fmax": torch.maximum, "fmin": torch.minimum}
+
+    def fz(t, y, p):
+        env = {"t": t, "y": y, "p": p, **funcs}
+        out = [None] * system.nz
+        for lhs, rhs in stmts:
+            value = eval(rhs, {"__builtins__": {}}, env)  # the build's own statement
+            if lhs.startswith("out["):
+                out[int(lhs[4:-1])] = torch.broadcast_to(torch.as_tensor(value, dtype=y.dtype,
+                                                                          device=y.device),
+                                                         y.shape[1:])
+            else:
+                env[lhs] = value
+        return torch.stack(out)
+
+    return fz
+
+
 def lv_sens_fz(kind):
-    """The plain right-hand side of one of phase 9's emitted systems, as the
-    Adams core composes it from Lotka-Volterra's ``make_sensitivity_rhs``:
+    """The plain right-hand side of one of phase 9's emitted systems:
     'sensitivity' over ``[y | vec S]``, 'staged_sensitivity' over ``vec S``
-    with y in the parameter rows after the four parameters."""
+    with y in the parameter rows after the four parameters.  It is lowered
+    from the rows the build emits (:func:`emitted_fz` of
+    ``cuda_codegen.<kind>_system``), so f rounds as the kernel's does
+    (ROADMAP C6): the Adams core's own ``make_sensitivity_rhs`` sums ``S
+    J^T`` by einsum and the emitted rows sum their CSE'd products in
+    sympy's order, an ulp apart in most lanes."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.symode import cuda_codegen
+
+    return emitted_fz(getattr(cuda_codegen, f"{kind}_system")(lv_problem()))
+
+
+def lv_sens_core_fz(kind):
+    """The f of one of phase 9's emitted systems as the Adams core
+    composes it from Lotka-Volterra's ``make_rhs`` and
+    ``make_sensitivity_rhs`` (torch's einsum of ``S J^T``), independent of
+    the emitted rows: :func:`core_agreement` holds the emitted f to it."""
     import torch
 
     from sunode_torch.entry import lv_problem
@@ -1115,6 +1230,7 @@ def lv_sens_fz(kind):
     return lambda t, S, par: sens(t, par[n_p:], S.reshape(k, n, -1), par[:n_p]).reshape(k * n, -1)
 
 
+SENS_CORE_REL = 1e-14  # the emitted sensitivity f against the core's, normwise (ulps apart)
 SENS_SPLIT_ATTEMPT = 300  # phase 9(a)'s split inputs: this attempt of the Adams staggered solve
 
 
@@ -1167,12 +1283,14 @@ def history_on_attempt(device_system, x) -> float:
     is, where the corrector converged, a difference far under f: an f an
     ulp apart moves it by far more than 1e-12 of itself.  So err0 and err3
     are held against themselves lane by lane (to REL_BOUND, per element)
-    where the emitted f rounds as the plain one (the plain sensitivity
-    right-hand side is torch's einsum, which the emitted sums do not
-    follow: most lanes differ by an ulp of f), and in every lane against
-    the terms they are the difference of (err0 normwise against |gamma*_p|
-    h f_ex, err3 lane by lane against those terms' weighted norm); their
-    errors against themselves in every lane are logged."""
+    where the emitted f rounds as the plain one (the plain f is read from
+    the build's emitted C, :func:`lv_sens_fz`, so that is every lane where
+    the kernel's f is its C's), and in every lane against the terms they
+    are the difference of (err0 normwise against |gamma*_p| h f_ex, err3
+    lane by lane against those terms' weighted norm); their errors against
+    themselves in every lane are logged.  The emitted f itself is held to
+    the core's own composition (:func:`core_agreement`) within
+    SENS_CORE_REL."""
     import torch
 
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
@@ -1199,6 +1317,7 @@ def history_on_attempt(device_system, x) -> float:
 
     agree = rhs_agreement(launch, system.fz, system.n, x, p_max)
     c6 = c6_check(got, ref, agree)
+    core = core_agreement(system.fz, lv_sens_core_fz("staged_sensitivity"), system.n, x, p_max)
     rel, abs_err = normwise(got, ref, ("DF_resc", "DF_upd", "z_pred", "z_new"))
     own = {"err0/lane": lane_rel(got.err0, ref.err0), "err3/lane": lane_rel(got.err3, ref.err3)}
     own_agree = {k: lane_rel(getattr(got, f)[:, agree], getattr(ref, f)[:, agree])
@@ -1218,9 +1337,10 @@ def history_on_attempt(device_system, x) -> float:
         + " against themselves: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own.items())
         + " (where f agrees: " + " ".join(f"rel_{k}={v:.3e}" for k, v in own_agree.items())
         + f") flags_equal={flags} converged={int(got.conv.sum())}/{x['p'].shape[0]} |"
-        + fmt_c6(c6, agree))
+        + fmt_c6(c6, agree)
+        + f" | emitted f vs the core's: normwise {core:.3e} (bound {SENS_CORE_REL:.0e})")
     if not (max(rel.values()) <= REL_BOUND and max(own_agree.values()) <= REL_BOUND and flags
-            and all(c6.values())):
+            and all(c6.values()) and core <= SENS_CORE_REL):
         raise SystemExit("chip_smoke: the staged_sensitivity history kernel disagrees with the "
                          "plain version on the solve's attempt")
     return max(abs_err, float((got.err0 - ref.err0).abs().max()),
@@ -2430,6 +2550,10 @@ def per_lane_phase(smi, counted, forward_build) -> int:
 B_STRUCT = 1024  # phase 12's lanes: scripts/bench_batched_structured.py's B
 STRUCT_N = (128, 256)  # its n, and twice it
 STRUCT_GOLD_LANES = 3  # lanes held against scipy's LSODA at rtol 1e-11 (the script's N_GOLD)
+# 12(b) and (d)'s gradient steps and 12(e)'s forward: the first 2 observation
+# times (t <= 0.19 of KPP's [0.05, 1], t <= 0.24 of the hub's); the cut that
+# made room for phase 16 (PERF.md section 4)
+STRUCT_LEADING_TIMES = 2
 BANDED_SOURCE = "sunode_torch/csrc/banded.cu"
 SINGULAR_LANE = 5  # 12(a): this lane's Newton matrix is zero
 PIVOT_LANES = slice(16, 24)  # 12(a): seeded random band entries, so rows swap
@@ -2729,30 +2853,36 @@ def lsoda_gate(label, ys, y0, params, tvals) -> float:
 
 
 def structured_forward(label, make, n, solver, counted, banded, smi, cpu=True, lsoda=True,
-                       profile=True):
+                       profile=True, leading=False):
     """12(b)-(e)'s forward solve at B=1,024 through ``make`` (``entry
     .build_kpp`` or ``build_hub``), profiled (or, without ``profile``, timed
     alone), with the banded launches equal to the Newton solver's calls:
     status 0 everywhere, LSODA on lanes 0-2 (the chain), lanes 0-3 within
-    1e-6 of the CPU's plain path (floored at atol 1e-10).  Returns
-    (forward, grad_step, inputs, ys)."""
+    1e-6 of the CPU's plain path (floored at atol 1e-10).  With ``leading``
+    (no CPU reference) it solves over the first STRUCT_LEADING_TIMES
+    observation times, and LSODA's gate holds there.  Returns (forward,
+    grad_step, inputs, ys), the inputs with all the times."""
     import torch
 
     forward, grad_step, (y0, p, tvals) = make(n, B_STRUCT, solver, device="cuda")
+    if leading and cpu:
+        raise ValueError("the CPU references solve over every observation time")
+    t_obs = tvals[:STRUCT_LEADING_TIMES] if leading else tvals
+    t_dev = torch.as_tensor(t_obs, dtype=torch.float64, device="cuda")
     if profile:
-        prof = drive(f"{label} forward", lambda: forward(y0, p),
+        prof = drive(f"{label} forward", lambda: forward(y0, p, t_dev),
                      lambda: forward.last_stats["n_attempts"], counted, smi)
     else:
         for k in counted:
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prof = {"out": forward(y0, p)}
+        prof = {"out": forward(y0, p, t_dev)}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         attempts = forward.last_stats["n_attempts"]
         log(f"[{label} forward] attempts={attempts} wall_s={wall:.4f} host_ms_per_attempt="
-            f"{1e3 * wall / attempts:.3f} (not profiled) | {smi}")
+            f"{1e3 * wall / attempts:.3f} (not profiled) t <= {float(t_obs[-1]):.4g} | {smi}")
     stats = forward.last_stats
     if solver == "spgmr":
         structured_counts(f"{label} forward", counted, banded, {"factor": 0, "solve": 0})
@@ -2763,7 +2893,7 @@ def structured_forward(label, make, n, solver, counted, banded, smi, cpu=True, l
     ok = int(np.isfinite(ys).all(axis=(1, 2)).sum())
     msg = f"[{label} forward check] n={n} B={B_STRUCT} finite (status 0) in {ok}/{B_STRUCT} lanes"
     if lsoda:
-        lsoda_gate(label, ys, y0.cpu().numpy(), p.cpu().numpy(), tvals)
+        lsoda_gate(label, ys, y0.cpu().numpy(), p.cpu().numpy(), t_obs)
     if cpu:
         ref = cpu_ref(ref_structured, make.__name__[len("build_"):], n, solver)
         rel = floored_rel(ys[:4], ref["ys"], 1e-10)
@@ -2779,20 +2909,23 @@ def structured_forward(label, make, n, solver, counted, banded, smi, cpu=True, l
 
 def structured_grad(label, make, n, grad_step, inputs, counted, banded, smi, bbd=False,
                     dense=None):
-    """One timed gradient step at B=1,024 with the counts set to 0 before
+    """One timed gradient step at B=1,024 over the first
+    STRUCT_LEADING_TIMES observation times, with the counts set to 0 before
     it (banded launches = the forward's and backward's Newton calls):
     finite everywhere, and lanes 0-3 within rtol 1e-4 / atol 1e-8 of the
-    dense solver's gradient (``tests/test_batched_structured.py:200``'s
-    tolerances): on the card, run on lanes 0-15, or, given ``dense``, those
-    gradients (12(d): lanes 0-15, the CPU's, from a worker)."""
+    dense solver's gradient over the same times
+    (``tests/test_batched_structured.py:200``'s tolerances): on the card,
+    run on lanes 0-15, or, given ``dense``, those gradients (lanes 0-15, the
+    CPU's, from a worker)."""
     import torch
 
-    y0, p, _ = inputs
+    y0, p, tvals = inputs
+    t_dev = leading_tvals(tvals, "cuda")
     for k in counted:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gy, gp = grad_step(y0, p)
+    gy, gp = grad_step(y0, p, t_dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = grad_step.solve.last_stats
@@ -2802,12 +2935,12 @@ def structured_grad(label, make, n, grad_step, inputs, counted, banded, smi, bbd
     attempts = fwd["n_attempts"] + bwd["n_attempts"]
     log(f"[{label} gradient step] n={n} B={B_STRUCT} wall_s={wall:.4f} grads_per_s="
         f"{B_STRUCT / wall:.1f} attempts fwd={fwd['n_attempts']} bwd={bwd['n_attempts']} "
-        f"host_ms_per_attempt={1e3 * wall / attempts:.3f} | {smi}")
+        f"host_ms_per_attempt={1e3 * wall / attempts:.3f} t <= {float(t_dev[-1]):.4g} | {smi}")
     gy, gp = gy.cpu().numpy(), gp.cpu().numpy()
     finite = int((np.isfinite(gy).all(axis=1) & np.isfinite(gp).all(axis=1)).sum())
     if dense is None:
         _, dense_grad, _ = make(n, 16, "dense", device="cuda")
-        dy, dp = (g.cpu().numpy() for g in dense_grad(y0[:16], p[:16]))
+        dy, dp = (g.cpu().numpy() for g in dense_grad(y0[:16], p[:16], t_dev))
         lanes, where = 4, "on the card (16 lanes)"
     else:
         (dy, dp), lanes, where = dense, 16, "on the CPU"
@@ -2878,7 +3011,7 @@ def structured_phase(smi, counted, banded_builds) -> dict:
     tally()
     log_elapsed("12d")
     structured_forward("12(e) kpp spgmr", build_kpp, 128, "spgmr", counted, banded, smi,
-                       cpu=False, profile=False)
+                       cpu=False, profile=False, leading=True)
     log_elapsed("12e")
     return {"table": table, "launches": launches}
 
@@ -3255,8 +3388,9 @@ def class_adjoint(kinds, device) -> dict:
     from sunode_torch.solver import AdjointSolver
 
     solver, adjoint_solver = kinds
+    # the torch cores on the CPU too (native_single=False), as on the card
     s = AdjointSolver(lv_problem(), interpolation="hermite", solver=solver,
-                      adjoint_solver=adjoint_solver, device=device)
+                      adjoint_solver=adjoint_solver, device=device, native_single=False)
     s.set_params_dict(CLASS_PARAMS)
     ys = s.solve_forward(0.0, CLASS_TVALS, np.array(CLASS_Y0))
     fwd = int(s.last_stats["n_attempts"])
@@ -3466,8 +3600,8 @@ NUTS_EPS = 0.004  # 15(a)'s fixed step size (unit mass): trees of depth 1 to 4, 
 NUTS_TREEDEPTH = 4  # 15(a): cut from the script's 6
 NUTS_SEED = 15  # 15(a)'s draw source; (b) takes NUTS_SEED + 1
 NUTS_REL = 1e-8  # 15(a): the card against the CPU
-NUTS_RUN = dict(num_warmup=2, num_samples=2, max_treedepth=2,
-                initial_step_size=NUTS_EPS)  # 15(b): the mass swap at warmup draw 1; depth cut to 2
+# 15(b): the mass swap at warmup draw 1; depth cut to 2 (the script's 6)
+NUTS_RUN = dict(num_warmup=2, num_samples=2, max_treedepth=2, initial_step_size=NUTS_EPS)
 NUTS_MAX_DIVERGENT = 0.05  # 15(b): the share of divergent kept draws
 PYTENSOR_TVALS = np.linspace(0.5, 8.0, 7)  # 15(c): tests/test_pytensor.py's graph
 PYTENSOR_POINT = (1.0, 0.3, 10.0)  # alpha, beta, y0 of the hares
@@ -3565,7 +3699,8 @@ def pytensor_case(derivatives, sens_mode, device) -> dict:
 
     t0 = time.perf_counter()
     alpha, beta, y0_h = pt.dscalar("alpha"), pt.dscalar("beta"), pt.dscalar("y0_h")
-    kwargs = {"device": device}
+    # the torch cores on the CPU too (native_single=False), as on the card
+    kwargs = {"device": device, "native_single": False}
     if sens_mode is not None:
         kwargs["sens_mode"] = sens_mode
     solved = solve_ivp(
@@ -3705,6 +3840,208 @@ def sampler_phase(smi, counted, history_kernels) -> dict:
             raise SystemExit(f"chip_smoke: 15(c) {case}: the card disagrees with the CPU")
     log(f"[15] phase wall_s={time.perf_counter() - t_phase:.1f} | {smi}")
     log_elapsed("15")
+    return launches
+
+
+# ---- phase 16: the native host route and the chain split ---------------------------
+NATIVE_REPS = 50  # (a), (b): the minimum over this many native solves or pairs, as bench.py's
+CARD_REPS = 2  # (a), (b): solves or pairs on the card
+LV_FORWARD_SINGLE_GATE = (1e-6, 1e-8)  # bench.py:266: rtol, atol against the 1e-13 BDF oracle
+LV_ADJOINT_SINGLE_GATE = (2e-3, 1e-3)  # bench.py:142-143: rtol, atol against lv_adjoint.npz lane 0
+SPLIT_REL = 1e-12  # (c): the bound for a lane that is not bit for bit phase 4's
+
+
+def ref_native_build() -> dict:
+    """Phase 16(d), the first job of the workers: g++ of the core library
+    (``native/cvbdf.cpp``) and of LV's problem library into the build
+    cache, which (a) and (b) then load; their seconds."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.native import codegen
+
+    t0 = time.perf_counter()
+    codegen.native_lib_path()
+    t1 = time.perf_counter()
+    codegen.compile_problem_c(lv_problem())
+    return dict(core_s=t1 - t0, problem_s=time.perf_counter() - t1)
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``, else ``lscpu``) and hardware
+    threads."""
+    import platform
+
+    model = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith(("model name", "hardware")):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if model in ("", "unknown") and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                 if ln.startswith(("Model name", "Vendor ID"))]
+        model = " ".join(n for n in names if n != "unknown") or model
+    return f"{model or platform.machine()}, {os.cpu_count()} threads"
+
+
+def min_us(run, reps) -> float:
+    """The least wall µs of ``reps`` calls of ``run``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    return 1e6 * best
+
+
+def card_reps(label, run, counted, smi) -> tuple:
+    """``run()`` :data:`CARD_REPS` times on the card with every count set to
+    0 before the first: the last output and the seconds of each."""
+    import torch
+
+    for k in counted:
+        k.launches = 0
+    walls = []
+    for _ in range(CARD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[16{label} card] wall_s per call {[round(w, 4) for w in walls]} | {smi}")
+    return out, walls
+
+
+def quadrature_split(chunks) -> str:
+    """The transition composition's quadrature contraction
+    (``adjoint.py``'s ``einsum("bki,bkij->bj")``, 20 intervals, 2 x 2) on
+    seeded inputs at B=10,000, whole against ``chunks`` contiguous chunks
+    of the card: the lanes bit for bit and the largest difference (ROADMAP
+    C10: its batched GEMM sums in an order that depends on the batch)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    x = torch.randn(B_MAIN, 20, 2, generator=gen, **f64)
+    W = torch.randn(B_MAIN, 20, 2, 2, generator=gen, **f64)
+    whole = torch.einsum("bki,bkij->bj", x, W)
+    split = torch.cat([torch.einsum("bki,bkij->bj", a, b)
+                       for a, b in zip(x.chunk(chunks), W.chunk(chunks))])
+    same = int((whole == split).all(dim=1).sum())
+    return (f"the quadrature einsum bki,bkij->bj split the same way: bit for bit in "
+            f"{same}/{B_MAIN} lanes, max |diff| {float((whole - split).abs().max()):.3e}")
+
+
+def native_phase(smi, counted, kab9, kab11, main_inputs, main_grads) -> dict:
+    """Phase 16 (the module docstring's list); ``kab9`` are the main path's
+    history builds (forward, transition), ``kab11`` phase 7's (the card's
+    B=1 backward reads staged_adjoint), ``main_inputs`` and ``main_grads``
+    phase 4's inputs and gradients on the card.  Returns the phase's
+    launches by build."""
+    import torch
+
+    from sunode_torch.entry import (build_lv_adjoint_sharded, build_lv_adjoint_single,
+                                    build_lv_forward_single)
+    from sunode_torch.parallel.mesh import Mesh, make_mesh
+
+    t_phase = time.perf_counter()
+    log(f"[16] host {host_cpu()} | {smi}")
+    built = cpu_ref(ref_native_build)
+    log(f"[16(d)] g++ in a worker: core library {built['core_s']:.2f} s, LV's problem library "
+        f"{built['problem_s']:.2f} s (build/sunode_torch_native/)")
+
+    # (a) lv_forward --batch 1: native on the CPU, the single Adams core on the card
+    solve, _ = build_lv_forward_single(device="cpu")
+    ys = solve()
+    if not (solve.solver._native_eligible() and solve.solver._native_solver is not None):
+        raise SystemExit("chip_smoke: 16(a) on the CPU did not take the native route")
+    oracle = solve.oracle()
+    rtol, atol = LV_FORWARD_SINGLE_GATE
+    np.testing.assert_allclose(ys, oracle, rtol=rtol, atol=atol)
+    us = min_us(solve, NATIVE_REPS)
+    log(f"[16(a) native] lv_forward B=1 ADAMS rtol 1e-10: max_rel vs the 1e-13 BDF oracle "
+        f"{max_rel([ys], [oracle]):.3e} (gate rtol {rtol:g} / atol {atol:g}) steps="
+        f"{solve.solver.last_stats['n_steps']} min_us={us:.2f} over {NATIVE_REPS} | "
+        f"{host_cpu()}")
+    card, _ = build_lv_forward_single(device="cuda")
+    cys, walls = card_reps("(a)", card, counted, smi)
+    check_launches("16(a) card", counted, {}, {})
+    attempts = int(card.solver.last_stats["n_attempts"])
+    np.testing.assert_allclose(cys, oracle, rtol=rtol, atol=atol)
+    log(f"[16(a) card check] max_rel vs the oracle {max_rel([cys], [oracle]):.3e}, vs native "
+        f"{max_rel([cys], [ys]):.3e}; s_per_solve={min(walls):.4f} attempts={attempts} "
+        f"ms_per_attempt={1e3 * min(walls) / attempts:.3f} | {smi}")
+    log_elapsed("16a")
+
+    # (b) lv_adjoint --batch 1: the native pair on the CPU, the card's pair at B=1
+    golden = np.load(os.path.join(HERE, "tests", "golden", "lv_adjoint.npz"))
+    rtol, atol = LV_ADJOINT_SINGLE_GATE
+    pair, _ = build_lv_adjoint_single(device="cpu")
+    _, gy, gp = pair()
+    if "native_ys" not in pair.solver._last_forward:
+        raise SystemExit("chip_smoke: 16(b) on the CPU did not take the native route")
+    for got, key in ((gy, "gy"), (gp, "gp")):
+        np.testing.assert_allclose(got, golden[key][0], rtol=rtol, atol=atol)
+    us = min_us(pair, NATIVE_REPS)
+    log(f"[16(b) native] lv_adjoint B=1 ADAMS/ADAMS: gy={gy} gp={gp} golden max_rel "
+        f"{max_rel([gy, gp], [golden['gy'][0], golden['gp'][0]]):.3e} (gate rtol {rtol:g} / "
+        f"atol {atol:g}) min_us_per_pair={us:.2f} over {NATIVE_REPS} | {host_cpu()}")
+    cpair, _ = build_lv_adjoint_single(device="cuda")
+    bwd = []
+
+    def card_pair():
+        out = cpair()
+        bwd.append(int(cpair.solver.last_stats["n_attempts"]))
+        return out
+
+    (_, cgy, cgp), walls = card_reps("(b)", card_pair, counted, smi)
+    got = check_launches("16(b) card", counted, {"staged_adjoint": kab11["staged_adjoint"]},
+                         {"staged_adjoint": sum(bwd)})
+    for g, key in ((cgy, "gy"), (cgp, "gp")):
+        np.testing.assert_allclose(g, golden[key][0], rtol=rtol, atol=atol)
+    log(f"[16(b) card check] gy={cgy} gp={cgp} max_rel vs the native pair "
+        f"{max_rel([cgy, cgp], [gy, gp]):.3e}; s_per_pair={min(walls):.4f} backward attempts "
+        f"{bwd[-1]} | {smi}")
+    launches = {"staged_adjoint": got.get("staged_adjoint", 0), "forward": 0, "transition": 0}
+    log_elapsed("16b")
+
+    # (c) the main path's step split over a mesh: the one card, then two chunks on it
+    y0s_t, p_subs_t = main_inputs
+    gy4, gp4 = main_grads
+    by_system = {"forward": kab9["forward"], "transition": kab9["transition"]}
+    for label, mesh in (("make_mesh()", make_mesh()),
+                        ("Mesh((cuda:0, cuda:0))", Mesh(("cuda:0", "cuda:0")))):
+        step, _ = build_lv_adjoint_sharded(B_MAIN, mesh, 21, 1e-8)
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gy, gp = step(y0s_t, p_subs_t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd = [int(s.last_stats["forward"]["n_attempts"]) for s in step.solves]
+        bwd = [int(s.last_stats["backward"]["n_attempts"]) for s in step.solves]
+        got = check_launches(f"16(c) {label}", counted, by_system,
+                             {"forward": sum(fwd), "transition": sum(bwd)})
+        for kind in ("forward", "transition"):
+            launches[kind] += got.get(kind, 0)
+        same = (gy == gy4).all(dim=1) & (gp == gp4).all(dim=1)
+        worst = max_rel([gy.cpu().numpy(), gp.cpu().numpy()],
+                        [gy4.cpu().numpy(), gp4.cpu().numpy()])
+        log(f"[16(c) {label}] B={B_MAIN} over {mesh.size} chunk(s): wall_s={wall:.4f} "
+            f"attempts fwd={fwd} bwd={bwd}; lanes bit for bit phase 4's: "
+            f"{int(same.sum())}/{B_MAIN}, max_rel={worst:.3e} | {smi}")
+        if not bool(same.all()):
+            lanes = torch.nonzero(~same).flatten()[:16].tolist()
+            log(f"[16(c) {label}] lanes not bit for bit (first 16): {lanes}; "
+                f"{quadrature_split(mesh.size)}")
+            if not worst <= SPLIT_REL:
+                raise SystemExit(f"chip_smoke: 16(c) {label}: the split gradient is off phase 4's")
+    log(f"[16] phase wall_s={time.perf_counter() - t_phase:.1f} | {smi}")
+    log_elapsed("16")
     return launches
 
 
@@ -3862,6 +4199,7 @@ def run(card, smi) -> None:
             f"grads_per_s={B_MAIN / wall:.1f} attempts fwd={stats['forward']['n_attempts']} "
             f"bwd={stats['backward']['n_attempts']} | {smi}"
         )
+    main_grads = (gy, gp)  # phase 16(c) holds its split steps to these
     log_elapsed("4, the timed steps")
     launches = {kind: k.launches for kind, k in history_kernels.items()}
     total = adams_history_attempt.launches
@@ -3955,7 +4293,8 @@ def run(card, smi) -> None:
     # one attempt's sensitivity block of phase 9(b)'s Adams staggered solve,
     # against their plain versions
     sens_table = {
-        kind: compare_history_kernel(kind, sens_systems[kind], lv_sens_fz(kind), seed)
+        kind: compare_history_kernel(kind, sens_systems[kind], lv_sens_fz(kind), seed,
+                                     core_fz=lv_sens_core_fz(kind))
         for seed, kind in enumerate(SENS_KINDS, start=20)
     }
     split_sens = split_phase(smi, built[f"split_kab{P_MAX + 3}"],
@@ -4019,6 +4358,12 @@ def run(card, smi) -> None:
     phase15 = sampler_phase(smi, (*others12, *spline_kernels.values(),
                                   BandedCounts(tuple(banded_builds.values()))), history_kernels)
 
+    # phase 16: the native host route and the chain split; every part's counts
+    # set to 0 just before it and read just after
+    phase16 = native_phase(smi, (*others12, *spline_kernels.values(),
+                                 BandedCounts(tuple(banded_builds.values()))), history_kernels,
+                           adams_kernels, (y0s_t, p_subs_t), main_grads)
+
     entries = [
         dict(
             name=f"adams_pece_attempt[{kind}]",
@@ -4041,7 +4386,7 @@ def run(card, smi) -> None:
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
             launches=(launches[kind] + phase9.get(kind, 0)
-                      + (phase11 if kind == "forward" else 0) + phase15[kind]),
+                      + (phase11 if kind == "forward" else 0) + phase15[kind] + phase16[kind]),
             **history_table[kind],
         )
         for kind in systems
@@ -4074,7 +4419,8 @@ def run(card, smi) -> None:
             route="cuda",
             source=KERNEL_SOURCE_ATTEMPT,
             replaces=TPU_KERNEL,
-            launches=adams_launches[kind] + phase14.get(kind, 0),
+            launches=(adams_launches[kind] + phase14.get(kind, 0)
+                      + (phase16["staged_adjoint"] if kind == "staged_adjoint" else 0)),
             **adams_table[kind],
         )
         for kind in adams_systems

@@ -28,8 +28,17 @@ never jax, works in float64 per tensor and changes no global torch state
   * :class:`Solver` and :class:`AdjointSolver` -- the reference's class
     API (numpy in and out, params on the object, forward sensitivities,
     rootfinding, the CV_TOO_MUCH_WORK resume, checkpointed adjoints),
-    raising :class:`SolverError`; ``native_single`` selects nothing, as
-    every solve runs on the solver's ``device``;
+    raising :class:`SolverError`; on ``device="cpu"`` one chain of a
+    ``SympyProblem`` takes the native host route unless
+    ``native_single=False``, and a solver on the card stays on the card;
+  * :class:`CpuSolver` -- the native host route itself: the reference's
+    C++ integrators (``native/cvbdf.cpp``: BDF and Adams, band, sparse and
+    spgmr Newton, sensitivities, rootfinding, the CVodeF/CVodeB adjoint
+    pair, a thread pool over a batch) with the problem's system compiled by
+    g++, numpy in and out;
+  * :class:`Mesh`, :func:`make_mesh`, :func:`shard_over_chains` and
+    :func:`map_over_chains` -- the chain axis split over several devices,
+    one host thread a device, gradients through ``torch.autograd``;
   * :func:`make_event_fn` and :func:`make_hybrid_solve_fn` -- differentiable
     event times (the implicit function theorem around the localized root)
     and event-restart solves with differentiable jumps
@@ -66,6 +75,8 @@ from sunode_torch.entry import (
     build_lv_sens,
     build_sir,
 )
+from sunode_torch.native.cpu_solver import CpuSolver
+from sunode_torch.parallel.mesh import Mesh, make_mesh, map_over_chains, shard_over_chains
 from sunode_torch.events import HybridResult, make_event_fn, make_hybrid_solve_fn, map_lanes
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
@@ -100,6 +111,11 @@ __all__ = [
     "Solver",
     "AdjointSolver",
     "SolverError",
+    "CpuSolver",
+    "Mesh",
+    "make_mesh",
+    "shard_over_chains",
+    "map_over_chains",
     "make_event_fn",
     "make_hybrid_solve_fn",
     "HybridResult",

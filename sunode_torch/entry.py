@@ -73,6 +73,16 @@ The sampler: :func:`build_lv_nuts` is BASELINE config 4 at the settings of
 log(alpha, beta), whose log density runs one batched ADAMS forward solve
 and one transition-adjoint solve for all chains a gradient, for
 :func:`~sunode_torch.sample.nuts_sample`.
+
+The B=1 deployment (the reference's one chain a process under PyMC):
+:func:`build_lv_forward_single` is ``bench.py``'s ``lv_forward --batch 1``
+and :func:`build_lv_adjoint_single` its ``lv_adjoint --batch 1``, a
+forward and backward pair through ``AdjointSolver``.  On ``device="cpu"``
+both take the native host route (the C++ integrators of ``native/``); on
+the card the single cores.  :func:`build_lv_adjoint_sharded` is
+:func:`build_lv_adjoint`'s gradient step with the chains split over a
+:class:`~sunode_torch.parallel.mesh.Mesh`, the counterpart of
+``__graft_entry__.dryrun_multichip``'s sharded step.
 """
 
 from __future__ import annotations
@@ -86,7 +96,7 @@ from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import TorchProblem
-from sunode_torch.solver import Solver
+from sunode_torch.solver import AdjointSolver, Solver
 from sunode_torch.symode.lambdify import interpolate_spline
 from sunode_torch.symode.problem import SympyProblem
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn, make_solve_fn
@@ -137,6 +147,10 @@ __all__ = [
     "lv_nuts_observations",
     "lv_nuts_init",
     "build_lv_nuts",
+    "LV_FORWARD_PARAMS",
+    "build_lv_forward_single",
+    "build_lv_adjoint_single",
+    "build_lv_adjoint_sharded",
 ]
 
 LV_P_FIX = (1.0, 0.4)  # gamma, delta
@@ -173,6 +187,19 @@ def lv_options(rtol: float) -> tuple[BDFOptions, BDFOptions]:
     return fwd_opts, adj_opts
 
 
+def _lv_adjoint_solve(rtol: float, problem=None):
+    """The batched solve of :func:`build_lv_adjoint`."""
+    fwd_opts, adj_opts = lv_options(rtol)
+    return make_batched_solve_fn(
+        lv_problem() if problem is None else problem,
+        derivatives="adjoint",
+        options=fwd_opts,
+        adjoint_options=adj_opts,
+        method="ADAMS",
+        adjoint_interpolation="transition",
+    )
+
+
 def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cuda"):
     """``(grad_step, (y0s, p_subs))``: ``grad_step(y0s, p_subs) -> (gy, gp)``
     is one batched gradient of ``sum(ys**2)`` (what NUTS runs per leapfrog,
@@ -180,16 +207,42 @@ def build_lv_adjoint(batch: int, tvals_n: int, rtol: float, device="cuda"):
     ``last_stats`` report the attempts of the latest step.  It runs on the
     card unless ``device="cpu"``; without a card the default raises."""
     device = device_or_raise(device)
-    fwd_opts, adj_opts = lv_options(rtol)
-    solve = make_batched_solve_fn(
-        lv_problem(),
-        derivatives="adjoint",
-        options=fwd_opts,
-        adjoint_options=adj_opts,
-        method="ADAMS",
-        adjoint_interpolation="transition",
-    )
-    return _lv_grad_step(solve, batch, tvals_n, device)
+    return _lv_grad_step(_lv_adjoint_solve(rtol), batch, tvals_n, device)
+
+
+def build_lv_adjoint_sharded(batch: int, mesh, tvals_n: int = 21, rtol: float = 1e-8):
+    """:func:`build_lv_adjoint` with the chains split over ``mesh`` (a
+    :class:`~sunode_torch.parallel.mesh.Mesh`): ``(grad_step, (y0s,
+    p_subs))``, the same inputs on ``mesh.devices[0]``.  ``grad_step(y0s,
+    p_subs)`` cuts both into one contiguous chunk a device
+    (``map_over_chains``), solves each chunk on its device with a batched
+    solve of its own (a host thread a device where the mesh holds more than
+    one distinct device), gathers ``ys`` on the first device and returns
+    the gradients of ``sum(ys**2)`` there.
+    ``grad_step.solves`` are the devices' solves (their ``last_stats`` the
+    chunks' attempts).  ``batch`` must divide evenly over the devices."""
+    from sunode_torch.parallel.mesh import map_over_chains
+
+    if batch % mesh.size:
+        raise ValueError(f"batch {batch} does not divide evenly over {mesh.size} devices")
+    for d in mesh.devices:
+        device_or_raise(d)
+    problem = lv_problem()
+    solves = [_lv_adjoint_solve(rtol, problem) for _ in mesh.devices]
+    step, inputs = _lv_grad_step(solves[0], batch, tvals_n, mesh.devices[0])
+    fns = [lambda y0s, p_subs, p_fix, tvals, solve=solve: solve(0.0, y0s, p_subs, p_fix, tvals)
+           for solve in solves]
+    mapped = map_over_chains(fns, mesh, chain_argnums=(0, 1))
+
+    def grad_step(y0s, p_subs, tvals=step.tvals):
+        y0s = y0s.detach().requires_grad_(True)
+        p_subs = p_subs.detach().requires_grad_(True)
+        ys = mapped(y0s, p_subs, step.p_fix, tvals)
+        return torch.autograd.grad(torch.sum(ys**2), (y0s, p_subs))
+
+    grad_step.solves, grad_step.tvals, grad_step.p_fix = solves, step.tvals, step.p_fix
+    grad_step.mesh = mesh
+    return grad_step, inputs
 
 
 def build_lv_checkpointed(batch: int, tvals_n: int, rtol: float, interpolation="hermite",
@@ -695,9 +748,10 @@ def _structured_run(problem, linear_solver, p_fix, tvals, device, linear_solver_
     atol 1e-10: ``forward(y0, p) -> ys`` (no gradient, failed lanes NaN;
     ``forward.last_stats`` the solve's stats) and ``grad_step(y0, p) -> (gy,
     gp)``, the gradients of ``sum(ys**2)`` (``grad_step.solve.last_stats``),
-    through ``make_batched_solve_fn(method='BDF', checkpoint_n=1024)``.
-    spgmr, which that wrapper refuses as the reference does, has the
-    forward only, through ``bdf_solve_batched``."""
+    through ``make_batched_solve_fn(method='BDF', checkpoint_n=1024)``; both
+    take other observation times as ``tvals=``.  spgmr, which that wrapper
+    refuses as the reference does, has the forward only, through
+    ``bdf_solve_batched``."""
     f_kw = dict(dtype=torch.float64, device=device)
     tvals = torch.as_tensor(tvals, **f_kw)
     p_fix = torch.as_tensor(p_fix, **f_kw)
@@ -706,7 +760,7 @@ def _structured_run(problem, linear_solver, p_fix, tvals, device, linear_solver_
         rhs = problem.make_rhs()
         options = options._replace(linear_solver="spgmr")
 
-        def forward(y0, p):
+        def forward(y0, p, tvals=tvals):
             full = problem.params.combine(p, torch.broadcast_to(p_fix, (p.shape[0],) + p_fix.shape))
             res = bdf_solve_batched(rhs, None, 0.0, y0, full, tvals, options, batched_fns=True)
             forward.last_stats = res.stats
@@ -718,13 +772,13 @@ def _structured_run(problem, linear_solver, p_fix, tvals, device, linear_solver_
         linear_solver=linear_solver, linear_solver_kwargs=linear_solver_kwargs,
     )
 
-    def forward(y0, p):
+    def forward(y0, p, tvals=tvals):
         with torch.no_grad():
             ys = solve(0.0, y0, p, p_fix, tvals)
         forward.last_stats = solve.last_stats["forward"]
         return ys
 
-    def grad_step(y0, p):
+    def grad_step(y0, p, tvals=tvals):
         y0 = y0.detach().requires_grad_(True)
         p = p.detach().requires_grad_(True)
         ys = solve(0.0, y0, p, p_fix, tvals)
@@ -1061,3 +1115,62 @@ def build_lv_nuts(chains: int, device="cuda", tvals=LV_NUTS_TIMES, rtol: float =
 
     logp_fn.solve, logp_fn.obs_log, logp_fn.tvals = solve, obs_log, tvals_t
     return logp_fn, (torch.as_tensor(lv_nuts_init(chains), **f_kw), mu0)
+
+
+LV_FORWARD_PARAMS = {"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4}  # bench.py:260
+
+
+def build_lv_forward_single(device="cuda"):
+    """``(solve, (t0, tvals, y0))``: ``bench.py``'s ``lv_forward --batch 1``
+    (``bench.py:249-282``).  ``solve()`` is one chain through
+    ``Solver(lv_problem(), reltol=1e-10, abstol=1e-10, solver='ADAMS')``
+    with :data:`LV_FORWARD_PARAMS`, y0 (10, 2), 50 times on [0, 10];
+    ``solve.solver`` is the solver.  ``solve.oracle()`` is the bench's gate
+    reference, the 1e-13 BDF solve on the CPU (the native route).  On
+    ``device="cpu"`` the solve takes the native route, on the card the
+    single Adams core; without a card the default raises."""
+    solver = Solver(lv_problem(), reltol=1e-10, abstol=1e-10, solver="ADAMS", device=device)
+    solver.set_params_dict(LV_FORWARD_PARAMS)
+    t0, tvals, y0 = 0.0, np.linspace(0.0, 10.0, LV_FORWARD_TIMES), np.array([10.0, 2.0])
+
+    def solve():
+        return solver.solve(t0, tvals, y0)
+
+    def oracle():
+        ref = Solver(lv_problem(), reltol=1e-13, abstol=1e-13, device="cpu")
+        ref.set_params_dict(LV_FORWARD_PARAMS)
+        return ref.solve(t0, tvals, y0)
+
+    solve.solver, solve.oracle = solver, oracle
+    return solve, (t0, tvals, y0)
+
+
+def build_lv_adjoint_single(device="cuda", rtol: float = 1e-8):
+    """``(pair, (y0, p_sub, tvals))``: ``bench.py``'s ``lv_adjoint --batch 1``
+    (``_bench_lv_adjoint_single``, ``bench.py:100-154``), one chain's
+    forward and backward pair through ``AdjointSolver(lv_problem(),
+    solver='ADAMS', adjoint_solver='ADAMS')`` at rtol = atol = ``rtol``
+    forward and ``10 * rtol`` backward, lane 0 of
+    ``tests/golden/lv_adjoint.npz`` (:func:`lv_adjoint_inputs`; p_fix
+    :data:`LV_P_FIX`; 21 times on [1, 10]).  ``pair() -> (ys, gy, gp)``, the
+    gradients of ``sum(ys**2)`` as the bench takes them; ``pair.solver`` is
+    the solver.  On ``device="cpu"`` the pair takes the native route (the
+    forward solve and the augmented backward in C++), on the card the
+    single Adams core and the batched Adams backward at B=1; without a card
+    the default raises."""
+    solver = AdjointSolver(lv_problem(), reltol=rtol, abstol=rtol, adjoint_reltol=rtol * 10,
+                           adjoint_abstol=rtol * 10, solver="ADAMS", adjoint_solver="ADAMS",
+                           device=device)
+    y0s, p_subs = lv_adjoint_inputs(1)
+    y0, p_sub = y0s[0], p_subs[0]
+    solver.set_params_dict({"alpha": p_sub[0], "beta": p_sub[1], "gamma": LV_P_FIX[0],
+                            "delta": LV_P_FIX[1]})
+    tvals = np.linspace(1.0, 10.0, 21)
+
+    def pair():
+        ys = solver.solve_forward(0.0, tvals, y0)
+        quad, lam = solver.solve_backward(tvals[-1], 0.0, tvals, 2.0 * ys)
+        return ys, -np.asarray(lam), np.asarray(quad)
+
+    pair.solver = solver
+    return pair, (y0, p_sub, tvals)

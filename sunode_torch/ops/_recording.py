@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from sunode_torch import forward_ad
+
 __all__ = [
     "MAX_THIN",
     "fdot",
@@ -50,7 +52,7 @@ def fdot(rhs, t, y, f, params):
     """Total time derivative of the right-hand side along the trajectory,
     ``d f(t, y(t)) / dt = J f + f_t``, by one forward-mode product with the
     tangent ``(1, f)``: the quintic Hermite rows (``hermite_order=5``)."""
-    return torch.func.jvp(
+    return forward_ad.jvp(
         lambda tt, yy: rhs(tt, yy, params), (t, y), (torch.ones_like(t), f)
     )[1]
 

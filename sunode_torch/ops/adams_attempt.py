@@ -28,6 +28,7 @@ order-selection error estimates.  Here those steps are one function:
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -267,11 +268,14 @@ class _AttemptKernel:
         if code != 0:
             msg = self._lib.adams_attempt_error_string(code).decode()
             raise RuntimeError(f"attempt kernel launch failed: {msg} ({code})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
         return out
 
 
 _KERNELS: dict[tuple[DeviceSystem, int], _AttemptKernel] = {}
+# the counts stay exact when threads launch at once (parallel/mesh.py)
+_COUNT_LOCK = threading.Lock()
 
 
 def build_attempt_kernel(system: DeviceSystem, kab: int) -> _AttemptKernel:
@@ -279,8 +283,8 @@ def build_attempt_kernel(system: DeviceSystem, kab: int) -> _AttemptKernel:
     side and type) and history depth."""
     kernel = _KERNELS.get((system, kab))
     if kernel is None:
-        kernel = _AttemptKernel(system, kab)
-        _KERNELS[(system, kab)] = kernel
+        # threads that build at once all take the first one stored
+        kernel = _KERNELS.setdefault((system, kab), _AttemptKernel(system, kab))
     return kernel
 
 
@@ -333,7 +337,8 @@ def adams_history_attempt(
             f"got {tuple(DF.shape)}"
         )
     out = build_attempt_kernel(system.device, P_MAX + 3).launch(*args)
-    adams_history_attempt.launches += 1
+    with _COUNT_LOCK:
+        adams_history_attempt.launches += 1
     return out
 
 

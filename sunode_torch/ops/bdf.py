@@ -28,6 +28,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from sunode_torch import forward_ad
+
 __all__ = [
     "BDFOptions",
     "BDFResult",
@@ -620,7 +622,7 @@ def bdf_solve(
     use_spgmr = options.linear_solver == "spgmr"
     if use_spgmr and jac_prod is None:
         def jac_prod(t, y, v, p):  # noqa: F811 -- matrix-free default
-            return torch.func.jvp(lambda y_: rhs(t, y_, p), (y,), (v,))[1]
+            return forward_ad.jvp(lambda y_: rhs(t, y_, p), (y,), (v,))[1]
     if use_spgmr:
         lin = None
     elif options.linear_solver == "dense":

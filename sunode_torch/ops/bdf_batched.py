@@ -45,6 +45,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from sunode_torch import forward_ad
 from sunode_torch.ops.bdf import (
     KD,
     MAX_CONSECUTIVE_FAILS,
@@ -272,7 +273,7 @@ def bdf_solve_batched(
     if use_spgmr and jac_prod_b is None:
         # each lane's tangent is its own column: one jvp of the batched rhs
         def jac_prod_b(t, y, v, p):
-            return torch.func.jvp(lambda y_: rhs_b(t, y_, p), (y,), (v,))[1]
+            return forward_ad.jvp(lambda y_: rhs_b(t, y_, p), (y,), (v,))[1]
 
     lin = newton_linear_solver(options, n, jac_prod_b)
 

@@ -23,6 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sunode_torch import forward_ad
+
 __all__ = [
     "color_columns",
     "rcm_permutation",
@@ -338,7 +340,7 @@ def make_colored_banded_jac(rhs, plan: SparsePlan):
         tail = (1,) * (y.ndim - 1)
         Jv = torch.stack([
             torch.broadcast_to(
-                torch.func.jvp(lambda yy: rhs(t, yy, p), (y,),
+                forward_ad.jvp(lambda yy: rhs(t, yy, p), (y,),
                                (s.reshape((-1,) + tail).expand(y.shape),))[1],
                 y.shape,
             )

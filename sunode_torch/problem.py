@@ -38,6 +38,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from sunode_torch import forward_ad
 from sunode_torch.paramspec import ParamSpec, Record
 
 __all__ = ["Problem", "TorchProblem", "flat_solution_as_dict", "solution_to_xarray"]
@@ -157,7 +158,7 @@ class Problem:
         rhs = self._lane_rhs()
 
         def jac_dense(t, y, p):
-            return torch.func.jacfwd(rhs, argnums=1)(t, y, p)
+            return forward_ad.jacfwd(rhs, argnums=1)(t, y, p)
 
         return over_lanes(jac_dense, (0, 1, 1))
 
@@ -165,7 +166,7 @@ class Problem:
         rhs = self._lane_rhs()
 
         def jac_prod(t, y, v, p):
-            return torch.func.jvp(lambda y_: rhs(t, y_, p), (y,), (v,))[1]
+            return forward_ad.jvp(lambda y_: rhs(t, y_, p), (y,), (v,))[1]
 
         return over_lanes(jac_prod, (0, 1, 1, 1))
 
@@ -212,7 +213,7 @@ class Problem:
             for s in range(width):
                 seed = (ar % width == s).to(y.dtype).reshape((n,) + (1,) * (y.ndim - 1))
                 tangent = seed.expand(y.shape)
-                out.append(torch.func.jvp(lambda y_: rhs(t, y_, p), (y,), (tangent,))[1])
+                out.append(forward_ad.jvp(lambda y_: rhs(t, y_, p), (y,), (tangent,))[1])
             return torch.stack([torch.broadcast_to(c, y.shape) for c in out])
 
         return cols
@@ -276,7 +277,7 @@ class Problem:
         take = _subset_taker(self.params.subset_indices)
 
         def dfdp(t, y, p):
-            return take(torch.func.jacfwd(lambda p_: rhs(t, y, p_))(p))
+            return take(forward_ad.jacfwd(lambda p_: rhs(t, y, p_))(p))
 
         return over_lanes(dfdp, (0, 1, 1))
 
@@ -288,8 +289,8 @@ class Problem:
         take = _subset_taker(self.params.subset_indices)
 
         def sensitivity_rhs(t, y, S, p):
-            J = torch.func.jacfwd(rhs, argnums=1)(t, y, p)
-            dfdp = take(torch.func.jacfwd(lambda p_: rhs(t, y, p_))(p))
+            J = forward_ad.jacfwd(rhs, argnums=1)(t, y, p)
+            dfdp = take(forward_ad.jacfwd(lambda p_: rhs(t, y, p_))(p))
             return S @ J.T + dfdp.T
 
         return over_lanes(sensitivity_rhs, (0, 1, 2, 1))

@@ -23,16 +23,23 @@ port's torch cores:
   the batched core at B=1, as the reference);
 * ``AdjointSolver``'s backward pass is ``adjoint.py::adjoint_backward``
   (BDF) or ``adjoint.py::adjoint_backward_batched`` at B=1 (ADAMS, the
-  history-attempt kernel's 'staged_adjoint' system on the card).
+  history-attempt kernel's 'staged_adjoint' system on the card);
+* the native host route: on ``device="cpu"`` with ``native_single`` (the
+  default), one chain of a float64 ``SympyProblem`` whose options the C++
+  integrators take (``_native_eligible``, ``_native_sens_eligible``,
+  ``_native_adj_eligible``, decided by type and options before any build)
+  runs ``native/cpu_solver.py::CpuSolver``: the reference's
+  ``native/cvbdf.cpp`` with the problem's system compiled by g++, as the
+  reference routes it.  A solver on the card never builds or calls it, and
+  a failed build or load raises (there is no fallback to the torch cores).
 
 Where the reference resumes a ``CV_TOO_MUCH_WORK`` lane through one jitted
 executable with traced ``t0``/``first_step``/``max_steps``, the port calls
 its host-loop cores again with the same per-lane arguments, and merges the
 outputs, statuses, statistics and root records as the reference does.
 
-``native_single`` is accepted for the reference's call sites and selects
-nothing: the reference's B=1 C++ host integrator (``sunode_tpu/native/``)
-is not part of the port, and a solve never leaves its device.
+``native_single=False`` keeps a CPU solver's single chain on the torch
+cores; on the card it changes nothing, and a solve never leaves its device.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from sunode_torch.adjoint import adjoint_backward, adjoint_backward_batched
 from sunode_torch.convert import device_or_raise
 from sunode_torch.ops.adams import adams_options, adams_solve
 from sunode_torch.ops.adams_batched import adams_solve_batched
-from sunode_torch.ops.bdf import BDFOptions, bdf_solve
+from sunode_torch.ops.bdf import MAX_ORDER, BDFOptions, bdf_solve
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.problem import Problem
 
@@ -184,6 +191,30 @@ class _SolverBase:
 
     def _lower_roots(self, roots):
         return None if roots is None else self._problem.make_root_fn(roots)
+
+    def _native_ok(self) -> bool:
+        """What every native route needs: ``native_single``, the CPU, a
+        ``SympyProblem`` (the system compiles from its sympy form) and
+        float64 (the C++ integrators' only type)."""
+        from sunode_torch.symode.problem import SympyProblem
+
+        return (self._native_single_enabled and self._device.type == "cpu"
+                and isinstance(self._problem, SympyProblem)
+                and self._dtype == np.float64)
+
+    def _native_linear_solver_kwargs(self) -> dict:
+        """``CpuSolver``'s ``linear_solver`` arguments for this solver's."""
+        if self._linear_solver == "band":
+            kw = self._linear_solver_kwargs
+            return dict(linear_solver="band", linear_solver_kwargs=dict(
+                lower_bandwidth=int(kw["lower_bandwidth"]),
+                upper_bandwidth=int(kw["upper_bandwidth"])))
+        if self._linear_solver == "sparse":
+            return dict(linear_solver="sparse")
+        if self._linear_solver in ("spgmr", "spgmr_finitediff"):
+            return dict(linear_solver="spgmr",
+                        linear_solver_kwargs=dict(self._linear_solver_kwargs))
+        return {}
 
     # --- the reference's dtype accessors -----------------------------------
     @property
@@ -346,7 +377,7 @@ class Solver(_SolverBase):
                 options = options._replace(sens_staggered=(sens_mode == "staggered"))
         self._options = options
         self._linear_solver_kwargs = dict(linear_solver_kwargs or {})
-        # accepted for the reference's call sites; selects nothing here
+        # one chain on the CPU runs the C++ integrators (_native_eligible)
         self._native_single_enabled = bool(native_single)
         self._init_derived()
         self.last_stats: Optional[dict] = None
@@ -400,7 +431,7 @@ class Solver(_SolverBase):
     def __getstate__(self):
         state = self.__dict__.copy()
         for key in ("_rhs", "_jac", "_sens_rhs", "_jac_prod", "_fn_cache", "_device_systems",
-                    "last_stats", "_root_fn", "_sparse_plan"):
+                    "last_stats", "_root_fn", "_sparse_plan", "_native_solver"):
             state.pop(key, None)
         return state
 
@@ -451,6 +482,76 @@ class Solver(_SolverBase):
             return torch.cat([rhs(t, y, p), sens_rhs(t, y, S, p).reshape((k * n,) + lanes)])
 
         return rhs_aug, opts_aug
+
+    def _native_common(self) -> bool:
+        """The options both B=1 native routes take (``sunode_tpu/solver.py``
+        ``_native_eligible`` and ``_native_sens_eligible``)."""
+        o = self._options
+        return (
+            self._native_ok()
+            and np.ndim(o.rtol) == 0
+            and o.first_step is None
+            and (self._solver_kind == "ADAMS" or o.max_order == MAX_ORDER)
+            and not np.isfinite(o.max_step)
+            and o.min_step == 0.0
+            and o.save_steps == 0
+        )
+
+    def _native_eligible(self) -> bool:
+        """A B=1 solve without sensitivities runs ``CpuSolver.solve``:
+        'band', 'sparse' and 'spgmr' on BDF only; event functions when they
+        have a symbolic form, with a direct linear solver."""
+        o = self._options
+        ls_ok = self._linear_solver == "dense" or (
+            self._linear_solver in ("band", "sparse", "spgmr", "spgmr_finitediff")
+            and self._solver_kind == "BDF"
+        )
+        roots_ok = self._root_fn is None or (
+            self._roots_src is not None and self._linear_solver in ("dense", "band", "sparse")
+        )
+        return (self._native_common() and not self._compute_sens and roots_ok and ls_ok
+                and not o.use_ndf)
+
+    def _native_sens_eligible(self) -> bool:
+        """A B=1 solve with forward sensitivities runs
+        ``CpuSolver.solve_sens`` (ADAMS functional iteration, or BDF with
+        one Newton matrix for the state and the sensitivities)."""
+        o = self._options
+        ls_ok = self._linear_solver == "dense" or (
+            self._linear_solver in ("band", "sparse") and self._solver_kind == "BDF"
+        )
+        return (
+            self._native_common()
+            and self._compute_sens
+            and self._root_fn is None
+            and o.sens_pbar is None
+            and ls_ok
+            and (o.constraints is None or self._solver_kind == "BDF")
+        )
+
+    def _native_single(self):
+        """The ``CpuSolver`` of the B=1 routes, built at first use; a failed
+        build raises."""
+        if getattr(self, "_native_solver", None) is None:
+            from sunode_torch.native.cpu_solver import CpuSolver
+
+            cons = self._options.constraints
+            root_kw = {}
+            if self._roots_src is not None:
+                root_kw = dict(roots=self._roots_src, root_directions=self._root_directions,
+                               root_cap=self._root_cap, root_terminal=self._root_terminal)
+            self._native_solver = CpuSolver(
+                self._problem,
+                abstol=np.asarray(self._options.atol),
+                reltol=float(self._options.rtol),
+                max_steps=int(self._options.max_steps) * 2**self._max_retries,
+                method=self._solver_kind,
+                adams_max_order=int(self._options.adams_max_order),
+                constraints=None if cons is None else np.asarray(cons),
+                **root_kw,
+                **self._native_linear_solver_kwargs(),
+            )
+        return self._native_solver
 
     def _solver_fn(self, n_t: int, batched: bool):
         """``run(t0, y0, params, tvals, sens0, max_steps, first_step) -> (ys,
@@ -571,6 +672,8 @@ class Solver(_SolverBase):
                 "per-lane tvals requires a matching batched y0: got "
                 f"tvals {tva.shape} with y0 {np.shape(y0_flat)}"
             )
+        if not batched and (self._native_eligible() or self._native_sens_eligible()):
+            return self._solve_native(t0, tva, y0_flat, y_out, sens0, sens_out)
         n, k = self._problem.n_states, self._problem.n_params
         if self._compute_sens and sens0 is None:
             sens0 = np.zeros(((B,) if batched else ()) + (k, n), dtype=dt)
@@ -643,6 +746,25 @@ class Solver(_SolverBase):
         if y_out is None:
             return (ys, sens) if self._compute_sens else ys
         return y_out
+
+    def _solve_native(self, t0, tvals, y0, y_out, sens0, sens_out):
+        """One chain through the C++ integrators (the reference's B=1
+        routes); ``CpuSolver`` raises ``SolverError`` on a failed solve."""
+        ns = self._native_single()
+        ns._params = np.ascontiguousarray(self._params, np.float64)
+        tvals = np.asarray(tvals, np.float64)
+        sens = None
+        if self._compute_sens:
+            ys, sens = ns.solve_sens(t0, tvals, y0, sens0=sens0, sens_mode=self._sens_mode)
+        else:
+            ys = ns.solve(t0, tvals, y0)
+        self.last_stats = dict(ns.last_stats)
+        if sens_out is not None and sens is not None:
+            sens_out[...] = sens
+        if y_out is not None:
+            y_out[...] = ys
+            return y_out
+        return (ys, sens) if self._compute_sens else ys
 
     @property
     def current_stats(self):
@@ -730,7 +852,7 @@ class AdjointSolver(_SolverBase):
             self._options = self._options._replace(hermite_order=3)
         self._adjoint_options = BDFOptions(rtol=adjoint_reltol, atol=adjoint_abstol,
                                            max_steps=max_steps)
-        # accepted for the reference's call sites; selects nothing here
+        # one chain on the CPU runs the C++ CVodeF/CVodeB pair (_native_adj_eligible)
         self._native_single_enabled = bool(native_single)
         self._init_derived()
         self._last_forward: Optional[dict] = None
@@ -754,7 +876,8 @@ class AdjointSolver(_SolverBase):
     def __getstate__(self):
         state = self.__dict__.copy()
         for key in ("_rhs", "_jac", "_adjoint_rhs", "_adjoint_jac", "_quad_rhs",
-                    "_device_systems", "_last_forward", "last_stats", "_root_fn"):
+                    "_device_systems", "_last_forward", "last_stats", "_root_fn",
+                    "_native_adj_solver"):
             state.pop(key, None)
         return state
 
@@ -770,6 +893,47 @@ class AdjointSolver(_SolverBase):
         n_states, n_params = self._problem.n_states, self._problem.n_params
         return (np.zeros((len(tvals), n_states), dtype=self._dtype),
                 np.zeros(n_params, dtype=self._dtype), np.zeros(n_states, dtype=self._dtype))
+
+    def _native_adj_eligible(self) -> bool:
+        """The pair runs the C++ integrators: ADAMS/ADAMS (the forward
+        solve, then the augmented backward against its observations) or
+        BDF/BDF (the recorded forward, ``cvbdf_forward_record``, and the
+        backward over it), 'band' and 'sparse' on BDF/BDF; no events, no
+        constraints."""
+        o = self._options
+        kinds = (self._solver_kind, self._adjoint_solver_kind)
+        ls_ok = self._linear_solver == "dense" or kinds == ("BDF", "BDF")
+        return (
+            self._native_ok()
+            and kinds in (("ADAMS", "ADAMS"), ("BDF", "BDF"))
+            and np.ndim(o.rtol) == 0
+            and ls_ok
+            and self._root_fn is None
+            and o.constraints is None
+            and o.first_step is None
+            and not np.isfinite(o.max_step)
+            and o.min_step == 0.0
+        )
+
+    def _native_adj(self):
+        """The ``CpuSolver`` of the native pair, built at first use; a
+        failed build raises."""
+        if getattr(self, "_native_adj_solver", None) is None:
+            from sunode_torch.native.cpu_solver import CpuSolver
+
+            ls_kw = self._native_linear_solver_kwargs()
+            self._native_adj_solver = CpuSolver(
+                self._problem,
+                abstol=np.asarray(self._options.atol),
+                reltol=float(self._options.rtol),
+                max_steps=int(self._options.max_steps) * 2**self._max_retries,
+                method=self._solver_kind,
+                adams_max_order=int(self._options.adams_max_order),
+                hermite_order=int(self._options.hermite_order),
+                interpolation=self._interpolation,
+                **ls_kw,
+            )
+        return self._native_adj_solver
 
     def _forward(self, t0, y0, params, tvals):
         root_kw = {} if self._root_fn is None else dict(
@@ -821,6 +985,22 @@ class AdjointSolver(_SolverBase):
         if y0_flat.ndim != 1:
             raise ValueError(f"AdjointSolver solves one chain: y0 must be flat, got "
                              f"{y0_flat.shape}")
+        if self._native_adj_eligible():
+            ns = self._native_adj()
+            ns._params = np.ascontiguousarray(self._params, np.float64)
+            tv = np.asarray(tvals, np.float64)
+            if self._solver_kind == "BDF":
+                # CVodeF: the dense record stays in native memory for the backward
+                ys = ns.solve_forward_recorded(t0, tv, y0_flat)
+            else:
+                ys = ns.solve(t0, tv, y0_flat)
+            self.last_stats = dict(ns.last_stats)
+            self._last_forward = dict(native_ys=ys, native_mode=self._solver_kind,
+                                      native_tvals=tv, t0=float(t0), params=self._params.copy())
+            if y_out is not None:
+                y_out[...] = ys
+                return y_out
+            return ys
         T = self._tensor
         res = self._forward(float(t0), T(y0_flat), T(self._params), T(tvals))
         self._last_forward = dict(saved=res.saved, t0=float(t0), params=self._params.copy())
@@ -850,18 +1030,27 @@ class AdjointSolver(_SolverBase):
         """The checkpoint table recorded by :meth:`solve_forward` (the
         CVodeGetAdjCheckPointsInfo analog): ``n_recorded``, ``capacity``,
         ``times``, ``t_first``/``t_last``, ``dt_min``/``dt_max``/``dt_mean``,
-        ``thinning_level`` and ``overflow``."""
+        ``thinning_level`` and ``overflow``.  On the native route
+        ``capacity`` is None (the record grows without bound)."""
         if self._last_forward is None:
             raise SolverError("checkpoint_info called before solve_forward")
-        saved = self._last_forward["saved"]
-        n_rec = int(saved["n_saved"])
-        t_all = _np(saved["t"])
-        times = t_all[:n_rec]
-        thin = int(np.max((self.last_stats or {}).get("checkpoint_thinning_levels", 0)))
+        fwd = self._last_forward
+        if "native_ys" in fwd:
+            # BDF: the native record's times; ADAMS: the backward re-solves y
+            # from the recorded observations, which are its checkpoints
+            times = (self._native_adj().checkpoint_times() if fwd["native_mode"] == "BDF"
+                     else fwd["native_tvals"])
+            capacity, thin = None, 0
+        else:
+            saved = fwd["saved"]
+            t_all = _np(saved["t"])
+            times = t_all[:int(saved["n_saved"])]
+            capacity = int(t_all.shape[0])
+            thin = int(np.max((self.last_stats or {}).get("checkpoint_thinning_levels", 0)))
         dts = np.diff(times) if len(times) > 1 else np.zeros(0)
         return dict(
             n_recorded=int(len(times)),
-            capacity=int(t_all.shape[0]),
+            capacity=capacity,
             times=times,
             t_first=float(times[0]) if len(times) else np.nan,
             t_last=float(times[-1]) if len(times) else np.nan,
@@ -880,6 +1069,8 @@ class AdjointSolver(_SolverBase):
         if self._last_forward is None:
             raise SolverError("solve_backward called before solve_forward")
         fwd = self._last_forward
+        if "native_ys" in fwd:
+            return self._backward_native(fwd, tend, tvals, grads, grad_out, lamda_out)
         grads = np.asarray(grads, self._dtype)
         if self._root_fn is not None and self.last_stats is not None:
             # the recording stopped at the terminal root: observations past
@@ -909,4 +1100,33 @@ class AdjointSolver(_SolverBase):
         self._check_status(_np(status), "solve_backward")
         if grad_out is None and lamda_out is None:
             return quad, -lam
+        return grad_out, lamda_out
+
+    def _backward_native(self, fwd, tend, tvals, grads, grad_out, lamda_out):
+        """The native backward pass over the native forward's record (BDF)
+        or observations (ADAMS).  A leading segment with lambda = 0 (``t0``
+        past the last observation) contributes nothing, so the backward
+        starts at the last observation."""
+        if not np.array_equal(np.asarray(tvals, np.float64), fwd["native_tvals"]):
+            raise SolverError(
+                "solve_backward tvals must match solve_forward's on the native route "
+                "(pass native_single=False to leave it)"
+            )
+        ns = self._native_adj()
+        ns._params = np.ascontiguousarray(fwd["params"], np.float64)
+        tol = dict(adjoint_reltol=float(self._adjoint_options.rtol),
+                   adjoint_abstol=float(np.max(self._adjoint_options.atol)))
+        grads = np.asarray(grads, np.float64)
+        if fwd["native_mode"] == "BDF":
+            lam0, quad = ns.solve_backward_recorded(tend, fwd["native_tvals"], grads, **tol)
+        else:
+            lam0, quad = ns.solve_adjoint_backward(tend, fwd["native_tvals"], fwd["native_ys"],
+                                                   grads, **tol)
+        self.last_stats = (self.last_stats or {}) | dict(ns.last_stats)
+        if lamda_out is not None:
+            lamda_out[...] = -lam0
+        if grad_out is not None:
+            grad_out[...] = quad
+        if grad_out is None and lamda_out is None:
+            return quad, -lam0
         return grad_out, lamda_out

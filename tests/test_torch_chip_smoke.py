@@ -603,7 +603,7 @@ def test_phase_14_parts_gates_and_budget():
     assert cs.PHASE14_BUDGET_S == 45.0 and cs.SWEEP_LANES == 4
     assert cs.CLASS_KINDS == (("BDF", "BDF"), ("ADAMS", "ADAMS"))
     doc = cs.__doc__
-    assert "  14. the class API and events" in doc and "  16. the kernel table" in doc
+    assert "  14. the class API and events" in doc and "  17. the kernel table" in doc
     submitted = inspect.getsource(cs.submit_cpu_refs)
     assert "refs.submit(ref_lv_forward)" in submitted
     assert "refs.submit(ref_class_adjoint)" in submitted
@@ -612,7 +612,7 @@ def test_phase_14_parts_gates_and_budget():
         assert part in phase, part
     run = inspect.getsource(cs.run)
     assert "phase14 = class_api_phase(" in run
-    assert "launches=adams_launches[kind] + phase14.get(kind, 0)" in run
+    assert "launches=(adams_launches[kind] + phase14.get(kind, 0)" in run
     golden = np.load(os.path.join(ROOT, "tests", "golden", "lv_forward.npz"))
     y0s, ps, tvals = lv_forward_inputs(20)
     np.testing.assert_array_equal(y0s[:16], golden["y0s"])
@@ -676,3 +676,131 @@ def test_phase_15_bookkeeping():
     loss, flat, *grads = res["out"]
     assert flat.shape == (len(cs.PYTENSOR_TVALS), 2) and len(grads) == 3
     assert all(np.isfinite(x).all() for x in res["out"]) and res["attempts"] > 0
+
+
+@pytest.mark.parametrize("kind", ["sensitivity", "staged_sensitivity"])
+def test_phase_9_emitted_f_against_the_core(kind):
+    """Phase 9's plain f of a sensitivity build is read from the C it emits
+    (C6); beside C6's bit-for-bit gates, that f is held to the f the Adams
+    core composes from ``make_sensitivity_rhs`` within SENS_CORE_REL at
+    every point an attempt evaluates it, here on phase 3c's draws at B=64
+    on the CPU.  A wrong emitted row fails that gate."""
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.symode import cuda_codegen
+
+    cs = _chip_smoke()
+    assert cs.SENS_CORE_REL == 1e-14
+    ds = getattr(cuda_codegen, f"{kind}_system")(lv_problem())
+    x = cs.history_inputs(ds, 64, 3, "cpu")
+    fz, core = cs.lv_sens_fz(kind), cs.lv_sens_core_fz(kind)
+    worst = cs.core_agreement(fz, core, ds.n, x, cs.P_MAX)
+    assert 0.0 <= worst <= cs.SENS_CORE_REL
+    points = cs.attempt_points(fz, ds.n, x, cs.P_MAX)
+    assert len(points) == 5 and all(torch.isfinite(f).all() for _, f in points)
+
+    def one_row_wrong(t, y, p):
+        f = fz(t, y, p)
+        return torch.cat([f[:-1], f[-1:] * (1 + 1e-12)])
+
+    assert cs.core_agreement(one_row_wrong, core, ds.n, x, cs.P_MAX) > cs.SENS_CORE_REL
+
+
+def test_phase_16_bookkeeping_and_the_cut():
+    """Phase 16's static parts on the CPU: its gates and repetitions, the
+    g++ builds first in the workers, its launches in the kernel line; the
+    B=1 configurations' inputs (bench.py's lv_forward --batch 1 and lane 0
+    of lv_adjoint.npz) through the native route, within their gates; the
+    host's CPU line; the plain f of phase 9(a)'s builds read from the C they
+    emit (ROADMAP C6), bit for bit that C compiled by g++ without
+    contraction; and the cut that made room for the phase: phase 12's
+    structured gradients (b), (d) and spgmr forward (e) over their first 2
+    observation times, with 15(b) at tree depth 2."""
+    import inspect
+
+    from sunode_torch.entry import (LV_FORWARD_PARAMS, build_lv_adjoint_single,
+                                    build_lv_forward_single, lv_problem)
+    from sunode_torch.symode import cuda_codegen
+
+    cs = _chip_smoke()
+    assert (cs.NATIVE_REPS, cs.CARD_REPS, cs.SPLIT_REL) == (50, 2, 1e-12)
+    assert cs.LV_FORWARD_SINGLE_GATE == (1e-6, 1e-8)
+    assert cs.LV_ADJOINT_SINGLE_GATE == (2e-3, 1e-3)
+    assert "  16. the native host route and the chain split" in cs.__doc__
+    submitted = inspect.getsource(cs.submit_cpu_refs)
+    assert submitted.index("refs.submit(ref_native_build)") < submitted.index(
+        "refs.submit(ref_main_path)")
+    run = inspect.getsource(cs.run)
+    assert "phase16 = native_phase(" in run and "+ phase15[kind] + phase16[kind]" in run
+    assert 'phase16["staged_adjoint"]' in run and "main_grads = (gy, gp)" in run
+    phase = inspect.getsource(cs.native_phase)
+    for part in ("16(a) card", "16(b) card", "16(c)", "make_mesh()", '"cuda:0", "cuda:0"'):
+        assert part in phase, part
+    built = cs.ref_native_build()
+    assert built["core_s"] >= 0 and built["problem_s"] >= 0
+    assert cs.host_cpu().endswith(f"{os.cpu_count()} threads")
+
+    solve, (t0, tvals, y0) = build_lv_forward_single(device="cpu")
+    assert LV_FORWARD_PARAMS == {"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4}
+    np.testing.assert_array_equal(tvals, np.linspace(0.0, 10.0, 50))
+    ys = solve()
+    assert solve.solver._native_solver is not None and t0 == 0.0 and list(y0) == [10.0, 2.0]
+    np.testing.assert_allclose(ys, solve.oracle(), rtol=cs.LV_FORWARD_SINGLE_GATE[0],
+                               atol=cs.LV_FORWARD_SINGLE_GATE[1])
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "lv_adjoint.npz"))
+    pair, (y0, p_sub, tvals) = build_lv_adjoint_single(device="cpu")
+    np.testing.assert_array_equal(y0, golden["y0s"][0])
+    np.testing.assert_array_equal(p_sub, golden["p_subs"][0])
+    np.testing.assert_array_equal(tvals, golden["tvals"])
+    _, gy, gp = pair()
+    assert "native_ys" in pair.solver._last_forward
+    rtol, atol = cs.LV_ADJOINT_SINGLE_GATE
+    np.testing.assert_allclose(gy, golden["gy"][0], rtol=rtol, atol=atol)
+    np.testing.assert_allclose(gp, golden["gp"][0], rtol=rtol, atol=atol)
+
+    # C6: the plain f of phase 9(a)'s builds is their emitted C, statement by
+    # statement: bit for bit the same source compiled by g++ without contraction
+    import ctypes
+    import subprocess
+    import tempfile
+
+    rng = np.random.default_rng(6)
+    B = 64
+    for kind in cs.SENS_KINDS:
+        ds = getattr(cuda_codegen, f"{kind}_system")(lv_problem())
+        src = ds.source.replace("__device__", "").replace("__forceinline__", "").replace(
+            "#pragma once", "")
+        src = src.replace("void pece_fz(", 'extern "C" void pece_fz(')
+        with tempfile.TemporaryDirectory() as tmp:
+            cpp, so = os.path.join(tmp, "fz.cpp"), os.path.join(tmp, "fz.so")
+            with open(cpp, "w") as f:
+                f.write(src)
+            subprocess.run(["g++", "-O0", "-ffp-contract=off", "-shared", "-fPIC", "-o", so, cpp],
+                           check=True)
+            lib = ctypes.CDLL(so)
+        dp = ctypes.POINTER(ctypes.c_double)
+        t = rng.uniform(0, 10, B)
+        y = rng.normal(size=(ds.n, B)) * 5
+        par = rng.uniform(0.2, 2, (ds.n_p, B))
+        want = np.zeros((ds.nz, B))
+        for b in range(B):
+            yb, pb, ob = (np.ascontiguousarray(a) for a in (y[:, b], par[:, b], np.zeros(ds.nz)))
+            lib.pece_fz(ctypes.c_double(t[b]), yb.ctypes.data_as(dp), pb.ctypes.data_as(dp),
+                        ob.ctypes.data_as(dp))
+            want[:, b] = ob
+        T = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+        got = cs.lv_sens_fz(kind)(T(t), T(y), T(par))
+        assert torch.equal(got, T(want)), kind
+
+    assert cs.NUTS_RUN["max_treedepth"] == 2
+    from sunode_torch.entry import hub_inputs, kpp_inputs
+
+    assert cs.STRUCT_LEADING_TIMES == 2
+    for inputs, t_end in ((kpp_inputs, 0.05 + 0.95 / 7), (hub_inputs, 0.05 + 0.95 / 5)):
+        t = cs.leading_tvals(inputs(8, 2)[2], "cpu")
+        assert t.dtype == torch.float64 and t.shape == (2,)
+        assert float(t[-1]) == pytest.approx(t_end) and t_end < 0.25
+    for part in ("structured_grad", "leading=True"):
+        assert part in inspect.getsource(cs.structured_phase), part
+    assert "leading_tvals(tvals" in inspect.getsource(cs.ref_kpp_dense)
+    assert "leading_tvals(tvals" in inspect.getsource(cs.ref_hub_dense)
+

@@ -8,8 +8,10 @@ module imported, and through the class API (``Solver``, ``AdjointSolver``)
 and the event functions, the sampler (one NUTS transition and a short
 ``nuts_sample``) and the PyTensor wrapper on the port's own Op-protocol shim
 (a loss and its gradient compiled with ``pytensor.function``, which runs
-the Ops' ``perform``), imported and run with jax and sunode_tpu blocked
-from import; checked in a fresh interpreter."""
+the Ops' ``perform``), the native host route (``sunode_torch.native``: a
+native solve and a native adjoint pair) and a gradient split over two
+devices (``sunode_torch.parallel``), imported and run with jax and
+sunode_tpu blocked from import; checked in a fresh interpreter."""
 
 import json
 import os
@@ -78,7 +80,8 @@ lvp = lv_problem()
 solver = sunode_torch.Solver(lvp, solver="ADAMS", reltol=1e-6, abstol=1e-6, device="cpu")
 solver.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
 class_ys = solver.solve(0.0, np.linspace(0.5, 3.0, 4), np.tile([10.0, 2.0], (2, 1)))
-adj = sunode_torch.AdjointSolver(lvp, reltol=1e-6, abstol=1e-6, checkpoint_n=512, device="cpu")
+adj = sunode_torch.AdjointSolver(lvp, reltol=1e-6, abstol=1e-6, checkpoint_n=512, device="cpu",
+                                 native_single=False)
 adj.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
 adj.solve_forward(0.0, np.linspace(0.5, 3.0, 4), np.array([10.0, 2.0]))
 adj_grad, _ = adj.solve_backward(3.0, 0.0, np.linspace(0.5, 3.0, 4), np.ones((4, 2)))
@@ -104,10 +107,24 @@ p_alpha = pt.dscalar("alpha")
 pt_flat = pt_solve_ivp(0.0, {"hares": (np.float64(10.0), ()), "lynx": (np.float64(2.0), ())},
                        {"alpha": (p_alpha, ()), "beta": np.float64(0.3), "gamma": np.float64(1.0),
                         "delta": np.float64(0.4)}, np.linspace(0.5, 2.0, 3), _lv,
-                       solver_kwargs={"device": "cpu", "reltol": 1e-6, "abstol": 1e-6})[1]
+                       solver_kwargs={"device": "cpu", "reltol": 1e-6, "abstol": 1e-6,
+                                      "native_single": False})[1]
 pt_loss = (pt_flat ** 2).sum()
 pt_out = pytensor.function([p_alpha], [pt_loss, pytensor.grad(pt_loss, p_alpha)])(1.0)
 emitted = [cuda_codegen.sensitivity_system(lvp).nz, cuda_codegen.staged_sensitivity_system(lvp).n_p]
+import sunode_torch.native.cpu_solver
+import sunode_torch.parallel.mesh
+from sunode_torch.entry import build_lv_adjoint_sharded
+native = sunode_torch.Solver(lvp, solver="ADAMS", reltol=1e-6, abstol=1e-6, device="cpu")
+native.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
+native_ys = native.solve(0.0, np.linspace(0.5, 3.0, 4), np.array([10.0, 2.0]))
+nadj = sunode_torch.AdjointSolver(lvp, reltol=1e-6, abstol=1e-6, device="cpu")
+nadj.set_params_dict({"alpha": 1.0, "beta": 0.3, "gamma": 1.0, "delta": 0.4})
+nadj.solve_forward(0.0, np.linspace(0.5, 3.0, 4), np.array([10.0, 2.0]))
+native_grad, _ = nadj.solve_backward(3.0, 0.0, np.linspace(0.5, 3.0, 4), np.ones((4, 2)))
+mesh = sunode_torch.Mesh((torch.device("cpu"),) * 2)
+sstep, (sy0s, sps) = build_lv_adjoint_sharded(2, mesh, tvals_n=3, rtol=1e-6)
+sgy, sgp = sstep(sy0s, sps)
 print(json.dumps({
     "sens_ok": sens_ok,
     "roots_ok": roots_ok,
@@ -127,6 +144,10 @@ print(json.dumps({
     "sampler_ok": bool(torch.isfinite(tr[0]).all()) and tuple(tr[5].shape) == (3,)
     and tuple(run.samples.shape) == (3, 3, 2) and bool(torch.isfinite(run.samples).all()),
     "pytensor_ok": shim_installed and is_shim_active() and bool(np.isfinite(pt_out).all()),
+    "native_ok": native._native_solver is not None and bool(np.isfinite(native_ys).all())
+    and "native_ys" in nadj._last_forward and bool(np.isfinite(native_grad).all()),
+    "split_ok": bool(torch.isfinite(sgy).all() and torch.isfinite(sgp).all())
+    and tuple(sgy.shape) == (2, 2),
     "event_ok": abs(float(t_ev.detach()) - (2 * 2.0 / 9.81) ** 0.5) < 1e-8
     and bool(torch.isfinite(dt_dg).all()),
 }))
@@ -153,3 +174,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["ivp_grad_finite"]
     assert out["class_api_ok"] and out["event_ok"]
     assert out["sampler_ok"] and out["pytensor_ok"]
+    assert out["native_ok"] and out["split_ok"]

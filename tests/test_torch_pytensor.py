@@ -33,7 +33,7 @@ from sunode_tpu.wrappers import as_pytensor as ref_wrapper  # noqa: E402
 from sunode_torch.wrappers import as_pytensor as port_wrapper  # noqa: E402
 
 REL = 1e-6  # tests/test_torch_solver.py's AdjointSolver gradients against the reference's
-CPU = {"device": "cpu"}
+CPU = {"device": "cpu", "native_single": False}  # the torch cores, as the reference
 TVALS = np.linspace(0.5, 8, 7)
 POINT = (1.0, 0.3, 10.0)
 

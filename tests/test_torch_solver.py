@@ -66,7 +66,7 @@ def problem():
 
 
 def _port(**kw):
-    s = Solver(_problems()[0], device="cpu", **kw)
+    s = Solver(_problems()[0], device="cpu", native_single=False, **kw)
     s.set_params_dict(PARAMS)
     return s
 
@@ -120,7 +120,7 @@ def test_readme_flow(problem, monkeypatch):
     """The README's usage: a ``state_dtype`` y0, params as a dict, output
     buffers, record views and ``as_xarray`` (the fallback Dataset, and real
     xarray's branch through a strict stand-in); the reference's solve."""
-    solver = Solver(problem, sens_mode=None, solver="BDF", device="cpu")
+    solver = Solver(problem, sens_mode=None, solver="BDF", device="cpu", native_single=False)
     y0 = np.zeros((), dtype=problem.state_dtype)
     y0["hares"] = 10.0
     y0["lynx"] = 2.0
@@ -258,7 +258,7 @@ def test_empty_and_nested_params():
 
     spec = dict(params={"rates": {"k": ()}, "off": (), "unused": (3,)}, states={"x": ()},
                 rhs_sympy=rhs, derivative_params=[("rates", "k")])
-    solver = Solver(SympyProblem(**spec), device="cpu")
+    solver = Solver(SympyProblem(**spec), device="cpu", native_single=False)
     solver.set_params_dict({"rates": {"k": 1.0}, "off": 0.5, "unused": np.zeros(3)})
     out = solver.solve(0.0, np.array([1.0, 2.0]), np.array([3.0]))
     np.testing.assert_allclose(out[:, 0], 0.5 + 2.5 * np.exp(-np.array([1.0, 2.0])), rtol=1e-7)
@@ -271,7 +271,8 @@ def test_empty_and_nested_params():
 ADJ_BASE = (("checkpoint_n", 8192), ("interpolation", "hermite"))
 def _adjoint(side, **kw):
     cls = AdjointSolver if side == "port" else JaxAdjointSolver
-    extra = dict(device="cpu") if side == "port" else dict(native_single=False)
+    extra = dict(device="cpu") if side == "port" else {}
+    extra["native_single"] = False
     s = cls(_problems()[0 if side == "port" else 1], **kw, **extra)
     s.set_params_dict(PARAMS)
     return s
@@ -316,6 +317,12 @@ def test_adjoint_backward_before_forward_raises():
 
 def _info(side, n):
     s = _adjoint(side, checkpoint_n=n)
+    # torch's first forward-mode product in a process loads its jvp
+    # decompositions, which warn that torch.jit.script is deprecated; load
+    # them before recording, so the solve's own warnings are all that is seen
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.func.jvp(torch.sin, (torch.zeros(1),), (torch.ones(1),))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         s.solve_forward(0.0, TVALS, Y0)
@@ -399,7 +406,7 @@ def test_staggered_distinct_from_simultaneous_on_robertson():
     for mode in ("simultaneous", "staggered"):
         res = []
         for s in (Solver(SympyProblem(**spec), sens_mode=mode, reltol=1e-8, abstol=1e-10,
-                         device="cpu"),
+                         device="cpu", native_single=False),
                   JaxSolver(JaxSympyProblem(**spec), sens_mode=mode, reltol=1e-8, abstol=1e-10,
                             native_single=False)):
             s.set_params_dict({"k1": 0.04, "k2": 3e7, "k3": 1e4})
