@@ -112,7 +112,7 @@ Phases, one line each; any failure exits non-zero:
      configuration: 12 observation times, rtol 1e-8 / atol 1e-10 both ways,
      1,024 checkpoints) through ``entry.build_sir``: 'resolve' at B=1,024 and
      'hermite' at B=256 (an 18.9 GB table), per mode one step over the
-     first 4 observation times (t <= 20) under the profiler, which is also
+     first 2 observation times (t <= 10) under the profiler, which is also
      the warm-up, and one timed gradient step with every kernel count set
      to 0 before it; split launches equal to 1 / 4 / 1 x the forward plus
      backward attempts (predict / sweep / finish), no launch of any other
@@ -249,7 +249,7 @@ Phases, one line each; any failure exits non-zero:
      (a) BASELINE config 4 at full width, ``entry.build_lv_nuts(512)``
      (scripts/exp_nuts_f32.py's chains, float64): the start's gradient
      under the profiler, then one NUTS transition from log(1.0, 0.3) +
-     0.01 N(0, 1) at a fixed step size, unit mass and max_treedepth 4 (the
+     0.01 N(0, 1) at a fixed step size, unit mass and max_treedepth 3 (the
      script's 6, cut), its draws from a seeded CPU source, against chains
      0-15 through the plain path on the CPU with those chains' rows of the
      same draws (in a worker): depth, divergence and the proposal's leaf
@@ -287,7 +287,32 @@ Phases, one line each; any failure exits non-zero:
      seconds (the core library and LV's problem library), made in a worker
      at the pool's start; the host's CPU model and threads beside the
      card's name and power limit, as (a) and (b) time the host;
-  17. the kernel table and the result line.  Each kernel's bound is the
+  17. the state axis (``make_mesh_2d``, ``shard_batch_state``): (a) the
+     split attempt's partial-norm entries (the rows' sweep and finish, the
+     lanes' decision and roots, ``csrc/adams_split.cu``) against their plain
+     versions at phase 8's 'hermite' backward shape (nz = 3,002, n = 3,000,
+     B=256) cut in two row blocks of the card (1,502 rows on the home block:
+     1,500 state rows and the 2 quadratures; 1,500 on the other), one
+     attempt's four sweeps and finish on phase 3d's seeded inputs: the rows'
+     outputs bit for bit, each lane's sums over a block's rows within 1e-12
+     (the kernel's order), the decision and the roots bit for bit on the
+     same sums; each timed on the home block as in phase 3 with its bytes
+     bound; (b) SIR-1000 'hermite' at B=256 with each chain's state rows
+     split over ``Mesh(((cuda:0, cuda:0),), ("chains", "state"))``, a 1x2
+     mesh of the one card (``entry.build_sir_state_split``), one gradient
+     step with every count set to 0 before it, held to phase 8's step (no
+     second unsplit run): ys and the gradient within rtol 1e-10 / atol 1e-12
+     in every lane whose accepted forward and backward steps equal phase
+     8's, within 1e-8 (phase 8's card-against-CPU bound) in a lane whose
+     steps parted on a norm's last bit (their count printed), lane 0 inside
+     sir_1000.npz's gate, status 0 and finite everywhere; predict's and the
+     rows' launches 2 x and the lanes' 1 x the attempts (4 a sweep), no
+     unsplit sweep or finish, no other kernel and no plain stage; wall
+     seconds, attempts, each block's bytes, the bytes gathered and scattered
+     an attempt and the peak memory; (c) a 1x1 mesh over the first 2
+     observation times on lanes 0-63, ys and gradient bit for bit the
+     unsplit solve's;
+  18. the kernel table and the result line.  Each kernel's bound is the
      larger of its bytes (each input read once, each output written once,
      for the rows these inputs read, at 8 bytes a value, 4 in the float32
      builds) over 3.35 TB/s and its operations over 34 TFLOP/s at float64,
@@ -1064,7 +1089,7 @@ SIR_R = 1000  # scripts/bench_sir_scale.py's regions: 3,000 states
 SIR_DERIVS = 2  # the gradient's parameters, beta and gamma
 B_SPLIT = 1024  # phase 3d's lanes: the script's largest width
 SIR_MODES = (("resolve", 1024), ("hermite", 256))  # phase 8: mode, lanes
-SIR_PROFILED_TIMES = 4  # phase 8's profiled step: the first 4 observation times, t <= 20
+SIR_PROFILED_TIMES = 2  # phase 8's profiled step: the first 2 observation times, t <= 10 (4, t <= 20, before phase 17)
 # phase 3d's shapes: phase 8's forward attempts, and the backward attempts
 # of each of its modes at that mode's lanes ('hermite' stages y(t))
 SPLIT_CASES = (("forward", B_SPLIT), ("resolve", 1024), ("staged_adjoint", 256))
@@ -1609,9 +1634,11 @@ def sir_table_bytes(mode, B) -> int:
     return 0 if mode == "resolve" else 8 * 1025 * (1 + 3 * 3 * SIR_R) * B
 
 
-def sir_phase(smi, counted) -> dict:
+def sir_phase(smi, counted) -> tuple[dict, dict]:
     """Phase 8: SIR-1000 ADAMS gradients through ``entry.build_sir``, the
-    attempts on the split kernels; returns their launches by stage."""
+    attempts on the split kernels; returns their launches by stage, and
+    the 'hermite' step's outputs, inputs and each lane's accepted forward
+    and backward steps (phase 17's reference)."""
     import torch
 
     from sunode_torch.entry import build_sir
@@ -1721,8 +1748,313 @@ def sir_phase(smi, counted) -> dict:
         )
         if not plain_rel <= 1e-8:
             raise SystemExit(f"chip_smoke: the CUDA sir {mode} gradients disagree with the CPU")
+        if mode == STATE_SPLIT_MODE:
+            reference = dict(ys=ys_np, gp=gp_np, y0s=y0s, p_subs=p_subs,
+                             fwd_steps=stats["forward"]["n_steps"].cpu().numpy(),
+                             bwd_steps=stats["backward"]["n_backward_steps"].cpu().numpy())
         log_elapsed(f"8, {mode}")
-    return total
+    return total, reference
+
+
+# ---- phase 17: the state axis: SIR's state rows split over devices ----------------
+STATE_SPLIT_MODE, STATE_SPLIT_B = "hermite", 256  # phase 8's 'hermite' cell
+STATE_SPLIT_EXACT_TIMES = 2  # 17(c): the 1x1 mesh over the first 2 observation times
+STATE_SPLIT_EXACT_LANES = 64  # 17(c): on lanes 0-63 (each 'hermite' table 4.7 GB, not 18.9)
+STATE_SPLIT_RTOL, STATE_SPLIT_ATOL = 1e-10, 1e-12  # 17(b): lanes whose steps equal phase 8's
+STATE_SPLIT_PARTED = 1e-8  # 17(b): a lane whose steps parted: phase 8's card-against-CPU bound
+ROWS_KERNELS = {"sweep_rows": "split_sweep_kernel", "sweep_decide": "split_sweep_decide_kernel",
+                "finish_rows": "split_finish_kernel", "finish_lanes": "split_finish_lanes_kernel"}
+
+
+class RowsLaunches:
+    """The state split's partial-norm entries' launches, counted by entry in
+    ``adams_split_attempt_rows.launches``, as one count (the phases'
+    ``k.launches = 0`` sets every entry)."""
+
+    @staticmethod
+    def _counts() -> dict:
+        from sunode_torch.ops.adams_split import adams_split_attempt_rows
+
+        return adams_split_attempt_rows.launches
+
+    @property
+    def launches(self) -> int:
+        return sum(self._counts().values())
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self._counts().update(dict.fromkeys(self._counts(), value))
+
+
+def rows_expected_launches(attempts: int, blocks: int) -> tuple[dict, dict]:
+    """(split, rows) launches of ``attempts`` state-split attempts over
+    ``blocks`` blocks: predict and the rows' sweeps (4 an attempt) and
+    finish on every block, the lanes' decisions and finish once an attempt,
+    the unsplit sweep and finish never."""
+    return ({"predict": attempts * blocks, "sweep": 0, "finish": 0},
+            {"sweep_rows": 4 * attempts * blocks, "sweep_decide": 4 * attempts,
+             "finish_rows": attempts * blocks, "finish_lanes": attempts})
+
+
+def rows_costs(KAB: int, nz: int, n: int, B: int, n_gamma: int, w: int = 8) -> dict:
+    """{entry: (bytes, operations)} of the four entries on one block of
+    ``nz`` rows (``n`` state rows), ``split_costs``' rule: each input read
+    once and each output written once, ``w`` bytes a floating value."""
+    hist = w * KAB * nz * B
+    flags = 3 * B  # conv, div, bad
+    return {
+        "sweep_rows": (w * nz * B + w * 4 * n * B + w * n * B + B * w + flags + B * (w + 1),
+                       9 * n * B + nz * B),
+        "sweep_decide": (B * (w + 1) + flags + B * (w + 4) + B * (3 + w + 4), 12 * B),
+        "finish_rows": (2 * hist + w * nz * B * 4 + w * nz * B * 2 + B * (w + 4 + w) + w * nz
+                        + w * n_gamma + 3 * w * B, nz * B * (3 * KAB + 20)),
+        "finish_lanes": (3 * w * B + 3 * B + B * (3 * w + 1), 6 * B),
+    }
+
+
+def state_split_kernels(smi, kernels) -> dict:
+    """17(a): the four partial-norm entries against their plain versions at
+    phase 8's 'hermite' backward shape (nz = 3,002, n = 3,000, B=256) cut in
+    two blocks on the card (1,502 rows on the home block: 1,500 state rows
+    and the 2 quadratures; 1,500 on the other), one attempt's four sweeps
+    and finish on phase 3d's seeded inputs, the plain outputs feeding the
+    next stage of both; then each timed on the home block.  Returns the
+    kernel-table fields by entry."""
+    import torch
+
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.parallel.rows import RowBlocks, RowLayout, lane_all, lane_any, lane_sum
+    from sunode_torch.parallel.rows import scatter
+
+    x = split_inputs(STATE_SPLIT_B, 31, "cuda", SIR_R, "staged_adjoint")
+    fz, n, nz = split_system("staged_adjoint")
+    p_max, B = x["DF"].shape[0] - 3, STATE_SPLIT_B
+    dev = torch.device("cuda", 0)
+    L = RowLayout.contiguous((dev, dev), (n // 2, n - n // 2)).with_rows(nz - n)
+    n_d = L.state_rows(n)
+    col = {k: scatter(L, x[k][:, None]).blocks for k in ("atol_z", "rtol_z", "v_err")}
+    DF, z_prev = scatter(L, x["DF"]).blocks, scatter(L, x["z_prev"]).blocks
+    preds = [sp.split_predict(D, x["p"], x["pre_factor"], x["h"], z, a[:, 0], r[:, 0], p_max)
+             for D, z, a, r in zip(DF, z_prev, col["atol_z"], col["rtol_z"])]
+    pred_ok = lane_all([pr.pred_ok for pr in preds], dev)
+    y = [pr.z_pred[:m] for pr, m in zip(preds, n_d)]
+    state = sp.sweep_start(x["active"], x["DF"].dtype)
+    worst = dict.fromkeys(ROWS_KERNELS, 0.0)
+    exact = dict.fromkeys(ROWS_KERNELS, True)
+    ss_rel = 0.0
+
+    def bits(a, b):
+        return bool(torch.equal(a, b))
+
+    for k in range(FUNCTIONAL_MAXITER):
+        f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
+        outs = []
+        for f, yy, pr, m in zip(f_b, y, preds, n_d):
+            got = kernels.sweep_rows(f, yy, pr, state.conv, state.div, state.bad, m)
+            ref = sp.split_sweep_rows(f, yy, pr, state.conv, state.div, state.bad, m)
+            exact["sweep_rows"] &= bits(got.y_next, ref.y_next) and bits(got.nonfinite,
+                                                                         ref.nonfinite)
+            # each lane's sum over the rows adds in the kernel's order (as the sweep's)
+            ss_rel = max(ss_rel, lane_rel(got.ss, ref.ss))
+            worst["sweep_rows"] = max(worst["sweep_rows"], float((got.ss - ref.ss).abs().max()))
+            outs.append(ref)
+        ss, nf = lane_sum([o.ss for o in outs], dev), lane_any([o.nonfinite for o in outs], dev)
+        got = kernels.sweep_decide(k, ss, nf, state, x["newton_tol"], n)
+        state = sp.split_sweep_decide(k, ss, nf, state, x["newton_tol"], n)
+        exact["sweep_decide"] &= all(bits(a, b) for a, b in zip(got, state))
+        y = [o.y_next for o in outs]
+    f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
+    g = x["gamma_star_abs"]
+    fins, ss3_rel = [], 0.0
+    for f, pr, v in zip(f_b, preds, col["v_err"]):
+        got = kernels.finish_rows(f, pr, x["p"], x["h"], g, v[:, 0])
+        ref = sp.split_finish_rows(f, pr, x["p"], x["h"], g, v[:, 0], p_max)
+        exact["finish_rows"] &= all(bits(getattr(got, k), getattr(ref, k))
+                                    for k in ("DF_upd", "z_new", "err0"))
+        ss3_rel = max(ss3_rel, lane_rel(got.ss3, ref.ss3))
+        worst["finish_rows"] = max(worst["finish_rows"], float((got.ss3 - ref.ss3).abs().max()))
+        fins.append(ref)
+    ss3 = lane_sum([f.ss3 for f in fins], dev)
+    got = kernels.finish_lanes(ss3, pred_ok, state, x["newton_tol"])
+    ref = sp.split_finish_lanes(ss3, pred_ok, state, x["newton_tol"])
+    exact["finish_lanes"] &= bits(got[0], ref[0]) and bits(got[1], ref[1])
+    torch.cuda.synchronize()
+    shape = f"staged_adjoint nz={nz} n={n} B={B} blocks={L.sizes} state_rows={n_d}"
+    log(f"[17(a) partial-norm entries vs plain {shape}] bit for bit (the rows' y_next and "
+        f"flags, DF_upd, z_new, err0; the decisions and the roots on the same sums): {exact}; "
+        f"each lane's sums over a block's rows in the kernel's order: ss max_rel={ss_rel:.3e}, "
+        f"ss3 max_rel={ss3_rel:.3e} (bound {REL_BOUND:g}); converged="
+        f"{int(ref[1].sum())}/{B} niter_hist={torch.bincount(state.niter.long(), minlength=5).tolist()}")
+    if not (all(exact.values()) and max(ss_rel, ss3_rel) <= REL_BOUND):
+        raise SystemExit(f"chip_smoke: 17(a): a partial-norm entry disagrees with its plain "
+                         f"version ({shape})")
+
+    # times on the home block, each call's output feeding the next (graph)
+    pr, f0, v0 = preds[0], f_b[0], col["v_err"][0][:, 0]
+    calls = {
+        "sweep_rows": (lambda yy: (kernels.sweep_rows(f0, yy, pr, state.conv, state.div,
+                                                      state.bad, n_d[0]).y_next,),
+                       lambda yy: (sp.split_sweep_rows(f0, yy, pr, state.conv, state.div,
+                                                       state.bad, n_d[0]).y_next,),
+                       y[0].clone()),
+        "sweep_decide": (lambda s: (kernels.sweep_decide(1, s, nf, state, x["newton_tol"],
+                                                         n).dy_old,),
+                         lambda s: (sp.split_sweep_decide(1, s, nf, state, x["newton_tol"],
+                                                          n).dy_old,),
+                         ss.clone()),
+        "finish_rows": (lambda f: (kernels.finish_rows(f, pr, x["p"], x["h"], g, v0).z_new,),
+                        lambda f: (sp.split_finish_rows(f, pr, x["p"], x["h"], g, v0,
+                                                        p_max).z_new,),
+                        f0),
+        "finish_lanes": (lambda s: (kernels.finish_lanes(s, pred_ok, state,
+                                                         x["newton_tol"])[0],),
+                         lambda s: (sp.split_finish_lanes(s, pred_ok, state,
+                                                          x["newton_tol"])[0],),
+                         ss3.clone()),
+    }
+    costs = rows_costs(p_max + 3, L.sizes[0], n_d[0], B, g.numel())
+    table = {}
+    for entry, (call_k, call_p, z) in calls.items():
+        nbytes, flops = costs[entry]
+        b = bound(nbytes, flops)
+        t_k = per_call_times(call_k, z, ROWS_KERNELS[entry])
+        t_p = per_call_times(call_p, z)
+        table[entry] = dict(ms=t_k["stream"] / 1e3, plain_ms=t_p["stream"] / 1e3,
+                            max_abs_err=worst[entry], **b)
+        over = None if t_k["device"] is None else t_k["device"] / (1e3 * b["bound_ms"])
+        log(f"[17(a) times {entry} home block ({L.sizes[0]} rows, {n_d[0]} state rows, B={B})]"
+            + fmt_times("kernel", t_k) + fmt_times("plain", t_p)
+            + f" bytes={nbytes} flops={flops} bound_us={1e3 * b['bound_ms']:.3f} ({b['bound_by']})"
+            f" device_over_bound=" + ("not measured" if over is None else f"{over:.2f}")
+            + f" | {smi}")
+    del x, preds, DF, z_prev, f_b, fins, calls
+    torch.cuda.empty_cache()
+    return table
+
+
+def state_split_phase(smi, counted, reference) -> dict:
+    """17(b), (c): SIR-1000 'hermite' at B=256 with each chain's 3,000 state
+    rows split over a 1x2 mesh of the one card (``entry.build_sir_state_split``)
+    against phase 8's outputs (``reference``: ys, gp, y0s, p_subs and the
+    lanes' accepted forward and backward steps), then a 1x1 mesh bit for bit
+    the unsplit solve over the first 2 observation times.  ``counted`` are
+    every other kernel's counts.  Returns the launches of the four entries
+    and of predict."""
+    import torch
+
+    from sunode_torch.entry import build_sir, build_sir_state_split
+    from sunode_torch.ops import adams_split as sp
+    from sunode_torch.parallel import rows
+    from sunode_torch.parallel.mesh import Mesh, shard_batch_state
+
+    R, B, mode = SIR_R, STATE_SPLIT_B, STATE_SPLIT_MODE
+    golden = np.load(os.path.join(HERE, "tests", "golden", "sir_1000.npz"))
+    dev = torch.device("cuda", 0)
+    mesh = Mesh(((dev, dev),), ("chains", "state"))
+    grad_step, _ = build_sir_state_split(R, B, mode, mesh)
+    y0s, p_subs = reference["y0s"], reference["p_subs"]
+    stats = grad_step.solve.last_stats
+    split_count, rows_count = SplitLaunches(), RowsLaunches()
+    for k in (*counted, split_count, rows_count):
+        k.launches = 0
+    for k in rows.traffic:
+        rows.traffic[k] = 0
+    plain_before = [f.calls for f in (sp.split_predict, sp.split_sweep, sp.split_finish,
+                                      sp.split_sweep_rows, sp.split_sweep_decide,
+                                      sp.split_finish_rows, sp.split_finish_lanes)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, gp = grad_step(y0s, p_subs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = stats["forward"]["n_attempts"], stats["backward"]["n_attempts"]
+    peak = torch.cuda.max_memory_allocated()
+    traffic = dict(rows.traffic)
+    plain = [f.calls - c for f, c in zip((sp.split_predict, sp.split_sweep, sp.split_finish,
+                                          sp.split_sweep_rows, sp.split_sweep_decide,
+                                          sp.split_finish_rows, sp.split_finish_lanes),
+                                         plain_before)]
+    split_l = dict(sp.adams_split_attempt.launches)
+    rows_l = dict(sp.adams_split_attempt_rows.launches)
+    others = [k.launches for k in counted]
+    exp_split, exp_rows = rows_expected_launches(fwd + bwd, 2)
+    log(f"[17(b) launches] split {split_l} expected {exp_split}; partial-norm entries {rows_l} "
+        f"expected {exp_rows}; plain-stage calls {plain}; other kernels {others}")
+    if split_l != exp_split or rows_l != exp_rows:
+        raise SystemExit("chip_smoke: 17(b): the state split's launches do not match its attempts")
+    if any(plain) or any(others):
+        raise SystemExit("chip_smoke: 17(b): the state split ran a plain stage or another kernel")
+
+    nz_b = (R * 3 // 2 + SIR_DERIVS, R * 3 // 2)  # the backward's blocks (the forward's: 1,500 each)
+    hist_b = [8 * (P_MAX_ADAMS + 3) * m * B for m in nz_b]
+    table_b = [8 * 1025 * (1 + 3 * (3 * R // 2)) * B] * 2
+    att = fwd + bwd
+    log(f"[17(b) step] R={R} B={B} mesh=1x2 (one card twice) wall_s={wall:.4f} attempts "
+        f"fwd={fwd} bwd={bwd} host_ms_per_attempt={1e3 * wall / att:.3f} "
+        f"block_bytes: backward history {hist_b}, recording table {table_b} "
+        f"(phase 8's whole table {sir_table_bytes(mode, B)}); peak_MB={peak / 1e6:.1f}; "
+        f"off-home bytes a step {traffic} = gather {traffic['gather'] / att:.0f}, scatter "
+        f"{traffic['scatter'] / att:.0f}, lanes {traffic['lanes'] / att:.0f} an attempt | {smi}")
+
+    ys_np, gp_np = ys.cpu().numpy(), gp.cpu().numpy()
+    status = stats["backward"]["status"].cpu().numpy()
+    finite = int((np.isfinite(ys_np).all(axis=(1, 2)) & np.isfinite(gp_np).all(axis=1)).sum())
+    if not (ys_np.shape == (B, 12, 3 * R) and finite == B and (status == 0).all()):
+        raise SystemExit(f"chip_smoke: 17(b) failed ({finite} finite, "
+                         f"{int((status == 0).sum())} with status 0, of {B})")
+    np.testing.assert_allclose(ys_np[0], golden["ys"], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gp_np[0], golden["gp"], rtol=1e-3)
+    same = ((stats["forward"]["n_steps"].cpu().numpy() == reference["fwd_steps"])
+            & (stats["backward"]["n_backward_steps"].cpu().numpy() == reference["bwd_steps"]))
+    ys_ref, gp_ref = reference["ys"], reference["gp"]
+
+    def lane_err(sel, rtol, atol):
+        """max over the lanes ``sel`` of |a - b| / (atol + rtol |b|), ys and gp."""
+        if not sel.any():
+            return 0.0
+        return max(float(np.max(np.abs(a[sel] - b[sel]) / (atol + rtol * np.abs(b[sel]))))
+                   for a, b in ((ys_np, ys_ref), (gp_np, gp_ref)))
+
+    err_same = lane_err(same, STATE_SPLIT_RTOL, STATE_SPLIT_ATOL)
+    rel_parted = max([floored_rel(ys_np[~same], ys_ref[~same], 1e-10),
+                      float(np.max(np.abs(gp_np[~same] - gp_ref[~same]) / np.abs(gp_ref[~same])))]
+                     if (~same).any() else [0.0])
+    bit_lanes = int(((ys_np == ys_ref).all(axis=(1, 2)) & (gp_np == gp_ref).all(axis=1)).sum())
+    log(f"[17(b) check] status 0 and finite in {finite}/{B}; lane 0 inside sir_1000.npz's gate; "
+        f"{int(same.sum())}/{B} lanes with phase 8's accepted steps, there the worst "
+        f"|a - b| / ({STATE_SPLIT_ATOL:g} + {STATE_SPLIT_RTOL:g} |b|) = {err_same:.3e} (gate 1); "
+        f"{int((~same).sum())} lanes parted on a norm's last bit, max_rel={rel_parted:.3e} "
+        f"(bound {STATE_SPLIT_PARTED:g}, ys floored at atol 1e-10); {bit_lanes} lanes bit for bit")
+    if not (err_same <= 1.0 and rel_parted <= STATE_SPLIT_PARTED):
+        raise SystemExit("chip_smoke: 17(b): the state split disagrees with phase 8's solve")
+    launches = {**{k: v for k, v in split_l.items() if k == "predict"}, **rows_l}
+    log_elapsed("17b")
+
+    # (c) one block: bit for bit the unsplit solve, the same kernels' rows
+    # summed in the same order and one root of the same sum
+    del ys, gp
+    torch.cuda.empty_cache()
+    tv = grad_step.tvals[:STATE_SPLIT_EXACT_TIMES]
+    lanes = slice(0, STATE_SPLIT_EXACT_LANES)
+    unsplit, _ = build_sir(R, STATE_SPLIT_EXACT_LANES, mode, device="cuda")
+    one = Mesh(((dev,),), ("chains", "state"))
+    outs = []
+    for solve, y0 in ((unsplit.solve, y0s[lanes]),
+                      (grad_step.solve, shard_batch_state(one, y0s[lanes]))):
+        p = p_subs[lanes].detach().requires_grad_(True)
+        y_c = solve(0.0, y0, p, grad_step.p_fix, tv)
+        (g_c,) = torch.autograd.grad(torch.sum(y_c[:, :, R:2 * R] ** 2), (p,))
+        outs.append((y_c.detach(), g_c, solve.last_stats["backward"]["n_attempts"]))
+    exact = bool(torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]))
+    log(f"[17(c) one block] 1x1 mesh over t <= {float(tv[-1]):g} on lanes 0-"
+        f"{STATE_SPLIT_EXACT_LANES - 1}: ys and gradient bit for bit "
+        f"the unsplit solve: {exact} (backward attempts {outs[0][2]} / {outs[1][2]})")
+    if not exact:
+        raise SystemExit("chip_smoke: 17(c): one block is not bit for bit the unsplit solve")
+    log_elapsed("17")
+    return launches
 
 
 def pece_2d_phase(smi):
@@ -3596,8 +3928,8 @@ def class_api_phase(smi, counted, kab11) -> dict:
 NUTS_CHAINS = 512  # scripts/exp_nuts_f32.py's --chains: BASELINE config 4 at full width
 NUTS_CPU_CHAINS = 16  # 15(a): chains 0-15 on the CPU, with those chains' rows of the draws
 NUTS_START = (0.01, 1)  # 15(a), (b): log(1.0, 0.3) + 0.01 N(0, 1), default_rng(1)
-NUTS_EPS = 0.004  # 15(a)'s fixed step size (unit mass): trees of depth 1 to 4, accept 0.88-1
-NUTS_TREEDEPTH = 4  # 15(a): cut from the script's 6
+NUTS_EPS = 0.004  # 15(a)'s fixed step size (unit mass): trees of depth 1 to 4 uncapped, accept 0.88-1
+NUTS_TREEDEPTH = 3  # 15(a): cut from the script's 6 (to 4, then to 3 to make room for phase 17)
 NUTS_SEED = 15  # 15(a)'s draw source; (b) takes NUTS_SEED + 1
 NUTS_REL = 1e-8  # 15(a): the card against the CPU
 # 15(b): the mass swap at warmup draw 1; depth cut to 2 (the script's 6)
@@ -4210,7 +4542,7 @@ def run(card, smi) -> None:
         raise SystemExit("chip_smoke: history-attempt launches do not match the attempts run")
     if adams_pece_attempt.launches != 0 or any(pece_launches.values()):
         raise SystemExit("chip_smoke: the main path launched the PECE kernel")
-    if split_count.launches:
+    if split_count.launches or RowsLaunches().launches:
         raise SystemExit("chip_smoke: the main path launched a split kernel")
 
     def step_attempts():
@@ -4268,7 +4600,7 @@ def run(card, smi) -> None:
     counted = (adams_pece_attempt, adams_history_attempt, *kernels.values(),
                *history_kernels.values(), *adams_kernels.values(), *sens_kernels.values(),
                pece_2d_attempt, build_pece_2d(P_ORDER), *spline_kernels.values(),
-               BandedCounts(tuple(banded_builds.values())), split_count)
+               BandedCounts(tuple(banded_builds.values())), RowsLaunches(), split_count)
     for label, name, phase in (("5", "robertson", bdf_robertson_phase),
                                ("5b", "sens", bdf_sens_phase),
                                ("6", "checkpointed", checkpointed_phase)):
@@ -4287,7 +4619,7 @@ def run(card, smi) -> None:
 
     # phase 8: SIR-1000, a TorchProblem, through the split kernels; every
     # other kernel's count must stay 0
-    split_launches = sir_phase(smi, counted[:-1])
+    split_launches, sir_hermite = sir_phase(smi, counted[:-1])
 
     # phase 9(a): the forward-sensitivity builds, and the split kernels on
     # one attempt's sensitivity block of phase 9(b)'s Adams staggered solve,
@@ -4364,6 +4696,17 @@ def run(card, smi) -> None:
                                  BandedCounts(tuple(banded_builds.values()))), history_kernels,
                            adams_kernels, (y0s_t, p_subs_t), main_grads)
 
+    # phase 17: the state axis; (a) the partial-norm entries against their
+    # plain versions, (b) SIR-1000 'hermite' with its state rows split over a
+    # 1x2 mesh of the card, every count set to 0 just before it and read just
+    # after, against phase 8's step, (c) one block bit for bit
+    table17 = state_split_kernels(smi, built[f"split_kab{P_MAX_ADAMS + 3}"])
+    log_elapsed("17a")
+    phase17 = state_split_phase(
+        smi, tuple(k for k in (*others12, *spline_kernels.values(),
+                               BandedCounts(tuple(banded_builds.values())))
+                   if k is not split_count and not isinstance(k, RowsLaunches)), sir_hermite)
+
     entries = [
         dict(
             name=f"adams_pece_attempt[{kind}]",
@@ -4431,10 +4774,22 @@ def run(card, smi) -> None:
             route="cuda",
             source=KERNEL_SOURCE_SPLIT,
             replaces=TPU_KERNEL,
-            launches=split_launches[stage],
+            launches=split_launches[stage] + phase17.get(stage, 0),
             **split_table[stage],
         )
         for stage in SPLIT_STAGES
+    ]
+    # the state split's partial-norm entries (phase 17)
+    entries += [
+        dict(
+            name=f"adams_split_{entry}[KAB={P_MAX_ADAMS + 3}]",
+            route="cuda",
+            source=KERNEL_SOURCE_SPLIT,
+            replaces=TPU_KERNEL,
+            launches=phase17[entry],
+            **table17[entry],
+        )
+        for entry in ROWS_KERNELS
     ]
     # a TorchProblem's sensitivity block: phase 9's solves, a SympyProblem's,
     # launch none (check_launches held every other kernel at 0)

@@ -39,6 +39,11 @@ never jax, works in float64 per tensor and changes no global torch state
   * :class:`Mesh`, :func:`make_mesh`, :func:`shard_over_chains` and
     :func:`map_over_chains` -- the chain axis split over several devices,
     one host thread a device, gradients through ``torch.autograd``;
+    :func:`make_mesh_2d` and :func:`shard_batch_state` -- the state axis:
+    a (chains x state) mesh, and a :class:`StateShards` batch that
+    ``make_batched_solve_fn``'s ADAMS solve takes in place of ``y0``, each
+    chain group's state rows split over its row of devices
+    (``entry.build_sir_state_split``);
   * :func:`make_event_fn` and :func:`make_hybrid_solve_fn` -- differentiable
     event times (the implicit function theorem around the localized root)
     and event-restart solves with differentiable jumps
@@ -74,9 +79,18 @@ from sunode_torch.entry import (
     build_lv_roots,
     build_lv_sens,
     build_sir,
+    build_sir_state_split,
 )
 from sunode_torch.native.cpu_solver import CpuSolver
-from sunode_torch.parallel.mesh import Mesh, make_mesh, map_over_chains, shard_over_chains
+from sunode_torch.parallel.mesh import (
+    Mesh,
+    StateShards,
+    make_mesh,
+    make_mesh_2d,
+    map_over_chains,
+    shard_batch_state,
+    shard_over_chains,
+)
 from sunode_torch.events import HybridResult, make_event_fn, make_hybrid_solve_fn, map_lanes
 from sunode_torch.paramspec import ParamSpec, Record
 from sunode_torch.problem import TorchProblem
@@ -103,6 +117,7 @@ __all__ = [
     "build_lv_roots",
     "build_lv_sens",
     "build_sir",
+    "build_sir_state_split",
     "make_batched_solve_fn",
     "make_solve_fn",
     "solve_ivp",
@@ -116,6 +131,9 @@ __all__ = [
     "make_mesh",
     "shard_over_chains",
     "map_over_chains",
+    "make_mesh_2d",
+    "shard_batch_state",
+    "StateShards",
     "make_event_fn",
     "make_hybrid_solve_fn",
     "HybridResult",

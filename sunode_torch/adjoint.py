@@ -33,6 +33,7 @@ from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions, _np_dtype, _upload, bdf_solve, host_time, host_value
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
 from sunode_torch.ops.linalg import solve_dense
+from sunode_torch.parallel.rows import RowBlocks, RowLayout
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
 __all__ = [
@@ -553,18 +554,23 @@ def make_hermite_eval_batched(saved: dict) -> Callable:
     where the rows carry ``fd``, gated per lane to ``h L <= 1`` where they
     carry ``L`` (cubic beyond: the h^2 (J f) term magnifies node error by
     (h L)^2 in stiff regions).  Port of
-    ``sunode_tpu/adjoint.py::make_hermite_eval_batched``, packed branch."""
+    ``sunode_tpu/adjoint.py::make_hermite_eval_batched``, packed branch.
+
+    A state-split recording (``yf`` a :class:`~sunode_torch.parallel.rows.
+    RowBlocks`) is read where it lies: each lane's bracket and weights are
+    found once on the home device and sent to the blocks, each block
+    evaluates its rows, and y(t) is gathered on the home device."""
     ts, n_saved, yf = saved["t"], saved["n_saved"], saved["yf"]
     quintic = "fd" in saved
     Ls = saved.get("L")
-    n = yf.shape[1] // (3 if quintic else 2)
     ts_rows = ts.T.contiguous()
 
-    def y_at(t):
+    def weights(t):
+        """Each lane's bracket ``(i0, i1)``, its node weights for ``(y0, h
+        f0, y1, h f1)`` (the cubic) and for ``(y0, h f0, h^2 fd0, y1, h f1,
+        h^2 fd1)`` (the quintic, or None), and the quintic's gate (or None)."""
         i0, i1 = _bracket(ts, ts_rows, n_saved, t)
         t0, t1 = _rows(ts, i0), _rows(ts, i1)
-        r0, r1 = _rows(yf, i0), _rows(yf, i1)
-        y0, f0, y1, f1 = r0[:n], r0[n : 2 * n], r1[:n], r1[n : 2 * n]
         h = t1 - t0
         tau = torch.clamp((t - t0) / h, 0.0, 1.0)
         om = 1 - tau
@@ -572,24 +578,59 @@ def make_hermite_eval_batched(saved: dict) -> Callable:
         h10 = tau * (om * om)
         h01 = (tau * tau) * (3 - 2 * tau)
         h11 = (tau * tau) * (tau - 1)
-        cubic = h00[None] * y0 + (h10 * h)[None] * f0 + h01[None] * y1 + (h11 * h)[None] * f1
+        cubic = (h00, h10 * h, h01, h11 * h)
         if not quintic:
-            return cubic
-        fd0, fd1 = r0[2 * n :], r1[2 * n :]
+            return i0, i1, cubic, None, None
         H0, H1, H2, H3, H4, H5 = _quintic_basis(tau)
         h2 = h * h
+        quin = (H0, H1 * h, H2 * h2, H3, H4 * h, H5 * h2)
+        ok = None if Ls is None else h * torch.maximum(_rows(Ls, i0), _rows(Ls, i1)) <= 1.0
+        return i0, i1, cubic, quin, ok
+
+    def rows_at(table, i0, i1, cubic_w, quin_w, ok):
+        """The rows of ``table (S, 2m|3m, B)`` at the weights: ``(m, B)``."""
+        m = table.shape[1] // (3 if quintic else 2)
+        r0, r1 = _rows(table, i0), _rows(table, i1)
+        y0, f0, y1, f1 = r0[:m], r0[m : 2 * m], r1[:m], r1[m : 2 * m]
+        w00, w10, w01, w11 = cubic_w
+        cubic = w00[None] * y0 + w10[None] * f0 + w01[None] * y1 + w11[None] * f1
+        if quin_w is None:
+            return cubic
+        fd0, fd1 = r0[2 * m :], r1[2 * m :]
+        q0, q1, q2, q3, q4, q5 = quin_w
         quin = (
-            H0[None] * y0
-            + (H1 * h)[None] * f0
-            + (H2 * h2)[None] * fd0
-            + H3[None] * y1
-            + (H4 * h)[None] * f1
-            + (H5 * h2)[None] * fd1
+            q0[None] * y0
+            + q1[None] * f0
+            + q2[None] * fd0
+            + q3[None] * y1
+            + q4[None] * f1
+            + q5[None] * fd1
         )
-        if Ls is None:
-            return quin
-        ok = h * torch.maximum(_rows(Ls, i0), _rows(Ls, i1)) <= 1.0
-        return torch.where(ok[None], quin, cubic)
+        return quin if ok is None else torch.where(ok[None], quin, cubic)
+
+    return _table_eval(saved, yf, weights, rows_at)
+
+
+def _table_eval(saved: dict, table, weights, rows_at) -> Callable:
+    """``y_at(t)``: ``rows_at(table, *weights(t))``, or on a state-split
+    recording (``table`` a :class:`RowBlocks`) each block's rows at the
+    weights, sent to its device, gathered on the home device in the layout
+    of ``saved['y']``."""
+    if not isinstance(table, RowBlocks):
+        return lambda t: rows_at(table, *weights(t))
+    layout = saved["y"].layout
+
+    def on_blocks(w):  # a weight (or a tuple of them) on every block's device
+        if w is None:
+            return [None] * len(layout.devices)
+        if isinstance(w, tuple):
+            return list(zip(*(layout.lanes(x) for x in w)))
+        return layout.lanes(w)
+
+    def y_at(t):
+        per_block = zip(*(on_blocks(w) for w in weights(t)))
+        return RowBlocks(layout, [rows_at(x, *w) for x, w in zip(table.blocks, per_block)]
+                         ).gather()
 
     return y_at
 
@@ -600,16 +641,19 @@ def make_polynomial_eval_batched(saved: dict) -> Callable:
     bracketing interval (window clamped at the ends, degree lower where a
     lane has fewer rows), the nearest node itself within 1e-14 relative:
     ``y_at(t (B,)) -> (n, B)``.  Port of
-    ``sunode_tpu/adjoint.py::make_polynomial_eval_batched``."""
-    ts, n_saved, yf = saved["t"], saved["n_saved"], saved["yf"]
+    ``sunode_tpu/adjoint.py::make_polynomial_eval_batched``; a
+    state-split recording is read as :func:`make_hermite_eval_batched`
+    reads it."""
+    ts, n_saved = saved["t"], saved["n_saved"]
     S, B = ts.shape
-    n = yf.shape[1] // (3 if "fd" in saved else 2)
     K = min(POLY_K, S)
     ts_rows = ts.T.contiguous()
     off = torch.arange(K, device=ts.device)[:, None]  # (K, 1)
     offd = (off != off.T)[:, :, None]  # (K, K, 1)
 
-    def y_at(t):
+    def weights(t):
+        """Each lane's window ``jdx (K, B)``, barycentric weights ``c`` and
+        their sum, and the nearest exact node."""
         i = _left_row(ts_rows, n_saved, t)
         s = torch.minimum(torch.clamp(i - (K // 2 - 1), min=0),
                           torch.clamp(n_saved - K, min=0))
@@ -617,7 +661,6 @@ def make_polynomial_eval_batched(saved: dict) -> Callable:
         jdx = torch.clamp(j, 0, S - 1)
         valid = j < n_saved[None, :]
         tj = ts.gather(0, jdx)  # (K, B)
-        yj = yf[:, :n].gather(0, jdx[:, None, :].expand(K, n, B))  # (K, n, B)
         diff = tj[:, None, :] - tj[None, :, :]  # (K, K, B)
         prods = torch.prod(torch.where(offd & valid[None], diff, 1.0), dim=1)
         w = torch.where(valid, 1.0 / prods, 0.0)
@@ -625,13 +668,22 @@ def make_polynomial_eval_batched(saved: dict) -> Callable:
         absd = torch.abs(d)
         exact = (absd <= 1e-14 * (1.0 + torch.abs(t))[None, :]) & valid
         c = torch.where(exact, 0.0, w / torch.where(exact, 1.0, d))
-        y_interp = torch.sum(c[:, None, :] * yj, dim=0) / torch.sum(c, dim=0)[None, :]
         # the nearest exact node only: two rows may lie within the tolerance
         nearest = torch.argmin(torch.where(valid, absd, float("inf")), dim=0)
-        y_exact = _rows(yj, nearest)
-        return torch.where(exact.any(dim=0)[None, :], y_exact, y_interp)
+        return jdx, c, torch.sum(c, dim=0), nearest, exact.any(dim=0)
 
-    return y_at
+    def rows_at(y, jdx, c, c_sum, nearest, any_exact):
+        """The rows of the ``(S, m, B)`` y table at the weights: ``(m, B)``."""
+        yj = y.gather(0, jdx[:, None, :].expand(K, y.shape[1], B))  # (K, m, B)
+        y_interp = torch.sum(c[:, None, :] * yj, dim=0) / c_sum[None, :]
+        return torch.where(any_exact[None, :], _rows(yj, nearest), y_interp)
+
+    yf = saved["yf"]
+    if isinstance(yf, RowBlocks):  # a state-split recording: its y blocks
+        y = saved["y"]
+    else:  # the packed table's leading rows
+        y = yf[:, : yf.shape[1] // (3 if "fd" in saved else 2)]
+    return _table_eval(saved, y, weights, rows_at)
 
 
 def adjoint_backward_batched(
@@ -650,6 +702,7 @@ def adjoint_backward_batched(
     rhs: Optional[Callable] = None,  # batched forward f(t, y, p); for 'resolve'
     y_end: Optional[torch.Tensor] = None,  # (B, n) y(tvals[-1]); for 'resolve'
     device_system: Optional[DeviceSystem] = None,  # ADAMS on CUDA tensors
+    rows: Optional[RowLayout] = None,  # ADAMS: the state rows over devices
 ) -> AdjointResult:
     """Backward solve of the checkpointed adjoint (CVODES's ``CVodeB``
     analog): from the last observation time down to ``t0``, add each
@@ -669,14 +722,23 @@ def adjoint_backward_batched(
     ``y_end``, ignores ``saved``, and reports ``stats['y0_resolved']``).
     ``device_system`` is the emitted backward system of that solve
     (``staged_adjoint`` or ``resolve``, ``symode/cuda_codegen.py``), which
-    a solve on CUDA tensors requires."""
+    a solve on CUDA tensors requires.
+
+    ``rows`` (``method='ADAMS'``) takes the state-split route of
+    ``adams_solve_batched``: lambda's rows over the layout of the forward
+    solve's state (for 'resolve', y and lambda of the same state rows on one
+    device: ``rows.repeated(2)``), the quadrature on the home device; the
+    recording's rows are read where they lie."""
+    if rows is not None and method != "ADAMS":
+        raise ValueError("adjoint_backward_batched: the state split (rows=...) takes "
+                         "method='ADAMS'; ROADMAP A queues BDF")
     if interpolation == "resolve":
         if method != "ADAMS":
             raise NotImplementedError("interpolation='resolve' requires method='ADAMS'")
         if rhs is None or y_end is None:
             raise ValueError("interpolation='resolve' requires rhs and y_end")
         return _resolve_backward(adjoint_rhs, quad_rhs, rhs, y_end, t0, tvals, grads, params,
-                                 n_deriv, options, device_system)
+                                 n_deriv, options, device_system, rows)
     if interpolation == "polynomial":
         y_at = make_polynomial_eval_batched(saved)
     elif interpolation == "hermite":
@@ -685,12 +747,12 @@ def adjoint_backward_batched(
         raise ValueError(
             f"interpolation must be 'hermite', 'polynomial' or 'resolve', got {interpolation!r}"
         )
+    if method == "ADAMS":
+        return _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads,
+                                     params, n_deriv, options, device_system, rows)
     y = saved["y"]
     dtype, device = y.dtype, y.device
     S, n, B = y.shape
-    if method == "ADAMS":
-        return _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads,
-                                     params, n_deriv, options, device_system)
     tvals_h = torch.as_tensor(tvals, dtype=dtype).tolist()  # one read per backward
     t0_h = float(t0)
     n_t = len(tvals_h)
@@ -789,7 +851,7 @@ def staged_adjoint_fz(adjoint_rhs: Callable, quad_rhs: Callable):
 
 
 def _fused_solve(rhs_c, quad_c, z0, cotangent_rows, t0, tvals, grads, params, n_deriv,
-                 options, device_system, stage_fn=None):
+                 options, device_system, stage_fn=None, rows=None):
     """The one backward Adams solve of the fused backwards, in tau = -t from
     ``-tvals[-1]`` to ``-t0``: the observation times before the last are
     injection times, ascending in tau, where the rows ``cotangent_rows`` of
@@ -804,24 +866,25 @@ def _fused_solve(rhs_c, quad_c, z0, cotangent_rows, t0, tvals, grads, params, n_
         options._replace(quad_err_con=True, save_steps=0),
         quad_rhs=quad_c, quad0=torch.zeros((z0.shape[0], n_deriv), **f_kw), batched_fns=True,
         device_system=device_system, inject_times=torch.flip(-tvals[:-1], (0,)),
-        inject_deltas=ev_deltas, stage_fn=stage_fn,
+        inject_deltas=ev_deltas, stage_fn=stage_fn, rows=rows,
     )
 
 
 def _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads, params,
-                          n_deriv, options, device_system) -> AdjointResult:
+                          n_deriv, options, device_system, rows=None) -> AdjointResult:
     """The ADAMS branch of :func:`adjoint_backward_batched` (the reference's
     fused backward, ``sunode_tpu/adjoint.py:844-894``): the last cotangent
     is the initial lambda, the others are injected (history restart, warm
     step), y(t) from the recording is staged once per attempt, and lambda
     and q are read from the final carried state."""
-    f_kw = dict(dtype=saved["y"].dtype, device=saved["y"].device)
+    f_kw = dict(dtype=saved["t"].dtype, device=saved["t"].device)
     tvals = torch.as_tensor(tvals, **f_kw)
     grads = torch.as_tensor(grads, **f_kw)
     n = grads.shape[2]
     res = _fused_solve(
         *staged_adjoint_fz(adjoint_rhs, quad_rhs), grads[:, -1, :], slice(0, n), t0, tvals,
         grads, params, n_deriv, options, device_system, stage_fn=lambda tau: y_at(-tau),
+        rows=rows,
     )
     zfin = res.stats["final_state"]  # (B, n + n_deriv)
     # a failed solve, or an overflowed (incomplete) recording, poisons the lane
@@ -835,7 +898,7 @@ def _fused_adams_backward(adjoint_rhs, quad_rhs, y_at, saved, t0, tvals, grads, 
 
 
 def _resolve_backward(adjoint_rhs, quad_rhs, rhs, y_end, t0, tvals, grads, params, n_deriv,
-                      options, device_system) -> AdjointResult:
+                      options, device_system, rows=None) -> AdjointResult:
     """``interpolation='resolve'`` (``sunode_tpu/adjoint.py:738-808``): the
     fused backward solve of ``z = [y | lam]`` from ``[y_end | g_last]``, the
     y rows continuous, the lambda rows jumping by the cotangents."""
@@ -850,7 +913,7 @@ def _resolve_backward(adjoint_rhs, quad_rhs, rhs, y_end, t0, tvals, grads, param
     z0 = torch.cat([torch.as_tensor(y_end, **f_kw), grads[:, -1, :]], dim=1)
     res = _fused_solve(
         *resolve_fz(rhs, adjoint_rhs, quad_rhs, n), z0, slice(n, 2 * n), t0, tvals, grads,
-        params, n_deriv, options, device_system,
+        params, n_deriv, options, device_system, rows=None if rows is None else rows.repeated(2),
     )
     zfin = res.stats["final_state"]  # (B, 2n + n_deriv)
     bad = (res.status != 0)[:, None]

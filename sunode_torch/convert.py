@@ -33,6 +33,15 @@ def device_or_raise(device) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index: a card named without
+    one is the current card (``cuda`` and ``cuda:0`` compare equal then)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+    return dev
+
+
 def inputs_from_numpy(y0s, p_subs, p_fix, tvals, device="cuda"):
     """(y0s (B, n), p_subs (B, k), p_fix (k2,), tvals (n_t,)) as float64
     tensors on ``device``."""

@@ -30,6 +30,26 @@
 //                  three weighted error norms err3 (orders p, p-1, p+1) and
 //                  the attempt's conv.
 //
+// A state split over devices (ops/adams_split.py::adams_split_attempt_rows)
+// cuts the sweep and the finish at their sums over the rows, so that each
+// device's block of rows is summed on its own and the lanes' sums are added
+// in block order on the home device between the two halves:
+//
+//   split_sweep_rows     the sweep kernel with PARTIAL: a block's y_next, and
+//                        per lane its sum of squares ss and non-finite flag;
+//   split_sweep_decide   one thread a lane on the summed ss: dy_norm, the
+//                        rate tests and the state update (sweep_decide, the
+//                        sweep's own tail);
+//   split_finish_rows    the finish kernel with ROWS: a block's rows and per
+//                        lane its three sums of squares, without the roots;
+//   split_finish_lanes   one thread a lane: err3's roots and conv
+//                        (finish_lane, the finish's own tail).
+//
+// At one block the rows are summed in the unsplit kernels' order and one
+// root is taken of the same sum: the composition is the unsplit attempt bit
+// for bit.  The lanes' kernels move a few bytes a lane: their launch bounds
+// them, not the card.
+//
 // What bounds them on an H100: bytes.  At SIR over 1,000 regions (nz =
 // 3,000) and B = 1,024 the history is 11 x 3,000 x 1,024 x 8 B = 270 MB;
 // predict and finish each read it once and write it once (predict 639 MB
@@ -337,13 +357,44 @@ split_predict_kernel(const real* __restrict__ DF, const int* __restrict__ order,
   SPLIT_COUNT_BLOCK();
 }
 
+// The sweep's decision for lane b from its sum of squares ss over the n
+// state rows: dy_norm, the rate tests and the masked state update.
+__device__ __forceinline__ void sweep_decide(
+    int b, int k, real ss, int nonfinite, bool live, const unsigned char* __restrict__ conv,
+    const unsigned char* __restrict__ div, const unsigned char* __restrict__ bad,
+    const real* __restrict__ dy_old, const int* __restrict__ niter, double newton_tol,
+    double tol_lo, int fixed, int n, unsigned char* __restrict__ conv_o,
+    unsigned char* __restrict__ div_o, unsigned char* __restrict__ bad_o,
+    real* __restrict__ dy_old_o, int* __restrict__ niter_o) {
+  const real dy_norm = r_sqrt(r_div(ss, (real)n));
+  const real rate = r_div(dy_norm, dy_old[b]);
+  bool conv_new = false, div_new = false;
+  if (!fixed) {
+    conv_new = dy_norm == 0 ||
+               (k > 0 && rate < 1 &&
+                r_mul(r_div(rate, r_sub((real)1, rate)), dy_norm) < (real)newton_tol) ||
+               dy_norm < (real)tol_lo;
+    div_new = rate >= 2 && k > 0;
+  }
+  const bool bad_n = bad[b] || (live && nonfinite);
+  conv_o[b] = conv[b] || (live && conv_new && !bad_n);
+  div_o[b] = div[b] || (live && div_new && !conv_new);
+  bad_o[b] = bad_n;
+  niter_o[b] = niter[b] + (live ? 1 : 0);
+  dy_old_o[b] = live ? dy_norm : dy_old[b];
+}
+
 // ---------------------------------------------------------------------------
 // FZ_LANE_MAJOR: fz arrives lane-major (element (r, b) at b nz + r), as a
 // right-hand side mapped over the lanes with vmap returns it.  Each step's
 // (SWEEP_UNROLL row threads' rows) x (lanes) tile of it is then read along
 // the rows, 256 bytes a warp, into shared memory and read back by lane, in
 // place of a transposing copy before the launch.
-template <bool FZ_LANE_MAJOR>
+// PARTIAL: one block of a state split over devices (split_sweep_rows): the
+// kernel writes y_next and each lane's sum of squares and non-finite flag
+// over its rows into ss_o and nonfinite_o, and makes no decision; rows
+// below n are its state rows, the rest quadrature rows.
+template <bool FZ_LANE_MAJOR, bool PARTIAL>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ y_it,
                    const real* __restrict__ z_pred, const real* __restrict__ f_ex,
@@ -354,7 +405,8 @@ split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ 
                    int n, int nz, int B, int rows, real* __restrict__ y_next,
                    unsigned char* __restrict__ conv_o, unsigned char* __restrict__ div_o,
                    unsigned char* __restrict__ bad_o, real* __restrict__ dy_old_o,
-                   int* __restrict__ niter_o) {
+                   int* __restrict__ niter_o, real* __restrict__ ss_o,
+                   unsigned char* __restrict__ nonfinite_o) {
   __shared__ real ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
   __shared__ int bad_s[SWEEP_THREADS];
   // a step's fz tile, (rows) x (lanes + 1): the odd stride keeps a warp's
@@ -455,26 +507,55 @@ split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ 
   SPLIT_MARK(3);
   SPLIT_COUNT_BLOCK();
   if (!tail) return;
-  const real dy_norm = r_sqrt(r_div(ss, (real)n));
-  const real rate = r_div(dy_norm, dy_old[b]);
-  bool conv_new = false, div_new = false;
-  if (!fixed) {
-    conv_new = dy_norm == 0 ||
-               (k > 0 && rate < 1 &&
-                r_mul(r_div(rate, r_sub((real)1, rate)), dy_norm) < (real)newton_tol) ||
-               dy_norm < (real)tol_lo;
-    div_new = rate >= 2 && k > 0;
+  if (PARTIAL) {  // the block's sums; the decision waits for every block's
+    ss_o[b] = ss;
+    nonfinite_o[b] = nonfinite;
+    return;
   }
-  const bool bad_n = bad[b] || (live && nonfinite);
-  conv_o[b] = conv[b] || (live && conv_new && !bad_n);
-  div_o[b] = div[b] || (live && div_new && !conv_new);
-  bad_o[b] = bad_n;
-  niter_o[b] = niter[b] + (live ? 1 : 0);
-  dy_old_o[b] = live ? dy_norm : dy_old[b];
+  sweep_decide(b, k, ss, nonfinite, live, conv, div, bad, dy_old, niter, newton_tol, tol_lo,
+               fixed, n, conv_o, div_o, bad_o, dy_old_o, niter_o);
   SPLIT_MARK(4);
 }
 
+// The lanes' decision after the partial sweeps of a state split over
+// devices: ss and nonfinite are each lane's sums over every block, added in
+// block order (parallel/rows.py::lane_sum); n is the whole state's rows.
+__global__ void __launch_bounds__(SWEEP_THREADS)
+split_sweep_decide_kernel(int k, const real* __restrict__ ss, const unsigned char* __restrict__ nf,
+                          const unsigned char* __restrict__ conv,
+                          const unsigned char* __restrict__ div,
+                          const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
+                          const int* __restrict__ niter, double newton_tol, double tol_lo,
+                          int fixed, int n, int B, unsigned char* __restrict__ conv_o,
+                          unsigned char* __restrict__ div_o, unsigned char* __restrict__ bad_o,
+                          real* __restrict__ dy_old_o, int* __restrict__ niter_o) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const bool live = !(conv[b] || div[b] || bad[b]);
+  sweep_decide(b, k, ss[b], nf[b], live, conv, div, bad, dy_old, niter, newton_tol, tol_lo, fixed,
+               n, conv_o, div_o, bad_o, dy_old_o, niter_o);
+}
+
+// Lane b's error norms from its three sums of squares, and the attempt's conv.
+__device__ __forceinline__ void finish_lane(int b, size_t sB, real t0, real t1, real t2,
+                                            const unsigned char* __restrict__ conv,
+                                            const unsigned char* __restrict__ bad,
+                                            const unsigned char* __restrict__ pred_ok, int fixed,
+                                            real* __restrict__ err3,
+                                            unsigned char* __restrict__ conv_o) {
+  err3[b] = r_sqrt(t0);
+  err3[sB + b] = r_sqrt(t1);
+  err3[2 * sB + b] = r_sqrt(t2);
+  const bool c0 = fixed ? (conv[b] || !bad[b]) : conv[b];
+  conv_o[b] = c0 && !bad[b] && pred_ok[b];
+}
+
 // ---------------------------------------------------------------------------
+// ROWS: one block of a state split over devices (split_finish_rows): err3
+// receives each lane's three sums of squares over the block's rows, without
+// the roots, and conv_o, conv, bad and pred_ok are not touched (the lanes'
+// form, split_finish_lanes_kernel, takes the roots of the summed rows).
+template <bool ROWS>
 __global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
 split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_resc,
                     const real* __restrict__ z_pred, const real* __restrict__ f_ex,
@@ -566,11 +647,28 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
     t1 = r_add(t1, *((volatile const real*)part + sP + c * sB + b));
     t2 = r_add(t2, *((volatile const real*)part + 2 * sP + c * sB + b));
   }
-  err3[b] = r_sqrt(t0);
-  err3[sB + b] = r_sqrt(t1);
-  err3[2 * sB + b] = r_sqrt(t2);
-  const bool c0 = fixed ? (conv[b] || !bad[b]) : conv[b];
-  conv_o[b] = c0 && !bad[b] && pred_ok[b];
+  if (ROWS) {
+    err3[b] = t0;
+    err3[sB + b] = t1;
+    err3[2 * sB + b] = t2;
+    return;
+  }
+  finish_lane(b, sB, t0, t1, t2, conv, bad, pred_ok, fixed, err3, conv_o);
+}
+
+// The lanes' finish after the rows' finishes of a state split over devices:
+// ss3 (3, B) holds each lane's three sums over every block, added in block
+// order (parallel/rows.py::lane_sum).
+__global__ void __launch_bounds__(SWEEP_THREADS)
+split_finish_lanes_kernel(const real* __restrict__ ss3, const unsigned char* __restrict__ conv,
+                          const unsigned char* __restrict__ bad,
+                          const unsigned char* __restrict__ pred_ok, int fixed, int B,
+                          real* __restrict__ err3, unsigned char* __restrict__ conv_o) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t sB = (size_t)B;
+  finish_lane(b, sB, ss3[b], ss3[sB + b], ss3[2 * sB + b], conv, bad, pred_ok, fixed, err3,
+              conv_o);
 }
 
 #undef HIST
@@ -592,9 +690,9 @@ static bool covers(int nz, int B, int lanes, int rows, int cluster) {
          (long long)(cluster - 1) * rows < nz && (B + lanes - 1) / lanes <= 65535;
 }
 
-// Whether predict's, the row-major and the lane-major sweep's kernel allow
-// the non-portable cluster size yet.
-static bool non_portable[3] = {false, false, false};
+// Whether predict's, the row-major and the lane-major sweep's kernel and
+// the rows' sweep allow the non-portable cluster size yet.
+static bool non_portable[4] = {false, false, false, false};
 
 // The launch of a kernel on that geometry: the tile's blocks one cluster
 // along gridDim.x.  A cluster above the portable 8 needs the kernel's
@@ -670,7 +768,8 @@ int split_sweep_launch(int k, const real* fz, const real* y_it, const real* z_pr
   if (n > nz) return -1;
   if (B <= 0 || nz <= 0) return 0;
   if (!covers(nz, B, lanes, rows, cluster)) return -3;
-  auto kernel = fz_lane_major ? split_sweep_kernel<true> : split_sweep_kernel<false>;
+  auto kernel =
+      fz_lane_major ? split_sweep_kernel<true, false> : split_sweep_kernel<false, false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err = cluster_config(&cfg, attr, (const void*)kernel,
@@ -679,8 +778,54 @@ int split_sweep_launch(int k, const real* fz, const real* y_it, const real* z_pr
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, kernel, k, fz, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad,
                              dy_old, niter, newton_tol, tol_lo, fixed, n, nz, B, rows, y_next,
-                             conv_o, div_o, bad_o, dy_old_o, niter_o);
+                             conv_o, div_o, bad_o, dy_old_o, niter_o, (real*)nullptr,
+                             (unsigned char*)nullptr);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// One block of a state split over devices: the sweep's rows on the same
+// geometry (f row-major), each lane's sum of squares over the block's n
+// state rows into ss and its non-finite flag over all nz rows into
+// nonfinite; live from conv, div and bad.  The decision is
+// split_sweep_decide_launch's, on the blocks' sums.
+int split_sweep_rows_launch(const real* fz, const real* y_it, const real* z_pred,
+                            const real* f_ex, const real* w_z, const real* c_A,
+                            const unsigned char* conv, const unsigned char* div,
+                            const unsigned char* bad, int n, int nz, int B, int lanes, int rows,
+                            int cluster, real* y_next, real* ss, unsigned char* nonfinite,
+                            void* stream) {
+  if (n > nz) return -1;
+  if (B <= 0 || nz <= 0) return 0;
+  if (!covers(nz, B, lanes, rows, cluster)) return -3;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config(&cfg, attr, (const void*)split_sweep_kernel<false, true>,
+                                   &non_portable[3], B, lanes, cluster, stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, split_sweep_kernel<false, true>, 0, fz, y_it, z_pred, f_ex,
+                             w_z, c_A, conv, div, bad, (const real*)nullptr,
+                             (const int*)nullptr, 0.0, 0.0, 1, n, nz, B, rows, y_next,
+                             (unsigned char*)nullptr, (unsigned char*)nullptr,
+                             (unsigned char*)nullptr, (real*)nullptr, (int*)nullptr, ss,
+                             nonfinite);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The sweep's decision on each lane's summed ss and nonfinite, n the whole
+// state's rows; one thread a lane.
+int split_sweep_decide_launch(int k, const real* ss, const unsigned char* nonfinite,
+                              const unsigned char* conv, const unsigned char* div,
+                              const unsigned char* bad, const real* dy_old, const int* niter,
+                              double newton_tol, double tol_lo, int fixed, int n, int B,
+                              unsigned char* conv_o, unsigned char* div_o, unsigned char* bad_o,
+                              real* dy_old_o, int* niter_o, void* stream) {
+  if (B <= 0) return 0;
+  split_sweep_decide_kernel<<<(B + SWEEP_THREADS - 1) / SWEEP_THREADS, SWEEP_THREADS, 0,
+                              (cudaStream_t)stream>>>(k, ss, nonfinite, conv, div, bad, dy_old,
+                                                      niter, newton_tol, tol_lo, fixed, n, B,
+                                                      conv_o, div_o, bad_o, dy_old_o, niter_o);
   return (int)cudaGetLastError();
 }
 
@@ -699,9 +844,44 @@ int split_finish_launch(const real* fz, const real* DF_resc, const real* z_pred,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
   if (err != cudaSuccess) return (int)err;
-  split_finish_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+  split_finish_kernel<false><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
       fz, DF_resc, z_pred, f_ex, w_z, c_A, pred_ok, order, h_use, gamma_star_abs, v_err, conv,
       bad, fixed, nz, B, DF_upd, z_new, err0, err3, conv_o, part, done);
+  return (int)cudaGetLastError();
+}
+
+// One block of a state split over devices: the finish's rows, and each
+// lane's three sums of squares over them into ss3 (3, B), without the roots
+// or conv (split_finish_lanes_launch's, on the blocks' sums).  Scratch as
+// the finish's.
+int split_finish_rows_launch(const real* fz, const real* DF_resc, const real* z_pred,
+                             const real* f_ex, const real* w_z, const real* c_A, const int* order,
+                             const real* h_use, const real* gamma_star_abs, const real* v_err,
+                             int kab, int nz, int B, int n_gamma, real* DF_upd, real* z_new,
+                             real* err0, real* ss3, real* part, unsigned int* done,
+                             void* stream) {
+  if (kab != ADAMS_KAB || n_gamma < ADAMS_K + 1) return -1;
+  if (B <= 0 || nz <= 0) return 0;
+  dim3 grid;
+  if (grid_for(nz, B, &grid)) return -3;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
+  if (err != cudaSuccess) return (int)err;
+  split_finish_kernel<true><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+      fz, DF_resc, z_pred, f_ex, w_z, c_A, nullptr, order, h_use, gamma_star_abs, v_err,
+      nullptr, nullptr, 0, nz, B, DF_upd, z_new, err0, ss3, nullptr, part, done);
+  return (int)cudaGetLastError();
+}
+
+// The finish's lanes on each lane's summed ss3 (3, B): err3's roots and
+// conv; one thread a lane.
+int split_finish_lanes_launch(const real* ss3, const unsigned char* conv,
+                              const unsigned char* bad, const unsigned char* pred_ok, int fixed,
+                              int B, real* err3, unsigned char* conv_o, void* stream) {
+  if (B <= 0) return 0;
+  split_finish_lanes_kernel<<<(B + SWEEP_THREADS - 1) / SWEEP_THREADS, SWEEP_THREADS, 0,
+                              (cudaStream_t)stream>>>(ss3, conv, bad, pred_ok, fixed, B, err3,
+                                                      conv_o);
   return (int)cudaGetLastError();
 }
 
@@ -711,8 +891,8 @@ int split_finish_launch(const real* fz, const real* DF_resc, const real* z_pred,
 // experiments print it beside a geometry's clusters.
 int split_max_active_clusters(int kernel, int lanes, int cluster, int* out) {
   const void* fn = kernel == 0   ? (const void*)split_predict_kernel
-                   : kernel == 1 ? (const void*)split_sweep_kernel<false>
-                                 : (const void*)split_sweep_kernel<true>;
+                   : kernel == 1 ? (const void*)split_sweep_kernel<false, false>
+                                 : (const void*)split_sweep_kernel<true, false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err =

@@ -40,6 +40,8 @@ gradients of ``sum(ys[:, :, R:2R]**2)`` with respect to (beta, gamma) in
 kernels (``ops/adams_split.py``), the right-hand side in torch between them;
 ``dtype=torch.float32`` runs it at float32 with ``bench.py``'s float32
 tolerances (the float32 builds of the split kernels).
+:func:`build_sir_state_split` is the same gradient on a 2-D (chains x state)
+mesh: each chain group's 3R state rows split over its row of devices.
 
 The structured Newton solves: :func:`build_kpp` is
 ``scripts/bench_batched_structured.py``'s Fisher-KPP reaction-diffusion
@@ -704,6 +706,45 @@ def build_sir(R: int, batch: int, mode: str, device="cuda", dtype=torch.float64)
     grad_step.solve = solve
     grad_step.tvals = tvals
     grad_step.p_fix = p_fix
+    y0s, p_subs = sir_inputs(R, batch)
+    return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))
+
+
+def build_sir_state_split(R: int, batch: int, mode: str, mesh):
+    """:func:`build_sir` on a 2-D (chains x state) ``mesh``
+    (:class:`~sunode_torch.parallel.mesh.Mesh`, ``make_mesh_2d`` on cards):
+    ``(grad_step, (y0s, p_subs))``, the inputs on the mesh's first device.
+    ``grad_step(y0s, p_subs)`` cuts ``y0s`` into the mesh's blocks
+    (``shard_batch_state``: each chain group's rows over its row of the
+    mesh), solves each group with the state split (its home device runs
+    the host loop and the right-hand side, every device keeps and updates
+    its block of rows) and returns ``ys`` and the gradient of
+    ``sum(ys[:, :, R:2R]**2)`` with respect to ``p_subs`` on the first
+    device.  The configuration is :func:`build_sir`'s at float64, ``mode``
+    'resolve', 'hermite' or 'polynomial'; ``batch`` and ``3 R`` must divide
+    evenly over the mesh."""
+    from sunode_torch.parallel.mesh import shard_batch_state
+
+    for d in mesh.devices:
+        device_or_raise(d)
+    if mode not in ("resolve", "hermite", "polynomial"):
+        raise ValueError(f"mode must be 'resolve', 'hermite' or 'polynomial', got {mode!r}")
+    fwd_opts, adj_opts = sir_options()
+    solve = make_batched_solve_fn(
+        sir_problem(R), options=fwd_opts, adjoint_options=adj_opts,
+        checkpoint_n=SIR_CHECKPOINTS, method="ADAMS", adjoint_interpolation=mode,
+    )
+    f_kw = dict(dtype=torch.float64, device=mesh.devices[0])
+    tvals = torch.as_tensor(np.linspace(5.0, 60.0, 12), **f_kw)
+    p_fix = torch.as_tensor([0.05], **f_kw)
+
+    def grad_step(y0s, p_subs, tvals=tvals):
+        p_subs = p_subs.detach().requires_grad_(True)
+        ys = solve(0.0, shard_batch_state(mesh, y0s), p_subs, p_fix, tvals)
+        (gp,) = torch.autograd.grad(torch.sum(ys[:, :, R : 2 * R] ** 2), (p_subs,))
+        return ys.detach(), gp
+
+    grad_step.solve, grad_step.tvals, grad_step.p_fix, grad_step.mesh = solve, tvals, p_fix, mesh
     y0s, p_subs = sir_inputs(R, batch)
     return grad_step, (torch.as_tensor(y0s, **f_kw), torch.as_tensor(p_subs, **f_kw))
 

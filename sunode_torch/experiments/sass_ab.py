@@ -9,10 +9,15 @@ wrapper builds it: ``csrc/adams_attempt.cu`` for the six Lotka-Volterra
 systems at history depths 9 and 11 (``-fmad=false``), ``csrc/pece_step.cu``
 for the forward and transition systems, and ``csrc/adams_split.cu`` at
 depths 9 and 11.  Then compares ``cuobjdump -sass``'s instructions, with
-their addresses and encodings dropped, one by one.  Identical machine code
-means the float64 builds compute and take the same as the other tree's,
-whatever a timing's noise says.  Prints one line per build and exits
-non-zero if any differs, or if the toolkit is missing.
+their addresses and encodings dropped, one by one, kernel by kernel: each of
+the other tree's kernels against this tree's of the same name, or, where this
+tree made it one instantiation of a template (``csrc/adams_split.cu``'s
+sweep and finish, whose state-split instantiations are new), against that
+instantiation (:data:`RENAMED`).  Kernels only this tree has are listed as
+new.  Identical machine code means the float64 builds compute and take the
+same as the other tree's, whatever a timing's noise says.  Prints one line
+per build and exits non-zero if any of the other tree's kernels differs, or
+if the toolkit is missing.
 """
 
 from __future__ import annotations
@@ -51,12 +56,48 @@ def _jobs():
     return jobs
 
 
-def _sass(tool: str, lib: Path) -> list[str]:
-    """The instructions of a built library, without addresses or encodings."""
+# mangled-name prefixes of the other tree's kernels and of this tree's
+# instantiation of each (the template arguments after the first are the
+# state split's PARTIAL and ROWS, false for the unsplit kernels)
+RENAMED = {
+    "_Z18split_sweep_kernelILb0EE": "_Z18split_sweep_kernelILb0ELb0EE",
+    "_Z18split_sweep_kernelILb1EE": "_Z18split_sweep_kernelILb1ELb0EE",
+    "_Z19split_finish_kernelPK": "_Z19split_finish_kernelILb0EE",
+}
+
+
+def _sass(tool: str, lib: Path) -> dict[str, list[str]]:
+    """{kernel's mangled name: its instructions} of a built library, without
+    addresses or encodings."""
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          check=True).stdout
-    return [m.group(1) for line in out.splitlines()
-            if (m := re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line))]
+    kernels: dict[str, list[str]] = {}
+    current: list[str] = []
+    for line in out.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            current = kernels.setdefault(m.group(1), [])
+        elif m := re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line):
+            current.append(m.group(1))
+    return kernels
+
+
+def _counterpart(name: str, ours: dict) -> str | None:
+    """This tree's kernel for the other tree's ``name``."""
+    if name in ours:
+        return name
+    for old, new in RENAMED.items():
+        if name.startswith(old):
+            return next((k for k in ours if k.startswith(new)), None)
+    return None
+
+
+def _first_difference(old: list, ours) -> str:
+    """Where a kernel's instructions first differ from the other tree's."""
+    if ours is None:
+        return "no counterpart in this tree"
+    i = next((i for i, (a, b) in enumerate(zip(old, ours)) if a != b), min(len(old), len(ours)))
+    return (f"{len(old)} / {len(ours)} instructions, first at {i}: "
+            f"{old[i] if i < len(old) else '-'} / {ours[i] if i < len(ours) else '-'}")
 
 
 def main(argv=None) -> None:
@@ -87,9 +128,15 @@ def main(argv=None) -> None:
     same_all = True
     for job, a, b in zip(jobs, new_libs, old_libs):
         ours, theirs = _sass(tool, a), _sass(tool, b)
-        same_all &= ours == theirs
-        print(f"[sass-ab {job[0]}] instructions this tree / old {len(ours)} / {len(theirs)} "
-              f"identical={ours == theirs}", flush=True)
+        matched = {name: _counterpart(name, ours) for name in theirs}
+        differ = {name: _first_difference(theirs[name], ours.get(k))
+                  for name, k in matched.items() if k is None or ours[k] != theirs[name]}
+        new = sorted(set(ours) - set(matched.values()))
+        same_all &= not differ
+        print(f"[sass-ab {job[0]}] instructions this tree / old "
+              f"{sum(map(len, ours.values()))} / {sum(map(len, theirs.values()))}, the old "
+              f"kernels' identical={not differ}" + (f"; differing {differ}" if differ else "")
+              + (f"; new kernels {new}" if new else ""), flush=True)
     if not same_all:
         raise SystemExit("sass_ab: a float64 build's machine code differs from the old tree's")
     print("[sass-ab] every float64 build's machine code is the old tree's")

@@ -77,6 +77,9 @@ from sunode_torch.ops.bdf import (
 )
 from sunode_torch.ops import adams_attempt
 from sunode_torch.ops.adams_attempt import adams_history_attempt
+from sunode_torch.ops.adams_split import adams_split_attempt_rows
+from sunode_torch.convert import canonical_device
+from sunode_torch.parallel.rows import RowBlocks, RowLayout, scatter
 from sunode_torch.ops.pece_step import PeceSystem
 from sunode_torch.symode.cuda_codegen import DeviceSystem
 
@@ -106,6 +109,7 @@ def adams_solve_batched(
     inject_times: Optional[Any] = None,  # (n_e,) ascending, shared
     inject_deltas: Optional[torch.Tensor] = None,  # (n_e, n, B) added to y
     stage_fn: Optional[Callable] = None,  # t (B,) -> (n_s, B), once per attempt
+    rows: Optional[RowLayout] = None,  # the state rows over devices: the state-split route
 ) -> BDFResult:
     """Batched Adams solve; outputs leading-batch: ``ys (B, n_t, n)``.
 
@@ -139,7 +143,23 @@ def adams_solve_batched(
     (pad a ragged one with copies of its last time): the lane ends at its
     own last time and emits where its own grid says.  It composes with
     sensitivities and roots, not with injections or a stage (the adjoint's
-    machinery, whose observation times are shared)."""
+    machinery, whose observation times are shared).
+
+    ``rows`` (a :class:`~sunode_torch.parallel.rows.RowLayout` of the ``n``
+    state rows, its home device ``y0``'s) takes the state-split route:
+    every array with a state-row axis (the history, the state, the
+    tolerances and weights, the recording's rows, the observations) is kept
+    as blocks of rows on the layout's devices, the quadrature rows on the
+    home device after its block, and every attempt runs
+    :func:`~sunode_torch.ops.adams_split.adams_split_attempt_rows`: the
+    right-hand side on the home device on the gathered iterate, each lane's
+    norms summed over the blocks in block order.  The lanes' quantities and
+    every decision stay on the home device; ``ys`` and the final state are
+    gathered there, and ``result.saved``'s row tables are
+    :class:`~sunode_torch.parallel.rows.RowBlocks`.  It takes float64, a
+    problem with no emitted system, shared observation times, injections, a
+    stage and the recording; sensitivities, roots and constraints raise
+    ``ValueError`` (ROADMAP A)."""
     with_sens, with_roots = sens_rhs is not None, root_fn is not None
     if (with_sens or with_roots) and (inject_times is not None or stage_fn is not None):
         raise NotImplementedError(
@@ -148,6 +168,8 @@ def adams_solve_batched(
         )
     if with_sens and sens0 is None:
         raise ValueError("adams_solve_batched: sens_rhs needs sens0 (B, k, n)")
+    if rows is not None:
+        _check_state_split(y0, tvals, options, device_system, with_sens, with_roots, rows)
     y0 = torch.as_tensor(y0)
     device = y0.device
     dtype = torch.promote_types(y0.dtype, torch.float32)
@@ -376,7 +398,7 @@ def adams_solve_batched(
             parts.append(fdot(rhs_b, t, y, f, params))
         return torch.cat(parts)
 
-    if save_steps > 0:
+    if save_steps > 0 and rows is None:  # the state-split route records by block
         row0 = record_row(t0, y0, f0)
         saved = init_saved_batched(row0, save_steps, thinning)
         pad_row = pad_column(row0.shape[0], row0)
@@ -427,20 +449,20 @@ def adams_solve_batched(
     n_cols = int(np.flatnonzero(np.any(np.asarray(_C_INT[:K]) != 0, axis=0)).max()) + 1
     eps = torch.finfo(dtype).eps
 
-    while True:
+    def active_lanes(i_out, ev_pending):
+        """The lanes still running, whether any does, and whether a lane's
+        history restarts at an injection (one sync for both)."""
         active = (c["status"] == -1) & (i_out < n_t)
         if with_inject:
             any_active, any_pending = torch.stack([active.any(), ev_pending.any()]).tolist()
         else:
             any_active, any_pending = bool(active.any()), False
-        if not any_active:
-            break
-        if any_pending:
-            fz_inj = fz(c["t"], c["z"][:n], par_at(c["t"]))
-            row_0 = torch.where(ev_pending[None, :], fz_inj, c["DF"][0])
-            c["DF"] = torch.cat([row_0[None], c["DF"][1:]])
-        t, p, z_prev = c["t"], c["p"], c["z"]
+        return active, any_active, any_pending
 
+    def step_window(active):
+        """This attempt's step: ``(h_min_loc, underflow, t_lim, h_use, t_new,
+        pre_factor)``, each lane's step clipped at its next injection or end."""
+        t = c["t"]
         h_min_loc = 10 * eps * torch.maximum(torch.abs(t), torch.abs(t_end))
         # NaN-robust form: non-finite h terminates the lane
         underflow = active & ~(c["h"] >= torch.clamp(h_min_loc, min=options.min_step))
@@ -455,9 +477,190 @@ def adams_solve_batched(
         h_use = torch.where(
             active, torch.clamp(torch.minimum(c["h"], t_lim - t), min=0.0), c["h"]
         )
-        t_new = t + h_use
-
         pre_factor = h_use / torch.clamp(c["h_D"], min=1e-300)
+        return h_min_loc, underflow, t_lim, h_use, t + h_use, pre_factor
+
+    def interp_weights(tt, t_new, h_use, p):
+        """(K, B): each history row's weight in the integral-basis dense
+        output at tt (B,) of the step from t_new - h_use, zero from order p
+        on."""
+        s = (tt - t_new) / h_use
+        ci = torch.zeros((K, B), **f_kw)
+        for col in range(n_cols - 1, -1, -1):
+            ci = ci * s[None, :] + C_int[:, col][:, None]
+        return torch.where(ar_K[:, None] <= p[None, :], ci, 0.0)
+
+    def _solve_rows():
+        """The state-split route: the loop below on row blocks of ``rows``
+        (the quadrature rows on the home block), the lanes on the home
+        device."""
+        L = rows.with_rows(m_quad)  # z's rows: [y | q]
+        lanes, n_d = L.lanes, L.state_rows(n)
+        g_rows = [rows.global_rows(d) for d in range(len(n_d))]
+
+        def state_of(zb):  # z's state rows as blocks of ``rows``
+            return RowBlocks(rows, [z[:m] for z, m in zip(zb.blocks, n_d)])
+
+        def where_lanes(mask, a, b):  # where(mask[lane], a, b) on every block
+            return a.map(lambda x, y, m: torch.where(m.view((1,) * (x.ndim - 1) + (-1,)), x, y),
+                         b, lanes(mask))
+
+        atol_b, rtol_b, v_b = (scatter(L, x[:, None]) for x in (atol_z, rtol_z, v_err))
+        zs_b, ar_KAB_d, row0_d = scatter(L, zs), lanes(ar_KAB), lanes(row0)
+        deltas_b = scatter(rows, inject_deltas) if with_inject else None
+        c["DF"], c["z"] = scatter(L, c["DF"]), scatter(L, c["z"])
+
+        def block_rows(t, yb, fb):
+            """The recording's rows (t, y, f[, fdot]) of each block."""
+            fd = (scatter(rows, fdot(rhs_b, t, yb.gather(), fb.gather(), params)).blocks
+                  if rec_fd else [None] * len(n_d))
+            return [torch.cat([x for x in (tt[None, :], y, f, d) if x is not None])
+                    for tt, y, f, d in zip(lanes(t), yb.blocks, fb.blocks, fd)]
+
+        if save_steps > 0:
+            rows0 = block_rows(t0, scatter(rows, y0), scatter(rows, f0))
+            saved_b = [init_saved_batched(r, save_steps, thinning) for r in rows0]
+            pads = [pad_column(r.shape[0], r) for r in rows0]
+        i_out_ = i_out
+        it = 0
+        ev_pending = torch.zeros((B,), dtype=torch.bool, device=device)
+        while True:
+            active, any_active, any_pending = active_lanes(i_out_, ev_pending)
+            if not any_active:
+                break
+            if any_pending:
+                fz_inj = scatter(L, fz(c["t"], state_of(c["z"]).gather(), par_at(c["t"])))
+                c["DF"] = c["DF"].map(
+                    lambda DF, f, e: torch.cat([torch.where(e[None, :], f, DF[0])[None], DF[1:]]),
+                    fz_inj, lanes(ev_pending))
+            t, p, i_ev = c["t"], c["p"], c["i_ev"]
+            h_min_loc, underflow, t_lim, h_use, t_new, pre_factor = step_window(active)
+            hist = adams_split_attempt_rows(
+                system, t_new, h_use, pre_factor, p, active, c["DF"], c["z"], par_at(t_new),
+                atol_b, rtol_b, gamma_star_abs, v_b, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
+            )
+            conv, niter, err3 = hist.conv, hist.niter, hist.err3
+            err_norm = err3[0]
+            err_ok = err_norm <= 1.0
+            constraint_fail = torch.zeros((B,), dtype=torch.bool, device=device)
+            accept = active & conv & err_ok
+            err_reject = active & conv & ~err_ok
+            n_equal = torch.where(accept, c["n_equal"] + 1, 0)
+            t_next = torch.where(accept, t_new, t)
+            z_next = where_lanes(accept, hist.z_new, c["z"])
+            if with_inject:
+                tiny_ev = 1e-12 * (1.0 + torch.abs(t_lim))
+                at_event = accept & (i_ev < n_ev) & (t_new >= t_lim - tiny_ev)
+                i_evc = torch.clamp(i_ev, max=n_ev - 1).long()
+
+                def inject(z_n, z_x, dl, e, i, m):
+                    delta_ev = dl.gather(0, i[None, None, :].expand(1, m, B))[0]
+                    y_inj = z_n[:m] + torch.where(e[None, :], delta_ev, 0.0)
+                    return torch.where(e[None, :], torch.cat([y_inj, z_n[m:]]), z_x)
+
+                z_next = RowBlocks(L, [inject(*a) for a in zip(
+                    hist.z_new.blocks, z_next.blocks, deltas_b.blocks, lanes(at_event),
+                    lanes(i_evc), n_d)])
+
+            # emission: each block interpolates its rows
+            while True:
+                idx = torch.clamp(i_out_, max=n_t - 1)
+                te = tvals_tb.gather(0, idx.long()[None, :])[0]
+                pend = accept & (i_out_ < n_t) & (te <= t_new + 1e-14 * torch.abs(t_new))
+                if not bool(pend.any()):
+                    break
+                wgt = interp_weights(te, t_new, h_use, p)
+
+                def emit(zs_d, DF_u, z_n, w, hu, ix, pe):
+                    gidx = ix.long()[None, None, :].expand(1, zs_d.shape[1], B)
+                    zi = _interp_rows(w, hu, DF_u, z_n)
+                    return zs_d.scatter(0, gidx, torch.where(pe[None, None, :], zi[None],
+                                                             zs_d.gather(0, gidx)))
+
+                zs_b = zs_b.map(emit, hist.DF_upd, hist.z_new, lanes(wgt), lanes(h_use),
+                                lanes(idx), lanes(pend))
+                i_out_ = i_out_ + pend.to(torch.int32)
+
+            if save_steps > 0:
+                rec = block_rows(t_new, state_of(hist.z_new), RowBlocks(
+                    rows, [du[0, :m] for du, m in zip(hist.DF_upd.blocks, n_d)]))
+                saved_b = [record_step_batched(sv, it, a, torch.where(a[None, :], r, pad),
+                                               save_steps, thinning)
+                           for sv, a, r, pad in zip(saved_b, lanes(accept), rec, pads)]
+
+            p_next, h_next, n_equal, cfails, reset = _step_control(
+                c, n_equal, p, h_use, active, accept, conv, err_ok, constraint_fail, err_norm,
+                err3, P_MAX, options, dtype)
+            DF_kept = where_lanes(reset, hist.DF_resc.map(lambda x, r0: x * r0, row0_d),
+                                  hist.DF_resc)
+            DF_next = where_lanes(accept, hist.DF_upd, DF_kept)
+            if with_inject:
+                keep = max(1, int(options.inject_keep_order))
+                DF_event = hist.DF_upd.map(lambda x, ar: torch.where(ar[:, None, None] < keep,
+                                                                     x, 0.0), ar_KAB_d)
+                DF_next = where_lanes(at_event, DF_event, DF_next)
+                p_next = torch.where(at_event, torch.clamp(p_next, max=keep), p_next)
+                n_equal = torch.where(at_event, 0, n_equal)
+                h_next = torch.where(at_event, torch.maximum(c["h"], h_min_loc * 4), h_next)
+                ev_pending = at_event
+            DF_next = where_lanes(active, DF_next, c["DF"])
+
+            status, nsteps = _lane_status(c, active, accept, cfails, underflow, options)
+            fatal_now = (c["status"] == -1) & (status != -1)
+            worst = _worst_row([
+                torch.where(cv[None, :], torch.abs(e0[:m]) * w, torch.abs((zn - zp)[:m]) * w)
+                for e0, zn, zp, cv, w, m in zip(
+                    hist.err0.blocks, hist.z_new.blocks, hist.z_pred.blocks, lanes(conv),
+                    (1.0 / (a[:m] + r[:m] * torch.abs(zp[:m]))
+                     for a, r, zp, m in zip(atol_b.blocks, rtol_b.blocks, hist.z_pred.blocks,
+                                            n_d)), n_d)], g_rows, device)
+            c.update(
+                t=t_next, z=z_next, h=h_next, h_D=torch.where(active, h_use, c["h_D"]),
+                p=p_next.to(torch.int32), DF=DF_next, n_equal=n_equal.to(torch.int32),
+                status=status.to(torch.int32), consec_fails=cfails.to(torch.int32),
+                nsteps=nsteps, nfev=c["nfev"] + niter + 1, nniters=c["nniters"] + niter,
+                n_err_fails=c["n_err_fails"] + err_reject.to(torch.int32),
+                n_conv_fails=c["n_conv_fails"] + (active & ~conv).to(torch.int32),
+                pm_t=torch.where(fatal_now, c["t"], c["pm_t"]),
+                pm_h=torch.where(fatal_now, h_use, c["pm_h"]),
+                pm_q=torch.where(fatal_now, p, c["pm_q"]).to(torch.int32),
+                pm_worst=torch.where(fatal_now, worst.to(torch.int32), c["pm_worst"]),
+                i_ev=c["i_ev"] + at_event.to(torch.int32) if with_inject else c["i_ev"],
+            )
+            it += 1
+
+        status = torch.where(c["status"] == -1, STATUS["SUCCESS"], c["status"]).to(torch.int32)
+        stats = _final_stats(c, it)
+        stats["final_state"] = c["z"].gather().T
+        saved_out = None
+        if save_steps > 0:
+            stats["checkpoint_thinning_levels"] = saved_b[0]["shift"] if thinning else 0
+            fins = [finalize_saved_batched(sv, m, thinning) for sv, m in zip(saved_b, n_d)]
+            saved_out = {k: fins[0][k] for k in ("t", "n_saved", "overflow")}
+            for k in ("y", "f", "fd"):
+                if k in fins[0]:
+                    saved_out[k] = RowBlocks(rows, [f[k] for f in fins])
+            saved_out["yf"] = RowBlocks(rows.repeated(3 if "fd" in fins[0] else 2),
+                                        [f["yf"] for f in fins])
+        zs_all = zs_b.gather()
+        ys = zs_all[:, :n, :].permute(2, 0, 1)
+        quad = zs_all[:, n:n_yq, :].permute(2, 0, 1) if with_quad else None
+        return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, sens=None,
+                         quad=quad)
+
+    if rows is not None:
+        return _solve_rows()
+
+    while True:
+        active, any_active, any_pending = active_lanes(i_out, ev_pending)
+        if not any_active:
+            break
+        if any_pending:
+            fz_inj = fz(c["t"], c["z"][:n], par_at(c["t"]))
+            row_0 = torch.where(ev_pending[None, :], fz_inj, c["DF"][0])
+            c["DF"] = torch.cat([row_0[None], c["DF"][1:]])
+        t, p, z_prev, i_ev = c["t"], c["p"], c["z"], c["i_ev"]
+        h_min_loc, underflow, t_lim, h_use, t_new, pre_factor = step_window(active)
         hist = adams_history_attempt(
             system, t_new, h_use, pre_factor, p, active, c["DF"], z_prev[:n_yq], par_at(t_new),
             atol_z, rtol_z, gamma_star_abs, v_err, newton_tol, FUNCTIONAL_MAXITER, P_MAX,
@@ -532,15 +735,7 @@ def adams_solve_batched(
         def _z_interp(tt, DF_u, z_n):
             """tt (B,) -> (rows, B): the integral-basis dense output of the
             rows of the updated history ``DF_u`` and new state ``z_n``."""
-            s = (tt - t_new) / h_use
-            ci = torch.zeros((K, B), **f_kw)
-            for col in range(n_cols - 1, -1, -1):
-                ci = ci * s[None, :] + C_int[:, col][:, None]
-            wgt = torch.where(ar_K[:, None] <= p[None, :], ci, 0.0)
-            acc = torch.zeros_like(z_n)
-            for i in range(K):
-                acc = acc + wgt[i][None, :] * DF_u[i]
-            return z_n + h_use[None, :] * acc
+            return _interp_rows(interp_weights(tt, t_new, h_use, p), h_use, DF_u, z_n)
 
         def z_at(tt):  # every row of z
             zi = _z_interp(tt, DF_upd, z_new)
@@ -579,63 +774,9 @@ def adams_solve_batched(
             row = torch.where(accept[None, :], record_row(t_new, y_new, DF_upd[0, :n]), pad_row)
             saved = record_step_batched(saved, it, accept, row, save_steps, thinning)
 
-        # order & step adaptation
-        pf = p.to(dtype)
-        can_adapt = n_equal >= p + 1
-        err_m = torch.where(p > 1, err3[1], float("inf"))
-        err_p_ = torch.where(p < P_MAX, err3[2], float("inf"))
-
-        def fac(e, qq):
-            unavailable = ~torch.isfinite(e)
-            e_safe = torch.clamp(e, 1e-30, 1e30)
-            f = 0.9 * e_safe ** (-1.0 / (qq + 1.0))
-            return torch.where(unavailable, 0.0, f)
-
-        facs = torch.stack([fac(err_m, pf - 1), fac(err_norm, pf), fac(err_p_, pf + 1)])
-        best = torch.argmax(facs, dim=0)
-        dq = best.to(torch.int32) - 1
-        factor_best = torch.clamp(
-            facs.gather(0, best[None, :])[0], MIN_FACTOR, MAX_FACTOR
-        )
-        do_change = can_adapt & (
-            (factor_best >= THRESH) | (factor_best < 1.0) | (dq != 0)
-        )
-        p_acc = torch.where(do_change, torch.clamp(p + dq, 1, P_MAX), p)
-        factor_acc = torch.where(do_change, factor_best, 1.0)
-        factor_acc = torch.minimum(
-            factor_acc, options.max_step / torch.clamp(h_use, min=1e-300)
-        )
-        n_equal = torch.where(do_change & accept, 0, n_equal)
-
-        factor_rej = torch.clamp(
-            0.9 * torch.clamp(err_norm, 1e-30, 1e30) ** (-1.0 / (pf + 1.0)),
-            MIN_FACTOR,
-            0.9,
-        )
-        factor_rej = torch.where(constraint_fail & err_ok, 0.25, factor_rej)
-        factor_fail = torch.where(active & ~conv, 0.25, factor_rej)
-
-        # breakdown detector: 4 accumulated failures reset the lane's history
-        # (keep nabla^0 f only) and restart at order 1
-        failed_lane = active & ~accept
-        cfails_fail = c["consec_fails"] + 1
-        reset = failed_lane & (cfails_fail >= 4)
-        cfails = torch.where(
-            accept,
-            torch.where(
-                err_norm <= 0.9,
-                torch.clamp(c["consec_fails"] - 1, min=0),
-                c["consec_fails"],
-            ),
-            torch.where(
-                reset, 0, torch.where(failed_lane, cfails_fail, c["consec_fails"])
-            ),
-        )
-        factor_next = torch.where(
-            accept, factor_acc, torch.where(reset, 0.25, factor_fail)
-        )
-        h_next = torch.where(active, h_use * factor_next, c["h"])
-        p_next = torch.where(accept, p_acc, torch.where(reset, 1, p))
+        p_next, h_next, n_equal, cfails, reset = _step_control(
+            c, n_equal, p, h_use, active, accept, conv, err_ok, constraint_fail, err_norm,
+            err3, P_MAX, options, dtype)
         DF_next = torch.where(
             accept[None, None, :],
             DF_upd,
@@ -664,22 +805,7 @@ def adams_solve_batched(
             )
             DF_S_next = torch.where(active[None, None, :], DF_S_next, c["DF_S"])
 
-        too_many = cfails >= MAX_CONSECUTIVE_FAILS
-        status = c["status"]
-        status = torch.where(
-            (status == -1) & active & too_many & ~accept,
-            STATUS["REPEATED_FAILURES"],
-            status,
-        )
-        nsteps = c["nsteps"] + accept.to(torch.int32)
-        status = torch.where(
-            (status == -1) & active & (nsteps >= options.max_steps),
-            STATUS["MAX_STEPS"],
-            status,
-        )
-        status = torch.where(
-            (status == -1) & underflow, STATUS["STEP_UNDERFLOW"], status
-        )
+        status, nsteps = _lane_status(c, active, accept, cfails, underflow, options)
         root_ret_now = torch.zeros((B,), dtype=torch.bool, device=device)
         if with_roots and root_terminal:
             root_ret_now = (status == -1) & root_hit
@@ -720,24 +846,8 @@ def adams_solve_batched(
     status = torch.where(c["status"] == -1, STATUS["SUCCESS"], c["status"]).to(
         torch.int32
     )
-    stats = dict(
-        n_steps=c["nsteps"],
-        n_rhs_evals=c["nfev"],
-        n_jac_evals=torch.zeros((B,), **i32),
-        n_factorizations=torch.zeros((B,), **i32),
-        n_newton_iters=c["nniters"],
-        n_error_test_fails=c["n_err_fails"],
-        n_conv_fails=c["n_conv_fails"],
-        final_order=c["p"],
-        final_step_size=c["h"],
-        final_time=c["t"],
-        n_attempts=it,
-        error_time=c["pm_t"],
-        error_step_size=c["pm_h"],
-        error_order=c["pm_q"],
-        error_worst_state=c["pm_worst"],
-        final_state=c["z"].T,  # after the last injection: the adjoint reads it
-    )
+    stats = _final_stats(c, it)
+    stats["final_state"] = c["z"].T  # after the last injection: the adjoint reads it
     if with_sens:
         stats["n_sens_rhs_evals"] = c["nfevS"]
     if with_roots:
@@ -751,3 +861,159 @@ def adams_solve_batched(
     quad = zs[:, n:n_yq, :].permute(2, 0, 1) if with_quad else None
     sens = zs[:, n_yq:, :].permute(2, 0, 1).reshape(B, n_t, k_sens, n) if with_sens else None
     return BDFResult(ys=ys, status=status, stats=stats, saved=saved_out, sens=sens, quad=quad)
+
+
+def _step_control(c, n_equal, p, h_use, active, accept, conv, err_ok, constraint_fail, err_norm,
+                  err3, P_MAX, options, dtype):
+    """Order and step adaptation and the breakdown detector of one attempt,
+    per lane: ``(p_next, h_next, n_equal, cfails, reset)``."""
+    # order & step adaptation
+    pf = p.to(dtype)
+    can_adapt = n_equal >= p + 1
+    err_m = torch.where(p > 1, err3[1], float("inf"))
+    err_p_ = torch.where(p < P_MAX, err3[2], float("inf"))
+
+    def fac(e, qq):
+        unavailable = ~torch.isfinite(e)
+        e_safe = torch.clamp(e, 1e-30, 1e30)
+        f = 0.9 * e_safe ** (-1.0 / (qq + 1.0))
+        return torch.where(unavailable, 0.0, f)
+
+    facs = torch.stack([fac(err_m, pf - 1), fac(err_norm, pf), fac(err_p_, pf + 1)])
+    best = torch.argmax(facs, dim=0)
+    dq = best.to(torch.int32) - 1
+    factor_best = torch.clamp(
+        facs.gather(0, best[None, :])[0], MIN_FACTOR, MAX_FACTOR
+    )
+    do_change = can_adapt & (
+        (factor_best >= THRESH) | (factor_best < 1.0) | (dq != 0)
+    )
+    p_acc = torch.where(do_change, torch.clamp(p + dq, 1, P_MAX), p)
+    factor_acc = torch.where(do_change, factor_best, 1.0)
+    factor_acc = torch.minimum(
+        factor_acc, options.max_step / torch.clamp(h_use, min=1e-300)
+    )
+    n_equal = torch.where(do_change & accept, 0, n_equal)
+
+    factor_rej = torch.clamp(
+        0.9 * torch.clamp(err_norm, 1e-30, 1e30) ** (-1.0 / (pf + 1.0)),
+        MIN_FACTOR,
+        0.9,
+    )
+    factor_rej = torch.where(constraint_fail & err_ok, 0.25, factor_rej)
+    factor_fail = torch.where(active & ~conv, 0.25, factor_rej)
+
+    # breakdown detector: 4 accumulated failures reset the lane's history
+    # (keep nabla^0 f only) and restart at order 1
+    failed_lane = active & ~accept
+    cfails_fail = c["consec_fails"] + 1
+    reset = failed_lane & (cfails_fail >= 4)
+    cfails = torch.where(
+        accept,
+        torch.where(
+            err_norm <= 0.9,
+            torch.clamp(c["consec_fails"] - 1, min=0),
+            c["consec_fails"],
+        ),
+        torch.where(
+            reset, 0, torch.where(failed_lane, cfails_fail, c["consec_fails"])
+        ),
+    )
+    factor_next = torch.where(
+        accept, factor_acc, torch.where(reset, 0.25, factor_fail)
+    )
+    h_next = torch.where(active, h_use * factor_next, c["h"])
+    p_next = torch.where(accept, p_acc, torch.where(reset, 1, p))
+    return p_next, h_next, n_equal, cfails, reset
+
+
+def _lane_status(c, active, accept, cfails, underflow, options):
+    """The lanes' status after one attempt, and their accepted steps."""
+    too_many = cfails >= MAX_CONSECUTIVE_FAILS
+    status = c["status"]
+    status = torch.where(
+        (status == -1) & active & too_many & ~accept,
+        STATUS["REPEATED_FAILURES"],
+        status,
+    )
+    nsteps = c["nsteps"] + accept.to(torch.int32)
+    status = torch.where(
+        (status == -1) & active & (nsteps >= options.max_steps),
+        STATUS["MAX_STEPS"],
+        status,
+    )
+    status = torch.where(
+        (status == -1) & underflow, STATUS["STEP_UNDERFLOW"], status
+    )
+    return status, nsteps
+
+
+def _interp_rows(wgt, h_use, DF_u, z_n):
+    """The dense output's rows: ``z_n + h_use sum_i wgt[i] DF_u[i]`` over the
+    K = ``wgt.shape[0]`` history rows."""
+    acc = torch.zeros_like(z_n)
+    for i in range(wgt.shape[0]):
+        acc = acc + wgt[i][None, :] * DF_u[i]
+    return z_n + h_use[None, :] * acc
+
+
+def _final_stats(c, it: int) -> dict:
+    """The solve's per-lane stats from the final carry ``c`` after ``it``
+    attempts (no Jacobian or factorization: zeros)."""
+    zeros = torch.zeros_like(c["nsteps"])
+    return dict(
+        n_steps=c["nsteps"],
+        n_rhs_evals=c["nfev"],
+        n_jac_evals=zeros,
+        n_factorizations=zeros,
+        n_newton_iters=c["nniters"],
+        n_error_test_fails=c["n_err_fails"],
+        n_conv_fails=c["n_conv_fails"],
+        final_order=c["p"],
+        final_step_size=c["h"],
+        final_time=c["t"],
+        n_attempts=it,
+        error_time=c["pm_t"],
+        error_step_size=c["pm_h"],
+        error_order=c["pm_q"],
+        error_worst_state=c["pm_worst"],
+    )
+
+
+def _worst_row(values, g_rows, home):
+    """The post-mortem's worst state row per lane: the first row, in global
+    order, of the largest (or first NaN) value over the blocks' ``values``
+    ``(n_d, B)``, ``g_rows[d]`` block d's global row indices -- the row
+    ``torch.argmax`` finds over the whole state."""
+    best_v = best_i = None
+    for v, g in zip(values, g_rows):
+        i = torch.argmax(v, dim=0)
+        m, gi = v.gather(0, i[None, :])[0].to(home), g[i].to(home)
+        if best_v is None:
+            best_v, best_i = m, gi
+            continue
+        take = ((m > best_v) | ((m == best_v) & (gi < best_i))
+                | (torch.isnan(m) & (~torch.isnan(best_v) | (gi < best_i))))
+        best_v, best_i = torch.where(take, m, best_v), torch.where(take, gi, best_i)
+    return best_i
+
+
+def _check_state_split(y0, tvals, options, device_system, with_sens, with_roots, rows):
+    """Refuse, before any solve, what the state-split route does not take."""
+    def refuse(what):
+        raise ValueError(f"adams_solve_batched: the state split (rows=...) does not take {what}; "
+                         f"ROADMAP A queues it")
+
+    if torch.as_tensor(y0).dtype != torch.float64:
+        refuse("float32 (it runs at float64)")
+    if device_system is not None:
+        refuse("an emitted system (a SympyProblem's history kernel holds the whole state)")
+    if with_sens or with_roots:
+        refuse("sensitivities or roots")
+    if options.constraints is not None:
+        refuse("constraints")
+    if torch.as_tensor(tvals).ndim != 1:
+        refuse("per-lane observation grids")
+    if canonical_device(torch.as_tensor(y0).device) != rows.home:
+        raise ValueError(f"adams_solve_batched: y0 on {torch.as_tensor(y0).device}, the row "
+                         f"layout's home device is {rows.home}")

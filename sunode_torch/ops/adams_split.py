@@ -24,6 +24,26 @@ torch code between them:
     the error row ``err0``, the accepted-step difference update ``DF_upd``,
     the three error-test norms ``err3`` and the attempt's ``conv``.
 
+:func:`adams_split_attempt_rows` runs the same attempt on a state whose
+rows are split over devices (:mod:`sunode_torch.parallel.rows`): predict on
+every block, and the sweep and the finish each cut at their sums over the
+rows into a rows form and a lanes form --
+
+  * :func:`split_sweep_rows` -- a block's next iterate and each lane's sum
+    of squares ``ss`` and non-finite flag over the block's rows;
+  * :func:`split_sweep_decide` -- on each lane's ``ss`` summed over the
+    blocks in block order on the home device: ``dy_norm`` and the masked
+    state update;
+  * :func:`split_finish_rows` -- a block's ``d_fz``, ``z_new``, ``err0``,
+    ``DF_upd`` and each lane's three sums of squares ``ss3`` (err3 without
+    the roots);
+  * :func:`split_finish_lanes` -- err3's roots of the summed ``ss3`` and
+    the attempt's ``conv``.
+
+At one block the rows and the lanes forms compose to :func:`split_sweep`
+and :func:`split_finish` bit for bit: the same rows summed in the same
+order, one root of the same sum.
+
 :func:`adams_split_attempt` composes them: one predict,
 ``FUNCTIONAL_MAXITER`` sweeps and one finish, with ``maxiter + 1``
 evaluations of ``system.fz`` (the stage, where the solve has one, rides in
@@ -42,7 +62,8 @@ fails, or if a floating input has another type than the history; it never
 runs the plain stages there and casts nothing.  It
 counts its launches in ``adams_split_attempt.launches`` by kernel (each
 build in its own ``.launches`` too), and each plain stage counts its calls
-in ``.calls``.
+in ``.calls``; the rows' and the lanes' entries count theirs in
+``adams_split_attempt_rows.launches`` (and each build's ``.rows_launches``).
 """
 
 from __future__ import annotations
@@ -66,6 +87,7 @@ from sunode_torch.ops.adams_attempt import (
     real_build,
 )
 from sunode_torch.ops.pece_step import PeceSystem, _check, _tables_header
+from sunode_torch.parallel.rows import RowBlocks, lane_all, lane_any, lane_sum, scatter
 
 __all__ = [
     "Predicted",
@@ -77,15 +99,24 @@ __all__ = [
     "split_finish",
     "adams_split_attempt",
     "adams_split_attempt_reference",
+    "SweepRows",
+    "FinishedRows",
+    "split_sweep_rows",
+    "split_sweep_decide",
+    "split_finish_rows",
+    "split_finish_lanes",
+    "adams_split_attempt_rows",
     "build_split_kernels",
     "SweepGeometry",
     "sweep_geometry",
     "predict_geometry",
     "CHUNK_ROWS",
+    "ROWS_ENTRIES",
     "TILE_LANES",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
+ROWS_ENTRIES = ("sweep_rows", "sweep_decide", "finish_rows", "finish_lanes")
 TILE_LANES = 32  # lanes of a finish block (csrc/adams_split.cu: SPLIT_TILE)
 CHUNK_ROWS = 64  # history rows of a finish block (SPLIT_CHUNK)
 SWEEP_THREADS = 256  # threads of a predict or sweep block (SWEEP_THREADS)
@@ -118,6 +149,19 @@ class Finished(NamedTuple):
     err0: torch.Tensor  # (nz, B) |gamma*_p| h d_fz
     err3: torch.Tensor  # (3, B)
     conv: torch.Tensor  # (B,) bool
+
+
+class SweepRows(NamedTuple):
+    y_next: torch.Tensor  # (n_d, B) the block's state rows
+    ss: torch.Tensor  # (B,) sum of the squared weighted updates over the block's state rows
+    nonfinite: torch.Tensor  # (B,) bool: a non-finite fz row in the block
+
+
+class FinishedRows(NamedTuple):
+    DF_upd: torch.Tensor  # (KAB, nz_d, B)
+    z_new: torch.Tensor  # (nz_d, B)
+    err0: torch.Tensor  # (nz_d, B)
+    ss3: torch.Tensor  # (3, B) err3's sums of squares over the block's rows
 
 
 class SweepGeometry(NamedTuple):
@@ -286,6 +330,70 @@ def split_finish(fz, pred: Predicted, state: SweepState, p, h_use, gamma_star_ab
     """Final evaluation ``fz (nz, B)`` at the last iterate: new state, the
     difference update and the error rows at orders p, p - 1 and p + 1."""
     split_finish.calls += 1
+    DF_upd, z_new, err0, ss3 = _finish_rows(fz, pred, p, h_use, gamma_star_abs, v_err, P_MAX)
+    return Finished(DF_upd, z_new, err0, torch.sqrt(ss3),
+                    _finish_conv(state, pred.pred_ok, newton_tol))
+
+
+def split_sweep_rows(fz_k, y_it, pred: Predicted, conv, div, bad, n: int) -> SweepRows:
+    """:func:`split_sweep` on one block of rows up to its sum over them:
+    ``fz_k (nz_d, B)`` with the block's ``n`` state rows first, ``y_it (n,
+    B)``; lanes live from ``conv``, ``div`` and ``bad``."""
+    split_sweep_rows.calls += 1
+    bad_f = ~torch.isfinite(fz_k).all(dim=0)
+    z_next = pred.z_pred[:n] + pred.c_A[None, :] * (fz_k[:n] - pred.f_ex[:n])
+    delta = z_next - y_it
+    ss = torch.sum((delta * pred.w_z[:n]) ** 2, dim=0)
+    live = ~(conv | div | bad)
+    return SweepRows(torch.where(live[None, :], z_next, y_it), ss, bad_f)
+
+
+def split_sweep_decide(k: int, ss, nonfinite, state: SweepState, newton_tol: float,
+                       n: int) -> SweepState:
+    """:func:`split_sweep`'s decision on each lane's ``ss`` and
+    ``nonfinite`` over all the blocks, ``n`` the whole state's rows."""
+    split_sweep_decide.calls += 1
+    conv, div, bad, dy_old, niter = state
+    # a true division: on the card torch multiplies by the reciprocal of a
+    # Python number, and the kernel divides (on the CPU both are ss / n)
+    dy_norm = torch.sqrt(ss / torch.full_like(ss, float(n)))
+    rate = dy_norm / dy_old
+    live = ~(conv | div | bad)
+    if not newton_tol > 0:
+        conv_new = torch.zeros_like(live)
+        div_new = torch.zeros_like(live)
+    else:
+        conv_new = (
+            (dy_norm == 0.0)
+            | ((k > 0) & (rate < 1.0) & (rate / (1 - rate) * dy_norm < newton_tol))
+            | (dy_norm < 0.1 * newton_tol)
+        )
+        div_new = (rate >= 2.0) & (k > 0)
+    bad = bad | (live & nonfinite)
+    conv = conv | (live & conv_new & ~bad)
+    div = div | (live & div_new & ~conv_new)
+    niter = niter + live.to(torch.int32)
+    dy_old = torch.where(live, dy_norm, dy_old)
+    return SweepState(conv, div, bad, dy_old, niter)
+
+
+def split_finish_rows(fz, pred: Predicted, p, h_use, gamma_star_abs, v_err,
+                      P_MAX: int) -> FinishedRows:
+    """:func:`split_finish` on one block of rows up to err3's sums over
+    them."""
+    split_finish_rows.calls += 1
+    DF_upd, z_new, err0, ss3 = _finish_rows(fz, pred, p, h_use, gamma_star_abs, v_err, P_MAX)
+    return FinishedRows(DF_upd, z_new, err0, ss3)
+
+
+def split_finish_lanes(ss3, pred_ok, state: SweepState, newton_tol: float):
+    """:func:`split_finish`'s lanes on ``ss3`` summed over the blocks:
+    ``(err3, conv)``."""
+    split_finish_lanes.calls += 1
+    return torch.sqrt(ss3), _finish_conv(state, pred_ok, newton_tol)
+
+
+def _finish_rows(fz, pred: Predicted, p, h_use, gamma_star_abs, v_err, P_MAX: int):
     dtype, device = fz.dtype, fz.device
     d_fz = fz - pred.f_ex
     z_new = pred.z_pred + pred.c_A[None, :] * d_fz
@@ -301,17 +409,20 @@ def split_finish(fz, pred: Predicted, state: SweepState, p, h_use, gamma_star_ab
             * _take_row(DF_upd, p + 1),
         ]
     )
-    err3 = torch.sqrt(
-        torch.sum((err_rows * pred.w_z[None]) ** 2 * v_err[None, :, None], dim=1)
-    )
+    ss3 = torch.sum((err_rows * pred.w_z[None]) ** 2 * v_err[None, :, None], dim=1)
+    return DF_upd, z_new, err0, ss3
+
+
+def _finish_conv(state: SweepState, pred_ok, newton_tol: float):
     conv = state.conv
     if not newton_tol > 0:
         conv = conv | ~state.bad
-    conv = conv & ~state.bad & pred.pred_ok
-    return Finished(DF_upd, z_new, err0, err3, conv)
+    return conv & ~state.bad & pred_ok
 
 
 split_predict.calls = split_sweep.calls = split_finish.calls = 0
+split_sweep_rows.calls = split_sweep_decide.calls = 0
+split_finish_rows.calls = split_finish_lanes.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +439,7 @@ class _SplitKernels:
                  real: str = "double"):
         self.kab = kab
         self.launches = {"predict": 0, "sweep": 0, "finish": 0}  # this build's, by kernel
+        self.rows_launches = dict.fromkeys(ROWS_ENTRIES, 0)  # the rows' and lanes' entries
         suffix, real_defines, self.dtype = real_build(real)
         self.itemsize = torch.empty((), dtype=self.dtype).element_size()
         built = build_library(
@@ -345,6 +457,19 @@ class _SplitKernels:
         lib.split_finish_launch.argtypes = [vp] * 13 + [c_int] * 5 + [vp] * 7 + [vp]
         for fn in (lib.split_predict_launch, lib.split_sweep_launch, lib.split_finish_launch):
             fn.restype = c_int
+        # the state split's entries (an older source, split_ab.py --old-root, has none)
+        rows_argtypes = {
+            "split_sweep_rows_launch": [vp] * 9 + [c_int] * 6 + [vp] * 3 + [vp],
+            "split_sweep_decide_launch": (
+                [c_int] + [vp] * 7 + [c_double] * 2 + [c_int] * 3 + [vp] * 5 + [vp]
+            ),
+            "split_finish_rows_launch": [vp] * 10 + [c_int] * 4 + [vp] * 6 + [vp],
+            "split_finish_lanes_launch": [vp] * 4 + [c_int] * 2 + [vp] * 2 + [vp],
+        }
+        for name, argtypes in rows_argtypes.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = argtypes, c_int
         lib.split_error_string.argtypes = [c_int]
         lib.split_error_string.restype = ctypes.c_char_p
         self._lib = lib
@@ -362,8 +487,12 @@ class _SplitKernels:
         if code != 0:
             msg = self._lib.split_error_string(code).decode()
             raise RuntimeError(f"adams_split {stage} launch failed: {msg} ({code})")
-        adams_split_attempt.launches[stage] += 1
-        self.launches[stage] += 1
+        if stage in ROWS_ENTRIES:
+            adams_split_attempt_rows.launches[stage] += 1
+            self.rows_launches[stage] += 1
+        else:
+            adams_split_attempt.launches[stage] += 1
+            self.launches[stage] += 1
 
     @staticmethod
     def _grid(nz: int, B: int) -> tuple[int, int]:
@@ -466,6 +595,97 @@ class _SplitKernels:
         )
         return out
 
+    def sweep_rows(self, fz_k, y_it, pred: Predicted, conv, div, bad, n,
+                   geometry: SweepGeometry | None = None) -> SweepRows:
+        """:func:`split_sweep_rows` on the sweep's geometry (or
+        ``geometry``) for the block's ``(nz_d, B)``; ``fz_k`` row-major."""
+        nz, B = pred.z_pred.shape
+        fz_k, y_it = fz_k.contiguous(), y_it.contiguous()
+        dev, real = fz_k.device, self.dtype
+        _check(fz_k, real, (nz, B), dev, "fz_k")
+        _check(y_it, real, (n, B), dev, "y_it")
+        for name, x in (("conv", conv), ("div", div), ("bad", bad)):
+            _check(x, torch.bool, (B,), dev, name)
+        for name in ("z_pred", "f_ex", "w_z", "c_A"):
+            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
+        g = sweep_geometry(nz, B, self.itemsize) if geometry is None else geometry
+        out = SweepRows(torch.empty((n, B), dtype=real, device=dev),
+                        torch.empty((B,), dtype=real, device=dev),
+                        torch.empty((B,), dtype=torch.bool, device=dev))
+        self._run(
+            "sweep_rows", self._lib.split_sweep_rows_launch, dev,
+            fz_k.data_ptr(), y_it.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(),
+            pred.w_z.data_ptr(), pred.c_A.data_ptr(), conv.data_ptr(), div.data_ptr(),
+            bad.data_ptr(), n, nz, B, g.lanes, g.rows, g.cluster,
+            *(o.data_ptr() for o in out),
+        )
+        return out
+
+    def sweep_decide(self, k, ss, nonfinite, state: SweepState, newton_tol, n) -> SweepState:
+        """:func:`split_sweep_decide`, one thread a lane."""
+        B = ss.shape[0]
+        dev, real = ss.device, self.dtype
+        _check(ss, real, (B,), dev, "ss")
+        _check(nonfinite, torch.bool, (B,), dev, "nonfinite")
+        for name, x, dtype in (("conv", state.conv, torch.bool), ("div", state.div, torch.bool),
+                               ("bad", state.bad, torch.bool),
+                               ("dy_old", state.dy_old, real),
+                               ("niter", state.niter, torch.int32)):
+            _check(x, dtype, (B,), dev, name)
+        new = SweepState(*(torch.empty_like(x) for x in state))
+        self._run(
+            "sweep_decide", self._lib.split_sweep_decide_launch, dev,
+            int(k), ss.data_ptr(), nonfinite.data_ptr(), *(x.data_ptr() for x in state),
+            float(newton_tol), 0.1 * float(newton_tol), int(not newton_tol > 0), n, B,
+            *(x.data_ptr() for x in new),
+        )
+        return new
+
+    def finish_rows(self, fz, pred: Predicted, p, h_use, gamma_star_abs,
+                    v_err) -> FinishedRows:
+        """:func:`split_finish_rows` on the finish's grid."""
+        fz = fz.contiguous()
+        KAB, nz, B = pred.DF_resc.shape
+        dev, real = fz.device, self.dtype
+        _check(fz, real, (nz, B), dev, "fz")
+        _check(p, torch.int32, (B,), dev, "p")
+        _check(h_use, real, (B,), dev, "h_use")
+        _check(v_err, real, (nz,), dev, "v_err")
+        for name in ("DF_resc", "z_pred", "f_ex", "w_z", "c_A"):
+            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
+        n_gamma = gamma_star_abs.shape[0] if torch.is_tensor(gamma_star_abs) else 0
+        _check(gamma_star_abs, real, (max(KAB - 1, n_gamma),), dev, "gamma_star_abs")
+        chunks, tiles = self._grid(nz, B)
+        f_kw = dict(dtype=real, device=dev)
+        out = FinishedRows(torch.empty((KAB, nz, B), **f_kw), torch.empty((nz, B), **f_kw),
+                           torch.empty((nz, B), **f_kw), torch.empty((3, B), **f_kw))
+        part = torch.empty((3, chunks, B), **f_kw)
+        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        self._run(
+            "finish_rows", self._lib.split_finish_rows_launch, dev,
+            fz.data_ptr(), pred.DF_resc.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(),
+            pred.w_z.data_ptr(), pred.c_A.data_ptr(), p.data_ptr(), h_use.data_ptr(),
+            gamma_star_abs.data_ptr(), v_err.data_ptr(), KAB, nz, B, gamma_star_abs.shape[0],
+            *(o.data_ptr() for o in out), part.data_ptr(), done.data_ptr(),
+        )
+        return out
+
+    def finish_lanes(self, ss3, pred_ok, state: SweepState, newton_tol):
+        """:func:`split_finish_lanes`, one thread a lane: ``(err3, conv)``."""
+        B = ss3.shape[1]
+        dev, real = ss3.device, self.dtype
+        _check(ss3, real, (3, B), dev, "ss3")
+        for name, x in (("conv", state.conv), ("bad", state.bad), ("pred_ok", pred_ok)):
+            _check(x, torch.bool, (B,), dev, name)
+        err3 = torch.empty((3, B), dtype=real, device=dev)
+        conv = torch.empty((B,), dtype=torch.bool, device=dev)
+        self._run(
+            "finish_lanes", self._lib.split_finish_lanes_launch, dev,
+            ss3.contiguous().data_ptr(), state.conv.data_ptr(), state.bad.data_ptr(),
+            pred_ok.data_ptr(), int(not newton_tol > 0), B, err3.data_ptr(), conv.data_ptr(),
+        )
+        return err3, conv
+
 
 _KERNELS: dict[tuple[int, torch.dtype], _SplitKernels] = {}
 
@@ -494,6 +714,21 @@ class _PlainStages:
     def finish(self, fz, pred, state, p, h_use, gamma_star_abs, v_err, newton_tol) -> Finished:
         return split_finish(fz, pred, state, p, h_use, gamma_star_abs, v_err, newton_tol,
                             self.P_MAX)
+
+    @staticmethod
+    def sweep_rows(fz_k, y_it, pred, conv, div, bad, n) -> SweepRows:
+        return split_sweep_rows(fz_k, y_it, pred, conv, div, bad, n)
+
+    @staticmethod
+    def sweep_decide(k, ss, nonfinite, state, newton_tol, n) -> SweepState:
+        return split_sweep_decide(k, ss, nonfinite, state, newton_tol, n)
+
+    def finish_rows(self, fz, pred, p, h_use, gamma_star_abs, v_err) -> FinishedRows:
+        return split_finish_rows(fz, pred, p, h_use, gamma_star_abs, v_err, self.P_MAX)
+
+    @staticmethod
+    def finish_lanes(ss3, pred_ok, state, newton_tol):
+        return split_finish_lanes(ss3, pred_ok, state, newton_tol)
 
 
 def _compose(stages, system, t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z,
@@ -553,3 +788,85 @@ def adams_split_attempt(
 
 
 adams_split_attempt.launches = {"predict": 0, "sweep": 0, "finish": 0}
+
+
+def _stages_on(x: torch.Tensor, P_MAX: int, kab: int):
+    """The kernels for a block on the card (built for ``kab``), else the
+    plain stages."""
+    if adams_attempt.on_card(x):
+        return build_split_kernels(kab, x.dtype)
+    return _PlainStages(P_MAX)
+
+
+def adams_split_attempt_rows(
+    system: PeceSystem,
+    t_new: torch.Tensor,  # (B,) on the home device
+    h_use: torch.Tensor,  # (B,)
+    pre_factor: torch.Tensor,  # (B,)
+    p: torch.Tensor,  # (B,) int32
+    active: torch.Tensor,  # (B,) bool
+    DF: RowBlocks,  # (KAB, nz_d, B) a block
+    z_prev: RowBlocks,  # (nz_d, B)
+    params: torch.Tensor,  # (n_p, B) on the home device
+    atol_z: RowBlocks,  # (nz_d, 1)
+    rtol_z: RowBlocks,  # (nz_d, 1)
+    gamma_star_abs: torch.Tensor,
+    v_err: RowBlocks,  # (nz_d, 1)
+    newton_tol: float,
+    maxiter: int,
+    P_MAX: int,
+) -> HistoryOut:
+    """One attempt of :func:`adams_split_attempt` on row blocks (their
+    layout's state rows first in each block, the quadrature's after them on
+    the home device): predict on every block and ``pred_ok`` ANDed; per
+    sweep, the iterate gathered on the home device, ``system.fz`` there,
+    its rows scattered, :func:`split_sweep_rows` on every block, the lanes'
+    ``ss`` summed in block order and :func:`split_sweep_decide` on the home
+    device; then the finish the same way.  The per-row tolerances and
+    weights are ``(rows, 1)`` blocks.  Blocks on the card run the kernels
+    (raising if a build or a launch fails), CPU blocks the plain stages.
+    Returns a ``HistoryOut`` whose row fields (DF_resc, DF_upd, z_pred,
+    z_new, err0) are :class:`RowBlocks` and whose lane fields are on the
+    home device."""
+    layout = DF.layout
+    home, n = layout.home, system.n
+    n_d = layout.state_rows(n)
+    kab = P_MAX + 3
+    if any(x.shape[0] != kab for x in DF.blocks):
+        raise ValueError(f"adams_split_attempt_rows: DF blocks must have {kab} history rows")
+    stages = [_stages_on(x, P_MAX, kab) for x in DF.blocks]
+    home_stages = _stages_on(h_use, P_MAX, kab)
+    lanes = layout.lanes
+    h_d, pre_d, p_d, g_d = lanes(h_use), lanes(pre_factor), lanes(p), lanes(gamma_star_abs)
+    preds = [st.predict(x, pd, fd, hd, z, a[:, 0], r[:, 0])
+             for st, x, pd, fd, hd, z, a, r in zip(stages, DF.blocks, p_d, pre_d, h_d,
+                                                    z_prev.blocks, atol_z.blocks, rtol_z.blocks)]
+    pred_ok = lane_all([pr.pred_ok for pr in preds], home)
+    y_it = RowBlocks(layout, [pr.z_pred[:m] for pr, m in zip(preds, n_d)])
+    state = sweep_start(active, preds[0].z_pred.dtype)
+    for k in range(maxiter):
+        fz = scatter(layout, system.fz(t_new, y_it.gather(), params))
+        flags = [lanes(x) for x in (state.conv, state.div, state.bad)]
+        outs = [st.sweep_rows(f, y, pr, c, dv, bd, m)
+                for st, f, y, pr, c, dv, bd, m in zip(stages, fz.blocks, y_it.blocks, preds,
+                                                      *flags, n_d)]
+        state = home_stages.sweep_decide(k, lane_sum([o.ss for o in outs], home),
+                                         lane_any([o.nonfinite for o in outs], home), state,
+                                         newton_tol, n)
+        y_it = RowBlocks(layout, [o.y_next for o in outs])
+    fz = scatter(layout, system.fz(t_new, y_it.gather(), params))
+    fins = [st.finish_rows(f, pr, pd, hd, g, v[:, 0])
+            for st, f, pr, pd, hd, g, v in zip(stages, fz.blocks, preds, p_d, h_d, g_d,
+                                               v_err.blocks)]
+    err3, conv = home_stages.finish_lanes(lane_sum([f.ss3 for f in fins], home), pred_ok, state,
+                                          newton_tol)
+
+    def rows(xs):
+        return RowBlocks(layout, list(xs))
+
+    return HistoryOut(rows(pr.DF_resc for pr in preds), rows(f.DF_upd for f in fins),
+                      rows(pr.z_pred for pr in preds), rows(f.z_new for f in fins),
+                      rows(f.err0 for f in fins), err3, conv, state.niter)
+
+
+adams_split_attempt_rows.launches = dict.fromkeys(ROWS_ENTRIES, 0)

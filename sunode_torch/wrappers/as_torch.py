@@ -73,6 +73,8 @@ from sunode_torch.ops.adams_attempt import c_real
 from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions, bdf_solve
 from sunode_torch.ops.bdf_batched import bdf_solve_batched
+from sunode_torch.parallel.mesh import Mesh, StateShards, run_on_devices, shard_over_chains
+from sunode_torch.parallel.rows import RowLayout
 from sunode_torch.problem import Problem
 from sunode_torch.symode import cuda_codegen
 from sunode_torch.symode.problem import SympyProblem
@@ -95,6 +97,10 @@ def _poison(ys, status):
 
 def _poison_b(ys, status):
     return torch.where((status == 0)[:, None, None], ys, float("nan"))
+
+
+def _wants_grad(inputs) -> bool:
+    return torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad for a in inputs)
 
 
 def _structured_setup(problem, rhs, linear_solver, linear_solver_kwargs, options,
@@ -162,7 +168,15 @@ class BatchedSolve:
     per lane; t0, tvals (n_t,) and p_fix (k2,) shared; ys (B, n_t, n), NaN on
     failed lanes.  Gradients flow to y0, p_sub, tvals and a tensor t0
     through ``torch.autograd``.  ``last_stats`` holds the stats of the latest
-    forward (``'forward'``) and backward (``'backward'``) solves."""
+    forward (``'forward'``) and backward (``'backward'``) solves.
+
+    ``y0`` may be a :class:`~sunode_torch.parallel.mesh.StateShards` (the
+    state axis, ``shard_batch_state`` over a 2-D mesh; ``method='ADAMS'``,
+    a problem with no emitted system, 'hermite', 'polynomial' or 'resolve',
+    float64): each chain group solves with its state rows split over its row
+    of the mesh, a host thread a group, ``p_sub`` cut over the chain axis,
+    ``ys`` gathered on the mesh's first device; ``last_stats['chain_groups']``
+    holds each group's stats."""
 
     def __init__(self, problem: Problem, derivatives, options, adjoint_options,
                  method: str, interpolation: Optional[str], checkpoint_n: int,
@@ -223,7 +237,9 @@ class BatchedSolve:
         p_fix_b = torch.broadcast_to(p_fix, (B,) + tuple(p_fix.shape))
         return self.problem.params.combine(p_sub, p_fix_b)
 
-    def forward_solve(self, t0, y0, p, tvals, options):
+    def forward_solve(self, t0, y0, p, tvals, options, rows=None, stats=None):
+        """The forward solve; ``rows`` a chain group's state-split layout,
+        ``stats`` a dict its stats go to beside ``last_stats``."""
         if self.method == "BDF":
             res = bdf_solve_batched(
                 self.rhs, self.jac, t0, y0, p, tvals, options, batched_fns=True
@@ -234,16 +250,69 @@ class BatchedSolve:
                 self.rhs, t0, y0, p, tvals, options,
                 batched_fns=True,
                 device_system=self.device_system("forward", y0.device, dtype),
+                rows=rows,
             )
         self.last_stats["forward"] = res.stats
+        if stats is not None:
+            stats["forward"] = res.stats
         return res
 
+    def _check_state_split(self, y0: StateShards, tvals) -> None:
+        """Refuse, by type and options and before any solve, what the state
+        split does not take."""
+        def refuse(what):
+            raise ValueError(f"make_batched_solve_fn: a StateShards y0 (the state split) does not "
+                             f"take {what}; ROADMAP A queues it")
+
+        if self.method != "ADAMS":
+            refuse("method='BDF' (it runs on the Adams core's split attempt)")
+        if isinstance(self.problem, SympyProblem):
+            refuse("a SympyProblem (its emitted history kernel holds the whole state in one "
+                   "thread a lane)")
+        if self.interpolation == "transition":
+            refuse("adjoint_interpolation='transition'")
+        if y0.dtype != torch.float64:
+            refuse(f"{y0.dtype} (it runs at float64)")
+        if self.options.constraints is not None:
+            refuse("constraints")
+        if torch.as_tensor(tvals).ndim != 1:
+            refuse("per-lane observation grids")
+
+    def _state_split(self, t0, y0: StateShards, p_sub, p_fix, tvals):
+        """The solve of a :class:`StateShards` ``y0``: each chain group's
+        state-split solve on its row of the mesh, a host thread a group
+        (``map_over_chains``'s rule), ``ys`` concatenated on the mesh's
+        first device; differentiable in every group."""
+        self._check_state_split(y0, tvals)
+        mesh = y0.mesh
+        homes = tuple(row[0] for row in mesh.grid)
+        p_subs = shard_over_chains(Mesh(homes), p_sub)  # cut as map_over_chains cuts it
+        self.last_stats["chain_groups"] = groups = [{} for _ in homes]
+
+        def on(x, dev):
+            return x.to(dev) if torch.is_tensor(x) else x
+
+        args = []
+        for i, home in enumerate(homes):
+            rows = RowLayout.contiguous(mesh.grid[i], [b.shape[1] for b in y0.blocks[i]])
+            args.append((on(t0, home), y0.gathered(i), p_subs[i], on(torch.as_tensor(p_fix), home),
+                         on(tvals, home), rows, groups[i]))
+        ys = run_on_devices([self._solve_group] * len(homes), homes, args)
+        return torch.cat([y.to(mesh.devices[0]) for y in ys])
+
+    def _solve_group(self, t0, y0, p_sub, p_fix, tvals, rows, stats):
+        if self.derivatives is None or not _wants_grad((t0, y0, p_sub, p_fix, tvals)):
+            with torch.no_grad():
+                res = self.forward_solve(t0, y0, self.combine(p_sub, p_fix), tvals, self.options,
+                                         rows, stats)
+                return _poison_b(res.ys, res.status)
+        return _Adjoint.apply(self, t0, y0, p_sub, p_fix, tvals, rows, stats)
+
     def __call__(self, t0, y0, p_sub, p_fix, tvals):
+        if isinstance(y0, StateShards):
+            return self._state_split(t0, y0, p_sub, p_fix, tvals)
         inputs = (t0, y0, p_sub, p_fix, tvals)
-        wants_grad = torch.is_grad_enabled() and any(
-            torch.is_tensor(a) and a.requires_grad for a in inputs
-        )
-        if self.derivatives is None or not wants_grad:
+        if self.derivatives is None or not _wants_grad(inputs):
             # the primal: no recording, as the reference's undifferentiated call
             # (per-lane grids included)
             with torch.no_grad():
@@ -264,10 +333,12 @@ class _Adjoint(torch.autograd.Function):
     """Forward solve, then the adjoint of the solver's interpolation."""
 
     @staticmethod
-    def forward(ctx, solver: BatchedSolve, t0, y0, p_sub, p_fix, tvals):
+    def forward(ctx, solver: BatchedSolve, t0, y0, p_sub, p_fix, tvals, rows=None, stats=None):
         p = solver.combine(p_sub, p_fix)
-        res = solver.forward_solve(t0, y0, p, tvals, solver.fwd_options)
+        ctx.stats = stats
+        res = solver.forward_solve(t0, y0, p, tvals, solver.fwd_options, rows, stats)
         ys = _poison_b(res.ys, res.status)
+        ctx.rows = rows
         ctx.solver = solver
         ctx.t0 = t0
         ctx.saved = res.saved  # the recorded trajectory (checkpointed adjoint)
@@ -320,8 +391,11 @@ class _Adjoint(torch.autograd.Function):
                 rhs=solver.rhs if resolve else None,
                 y_end=ys_fwd[:, -1, :] if resolve else None,
                 device_system=device_system,
+                rows=ctx.rows,
             )
         solver.last_stats["backward"] = dict(adj.stats, status=adj.status)
+        if ctx.stats is not None:
+            ctx.stats["backward"] = solver.last_stats["backward"]
         bad = (status != 0) | (adj.status != 0)
         lam = torch.where(bad[:, None], float("nan"), adj.lamda)  # (B, n)
         quad = torch.where(bad[:, None], float("nan"), adj.quad)  # (B, k)
@@ -342,7 +416,8 @@ class _Adjoint(torch.autograd.Function):
             t0_b = torch.broadcast_to(ctx.t0.to(dtype), (B,))
             f0 = solver.rhs(t0_b, y0.T.to(dtype), p.T)  # (n, B)
             d_t0 = (-torch.sum(lam * f0.T)).reshape(ctx.t0.shape).to(ctx.t0.dtype)
-        return None, d_t0, lam.to(y0.dtype), quad, torch.zeros_like(p_fix), d_tvals
+        return (None, d_t0, lam.to(y0.dtype), quad, torch.zeros_like(p_fix), d_tvals, None,
+                None)
 
 
 def make_batched_solve_fn(

@@ -203,7 +203,7 @@ def test_phase_8_bookkeeping():
 
     cs = _chip_smoke()
     assert cs.SIR_MODES == (("resolve", 1024), ("hermite", 256))
-    assert cs.SIR_PROFILED_TIMES == 4  # the profiled warm-up's horizon, t <= 20
+    assert cs.SIR_PROFILED_TIMES == 2  # the profiled warm-up's horizon, t <= 10 (4 before phase 17's cut)
     assert cs.split_expected_launches(7) == {"predict": 7, "sweep": 28, "finish": 7}
     saved = dict(adams_split_attempt.launches)
     try:
@@ -603,7 +603,7 @@ def test_phase_14_parts_gates_and_budget():
     assert cs.PHASE14_BUDGET_S == 45.0 and cs.SWEEP_LANES == 4
     assert cs.CLASS_KINDS == (("BDF", "BDF"), ("ADAMS", "ADAMS"))
     doc = cs.__doc__
-    assert "  14. the class API and events" in doc and "  17. the kernel table" in doc
+    assert "  14. the class API and events" in doc and "  18. the kernel table" in doc
     submitted = inspect.getsource(cs.submit_cpu_refs)
     assert "refs.submit(ref_lv_forward)" in submitted
     assert "refs.submit(ref_class_adjoint)" in submitted
@@ -665,7 +665,7 @@ def test_phase_15_bookkeeping():
     np.testing.assert_array_equal(wide[:cs.NUTS_CPU_CHAINS],
                                   lv_nuts_init(cs.NUTS_CPU_CHAINS, *cs.NUTS_START))
     assert int(0.75 * cs.NUTS_RUN["num_warmup"]) < cs.NUTS_RUN["num_warmup"]
-    assert cs.NUTS_CHAINS == 512 and cs.NUTS_TREEDEPTH == 4
+    assert cs.NUTS_CHAINS == 512 and cs.NUTS_TREEDEPTH == 3  # 4, cut to 3 for phase 17
     assert "  15. the sampler path" in cs.__doc__
     submitted = inspect.getsource(cs.submit_cpu_refs)
     assert "refs.submit(ref_nuts_transition)" in submitted
@@ -804,3 +804,51 @@ def test_phase_16_bookkeeping_and_the_cut():
     assert "leading_tvals(tvals" in inspect.getsource(cs.ref_kpp_dense)
     assert "leading_tvals(tvals" in inspect.getsource(cs.ref_hub_dense)
 
+
+
+def test_phase_17_bookkeeping():
+    """Phase 17's static parts on the CPU: its constants and gates, the
+    block shapes of 17(a) (phase 8's 'hermite' backward shape cut in two
+    row blocks, the quadratures on the home block), the launches 17(b)
+    expects of an attempt count, the entries' bytes by ``split_costs``'
+    rule, the rows' count in every phase's counts, and its place in the
+    script and the kernel line; phase 8 hands it the 'hermite' step's
+    accepted steps."""
+    import inspect
+
+    from sunode_torch.parallel.rows import RowLayout
+
+    cs = _chip_smoke()
+    assert (cs.STATE_SPLIT_MODE, cs.STATE_SPLIT_B, cs.STATE_SPLIT_EXACT_TIMES) == ("hermite",
+                                                                                  256, 2)
+    assert (cs.STATE_SPLIT_RTOL, cs.STATE_SPLIT_ATOL, cs.STATE_SPLIT_PARTED) == (1e-10, 1e-12,
+                                                                                 1e-8)
+    assert (cs.STATE_SPLIT_MODE, cs.STATE_SPLIT_B) in cs.SIR_MODES
+    _, n, nz = cs.split_system("staged_adjoint")
+    cpu = torch.device("cpu")
+    layout = RowLayout.contiguous((cpu, cpu), (n // 2, n - n // 2)).with_rows(nz - n)
+    assert layout.sizes == (1502, 1500) and layout.state_rows(n) == (1500, 1500)
+    split, rows = cs.rows_expected_launches(427, 2)
+    assert split == {"predict": 854, "sweep": 0, "finish": 0}
+    assert rows == {"sweep_rows": 3416, "sweep_decide": 1708, "finish_rows": 854,
+                    "finish_lanes": 427}
+    costs = cs.rows_costs(11, 1502, 1500, 256, 13)
+    assert set(costs) == set(cs.ROWS_KERNELS) and all(b > 0 and f > 0 for b, f in costs.values())
+    assert costs["finish_rows"][0] > 2 * 8 * 11 * 1502 * 256  # the history in and out
+    assert max(costs["sweep_decide"][0], costs["finish_lanes"][0]) < 64 * 256  # lanes only
+    count = cs.RowsLaunches()
+    count.launches = 3
+    assert count.launches == 12
+    count.launches = 0
+    assert "  17. the state axis" in cs.__doc__ and "  18. the kernel table" in cs.__doc__
+    run = inspect.getsource(cs.run)
+    for part in ("state_split_kernels(smi", "phase17 = state_split_phase(",
+                 "split_launches[stage] + phase17.get(stage, 0)", "RowsLaunches(), split_count)",
+                 "split_launches, sir_hermite = sir_phase("):
+        assert part in run, part
+    assert "fwd_steps" in inspect.getsource(cs.sir_phase)
+    assert cs.STATE_SPLIT_EXACT_LANES == 64 and cs.STATE_SPLIT_B % cs.STATE_SPLIT_EXACT_LANES == 0
+    phase = inspect.getsource(cs.state_split_phase)
+    for part in ('Mesh(((dev, dev),), ("chains", "state"))', "build_sir_state_split",
+                 "STATE_SPLIT_EXACT_TIMES", "sir_1000.npz", "plain stage"):
+        assert part in phase, part

@@ -1209,3 +1209,145 @@ def test_cuda_lv_spline_gradient_matches_cpu(cuda):
     hy, hp = cpu(y0s.cpu(), p_subs.cpu())
     np.testing.assert_allclose(gy.cpu().numpy(), hy.numpy(), rtol=1e-8)
     np.testing.assert_allclose(gp.cpu().numpy(), hp.numpy(), rtol=1e-8)
+
+
+def _rows_case(cuda, R=200, B=40, seed=21):
+    """One staged-adjoint attempt's inputs on SIR over ``R`` regions (3R
+    lambda rows and two quadratures) cut in two row blocks on the card, the
+    quadratures on the home block."""
+    from sunode_torch.parallel.rows import RowLayout, scatter
+
+    rng = np.random.default_rng(seed)
+    KAB, n, m = 11, 3 * R, 2
+    f64 = dict(dtype=torch.float64, device=cuda)
+    T = lambda a: torch.as_tensor(a, **f64)  # noqa: E731
+    L = RowLayout.contiguous((cuda, cuda), (n // 2, n - n // 2)).with_rows(m)
+    DF = T(1e-2 * rng.standard_normal((KAB, n + m, B)) * (0.5 ** np.arange(KAB))[:, None, None])
+    x = dict(
+        p=torch.as_tensor(rng.integers(1, 9, B).astype(np.int32), device=cuda),
+        pre=T(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B))), h=T(10.0 ** rng.uniform(-3, 0, B)),
+        z=T(0.1 * rng.standard_normal((n + m, B))), t=T(rng.uniform(0.0, 60.0, B)),
+        params=T(np.array([0.4, 0.15, 0.05])[:, None] * (1 + 0.05 * rng.standard_normal((3, B)))),
+        y=T(np.repeat([0.99, 0.01, 0.01], R)[:, None] * (1 + 0.05 * rng.uniform(size=(n, B)))),
+        active=torch.as_tensor(rng.uniform(size=B) < 0.9, device=cuda),
+        gsa=T(np.abs(_GAMMA_STAR)), DF=DF,
+        atol=T(np.full(n + m, 1e-10)), rtol=T(np.full(n + m, 1e-8)),
+        v=T(np.r_[np.full(n, 0.5 / n), np.full(m, 0.5 / m)]),
+    )
+    aj, qr = sir_problem(R).make_adjoint_rhs(), sir_problem(R).make_adjoint_quad_rhs()
+    rhs_s, quad_s = staged_adjoint_fz(aj, qr)
+
+    def fz(t, lam, par):
+        return torch.cat([rhs_s(t, lam, par, x["y"]), quad_s(t, lam, par, x["y"])])
+
+    return L, x, PeceSystem(fz=fz, n=n, nz=n + m), scatter
+
+
+def test_partial_norm_entries_match_plain(cuda):
+    """The state split's four entries against their plain versions on two
+    row blocks of one card: the rows' y_next, flags, DF_upd, z_new and err0
+    bit for bit, each lane's sums over a block's rows within 1e-12 (they add
+    in the kernel's order), the lanes' decision and roots bit for bit on
+    the same sums; one launch each a block (the rows') or an attempt (the
+    lanes')."""
+    from sunode_torch.parallel.rows import RowBlocks, lane_any, lane_sum
+
+    L, x, system, scatter = _rows_case(cuda)
+    kernels = adams_split.build_split_kernels(11)
+    n_d = L.state_rows(system.n)
+    blocks = {k: scatter(L, x[k]).blocks for k in ("DF", "z")}
+    col = {k: [b[:, 0] for b in scatter(L, x[k][:, None]).blocks] for k in ("atol", "rtol", "v")}
+    preds = [adams_split.split_predict(D, x["p"], x["pre"], x["h"], z, a, r, 8)
+             for D, z, a, r in zip(blocks["DF"], blocks["z"], col["atol"], col["rtol"])]
+    y = [pr.z_pred[:m] for pr, m in zip(preds, n_d)]
+    state = adams_split.sweep_start(x["active"])
+    before = dict(adams_split.adams_split_attempt_rows.launches)
+    for k in range(FUNCTIONAL_MAXITER):
+        f = scatter(L, system.fz(x["t"], RowBlocks(L, y).gather(), x["params"])).blocks
+        outs = []
+        for fb, yy, pr, m in zip(f, y, preds, n_d):
+            got = kernels.sweep_rows(fb, yy, pr, state.conv, state.div, state.bad, m)
+            ref = adams_split.split_sweep_rows(fb, yy, pr, state.conv, state.div, state.bad, m)
+            assert torch.equal(got.y_next, ref.y_next) and torch.equal(got.nonfinite, ref.nonfinite)
+            assert _relerr(got.ss, ref.ss) <= 1e-12
+            outs.append(ref)
+        ss, nf = lane_sum([o.ss for o in outs], cuda), lane_any([o.nonfinite for o in outs], cuda)
+        got = kernels.sweep_decide(k, ss, nf, state, 1e-3, system.n)
+        state = adams_split.split_sweep_decide(k, ss, nf, state, 1e-3, system.n)
+        assert all(torch.equal(a, b) for a, b in zip(got, state))
+        y = [o.y_next for o in outs]
+    f = scatter(L, system.fz(x["t"], RowBlocks(L, y).gather(), x["params"])).blocks
+    fins = []
+    for fb, pr, v in zip(f, preds, col["v"]):
+        got = kernels.finish_rows(fb, pr, x["p"], x["h"], x["gsa"], v)
+        ref = adams_split.split_finish_rows(fb, pr, x["p"], x["h"], x["gsa"], v, 8)
+        for name in ("DF_upd", "z_new", "err0"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert _relerr(got.ss3, ref.ss3) <= 1e-12
+        fins.append(ref)
+    pred_ok = preds[0].pred_ok & preds[1].pred_ok
+    ss3 = lane_sum([fi.ss3 for fi in fins], cuda)
+    got = kernels.finish_lanes(ss3, pred_ok, state, 1e-3)
+    ref = adams_split.split_finish_lanes(ss3, pred_ok, state, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert {k: v - before[k] for k, v in adams_split.adams_split_attempt_rows.launches.items()} == {
+        "sweep_rows": 2 * FUNCTIONAL_MAXITER, "sweep_decide": FUNCTIONAL_MAXITER,
+        "finish_rows": 2, "finish_lanes": 1}
+
+
+def test_state_split_attempt_at_one_block_is_the_unsplit_attempt(cuda):
+    """``adams_split_attempt_rows`` over one block on the card launches the
+    rows' and the lanes' entries and gives the unsplit kernels' attempt bit
+    for bit: the same rows summed in the same order, one root of the same
+    sum; over two blocks within 1e-12."""
+    from sunode_torch.parallel.rows import RowLayout
+
+    L2, x, system, scatter = _rows_case(cuda, seed=22)
+    args = (x["t"], x["h"], x["pre"], x["p"], x["active"])
+    ref = adams_split_attempt(system, *args, x["DF"], x["z"], x["params"], x["atol"], x["rtol"],
+                              x["gsa"], x["v"], 1e-3, FUNCTIONAL_MAXITER, 8)
+    for L in (RowLayout.contiguous((cuda,), (system.n,)).with_rows(system.nz - system.n), L2):
+        got = adams_split.adams_split_attempt_rows(
+            system, *args, scatter(L, x["DF"]), scatter(L, x["z"]), x["params"],
+            scatter(L, x["atol"][:, None]), scatter(L, x["rtol"][:, None]), x["gsa"],
+            scatter(L, x["v"][:, None]), 1e-3, FUNCTIONAL_MAXITER, 8)
+        torch.cuda.synchronize()
+        one = len(L.devices) == 1
+        for name in ("DF_resc", "DF_upd", "z_pred", "z_new", "err0"):
+            a, b = getattr(got, name).gather(), getattr(ref, name)
+            assert torch.equal(a, b) if one else _relerr(a, b) <= 1e-12, name
+        assert torch.equal(got.err3, ref.err3) if one else _relerr(got.err3, ref.err3) <= 1e-12
+        assert torch.equal(got.conv, ref.conv) and torch.equal(got.niter, ref.niter)
+
+
+def test_cuda_state_split_sir_matches_unsplit(cuda):
+    """``entry.build_sir_state_split`` ('hermite', R = 32, B = 8) on a 1 x 2
+    mesh of the card against ``build_sir``'s unsplit step: within 1e-10 /
+    1e-12 in every lane whose accepted forward and backward steps are the
+    unsplit solve's, within 1e-8 in a lane whose steps parted on a norm's
+    last bit (the two sum each lane's rows in other orders: chip_smoke.py's
+    phase 17(b) rule); the rows' entries launched, no plain stage called."""
+    from sunode_torch.entry import build_sir_state_split
+    from sunode_torch.parallel.mesh import Mesh
+
+    step, (y0s, p_subs) = build_sir(32, 8, "hermite", device="cuda")
+    ys, gp = step(y0s, p_subs)
+    ref = step.solve.last_stats
+    steps = (ref["forward"]["n_steps"].clone(), ref["backward"]["n_backward_steps"].clone())
+    mesh = Mesh(((cuda, cuda),), ("chains", "state"))
+    split, (y0s2, p_subs2) = build_sir_state_split(32, 8, "hermite", mesh)
+    assert torch.equal(y0s, y0s2) and torch.equal(p_subs, p_subs2)
+    calls = adams_split.split_sweep_rows.calls
+    before = adams_split.adams_split_attempt_rows.launches["finish_lanes"]
+    ys2, gp2 = split(y0s2, p_subs2)
+    torch.cuda.synchronize()
+    assert adams_split.split_sweep_rows.calls == calls
+    assert adams_split.adams_split_attempt_rows.launches["finish_lanes"] > before
+    got = split.solve.last_stats
+    same = ((got["forward"]["n_steps"] == steps[0])
+            & (got["backward"]["n_backward_steps"] == steps[1])).cpu().numpy()
+    for a, b in ((ys2, ys), (gp2, gp)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a[same], b[same], rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(a[~same], b[~same], rtol=1e-8, atol=1e-10)

@@ -125,6 +125,11 @@ native_grad, _ = nadj.solve_backward(3.0, 0.0, np.linspace(0.5, 3.0, 4), np.ones
 mesh = sunode_torch.Mesh((torch.device("cpu"),) * 2)
 sstep, (sy0s, sps) = build_lv_adjoint_sharded(2, mesh, tvals_n=3, rtol=1e-6)
 sgy, sgp = sstep(sy0s, sps)
+from sunode_torch.entry import build_sir_state_split
+cpu = torch.device("cpu")
+rstep, (ry0s, rps) = build_sir_state_split(4, 2, "hermite",
+                                           sunode_torch.Mesh(((cpu, cpu),), ("chains", "state")))
+rys, rgp = rstep(ry0s, rps, tvals=rstep.tvals[:3])
 print(json.dumps({
     "sens_ok": sens_ok,
     "roots_ok": roots_ok,
@@ -148,6 +153,8 @@ print(json.dumps({
     and "native_ys" in nadj._last_forward and bool(np.isfinite(native_grad).all()),
     "split_ok": bool(torch.isfinite(sgy).all() and torch.isfinite(sgp).all())
     and tuple(sgy.shape) == (2, 2),
+    "state_split_ok": bool(torch.isfinite(rys).all() and torch.isfinite(rgp).all())
+    and tuple(rys.shape) == (2, 3, 12) and tuple(rgp.shape) == (2, 2),
     "event_ok": abs(float(t_ev.detach()) - (2 * 2.0 / 9.81) ** 0.5) < 1e-8
     and bool(torch.isfinite(dt_dg).all()),
 }))
@@ -174,4 +181,4 @@ def test_import_and_cpu_solve_never_load_jax():
     assert out["ivp_grad_finite"]
     assert out["class_api_ok"] and out["event_ok"]
     assert out["sampler_ok"] and out["pytensor_ok"]
-    assert out["native_ok"] and out["split_ok"]
+    assert out["native_ok"] and out["split_ok"] and out["state_split_ok"]

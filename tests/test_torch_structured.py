@@ -244,8 +244,8 @@ def _jax_grads(jp, y0, p_sub, p_fix, tvals, **kw):
     solve = jax_make_solve_fn(jp, options=JaxOptions(**OPTS), checkpoint_n=4096, **kw)
     loss = lambda y, ps: jnp.sum(  # noqa: E731
         solve(0.0, y, ps, jnp.asarray(p_fix), jnp.asarray(tvals)) ** 2)
-    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(jnp.asarray(y0),
-                                                                  jnp.asarray(p_sub))]
+    return [np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jnp.asarray(y0), jnp.asarray(p_sub))]
 
 
 @pytest.mark.parametrize("case", ["band", "sparse_rcm", "sparse_bbd"])

@@ -213,10 +213,13 @@ def test_lv_spline_gradients_match_jax():
                       quad_rtol=1e-3, quad_atol=1e-3)
     jsolve = jax_make_solve_fn(_jax_spline_problem(), options=jfwd, adjoint_options=jadj,
                                method="ADAMS", adjoint_interpolation="transition")
-    loss = lambda y, p: jnp.sum(  # noqa: E731
-        jsolve(0.0, y, p, jnp.asarray(p_fix), jnp.asarray(tvals)) ** 2)
-    jys = jsolve(0.0, jnp.asarray(y0), jnp.asarray(p_sub), jnp.asarray(p_fix), jnp.asarray(tvals))
-    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(y0), jnp.asarray(p_sub))
+    def loss(y, p):
+        jys = jsolve(0.0, y, p, jnp.asarray(p_fix), jnp.asarray(tvals))
+        return jnp.sum(jys**2), jys
+
+    # one jitted call gives the reference's ys and gradients together
+    (_, jys), want = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(y0), jnp.asarray(p_sub))
     np.testing.assert_allclose(ys.detach().numpy(), np.asarray(jys), rtol=1e-8)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-8)
