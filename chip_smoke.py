@@ -288,16 +288,18 @@ Phases, one line each; any failure exits non-zero:
      at the pool's start; the host's CPU model and threads beside the
      card's name and power limit, as (a) and (b) time the host;
   17. the state axis (``make_mesh_2d``, ``shard_batch_state``): (a) the
-     split attempt's partial-norm entries (the rows' sweep and finish, the
-     lanes' decision and roots, ``csrc/adams_split.cu``) against their plain
-     versions at phase 8's 'hermite' backward shape (nz = 3,002, n = 3,000,
-     B=256) cut in two row blocks of the card (1,502 rows on the home block:
-     1,500 state rows and the 2 quadratures; 1,500 on the other), one
-     attempt's four sweeps and finish on phase 3d's seeded inputs: the rows'
-     outputs bit for bit, each lane's sums over a block's rows within 1e-12
-     (the kernel's order), the decision and the roots bit for bit on the
-     same sums; each timed on the home block as in phase 3 with its bytes
-     bound; (b) SIR-1000 'hermite' at B=256 with each chain's state rows
+     split attempt's partial-norm entries (the rows' sweep, which decides
+     the sweep before, the rows' finish, and the lanes' finish, which
+     decides the last sweep, then takes the roots; ``csrc/adams_split.cu``)
+     against their plain versions at phase 8's 'hermite' backward shape
+     (nz = 3,002, n = 3,000, B=256) cut in two row blocks of the card (1,502
+     rows on the home block: 1,500 state rows and the 2 quadratures; 1,500
+     on the other), one attempt's four sweeps and finish on phase 3d's
+     seeded inputs: the rows' outputs and the decided state bit for bit,
+     each lane's sums over a block's rows within 1e-12 (the kernel's
+     order), the roots, conv and niter bit for bit on the same sums; each
+     timed on the home block as in phase 3 with its bytes bound; (b)
+     SIR-1000 'hermite' at B=256 with each chain's state rows
      split over ``Mesh(((cuda:0, cuda:0),), ("chains", "state"))``, a 1x2
      mesh of the one card (``entry.build_sir_state_split``), one gradient
      step with every count set to 0 before it, held to phase 8's step (no
@@ -1762,8 +1764,8 @@ STATE_SPLIT_EXACT_TIMES = 2  # 17(c): the 1x1 mesh over the first 2 observation 
 STATE_SPLIT_EXACT_LANES = 64  # 17(c): on lanes 0-63 (each 'hermite' table 4.7 GB, not 18.9)
 STATE_SPLIT_RTOL, STATE_SPLIT_ATOL = 1e-10, 1e-12  # 17(b): lanes whose steps equal phase 8's
 STATE_SPLIT_PARTED = 1e-8  # 17(b): a lane whose steps parted: phase 8's card-against-CPU bound
-ROWS_KERNELS = {"sweep_rows": "split_sweep_kernel", "sweep_decide": "split_sweep_decide_kernel",
-                "finish_rows": "split_finish_kernel", "finish_lanes": "split_finish_lanes_kernel"}
+ROWS_KERNELS = {"sweep_rows": "split_sweep_rows_kernel", "finish_rows": "split_finish_kernel",
+                "finish_lanes": "split_finish_lanes_kernel"}
 
 
 class RowsLaunches:
@@ -1788,48 +1790,63 @@ class RowsLaunches:
 
 def rows_expected_launches(attempts: int, blocks: int) -> tuple[dict, dict]:
     """(split, rows) launches of ``attempts`` state-split attempts over
-    ``blocks`` blocks: predict and the rows' sweeps (4 an attempt) and
-    finish on every block, the lanes' decisions and finish once an attempt,
-    the unsplit sweep and finish never."""
+    ``blocks`` blocks: predict and the rows' sweeps (4 an attempt, each
+    deciding the sweep before) and finish on every block, the lanes' finish
+    (the last decision with it) once an attempt, the unsplit sweep and
+    finish never."""
     return ({"predict": attempts * blocks, "sweep": 0, "finish": 0},
-            {"sweep_rows": 4 * attempts * blocks, "sweep_decide": 4 * attempts,
-             "finish_rows": attempts * blocks, "finish_lanes": attempts})
+            {"sweep_rows": 4 * attempts * blocks, "finish_rows": attempts * blocks,
+             "finish_lanes": attempts})
 
 
-def rows_costs(KAB: int, nz: int, n: int, B: int, n_gamma: int, w: int = 8) -> dict:
-    """{entry: (bytes, operations)} of the four entries on one block of
-    ``nz`` rows (``n`` state rows), ``split_costs``' rule: each input read
-    once and each output written once, ``w`` bytes a floating value."""
+def rows_costs(KAB: int, nz: int, n: int, B: int, n_gamma: int, w: int = 8,
+               blocks: int = 2) -> dict:
+    """{entry: (bytes, operations)} of the three entries on one block of
+    ``nz`` rows (``n`` state rows) of a split into ``blocks`` blocks of
+    ``sweep_geometry(nz, B)``'s ranks each, ``split_costs``' rule: each
+    input read once and each output written once, ``w`` bytes a floating
+    value.  The rows' sweep and the lanes' finish read every block's
+    partials of the sweep before (a value and a flag a rank and lane) and
+    the state (conv, div, bad, dy_old, niter), and decide: the rows' sweep
+    writes its ranks' partials and the decided state."""
+    from sunode_torch.ops.adams_split import sweep_geometry
+
     hist = w * KAB * nz * B
-    flags = 3 * B  # conv, div, bad
+    ranks = sweep_geometry(nz, B, w).cluster
+    state = B * (3 + w + 4)
+    pending = (w + 1) * B * ranks * blocks
+    decide = B * (ranks * blocks + 12)  # the partials' adds, the rate tests
     return {
-        "sweep_rows": (w * nz * B + w * 4 * n * B + w * n * B + B * w + flags + B * (w + 1),
-                       9 * n * B + nz * B),
-        "sweep_decide": (B * (w + 1) + flags + B * (w + 4) + B * (3 + w + 4), 12 * B),
+        "sweep_rows": (w * nz * B + w * 4 * n * B + w * n * B + B * w + state + pending
+                       + (w + 1) * B * ranks + state, 9 * n * B + nz * B + decide),
         "finish_rows": (2 * hist + w * nz * B * 4 + w * nz * B * 2 + B * (w + 4 + w) + w * nz
                         + w * n_gamma + 3 * w * B, nz * B * (3 * KAB + 20)),
-        "finish_lanes": (3 * w * B + 3 * B + B * (3 * w + 1), 6 * B),
+        "finish_lanes": (3 * w * B + state + B + pending + B * (3 * w + 1 + 4),
+                         6 * B + decide),
     }
 
 
 def state_split_kernels(smi, kernels) -> dict:
-    """17(a): the four partial-norm entries against their plain versions at
+    """17(a): the three partial-norm entries against their plain versions at
     phase 8's 'hermite' backward shape (nz = 3,002, n = 3,000, B=256) cut in
     two blocks on the card (1,502 rows on the home block: 1,500 state rows
-    and the 2 quadratures; 1,500 on the other), one attempt's four sweeps
-    and finish on phase 3d's seeded inputs, the plain outputs feeding the
-    next stage of both; then each timed on the home block.  Returns the
-    kernel-table fields by entry."""
+    and the 2 quadratures; 1,500 on the other), one attempt's four rows'
+    sweeps (the home block's f read in place) and finish on phase 3d's
+    seeded inputs, the plain outputs feeding the next stage of both.  Each
+    rows' sweep decides the sweep before on the plain partials, and the
+    home block's again on the kernel's own; the lanes' finish decides the
+    last on both.  Then each is timed on the home block on the kernel's own
+    partials (its ranks of every block), as the path gives them.  Returns
+    the kernel-table fields by entry."""
     import torch
 
     from sunode_torch.ops import adams_split as sp
     from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
-    from sunode_torch.parallel.rows import RowBlocks, RowLayout, lane_all, lane_any, lane_sum
-    from sunode_torch.parallel.rows import scatter
+    from sunode_torch.parallel.rows import RowBlocks, RowLayout, lane_all, lane_sum, scatter
 
     x = split_inputs(STATE_SPLIT_B, 31, "cuda", SIR_R, "staged_adjoint")
     fz, n, nz = split_system("staged_adjoint")
-    p_max, B = x["DF"].shape[0] - 3, STATE_SPLIT_B
+    p_max, B, tol = x["DF"].shape[0] - 3, STATE_SPLIT_B, x["newton_tol"]
     dev = torch.device("cuda", 0)
     L = RowLayout.contiguous((dev, dev), (n // 2, n - n // 2)).with_rows(nz - n)
     n_d = L.state_rows(n)
@@ -1842,28 +1859,43 @@ def state_split_kernels(smi, kernels) -> dict:
     state = sp.sweep_start(x["active"], x["DF"].dtype)
     worst = dict.fromkeys(ROWS_KERNELS, 0.0)
     exact = dict.fromkeys(ROWS_KERNELS, True)
-    ss_rel = 0.0
+    ss_rel, pending, own, timed = 0.0, None, None, None
 
     def bits(a, b):
         return bool(torch.equal(a, b))
 
+    def decided(a, b):
+        return all(bits(u, v) for u, v in zip(a, b))
+
+    home = {"rows": L.segments[0]}
     for k in range(FUNCTIONAL_MAXITER):
-        f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
-        outs = []
-        for f, yy, pr, m in zip(f_b, y, preds, n_d):
-            got = kernels.sweep_rows(f, yy, pr, state.conv, state.div, state.bad, m)
-            ref = sp.split_sweep_rows(f, yy, pr, state.conv, state.div, state.bad, m)
-            exact["sweep_rows"] &= bits(got.y_next, ref.y_next) and bits(got.nonfinite,
-                                                                         ref.nonfinite)
-            # each lane's sum over the rows adds in the kernel's order (as the sweep's)
-            ss_rel = max(ss_rel, lane_rel(got.ss, ref.ss))
-            worst["sweep_rows"] = max(worst["sweep_rows"], float((got.ss - ref.ss).abs().max()))
-            outs.append(ref)
-        ss, nf = lane_sum([o.ss for o in outs], dev), lane_any([o.nonfinite for o in outs], dev)
-        got = kernels.sweep_decide(k, ss, nf, state, x["newton_tol"], n)
-        state = sp.split_sweep_decide(k, ss, nf, state, x["newton_tol"], n)
-        exact["sweep_decide"] &= all(bits(a, b) for a, b in zip(got, state))
-        y = [o.y_next for o in outs]
+        f_all = fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])
+        f_b = scatter(L, f_all).blocks
+        if k == 1:  # sweep 1's inputs, the kernel's own partials of sweep 0 pending
+            timed = (f_all, state, own)
+        outs, mine = [], []
+        for d, (yy, pr, m) in enumerate(zip(y, preds, n_d)):
+            f, where = (f_all, home) if d == 0 else (f_b[d], {})
+            got, st = kernels.sweep_rows(f, yy, pr, state, m, pending, decide=d == 0, **where)
+            ref, st_p = sp.split_sweep_rows(f, yy, pr, state, m, pending, **where)
+            exact["sweep_rows"] &= (bits(got.y_next, ref.y_next)
+                                    and bits(got.nonfinite.any(dim=0), ref.nonfinite[0])
+                                    and (d != 0 or decided(st, st_p)))
+            if d == 0 and own is not None:  # the kernel's own partials, decided by both
+                exact["sweep_rows"] &= decided(
+                    kernels.sweep_rows(f, yy, pr, state, m, own, **where)[1],
+                    sp.split_sweep_rows(f, yy, pr, state, m, own, **where)[1])
+            # each lane's sum over the block's rows adds in the kernel's order (as the sweep's)
+            ss = sp.pending_sums(sp.Pending(k, (got.ss,), (got.nonfinite,), tol, n), dev)[0]
+            ss_rel = max(ss_rel, lane_rel(ss, ref.ss[0]))
+            worst["sweep_rows"] = max(worst["sweep_rows"], float((ss - ref.ss[0]).abs().max()))
+            outs.append((ref, st_p))
+            mine.append(got)
+        state = outs[0][1]
+        pending = sp.Pending(k, tuple(o.ss for o, _ in outs),
+                             tuple(o.nonfinite for o, _ in outs), tol, n)
+        own = sp.Pending(k, tuple(o.ss for o in mine), tuple(o.nonfinite for o in mine), tol, n)
+        y = [o.y_next for o, _ in outs]
     f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
     g = x["gamma_star_abs"]
     fins, ss3_rel = [], 0.0
@@ -1876,44 +1908,42 @@ def state_split_kernels(smi, kernels) -> dict:
         worst["finish_rows"] = max(worst["finish_rows"], float((got.ss3 - ref.ss3).abs().max()))
         fins.append(ref)
     ss3 = lane_sum([f.ss3 for f in fins], dev)
-    got = kernels.finish_lanes(ss3, pred_ok, state, x["newton_tol"])
-    ref = sp.split_finish_lanes(ss3, pred_ok, state, x["newton_tol"])
-    exact["finish_lanes"] &= bits(got[0], ref[0]) and bits(got[1], ref[1])
+    for pend in (pending, own):
+        got = kernels.finish_lanes(ss3, pred_ok, state, tol, pend)
+        ref = sp.split_finish_lanes(ss3, pred_ok, state, tol, pend)
+        exact["finish_lanes"] &= all(bits(a, b) for a, b in zip(got, ref))
     torch.cuda.synchronize()
     shape = f"staged_adjoint nz={nz} n={n} B={B} blocks={L.sizes} state_rows={n_d}"
     log(f"[17(a) partial-norm entries vs plain {shape}] bit for bit (the rows' y_next and "
-        f"flags, DF_upd, z_new, err0; the decisions and the roots on the same sums): {exact}; "
-        f"each lane's sums over a block's rows in the kernel's order: ss max_rel={ss_rel:.3e}, "
-        f"ss3 max_rel={ss3_rel:.3e} (bound {REL_BOUND:g}); converged="
-        f"{int(ref[1].sum())}/{B} niter_hist={torch.bincount(state.niter.long(), minlength=5).tolist()}")
+        f"flags, the decided state on the plain and on the kernel's partials, DF_upd, z_new, "
+        f"err0; the roots, conv and niter on the same sums): {exact}; each lane's sums over a "
+        f"block's rows in the kernel's order: ss max_rel={ss_rel:.3e}, ss3 max_rel="
+        f"{ss3_rel:.3e} (bound {REL_BOUND:g}); converged={int(ref[1].sum())}/{B} "
+        f"niter_hist={torch.bincount(ref[2].long(), minlength=5).tolist()}")
     if not (all(exact.values()) and max(ss_rel, ss3_rel) <= REL_BOUND):
         raise SystemExit(f"chip_smoke: 17(a): a partial-norm entry disagrees with its plain "
                          f"version ({shape})")
 
-    # times on the home block, each call's output feeding the next (graph)
+    # times on the home block on the kernel's own partials, as the path gives
+    # them (sweep 1's inputs; the lanes' finish on the last sweep's), each
+    # call's output feeding the next (graph)
     pr, f0, v0 = preds[0], f_b[0], col["v_err"][0][:, 0]
+    f_t, st_t, pend_t = timed
     calls = {
-        "sweep_rows": (lambda yy: (kernels.sweep_rows(f0, yy, pr, state.conv, state.div,
-                                                      state.bad, n_d[0]).y_next,),
-                       lambda yy: (sp.split_sweep_rows(f0, yy, pr, state.conv, state.div,
-                                                       state.bad, n_d[0]).y_next,),
+        "sweep_rows": (lambda yy: (kernels.sweep_rows(f_t, yy, pr, st_t, n_d[0], pend_t,
+                                                      **home)[0].y_next,),
+                       lambda yy: (sp.split_sweep_rows(f_t, yy, pr, st_t, n_d[0], pend_t,
+                                                       **home)[0].y_next,),
                        y[0].clone()),
-        "sweep_decide": (lambda s: (kernels.sweep_decide(1, s, nf, state, x["newton_tol"],
-                                                         n).dy_old,),
-                         lambda s: (sp.split_sweep_decide(1, s, nf, state, x["newton_tol"],
-                                                          n).dy_old,),
-                         ss.clone()),
         "finish_rows": (lambda f: (kernels.finish_rows(f, pr, x["p"], x["h"], g, v0).z_new,),
                         lambda f: (sp.split_finish_rows(f, pr, x["p"], x["h"], g, v0,
                                                         p_max).z_new,),
                         f0),
-        "finish_lanes": (lambda s: (kernels.finish_lanes(s, pred_ok, state,
-                                                         x["newton_tol"])[0],),
-                         lambda s: (sp.split_finish_lanes(s, pred_ok, state,
-                                                          x["newton_tol"])[0],),
+        "finish_lanes": (lambda s: (kernels.finish_lanes(s, pred_ok, state, tol, own)[0],),
+                         lambda s: (sp.split_finish_lanes(s, pred_ok, state, tol, own)[0],),
                          ss3.clone()),
     }
-    costs = rows_costs(p_max + 3, L.sizes[0], n_d[0], B, g.numel())
+    costs = rows_costs(p_max + 3, L.sizes[0], n_d[0], B, g.numel(), blocks=len(n_d))
     table = {}
     for entry, (call_k, call_p, z) in calls.items():
         nbytes, flops = costs[entry]
@@ -1939,7 +1969,7 @@ def state_split_phase(smi, counted, reference) -> dict:
     against phase 8's outputs (``reference``: ys, gp, y0s, p_subs and the
     lanes' accepted forward and backward steps), then a 1x1 mesh bit for bit
     the unsplit solve over the first 2 observation times.  ``counted`` are
-    every other kernel's counts.  Returns the launches of the four entries
+    every other kernel's counts.  Returns the launches of the three entries
     and of predict."""
     import torch
 

@@ -32,23 +32,25 @@
 //
 // A state split over devices (ops/adams_split.py::adams_split_attempt_rows)
 // cuts the sweep and the finish at their sums over the rows, so that each
-// device's block of rows is summed on its own and the lanes' sums are added
-// in block order on the home device between the two halves:
+// device's block of rows is summed on its own:
 //
-//   split_sweep_rows     the sweep kernel with PARTIAL: a block's y_next, and
-//                        per lane its sum of squares ss and non-finite flag;
-//   split_sweep_decide   one thread a lane on the summed ss: dy_norm, the
-//                        rate tests and the state update (sweep_decide, the
-//                        sweep's own tail);
+//   split_sweep_rows     a kernel of its own: a block's y_next, and per lane
+//                        and cluster rank of the unsplit sweep's row
+//                        partition its partial sum of squares and non-finite
+//                        flag; before its rows it decides the previous
+//                        sweep from every block's partials (sweep_decide, the
+//                        sweep's own tail), so the decision has no launch;
 //   split_finish_rows    the finish kernel with ROWS: a block's rows and per
 //                        lane its three sums of squares, without the roots;
-//   split_finish_lanes   one thread a lane: err3's roots and conv
-//                        (finish_lane, the finish's own tail).
+//   split_finish_lanes   one thread a lane: the last sweep's decision, then
+//                        err3's roots and conv (finish_lane, the finish's own
+//                        tail).
 //
-// At one block the rows are summed in the unsplit kernels' order and one
-// root is taken of the same sum: the composition is the unsplit attempt bit
-// for bit.  The lanes' kernels move a few bytes a lane: their launch bounds
-// them, not the card.
+// The partials add in the unsplit sweep's order: each rank's in rank order
+// into a block's sum, the blocks' in block order.  At one block the rows
+// are summed as the unsplit kernels sum them and one root is taken of the
+// same sum: the composition is the unsplit attempt bit for bit.  The lanes'
+// kernel moves a few bytes a lane: its launch bounds it, not the card.
 //
 // What bounds them on an H100: bytes.  At SIR over 1,000 regions (nz =
 // 3,000) and B = 1,024 the history is 11 x 3,000 x 1,024 x 8 B = 270 MB;
@@ -148,6 +150,11 @@
 #define SWEEP_UNROLL 4           // rows a sweep thread loads at once (SWEEP_UNROLL)
 #define SWEEP_CLUSTER_MAX 16     // blocks of a cluster, with the non-portable size allowed
 #define PREDICT_LANES_MAX 32     // lanes of a predict tile at most (PREDICT_LANES_MAX)
+#define ROWS_WAVE 2              // rows a thread of the rows' sweep loads at once (ROWS_WAVE)
+#define ROWS_BLOCKS_MAX 16       // blocks of a state split whose partials one sweep reads
+#define ROWS_SEGMENTS_MAX 4      // row segments of a block read in place (ROWS_SEGMENTS_MAX)
+#define ROWS_PEND_SLOTS (4 * SWEEP_THREADS)  // pending partials a block stages (rank, lane)
+#define ROWS_FOLD_BATCH 8        // pending partials a thread loads at once
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
@@ -166,7 +173,8 @@ static_assert(sizeof(real) * ADAMS_K * ADAMS_K * PREDICT_LANES_MAX +
 // (split_ab.py --phase-clocks).  Predict: R(fac) and U built, the rows, the
 // block's flag sum, the lane tail.  Sweep: the rows, the block's sum, the
 // first cluster barrier, rank 0's reads and the second barrier, rank 0's
-// tail.
+// tail.  The rows' sweep: its first wave's loads issued, the decision, the
+// rows (the loads' wait with them), the block's sum, its partials written.
 __device__ unsigned long long split_phase_cycles[6];
 #define SPLIT_MARK(k)                                                        \
   if (tx == 0 && ty == 0) {                                                  \
@@ -390,11 +398,7 @@ __device__ __forceinline__ void sweep_decide(
 // (SWEEP_UNROLL row threads' rows) x (lanes) tile of it is then read along
 // the rows, 256 bytes a warp, into shared memory and read back by lane, in
 // place of a transposing copy before the launch.
-// PARTIAL: one block of a state split over devices (split_sweep_rows): the
-// kernel writes y_next and each lane's sum of squares and non-finite flag
-// over its rows into ss_o and nonfinite_o, and makes no decision; rows
-// below n are its state rows, the rest quadrature rows.
-template <bool FZ_LANE_MAJOR, bool PARTIAL>
+template <bool FZ_LANE_MAJOR>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ y_it,
                    const real* __restrict__ z_pred, const real* __restrict__ f_ex,
@@ -405,8 +409,7 @@ split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ 
                    int n, int nz, int B, int rows, real* __restrict__ y_next,
                    unsigned char* __restrict__ conv_o, unsigned char* __restrict__ div_o,
                    unsigned char* __restrict__ bad_o, real* __restrict__ dy_old_o,
-                   int* __restrict__ niter_o, real* __restrict__ ss_o,
-                   unsigned char* __restrict__ nonfinite_o) {
+                   int* __restrict__ niter_o) {
   __shared__ real ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
   __shared__ int bad_s[SWEEP_THREADS];
   // a step's fz tile, (rows) x (lanes + 1): the odd stride keeps a warp's
@@ -507,33 +510,312 @@ split_sweep_kernel(int k, const real* __restrict__ fz, const real* __restrict__ 
   SPLIT_MARK(3);
   SPLIT_COUNT_BLOCK();
   if (!tail) return;
-  if (PARTIAL) {  // the block's sums; the decision waits for every block's
-    ss_o[b] = ss;
-    nonfinite_o[b] = nonfinite;
-    return;
-  }
   sweep_decide(b, k, ss, nonfinite, live, conv, div, bad, dy_old, niter, newton_tol, tol_lo,
                fixed, n, conv_o, div_o, bad_o, dy_old_o, niter_o);
   SPLIT_MARK(4);
 }
 
-// The lanes' decision after the partial sweeps of a state split over
-// devices: ss and nonfinite are each lane's sums over every block, added in
-// block order (parallel/rows.py::lane_sum); n is the whole state's rows.
-__global__ void __launch_bounds__(SWEEP_THREADS)
-split_sweep_decide_kernel(int k, const real* __restrict__ ss, const unsigned char* __restrict__ nf,
-                          const unsigned char* __restrict__ conv,
-                          const unsigned char* __restrict__ div,
-                          const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
-                          const int* __restrict__ niter, double newton_tol, double tol_lo,
-                          int fixed, int n, int B, unsigned char* __restrict__ conv_o,
-                          unsigned char* __restrict__ div_o, unsigned char* __restrict__ bad_o,
-                          real* __restrict__ dy_old_o, int* __restrict__ niter_o) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const bool live = !(conv[b] || div[b] || bad[b]);
-  sweep_decide(b, k, ss[b], nf[b], live, conv, div, bad, dy_old, niter, newton_tol, tol_lo, fixed,
-               n, conv_o, div_o, bad_o, dy_old_o, niter_o);
+// ---------------------------------------------------------------------------
+// The state split's sweep (split_sweep_rows), a kernel of its own.
+//
+// Unlike the unsplit sweep, whose blocks of a lane tile meet in a cluster, a
+// block of the rows' sweep answers to no other block: it writes its own
+// partial per lane and cluster rank of sweep_geometry(nz, B) (a (C, B)
+// output each block fills once: no fill, no counter, no cluster barrier),
+// and the next kernel adds them.  The launch is sweep_geometry's grid
+// without its cluster, so the row partition, and with it every sum, is the
+// unsplit sweep's: thread (x, y) of rank c sums its rows c rows + y + j T in
+// row order, the block its row threads in order.
+//
+// A thread loads ROWS_WAVE rows at once (every load of the wave issued
+// before any is used), the five fields of a row in registers.  Measured on
+// an H100 at (1,502, 256), six rows a thread, with builds at other wave
+// sizes (PERF.md, section 6): all six at once took 18.4 µs from HBM, 2 or
+// 3 a wave 14.0, 1 a wave 15.4.  With every row in flight the SM's load
+// queue fills, a thread cannot even issue its loads for ~6,800 cycles, and
+// the shared-memory reads of the decision queue behind them; two rows a
+// wave keep the queue moving and the grid's 256 blocks still hold ~5 MB in
+// flight.  What a thread reads it reads once, so staging it in shared
+// memory (TMA or cp.async) would add a copy and a barrier for no reuse.
+// Only a lane-major f goes through shared memory, as a tile copied along
+// the rows with cp.async (each warp 256 contiguous bytes), because read by
+// lane it would not coalesce.
+//
+// The decision of the sweep before (pend.blocks > 0): each lane's ss is its
+// partials added in rank order into each block's sum, then the blocks' sums
+// in block order (parallel/rows.py::lane_sum's order), its flags ORed; then
+// sweep_decide, in every row thread of the lane, after its loads are
+// issued and before it stores a row: no thread waits on another to store.
+// The lane's state and the partials are loaded first, the partials copied
+// into shared memory by all the block's threads (read by one thread alone,
+// one load after another behind the grid's 18 MB, they cost ~10,000 cycles
+// a block on an H100).  Rank 0 of each tile writes the decided state where
+// the caller asks for it (one launch a device).
+//
+// f is read in place: its element (r, b) of the block's local row r at
+// global row map(r) of the whole right-hand side, map(r) - map.global[s] =
+// r - map.local[s] for the last segment s with map.local[s] <= r, at
+// map(r) fz_row + b fz_lane.  Rows below n are the block's state rows, the
+// rest quadrature rows (flagged when not finite, not summed).
+struct RowMap {
+  int segs;
+  int local[ROWS_SEGMENTS_MAX];
+  int global[ROWS_SEGMENTS_MAX];
+};
+
+struct Pending {
+  int blocks;  // 0: no sweep before this one
+  int k;       // the sweep that left them
+  const real* ss[ROWS_BLOCKS_MAX];  // (ranks, B) each
+  const unsigned char* nf[ROWS_BLOCKS_MAX];
+  int start[ROWS_BLOCKS_MAX + 1];  // block d's partials are rows start[d] .. start[d + 1] - 1
+};
+
+// The block whose partials hold pending row j.
+__device__ __forceinline__ int pending_block(const Pending& pend, int j) {
+  int d = 0;
+#pragma unroll
+  for (int e = 1; e < ROWS_BLOCKS_MAX; ++e)
+    if (e < pend.blocks && j >= pend.start[e]) d = e;
+  return d;
+}
+
+__device__ __forceinline__ long long map_row(const RowMap& map, int r) {
+  int g = map.global[0] + r - map.local[0];
+#pragma unroll
+  for (int s = 1; s < ROWS_SEGMENTS_MAX; ++s)
+    if (s < map.segs && r >= map.local[s]) g = map.global[s] + r - map.local[s];
+  return g;
+}
+
+// A lane's decision of the pending sweep from its state *conv, *div, *bad,
+// *dy_old and *niter (registers where the caller passes locals): the new
+// state into *_o; returns it live.  get(d, j, v, f) reads pending row j (of
+// block d) of the lane: its sum and flag.  ROWS_FOLD_BATCH rows are read
+// before any is added, so their loads are in flight together; the adds keep
+// rank order, then block order.
+template <class Get>
+__device__ __forceinline__ bool decide_pending(
+    const Pending& pend, Get get, const unsigned char* __restrict__ conv,
+    const unsigned char* __restrict__ div, const unsigned char* __restrict__ bad,
+    const real* __restrict__ dy_old, const int* __restrict__ niter, double newton_tol,
+    double tol_lo, int fixed, int n_all, unsigned char* c_o, unsigned char* d_o,
+    unsigned char* b_o, real* dy_o, int* ni_o) {
+  const bool live = !(*conv || *div || *bad);
+  real ss = 0;
+  int nonfinite = 0;
+  for (int d = 0; d < pend.blocks; ++d) {
+    const int j_begin = pend.start[d], j_end = pend.start[d + 1];
+    real t = 0;
+    for (int j0 = j_begin; j0 < j_end; j0 += ROWS_FOLD_BATCH) {
+      real v[ROWS_FOLD_BATCH];
+      int f[ROWS_FOLD_BATCH];
+#pragma unroll
+      for (int u = 0; u < ROWS_FOLD_BATCH; ++u) {
+        v[u] = 0;
+        f[u] = 0;
+        if (j0 + u < j_end) get(d, j0 + u, v[u], f[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS_FOLD_BATCH; ++u) {
+        if (j0 + u >= j_end) break;
+        t = j0 + u == j_begin ? v[u] : r_add(t, v[u]);
+        nonfinite |= f[u];
+      }
+    }
+    ss = d == 0 ? t : r_add(ss, t);
+  }
+  sweep_decide(0, pend.k, ss, nonfinite, live, conv, div, bad, dy_old, niter, newton_tol, tol_lo,
+               fixed, n_all, c_o, d_o, b_o, dy_o, ni_o);
+  return !(*c_o || *d_o || *b_o);
+}
+
+__device__ __forceinline__ void copy_async(real* dst, const real* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(real)), "r"(in ? (int)sizeof(real) : 0)
+               : "memory");
+}
+
+template <bool FZ_LANE_MAJOR>
+__global__ void __launch_bounds__(SWEEP_THREADS, 2)  // two blocks an SM at least
+split_sweep_rows_kernel(const real* __restrict__ fz, long long fz_row, long long fz_lane,
+                        RowMap map, const real* __restrict__ y_it,
+                        const real* __restrict__ z_pred, const real* __restrict__ f_ex,
+                        const real* __restrict__ w_z, const real* __restrict__ c_A,
+                        const unsigned char* __restrict__ conv,
+                        const unsigned char* __restrict__ div,
+                        const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
+                        const int* __restrict__ niter, Pending pend, double newton_tol,
+                        double tol_lo, int fixed, int n_all, int n, int nz, int B, int rows,
+                        real* __restrict__ y_next, real* __restrict__ part_ss,
+                        unsigned char* __restrict__ part_nf, unsigned char* __restrict__ conv_o,
+                        unsigned char* __restrict__ div_o, unsigned char* __restrict__ bad_o,
+                        real* __restrict__ dy_old_o, int* __restrict__ niter_o) {
+  __shared__ real ss_s[SWEEP_THREADS];  // (row thread, lane), then the block's sum per lane
+  __shared__ int bad_s[SWEEP_THREADS];
+  // a wave's f tile, (rows) x (lanes + 1), T ROWS_WAVE (L + 1) <= ROWS_WAVE
+  // (SWEEP_THREADS + 16) values: the odd stride keeps a warp's copies of
+  // one lane's rows and its reads of one row off each other's banks
+  __shared__ real fz_s[FZ_LANE_MAJOR ? ROWS_WAVE * (SWEEP_THREADS + 16) : 1];
+  // the pending partials of the tile's lanes, (partial row) x (lane)
+  __shared__ real pend_s[ROWS_PEND_SLOTS];
+  __shared__ unsigned char pendf_s[ROWS_PEND_SLOTS];
+  const int tx = threadIdx.x, ty = threadIdx.y, L = blockDim.x, T = blockDim.y;
+#ifdef SPLIT_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.y * L + tx;
+  const bool lane = b < B;
+  const size_t sB = (size_t)B;
+  const int tid = ty * L + tx;
+  // the lane's state, before anything else: every row thread decides its
+  // lane, so that none waits on another before it stores its rows
+  unsigned char conv_r = 0, div_r = 0, bad_r = 0;
+  real dy_old_r = 0;
+  int niter_r = 0;
+  if (lane) {
+    conv_r = conv[b];
+    div_r = div[b];
+    bad_r = bad[b];
+    if (pend.blocks > 0) {
+      dy_old_r = dy_old[b];
+      niter_r = niter[b];
+    }
+  }
+  // The pending partials next, so that they arrive ahead of the rows: the
+  // block's threads copy (cp.async) the first ROWS_PEND_SLOTS / L partial
+  // rows of the tile's lanes, a warp 32 lanes of a row, and load their
+  // flags; a lane's decision then adds them from shared memory (any row
+  // past those from device memory).
+  const int staged = pend.blocks > 0 ? min(pend.start[pend.blocks], ROWS_PEND_SLOTS / L) : 0;
+  int flags_in[ROWS_PEND_SLOTS / SWEEP_THREADS];
+  if (pend.blocks > 0) {
+#pragma unroll
+    for (int u = 0; u < ROWS_PEND_SLOTS / SWEEP_THREADS; ++u) {
+      const int i = tid + u * SWEEP_THREADS, j = i / L, bb = blockIdx.y * L + i % L;
+      const bool in = j < staged && bb < B;
+      const int d = in ? pending_block(pend, j) : 0;
+      const size_t at = (size_t)(j - pend.start[d]) * sB + bb;
+      copy_async(&pend_s[i], in ? pend.ss[d] + at : fz, in);
+      flags_in[u] = in ? pend.nf[d][at] : 0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  const real cA = lane ? c_A[b] : (real)0;
+  const int r_begin = blockIdx.x * rows, r_end = min(r_begin + rows, nz);  // the block's rows
+  const int wave = T * ROWS_WAVE;
+  bool live = lane && !(conv_r || div_r || bad_r);
+  real ss = 0;
+  int nonfinite = 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += wave) {  // the same waves in every thread
+    real f[ROWS_WAVE], fe[ROWS_WAVE], zp[ROWS_WAVE], yi[ROWS_WAVE], w[ROWS_WAVE];
+    if (FZ_LANE_MAJOR) {
+      // the tile's element e = (row e % wave, lane e / wave): a warp copies
+      // consecutive rows of one lane, contiguous in f within a segment
+#pragma unroll
+      for (int u = 0; u < ROWS_WAVE; ++u) {
+        const int e = tid + u * SWEEP_THREADS, row = e % wave, lane_t = e / wave;
+        const int r = r0 + row, bb = blockIdx.y * L + lane_t;
+        const bool in = r < r_end && bb < B;
+        copy_async(&fz_s[row * (L + 1) + lane_t],
+                   in ? fz + map_row(map, r) * fz_row + (long long)bb * fz_lane : fz, in);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+#pragma unroll
+    for (int u = 0; u < ROWS_WAVE; ++u) {  // every load of the wave first
+      const int r = r0 + ty + u * T;
+      const bool row = lane && r < r_end, state = row && r < n;
+      if (!FZ_LANE_MAJOR)
+        f[u] = row ? fz[map_row(map, r) * fz_row + (long long)b * fz_lane] : (real)0;
+      fe[u] = state ? f_ex[r * sB + b] : (real)0;
+      zp[u] = state ? z_pred[r * sB + b] : (real)0;
+      yi[u] = state ? y_it[r * sB + b] : (real)0;
+      w[u] = state ? w_z[r * sB + b] : (real)0;
+    }
+    if (r0 == r_begin) {  // the pending decision, while the rows' loads are in flight
+      SPLIT_MARK(0);
+      if (pend.blocks > 0) {
+#pragma unroll
+        for (int u = 0; u < ROWS_PEND_SLOTS / SWEEP_THREADS; ++u)
+          pendf_s[tid + u * SWEEP_THREADS] = (unsigned char)flags_in[u];
+        // the partials' group, not a lane-major f's tile committed after it
+        if (FZ_LANE_MAJOR)
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        else
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+        if (lane) {
+          auto get = [&](int d, int j, real& v, int& f) {
+            if (j < staged) {
+              v = pend_s[j * L + tx];
+              f = pendf_s[j * L + tx];
+            } else {
+              const size_t at = (size_t)(j - pend.start[d]) * sB + b;
+              v = pend.ss[d][at];
+              f = pend.nf[d][at];
+            }
+          };
+          unsigned char c_o, d_o, b_o;
+          real dy_o;
+          int ni_o;
+          live = decide_pending(pend, get, &conv_r, &div_r, &bad_r, &dy_old_r, &niter_r,
+                                newton_tol, tol_lo, fixed, n_all, &c_o, &d_o, &b_o, &dy_o, &ni_o);
+          if (ty == 0 && blockIdx.x == 0 && conv_o != nullptr) {
+            conv_o[b] = c_o;
+            div_o[b] = d_o;
+            bad_o[b] = b_o;
+            dy_old_o[b] = dy_o;
+            niter_o[b] = ni_o;
+          }
+        }
+      }
+      SPLIT_MARK(1);
+    }
+    if (FZ_LANE_MAJOR) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // the tile
+#pragma unroll
+      for (int u = 0; u < ROWS_WAVE; ++u) f[u] = fz_s[(ty + u * T) * (L + 1) + tx];
+      __syncthreads();  // the tile is read before the next wave copies into it
+    }
+#pragma unroll
+    for (int u = 0; u < ROWS_WAVE; ++u) {
+      const int r = r0 + ty + u * T;
+      if (!lane || r >= r_end) break;
+      if (!isfinite(f[u])) nonfinite = 1;  // the quadrature rows too
+      if (r < n) {
+        const real zn = r_add(zp[u], r_mul(cA, r_sub(f[u], fe[u])));
+        const real q = r_mul(r_sub(zn, yi[u]), w[u]);
+        ss = r_add(ss, r_mul(q, q));
+        y_next[r * sB + b] = live ? zn : yi[u];
+      }
+    }
+  }
+  SPLIT_MARK(2);
+  // the block's sum per lane, over its row threads in order
+  ss_s[ty * L + tx] = ss;
+  bad_s[ty * L + tx] = nonfinite;
+  __syncthreads();
+  if (ty == 0) {  // every load first, then the sums in order (T <= SWEEP_THREADS / 16)
+    real v[SWEEP_THREADS / 16];
+#pragma unroll
+    for (int y = 1; y < SWEEP_THREADS / 16; ++y) {
+      v[y] = y < T ? ss_s[y * L + tx] : (real)0;
+      nonfinite |= y < T ? bad_s[y * L + tx] : 0;
+    }
+#pragma unroll
+    for (int y = 1; y < SWEEP_THREADS / 16; ++y)
+      if (y < T) ss = r_add(ss, v[y]);
+    SPLIT_MARK(3);
+    if (lane) {  // this rank's partial, (C, B)
+      part_ss[blockIdx.x * sB + b] = ss;
+      part_nf[blockIdx.x * sB + b] = nonfinite;
+    }
+  }
+  SPLIT_MARK(4);
+  SPLIT_COUNT_BLOCK();
 }
 
 // Lane b's error norms from its three sums of squares, and the attempt's conv.
@@ -657,18 +939,36 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
 }
 
 // The lanes' finish after the rows' finishes of a state split over devices:
-// ss3 (3, B) holds each lane's three sums over every block, added in block
-// order (parallel/rows.py::lane_sum).
+// first the last sweep's decision (decide_pending on its partials, where
+// pend.blocks > 0), then err3's roots of ss3 (3, B), each lane's three sums
+// over every block added in block order (parallel/rows.py::lane_sum), and
+// the attempt's conv (finish_lane) on the decided conv and bad; niter_o the
+// decided sweeps' count.
 __global__ void __launch_bounds__(SWEEP_THREADS)
 split_finish_lanes_kernel(const real* __restrict__ ss3, const unsigned char* __restrict__ conv,
-                          const unsigned char* __restrict__ bad,
-                          const unsigned char* __restrict__ pred_ok, int fixed, int B,
-                          real* __restrict__ err3, unsigned char* __restrict__ conv_o) {
+                          const unsigned char* __restrict__ div,
+                          const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
+                          const int* __restrict__ niter, const unsigned char* __restrict__ pred_ok,
+                          Pending pend, double newton_tol, double tol_lo, int fixed, int n_all,
+                          int B, real* __restrict__ err3, unsigned char* __restrict__ conv_o,
+                          int* __restrict__ niter_o) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = (size_t)B;
-  finish_lane(b, sB, ss3[b], ss3[sB + b], ss3[2 * sB + b], conv, bad, pred_ok, fixed, err3,
-              conv_o);
+  unsigned char c_o = conv[b], d_o, b_o = bad[b];
+  real dy_o;
+  int ni_o = niter[b];
+  auto get = [&](int d, int j, real& v, int& f) {
+    const size_t at = (size_t)(j - pend.start[d]) * sB + b;
+    v = pend.ss[d][at];
+    f = pend.nf[d][at];
+  };
+  if (pend.blocks > 0)
+    decide_pending(pend, get, conv + b, div + b, bad + b, dy_old + b, niter + b, newton_tol,
+                   tol_lo, fixed, n_all, &c_o, &d_o, &b_o, &dy_o, &ni_o);
+  finish_lane(0, sB, ss3[b], ss3[sB + b], ss3[2 * sB + b], &c_o, &b_o, pred_ok + b, fixed,
+              err3 + b, conv_o + b);
+  niter_o[b] = ni_o;
 }
 
 #undef HIST
@@ -690,9 +990,10 @@ static bool covers(int nz, int B, int lanes, int rows, int cluster) {
          (long long)(cluster - 1) * rows < nz && (B + lanes - 1) / lanes <= 65535;
 }
 
-// Whether predict's, the row-major and the lane-major sweep's kernel and
-// the rows' sweep allow the non-portable cluster size yet.
-static bool non_portable[4] = {false, false, false, false};
+// Whether predict's, the row-major and the lane-major sweep's kernel (and
+// the rows' sweep's two, which take no cluster) allow the non-portable
+// cluster size yet.
+static bool non_portable[5] = {false, false, false, false, false};
 
 // The launch of a kernel on that geometry: the tile's blocks one cluster
 // along gridDim.x.  A cluster above the portable 8 needs the kernel's
@@ -768,8 +1069,7 @@ int split_sweep_launch(int k, const real* fz, const real* y_it, const real* z_pr
   if (n > nz) return -1;
   if (B <= 0 || nz <= 0) return 0;
   if (!covers(nz, B, lanes, rows, cluster)) return -3;
-  auto kernel =
-      fz_lane_major ? split_sweep_kernel<true, false> : split_sweep_kernel<false, false>;
+  auto kernel = fz_lane_major ? split_sweep_kernel<true> : split_sweep_kernel<false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err = cluster_config(&cfg, attr, (const void*)kernel,
@@ -778,54 +1078,73 @@ int split_sweep_launch(int k, const real* fz, const real* y_it, const real* z_pr
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, kernel, k, fz, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad,
                              dy_old, niter, newton_tol, tol_lo, fixed, n, nz, B, rows, y_next,
-                             conv_o, div_o, bad_o, dy_old_o, niter_o, (real*)nullptr,
-                             (unsigned char*)nullptr);
+                             conv_o, div_o, bad_o, dy_old_o, niter_o);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// One block of a state split over devices: the sweep's rows on the same
-// geometry (f row-major), each lane's sum of squares over the block's n
-// state rows into ss and its non-finite flag over all nz rows into
-// nonfinite; live from conv, div and bad.  The decision is
-// split_sweep_decide_launch's, on the blocks' sums.
-int split_sweep_rows_launch(const real* fz, const real* y_it, const real* z_pred,
-                            const real* f_ex, const real* w_z, const real* c_A,
-                            const unsigned char* conv, const unsigned char* div,
-                            const unsigned char* bad, int n, int nz, int B, int lanes, int rows,
-                            int cluster, real* y_next, real* ss, unsigned char* nonfinite,
-                            void* stream) {
-  if (n > nz) return -1;
+// The pending decision's partials from host arrays of `blocks` pointers and
+// rank counts; -1 for more blocks than a launch takes.
+static int pending_from(int blocks, int k, const real* const* ss, const unsigned char* const* nf,
+                        const int* ranks, Pending* pend) {
+  if (blocks < 0 || blocks > ROWS_BLOCKS_MAX) return -1;
+  *pend = {};
+  pend->blocks = blocks;
+  pend->k = k;
+  for (int d = 0; d < blocks; ++d) {
+    if (ranks[d] < 1) return -1;
+    pend->ss[d] = ss[d];
+    pend->nf[d] = nf[d];
+    pend->start[d + 1] = pend->start[d] + ranks[d];
+  }
+  return 0;
+}
+
+// One block of a state split over devices: the rows' sweep on the sweep's
+// geometry (`lanes`, `rows`; `ranks` blocks a tile, no cluster).  f's
+// element (r, b) of local row r is fz[map(r) fz_row + b fz_lane] (f row-
+// major with fz_lane 1, lane-major with fz_row 1, either in place), map
+// from `segs` segments (seg_local[s], seg_global[s]) of host arrays.  The
+// pending partials of `pend_blocks` blocks (host arrays of pointers and
+// rank counts; 0 at the first sweep) are decided first, with newton_tol,
+// fixed and n_all the whole state's rows; with conv_o non-null, rank 0
+// writes the decided state.  Writes y_next and part_ss / part_nf (ranks,
+// B).  -1 for n > nz or too many blocks or segments.
+int split_sweep_rows_launch(const real* fz, long long fz_row, long long fz_lane, int segs,
+                            const int* seg_local, const int* seg_global, const real* y_it,
+                            const real* z_pred, const real* f_ex, const real* w_z,
+                            const real* c_A, const unsigned char* conv, const unsigned char* div,
+                            const unsigned char* bad, const real* dy_old, const int* niter,
+                            int pend_blocks, int pend_k, const real* const* pend_ss,
+                            const unsigned char* const* pend_nf, const int* pend_ranks,
+                            double newton_tol, double tol_lo, int fixed, int n_all, int n, int nz,
+                            int B, int lanes, int rows, int ranks, real* y_next, real* part_ss,
+                            unsigned char* part_nf, unsigned char* conv_o, unsigned char* div_o,
+                            unsigned char* bad_o, real* dy_old_o, int* niter_o, void* stream) {
+  if (n > nz || segs < 1 || segs > ROWS_SEGMENTS_MAX || seg_local[0] != 0) return -1;
+  Pending pend;
+  if (pending_from(pend_blocks, pend_k, pend_ss, pend_nf, pend_ranks, &pend)) return -1;
   if (B <= 0 || nz <= 0) return 0;
-  if (!covers(nz, B, lanes, rows, cluster)) return -3;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config(&cfg, attr, (const void*)split_sweep_kernel<false, true>,
-                                   &non_portable[3], B, lanes, cluster, stream);
-  if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, split_sweep_kernel<false, true>, 0, fz, y_it, z_pred, f_ex,
-                             w_z, c_A, conv, div, bad, (const real*)nullptr,
-                             (const int*)nullptr, 0.0, 0.0, 1, n, nz, B, rows, y_next,
-                             (unsigned char*)nullptr, (unsigned char*)nullptr,
-                             (unsigned char*)nullptr, (real*)nullptr, (int*)nullptr, ss,
-                             nonfinite);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// The sweep's decision on each lane's summed ss and nonfinite, n the whole
-// state's rows; one thread a lane.
-int split_sweep_decide_launch(int k, const real* ss, const unsigned char* nonfinite,
-                              const unsigned char* conv, const unsigned char* div,
-                              const unsigned char* bad, const real* dy_old, const int* niter,
-                              double newton_tol, double tol_lo, int fixed, int n, int B,
-                              unsigned char* conv_o, unsigned char* div_o, unsigned char* bad_o,
-                              real* dy_old_o, int* niter_o, void* stream) {
-  if (B <= 0) return 0;
-  split_sweep_decide_kernel<<<(B + SWEEP_THREADS - 1) / SWEEP_THREADS, SWEEP_THREADS, 0,
-                              (cudaStream_t)stream>>>(k, ss, nonfinite, conv, div, bad, dy_old,
-                                                      niter, newton_tol, tol_lo, fixed, n, B,
-                                                      conv_o, div_o, bad_o, dy_old_o, niter_o);
+  if (!covers(nz, B, lanes, rows, ranks)) return -3;
+  RowMap map = {};
+  map.segs = segs;
+  for (int i = 0; i < segs; ++i) {
+    map.local[i] = seg_local[i];
+    map.global[i] = seg_global[i];
+  }
+  const bool lane_major = fz_row == 1 && fz_lane != 1;
+  const dim3 grid(ranks, (B + lanes - 1) / lanes), block(lanes, SWEEP_THREADS / lanes);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lane_major)
+    split_sweep_rows_kernel<true><<<grid, block, 0, s>>>(
+        fz, fz_row, fz_lane, map, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad, dy_old, niter,
+        pend, newton_tol, tol_lo, fixed, n_all, n, nz, B, rows, y_next, part_ss, part_nf, conv_o,
+        div_o, bad_o, dy_old_o, niter_o);
+  else
+    split_sweep_rows_kernel<false><<<grid, block, 0, s>>>(
+        fz, fz_row, fz_lane, map, y_it, z_pred, f_ex, w_z, c_A, conv, div, bad, dy_old, niter,
+        pend, newton_tol, tol_lo, fixed, n_all, n, nz, B, rows, y_next, part_ss, part_nf, conv_o,
+        div_o, bad_o, dy_old_o, niter_o);
   return (int)cudaGetLastError();
 }
 
@@ -873,26 +1192,38 @@ int split_finish_rows_launch(const real* fz, const real* DF_resc, const real* z_
   return (int)cudaGetLastError();
 }
 
-// The finish's lanes on each lane's summed ss3 (3, B): err3's roots and
-// conv; one thread a lane.
-int split_finish_lanes_launch(const real* ss3, const unsigned char* conv,
-                              const unsigned char* bad, const unsigned char* pred_ok, int fixed,
-                              int B, real* err3, unsigned char* conv_o, void* stream) {
+// The finish's lanes on each lane's summed ss3 (3, B): the last sweep's
+// pending decision (as split_sweep_rows_launch takes it), then err3's roots,
+// conv and niter; one thread a lane.
+int split_finish_lanes_launch(const real* ss3, const unsigned char* conv, const unsigned char* div,
+                              const unsigned char* bad, const real* dy_old, const int* niter,
+                              const unsigned char* pred_ok, int pend_blocks, int pend_k,
+                              const real* const* pend_ss, const unsigned char* const* pend_nf,
+                              const int* pend_ranks, double newton_tol, double tol_lo, int fixed,
+                              int n_all, int B, real* err3, unsigned char* conv_o, int* niter_o,
+                              void* stream) {
+  Pending pend;
+  if (pending_from(pend_blocks, pend_k, pend_ss, pend_nf, pend_ranks, &pend)) return -1;
   if (B <= 0) return 0;
   split_finish_lanes_kernel<<<(B + SWEEP_THREADS - 1) / SWEEP_THREADS, SWEEP_THREADS, 0,
-                              (cudaStream_t)stream>>>(ss3, conv, bad, pred_ok, fixed, B, err3,
-                                                      conv_o);
+                              (cudaStream_t)stream>>>(ss3, conv, div, bad, dy_old, niter, pred_ok,
+                                                      pend, newton_tol, tol_lo, fixed, n_all, B,
+                                                      err3, conv_o, niter_o);
   return (int)cudaGetLastError();
 }
 
-// The clusters of `cluster` blocks of predict's kernel (kernel 0) or the
-// sweep's (1: f row-major, 2: lane-major) that the card holds at once, at
-// tiles of `lanes` lanes, into *out (cudaOccupancyMaxActiveClusters): the
-// experiments print it beside a geometry's clusters.
+// The clusters of `cluster` blocks of predict's kernel (kernel 0), the
+// sweep's (1: f row-major, 2: lane-major) or the rows' sweep's (3, 4; a
+// cluster of one block: its blocks) that the card holds at once, at tiles of
+// `lanes` lanes, into *out (cudaOccupancyMaxActiveClusters): the experiments
+// print it beside a geometry's clusters.
 int split_max_active_clusters(int kernel, int lanes, int cluster, int* out) {
-  const void* fn = kernel == 0   ? (const void*)split_predict_kernel
-                   : kernel == 1 ? (const void*)split_sweep_kernel<false, false>
-                                 : (const void*)split_sweep_kernel<true, false>;
+  const void* fns[5] = {(const void*)split_predict_kernel, (const void*)split_sweep_kernel<false>,
+                        (const void*)split_sweep_kernel<true>,
+                        (const void*)split_sweep_rows_kernel<false>,
+                        (const void*)split_sweep_rows_kernel<true>};
+  if (kernel < 0 || kernel > 4 || (kernel > 2 && cluster != 1)) return -1;
+  const void* fn = fns[kernel];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err =

@@ -10,14 +10,15 @@ systems at history depths 9 and 11 (``-fmad=false``), ``csrc/pece_step.cu``
 for the forward and transition systems, and ``csrc/adams_split.cu`` at
 depths 9 and 11.  Then compares ``cuobjdump -sass``'s instructions, with
 their addresses and encodings dropped, one by one, kernel by kernel: each of
-the other tree's kernels against this tree's of the same name, or, where this
-tree made it one instantiation of a template (``csrc/adams_split.cu``'s
-sweep and finish, whose state-split instantiations are new), against that
-instantiation (:data:`RENAMED`).  Kernels only this tree has are listed as
-new.  Identical machine code means the float64 builds compute and take the
-same as the other tree's, whatever a timing's noise says.  Prints one line
-per build and exits non-zero if any of the other tree's kernels differs, or
-if the toolkit is missing.
+the other tree's kernels against this tree's of the same name, or, where its
+name changed with a template's parameters (``csrc/adams_split.cu``'s sweep
+and finish), against this tree's instantiation of it (:data:`RENAMED`).
+The other tree's state-split kernels that this tree redesigned or folded
+into another (:data:`REDESIGNED`) are listed, not compared; kernels only
+this tree has are listed as new.  Identical machine code means the float64
+builds compute and take the same as the other tree's, whatever a timing's
+noise says.  Prints one line per build and exits non-zero if any of the
+other tree's kernels differs, or if the toolkit is missing.
 """
 
 from __future__ import annotations
@@ -57,13 +58,20 @@ def _jobs():
 
 
 # mangled-name prefixes of the other tree's kernels and of this tree's
-# instantiation of each (the template arguments after the first are the
-# state split's PARTIAL and ROWS, false for the unsplit kernels)
+# instantiation of each: the unsplit sweep took a second template argument
+# (the state split's PARTIAL, false for it) for one tree and dropped it
+# again; the finish's is ROWS, false for the unsplit finish
 RENAMED = {
-    "_Z18split_sweep_kernelILb0EE": "_Z18split_sweep_kernelILb0ELb0EE",
-    "_Z18split_sweep_kernelILb1EE": "_Z18split_sweep_kernelILb1ELb0EE",
+    "_Z18split_sweep_kernelILb0ELb0EE": "_Z18split_sweep_kernelILb0EE",
+    "_Z18split_sweep_kernelILb1ELb0EE": "_Z18split_sweep_kernelILb1EE",
     "_Z19split_finish_kernelPK": "_Z19split_finish_kernelILb0EE",
 }
+# the other tree's state-split kernels this tree replaced: the rows' sweep
+# (the sweep template's PARTIAL instantiation, now split_sweep_rows_kernel),
+# the decision (folded into it and into the lanes' finish) and the lanes'
+# finish (which decides the last sweep first)
+REDESIGNED = ("_Z18split_sweep_kernelILb0ELb1EE", "_Z25split_sweep_decide_kernel",
+              "_Z25split_finish_lanes_kernel")
 
 
 def _sass(tool: str, lib: Path) -> dict[str, list[str]]:
@@ -128,7 +136,8 @@ def main(argv=None) -> None:
     same_all = True
     for job, a, b in zip(jobs, new_libs, old_libs):
         ours, theirs = _sass(tool, a), _sass(tool, b)
-        matched = {name: _counterpart(name, ours) for name in theirs}
+        gone = sorted(name for name in theirs if name.startswith(REDESIGNED))
+        matched = {name: _counterpart(name, ours) for name in theirs if name not in gone}
         differ = {name: _first_difference(theirs[name], ours.get(k))
                   for name, k in matched.items() if k is None or ours[k] != theirs[name]}
         new = sorted(set(ours) - set(matched.values()))
@@ -136,6 +145,7 @@ def main(argv=None) -> None:
         print(f"[sass-ab {job[0]}] instructions this tree / old "
               f"{sum(map(len, ours.values()))} / {sum(map(len, theirs.values()))}, the old "
               f"kernels' identical={not differ}" + (f"; differing {differ}" if differ else "")
+              + (f"; redesigned {gone}" if gone else "")
               + (f"; new kernels {new}" if new else ""), flush=True)
     if not same_all:
         raise SystemExit("sass_ab: a float64 build's machine code differs from the old tree's")

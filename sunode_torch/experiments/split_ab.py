@@ -1,7 +1,7 @@
 """The split attempt's three kernels against other versions of themselves, on the card.
 
     python -m sunode_torch.experiments.split_ab [--old-root DIR] [--phase-clocks]
-        [--geometry LANES,CLUSTER ...] [--dtype float64|float32]
+        [--geometry LANES,CLUSTER ...] [--dtype float64|float32] [--rows]
 
 Run from the repository root (it reads ``chip_smoke.py``'s inputs).  Builds
 ``sunode_torch/csrc/adams_split.cu`` at history depths 11 (SIR) and 9 (the
@@ -53,6 +53,21 @@ staggered solve at B=10,000, on its 300th attempt's inputs):
     1e-12 lane by lane, conv equal) and bit for bit this tree's; device
     time in turns, the launcher's fill of its tile counters counted with
     it, beside its bytes bound.
+
+With ``--rows`` (float64), in place of the five shapes, the state split's
+rows entries at :data:`ROWS_LAYOUTS` (two and three blocks of the staged
+'hermite' backward, two of the forward, B=256, every block on the card):
+one attempt's four sweeps, every version's ``split_sweep_rows`` (the sweep
+before decided inside it, the home block's f read in place) and
+``split_finish_lanes`` against the plain stages on the same inputs (y_next,
+the flags, the decided state, err3, conv and niter bit for bit; each
+block's ss within ``REL_BOUND``, and bit for bit this tree's), then device
+µs in turns beside ``chip_smoke.rows_costs``' bound: the rows' sweep on
+sweep 1's inputs with the kernel's own partials of sweep 0 pending (at the
+home block also on a copied block of f), the lanes' finish on the last
+sweep's partials, the blocks the card holds at once, and with
+``--phase-clocks`` the rows' sweep's cycles a block by phase.  An old root
+there must have rows entries that take this tree's arguments.
 
 Prints ptxas's registers and spills of every build, one line per shape,
 kernel and version, and writes every number to ``split_ab.json``
@@ -325,6 +340,154 @@ def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, smi) -> tuple[dict, 
     return row, ok
 
 
+ROWS_KERNEL = "split_sweep_rows_kernel"  # the state split's rows' sweep
+LANES_KERNEL = "split_finish_lanes_kernel"
+ROWS_PHASES = ("loads_issued", "decision", "rows", "block_sum", "partials")
+# (solve, blocks): the staged 'hermite' backward's 3,000 state rows and 2
+# quadratures cut in 2 blocks (1,502 rows at home, 1,500) and in 3 (1,002
+# at home, 1,000, 1,000), and the forward's 3,000 in 2 (its f lane-major)
+ROWS_LAYOUTS = (("staged_adjoint", 2), ("staged_adjoint", 3), ("forward", 2))
+ROWS_B = 256
+
+
+def _rows_section(cs, sp, versions, clocks, smi) -> tuple[list, bool]:
+    """The state split's rows entries at :data:`ROWS_LAYOUTS`, every block
+    on the card: one attempt's four sweeps driven by this tree's
+    ``split_sweep_rows`` (the sweep before decided inside it from every
+    block's partials, the home block's f read in place), each version and
+    the plain stage on the same inputs; y_next, the flags and the decided
+    state bit for bit the plain stage's, each block's ss (its ranks added in
+    rank order) within ``REL_BOUND`` of the plain sum and bit for bit this
+    tree's; then ``split_finish_lanes`` on the last sweep's partials, err3,
+    conv and niter bit for bit.  Then device µs in turns, beside
+    ``chip_smoke.rows_costs``' bound: the rows' sweep at the timed blocks on
+    sweep 1's inputs (the kernel's own partials of sweep 0 pending; at the
+    home block also on a copied block of f), the lanes' finish on the last
+    partials; the blocks the card holds at once, and the rows' sweep's
+    cycles a block by phase from the ``SPLIT_PHASE_CLOCKS`` build."""
+    import torch
+
+    from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S, device_us
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+    from sunode_torch.parallel.rows import RowBlocks, RowLayout, lane_all, lane_sum, scatter
+
+    new = versions["default"]
+    dev = torch.device("cuda", 0)
+    results, ok = [], True
+    for kind, blocks in ROWS_LAYOUTS:
+        x = cs.split_inputs(ROWS_B, 31, "cuda", kind=kind)
+        fz, n, nz = cs.split_system(kind)
+        tol, B = x["newton_tol"], ROWS_B
+        sizes = [n // blocks] * (blocks - 1) + [n - n // blocks * (blocks - 1)]
+        L = RowLayout.contiguous((dev,) * blocks, sizes).with_rows(nz - n)
+        n_d = L.state_rows(n)
+        home = {"rows": L.segments[0]}
+        DF, z_prev = scatter(L, x["DF"]).blocks, scatter(L, x["z_prev"]).blocks
+        col = {k: scatter(L, x[k][:, None]).blocks for k in ("atol_z", "rtol_z", "v_err")}
+        preds = [sp.split_predict(D, x["p"], x["pre_factor"], x["h"], z, a[:, 0], r[:, 0],
+                                  KAB - 3)
+                 for D, z, a, r in zip(DF, z_prev, col["atol_z"], col["rtol_z"])]
+        y = [pr.z_pred[:m] for pr, m in zip(preds, n_d)]
+        state = sp.sweep_start(x["active"], x["DF"].dtype)
+        pending, timed = None, None
+        checks = {"y_next": True, "flags": True, "state": True, "ss_in_bound": True,
+                  "ss_this_tree": True, "finish_lanes": True}
+        for k in range(FUNCTIONAL_MAXITER):
+            f_all = fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])
+            f_b = scatter(L, f_all).blocks
+            if k == 1:  # sweep 1's inputs: the kernel's own partials of sweep 0 pending
+                timed = (f_all, f_b, [yy.clone() for yy in y], state, pending)
+            outs = []
+            for d, (f, yy, pr, m) in enumerate(zip(f_b, y, preds, n_d)):
+                where = home if d == 0 else {}
+                f = f_all if d == 0 else f
+                ref, st_p = sp.split_sweep_rows(f, yy, pr, state, m, pending, **where)
+                for name, run in versions.items():
+                    got, st = run.sweep_rows(f, yy, pr, state, m, pending, **where)
+                    s_blk = sp.pending_sums(sp.Pending(k, (got.ss,), (got.nonfinite,), tol, n),
+                                            dev)[0]
+                    checks["y_next"] &= _same(got.y_next, ref.y_next)
+                    checks["flags"] &= _same(got.nonfinite.any(dim=0), ref.nonfinite[0])
+                    checks["state"] &= all(_same(a, b) for a, b in zip(st, st_p))
+                    checks["ss_in_bound"] &= cs.lane_rel(s_blk, ref.ss[0]) <= cs.REL_BOUND
+                    if name == "default":
+                        outs.append(got)
+                        s_new = s_blk
+                    else:
+                        checks["ss_this_tree"] &= _same(s_blk, s_new)
+            state = st_p
+            pending = sp.Pending(k, tuple(o.ss for o in outs), tuple(o.nonfinite for o in outs),
+                                 tol, n)
+            y = [o.y_next for o in outs]
+        f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
+        g = x["gamma_star_abs"]
+        ss3 = lane_sum([sp.split_finish_rows(f, pr, x["p"], x["h"], g, v[:, 0], KAB - 3).ss3
+                        for f, pr, v in zip(f_b, preds, col["v_err"])], dev)
+        pred_ok = lane_all([pr.pred_ok for pr in preds], dev)
+        ref = sp.split_finish_lanes(ss3, pred_ok, state, tol, pending)
+        for run in versions.values():
+            got = run.finish_lanes(ss3, pred_ok, state, tol, pending)
+            checks["finish_lanes"] &= all(_same(a, b) for a, b in zip(got, ref))
+        torch.cuda.synchronize()
+        ok &= all(checks.values())
+        shape = f"{kind} nz={nz} n={n} B={B} blocks={L.sizes}"
+        row = {"shape": shape, "checks": checks, "smi": smi, "blocks": []}
+        cs.log(f"[split-ab rows {shape}] four sweeps and the lanes' finish, every version "
+               f"against the plain stages: {checks} | {smi}")
+        costs = [cs.rows_costs(KAB, L.sizes[d], n_d[d], B, g.numel(), blocks=blocks)
+                 for d in range(blocks)]
+        for d in (0, 1) if (kind, blocks) == ("staged_adjoint", 2) else (0,):
+            nz_d, m, pr = L.sizes[d], n_d[d], preds[d]
+            geo = sp.sweep_geometry(nz_d, B)
+            nbytes = costs[d]["sweep_rows"][0]
+            f_all, f_tb, ys, st, pend = timed
+            f, yy, where = (f_all, ys[d], home) if d == 0 else (f_tb[d], ys[d], {})
+            brow = {"block": d, "rows": nz_d, "state_rows": m, "geometry": geo._asdict(),
+                    "bytes": nbytes, "bound_us": 1e6 * nbytes / HBM_BYTES_PER_S,
+                    "device_us": {}}
+            timing = {name: lambda run=run: run.sweep_rows(f, yy, pr, st, m, pend, **where)
+                      for name, run in versions.items()}
+            if d == 0:  # the home block's f copied out, as scatter copies the others'
+                timing["default_copied_f"] = lambda: new.sweep_rows(f_tb[0], yy, pr, st, m, pend)
+            for name in timing:
+                brow["device_us"][name] = []
+            _in_turns(timing, lambda name: brow["device_us"][name].append(
+                device_us(timing[name], kernel=ROWS_KERNEL)))
+            if clocks is not None:
+                brow["phase_cycles"] = _phase_cycles(
+                    clocks._lib, lambda: clocks.sweep_rows(f, yy, pr, st, m, pend, **where),
+                    ROWS_PHASES)
+            brow["blocks_at_once"] = _clusters_at_once(
+                new._lib, 4 if (d == 0 and not f_all.is_contiguous()) else 3,
+                sp.SweepGeometry(geo.lanes, geo.rows, 1, geo.tiles))
+            times = " ".join(f"{name}=" + "/".join(cs.fmt_us(t) for t in ts)
+                             for name, ts in brow["device_us"].items())
+            cs.log(f"[split-ab rows {shape} | sweep_rows block {d}: {nz_d} rows, {m} state "
+                   f"rows] {cs.fmt_sweep(nz_d, B)} blocks_at_once={brow['blocks_at_once']} "
+                   f"bytes={nbytes} bound_us={brow['bound_us']:.3f} device_us {times} | {smi}")
+            if "phase_cycles" in brow:
+                cs.log(f"[split-ab rows {shape} | sweep_rows block {d} | SPLIT_PHASE_CLOCKS] "
+                       "mean cycles a block by phase "
+                       + " ".join(f"{k}={c:.0f}" for k, c in brow["phase_cycles"].items()))
+            row["blocks"].append(brow)
+        nbytes = costs[0]["finish_lanes"][0]
+        lanes = {"bytes": nbytes, "bound_us": 1e6 * nbytes / HBM_BYTES_PER_S,
+                 "device_us": {name: [] for name in versions}}
+        _in_turns(versions, lambda name: lanes["device_us"][name].append(device_us(
+            lambda: versions[name].finish_lanes(ss3, pred_ok, state, tol, pending),
+            kernel=LANES_KERNEL)))
+        times = " ".join(f"{name}=" + "/".join(cs.fmt_us(t) for t in ts)
+                         for name, ts in lanes["device_us"].items())
+        cs.log(f"[split-ab rows {shape} | finish_lanes, {sum(p.shape[0] for p in pending.ss)} "
+               f"partials a lane] bytes={nbytes} bound_us={lanes['bound_us']:.3f} "
+               f"device_us {times} | {smi}")
+        row["finish_lanes"] = lanes
+        results.append(row)
+        del x, preds, DF, z_prev, timed
+        torch.cuda.empty_cache()
+    return results, ok
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-root", default=None)
@@ -332,7 +495,17 @@ def main(argv=None) -> None:
     ap.add_argument("--geometry", action="append", default=[],
                     help="LANES,CLUSTER: this tree's predict and sweep at another geometry")
     ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
+    ap.add_argument("--rows", action="store_true",
+                    help="the state split's rows entries in place of the five path shapes")
     args = ap.parse_args(argv)
+    old_root = Path(args.old_root).resolve() if args.old_root else None
+    old_source = None if old_root is None else old_root / "sunode_torch/csrc/adams_split.cu"
+    if args.rows and (args.dtype != "float64" or args.geometry):
+        ap.error("--rows runs at float64 on the rows' own geometry")
+    if args.rows and old_source is not None and (
+            "split_sweep_decide_launch" in old_source.read_text()):
+        ap.error("--rows: the parent's rows entries must take this tree's arguments (the "
+                 "sweep before decided inside the rows' sweep)")
 
     import torch
 
@@ -348,14 +521,13 @@ def main(argv=None) -> None:
     # predict's and the finish's builds at each shape's history depth (9 for
     # the sensitivity block, 11 for SIR), the sweep's at 11 (it does not
     # read the history)
-    kabs = sorted({KAB, 9})
-    old_root = Path(args.old_root).resolve() if args.old_root else None
+    kabs = [KAB] if args.rows else sorted({KAB, 9})
     jobs = {}
     for kab in kabs:
         jobs[("default", kab)] = lambda kab=kab: sp.build_split_kernels(kab, dtype)
-        if old_root is not None:
-            jobs[("old", kab)] = lambda kab=kab: sp._SplitKernels(
-                kab, source=old_root / "sunode_torch/csrc/adams_split.cu", real=real)
+        if old_source is not None:
+            jobs[("old", kab)] = lambda kab=kab: sp._SplitKernels(kab, source=old_source,
+                                                                  real=real)
         if args.phase_clocks:
             jobs[("SPLIT_PHASE_CLOCKS", kab)] = lambda kab=kab: sp._SplitKernels(
                 kab, defines=("SPLIT_PHASE_CLOCKS",), real=real)
@@ -367,7 +539,12 @@ def main(argv=None) -> None:
         cs.log(f"[build {name} KAB={kab}] {b.build_seconds:.2f} s; ptxas: {'; '.join(ptxas)}")
 
     results, ok = [], True
-    for seed, (kind, B) in enumerate(SHAPES, start=30):
+    if args.rows:
+        versions = {name: built[(name, KAB)] for name in ("default", "old")
+                    if (name, KAB) in built}
+        rows, ok = _rows_section(cs, sp, versions, built.get(("SPLIT_PHASE_CLOCKS", KAB)), smi)
+        results.append({"rows": rows})
+    for seed, (kind, B) in enumerate(() if args.rows else SHAPES, start=30):
         x = cs.split_inputs(B, seed, "cuda", kind=kind, dtype=dtype)
         # the sensitivity block's attempt is a float64 solve's: rounded to the type
         x = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
@@ -390,7 +567,7 @@ def main(argv=None) -> None:
         for label, g in geometries:
             sweeps[label] = lambda *a, g=g: built[("default", KAB)].sweep(*a, geometry=g)
         finishes = {"default": kernels.finish}
-        if old_root is not None:  # the parent's kernels take this tree's arguments
+        if old_source is not None:  # the parent's kernels take this tree's arguments
             predicts["old"] = built[("old", kab)].predict
             sweeps["old"] = built[("old", KAB)].sweep
             finishes["old"] = built[("old", kab)].finish

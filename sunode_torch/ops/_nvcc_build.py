@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Mapping, NamedTuple, Sequence
@@ -73,7 +74,7 @@ def build_library(
         build_dir.mkdir(parents=True, exist_ok=True)
         for file_name, text in headers.items():
             (build_dir / file_name).write_text(text)
-        tmp = build_dir / f"lib{source.stem}.{os.getpid()}.so"
+        tmp = build_dir / f"lib{source.stem}.{os.getpid()}.{threading.get_ident()}.so"
         cmd = [_nvcc(), *flags, "-I", str(build_dir), "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr

@@ -27,18 +27,19 @@ torch code between them:
 :func:`adams_split_attempt_rows` runs the same attempt on a state whose
 rows are split over devices (:mod:`sunode_torch.parallel.rows`): predict on
 every block, and the sweep and the finish each cut at their sums over the
-rows into a rows form and a lanes form --
+rows --
 
-  * :func:`split_sweep_rows` -- a block's next iterate and each lane's sum
-    of squares ``ss`` and non-finite flag over the block's rows;
-  * :func:`split_sweep_decide` -- on each lane's ``ss`` summed over the
-    blocks in block order on the home device: ``dy_norm`` and the masked
-    state update;
+  * :func:`split_sweep_rows` -- first the decision of the sweep before
+    (:func:`split_sweep_decide`, ``dy_norm`` and the masked state update,
+    on each lane's ``ss`` over every block: the :class:`Pending` partials
+    that sweep left, added by :func:`pending_sums`), then a block's next
+    iterate and each lane's partial sums of squares ``ss`` and non-finite
+    flags over the block's rows;
   * :func:`split_finish_rows` -- a block's ``d_fz``, ``z_new``, ``err0``,
     ``DF_upd`` and each lane's three sums of squares ``ss3`` (err3 without
     the roots);
-  * :func:`split_finish_lanes` -- err3's roots of the summed ``ss3`` and
-    the attempt's ``conv``.
+  * :func:`split_finish_lanes` -- the last sweep's decision, err3's roots of
+    the summed ``ss3``, the attempt's ``conv`` and ``niter``.
 
 At one block the rows and the lanes forms compose to :func:`split_sweep`
 and :func:`split_finish` bit for bit: the same rows summed in the same
@@ -87,7 +88,7 @@ from sunode_torch.ops.adams_attempt import (
     real_build,
 )
 from sunode_torch.ops.pece_step import PeceSystem, _check, _tables_header
-from sunode_torch.parallel.rows import RowBlocks, lane_all, lane_any, lane_sum, scatter
+from sunode_torch.parallel.rows import RowBlocks, lane_all, lane_sum, scatter
 
 __all__ = [
     "Predicted",
@@ -101,6 +102,8 @@ __all__ = [
     "adams_split_attempt_reference",
     "SweepRows",
     "FinishedRows",
+    "Pending",
+    "pending_sums",
     "split_sweep_rows",
     "split_sweep_decide",
     "split_finish_rows",
@@ -116,13 +119,16 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
-ROWS_ENTRIES = ("sweep_rows", "sweep_decide", "finish_rows", "finish_lanes")
+ROWS_ENTRIES = ("sweep_rows", "finish_rows", "finish_lanes")
 TILE_LANES = 32  # lanes of a finish block (csrc/adams_split.cu: SPLIT_TILE)
 CHUNK_ROWS = 64  # history rows of a finish block (SPLIT_CHUNK)
 SWEEP_THREADS = 256  # threads of a predict or sweep block (SWEEP_THREADS)
 SWEEP_UNROLL = 4  # rows a sweep thread loads at once (SWEEP_UNROLL)
 SWEEP_CLUSTER_MAX = 16  # blocks of a cluster, the non-portable size allowed
 PREDICT_LANES_MAX = 32  # lanes of a predict tile at most (PREDICT_LANES_MAX)
+ROWS_WAVE = 2  # rows a thread of the rows' sweep loads at once (ROWS_WAVE)
+ROWS_BLOCKS_MAX = 16  # blocks whose partials one launch reads (ROWS_BLOCKS_MAX)
+ROWS_SEGMENTS_MAX = 4  # row segments of a block's f read in place (ROWS_SEGMENTS_MAX)
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -153,8 +159,21 @@ class Finished(NamedTuple):
 
 class SweepRows(NamedTuple):
     y_next: torch.Tensor  # (n_d, B) the block's state rows
-    ss: torch.Tensor  # (B,) sum of the squared weighted updates over the block's state rows
-    nonfinite: torch.Tensor  # (B,) bool: a non-finite fz row in the block
+    # (ranks, B) the squared weighted updates summed over each rank's state
+    # rows (the kernel's: sweep_geometry's clusters; the plain stage's: one)
+    ss: torch.Tensor
+    nonfinite: torch.Tensor  # (ranks, B) bool: a non-finite fz row in the rank's rows
+
+
+class Pending(NamedTuple):
+    """What a sweep of a state split leaves for its decision, which the next
+    :func:`split_sweep_rows` (or :func:`split_finish_lanes`) makes."""
+
+    k: int  # the sweep that left them
+    ss: tuple  # every block's SweepRows.ss, in block order
+    nonfinite: tuple  # every block's SweepRows.nonfinite
+    newton_tol: float
+    n: int  # the whole state's rows
 
 
 class FinishedRows(NamedTuple):
@@ -335,17 +354,45 @@ def split_finish(fz, pred: Predicted, state: SweepState, p, h_use, gamma_star_ab
                     _finish_conv(state, pred.pred_ok, newton_tol))
 
 
-def split_sweep_rows(fz_k, y_it, pred: Predicted, conv, div, bad, n: int) -> SweepRows:
-    """:func:`split_sweep` on one block of rows up to its sum over them:
-    ``fz_k (nz_d, B)`` with the block's ``n`` state rows first, ``y_it (n,
-    B)``; lanes live from ``conv``, ``div`` and ``bad``."""
+def pending_sums(pending: Pending, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's ``ss`` and non-finite flag over every block of
+    ``pending``, on ``device``: a block's ranks added in rank order into its
+    sum, the blocks' sums in block order (as
+    :func:`~sunode_torch.parallel.rows.lane_sum` adds them), the flags
+    ORed."""
+    acc = flags = None
+    for ss, nf in zip(pending.ss, pending.nonfinite):
+        t = ss[0]
+        for c in range(1, ss.shape[0]):
+            t = t + ss[c]
+        t, f = t.to(device), nf.any(dim=0).to(device)
+        acc, flags = (t, f) if acc is None else (acc + t, flags | f)
+    return acc, flags
+
+
+def split_sweep_rows(fz_k, y_it, pred: Predicted, state: SweepState, n: int,
+                     pending: Pending | None = None, rows=None) -> tuple[SweepRows, SweepState]:
+    """:func:`split_sweep` on one block of rows up to its sums over them,
+    after the decision of the sweep before: ``pending`` (None at the first
+    sweep) is decided first, :func:`split_sweep_decide` on
+    :func:`pending_sums`, and the block's lanes are live from the decided
+    state.  ``fz_k (nz_d, B)`` holds the block's rows, its ``n`` state rows
+    first, or, with ``rows`` (the block's ``(start, stop)`` segments of f's
+    rows), is the whole f; ``y_it (n, B)``.  Returns the block's next
+    iterate and sums as one rank, and the decided state (``state`` where
+    nothing is pending)."""
     split_sweep_rows.calls += 1
+    if pending is not None:
+        state = split_sweep_decide(pending.k, *pending_sums(pending, y_it.device), state,
+                                   pending.newton_tol, pending.n)
+    if rows is not None:
+        fz_k = torch.cat([fz_k[a:b] for a, b in rows])
     bad_f = ~torch.isfinite(fz_k).all(dim=0)
     z_next = pred.z_pred[:n] + pred.c_A[None, :] * (fz_k[:n] - pred.f_ex[:n])
     delta = z_next - y_it
     ss = torch.sum((delta * pred.w_z[:n]) ** 2, dim=0)
-    live = ~(conv | div | bad)
-    return SweepRows(torch.where(live[None, :], z_next, y_it), ss, bad_f)
+    live = ~(state.conv | state.div | state.bad)
+    return SweepRows(torch.where(live[None, :], z_next, y_it), ss[None], bad_f[None]), state
 
 
 def split_sweep_decide(k: int, ss, nonfinite, state: SweepState, newton_tol: float,
@@ -386,11 +433,16 @@ def split_finish_rows(fz, pred: Predicted, p, h_use, gamma_star_abs, v_err,
     return FinishedRows(DF_upd, z_new, err0, ss3)
 
 
-def split_finish_lanes(ss3, pred_ok, state: SweepState, newton_tol: float):
-    """:func:`split_finish`'s lanes on ``ss3`` summed over the blocks:
-    ``(err3, conv)``."""
+def split_finish_lanes(ss3, pred_ok, state: SweepState, newton_tol: float,
+                       pending: Pending | None = None):
+    """:func:`split_finish`'s lanes on ``ss3`` summed over the blocks, after
+    the last sweep's decision (``pending``, as :func:`split_sweep_rows`
+    takes it): ``(err3, conv, niter)``."""
     split_finish_lanes.calls += 1
-    return torch.sqrt(ss3), _finish_conv(state, pred_ok, newton_tol)
+    if pending is not None:
+        state = split_sweep_decide(pending.k, *pending_sums(pending, ss3.device), state,
+                                   pending.newton_tol, pending.n)
+    return torch.sqrt(ss3), _finish_conv(state, pred_ok, newton_tol), state.niter
 
 
 def _finish_rows(fz, pred: Predicted, p, h_use, gamma_star_abs, v_err, P_MAX: int):
@@ -457,14 +509,19 @@ class _SplitKernels:
         lib.split_finish_launch.argtypes = [vp] * 13 + [c_int] * 5 + [vp] * 7 + [vp]
         for fn in (lib.split_predict_launch, lib.split_sweep_launch, lib.split_finish_launch):
             fn.restype = c_int
-        # the state split's entries (an older source, split_ab.py --old-root, has none)
+        # the state split's entries (an older source, split_ab.py --old-root, has
+        # none, or its own: split_ab.py launches those with their signatures)
+        c_ll = ctypes.c_longlong
         rows_argtypes = {
-            "split_sweep_rows_launch": [vp] * 9 + [c_int] * 6 + [vp] * 3 + [vp],
-            "split_sweep_decide_launch": (
-                [c_int] + [vp] * 7 + [c_double] * 2 + [c_int] * 3 + [vp] * 5 + [vp]
+            "split_sweep_rows_launch": (
+                [vp, c_ll, c_ll, c_int, vp, vp] + [vp] * 10 + [c_int] * 2 + [vp] * 3
+                + [c_double] * 2 + [c_int] * 8 + [vp] * 8 + [vp]
             ),
             "split_finish_rows_launch": [vp] * 10 + [c_int] * 4 + [vp] * 6 + [vp],
-            "split_finish_lanes_launch": [vp] * 4 + [c_int] * 2 + [vp] * 2 + [vp],
+            "split_finish_lanes_launch": (
+                [vp] * 7 + [c_int] * 2 + [vp] * 3 + [c_double] * 2 + [c_int] * 3 + [vp] * 3
+                + [vp]
+            ),
         }
         for name, argtypes in rows_argtypes.items():
             fn = getattr(lib, name, None)
@@ -595,51 +652,84 @@ class _SplitKernels:
         )
         return out
 
-    def sweep_rows(self, fz_k, y_it, pred: Predicted, conv, div, bad, n,
-                   geometry: SweepGeometry | None = None) -> SweepRows:
-        """:func:`split_sweep_rows` on the sweep's geometry (or
-        ``geometry``) for the block's ``(nz_d, B)``; ``fz_k`` row-major."""
-        nz, B = pred.z_pred.shape
-        fz_k, y_it = fz_k.contiguous(), y_it.contiguous()
-        dev, real = fz_k.device, self.dtype
-        _check(fz_k, real, (nz, B), dev, "fz_k")
-        _check(y_it, real, (n, B), dev, "y_it")
-        for name, x in (("conv", conv), ("div", div), ("bad", bad)):
-            _check(x, torch.bool, (B,), dev, name)
-        for name in ("z_pred", "f_ex", "w_z", "c_A"):
-            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
-        g = sweep_geometry(nz, B, self.itemsize) if geometry is None else geometry
-        out = SweepRows(torch.empty((n, B), dtype=real, device=dev),
-                        torch.empty((B,), dtype=real, device=dev),
-                        torch.empty((B,), dtype=torch.bool, device=dev))
-        self._run(
-            "sweep_rows", self._lib.split_sweep_rows_launch, dev,
-            fz_k.data_ptr(), y_it.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(),
-            pred.w_z.data_ptr(), pred.c_A.data_ptr(), conv.data_ptr(), div.data_ptr(),
-            bad.data_ptr(), n, nz, B, g.lanes, g.rows, g.cluster,
-            *(o.data_ptr() for o in out),
-        )
-        return out
+    def _pending(self, pending: Pending | None, dev, B: int, newton_tol) -> tuple:
+        """The launch's arguments for ``pending``: its blocks, sweep, arrays
+        of its partials' pointers and ranks, the decision's tolerances and
+        the whole state's rows."""
+        tol = 0.0 if pending is None else pending.newton_tol
+        if pending is not None and newton_tol is not None and tol != newton_tol:
+            raise ValueError(f"adams_split: the pending sweep's newton_tol {tol} is not the "
+                             f"finish's {newton_tol}")
+        tol_args = (float(tol), 0.1 * float(tol), int(not tol > 0))
+        if pending is None:
+            return (0, 0, None, None, None), tol_args, 0
+        m = len(pending.ss)
+        if not 1 <= m <= ROWS_BLOCKS_MAX or len(pending.nonfinite) != m:
+            raise ValueError(f"adams_split: a launch reads the partials of 1 to "
+                             f"{ROWS_BLOCKS_MAX} blocks, got {m}")
+        for d, (ss, nf) in enumerate(zip(pending.ss, pending.nonfinite)):
+            _check(ss, self.dtype, (ss.shape[0], B), dev, f"pending ss[{d}]")
+            _check(nf, torch.bool, tuple(ss.shape), dev, f"pending nonfinite[{d}]")
+        return ((m, int(pending.k), (ctypes.c_void_p * m)(*(x.data_ptr() for x in pending.ss)),
+                 (ctypes.c_void_p * m)(*(x.data_ptr() for x in pending.nonfinite)),
+                 (ctypes.c_int * m)(*(x.shape[0] for x in pending.ss))),
+                tol_args, int(pending.n))
 
-    def sweep_decide(self, k, ss, nonfinite, state: SweepState, newton_tol, n) -> SweepState:
-        """:func:`split_sweep_decide`, one thread a lane."""
-        B = ss.shape[0]
-        dev, real = ss.device, self.dtype
-        _check(ss, real, (B,), dev, "ss")
-        _check(nonfinite, torch.bool, (B,), dev, "nonfinite")
+    def _check_state(self, state: SweepState, B: int, dev) -> None:
         for name, x, dtype in (("conv", state.conv, torch.bool), ("div", state.div, torch.bool),
                                ("bad", state.bad, torch.bool),
-                               ("dy_old", state.dy_old, real),
+                               ("dy_old", state.dy_old, self.dtype),
                                ("niter", state.niter, torch.int32)):
             _check(x, dtype, (B,), dev, name)
-        new = SweepState(*(torch.empty_like(x) for x in state))
+
+    def sweep_rows(self, fz_k, y_it, pred: Predicted, state: SweepState, n,
+                   pending: Pending | None = None, rows=None, decide: bool = True,
+                   geometry: SweepGeometry | None = None) -> tuple[SweepRows, SweepState | None]:
+        """:func:`split_sweep_rows` on the block's ``(nz_d, B)``, in
+        :func:`sweep_geometry`'s blocks (or ``geometry``'s) without their
+        cluster, one partial a rank.  ``fz_k`` is read in place: row-major,
+        lane-major (the transpose of a contiguous (B, N), as a right-hand
+        side mapped over the lanes returns it) or at any strides, the
+        block's rows at ``rows`` (at most ``ROWS_SEGMENTS_MAX`` segments)
+        when it is the whole f.  With ``decide`` False the decided state is
+        not written and None takes its place (the route decides on every
+        block and keeps one device's copy)."""
+        nz, B = pred.z_pred.shape
+        y_it = y_it.contiguous()
+        dev, real = y_it.device, self.dtype
+        segs = ((0, nz),) if rows is None else tuple((int(a), int(b)) for a, b in rows)
+        N = fz_k.shape[0] if fz_k.ndim == 2 else -1
+        if (len(segs) > ROWS_SEGMENTS_MAX or sum(b - a for a, b in segs) != nz
+                or any(a < 0 or b > N or b <= a for a, b in segs)):
+            raise ValueError(f"adams_split sweep_rows: the rows {segs} of an f of {N} rows "
+                             f"are not the block's {nz}")
+        if not (fz_k.stride(0) == 1 or fz_k.stride(1) == 1):
+            fz_k = fz_k.contiguous()
+        _check(fz_k if fz_k.stride(1) == 1 else fz_k.t(), real,
+               (N, B) if fz_k.stride(1) == 1 else (B, N), dev, "fz_k")
+        _check(y_it, real, (n, B), dev, "y_it")
+        self._check_state(state, B, dev)
+        for name in ("z_pred", "f_ex", "w_z", "c_A"):
+            _check(getattr(pred, name), real, tuple(getattr(pred, name).shape), dev, name)
+        pend, tol_args, n_all = self._pending(pending, dev, B, None)
+        g = sweep_geometry(nz, B, self.itemsize) if geometry is None else geometry
+        local = np.cumsum([0] + [b - a for a, b in segs])[:-1]
+        out = SweepRows(torch.empty((n, B), dtype=real, device=dev),
+                        torch.empty((g.cluster, B), dtype=real, device=dev),
+                        torch.empty((g.cluster, B), dtype=torch.bool, device=dev))
+        new = (SweepState(*(torch.empty_like(x) for x in state))
+               if pending is not None and decide else None)
         self._run(
-            "sweep_decide", self._lib.split_sweep_decide_launch, dev,
-            int(k), ss.data_ptr(), nonfinite.data_ptr(), *(x.data_ptr() for x in state),
-            float(newton_tol), 0.1 * float(newton_tol), int(not newton_tol > 0), n, B,
-            *(x.data_ptr() for x in new),
+            "sweep_rows", self._lib.split_sweep_rows_launch, dev,
+            fz_k.data_ptr(), fz_k.stride(0), fz_k.stride(1), len(segs),
+            (ctypes.c_int * len(segs))(*(int(x) for x in local)),
+            (ctypes.c_int * len(segs))(*(a for a, _ in segs)),
+            y_it.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(), pred.w_z.data_ptr(),
+            pred.c_A.data_ptr(), *(x.data_ptr() for x in state), *pend, *tol_args, n_all, n,
+            nz, B, g.lanes, g.rows, g.cluster, *(o.data_ptr() for o in out),
+            *((None,) * 5 if new is None else (x.data_ptr() for x in new)),
         )
-        return new
+        return out, state if pending is None else new
 
     def finish_rows(self, fz, pred: Predicted, p, h_use, gamma_star_abs,
                     v_err) -> FinishedRows:
@@ -670,21 +760,27 @@ class _SplitKernels:
         )
         return out
 
-    def finish_lanes(self, ss3, pred_ok, state: SweepState, newton_tol):
-        """:func:`split_finish_lanes`, one thread a lane: ``(err3, conv)``."""
+    def finish_lanes(self, ss3, pred_ok, state: SweepState, newton_tol,
+                     pending: Pending | None = None):
+        """:func:`split_finish_lanes`, one thread a lane: ``(err3, conv,
+        niter)``."""
         B = ss3.shape[1]
         dev, real = ss3.device, self.dtype
+        ss3 = ss3.contiguous()
         _check(ss3, real, (3, B), dev, "ss3")
-        for name, x in (("conv", state.conv), ("bad", state.bad), ("pred_ok", pred_ok)):
-            _check(x, torch.bool, (B,), dev, name)
+        _check(pred_ok, torch.bool, (B,), dev, "pred_ok")
+        self._check_state(state, B, dev)
+        pend, _, n_all = self._pending(pending, dev, B, newton_tol)
         err3 = torch.empty((3, B), dtype=real, device=dev)
         conv = torch.empty((B,), dtype=torch.bool, device=dev)
+        niter = torch.empty((B,), dtype=torch.int32, device=dev)
         self._run(
             "finish_lanes", self._lib.split_finish_lanes_launch, dev,
-            ss3.contiguous().data_ptr(), state.conv.data_ptr(), state.bad.data_ptr(),
-            pred_ok.data_ptr(), int(not newton_tol > 0), B, err3.data_ptr(), conv.data_ptr(),
+            ss3.data_ptr(), *(x.data_ptr() for x in state), pred_ok.data_ptr(), *pend,
+            float(newton_tol), 0.1 * float(newton_tol), int(not newton_tol > 0), n_all, B,
+            err3.data_ptr(), conv.data_ptr(), niter.data_ptr(),
         )
-        return err3, conv
+        return err3, conv, niter
 
 
 _KERNELS: dict[tuple[int, torch.dtype], _SplitKernels] = {}
@@ -716,19 +812,15 @@ class _PlainStages:
                             self.P_MAX)
 
     @staticmethod
-    def sweep_rows(fz_k, y_it, pred, conv, div, bad, n) -> SweepRows:
-        return split_sweep_rows(fz_k, y_it, pred, conv, div, bad, n)
-
-    @staticmethod
-    def sweep_decide(k, ss, nonfinite, state, newton_tol, n) -> SweepState:
-        return split_sweep_decide(k, ss, nonfinite, state, newton_tol, n)
+    def sweep_rows(fz_k, y_it, pred, state, n, pending=None, rows=None, decide=True):
+        return split_sweep_rows(fz_k, y_it, pred, state, n, pending, rows)
 
     def finish_rows(self, fz, pred, p, h_use, gamma_star_abs, v_err) -> FinishedRows:
         return split_finish_rows(fz, pred, p, h_use, gamma_star_abs, v_err, self.P_MAX)
 
     @staticmethod
-    def finish_lanes(ss3, pred_ok, state, newton_tol):
-        return split_finish_lanes(ss3, pred_ok, state, newton_tol)
+    def finish_lanes(ss3, pred_ok, state, newton_tol, pending=None):
+        return split_finish_lanes(ss3, pred_ok, state, newton_tol, pending)
 
 
 def _compose(stages, system, t_new, h_use, pre_factor, p, active, DF, z_prev, params, atol_z,
@@ -819,15 +911,18 @@ def adams_split_attempt_rows(
     """One attempt of :func:`adams_split_attempt` on row blocks (their
     layout's state rows first in each block, the quadrature's after them on
     the home device): predict on every block and ``pred_ok`` ANDed; per
-    sweep, the iterate gathered on the home device, ``system.fz`` there,
-    its rows scattered, :func:`split_sweep_rows` on every block, the lanes'
-    ``ss`` summed in block order and :func:`split_sweep_decide` on the home
-    device; then the finish the same way.  The per-row tolerances and
-    weights are ``(rows, 1)`` blocks.  Blocks on the card run the kernels
-    (raising if a build or a launch fails), CPU blocks the plain stages.
-    Returns a ``HistoryOut`` whose row fields (DF_resc, DF_upd, z_pred,
-    z_new, err0) are :class:`RowBlocks` and whose lane fields are on the
-    home device."""
+    sweep, the iterate gathered on the home device, ``system.fz`` there, its
+    rows scattered to the other blocks (the home block reads its rows of f
+    in place), and :func:`split_sweep_rows` on every block, each first
+    deciding the sweep before from every block's partials (shared with
+    every device; each device keeps its own copy of the corrector's state,
+    written by its first block); then the finish's rows on every block and
+    :func:`split_finish_lanes` on the home device, the last decision first.
+    The per-row tolerances and weights are ``(rows, 1)`` blocks.  Blocks on
+    the card run the kernels (raising if a build or a launch fails), CPU
+    blocks the plain stages.  Returns a ``HistoryOut`` whose row fields
+    (DF_resc, DF_upd, z_pred, z_new, err0) are :class:`RowBlocks` and whose
+    lane fields are on the home device."""
     layout = DF.layout
     home, n = layout.home, system.n
     n_d = layout.state_rows(n)
@@ -843,30 +938,50 @@ def adams_split_attempt_rows(
                                                     z_prev.blocks, atol_z.blocks, rtol_z.blocks)]
     pred_ok = lane_all([pr.pred_ok for pr in preds], home)
     y_it = RowBlocks(layout, [pr.z_pred[:m] for pr, m in zip(preds, n_d)])
-    state = sweep_start(active, preds[0].z_pred.dtype)
+    writer: dict = {}  # each device's first block, which writes its copy of the state
+    for d, dev in enumerate(layout.devices):
+        writer.setdefault(dev, d)
+    start = [lanes(x) for x in sweep_start(active, preds[0].z_pred.dtype)]
+    states = {dev: SweepState(*(x[d] for x in start)) for dev, d in writer.items()}
+
+    def shared(pending, to=None):  # the pending partials on the devices of the blocks ``to``
+        ss, nf = layout.share(pending.ss, to), layout.share(pending.nonfinite, to)
+        return [pending._replace(ss=tuple(a), nonfinite=tuple(b)) for a, b in zip(ss, nf)]
+
+    in_place = len(layout.segments[0]) <= ROWS_SEGMENTS_MAX  # the home block's rows of f
+    pending = None
     for k in range(maxiter):
-        fz = scatter(layout, system.fz(t_new, y_it.gather(), params))
-        flags = [lanes(x) for x in (state.conv, state.div, state.bad)]
-        outs = [st.sweep_rows(f, y, pr, c, dv, bd, m)
-                for st, f, y, pr, c, dv, bd, m in zip(stages, fz.blocks, y_it.blocks, preds,
-                                                      *flags, n_d)]
-        state = home_stages.sweep_decide(k, lane_sum([o.ss for o in outs], home),
-                                         lane_any([o.nonfinite for o in outs], home), state,
-                                         newton_tol, n)
+        on = [None] * len(n_d) if pending is None else shared(pending)
+        fz = system.fz(t_new, y_it.gather(), params)
+        fz_b = scatter(layout, fz, home=not in_place)
+        outs, decided = [], {}
+        for d, (st, y, pr, m) in enumerate(zip(stages, y_it.blocks, preds, n_d)):
+            dev = layout.devices[d]
+            here = d == 0 and in_place
+            out, state = st.sweep_rows(fz if here else fz_b.blocks[d], y, pr, states[dev], m,
+                                       on[d], rows=layout.segments[0] if here else None,
+                                       decide=writer[dev] == d)
+            outs.append(out)
+            if writer[dev] == d:
+                decided[dev] = state
+        states = decided
+        pending = Pending(k, tuple(o.ss for o in outs), tuple(o.nonfinite for o in outs),
+                          newton_tol, n)
         y_it = RowBlocks(layout, [o.y_next for o in outs])
     fz = scatter(layout, system.fz(t_new, y_it.gather(), params))
     fins = [st.finish_rows(f, pr, pd, hd, g, v[:, 0])
             for st, f, pr, pd, hd, g, v in zip(stages, fz.blocks, preds, p_d, h_d, g_d,
                                                v_err.blocks)]
-    err3, conv = home_stages.finish_lanes(lane_sum([f.ss3 for f in fins], home), pred_ok, state,
-                                          newton_tol)
+    err3, conv, niter = home_stages.finish_lanes(
+        lane_sum([f.ss3 for f in fins], home), pred_ok, states[home], newton_tol,
+        None if pending is None else shared(pending, (0,))[0])
 
     def rows(xs):
         return RowBlocks(layout, list(xs))
 
     return HistoryOut(rows(pr.DF_resc for pr in preds), rows(f.DF_upd for f in fins),
                       rows(pr.z_pred for pr in preds), rows(f.z_new for f in fins),
-                      rows(f.err0 for f in fins), err3, conv, state.niter)
+                      rows(f.err0 for f in fins), err3, conv, niter)
 
 
 adams_split_attempt_rows.launches = dict.fromkeys(ROWS_ENTRIES, 0)

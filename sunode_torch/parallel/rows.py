@@ -18,7 +18,8 @@ device, the first of the group's devices.
   * :func:`lane_sum`, :func:`lane_all`, :func:`lane_any` -- each lane's
     partial sums (or flags) of the blocks added (or ANDed, ORed) on the home
     device in block order, so that the result does not depend on the
-    devices' schedule.
+    devices' schedule; :meth:`RowLayout.share` -- every block's partials on
+    every block's device, where each adds them itself.
 
 ``traffic`` counts the bytes that these copies move to or from the blocks
 other than the home block's, by kind ('gather', 'scatter', 'lanes'): what
@@ -123,6 +124,23 @@ class RowLayout:
         """Block ``d``'s global row indices in its local order, on its device."""
         return torch.cat([torch.arange(a, b) for a, b in self.segments[d]]).to(self.devices[d])
 
+    def share(self, parts: Sequence[torch.Tensor], to: Sequence[int] | None = None) -> list:
+        """Every block's part on the devices of the blocks ``to`` (all by
+        default): ``out[i][e]`` is ``parts[e]`` on ``devices[to[i]]``, one
+        copy a distinct device.  :data:`traffic` counts each part once for
+        every receiving block but its own, as if each block had a card of
+        its own."""
+        sizes = [x.numel() * x.element_size() for x in parts]
+        copies: dict = {}
+        out = []
+        for d in range(len(self.devices)) if to is None else to:
+            traffic["lanes"] += sum(size for e, size in enumerate(sizes) if e != d)
+            dev = self.devices[d]
+            if dev not in copies:
+                copies[dev] = [x.to(dev) for x in parts]
+            out.append(copies[dev])
+        return out
+
     def lanes(self, x: torch.Tensor) -> list:
         """``x`` on every block's device (one copy a distinct device)."""
         traffic["lanes"] += (len(self.devices) - 1) * x.numel() * x.element_size()
@@ -162,13 +180,16 @@ class RowBlocks:
         return RowBlocks(self.layout, [fn(*args) for args in zip(self.blocks, *parts)])
 
 
-def scatter(layout: RowLayout, x: torch.Tensor) -> RowBlocks:
+def scatter(layout: RowLayout, x: torch.Tensor, home: bool = True) -> RowBlocks:
     """``x``'s rows (axis -2, ``layout.n_rows`` of them) cut into the blocks
-    of ``layout``, each a copy with storage of its own on its device."""
+    of ``layout``, each a copy with storage of its own on its device; with
+    ``home`` False the home block is None (its reader takes its rows of
+    ``x`` in place)."""
     if x.shape[-2] != layout.n_rows:
         raise ValueError(f"scatter: {x.shape[-2]} rows for a layout of {layout.n_rows}")
-    blocks = [torch.cat([x[..., a:b, :] for a, b in seg], dim=-2).to(dev)
-              for seg, dev in zip(layout.segments, layout.devices)]
+    blocks = [None if d == 0 and not home else
+              torch.cat([x[..., a:b, :] for a, b in seg], dim=-2).to(dev)
+              for d, (seg, dev) in enumerate(zip(layout.segments, layout.devices))]
     _off_home("scatter", blocks)
     return RowBlocks(layout, blocks)
 

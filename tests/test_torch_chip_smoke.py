@@ -830,15 +830,18 @@ def test_phase_17_bookkeeping():
     assert layout.sizes == (1502, 1500) and layout.state_rows(n) == (1500, 1500)
     split, rows = cs.rows_expected_launches(427, 2)
     assert split == {"predict": 854, "sweep": 0, "finish": 0}
-    assert rows == {"sweep_rows": 3416, "sweep_decide": 1708, "finish_rows": 854,
-                    "finish_lanes": 427}
+    assert rows == {"sweep_rows": 3416, "finish_rows": 854, "finish_lanes": 427}
+    assert "sweep_decide" not in cs.ROWS_KERNELS
     costs = cs.rows_costs(11, 1502, 1500, 256, 13)
     assert set(costs) == set(cs.ROWS_KERNELS) and all(b > 0 and f > 0 for b, f in costs.values())
     assert costs["finish_rows"][0] > 2 * 8 * 11 * 1502 * 256  # the history in and out
-    assert max(costs["sweep_decide"][0], costs["finish_lanes"][0]) < 64 * 256  # lanes only
+    # the rows' sweep: f and five state-row fields, 2 x 16 ranks' partials read, 16 written
+    rows_only = 8 * 1502 * 256 + 5 * 8 * 1500 * 256
+    assert costs["sweep_rows"][0] - rows_only == 256 * (8 + 2 * 15 + 9 * 32 + 9 * 16)
+    assert costs["finish_lanes"][0] < 512 * 256  # lanes only, the partials with them
     count = cs.RowsLaunches()
     count.launches = 3
-    assert count.launches == 12
+    assert count.launches == 9
     count.launches = 0
     assert "  17. the state axis" in cs.__doc__ and "  18. the kernel table" in cs.__doc__
     run = inspect.getsource(cs.run)

@@ -1243,57 +1243,111 @@ def _rows_case(cuda, R=200, B=40, seed=21):
     return L, x, PeceSystem(fz=fz, n=n, nz=n + m), scatter
 
 
-def test_partial_norm_entries_match_plain(cuda):
-    """The state split's four entries against their plain versions on two
-    row blocks of one card: the rows' y_next, flags, DF_upd, z_new and err0
-    bit for bit, each lane's sums over a block's rows within 1e-12 (they add
-    in the kernel's order), the lanes' decision and roots bit for bit on
-    the same sums; one launch each a block (the rows') or an attempt (the
-    lanes')."""
-    from sunode_torch.parallel.rows import RowBlocks, lane_any, lane_sum
+ROWS_CASES = {  # (R, B, dtype, f lane-major, a non-finite last row)
+    "base": (200, 40, torch.float64, False, False),
+    # nz not a multiple of a rank's rows, B not a multiple of 16
+    "odd": (201, 37, torch.float64, True, True),
+    "one_rank": (5, 24, torch.float64, False, True),
+    "waves": (1000, 1024, torch.float64, True, False),  # 188 rows a rank, 3 waves a thread
+    "float32": (200, 40, torch.float32, False, True),
+}
 
-    L, x, system, scatter = _rows_case(cuda)
-    kernels = adams_split.build_split_kernels(11)
-    n_d = L.state_rows(system.n)
+
+@pytest.mark.parametrize("case", list(ROWS_CASES))
+def test_partial_norm_entries_match_plain(cuda, case):
+    """The state split's three entries against their plain versions on two
+    row blocks of one card, the folded decision in both: one attempt's four
+    rows' sweeps (the home block's f read in place, row-major or
+    lane-major), the finish's rows and its lanes.  Each decides the sweep
+    before on the plain stages' partials, and again on the kernel's own:
+    y_next, the flags and the decided state bit for bit, each block's sums
+    (its ranks in order) within 1e-12 of the plain ``torch.sum`` (1e-5 at
+    float32); DF_upd, z_new and err0 bit for bit, ss3 within the bound; the
+    lanes' err3, conv and niter bit for bit.  One launch each a block (the
+    rows') or an attempt (the lanes')."""
+    from sunode_torch.parallel.rows import RowBlocks, lane_sum
+
+    R, B, dtype, lane_major, poison = ROWS_CASES[case]
+    bound = 1e-12 if dtype == torch.float64 else 1e-5
+    L, x, system, scatter = _rows_case(cuda, R=R, B=B)
+    x = {k: v.to(dtype) if v.is_floating_point() else v for k, v in x.items()}
+    kernels = adams_split.build_split_kernels(11, dtype)
+    n, n_d = system.n, L.state_rows(system.n)
+    lane = int(torch.nonzero(x["active"])[0])  # an active lane's last state row poisoned
+
+    def fz(t, y, par):
+        f = system.fz(t, y, par).to(dtype)
+        if poison:
+            f[n - 1, lane] = float("inf")
+        return f.t().contiguous().t() if lane_major else f
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    def close(a, b):  # the finite lanes within the bound, the rest alike
+        ok = torch.isfinite(b)
+        return torch.equal(torch.isfinite(a), ok) and _relerr(a[ok], b[ok]) <= bound
+
     blocks = {k: scatter(L, x[k]).blocks for k in ("DF", "z")}
     col = {k: [b[:, 0] for b in scatter(L, x[k][:, None]).blocks] for k in ("atol", "rtol", "v")}
     preds = [adams_split.split_predict(D, x["p"], x["pre"], x["h"], z, a, r, 8)
              for D, z, a, r in zip(blocks["DF"], blocks["z"], col["atol"], col["rtol"])]
     y = [pr.z_pred[:m] for pr, m in zip(preds, n_d)]
-    state = adams_split.sweep_start(x["active"])
+    state = adams_split.sweep_start(x["active"], dtype)
     before = dict(adams_split.adams_split_attempt_rows.launches)
+    pending = own = None
     for k in range(FUNCTIONAL_MAXITER):
-        f = scatter(L, system.fz(x["t"], RowBlocks(L, y).gather(), x["params"])).blocks
-        outs = []
-        for fb, yy, pr, m in zip(f, y, preds, n_d):
-            got = kernels.sweep_rows(fb, yy, pr, state.conv, state.div, state.bad, m)
-            ref = adams_split.split_sweep_rows(fb, yy, pr, state.conv, state.div, state.bad, m)
-            assert torch.equal(got.y_next, ref.y_next) and torch.equal(got.nonfinite, ref.nonfinite)
-            assert _relerr(got.ss, ref.ss) <= 1e-12
+        f_all = fz(x["t"], RowBlocks(L, y).gather(), x["params"])
+        f_b = scatter(L, f_all).blocks
+        outs, states, mine = [], [], []
+        for d, (yy, pr, m) in enumerate(zip(y, preds, n_d)):
+            where = dict(rows=L.segments[0]) if d == 0 else {}
+            f = f_all if d == 0 else f_b[d]
+            got, st = kernels.sweep_rows(f, yy, pr, state, m, pending, decide=d == 0, **where)
+            ref, st_p = adams_split.split_sweep_rows(f, yy, pr, state, m, pending, **where)
+            assert same(got.y_next, ref.y_next)
+            assert torch.equal(got.nonfinite.any(dim=0), ref.nonfinite[0])
+            ss = adams_split.pending_sums(adams_split.Pending(k, (got.ss,), (got.nonfinite,),
+                                                              1e-3, n), cuda)[0]
+            assert close(ss, ref.ss[0])
+            if d == 0:
+                assert all(same(a, b) for a, b in zip(st, st_p))
+                if own is not None:  # the kernel's own partials, decided by both
+                    st_k = kernels.sweep_rows(f, yy, pr, state, m, own, **where)[1]
+                    st_o = adams_split.split_sweep_rows(f, yy, pr, state, m, own, **where)[1]
+                    assert all(same(a, b) for a, b in zip(st_k, st_o))
+            else:
+                assert st is None or pending is None
             outs.append(ref)
-        ss, nf = lane_sum([o.ss for o in outs], cuda), lane_any([o.nonfinite for o in outs], cuda)
-        got = kernels.sweep_decide(k, ss, nf, state, 1e-3, system.n)
-        state = adams_split.split_sweep_decide(k, ss, nf, state, 1e-3, system.n)
-        assert all(torch.equal(a, b) for a, b in zip(got, state))
+            states.append(st_p)
+            mine.append(got)
+        state = states[0]
+        pending = adams_split.Pending(k, tuple(o.ss for o in outs),
+                                      tuple(o.nonfinite for o in outs), 1e-3, n)
+        own = adams_split.Pending(k, tuple(o.ss for o in mine),
+                                  tuple(o.nonfinite for o in mine), 1e-3, n)
         y = [o.y_next for o in outs]
-    f = scatter(L, system.fz(x["t"], RowBlocks(L, y).gather(), x["params"])).blocks
+    f = scatter(L, fz(x["t"], RowBlocks(L, y).gather(), x["params"])).blocks
     fins = []
     for fb, pr, v in zip(f, preds, col["v"]):
         got = kernels.finish_rows(fb, pr, x["p"], x["h"], x["gsa"], v)
         ref = adams_split.split_finish_rows(fb, pr, x["p"], x["h"], x["gsa"], v, 8)
         for name in ("DF_upd", "z_new", "err0"):
-            assert torch.equal(getattr(got, name), getattr(ref, name)), name
-        assert _relerr(got.ss3, ref.ss3) <= 1e-12
+            assert same(getattr(got, name), getattr(ref, name)), name
+        assert close(got.ss3, ref.ss3)
         fins.append(ref)
     pred_ok = preds[0].pred_ok & preds[1].pred_ok
     ss3 = lane_sum([fi.ss3 for fi in fins], cuda)
-    got = kernels.finish_lanes(ss3, pred_ok, state, 1e-3)
-    ref = adams_split.split_finish_lanes(ss3, pred_ok, state, 1e-3)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert {k: v - before[k] for k, v in adams_split.adams_split_attempt_rows.launches.items()} == {
-        "sweep_rows": 2 * FUNCTIONAL_MAXITER, "sweep_decide": FUNCTIONAL_MAXITER,
-        "finish_rows": 2, "finish_lanes": 1}
+    for pend in (pending, own):
+        got = kernels.finish_lanes(ss3, pred_ok, state, 1e-3, pend)
+        ref = adams_split.split_finish_lanes(ss3, pred_ok, state, 1e-3, pend)
+        torch.cuda.synchronize()
+        assert same(got[0], ref[0])
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert bool(state.bad[lane]) == poison
+    launched = {k: v - before[k] for k, v in adams_split.adams_split_attempt_rows.launches.items()}
+    assert launched == {"sweep_rows": 2 * FUNCTIONAL_MAXITER + FUNCTIONAL_MAXITER - 1,
+                        "finish_rows": 2, "finish_lanes": 2}
 
 
 def test_state_split_attempt_at_one_block_is_the_unsplit_attempt(cuda):

@@ -29,7 +29,8 @@ from sunode_torch.ops.adams_batched import adams_solve_batched
 from sunode_torch.ops.bdf import BDFOptions
 from sunode_torch.ops.pece_step import PeceSystem
 from sunode_torch.parallel.mesh import Mesh, make_mesh_2d, shard_batch_state
-from sunode_torch.parallel.rows import RowBlocks, RowLayout, scatter
+from sunode_torch.parallel.rows import RowBlocks, RowLayout, lane_all, lane_any, lane_sum
+from sunode_torch.parallel.rows import scatter
 from sunode_torch.wrappers.as_torch import make_batched_solve_fn
 
 R, B = 32, 4
@@ -218,6 +219,75 @@ def test_partial_stages_compose_to_the_split_attempt(blocks):
         assert torch.equal(got.err3, ref.err3)
     else:
         np.testing.assert_allclose(got.err3.numpy(), ref.err3.numpy(), rtol=1e-14, atol=0)
+
+
+def _bits(a, b):
+    """Bit for bit, a NaN equal to a NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.parametrize("tol", [3e-4, 0.0])
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+def test_folded_decision_is_the_composed_one(blocks, tol):
+    """The folded plain stages -- each block's ``split_sweep_rows`` deciding
+    the sweep before from every block's pending partials, the home block
+    reading its rows of f in place, and ``split_finish_lanes`` deciding the
+    last sweep -- bit for bit the composition they replace (the rows'
+    sweep on each block, ``lane_sum`` / ``lane_any`` of its sums and
+    ``split_sweep_decide`` after every sweep, the lanes' finish on the last
+    state) over one attempt's sweeps: y_next, every sweep's decided state,
+    err3, conv and niter.  One lane's f has a non-finite state row on the
+    last block; ``tol = 0`` runs fixed sweeps."""
+    problem = sir_problem(R)
+    rhs = problem.make_rhs()
+    n, m = 3 * R, 2
+
+    def fz(t, y, par):
+        f = rhs(t, y, par)
+        out = torch.cat([f, f[:m] * f[m:2 * m]])
+        out[n - 1, 1] = float("inf")
+        return out
+
+    x = _attempt(n + m, n, 11 + blocks)
+    sizes = [n // blocks] * (blocks - 1) + [n - n // blocks * (blocks - 1)]
+    L = RowLayout.contiguous((CPU,) * blocks, sizes).with_rows(m)
+    n_d = L.state_rows(n)
+    preds = [sp.split_predict(D, x["p"], x["pre_factor"], x["h_use"], z, a[:, 0], r[:, 0], 8)
+             for D, z, a, r in zip(scatter(L, x["DF"]).blocks, scatter(L, x["z_prev"]).blocks,
+                                   scatter(L, x["atol_z"][:, None]).blocks,
+                                   scatter(L, x["rtol_z"][:, None]).blocks)]
+    y = [pr.z_pred[:k] for pr, k in zip(preds, n_d)]
+    composed = folded = sp.sweep_start(x["active"])
+    pending = None
+    for k in range(FUNCTIONAL_MAXITER):
+        f_all = fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])
+        f_b = scatter(L, f_all).blocks
+        outs = [sp.split_sweep_rows(f, yy, pr, composed, k_d)[0]
+                for f, yy, pr, k_d in zip(f_b, y, preds, n_d)]
+        ss = lane_sum([o.ss[0] for o in outs], CPU)
+        nf = lane_any([o.nonfinite[0] for o in outs], CPU)
+        folds = [sp.split_sweep_rows(f_all if d == 0 else f_b[d], yy, pr, folded, k_d, pending,
+                                     rows=L.segments[0] if d == 0 else None)
+                 for d, (yy, pr, k_d) in enumerate(zip(y, preds, n_d))]
+        for (got, state), want in zip(folds, outs):
+            assert _bits(got.y_next, want.y_next) and _bits(got.ss, want.ss)
+            assert torch.equal(got.nonfinite, want.nonfinite)
+            assert all(_bits(a, b) for a, b in zip(state, composed))
+        composed = sp.split_sweep_decide(k, ss, nf, composed, tol, n)
+        folded = folds[0][1]
+        pending = sp.Pending(k, tuple(o.ss for o, _ in folds),
+                             tuple(o.nonfinite for o, _ in folds), tol, n)
+        y = [o.y_next for o, _ in folds]
+    g = torch.as_tensor(np.abs(_GAMMA_STAR))
+    f_b = scatter(L, fz(x["t_new"], RowBlocks(L, y).gather(), x["params"])).blocks
+    ss3 = lane_sum([sp.split_finish_rows(f, pr, x["p"], x["h_use"], g, v[:, 0], 8).ss3
+                    for f, pr, v in zip(f_b, preds, scatter(L, x["v_err"][:, None]).blocks)],
+                   CPU)
+    pred_ok = lane_all([pr.pred_ok for pr in preds], CPU)
+    err3, conv, niter = sp.split_finish_lanes(ss3, pred_ok, composed, tol)
+    got = sp.split_finish_lanes(ss3, pred_ok, folded, tol, pending)
+    assert _bits(got[0], err3) and torch.equal(got[1], conv) and torch.equal(got[2], niter)
+    assert torch.equal(niter, composed.niter) and bool(composed.bad[1])
 
 
 def test_row_blocks_scatter_gather_and_own_storage():
