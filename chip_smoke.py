@@ -133,7 +133,10 @@ Phases, one line each; any failure exits non-zero:
      in phase 3d, timed as at its first shape, on the sensitivity block (4
      rows, B=10,000, history depth 9) of one attempt of (b)'s Adams
      staggered solve, its inputs taken where the solve calls the history
-     attempt; the 'staged_sensitivity' build on that attempt too, with
+     attempt (its rows fit one chunk: the finish's one-chunk form, with no
+     fill before it in a profile of one call, where phase 3d's SIR shapes
+     see their tile counters' fill); the 'staged_sensitivity' build on that
+     attempt too, with
      phase 3c's C6 checks and the same 1e-14 against the core's f, its
      error rows held against themselves lane by lane and against the terms
      they are the difference of; (b)
@@ -1481,7 +1484,7 @@ def compare_split(kind, B, seed, kernels, R=SIR_R, dtype=None) -> dict:
         f"[split-kernels-vs-plain attempt {shape}] "
         f"{'LV sensitivity block' if kind == 'staged_sensitivity' else f'SIR R={R}'} "
         f"KAB={p_max + 3} "
-        f"{fmt_predict(nz, B)} {fmt_sweep(nz, B)} finish_row_chunks={-(-nz // sp.CHUNK_ROWS)} "
+        f"{fmt_predict(nz, B)} {fmt_sweep(nz, B)} finish: {sp.finish_geometry(nz, B)} "
         + " ".join(f"rel_{k}={v:.3e}" for k, v in rel.items())
         + f" conv_equal={conv_same} niter_equal={niter_same} DF_resc_z_pred_bitwise={bitwise}"
         f" converged={int(got.conv.sum())}/{B}"
@@ -1553,6 +1556,15 @@ def split_phase(smi, kernels, cases=SPLIT_CASES, dtype=None) -> dict:
             worst[stage] = max(worst[stage], c["errs"][stage][1])
         x, fz, n, p_max, pred, state, fin_in = (
             c[k] for k in ("x", "fz", "n", "p_max", "pred", "state", "fin_in"))
+        # the finish's form: rows that fit one chunk (9(a)'s sensitivity
+        # block) take no fill, more rows (SIR) their counters' fill
+        one_chunk = sp.finish_geometry(*pred.z_pred.shape).one_chunk
+        fills = finish_fills(kernels, fin_in)
+        log(f"[split-finish form {c['shape']}] one_chunk={one_chunk} (finish records, records "
+            f"right after a fill)={fills}")
+        if fills != (1, 0 if one_chunk else 1):
+            raise SystemExit(f"chip_smoke: the split finish's fill does not match its form "
+                             f"({c['shape']}: {fills})")
         # per-call times on these inputs: kernel (graph, stream, device) and
         # plain at the first shape, the kernel's device time at the others
         timed = kind == cases[0][0]
@@ -2171,6 +2183,32 @@ def fills_before(events, kernels) -> dict:
                 out[k][0] += 1
                 out[k][1] += prev[0].startswith("Memset")
     return {k: tuple(v) for k, v in out.items()}
+
+
+def finish_fills(kernels, fin_in, tries: int = 3) -> tuple[int, int]:
+    """(records, records right after a fill) of the split finish kernel in a
+    profile of one ``kernels.finish(*fin_in)`` (:func:`fills_before`): the
+    multi-chunk form's launcher zeroes its tile counters first, the one-chunk
+    form takes no fill.  Each session opens with ``exp_pece2d.LEAD_FILLS``
+    one-element fills (kernels, not memsets), as the profiler may drop a
+    session's first records, and is taken again, up to ``tries`` times, until
+    it holds the finish's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sunode_torch.experiments.exp_pece2d import LEAD_FILLS
+
+    lead = torch.zeros(1, dtype=torch.int16, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_FILLS):
+                lead.fill_(1)
+            kernels.finish(*fin_in)
+            torch.cuda.synchronize()
+        fills = fills_before(_raw_device_events(prof), ["split_finish_kernel"])
+        if fills["split_finish_kernel"][0]:
+            break
+    return fills["split_finish_kernel"]
 
 
 def split_fills_ok(fills) -> bool:

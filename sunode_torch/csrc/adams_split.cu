@@ -42,7 +42,7 @@
 //                        sweep's own tail), so the decision has no launch;
 //   split_finish_rows    the finish kernel with ROWS: a block's rows and per
 //                        lane its three sums of squares, without the roots;
-//   split_finish_lanes   one thread a lane: the last sweep's decision, then
+//   split_finish_lanes   a warp a lane: the last sweep's decision, then
 //                        err3's roots and conv (finish_lane, the finish's own
 //                        tail).
 //
@@ -50,7 +50,8 @@
 // into a block's sum, the blocks' in block order.  At one block the rows
 // are summed as the unsplit kernels sum them and one root is taken of the
 // same sum: the composition is the unsplit attempt bit for bit.  The lanes'
-// kernel moves a few bytes a lane: its launch bounds it, not the card.
+// kernel moves a few bytes a lane: its launch and one round trip to device
+// memory bound it, not the card's rates.
 //
 // What bounds them on an H100: bytes.  At SIR over 1,000 regions (nz =
 // 3,000) and B = 1,024 the history is 11 x 3,000 x 1,024 x 8 B = 270 MB;
@@ -125,7 +126,10 @@
 // a partial per (chunk, lane); the last block of a lane tile to finish (a
 // counter per tile, zeroed by a memset at each launch, and a fence) adds
 // the partials in chunk order, so the result does not depend on the
-// blocks' schedule, and writes the lane's outputs.
+// blocks' schedule, and writes the lane's outputs.  Rows that fit one chunk
+// (a small TorchProblem, the sensitivity block of a staggered solve) take a
+// form of their own with none of that: a dense tile of lanes by min(nz, 8)
+// row threads whose sums go straight to the lane's tail (ONE_CHUNK below).
 //
 // Lanes with p outside the history (p < 1 or p > KAB - 2) are poisoned with
 // NaN, as the fused kernel poisons them.
@@ -154,7 +158,9 @@
 #define ROWS_BLOCKS_MAX 16       // blocks of a state split whose partials one sweep reads
 #define ROWS_SEGMENTS_MAX 4      // row segments of a block read in place (ROWS_SEGMENTS_MAX)
 #define ROWS_PEND_SLOTS (4 * SWEEP_THREADS)  // pending partials a block stages (rank, lane)
-#define ROWS_FOLD_BATCH 8        // pending partials a thread loads at once
+#define ROWS_FOLD_BATCH 8        // pending partials a decision reads before it adds them
+#define LANES_WARPS 4            // lanes of a lanes' finish block, a warp each
+#define LANES_PARTIALS_MAX (ROWS_BLOCKS_MAX * SWEEP_CLUSTER_MAX)  // a lane's pending partials
 
 #if ADAMS_K > PECE_TABLE_LEN - 1
 #error "history deeper than the Adams tables"
@@ -837,7 +843,19 @@ __device__ __forceinline__ void finish_lane(int b, size_t sB, real t0, real t1, 
 // receives each lane's three sums of squares over the block's rows, without
 // the roots, and conv_o, conv, bad and pred_ok are not touched (the lanes'
 // form, split_finish_lanes_kernel, takes the roots of the summed rows).
-template <bool ROWS>
+//
+// ONE_CHUNK: the rows fit one chunk (nz <= SPLIT_CHUNK; finish_tile).  A
+// block is then a dense tile of blockDim.x lanes by blockDim.y = min(nz,
+// SPLIT_ROWS) row threads, none of them without a row, and each lane's three
+// sums go from its row threads through shared memory (one barrier), added in
+// row-thread order, straight to finish_lane: no partials, no counter, no
+// fill.  The sums are the multi-chunk form's bit for bit: there every row
+// thread past nz adds +0, and the one chunk's partial is added to +0, to a
+// sum that is never -0 (it starts at +0).  A row's loads need not wait for
+// the lane's order: a lane outside the history computes its rows and then
+// poisons them; the tail's conv, bad and pred_ok are loaded with the lane's
+// order, h and c_A.
+template <bool ROWS, bool ONE_CHUNK>
 __global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
 split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_resc,
                     const real* __restrict__ z_pred, const real* __restrict__ f_ex,
@@ -849,15 +867,27 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
                     real* __restrict__ DF_upd, real* __restrict__ z_new,
                     real* __restrict__ err0, real* __restrict__ err3,
                     unsigned char* __restrict__ conv_o, real* part, unsigned int* done) {
-  __shared__ real red[SPLIT_ROWS][SPLIT_TILE];
+  // the row threads' sums of a lane; the one-chunk form's three of them
+  __shared__ real red[ONE_CHUNK ? 3 * SPLIT_ROWS : SPLIT_ROWS][SPLIT_TILE];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * SPLIT_TILE + tx;
+  const int L = ONE_CHUNK ? (int)blockDim.x : SPLIT_TILE;  // lanes of the tile
+  const int T = ONE_CHUNK ? (int)blockDim.y : SPLIT_ROWS;  // its row threads
+#ifdef SPLIT_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.x * L + tx;
   const bool lane = b < B;
   const size_t sB = (size_t)B;
   const int p = lane ? order[b] : 1;
   const bool valid = lane && order_ok(p);
   const real h = lane ? h_use[b] : (real)0;
   const real cA = lane ? c_A[b] : (real)0;
+  unsigned char conv_r = 0, bad_r = 0, ok_r = 0;  // the one-chunk form's tail, loaded first
+  if (ONE_CHUNK && ty == 0 && lane) {
+    conv_r = conv[b];
+    bad_r = bad[b];
+    ok_r = pred_ok[b];
+  }
   // the error rows' coefficients at orders p, p - 1 and p + 1 (at most P_MAX + 1)
   const real g0 = valid ? r_mul(PECE_GAMMA_STAR_ABS[p], h) : NAN;
   const real g1 = valid ? r_mul(gamma_star_abs[p - 1], h) : NAN;
@@ -865,8 +895,8 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
   const int r_end = min((int)(blockIdx.y + 1) * SPLIT_CHUNK, nz);
   real ss0 = 0, ss1 = 0, ss2 = 0;
   if (lane) {
-    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += SPLIT_ROWS) {
-      if (!valid) {
+    for (int r = blockIdx.y * SPLIT_CHUNK + ty; r < r_end; r += T) {
+      if (!ONE_CHUNK && !valid) {
 #pragma unroll
         for (int i = 0; i < ADAMS_KAB; ++i) DF_upd[HIST(i, r)] = NAN;
         z_new[r * sB + b] = err0[r * sB + b] = NAN;
@@ -911,18 +941,49 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
       ss0 = r_add(ss0, r_mul(r_mul(a0, a0), v));
       ss1 = r_add(ss1, r_mul(r_mul(a1, a1), v));
       ss2 = r_add(ss2, r_mul(r_mul(a2, a2), v));
+      if (ONE_CHUNK && !valid) {  // outside the history: poison the row, as above
+#pragma unroll
+        for (int i = 0; i < ADAMS_KAB; ++i) DF_upd[HIST(i, r)] = NAN;
+        z_new[r * sB + b] = err0[r * sB + b] = NAN;
+        ss0 = ss1 = ss2 = NAN;
+      }
     }
+  }
+  SPLIT_MARK(0);
+  if (ONE_CHUNK) {
+    real* s = &red[0][0];  // (sum, row thread, lane)
+    const int n = L * T, i = ty * L + tx;
+    s[i] = ss0;
+    s[n + i] = ss1;
+    s[2 * n + i] = ss2;
+    __syncthreads();
+    SPLIT_MARK(1);
+    SPLIT_COUNT_BLOCK();
+    if (ty != 0 || !lane) return;
+    real t0 = 0, t1 = 0, t2 = 0;
+    for (int k = 0; k < T; ++k) {  // the row threads in order, as sum_rows adds them
+      t0 = r_add(t0, s[k * L + tx]);
+      t1 = r_add(t1, s[n + k * L + tx]);
+      t2 = r_add(t2, s[2 * n + k * L + tx]);
+    }
+    finish_lane(0, sB, t0, t1, t2, &conv_r, &bad_r, &ok_r, fixed, err3 + b, conv_o + b);
+    SPLIT_MARK(3);
+    return;
   }
   const real s0 = sum_rows(ss0, red);
   const real s1 = sum_rows(ss1, red);
   const real s2 = sum_rows(ss2, red);
+  SPLIT_MARK(1);
   const size_t sP = (size_t)gridDim.y * sB;  // one (chunks, B) block per error row
   if (ty == 0 && lane) {
     part[blockIdx.y * sB + b] = s0;
     part[sP + blockIdx.y * sB + b] = s1;
     part[2 * sP + blockIdx.y * sB + b] = s2;
   }
-  if (!last_block_of_tile(done, gridDim.y) || ty != 0 || !lane) return;
+  const bool last = last_block_of_tile(done, gridDim.y);
+  SPLIT_MARK(2);
+  SPLIT_COUNT_BLOCK();
+  if (!last || ty != 0 || !lane) return;
   real t0 = 0, t1 = 0, t2 = 0;
   for (int c = 0; c < (int)gridDim.y; ++c) {
     t0 = r_add(t0, *((volatile const real*)part + c * sB + b));
@@ -936,15 +997,53 @@ split_finish_kernel(const real* __restrict__ fz, const real* __restrict__ DF_res
     return;
   }
   finish_lane(b, sB, t0, t1, t2, conv, bad, pred_ok, fixed, err3, conv_o);
+  SPLIT_MARK(3);
+}
+
+// A load issued where it stands: the compiler may sink a read-only load down
+// to its first use, past other loads' waits (asm volatile keeps its place).
+__device__ __forceinline__ double load_now(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int load_now(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned char load_now(const unsigned char* p) {
+  unsigned int v;
+  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return (unsigned char)v;
 }
 
 // The lanes' finish after the rows' finishes of a state split over devices:
-// first the last sweep's decision (decide_pending on its partials, where
-// pend.blocks > 0), then err3's roots of ss3 (3, B), each lane's three sums
-// over every block added in block order (parallel/rows.py::lane_sum), and
-// the attempt's conv (finish_lane) on the decided conv and bad; niter_o the
-// decided sweeps' count.
-__global__ void __launch_bounds__(SWEEP_THREADS)
+// first the last sweep's decision (sweep_decide on each lane's ss over every
+// block's partials, where pend.blocks > 0), then err3's roots of ss3 (3, B),
+// each lane's three sums over every block added in block order
+// (parallel/rows.py::lane_sum), and the attempt's conv (finish_lane) on the
+// decided conv and bad; niter_o the decided sweeps' count.
+//
+// A warp a lane, LANES_WARPS lanes a block, so that the state split's B = 256
+// lanes spread over 64 SMs.  Every thread of a lane's warp loads the lane's
+// state, ss3 and pred_ok (one request a warp), and thread k its partials j =
+// k, k + 32, ... (every block's ranks, LANES_PARTIALS_MAX at most) and their
+// flags, all before any is used: one round trip to device memory, where one
+// thread a lane read its partials ROWS_FOLD_BATCH at a time, four rounds at
+// 32 partials.  A partial's block comes from selects over the blocks' starts,
+// not an indexed read of the kernel's parameters.  The partials go into
+// shared memory, the flags into one vote, and the warp's first thread adds
+// the partials in decide_pending's order (a left fold: within a block in rank
+// order, then the blocks' sums in block order; a tree would round otherwise,
+// and only this order gives the plain stage's bits), a block's reads all
+// issued before its adds, decides and writes the lane.
+__global__ void __launch_bounds__(32 * LANES_WARPS)
 split_finish_lanes_kernel(const real* __restrict__ ss3, const unsigned char* __restrict__ conv,
                           const unsigned char* __restrict__ div,
                           const unsigned char* __restrict__ bad, const real* __restrict__ dy_old,
@@ -952,23 +1051,76 @@ split_finish_lanes_kernel(const real* __restrict__ ss3, const unsigned char* __r
                           Pending pend, double newton_tol, double tol_lo, int fixed, int n_all,
                           int B, real* __restrict__ err3, unsigned char* __restrict__ conv_o,
                           int* __restrict__ niter_o) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  __shared__ real part_s[LANES_WARPS][LANES_PARTIALS_MAX];  // (lane, partial)
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;  // a lane's thread, the lane
+#ifdef SPLIT_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
+  const int b = blockIdx.x * LANES_WARPS + ty;
+  if (b >= B) return;  // the whole warp
   const size_t sB = (size_t)B;
-  unsigned char c_o = conv[b], d_o, b_o = bad[b];
-  real dy_o;
-  int ni_o = niter[b];
-  auto get = [&](int d, int j, real& v, int& f) {
-    const size_t at = (size_t)(j - pend.start[d]) * sB + b;
-    v = pend.ss[d][at];
-    f = pend.nf[d][at];
-  };
-  if (pend.blocks > 0)
-    decide_pending(pend, get, conv + b, div + b, bad + b, dy_old + b, niter + b, newton_tol,
-                   tol_lo, fixed, n_all, &c_o, &d_o, &b_o, &dy_o, &ni_o);
-  finish_lane(0, sB, ss3[b], ss3[sB + b], ss3[2 * sB + b], &c_o, &b_o, pred_ok + b, fixed,
-              err3 + b, conv_o + b);
+  unsigned char conv_r = load_now(conv + b), div_r = load_now(div + b);
+  unsigned char bad_r = load_now(bad + b), ok_r = load_now(pred_ok + b);
+  real dy_old_r = load_now(dy_old + b);
+  int niter_r = load_now(niter + b);
+  const real t0 = load_now(ss3 + b), t1 = load_now(ss3 + sB + b),
+             t2 = load_now(ss3 + 2 * sB + b);
+  const int P = pend.start[pend.blocks];  // the lane's partials, 0 without a sweep pending
+  real v[LANES_PARTIALS_MAX / 32];
+  int nonfinite = 0;
+#pragma unroll
+  for (int c = 0; c < LANES_PARTIALS_MAX / 32; ++c) {
+    if (32 * c >= P) break;  // the same in the whole warp
+    const int j = tx + 32 * c;
+    const real* ss = pend.ss[0];
+    const unsigned char* nf = pend.nf[0];
+    int row = j;  // j's row of its block's partials
+#pragma unroll
+    for (int d = 1; d < ROWS_BLOCKS_MAX; ++d) {
+      if (d < pend.blocks && j >= pend.start[d]) {
+        ss = pend.ss[d];
+        nf = pend.nf[d];
+        row = j - pend.start[d];
+      }
+    }
+    v[c] = j < P ? ss[(size_t)row * sB + b] : (real)0;
+    nonfinite |= j < P ? nf[(size_t)row * sB + b] : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < LANES_PARTIALS_MAX / 32; ++c)
+    if (tx + 32 * c < P) part_s[ty][tx + 32 * c] = v[c];
+  nonfinite = __any_sync(0xffffffffu, nonfinite);
+  __syncwarp();
+  SPLIT_MARK(0);
+  if (tx != 0) return;
+  unsigned char c_o = conv_r, d_o = div_r, b_o = bad_r;
+  real dy_o = dy_old_r;
+  int ni_o = niter_r;
+  if (pend.blocks > 0) {
+    const real* s = part_s[ty];
+    real ss = 0;
+#pragma unroll
+    for (int d = 0; d < ROWS_BLOCKS_MAX; ++d) {
+      if (d >= pend.blocks) break;
+      const int j0 = pend.start[d], ranks = pend.start[d + 1] - j0;
+      real u[SWEEP_CLUSTER_MAX];  // the block's partials, every read before the adds
+#pragma unroll
+      for (int r = 0; r < SWEEP_CLUSTER_MAX; ++r) u[r] = r < ranks ? s[j0 + r] : (real)0;
+      real t = u[0];
+#pragma unroll
+      for (int r = 1; r < SWEEP_CLUSTER_MAX; ++r)
+        if (r < ranks) t = r_add(t, u[r]);
+      ss = d == 0 ? t : r_add(ss, t);
+    }
+    sweep_decide(0, pend.k, ss, nonfinite, !(conv_r || div_r || bad_r), &conv_r, &div_r, &bad_r,
+                 &dy_old_r, &niter_r, newton_tol, tol_lo, fixed, n_all, &c_o, &d_o, &b_o, &dy_o,
+                 &ni_o);
+  }
+  SPLIT_MARK(1);
+  finish_lane(0, sB, t0, t1, t2, &c_o, &b_o, &ok_r, fixed, err3 + b, conv_o + b);
   niter_o[b] = ni_o;
+  SPLIT_MARK(2);
+  SPLIT_COUNT_BLOCK();
 }
 
 #undef HIST
@@ -979,6 +1131,17 @@ static int grid_for(int nz, int B, dim3* grid) {
   if (chunks > 65535) return -3;
   *grid = dim3((B + SPLIT_TILE - 1) / SPLIT_TILE, chunks);
   return 0;
+}
+
+// The finish's tile at nz rows, as split_finish_launch takes it: one chunk
+// of rows takes the one-chunk form on a dense tile of min(nz, SPLIT_ROWS) row
+// threads by as many lanes as fill SPLIT_TILE x SPLIT_ROWS threads, more
+// chunks the multi-chunk form's SPLIT_TILE x SPLIT_ROWS (ops/adams_split.py::
+// finish_geometry mirrors it).
+static dim3 finish_tile(int nz) {
+  if (nz > SPLIT_CHUNK) return dim3(SPLIT_TILE, SPLIT_ROWS);
+  const int rows = nz < 1 ? 1 : nz < SPLIT_ROWS ? nz : SPLIT_ROWS;
+  return dim3(SPLIT_TILE * SPLIT_ROWS / rows, rows);
 }
 
 // Whether tiles of `lanes` lanes by SWEEP_THREADS / lanes row threads,
@@ -1158,15 +1321,31 @@ int split_finish_launch(const real* fz, const real* DF_resc, const real* z_pred,
                         void* stream) {
   if (kab != ADAMS_KAB || n_gamma < ADAMS_K + 1) return -1;
   if (B <= 0 || nz <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nz <= SPLIT_CHUNK) {  // one chunk: part and done are not read (nullptr will do)
+    const dim3 tile = finish_tile(nz);
+    split_finish_kernel<false, true><<<(B + tile.x - 1) / tile.x, tile, 0, s>>>(
+        fz, DF_resc, z_pred, f_ex, w_z, c_A, pred_ok, order, h_use, gamma_star_abs, v_err, conv,
+        bad, fixed, nz, B, DF_upd, z_new, err0, err3, conv_o, nullptr, nullptr);
+    return (int)cudaGetLastError();
+  }
   dim3 grid;
   if (grid_for(nz, B, &grid)) return -3;
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
   if (err != cudaSuccess) return (int)err;
-  split_finish_kernel<false><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+  split_finish_kernel<false, false><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
       fz, DF_resc, z_pred, f_ex, w_z, c_A, pred_ok, order, h_use, gamma_star_abs, v_err, conv,
       bad, fixed, nz, B, DF_upd, z_new, err0, err3, conv_o, part, done);
   return (int)cudaGetLastError();
+}
+
+// The finish's tile at nz rows into out[3]: its lanes, row threads and row
+// chunks (1: the one-chunk form, which takes no scratch).
+void split_finish_geometry(int nz, int* out) {
+  const dim3 tile = finish_tile(nz);
+  out[0] = (int)tile.x;
+  out[1] = (int)tile.y;
+  out[2] = (nz + SPLIT_CHUNK - 1) / SPLIT_CHUNK;
 }
 
 // One block of a state split over devices: the finish's rows, and each
@@ -1186,15 +1365,16 @@ int split_finish_rows_launch(const real* fz, const real* DF_resc, const real* z_
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned int), s);
   if (err != cudaSuccess) return (int)err;
-  split_finish_kernel<true><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
+  split_finish_kernel<true, false><<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(
       fz, DF_resc, z_pred, f_ex, w_z, c_A, nullptr, order, h_use, gamma_star_abs, v_err,
       nullptr, nullptr, 0, nz, B, DF_upd, z_new, err0, ss3, nullptr, part, done);
   return (int)cudaGetLastError();
 }
 
 // The finish's lanes on each lane's summed ss3 (3, B): the last sweep's
-// pending decision (as split_sweep_rows_launch takes it), then err3's roots,
-// conv and niter; one thread a lane.
+// pending decision (as split_sweep_rows_launch takes it, at most
+// SWEEP_CLUSTER_MAX ranks a block), then err3's roots, conv and niter; a
+// warp a lane.
 int split_finish_lanes_launch(const real* ss3, const unsigned char* conv, const unsigned char* div,
                               const unsigned char* bad, const real* dy_old, const int* niter,
                               const unsigned char* pred_ok, int pend_blocks, int pend_k,
@@ -1204,8 +1384,10 @@ int split_finish_lanes_launch(const real* ss3, const unsigned char* conv, const 
                               void* stream) {
   Pending pend;
   if (pending_from(pend_blocks, pend_k, pend_ss, pend_nf, pend_ranks, &pend)) return -1;
+  for (int d = 0; d < pend.blocks; ++d)
+    if (pend_ranks[d] > SWEEP_CLUSTER_MAX) return -1;
   if (B <= 0) return 0;
-  split_finish_lanes_kernel<<<(B + SWEEP_THREADS - 1) / SWEEP_THREADS, SWEEP_THREADS, 0,
+  split_finish_lanes_kernel<<<(B + LANES_WARPS - 1) / LANES_WARPS, 32 * LANES_WARPS, 0,
                               (cudaStream_t)stream>>>(ss3, conv, div, bad, dy_old, niter, pred_ok,
                                                       pend, newton_tol, tol_lo, fixed, n_all, B,
                                                       err3, conv_o, niter_o);

@@ -60,16 +60,19 @@ def _jobs():
 # mangled-name prefixes of the other tree's kernels and of this tree's
 # instantiation of each: the unsplit sweep took a second template argument
 # (the state split's PARTIAL, false for it) for one tree and dropped it
-# again; the finish's is ROWS, false for the unsplit finish
+# again; the finish took ROWS (false for the unsplit finish), then ONE_CHUNK
+# (false for the multi-chunk form, which older trees' finish is)
 RENAMED = {
     "_Z18split_sweep_kernelILb0ELb0EE": "_Z18split_sweep_kernelILb0EE",
     "_Z18split_sweep_kernelILb1ELb0EE": "_Z18split_sweep_kernelILb1EE",
-    "_Z19split_finish_kernelPK": "_Z19split_finish_kernelILb0EE",
+    "_Z19split_finish_kernelPK": "_Z19split_finish_kernelILb0ELb0EE",
+    "_Z19split_finish_kernelILb0EE": "_Z19split_finish_kernelILb0ELb0EE",
+    "_Z19split_finish_kernelILb1EE": "_Z19split_finish_kernelILb1ELb0EE",
 }
 # the other tree's state-split kernels this tree replaced: the rows' sweep
 # (the sweep template's PARTIAL instantiation, now split_sweep_rows_kernel),
 # the decision (folded into it and into the lanes' finish) and the lanes'
-# finish (which decides the last sweep first)
+# finish (which decides the last sweep first, a warp a lane)
 REDESIGNED = ("_Z18split_sweep_kernelILb0ELb1EE", "_Z25split_sweep_decide_kernel",
               "_Z25split_finish_lanes_kernel")
 

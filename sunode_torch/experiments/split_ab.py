@@ -10,16 +10,19 @@ sensitivity block), every build at once, and beside it:
   * ``--old-root DIR``: the parent's ``adams_split.cu`` (unpack the parent
     with ``git archive`` into a directory ``.gitignore`` lists), whose three
     kernels take this tree's arguments and geometries, launched through
-    this tree's wrapper;
+    this tree's wrapper (so its finish must have the one-chunk form,
+    ``split_finish_geometry``, which takes no scratch);
   * ``--geometry LANES,CLUSTER``: this tree's predict and sweep at another
     geometry, a tile of LANES lanes and CLUSTER blocks a tile (each
     ``ceil(nz / CLUSTER)`` rows) in place of ``predict_geometry``'s and
     ``sweep_geometry``'s (predict takes at most 32 lanes);
   * ``--phase-clocks``: this tree's source built with ``SPLIT_PHASE_CLOCKS``,
     which also traces predict (R(fac) built, the rows, the block's flag
-    sum, the lane tail) and the sweep (rows, the block's sum, the first
+    sum, the lane tail), the sweep (rows, the block's sum, the first
     cluster barrier, rank 0's reads and the second barrier, rank 0's tail)
-    by phase: the mean cycles a block spends in each over 20 launches;
+    and the finish (rows, the block's sums, the partials and the tile
+    counter, the last block's tail; the one-chunk form has no counter) by
+    phase: the mean cycles a block spends in each over 20 launches;
   * ``--dtype float32``: every build at float32 (``-DSUNODE_REAL=float``)
     on the same draws at float32 with SIR's float32 tolerances
     (``chip_smoke.split_inputs``; the sensitivity block's attempt rounded
@@ -52,7 +55,9 @@ staggered solve at B=10,000, on its 300th attempt's inputs):
     plain ``split_finish`` (DF_upd, z_new and err0 bit for bit, err3 within
     1e-12 lane by lane, conv equal) and bit for bit this tree's; device
     time in turns, the launcher's fill of its tile counters counted with
-    it, beside its bytes bound.
+    it, beside its bytes bound.  Then the same finish checks and times for
+    Lotka-Volterra's forward as a ``TorchProblem`` (nz = 2, B = 10,000) at
+    history depths 9 and 11, whose rows fit the finish's one chunk.
 
 With ``--rows`` (float64), in place of the five shapes, the state split's
 rows entries at :data:`ROWS_LAYOUTS` (two and three blocks of the staged
@@ -66,8 +71,12 @@ block's ss within ``REL_BOUND``, and bit for bit this tree's), then device
 sweep 1's inputs with the kernel's own partials of sweep 0 pending (at the
 home block also on a copied block of f), the lanes' finish on the last
 sweep's partials, the blocks the card holds at once, and with
-``--phase-clocks`` the rows' sweep's cycles a block by phase.  An old root
-there must have rows entries that take this tree's arguments.
+``--phase-clocks`` the rows' sweep's and the lanes' finish's cycles a block
+by phase; then two floors for the lanes' finish, timed as the kernels are
+(``latency_probe.cu``): an empty kernel, and one thread's chain of
+dependent loads through device memory at 1 and 9 hops, whose slope is one
+round trip.  An old root there must have rows entries that take this
+tree's arguments.
 
 Prints ptxas's registers and spills of every build, one line per shape,
 kernel and version, and writes every number to ``split_ab.json``
@@ -300,14 +309,16 @@ def _sweep_row(cs, sp, x, fz, n, nz, pred, versions, clocks, smi, lib) -> tuple[
 
 
 FINISH_KERNEL = "split_finish_kernel"
+FINISH_PHASES = ("rows", "block_sums", "partials_counter", "tail")
 
 
-def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, smi) -> tuple[dict, bool]:
+def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, clocks,
+                smi) -> tuple[dict, bool]:
     """The finish at one shape, on the plain stages' last iterate and state:
     every version against the plain ``split_finish`` (DF_upd, z_new and err0
     bit for bit, err3 lane by lane, conv equal) and bit for bit this
     tree's, device µs in turns (the launcher's fill with it) beside the
-    bytes bound."""
+    bytes bound, and the trace by phase."""
     from sunode_torch.experiments.exp_pece2d import HBM_BYTES_PER_S, device_us
 
     y, state = last
@@ -328,6 +339,9 @@ def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, smi) -> tuple[dict, 
         row["versions"][name] = {"checks": check, "device_us": []}
     _in_turns(versions, lambda name: row["versions"][name]["device_us"].append(
         device_us(lambda: versions[name](*fin_in), kernel=FINISH_KERNEL)))
+    if clocks is not None:
+        row["phase_cycles"] = _phase_cycles(clocks._lib, lambda: clocks.finish(*fin_in),
+                                            FINISH_PHASES)
     nbytes = cs.split_costs(x, n)["finish"][0]
     row["bytes"], row["bound_us"] = nbytes, 1e6 * nbytes / HBM_BYTES_PER_S
     shape = f"{x['kind']} nz={nz} n={n} B={x['DF'].shape[2]}"
@@ -337,17 +351,127 @@ def _finish_row(cs, sp, x, fz, n, nz, pred, last, versions, smi) -> tuple[dict, 
         cs.log(f"[split-ab finish {shape} | {name}] device_us={times} "
                + " ".join(f"{k}={c:.2e}" if isinstance(c, float) else f"{k}={c}"
                           for k, c in v["checks"].items()))
+    if "phase_cycles" in row:
+        cs.log(f"[split-ab finish {shape} | SPLIT_PHASE_CLOCKS] mean cycles a block by phase "
+               + " ".join(f"{k}={c:.0f}" for k, c in row["phase_cycles"].items()))
     return row, ok
+
+
+LV_B = 10_000  # Lotka-Volterra's forward as a TorchProblem: nz = 2 rows, B lanes
+
+
+def _lv_forward_inputs(B, kab, seed):
+    """One attempt's inputs of Lotka-Volterra's forward solve as a
+    ``TorchProblem`` takes it to the split kernels at history depth ``kab``
+    (orders 1..kab - 3, 90% of lanes active, the parameters with a 10%
+    spread, rtol 1e-8 / atol 1e-10), its right-hand side, n and nz."""
+    import numpy as np
+    import torch
+
+    from sunode_torch.entry import lv_problem
+    from sunode_torch.ops.adams import _GAMMA_STAR
+    from sunode_torch.ops.bdf import BDFOptions, newton_tol_for
+
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    T = lambda a: torch.as_tensor(a, **f64)  # noqa: E731
+    DF = 1e-2 * rng.standard_normal((kab, 2, B)) * (0.5 ** np.arange(kab))[:, None, None]
+    params = np.array([1.0, 0.3, 1.0, 0.4])[:, None] * (1 + 0.1 * rng.standard_normal((4, B)))
+    x = dict(
+        kind=f"lv_forward KAB={kab}", t_new=T(rng.uniform(0.0, 10.0, B)),
+        h=T(10.0 ** rng.uniform(-4, -1, B)),
+        pre_factor=T(np.exp(rng.uniform(np.log(0.2), np.log(2.0), B))),
+        p=torch.as_tensor(rng.integers(1, kab - 2, B).astype(np.int32), device="cuda"),
+        active=torch.as_tensor(rng.uniform(size=B) < 0.9, device="cuda"),
+        DF=T(DF), z_prev=T(rng.uniform(0.5, 12.0, (2, B))), params=T(params),
+        atol_z=T(np.full(2, 1e-10)), rtol_z=T(np.full(2, 1e-8)),
+        gamma_star_abs=T(np.abs(_GAMMA_STAR)), v_err=T(np.full(2, 0.5)),
+        newton_tol=newton_tol_for(BDFOptions(rtol=1e-8, atol=1e-10), 1e-8, torch.float64),
+    )
+    return x, lv_problem().make_rhs(), 2, 2
+
+
+def _lv_forward_section(cs, sp, built, smi) -> tuple[list, bool]:
+    """The finish of Lotka-Volterra's forward as a TorchProblem (nz = 2,
+    B = 10,000) at history depths 9 and 11, on the plain stages' last
+    iterate: :func:`_finish_row`'s checks, times and trace."""
+    from sunode_torch.ops.adams import FUNCTIONAL_MAXITER
+
+    rows, ok = [], True
+    for seed, kab in enumerate((9, 11), start=40):
+        x, fz, n, nz = _lv_forward_inputs(LV_B, kab, seed)
+        pred = sp.split_predict(x["DF"], x["p"], x["pre_factor"], x["h"], x["z_prev"],
+                                x["atol_z"], x["rtol_z"], kab - 3)
+        y, state = pred.z_pred, sp.sweep_start(x["active"])
+        for k in range(FUNCTIONAL_MAXITER):
+            y, state = sp.split_sweep(k, fz(x["t_new"], y, x["params"]), y, pred, state,
+                                      x["newton_tol"], n)
+        versions = {name: b.finish for (name, k), b in built.items()
+                    if k == kab and name != "SPLIT_PHASE_CLOCKS"}
+        row, ok_f = _finish_row(cs, sp, x, fz, n, nz, pred, (y, state), versions,
+                                built.get(("SPLIT_PHASE_CLOCKS", kab)), smi)
+        rows.append({"shape": f"{x['kind']} nz={nz} B={LV_B}", "finish": row})
+        ok &= ok_f
+    return rows, ok
 
 
 ROWS_KERNEL = "split_sweep_rows_kernel"  # the state split's rows' sweep
 LANES_KERNEL = "split_finish_lanes_kernel"
 ROWS_PHASES = ("loads_issued", "decision", "rows", "block_sum", "partials")
+LANES_PHASES = ("loads", "decision", "tail")
 # (solve, blocks): the staged 'hermite' backward's 3,000 state rows and 2
 # quadratures cut in 2 blocks (1,502 rows at home, 1,500) and in 3 (1,002
 # at home, 1,000, 1,000), and the forward's 3,000 in 2 (its f lane-major)
 ROWS_LAYOUTS = (("staged_adjoint", 2), ("staged_adjoint", 3), ("forward", 2))
 ROWS_B = 256
+
+
+PROBE = Path(__file__).resolve().parent / "latency_probe.cu"
+PROBE_HOPS = (1, 9)  # dependent loads of the chain probe: the slope is one round trip
+PROBE_STRIDE = 1 << 16  # int64 elements between two hops' lines (512 kB)
+
+
+def _floors(cs, smi) -> dict:
+    """Two floors beside the lanes' finish's device µs, timed as the kernels
+    are (``latency_probe.cu``): an empty kernel, and one thread's chain of
+    dependent loads through device memory at each of :data:`PROBE_HOPS`,
+    whose slope is one dependent round trip."""
+    import torch
+
+    from sunode_torch.experiments.exp_pece2d import device_us
+    from sunode_torch.ops._nvcc_build import build_library
+
+    lib = build_library("latency_probe", PROBE).lib
+    vp = ctypes.c_void_p
+    lib.probe_empty_launch.argtypes = [vp]
+    lib.probe_chain_launch.argtypes = [vp, ctypes.c_int, vp, vp]
+    lib.probe_empty_launch.restype = lib.probe_chain_launch.restype = ctypes.c_int
+
+    def check(code):
+        if code != 0:
+            raise RuntimeError(f"split_ab: a probe launch failed ({code})")
+
+    hops = max(PROBE_HOPS)
+    at = torch.arange(hops + 1, dtype=torch.int64, device="cuda") * PROBE_STRIDE
+    nxt = torch.zeros(PROBE_STRIDE * (hops + 1), dtype=torch.int64, device="cuda")
+    nxt[at[:-1]] = at[1:]  # hop h reads the line of hop h + 1's address
+    out = torch.empty(1, dtype=torch.int64, device="cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    floors = {"empty_us": device_us(lambda: check(lib.probe_empty_launch(stream())),
+                                    kernel="probe_empty_kernel")}
+    for h in PROBE_HOPS:
+        floors[f"chain_{h}_us"] = device_us(
+            lambda h=h: check(lib.probe_chain_launch(nxt.data_ptr(), h, out.data_ptr(),
+                                                     stream())),
+            kernel="probe_chain_kernel")
+        if int(out) != h * PROBE_STRIDE:
+            raise RuntimeError("split_ab: the chain probe did not follow its chain")
+    lo, hi = (floors[f"chain_{h}_us"] for h in (min(PROBE_HOPS), hops))
+    floors["round_trip_us"] = (None if lo is None or hi is None
+                               else (hi - lo) / (hops - min(PROBE_HOPS)))
+    cs.log("[split-ab floors] device_us " + " ".join(f"{k}={cs.fmt_us(v)}"
+                                                     for k, v in floors.items()) + f" | {smi}")
+    return floors
 
 
 def _rows_section(cs, sp, versions, clocks, smi) -> tuple[list, bool]:
@@ -476,11 +600,19 @@ def _rows_section(cs, sp, versions, clocks, smi) -> tuple[list, bool]:
         _in_turns(versions, lambda name: lanes["device_us"][name].append(device_us(
             lambda: versions[name].finish_lanes(ss3, pred_ok, state, tol, pending),
             kernel=LANES_KERNEL)))
+        if clocks is not None:
+            lanes["phase_cycles"] = _phase_cycles(
+                clocks._lib, lambda: clocks.finish_lanes(ss3, pred_ok, state, tol, pending),
+                LANES_PHASES)
         times = " ".join(f"{name}=" + "/".join(cs.fmt_us(t) for t in ts)
                          for name, ts in lanes["device_us"].items())
         cs.log(f"[split-ab rows {shape} | finish_lanes, {sum(p.shape[0] for p in pending.ss)} "
                f"partials a lane] bytes={nbytes} bound_us={lanes['bound_us']:.3f} "
                f"device_us {times} | {smi}")
+        if "phase_cycles" in lanes:
+            cs.log(f"[split-ab rows {shape} | finish_lanes | SPLIT_PHASE_CLOCKS] mean cycles a "
+                   "block by phase "
+                   + " ".join(f"{k}={c:.0f}" for k, c in lanes["phase_cycles"].items()))
         row["finish_lanes"] = lanes
         results.append(row)
         del x, preds, DF, z_prev, timed
@@ -502,6 +634,9 @@ def main(argv=None) -> None:
     old_source = None if old_root is None else old_root / "sunode_torch/csrc/adams_split.cu"
     if args.rows and (args.dtype != "float64" or args.geometry):
         ap.error("--rows runs at float64 on the rows' own geometry")
+    if old_source is not None and "split_finish_geometry" not in old_source.read_text():
+        ap.error("--old-root: the parent's finish must have its one-chunk form "
+                 "(split_finish_geometry), whose launch takes no scratch at nz <= 64")
     if args.rows and old_source is not None and (
             "split_sweep_decide_launch" in old_source.read_text()):
         ap.error("--rows: the parent's rows entries must take this tree's arguments (the "
@@ -543,7 +678,7 @@ def main(argv=None) -> None:
         versions = {name: built[(name, KAB)] for name in ("default", "old")
                     if (name, KAB) in built}
         rows, ok = _rows_section(cs, sp, versions, built.get(("SPLIT_PHASE_CLOCKS", KAB)), smi)
-        results.append({"rows": rows})
+        results.append({"rows": rows, "floors": _floors(cs, smi)})
     for seed, (kind, B) in enumerate(() if args.rows else SHAPES, start=30):
         x = cs.split_inputs(B, seed, "cuda", kind=kind, dtype=dtype)
         # the sensitivity block's attempt is a float64 solve's: rounded to the type
@@ -584,11 +719,17 @@ def main(argv=None) -> None:
         row["sweep"], ok_s, last = _sweep_row(cs, sp, x, fz, n, nz, pred, sweeps,
                                               built.get(("SPLIT_PHASE_CLOCKS", KAB)), smi,
                                               built[("default", KAB)]._lib)
-        row["finish"], ok_f = _finish_row(cs, sp, x, fz, n, nz, pred, last, finishes, smi)
+        row["finish"], ok_f = _finish_row(cs, sp, x, fz, n, nz, pred, last, finishes, clocks,
+                                          smi)
         ok &= ok_p and ok_s and ok_f
         results.append(row)
         del x, pred, last
         torch.cuda.empty_cache()
+
+    if not args.rows and args.dtype == "float64":
+        lv_rows, ok_lv = _lv_forward_section(cs, sp, built, smi)
+        results.append({"lv_forward": lv_rows})
+        ok &= ok_lv
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

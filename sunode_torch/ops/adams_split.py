@@ -22,7 +22,10 @@ torch code between them:
     right-hand side mapped over the lanes returns it);
   * :func:`split_finish` -- given the final ``fz``: ``d_fz``, ``z_new``,
     the error row ``err0``, the accepted-step difference update ``DF_upd``,
-    the three error-test norms ``err3`` and the attempt's ``conv``.
+    the three error-test norms ``err3`` and the attempt's ``conv`` (its
+    kernel sums the rows in chunks of ``CHUNK_ROWS``, with scratch, a
+    counter and a fill, or, where they fit one chunk, on a dense tile
+    without them: :func:`finish_geometry`).
 
 :func:`adams_split_attempt_rows` runs the same attempt on a state whose
 rows are split over devices (:mod:`sunode_torch.parallel.rows`): predict on
@@ -113,6 +116,8 @@ __all__ = [
     "SweepGeometry",
     "sweep_geometry",
     "predict_geometry",
+    "FinishGeometry",
+    "finish_geometry",
     "CHUNK_ROWS",
     "ROWS_ENTRIES",
     "TILE_LANES",
@@ -121,6 +126,7 @@ __all__ = [
 _CSRC = Path(__file__).resolve().parents[1] / "csrc" / "adams_split.cu"
 ROWS_ENTRIES = ("sweep_rows", "finish_rows", "finish_lanes")
 TILE_LANES = 32  # lanes of a finish block (csrc/adams_split.cu: SPLIT_TILE)
+FINISH_ROW_THREADS = 8  # row threads of a finish block (SPLIT_ROWS)
 CHUNK_ROWS = 64  # history rows of a finish block (SPLIT_CHUNK)
 SWEEP_THREADS = 256  # threads of a predict or sweep block (SWEEP_THREADS)
 SWEEP_UNROLL = 4  # rows a sweep thread loads at once (SWEEP_UNROLL)
@@ -198,6 +204,32 @@ class SweepGeometry(NamedTuple):
     @property
     def blocks(self) -> int:
         return self.cluster * self.tiles
+
+
+class FinishGeometry(NamedTuple):
+    """Launch geometry of the finish kernel (``csrc/adams_split.cu``)."""
+
+    lanes: int  # lanes of a block (threadIdx.x)
+    row_threads: int  # its row threads (threadIdx.y)
+    chunks: int  # row chunks of CHUNK_ROWS rows (gridDim.y)
+    tiles: int  # lane tiles (gridDim.x)
+
+    @property
+    def one_chunk(self) -> bool:  # the one-chunk form: no partials, counter or fill
+        return self.chunks == 1
+
+
+def finish_geometry(nz: int, B: int) -> FinishGeometry:
+    """The finish's geometry at ``nz`` rows and ``B`` lanes, as
+    ``split_finish_launch`` takes it (``finish_tile``): rows that fit one
+    chunk take the one-chunk form on a dense tile of ``min(nz, 8)`` row
+    threads by as many lanes as fill 256 threads, so that no row thread is
+    without a row; more rows the multi-chunk form's 32 lanes by 8 row
+    threads a chunk."""
+    chunks = -(-nz // CHUNK_ROWS)
+    row_threads = FINISH_ROW_THREADS if chunks > 1 else min(max(nz, 1), FINISH_ROW_THREADS)
+    lanes = TILE_LANES * FINISH_ROW_THREADS // row_threads
+    return FinishGeometry(lanes, row_threads, chunks, -(-B // lanes))
 
 
 def _pow2_at_least(x: int) -> int:
@@ -529,6 +561,8 @@ class _SplitKernels:
                 fn.argtypes, fn.restype = argtypes, c_int
         lib.split_error_string.argtypes = [c_int]
         lib.split_error_string.restype = ctypes.c_char_p
+        lib.split_finish_geometry.argtypes = [c_int, ctypes.POINTER(c_int)]
+        lib.split_finish_geometry.restype = None
         self._lib = lib
 
     def _run(self, stage: str, fn, dev, *args) -> None:
@@ -554,6 +588,14 @@ class _SplitKernels:
     @staticmethod
     def _grid(nz: int, B: int) -> tuple[int, int]:
         return -(-nz // CHUNK_ROWS), -(-B // TILE_LANES)
+
+    def finish_geometry(self, nz: int) -> tuple[int, int, int]:
+        """The finish's (lanes, row threads, row chunks) at ``nz`` rows as
+        the build's launcher takes them (:func:`finish_geometry` mirrors
+        it)."""
+        out = (ctypes.c_int * 3)()
+        self._lib.split_finish_geometry(int(nz), out)
+        return tuple(out)
 
     def predict(self, DF, p, pre_factor, h_use, z_prev, atol_z, rtol_z,
                 geometry: SweepGeometry | None = None) -> Predicted:
@@ -632,23 +674,25 @@ class _SplitKernels:
         # |gamma*| up to order P_MAX + 1 = KAB - 2: at least KAB - 1 entries
         n_gamma = gamma_star_abs.shape[0] if torch.is_tensor(gamma_star_abs) else 0
         _check(gamma_star_abs, real, (max(KAB - 1, n_gamma),), dev, "gamma_star_abs")
-        chunks, tiles = self._grid(nz, B)
         f_kw = dict(dtype=real, device=dev)
         out = Finished(
             torch.empty((KAB, nz, B), **f_kw), torch.empty((nz, B), **f_kw),
             torch.empty((nz, B), **f_kw), torch.empty((3, B), **f_kw),
             torch.empty((B,), dtype=torch.bool, device=dev),
         )
-        part = torch.empty((3, chunks, B), **f_kw)
-        done = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        part = done = None  # the multi-chunk form's scratch
+        if not finish_geometry(nz, B).one_chunk:
+            chunks, tiles = self._grid(nz, B)
+            part = torch.empty((3, chunks, B), **f_kw)
+            done = torch.empty((tiles,), dtype=torch.int32, device=dev)
         self._run(
             "finish", self._lib.split_finish_launch, dev,
             fz.data_ptr(), pred.DF_resc.data_ptr(), pred.z_pred.data_ptr(), pred.f_ex.data_ptr(),
             pred.w_z.data_ptr(), pred.c_A.data_ptr(), pred.pred_ok.data_ptr(), p.data_ptr(),
             h_use.data_ptr(), gamma_star_abs.data_ptr(), v_err.data_ptr(),
             state.conv.data_ptr(), state.bad.data_ptr(), int(not newton_tol > 0), KAB, nz, B,
-            gamma_star_abs.shape[0], *(o.data_ptr() for o in out), part.data_ptr(),
-            done.data_ptr(),
+            gamma_star_abs.shape[0], *(o.data_ptr() for o in out),
+            *(None if x is None else x.data_ptr() for x in (part, done)),
         )
         return out
 
@@ -762,7 +806,7 @@ class _SplitKernels:
 
     def finish_lanes(self, ss3, pred_ok, state: SweepState, newton_tol,
                      pending: Pending | None = None):
-        """:func:`split_finish_lanes`, one thread a lane: ``(err3, conv,
+        """:func:`split_finish_lanes`, a warp a lane: ``(err3, conv,
         niter)``."""
         B = ss3.shape[1]
         dev, real = ss3.device, self.dtype

@@ -192,6 +192,45 @@ def test_predict_geometry_covers_every_row_and_lane_once(nz, B, path):
         assert (g.lanes, g.cluster) == (32, 16)
 
 
+# the finish at the edges of its forms: one to eight rows (a row thread each),
+# past them up to a chunk of 64 and a row past it, and SIR's shapes
+FINISH_NZ = (1, 2, 3, 4, 5, 7, 8, 9, 63, 64, 65, 128, 129, 3002, 6002)
+
+
+@pytest.mark.parametrize("nz", FINISH_NZ)
+def test_finish_geometry_pins_the_form_by_rows(nz):
+    """The finish's geometry (``finish_geometry``, the mirror of the launch's
+    ``finish_tile``) walked as the kernel walks it at B = 10,000 and 31:
+    rows that fit one chunk (nz <= 64) take the one-chunk form (no scratch,
+    counter or fill) on a tile of min(nz, 8) row threads, none of them
+    without a row, by 256 // min(nz, 8) lanes; more rows the multi-chunk
+    form's 32 lanes by 8 row threads a chunk.  Either way row thread y of
+    chunk c takes rows 64 c + y + j row_threads, so each lane's rows add in
+    the same order into the same row thread's sum: every (row, lane) is
+    covered once, and the one-chunk form's sums are the multi-chunk form's."""
+    for B in (10_000, 31):
+        g = adams_split.finish_geometry(nz, B)
+        assert g.one_chunk == (nz <= adams_split.CHUNK_ROWS)
+        assert g.chunks == -(-nz // adams_split.CHUNK_ROWS)
+        T = g.row_threads
+        if g.one_chunk:
+            assert T == min(nz, 8) and g.lanes == 256 // T
+        else:
+            assert (g.lanes, T) == (adams_split.TILE_LANES, 8)
+        assert g.lanes * T <= 256 and T <= nz
+        rows = np.zeros(nz, dtype=np.int64)
+        for c in range(g.chunks):
+            hi = min((c + 1) * adams_split.CHUNK_ROWS, nz)
+            for y in range(T):
+                assert 64 * c + y < hi or not g.one_chunk, "a row thread without a row"
+                rows[64 * c + y:hi:T] += 1
+        lanes = np.zeros(B, dtype=np.int64)
+        for t in range(g.tiles):
+            b = t * g.lanes + np.arange(g.lanes)
+            lanes[b[b < B]] += 1
+        assert (rows == 1).all() and (lanes == 1).all()
+
+
 def test_cpu_solve_keeps_the_fused_plain_path(monkeypatch):
     """On CPU tensors the history attempt runs its own plain version, never
     the split one; a CUDA solve without an emitted system is what takes

@@ -1405,3 +1405,169 @@ def test_cuda_state_split_sir_matches_unsplit(cuda):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         np.testing.assert_allclose(a[same], b[same], rtol=1e-10, atol=1e-12)
         np.testing.assert_allclose(a[~same], b[~same], rtol=1e-8, atol=1e-10)
+
+
+def _pending_case(cuda, ranks, B, seed):
+    """A state split's last sweep as the lanes' finish takes it: every
+    block's ``ranks[d]`` partial sums of squares a lane (spanning the rate
+    tests' thresholds, a few non-finite flags), the lanes' state (some
+    converged, diverged or bad, some never swept) and err3's sums."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    n = 3000
+    scale = 10.0 ** rng.uniform(-12, 0, B)  # each lane's dy_norm, across the thresholds
+    ss = tuple(torch.as_tensor(10.0 ** rng.uniform(-6, 0, (r, B)) * scale * n / sum(ranks), **f64)
+               for r in ranks)
+    nf = tuple(torch.as_tensor(rng.uniform(size=(r, B)) < 0.002, device=cuda) for r in ranks)
+    flags = [torch.as_tensor(rng.uniform(size=B) < q, device=cuda) for q in (0.1, 0.05, 0.05)]
+    dy_old = 10.0 ** rng.uniform(-12, -2, B)
+    dy_old[rng.uniform(size=B) < 0.1] = np.inf
+    state = adams_split.SweepState(
+        *flags, torch.as_tensor(dy_old, **f64),
+        torch.as_tensor(rng.integers(0, 4, B), dtype=torch.int32, device=cuda))
+    ss3 = torch.as_tensor(10.0 ** rng.uniform(-6, 2, (3, B)), **f64)
+    ss3[1, 3] = float("nan")
+    pred_ok = torch.as_tensor(rng.uniform(size=B) < 0.95, device=cuda)
+    return adams_split.Pending(3, ss, nf, 1e-3, n), state, ss3, pred_ok
+
+
+# (ranks of each block): the state split's home shape (2 blocks of the sweep's
+# 16 ranks), 3 blocks of unequal ranks (one a single rank, as the plain stage's
+# partials), and 16 blocks of 16, the most a lane takes
+FINISH_LANES_RANKS = {2: (16, 16), 3: (16, 1, 7), 16: (16,) * 16}
+
+
+@pytest.mark.parametrize("blocks", list(FINISH_LANES_RANKS))
+def test_finish_lanes_matches_plain(cuda, blocks):
+    """``split_finish_lanes``' kernel, a warp a lane, against its plain
+    version on the same partials at 2, 3 and 16 blocks (32, 24 and 256
+    partials a lane, past a warp's 32 in chunks of it), B = 301 (a last
+    block of one lane): the decided sweep's err3 roots, conv and niter bit
+    for bit (the plain version adds in the kernel's left-fold order, which
+    the parent kernel's outputs matched bit for bit too); with the rate
+    tests and with fixed sweeps, and without a sweep pending.  One launch a
+    call; more blocks, or more ranks a block, than the kernel holds are
+    refused."""
+    kernels = adams_split.build_split_kernels(11)
+    pending, state, ss3, pred_ok = _pending_case(cuda, FINISH_LANES_RANKS[blocks], 301, blocks)
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    before = adams_split.adams_split_attempt_rows.launches["finish_lanes"]
+    fixed = pending._replace(newton_tol=0.0)
+    for pend, tol in ((pending, 1e-3), (fixed, 0.0), (None, 1e-3)):
+        got = kernels.finish_lanes(ss3, pred_ok, state, tol, pend)
+        ref = adams_split.split_finish_lanes(ss3, pred_ok, state, tol, pend)
+        torch.cuda.synchronize()
+        assert same(got[0], ref[0])
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    decided = adams_split.split_sweep_decide(
+        3, *adams_split.pending_sums(pending, cuda), state, 1e-3, pending.n)
+    for flag in ("conv", "div", "bad"):  # the decision sets each flag in some lane
+        assert (getattr(decided, flag) & ~getattr(state, flag)).any(), flag
+    assert adams_split.adams_split_attempt_rows.launches["finish_lanes"] == before + 3
+    if blocks == 16:  # 17 blocks: refused by the wrapper; 16 x 17 ranks: by the launch
+        with pytest.raises(ValueError):
+            kernels.finish_lanes(ss3, pred_ok, state, 1e-3, pending._replace(
+                ss=pending.ss + pending.ss[:1], nonfinite=pending.nonfinite[:1] * 17))
+        more = tuple(torch.cat([s, s[:1]]) for s in pending.ss)
+        more_nf = tuple(torch.cat([f, f[:1]]) for f in pending.nonfinite)
+        with pytest.raises(ValueError):
+            kernels.finish_lanes(ss3, pred_ok, state, 1e-3,
+                                 pending._replace(ss=more, nonfinite=more_nf))
+
+
+def _finish_case(cuda, nz, B, seed, kab=9):
+    """The finish's inputs at ``nz`` rows and ``B`` lanes: the plain predict
+    on a seeded history (orders 1..P_MAX, one lane outside the history), a
+    final f with one lane's row not finite, the sweeps' state."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    T = lambda a: torch.as_tensor(a, **f64)  # noqa: E731
+    P = kab - 3
+    p = rng.integers(1, P + 1, B).astype(np.int32)
+    if B > 1:
+        p[B // 2] = kab - 1  # past KAB - 2, outside the history: poisoned
+    DF = T(rng.standard_normal((kab, nz, B)) * (0.5 ** np.arange(kab))[:, None, None])
+    p = torch.as_tensor(p, device=cuda)
+    h = T(10.0 ** rng.uniform(-4, -1, B))
+    pred = adams_split.split_predict(DF, p, T(np.exp(rng.uniform(-1.5, 0.7, B))), h,
+                                     T(1.0 + rng.uniform(0.2, 1.0, (nz, B))),
+                                     T(np.full(nz, 1e-8)), T(np.full(nz, 1e-7)), P)
+    fz = pred.f_ex + T(1e-3 * rng.standard_normal((nz, B)))
+    if B > 3:
+        fz[nz - 1, 3] = float("inf")
+    state = adams_split.SweepState(
+        torch.as_tensor(rng.uniform(size=B) < 0.7, device=cuda),
+        torch.as_tensor(rng.uniform(size=B) < 0.05, device=cuda),
+        torch.as_tensor(rng.uniform(size=B) < 0.05, device=cuda),
+        T(10.0 ** rng.uniform(-9, -3, B)),
+        torch.as_tensor(rng.integers(1, 5, B), dtype=torch.int32, device=cuda))
+    return (fz, pred, state, p, h, T(np.abs(_GAMMA_STAR)), T(rng.uniform(0.5, 1.5, nz) / nz),
+            1e-3), P
+
+
+def _finish_fold(fin_in, ref, P):
+    """err3 with each lane's squares added in the finish kernel's order:
+    row thread y of a chunk adds its rows 64 c + y + 8 j (y + j nz, at fewer
+    than 8 rows) in row order from 0, the chunk its row threads in order
+    from 0, the lane its chunks in order from 0."""
+    fz, pred, _, p, h, gsa, v, _ = fin_in
+    nz = fz.shape[0]
+    rows = torch.stack([
+        ref.err0,
+        (gsa[torch.clamp(p - 1, min=0).long()] * h)[None] * adams_split._take_row(ref.DF_upd, p - 1),
+        (gsa[torch.clamp(p + 1, max=P + 1).long()] * h)[None] * adams_split._take_row(ref.DF_upd,
+                                                                                     p + 1),
+    ])
+    sq = (rows * pred.w_z[None]) ** 2 * v[None, :, None]
+    T = adams_split.finish_geometry(nz, 1).row_threads
+    total = torch.zeros_like(sq[:, 0])
+    for c in range(-(-nz // 64)):
+        chunk = torch.zeros_like(total)
+        for y in range(T):
+            s = torch.zeros_like(total)
+            for r in range(64 * c + y, min(64 * (c + 1), nz), T):
+                s = s + sq[:, r]
+            chunk = chunk + s
+        total = total + chunk
+    return torch.sqrt(total)
+
+
+@pytest.mark.parametrize("nz", [1, 2, 4, 63, 64, 65])
+def test_split_finish_one_chunk_matches_plain(cuda, nz):
+    """The finish where its rows fit one chunk (nz <= 64) takes its one-chunk
+    form: the launcher's tile is ``finish_geometry``'s (the wrapper's
+    mirror), no fill runs before the kernel, and at B = 1, 31 and 10,000
+    DF_upd, z_new, err0 and conv are bit for bit the plain ``split_finish``'s
+    (a lane outside the history poisoned, a non-finite f), err3 bit for bit
+    the multi-chunk form's order of the same squares (the parent kernel's)
+    and within 1e-12 of the plain sums.  At nz = 65 the multi-chunk form:
+    its fill, the same checks."""
+    kernels = adams_split.build_split_kernels(9)
+    g = adams_split.finish_geometry(nz, 31)
+    assert kernels.finish_geometry(nz) == (g.lanes, g.row_threads, g.chunks)
+    for seed, B in enumerate((1, 31, 10_000)):
+        fin_in, P = _finish_case(cuda, nz, B, seed)
+        ref = adams_split.split_finish(*fin_in, P)
+        got = kernels.finish(*fin_in)
+        assert _chip_smoke().finish_fills(kernels, fin_in) == (1, 0 if g.one_chunk else 1)
+        valid = fin_in[3] <= P + 1  # the kernel poisons the rest, as the fused one does
+        # the plain error rows take DF_upd's rows by a masked sum, NaN (0 x inf)
+        # where f is not finite: there the kernel's err3 is inf, taken as it is
+        clean = valid & torch.isfinite(fin_in[0]).all(dim=0)
+        fold = _finish_fold(fin_in, ref, P)
+        for name in ("DF_upd", "z_new", "err0", "err3"):
+            lanes = clean if name == "err3" else valid
+            a, b = getattr(got, name)[..., lanes], getattr(ref, name)[..., lanes]
+            assert torch.equal(a.isnan(), b.isnan()), name
+            if name != "err3":
+                assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
+            assert torch.isnan(getattr(got, name)[..., ~valid]).all(), name
+        assert torch.equal(got.err3[:, clean].nan_to_num(), fold[:, clean].nan_to_num())
+        assert torch.isinf(got.err3[:, valid & ~clean]).all()
+        ok = torch.isfinite(ref.err3) & clean
+        assert _relerr(got.err3[ok], ref.err3[ok]) <= 1e-12
+        assert torch.equal(got.conv, ref.conv) and bool((~valid).any()) == (B > 1)
+        assert bool((valid & ~clean).any()) == (B > 3)
